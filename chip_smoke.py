@@ -37,6 +37,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -298,6 +299,27 @@ def library(L, q, gp, gn, k_top):
     return torch.topk(d.clamp_min_(0.0), k_top, dim=1, largest=False)
 
 
+def device_breakdown(fn):
+    """Device milliseconds by kernel name over one call (torch.profiler);
+    None when the profiler records no device time."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    out = {}
+    for ev in prof.key_averages():
+        ms = (getattr(ev, "device_time_total", 0) or 0) / 1e3
+        if ms <= 0:
+            continue
+        key = ev.key.replace("(anonymous namespace)::", "")
+        m = re.search(r"([A-Za-z_]\w*(?:<[^>]*>)?)\(", key)
+        name = m.group(1) if m else key[:40]
+        out[name] = round(out.get(name, 0.0) + ms, 4)
+    return out or None
+
+
 def phase_kernels(index, queries, launches, max_err):
     L, gp, gn = index.L, index.gp, index.gn
     d_out, d_in = L.shape
@@ -309,12 +331,16 @@ def phase_kernels(index, queries, launches, max_err):
         plain_ms = _time(lambda: metric_topk_plain(L, q, gp, gn, K_TOP), 3)
         lib_ms = _time(lambda: library(L, q, gp, gn, K_TOP), 3)
         b_ms, b_by = bound(nq, d_in, d_out, m, K_TOP)
+        parts = device_breakdown(
+            lambda: metric_topk_fused(q, L, gp, gn, k_top=K_TOP))
         rows[nq] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                        bound_by=b_by, library_ms=lib_ms)
+                        bound_by=b_by, library_ms=lib_ms,
+                        breakdown_ms=parts)
         log(f"metric_topk Nq={nq} M={m} d_in={d_in} d_out={d_out} "
             f"k={K_TOP}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
             f"library {lib_ms:.3f} ms, bound {b_ms:.3f} ms ({b_by}), "
-            f"{b_ms / ms:.1%} of bound")
+            f"{b_ms / ms:.1%} of bound; device ms by kernel "
+            f"{parts if parts else 'not measured'}")
     main = rows[MAX_BATCH]
     entry = {"name": "metric_topk", "route": "cuda",
              "source": "src/repro_torch/kernels/metric_topk/csrc/"

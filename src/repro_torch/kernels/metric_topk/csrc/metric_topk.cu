@@ -23,14 +23,18 @@
 // memory and blocks run in parallel in no order. So:
 //
 //   1. project_partial: q L^T tiled over d_in (split-K), every block a
-//      64 x 128 output tile of one d_in slice, partial sums to scratch;
+//      BQ x 128 output tile of one d_in slice, partial sums to scratch;
 //   2. project_reduce: sums the d_in slices in a fixed order (so the
 //      result is deterministic), writes qp and qn = ||qp||^2;
-//   3. scan: grid (query tile x gallery split). Each block streams its
-//      split's gp rows through shared memory in 128-row tiles and forms
-//      the 64 x 128 distance tile in registers with f32 FFMA (a thread
-//      owns 8 queries x 4 rows: 32 FMA per 12 shared loads). The warp
-//      that owns 8 queries keeps their running top-k_top as sorted
+//   3. scan: grid (query tile x gallery split). The query tile BQ is the
+//      smallest of 8/16/32/64 rows that holds the batch, so a small batch
+//      does not pay 64 rows of FMA (below Nq ~ 40 the scan is bound by
+//      reading gp once). Each block streams its split's gp rows through
+//      shared memory in 128-row tiles, 32-wide slices double-buffered
+//      with cp.async so the next slice loads while this one multiplies,
+//      and forms the BQ x 128 distance tile in registers with f32 FFMA
+//      (a thread owns BQ/8 queries x 4 rows). The warp that owns BQ/8
+//      queries keeps their running top-k_top as sorted
 //      (d, id) lists in shared memory; a candidate that beats a list's
 //      current k-th entry is inserted by the whole warp (count, shift,
 //      write). Each split writes its k_top candidates per query;
@@ -47,11 +51,9 @@
 
 namespace {
 
-constexpr int BQ = 64;          // query rows of a tile
 constexpr int BM = 128;         // gallery (or L) rows of a tile
 constexpr int BK = 32;          // contraction slice staged per step
-constexpr int THREADS = 256;    // 8 warps: warp w owns queries 8w..8w+7
-constexpr int TQ = 8;           // queries per thread
+constexpr int THREADS = 256;    // 8 warps: warp w owns queries TQ*w..
 constexpr int TM = 4;           // rows per thread (lane, lane+32, ...)
 constexpr int QPAD = BK + 4;    // 16-byte aligned rows, float4 reads
 constexpr int MPAD = BM + 1;    // conflict-free transposed stores
@@ -60,8 +62,11 @@ constexpr int KR = MAX_K / 32;  // list entries a lane holds in an insert
 constexpr int MERGE_THREADS = 256;
 constexpr int NO_ID = 0x7fffffff;
 
+// TQ queries per thread, BQ = 8 * TQ query rows per tile: the launcher
+// picks the smallest tile that holds the batch (8, 16, 32 or 64 rows).
+template <int TQ>
 struct Tiles {
-    float a[BQ][QPAD];          // A rows (queries), k contiguous
+    float a[8 * TQ][QPAD];      // A rows (queries), k contiguous
     float b[BK][MPAD];          // B rows (gallery / L), transposed
 };
 
@@ -69,39 +74,80 @@ __device__ __forceinline__ bool lex_less(float ad, int ai, float bd, int bi) {
     return ad < bd || (ad == bd && ai < bi);
 }
 
-// acc[i][j] += sum_k A[a0 + ty*8 + i, k] * B[b0 + lane + 32 j, k] over
-// k in [k0, k1); rows past na / nb and k past k1 read as zero. Summation
-// is sequential in k for every output.
+// 4-byte global -> shared copy that bypasses registers; pred false fills
+// the destination with zero (src-size 0 reads nothing).
+__device__ __forceinline__ void cp_async4(float* dst, const float* src,
+                                          bool pred) {
+    unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+                 :: "r"(s), "l"(src), "r"(pred ? 4 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+    asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+    asm volatile("cp.async.wait_group %0;\n" :: "n"(N));
+}
+
+template <int TQ>
+__device__ __forceinline__ void load_slice(
+        Tiles<TQ>& t, const float* __restrict__ A, long long lda, int a0,
+        int na, const float* __restrict__ B, long long ldb, int b0, int nb,
+        int kb, int k1) {
+    const int tid = threadIdx.x;
+    #pragma unroll
+    for (int r = 0; r < 8 * TQ * BK / THREADS; ++r) {
+        int idx = tid + r * THREADS, row = idx / BK, k = idx % BK;
+        int gr = a0 + row, gk = kb + k;
+        bool ok = gr < na && gk < k1;
+        cp_async4(&t.a[row][k], ok ? A + gr * lda + gk : A, ok);
+    }
+    #pragma unroll
+    for (int r = 0; r < BM * BK / THREADS; ++r) {
+        int idx = tid + r * THREADS, row = idx / BK, k = idx % BK;
+        int gr = b0 + row, gk = kb + k;
+        bool ok = gr < nb && gk < k1;
+        cp_async4(&t.b[k][row], ok ? B + gr * ldb + gk : B, ok);
+    }
+    cp_async_commit();
+}
+
+// acc[i][j] += sum_k A[a0 + ty*TQ + i, k] * B[b0 + lane + 32 j, k] over
+// k in [k0, k1); rows past na / nb and k past k1 read as zero. Slices are
+// double-buffered: slice s+1 streams in while slice s is multiplied.
+// Summation is sequential in k for every output.
+template <int TQ>
 __device__ __forceinline__ void dot_tile(
-        Tiles& t, const float* __restrict__ A, long long lda, int a0, int na,
-        const float* __restrict__ B, long long ldb, int b0, int nb,
+        Tiles<TQ>* t, const float* __restrict__ A, long long lda, int a0,
+        int na, const float* __restrict__ B, long long ldb, int b0, int nb,
         int k0, int k1, float (&acc)[TQ][TM]) {
-    const int tid = threadIdx.x, lane = tid & 31, ty = tid >> 5;
-    for (int kb = k0; kb < k1; kb += BK) {
-        #pragma unroll
-        for (int r = 0; r < BQ * BK / THREADS; ++r) {
-            int idx = tid + r * THREADS, row = idx / BK, k = idx % BK;
-            int gr = a0 + row, gk = kb + k;
-            t.a[row][k] = (gr < na && gk < k1) ? A[gr * lda + gk] : 0.f;
-        }
-        #pragma unroll
-        for (int r = 0; r < BM * BK / THREADS; ++r) {
-            int idx = tid + r * THREADS, row = idx / BK, k = idx % BK;
-            int gr = b0 + row, gk = kb + k;
-            t.b[k][row] = (gr < nb && gk < k1) ? B[gr * ldb + gk] : 0.f;
+    const int lane = threadIdx.x & 31, ty = threadIdx.x >> 5;
+    const int nsteps = (k1 - k0 + BK - 1) / BK;
+    load_slice<TQ>(t[0], A, lda, a0, na, B, ldb, b0, nb, k0, k1);
+    for (int st = 0; st < nsteps; ++st) {
+        if (st + 1 < nsteps) {
+            load_slice<TQ>(t[(st + 1) & 1], A, lda, a0, na, B, ldb, b0, nb,
+                           k0 + (st + 1) * BK, k1);
+            cp_async_wait<1>();
+        } else {
+            cp_async_wait<0>();
         }
         __syncthreads();
+        const Tiles<TQ>& c_t = t[st & 1];
         #pragma unroll
         for (int kk = 0; kk < BK; kk += 4) {
             float4 a[TQ];
             #pragma unroll
             for (int i = 0; i < TQ; ++i)
-                a[i] = *reinterpret_cast<const float4*>(&t.a[ty * TQ + i][kk]);
+                a[i] = *reinterpret_cast<const float4*>(&c_t.a[ty * TQ + i][kk]);
             #pragma unroll
             for (int c = 0; c < 4; ++c) {
                 float b[TM];
                 #pragma unroll
-                for (int j = 0; j < TM; ++j) b[j] = t.b[kk + c][lane + 32 * j];
+                for (int j = 0; j < TM; ++j) b[j] = c_t.b[kk + c][lane + 32 * j];
                 #pragma unroll
                 for (int i = 0; i < TQ; ++i) {
                     float av = c == 0 ? a[i].x : c == 1 ? a[i].y
@@ -112,20 +158,22 @@ __device__ __forceinline__ void dot_tile(
                 }
             }
         }
-        __syncthreads();
+        __syncthreads();        // the next load overwrites this buffer
     }
 }
 
 // part[s, q, c] = sum_{k in slice s} q[q, k] * L[c, k]
+template <int TQ>
 __global__ void __launch_bounds__(THREADS)
 project_partial(const float* __restrict__ q, const float* __restrict__ L,
                 float* __restrict__ part, int nq, int d_in, int d_out,
                 int kchunk) {
-    __shared__ __align__(16) Tiles t;
-    const int q0 = blockIdx.x * BQ, c0 = blockIdx.y * BM, s = blockIdx.z;
+    extern __shared__ __align__(16) unsigned char smem[];
+    Tiles<TQ>* t = reinterpret_cast<Tiles<TQ>*>(smem);
+    const int q0 = blockIdx.x * 8 * TQ, c0 = blockIdx.y * BM, s = blockIdx.z;
     const int k0 = s * kchunk, k1 = min(d_in, k0 + kchunk);
     float acc[TQ][TM] = {};
-    dot_tile(t, q, d_in, q0, nq, L, d_in, c0, d_out, k0, k1, acc);
+    dot_tile<TQ>(t, q, d_in, q0, nq, L, d_in, c0, d_out, k0, k1, acc);
     const int lane = threadIdx.x & 31, ty = threadIdx.x >> 5;
     float* out = part + (long long)s * nq * d_out;
     #pragma unroll
@@ -201,14 +249,16 @@ __device__ __noinline__ void warp_insert(float* ld, int* li, int k,
     __syncwarp();
 }
 
+template <int TQ>
 __global__ void __launch_bounds__(THREADS)
 scan(const float* __restrict__ qp, const float* __restrict__ qn,
      const float* __restrict__ gp, const float* __restrict__ gn,
      float* __restrict__ cand_d, int* __restrict__ cand_i,
      int nq, int d_out, int m, int k_top, int rows_per_split, int nsplit) {
-    __shared__ __align__(16) Tiles t;
-    extern __shared__ __align__(16) unsigned char lists_raw[];
-    float* list_d = reinterpret_cast<float*>(lists_raw);
+    constexpr int BQ = 8 * TQ;
+    extern __shared__ __align__(16) unsigned char smem[];
+    Tiles<TQ>* t = reinterpret_cast<Tiles<TQ>*>(smem);
+    float* list_d = reinterpret_cast<float*>(t + 2);
     int* list_i = reinterpret_cast<int*>(list_d + BQ * k_top);
 
     const int lane = threadIdx.x & 31, ty = threadIdx.x >> 5;
@@ -232,7 +282,7 @@ scan(const float* __restrict__ qp, const float* __restrict__ qn,
 
     for (int m0 = r0; m0 < r1; m0 += BM) {
         float acc[TQ][TM] = {};
-        dot_tile(t, qp, d_out, q0, nq, gp, d_out, m0, r1, 0, d_out, acc);
+        dot_tile<TQ>(t, qp, d_out, q0, nq, gp, d_out, m0, r1, 0, d_out, acc);
         float gn_r[TM];
         #pragma unroll
         for (int j = 0; j < TM; ++j) {
@@ -329,42 +379,35 @@ merge(const float* __restrict__ cand_d, const int* __restrict__ cand_i,
     }
 }
 
-}  // namespace
-
-extern "C" {
-
-int metric_topk_block_q() { return BQ; }
-int metric_topk_block_m() { return BM; }
-int metric_topk_block_k() { return BK; }
-int metric_topk_max_k() { return MAX_K; }
-
-// One call runs the four kernels on `stream`. Scratch is the caller's:
-// part (ksplit, nq, d_out), qp (nq, d_out), qn (nq), cand_d / cand_i
-// (nq, nsplit, k_top). Returns the first non-zero cudaError_t, else 0.
-int metric_topk_launch(const float* q, const float* L, const float* gp,
-                       const float* gn, float* part, float* qp, float* qn,
-                       float* cand_d, int* cand_i, float* out_d, int* out_i,
-                       int nq, int d_in, int d_out, int m, int k_top,
-                       int ksplit, int kchunk, int nsplit,
-                       int rows_per_split, void* stream_ptr) {
-    if (k_top < 1 || k_top > MAX_K || nq < 1 || m < 1 || d_out < 1 || d_in < 1)
-        return (int)cudaErrorInvalidValue;
-    cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-    cudaError_t err;
+template <int TQ>
+int launch_all(const float* q, const float* L, const float* gp,
+               const float* gn, float* part, float* qp, float* qn,
+               float* cand_d, int* cand_i, float* out_d, int* out_i,
+               int nq, int d_in, int d_out, int m, int k_top, int ksplit,
+               int kchunk, int nsplit, int rows_per_split,
+               cudaStream_t stream) {
+    constexpr int BQ = 8 * TQ;
     const int qtiles = (nq + BQ - 1) / BQ;
-
-    project_partial<<<dim3(qtiles, (d_out + BM - 1) / BM, ksplit), THREADS,
-                      0, stream>>>(q, L, part, nq, d_in, d_out, kchunk);
+    const size_t tile_bytes = 2 * sizeof(Tiles<TQ>);
+    cudaError_t err = cudaFuncSetAttribute(
+        project_partial<TQ>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)tile_bytes);
+    if (err != cudaSuccess) return (int)err;
+    project_partial<TQ><<<dim3(qtiles, (d_out + BM - 1) / BM, ksplit),
+                          THREADS, tile_bytes, stream>>>(
+        q, L, part, nq, d_in, d_out, kchunk);
     if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
 
     project_reduce<<<nq, THREADS, 0, stream>>>(part, qp, qn, nq, d_out, ksplit);
     if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
 
-    const size_t list_bytes = (size_t)BQ * k_top * (sizeof(float) + sizeof(int));
-    err = cudaFuncSetAttribute(scan, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)list_bytes);
+    const size_t scan_bytes =
+        tile_bytes + (size_t)BQ * k_top * (sizeof(float) + sizeof(int));
+    err = cudaFuncSetAttribute(scan<TQ>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)scan_bytes);
     if (err != cudaSuccess) return (int)err;
-    scan<<<dim3(qtiles, nsplit), THREADS, list_bytes, stream>>>(
+    scan<TQ><<<dim3(qtiles, nsplit), THREADS, scan_bytes, stream>>>(
         qp, qn, gp, gn, cand_d, cand_i, nq, d_out, m, k_top,
         rows_per_split, nsplit);
     if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
@@ -372,6 +415,41 @@ int metric_topk_launch(const float* q, const float* L, const float* gp,
     merge<<<nq, MERGE_THREADS, (size_t)nsplit * sizeof(int), stream>>>(
         cand_d, cand_i, out_d, out_i, nsplit, k_top);
     return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+int metric_topk_block_m() { return BM; }
+int metric_topk_block_k() { return BK; }
+int metric_topk_max_k() { return MAX_K; }
+
+// One call runs the four kernels on `stream` with 8 * tq query rows per
+// tile (tq in 1, 2, 4, 8). Scratch is the caller's: part (ksplit, nq,
+// d_out), qp (nq, d_out), qn (nq), cand_d / cand_i (nq, nsplit, k_top).
+// Returns the first non-zero cudaError_t, else 0.
+int metric_topk_launch(const float* q, const float* L, const float* gp,
+                       const float* gn, float* part, float* qp, float* qn,
+                       float* cand_d, int* cand_i, float* out_d, int* out_i,
+                       int nq, int d_in, int d_out, int m, int k_top, int tq,
+                       int ksplit, int kchunk, int nsplit,
+                       int rows_per_split, void* stream_ptr) {
+    if (k_top < 1 || k_top > MAX_K || nq < 1 || m < 1 || d_out < 1 ||
+        d_in < 1)
+        return (int)cudaErrorInvalidValue;
+    cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+#define METRIC_TOPK_ARGS q, L, gp, gn, part, qp, qn, cand_d, cand_i, out_d, \
+        out_i, nq, d_in, d_out, m, k_top, ksplit, kchunk, nsplit,          \
+        rows_per_split, stream
+    switch (tq) {
+        case 1: return launch_all<1>(METRIC_TOPK_ARGS);
+        case 2: return launch_all<2>(METRIC_TOPK_ARGS);
+        case 4: return launch_all<4>(METRIC_TOPK_ARGS);
+        case 8: return launch_all<8>(METRIC_TOPK_ARGS);
+        default: return (int)cudaErrorInvalidValue;
+    }
+#undef METRIC_TOPK_ARGS
 }
 
 }  // extern "C"

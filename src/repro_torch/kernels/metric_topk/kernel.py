@@ -21,6 +21,9 @@ from repro_torch.kernels import _build
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "metric_topk.cu"
 MAX_K_TOP = 256         # the kernel keeps per-query lists of <= 256 entries
+BLOCK_M = 128           # gallery (or L) rows of a tile
+BLOCK_K = 32            # contraction slice staged per step
+QUERY_TILES = (8, 16, 32, 64)   # query rows of a tile, chosen per batch
 _WAVES = 4              # blocks per SM the split sizes aim for
 
 _lib = None
@@ -32,11 +35,14 @@ def _library():
     if _lib is None:
         lib = _build.load(SOURCE)
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.metric_topk_launch.argtypes = [p] * 11 + [i] * 9 + [p]
+        lib.metric_topk_launch.argtypes = [p] * 11 + [i] * 10 + [p]
         lib.metric_topk_launch.restype = i
-        for name in ("block_q", "block_m", "block_k", "max_k"):
+        for name in ("block_m", "block_k", "max_k"):
             getattr(lib, f"metric_topk_{name}").restype = i
-        assert lib.metric_topk_max_k() == MAX_K_TOP
+        if (lib.metric_topk_block_m(), lib.metric_topk_block_k(),
+                lib.metric_topk_max_k()) != (BLOCK_M, BLOCK_K, MAX_K_TOP):
+            raise RuntimeError(f"{SOURCE} disagrees with kernel.py on its "
+                               f"tile sizes")
         _lib = lib
     return _lib
 
@@ -53,22 +59,23 @@ def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
 
 
-def split_plan(nq: int, d_in: int, d_out: int, m: int, n_sm: int,
-               block_q: int = 64, block_m: int = 128, block_k: int = 32):
-    """Grid splits that fill ``_WAVES * n_sm`` blocks: the projection's
-    d_in slices (``ksplit`` of ``kchunk`` columns) and the scan's gallery
-    splits (``nsplit`` of ``rows_per_split`` rows)."""
+def split_plan(nq: int, d_in: int, d_out: int, m: int, n_sm: int):
+    """Launch plan that fills ``_WAVES * n_sm`` blocks: the query tile
+    (the smallest of ``QUERY_TILES`` that holds the batch), the
+    projection's d_in slices (``ksplit`` of ``kchunk`` columns) and the
+    scan's gallery splits (``nsplit`` of ``rows_per_split`` rows)."""
+    block_q = next((b for b in QUERY_TILES if nq <= b), QUERY_TILES[-1])
     target = _WAVES * n_sm
     qtiles = _cdiv(nq, block_q)
-    ksplit = max(1, min(_cdiv(target, qtiles * _cdiv(d_out, block_m)),
-                        _cdiv(d_in, block_k)))
-    kchunk = _cdiv(_cdiv(d_in, ksplit), block_k) * block_k
+    ksplit = max(1, min(_cdiv(target, qtiles * _cdiv(d_out, BLOCK_M)),
+                        _cdiv(d_in, BLOCK_K)))
+    kchunk = _cdiv(_cdiv(d_in, ksplit), BLOCK_K) * BLOCK_K
     ksplit = _cdiv(d_in, kchunk)
-    mtiles = _cdiv(m, block_m)
+    mtiles = _cdiv(m, BLOCK_M)
     nsplit = max(1, min(_cdiv(target, qtiles), mtiles))
-    rows_per_split = _cdiv(mtiles, nsplit) * block_m
+    rows_per_split = _cdiv(mtiles, nsplit) * BLOCK_M
     nsplit = _cdiv(m, rows_per_split)
-    return ksplit, kchunk, nsplit, rows_per_split
+    return block_q, ksplit, kchunk, nsplit, rows_per_split
 
 
 def _check(name, x, ndim, device):
@@ -119,9 +126,8 @@ def metric_topk_fused(q: torch.Tensor, L: torch.Tensor, gp: torch.Tensor,
     if nq == 0:
         return out_d, out_i
     lib = _library()
-    ksplit, kchunk, nsplit, rps = split_plan(
-        nq, d_in, d_out, m, _sm_count(device), lib.metric_topk_block_q(),
-        lib.metric_topk_block_m(), lib.metric_topk_block_k())
+    block_q, ksplit, kchunk, nsplit, rps = split_plan(
+        nq, d_in, d_out, m, _sm_count(device))
     f32 = dict(dtype=torch.float32, device=device)
     part = torch.empty((ksplit, nq, d_out), **f32)
     qp = torch.empty((nq, d_out), **f32)
@@ -134,7 +140,8 @@ def metric_topk_fused(q: torch.Tensor, L: torch.Tensor, gp: torch.Tensor,
     stream = ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
     with torch.cuda.device(device):
         err = lib.metric_topk_launch(*ptrs, nq, d_in, d_out, m, k_top,
-                                     ksplit, kchunk, nsplit, rps, stream)
+                                     block_q // 8, ksplit, kchunk, nsplit,
+                                     rps, stream)
     if err != 0:
         raise RuntimeError(f"metric_topk kernel launch failed: cudaError_t "
                            f"{err}")

@@ -192,7 +192,9 @@ def test_fused_wrapper_refuses_cpu_tensors():
     (1, 21504, 1000, 1_000_000), (64, 21504, 1000, 1_000_000),
     (512, 96, 48, 2048), (7, 33, 9, 129)])
 def test_split_plan_covers_every_row_and_column(nq, d_in, d_out, m):
-    ksplit, kchunk, nsplit, rps = split_plan(nq, d_in, d_out, m, n_sm=132)
+    block_q, ksplit, kchunk, nsplit, rps = split_plan(nq, d_in, d_out, m,
+                                                      n_sm=132)
+    assert block_q in (8, 16, 32, 64) and (block_q >= nq or block_q == 64)
     assert kchunk % 32 == 0 and rps % 128 == 0
     assert (ksplit - 1) * kchunk < d_in <= ksplit * kchunk
     assert (nsplit - 1) * rps < m <= nsplit * rps
