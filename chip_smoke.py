@@ -200,6 +200,23 @@ def make_gallery(gen, n, d_in, n_classes, L, query_rows, block=16384,
     return gp, gn, labels, raw_q
 
 
+def span_means(traces):
+    """Mean duration in ms of each span name over finished trace dicts."""
+    tot, cnt = {}, {}
+
+    def walk(sp):
+        if sp.get("t_end") is not None:
+            tot[sp["name"]] = tot.get(sp["name"], 0.0) + \
+                sp["t_end"] - sp["t_start"]
+            cnt[sp["name"]] = cnt.get(sp["name"], 0) + 1
+        for c in sp.get("children", ()):
+            walk(c)
+
+    for tr in traces:
+        walk(tr["root"])
+    return {k: round(1e3 * tot[k] / cnt[k], 3) for k in sorted(tot)}
+
+
 def phase_serving(exp=IMNET_1M):
     cfg = exp.dml
     gen = torch.Generator(device=DEV).manual_seed(0)
@@ -226,6 +243,7 @@ def phase_serving(exp=IMNET_1M):
         f"{time.perf_counter() - t0:.2f}s")
     front = MicroBatcher(engine, max_batch=MAX_BATCH, max_wait_ms=2.0)
 
+    engine.tracer.sample_rate = 1.0         # every request's span tree
     metric_topk_fused.launches = 0          # counts of the main path only
     t0 = time.perf_counter()
     pending = [(time.perf_counter(), front.submit(queries_np[i]))
@@ -253,6 +271,8 @@ def phase_serving(exp=IMNET_1M):
         f"backend {st['backend']}")
     log(f"neighbour class purity@{K_TOP}: {purity:.3f} "
         f"(chance {1.0 / exp.n_classes:.3f})")
+    spans = span_means(engine.tracer.drain())
+    log(f"mean span ms (host clock): {spans}")
     assert np.isfinite(lat_ms).all() and st["backend"] == "cuda"
     assert purity > 10.0 / exp.n_classes, "purity at chance level"
 
@@ -265,6 +285,7 @@ def phase_serving(exp=IMNET_1M):
     log(f"full batch vs plain: max |dd| {err:.3e}, {n_diff} tie-resolved "
         f"id differences")
     serving = {"qps": N_REQUESTS / wall, "p50_ms": p50, "p99_ms": p99,
+               "spans_ms": spans,
                "mean_batch": float(np.mean(front.batch_sizes)),
                "purity": purity, "launches": launches}
     return index, queries, serving, err

@@ -28,7 +28,6 @@ class DMLConfig:
     lam: float = 1.0        # lambda — dissimilar-pair tradeoff (paper: 1)
     margin: float = 1.0     # c — dissimilarity margin (paper: 1)
     dtype: torch.dtype = torch.float32
-    compute_dtype: Optional[torch.dtype] = None
     # low-rank knob: alias for proj_dim (d_out of the rectangular factor)
     l_rank: Optional[int] = None
 

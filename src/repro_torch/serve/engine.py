@@ -63,7 +63,6 @@ class RetrievalEngine:
         self.buckets = tuple(sorted(buckets))
         self.cache_size = cache_size
         self.clock = clock if clock is not None else SystemClock()
-        self.frontend = None
         self.registry = (registry if registry is not None
                          else MetricsRegistry(clock=self.clock))
         self.tracer = (tracer if tracer is not None
@@ -279,7 +278,7 @@ class RetrievalEngine:
         reference's ``stats()``; ``backend`` is "cuda" or "cpu"."""
         busy = self.busy_s
         qps = self.n_device_queries / busy if busy > 0 else 0.0
-        out = {
+        return {
             "n_requests": self.n_requests,
             "n_queries": self.n_queries,
             "n_device_queries": self.n_device_queries,
@@ -294,6 +293,3 @@ class RetrievalEngine:
             "cache_misses": self.cache_misses,
             "cache_entries": len(self._cache),
         }
-        if self.frontend is not None:
-            out["frontend"] = self.frontend.observability()
-        return out

@@ -6,7 +6,7 @@ reference runs its Pallas kernel in interpret mode (as
 tests/test_metric_topk.py does) and its XLA path. Ids must be exact and
 distances within rtol/atol 1e-5 (f32 on both sides, different summation
 order). The CUDA kernel itself is checked against its plain version in
-the ``cuda``-marked test, which skips without a card.
+tests/test_torch_cuda.py, which needs a card.
 """
 
 import numpy as np
@@ -26,16 +26,10 @@ from repro_torch.kernels.metric_topk import (metric_topk, metric_topk_fused,
                                              metric_topk_naive,
                                              metric_topk_plain,
                                              project_gallery)
-from repro_torch.kernels.metric_topk.kernel import MAX_K_TOP, split_plan
+from repro_torch.kernels.metric_topk.kernel import (BLOCK_K, BLOCK_M,
+                                                    split_plan)
 
 RTOL = ATOL = 1e-5
-
-
-@pytest.fixture
-def cuda_device():
-    if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA card: the CUDA kernel has no CPU mode")
-    return torch.device("cuda")
 
 
 SHAPES = [
@@ -195,25 +189,41 @@ def test_split_plan_covers_every_row_and_column(nq, d_in, d_out, m):
     block_q, ksplit, kchunk, nsplit, rps = split_plan(nq, d_in, d_out, m,
                                                       n_sm=132)
     assert block_q in (8, 16, 32, 64) and (block_q >= nq or block_q == 64)
-    assert kchunk % 32 == 0 and rps % 128 == 0
+    assert kchunk % BLOCK_K == 0 and rps % BLOCK_M == 0
     assert (ksplit - 1) * kchunk < d_in <= ksplit * kchunk
     assert (nsplit - 1) * rps < m <= nsplit * rps
 
 
-@pytest.mark.cuda
-def test_cuda_kernel_matches_plain_version(cuda_device):
-    for Nq, M, d, k, K in SHAPES + [(3, 5000, 200, 150, 256)]:
-        L, q, G = (torch.from_numpy(a).to(cuda_device)
-                   for a in _data(Nq, M, d, k, seed=Nq + M))
-        gp, gn = project_gallery(L, G)
-        before = metric_topk_fused.launches
-        dk, ik = metric_topk(L, q, gp, gn, k_top=K)
-        dp, ip = metric_topk_plain(L, q, gp, gn, K)
-        torch.cuda.synchronize()
-        assert metric_topk_fused.launches == before + 1
-        np.testing.assert_array_equal(ik.cpu().numpy(), ip.cpu().numpy())
-        qn = torch.sum((q @ L.T) ** 2, dim=1)
-        tol = ATOL + RTOL * (qn[:, None] + gn[ip.long()])
-        assert bool(((dk - dp).abs() <= tol).all())
-    with pytest.raises(ValueError, match=str(MAX_K_TOP)):
-        metric_topk(L, q, gp, gn, k_top=MAX_K_TOP + 1)
+@pytest.mark.parametrize("n,block,mult", [(5, 128, 8), (300, 128, 8),
+                                          (129, 512, 128), (128, 128, 8)])
+def test_tiling_helpers_match_reference(n, block, mult):
+    assert _dispatch.round_up(n, mult) == jax_dispatch.round_up(n, mult)
+    assert _dispatch.pick_block(n, block, mult) == \
+        jax_dispatch.pick_block(n, block, mult)
+    x = np.arange(n * 3, dtype=np.float32).reshape(n, 3)
+    target = _dispatch.round_up(n, mult)
+    ours = _dispatch.pad_axis(torch.from_numpy(x), target, 0, value=1e30)
+    ref = jax_dispatch.pad_axis(jnp.asarray(x), target, 0, value=1e30)
+    np.testing.assert_array_equal(ours.numpy(), np.asarray(ref))
+
+
+def test_scan_helpers_match_reference():
+    from repro.serve import scan as jax_scan
+    from repro_torch.serve import scan
+    rng = np.random.RandomState(1)
+    d = rng.randint(0, 6, size=(5, 30)).astype(np.float32)
+    ids = np.tile(np.arange(30, dtype=np.int32), (5, 1))
+    ld, li = scan.local_topk(torch.from_numpy(d), torch.from_numpy(ids), 7)
+    rd, ri = jax_scan.local_topk(jnp.asarray(d), jnp.asarray(ids), 7)
+    np.testing.assert_array_equal(ld.numpy(), np.asarray(rd))
+    np.testing.assert_array_equal(li.numpy(), np.asarray(ri))
+    approx = rng.randint(-1, 30, size=(5, 7))
+    assert scan.recall_at_k(approx, li.numpy()) == \
+        jax_scan.recall_at_k(approx, np.asarray(ri))
+    L, q, _ = _data(6, 1, 20, 8, seed=2)
+    np.testing.assert_allclose(
+        scan.project_queries(_t(L), _t(q)).numpy(),
+        np.asarray(jax_scan.project_queries(jnp.asarray(L), jnp.asarray(q))),
+        rtol=RTOL, atol=ATOL)
+    with pytest.raises(ValueError, match="transposed factor"):
+        scan.project_queries(_t(L)[:6, :8], _t(q)[:, :6])
