@@ -126,6 +126,10 @@ __device__ __forceinline__ void dot_tile(
         int k0, int k1, float (&acc)[TQ][TM]) {
     const int lane = threadIdx.x & 31, ty = threadIdx.x >> 5;
     const int nsteps = (k1 - k0 + BK - 1) / BK;
+    // a warp whose query rows are all past na only helps load: at a batch
+    // smaller than the tile this spares the shared-memory reads of zeros.
+    // The 64-row tile keeps the branch-free loop (measured faster there).
+    const bool busy = TQ == 8 || a0 + ty * TQ < na;
     load_slice<TQ>(t[0], A, lda, a0, na, B, ldb, b0, nb, k0, k1);
     for (int st = 0; st < nsteps; ++st) {
         if (st + 1 < nsteps) {
@@ -137,24 +141,26 @@ __device__ __forceinline__ void dot_tile(
         }
         __syncthreads();
         const Tiles<TQ>& c_t = t[st & 1];
-        #pragma unroll
-        for (int kk = 0; kk < BK; kk += 4) {
-            float4 a[TQ];
+        if (busy) {
             #pragma unroll
-            for (int i = 0; i < TQ; ++i)
-                a[i] = *reinterpret_cast<const float4*>(&c_t.a[ty * TQ + i][kk]);
-            #pragma unroll
-            for (int c = 0; c < 4; ++c) {
-                float b[TM];
+            for (int kk = 0; kk < BK; kk += 4) {
+                float4 a[TQ];
                 #pragma unroll
-                for (int j = 0; j < TM; ++j) b[j] = c_t.b[kk + c][lane + 32 * j];
+                for (int i = 0; i < TQ; ++i)
+                    a[i] = *reinterpret_cast<const float4*>(&c_t.a[ty * TQ + i][kk]);
                 #pragma unroll
-                for (int i = 0; i < TQ; ++i) {
-                    float av = c == 0 ? a[i].x : c == 1 ? a[i].y
-                             : c == 2 ? a[i].z : a[i].w;
+                for (int c = 0; c < 4; ++c) {
+                    float b[TM];
                     #pragma unroll
-                    for (int j = 0; j < TM; ++j)
-                        acc[i][j] = fmaf(av, b[j], acc[i][j]);
+                    for (int j = 0; j < TM; ++j) b[j] = c_t.b[kk + c][lane + 32 * j];
+                    #pragma unroll
+                    for (int i = 0; i < TQ; ++i) {
+                        float av = c == 0 ? a[i].x : c == 1 ? a[i].y
+                                 : c == 2 ? a[i].z : a[i].w;
+                        #pragma unroll
+                        for (int j = 0; j < TM; ++j)
+                            acc[i][j] = fmaf(av, b[j], acc[i][j]);
+                    }
                 }
             }
         }
