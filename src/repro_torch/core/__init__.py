@@ -1,2 +1,3 @@
-"""Distance-metric-learning core (the exact-serving slice needs only the
-config and the factor's initialisation)."""
+"""Distance-metric-learning core: the Eq. 4 objective and its pieces
+(``dml``), the loss registry (``losses``), kNN / k-means evaluation
+(``eval_tasks``) and the parameter server (``ps``)."""

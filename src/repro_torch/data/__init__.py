@@ -1,1 +1,1 @@
-"""Synthetic feature data of the port."""
+"""Synthetic feature data, pair sampling and batch streams of the port."""

@@ -7,11 +7,24 @@ mask their ragged edges themselves; ``round_up`` / ``pad_axis`` /
 ``pick_block`` serve the plain paths and the wrappers' scratch sizing.
 ``topk_by_distance`` is the one tie-breaking contract every scan path
 must agree on: ascending distance, equal distances smallest-id-first.
+``full_f32`` is the one place the plain paths pin full-f32 products.
 """
 
 from __future__ import annotations
 
 import torch
+
+
+def full_f32():
+    """Switch TF32 off for float32 matrix products on the card.
+
+    TF32 keeps about three decimal digits, and one call of
+    ``torch.set_float32_matmul_precision("high")`` anywhere in the process
+    turns it on for ``torch.matmul``. Parity with the kernels and with the
+    JAX reference (whose f32 products on the CPU are full f32) needs true
+    f32, so every plain path and every backward product calls this first.
+    """
+    torch.backends.cuda.matmul.allow_tf32 = False
 
 
 def check_metric_factor(L, d_in=None, *, what: str = "L"):

@@ -10,32 +10,25 @@ The serving contract (serve/index.py builds on this):
   * ``metric_topk_plain``  — the factored plain path (counterpart of the
     reference's ``metric_topk_xla``), also the kernel's yardstick.
 
-Float32 products run in full f32: TF32 is switched off explicitly in
-``project_gallery`` and the plain path, so the port agrees with its plain
-version on the card and with the JAX reference (whose f32 products on
-the CPU are full f32).
+Float32 products run in full f32 (``_dispatch.full_f32`` in
+``project_gallery`` and the plain path), so the port agrees with its
+plain version on the card and with the JAX reference.
 """
 
 from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels._dispatch import check_metric_factor
+from repro_torch.kernels._dispatch import check_metric_factor, full_f32
 from repro_torch.kernels.metric_topk.kernel import metric_topk_fused
 from repro_torch.kernels.metric_topk.ref import metric_topk_ref
-
-
-def _full_f32():
-    # TF32 keeps ~3 decimal digits: parity with the plain version and with
-    # the JAX reference needs true f32 products
-    torch.backends.cuda.matmul.allow_tf32 = False
 
 
 def project_gallery(L: torch.Tensor, gallery: torch.Tensor):
     """Pre-project the gallery once: returns (gp (M,d_out) f32, gn (M,)
     f32). ``L`` is (d_out, d_in), square or rectangular."""
     check_metric_factor(L, gallery.shape[-1])
-    _full_f32()
+    full_f32()
     gp = gallery.to(torch.float32) @ L.to(torch.float32).T
     gn = torch.sum(torch.square(gp), dim=1)
     return gp, gn
@@ -44,7 +37,7 @@ def project_gallery(L: torch.Tensor, gallery: torch.Tensor):
 def metric_topk_plain(L, queries, gp, gn, k_top: int):
     """Factored plain path: project queries, reuse the gallery norms,
     stable-sort selection."""
-    _full_f32()
+    full_f32()
     qp = queries.to(torch.float32) @ L.to(torch.float32).T
     return metric_topk_ref(qp, gp, k_top, gn)
 

@@ -1,12 +1,14 @@
 """Metric-retrieval serving launcher (exact index, micro-batched).
 
 Run:  PYTHONPATH=src python -m repro_torch.launch.serve_retrieval \
-          [--gallery-size 20000] [--requests 500] [--device cpu]
+          [--gallery-size 20000] [--train-steps 200] [--requests 500] \
+          [--device cpu]
 
 Counterpart of ``repro.launch.serve_retrieval`` for the exact path:
-builds a class-structured gallery (data.pairs), draws a random metric
-factor L (``--train-steps`` must be 0 until the training slice is
-ported), stands up ExactIndex -> RetrievalEngine -> MicroBatcher, fires
+builds a class-structured gallery (data.pairs), learns the metric factor
+L with ``train_dml_single`` on held-out-split pairs (Eq. 4 through the
+``dml_pair`` kernel on the card; ``--train-steps 0`` keeps a random L),
+stands up ExactIndex -> RetrievalEngine -> MicroBatcher, fires
 single-query traffic through the batcher and reports QPS, latency
 percentiles, batch coalescing, the cache and neighbor class purity.
 Runs on the card unless ``--device cpu`` is given.
@@ -21,6 +23,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import dml
+from repro_torch.core.ps.trainer import train_dml_single
 from repro_torch.data import pairs as pairdata
 from repro_torch.device import resolve_device
 from repro_torch.obs import percentile
@@ -38,9 +41,8 @@ def main(argv=None):
                          "overrides --proj-dim")
     ap.add_argument("--n-classes", type=int, default=16)
     ap.add_argument("--k", type=int, default=10)
-    ap.add_argument("--train-steps", type=int, default=0,
-                    help="must be 0 (a random L) until the training "
-                         "slice is ported")
+    ap.add_argument("--train-steps", type=int, default=200,
+                    help="Eq. 4 training steps for L (0: a random L)")
     ap.add_argument("--requests", type=int, default=500)
     ap.add_argument("--max-batch", type=int, default=64)
     ap.add_argument("--max-wait-ms", type=float, default=2.0)
@@ -50,11 +52,6 @@ def main(argv=None):
                     help="torch device (default: cuda; cpu runs the "
                          "kernel's plain version)")
     args = ap.parse_args(argv)
-    if args.train_steps != 0:
-        raise NotImplementedError(
-            "--train-steps > 0 needs the training slice (dml_pair kernel, "
-            "Eq. 4 core, pair sampling, optim, parameter server), which "
-            "is not ported yet; use --train-steps 0")
     device = resolve_device(args.device)
 
     # --- data + metric ---------------------------------------------------
@@ -65,8 +62,18 @@ def main(argv=None):
     if args.l_rank is not None:         # low-rank knob wins over proj-dim
         args.proj_dim = args.l_rank
     dcfg = dml.DMLConfig(feat_dim=args.feat_dim, l_rank=args.proj_dim)
-    gen = torch.Generator(device=device).manual_seed(0)
-    L = dml.init_params(dcfg, gen, device)
+    if args.train_steps > 0:
+        train_pairs, _ = pairdata.train_eval_split(
+            cfg, n_train_sim=4000, n_train_dis=4000,
+            n_eval_sim=100, n_eval_dis=100)
+        L, hist = train_dml_single(dcfg, train_pairs, steps=args.train_steps,
+                                   batch_size=512, lr=2e-2, seed=0,
+                                   device=device)
+        print(f"trained L: objective {hist[0]['loss']:.3f} -> "
+              f"{hist[-1]['loss']:.3f}")
+    else:
+        gen = torch.Generator(device=device).manual_seed(0)
+        L = dml.init_params(dcfg, gen, device)
 
     # --- serving stack ---------------------------------------------------
     t0 = time.perf_counter()

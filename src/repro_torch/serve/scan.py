@@ -22,7 +22,7 @@ from repro_torch.kernels import _dispatch
 def project_queries(L, queries):
     """Project raw (Nq, d_in) queries into the d_out-dim metric space (f32)."""
     check_metric_factor(L, queries.shape[-1])
-    torch.backends.cuda.matmul.allow_tf32 = False   # full f32 products
+    _dispatch.full_f32()
     return queries.to(torch.float32) @ L.to(torch.float32).T
 
 

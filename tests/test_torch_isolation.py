@@ -17,6 +17,14 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.core import dml
+from repro_torch.core.eval_tasks import (knn_accuracy, knn_classify,
+                                         metric_kmeans)
+from repro_torch.core.ps import sync
+from repro_torch.core.ps.trainer import (DMLTrainConfig,
+                                         train_dml_distributed,
+                                         train_dml_single)
+from repro_torch.data import pairs
 from repro_torch.device import resolve_device
 from repro_torch.launch import serve_retrieval
 from repro_torch.serve import ExactIndex
@@ -67,6 +75,39 @@ def test_default_device_raises_without_cuda(no_cuda):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         serve_retrieval.main(["--gallery-size", "100"])
     assert resolve_device("cpu").type == "cpu"
+
+
+def _tiny_pairs():
+    x, y = pairs.make_features(pairs.PairDatasetConfig(80, 8, 2, seed=0))
+    return x, y, pairs.sample_pairs(x, y, 40, 40)
+
+
+_CFG = dml.DMLConfig(feat_dim=8, proj_dim=4)
+_ENTRY_POINTS = {
+    "train_dml_single": lambda x, y, p: train_dml_single(_CFG, p, steps=1),
+    "train_dml_distributed": lambda x, y, p: train_dml_distributed(
+        DMLTrainConfig(dml=_CFG, ps=sync.PSConfig(n_workers=2), steps=1),
+        p),
+    "knn_accuracy": lambda x, y, p: knn_accuracy(None, x, y, x, y),
+    "knn_classify": lambda x, y, p: knn_classify(None, x, y, x),
+    "metric_kmeans": lambda x, y, p: metric_kmeans(None, x, 2),
+    "pair_batches": lambda x, y, p: pairs.pair_batches(p, 8),
+    "pair_batches_from_indices": lambda x, y, p:
+        pairs.pair_batches_from_indices(x, pairs.sample_pair_indices(
+            y, 10, 10), 8),
+    "triplet_batches_from_indices": lambda x, y, p:
+        pairs.triplet_batches_from_indices(x, pairs.sample_triplet_indices(
+            y, 10), 8),
+    "cli --train-steps": lambda x, y, p: serve_retrieval.main(
+        ["--train-steps", "5", "--gallery-size", "100"]),
+}
+
+
+@pytest.mark.parametrize("name", list(_ENTRY_POINTS))
+def test_training_slice_entry_points_raise_without_cuda(no_cuda, name):
+    x, y, p = _tiny_pairs()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        _ENTRY_POINTS[name](x, y, p)
 
 
 def _run_smoke(cwd, extra_env=None):

@@ -1,9 +1,12 @@
-"""The exact-serving slice end to end, port against reference, on the CPU.
+"""The port's slices end to end, port against reference, on the CPU.
 
 The same seeded data goes through both packages: ``make_features`` must
 be byte-identical, the factor and the reference's index arrays are
 carried across with repro_torch.convert, and the same request stream
-must come back with the same neighbours. The port's CLI runs on the CPU.
+must come back with the same neighbours. The training pipeline
+(``train_eval_split -> train_dml_single -> ExactIndex``) starts from the
+reference's initial factor and must serve the same neighbours as the
+reference's pipeline. The port's CLI trains and serves on the CPU.
 """
 
 import dataclasses
@@ -17,6 +20,7 @@ import jax.numpy as jnp
 
 from repro.configs import dml_paper as jax_configs
 from repro.core import dml as jax_dml
+from repro.core.ps.trainer import train_dml_single as jax_train_dml_single
 from repro.data import pairs as jax_pairs
 from repro.serve import ExactIndex as JaxExactIndex
 from repro.serve import RetrievalEngine as JaxRetrievalEngine
@@ -24,6 +28,7 @@ from repro.serve import RetrievalEngine as JaxRetrievalEngine
 from repro_torch.configs import dml_paper
 from repro_torch.convert import exact_index_from_jax, metric_factor_from_jax
 from repro_torch.core import dml
+from repro_torch.core.ps.trainer import train_dml_single
 from repro_torch.data import pairs
 from repro_torch.launch import serve_retrieval
 from repro_torch.serve import ExactIndex, RetrievalEngine
@@ -127,14 +132,60 @@ def test_same_request_stream_same_neighbours():
 
 def test_cli_runs_on_cpu(capsys):
     serve_retrieval.main(["--device", "cpu", "--gallery-size", "2000",
-                          "--requests", "120", "--max-batch", "32"])
+                          "--train-steps", "0", "--requests", "120",
+                          "--max-batch", "32"])
     out = capsys.readouterr().out
-    assert "(cpu path)" in out
+    assert "(cpu path)" in out and "trained L" not in out
     assert "requests=120" in out and "latency ms: p50=" in out
     purity = float(out.split("purity@10: ")[1].split()[0])
     assert purity > 1.0 / 16
 
 
-def test_cli_refuses_training_until_ported():
-    with pytest.raises(NotImplementedError, match="training slice"):
-        serve_retrieval.main(["--device", "cpu", "--train-steps", "5"])
+def test_cli_trains_on_cpu(capsys):
+    serve_retrieval.main(["--device", "cpu", "--gallery-size", "1500",
+                          "--train-steps", "30", "--requests", "60",
+                          "--max-batch", "16"])
+    out = capsys.readouterr().out
+    first, last = map(float, out.split("trained L: objective ")[1]
+                      .split()[0:3:2])
+    assert last < first
+    assert "(cpu path)" in out and "requests=60" in out
+    purity = float(out.split("purity@10: ")[1].split()[0])
+    assert purity > 1.0 / 16
+
+
+def test_cli_trains_on_the_card_by_default(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        serve_retrieval.main(["--train-steps", "30", "--gallery-size",
+                              "1500"])
+
+
+def test_trained_pipeline_serves_the_reference_neighbours():
+    cfg = dict(n_samples=1500, feat_dim=64, n_classes=16,
+               kind="noisy_subspace", noise=0.5, seed=0)
+    dcfg_ref = jax_dml.DMLConfig(feat_dim=64, l_rank=32)
+    train_ref, _ = jax_pairs.train_eval_split(
+        jax_pairs.PairDatasetConfig(**cfg), 4000, 4000, 100, 100)
+    L_ref, h_ref = jax_train_dml_single(dcfg_ref, train_ref, steps=30,
+                                        batch_size=512, lr=2e-2, seed=0)
+    L0 = np.asarray(jax_dml.init_params(dcfg_ref, jax.random.PRNGKey(0)))
+    train, _ = pairs.train_eval_split(pairs.PairDatasetConfig(**cfg), 4000,
+                                      4000, 100, 100)
+    L, h = train_dml_single(dml.DMLConfig(feat_dim=64, l_rank=32), train,
+                            steps=30, batch_size=512, lr=2e-2, seed=0,
+                            L0=L0, device="cpu")
+    np.testing.assert_allclose(L.numpy(), np.asarray(L_ref), rtol=1e-4,
+                               atol=1e-6)
+    assert h[-1]["loss"] < h[0]["loss"]
+    feats, _ = pairs.make_features(pairs.PairDatasetConfig(**cfg))
+    rng = np.random.RandomState(1)
+    q = feats[rng.randint(0, len(feats), 50)] + \
+        0.1 * rng.randn(50, 64).astype(np.float32)
+    d_ref, i_ref = JaxExactIndex.build(L_ref, jnp.asarray(feats)).topk(
+        jnp.asarray(q), 10)
+    d, i = ExactIndex.build(L, torch.from_numpy(feats), device="cpu").topk(
+        torch.from_numpy(q), 10)
+    np.testing.assert_array_equal(i.numpy(), np.asarray(i_ref))
+    np.testing.assert_allclose(d.numpy(), np.asarray(d_ref), rtol=1e-4,
+                               atol=1e-4)
