@@ -16,7 +16,10 @@ exit, and nothing falls back:
                 proj) and gradients (kernel + closed-form backward against
                 autograd through the plain version) at the CPU tests'
                 shapes plus a ragged one; pairwise_sqdist at square, ragged
-                and k = 1000 shapes;
+                and k = 1000 shapes; ivf_scan and pq_adc at the CPU tests'
+                shapes, at ragged ones (cap not a multiple of the tile, -1
+                pads, probes with fewer than kk real rows, duplicated rows,
+                kk = 1 and 256) and at the serving widths;
   4. training — the Eq. 4 path at dml-imnet1m width (d_in 21504 -> d_out
                 1000): 10,000 noisy_subspace rows and 100 classes resident
                 on the card, 50k + 50k index pairs (the reference's
@@ -40,12 +43,25 @@ exit, and nothing falls back:
                 answering 256 single-query requests; checks the kernel's
                 launch count rose and one full batch against the plain
                 version; prints QPS, latency, batch size, class purity;
-  7. kernels  — times each kernel, its plain version and one library call
-                at the main path's shapes; prints the ``kernels`` line;
-  8. the last line: ``{"ok": true, "device": {...}}``.
+  7. kernels  — times metric_topk, its plain version and one library
+                call at the serving shapes;
+  8. ANN      — the approximate serving paths on phase 6's L, projected
+                gallery and 256 requests: IVFIndex (1024 clusters, nprobe
+                16, cap_factor 1.25) on ivf_scan, then IVFPQIndex (the same
+                coarse quantizer, 100 x 8-bit codes, exact rerank of 50 on
+                the card) on pq_adc, each through RetrievalEngine ->
+                MicroBatcher; prints the build time by step, QPS, latency,
+                recall@10 against phase 6's exact answers, class purity and
+                peak memory; checks the kernel's launch count rose, IVF at
+                nprobe = n_clusters against the exact plain version, and
+                each kernel against its plain version at the full width;
+                then times both kernels at Nq = 1 and 64 and prints the
+                ``kernels`` line (all five kernels);
+  9. the last line: ``{"ok": true, "device": {...}}``.
 
-Every launch count is set to 0 just before a main-path phase (4, 5, 6)
-and read just after; comparison launches come after the reading.
+Every launch count is set to 0 just before a main-path phase (4, 5, 6,
+and each index of 8) and read just after; comparison launches come after
+the reading.
 
 Comparison rules (kernel vs plain, both f32, different summation order).
 Distances (metric_topk, pairwise_sqdist) may differ by atol + rtol *
@@ -57,7 +73,9 @@ distance is apart from its neighbours' by more than that tolerance; at a
 dml_pair: forward outputs within rtol 2e-5 / atol 1e-5, gradients within
 rtol 1e-4 / atol 1e-5 on batches with no d2 within 1e-3 of the margin
 (where the hinge mask could flip); the full-width dL within rtol 1e-4 and
-atol 1e-4 * max |dL|.
+atol 1e-4 * max |dL|. ivf_scan: the metric_topk rule, with the row's gn
+(BIG on pads). pq_adc: ``torch.equal`` on distances and ids (the
+subspace sum runs in the same sequential order on both sides).
 """
 
 from __future__ import annotations
@@ -87,18 +105,26 @@ from repro_torch.core.ps.trainer import (  # noqa: E402
 from repro_torch.data import pairs as pairdata  # noqa: E402
 from repro_torch.data.loader import partition_pairs  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.kernels._dispatch import BIG  # noqa: E402
 from repro_torch.kernels.dml_pair import (  # noqa: E402
     dml_pair_fused, dml_pair_loss_fused, dml_pair_loss_reference,
     dml_pair_ref)
+from repro_torch.kernels.ivf_scan import (  # noqa: E402
+    ivf_scan_topk, ivf_scan_topk_fused, ivf_scan_topk_ref)
 from repro_torch.kernels.metric_topk import (  # noqa: E402
     metric_sqdist_factored, metric_topk_fused, metric_topk_plain,
     project_gallery)
 from repro_torch.kernels.pairwise_dist import (  # noqa: E402
     pairwise_sqdist, pairwise_sqdist_ref)
+from repro_torch.kernels.pq_adc import (  # noqa: E402
+    pq_adc_topk, pq_adc_topk_fused, pq_adc_topk_ref)
 from repro_torch.obs import percentile  # noqa: E402
 from repro_torch.optim import schedules, sgd  # noqa: E402
-from repro_torch.serve import (ExactIndex, MicroBatcher,  # noqa: E402
-                               RetrievalEngine)
+from repro_torch.serve import (ExactIndex, IVFIndex,  # noqa: E402
+                               IVFPQIndex, MicroBatcher, RetrievalEngine,
+                               recall_at_k)
+from repro_torch.serve.ivf import probe  # noqa: E402
+from repro_torch.serve.scan import project_queries  # noqa: E402
 
 RTOL = ATOL = 1e-5
 PEAK_F32_FLOPS = 67e12          # H100 SXM, f32 outside the tensor cores
@@ -116,6 +142,32 @@ N_WORKERS = 4
 TRAIN_SAMPLES, TRAIN_CLASSES, N_HOLD = 10_000, 100, 2_000
 TRAIN_STEPS = {"bsp": 50, "local": 8, "ssp": 6}
 KNN_K = 5
+# ivf_scan parity: (Nq, C, cap, k, nprobe, kk, fill_lo, fill_hi, dup); the
+# CPU tests' shapes, then ragged ones (cap 45 / 70 against the 32-row tile,
+# k = 1003 off the 16-byte path, empty and under-filled segments, kk = 1
+# and 256, duplicated rows), then the serving widths
+IVF_PARITY = [(5, 6, 32, 12, 3, 7, 32, 32, False),
+              (3, 5, 24, 8, 2, 5, 10, 24, False),
+              (4, 7, 16, 5, 2, 32, 0, 5, False),
+              (2, 4, 8, 130, 3, 24, 2, 8, False),
+              (9, 12, 45, 1000, 8, 1, 0, 45, False),
+              (9, 12, 45, 1000, 8, 256, 0, 45, False),
+              (3, 40, 70, 1003, 6, 256, 20, 70, False),
+              (7, 10, 45, 64, 4, 30, 10, 45, True),
+              (64, 48, 1224, 1000, 16, 10, 1000, 1224, False)]
+# pq_adc parity: (Nq, C, cap, S, bits, nprobe, kk, fill_lo, fill_hi, ties)
+PQ_PARITY = [(5, 6, 32, 4, 8, 3, 7, 32, 32, False),
+             (3, 5, 24, 3, 8, 2, 5, 10, 24, False),
+             (4, 7, 16, 2, 8, 2, 32, 0, 5, False),
+             (3, 4, 16, 5, 1, 2, 6, 8, 16, False),
+             (3, 4, 16, 5, 2, 2, 6, 8, 16, False),
+             (2, 4, 8, 3, 4, 3, 24, 2, 8, False),
+             (9, 12, 300, 100, 8, 6, 1, 0, 300, False),
+             (9, 12, 300, 100, 8, 6, 256, 0, 300, False),
+             (6, 7, 24, 3, 2, 4, 15, 20, 24, True),
+             (64, 48, 1224, 100, 8, 16, 50, 1000, 1224, False)]
+N_CLUSTERS, NPROBE, CAP_FACTOR, KM_ITERS = 1024, 16, 1.25, 10
+PQ_SUBSPACES, PQ_BITS, RERANK = 100, 8, 50
 SERVE_BUCKETS = (1, 8, 64, 512)
 N_REQUESTS = 256
 MAX_BATCH = 64
@@ -294,6 +346,133 @@ def phase_parity_training():
             f"{err:.3e}")
 
 
+# -- segment-scan kernels: parity --------------------------------------------
+
+def _segments(rng, C, cap, lo, hi):
+    """Per-cluster fills in [lo, hi] (possibly empty) and global ids."""
+    fills = rng.randint(lo, hi + 1, size=C)
+    ids = np.full((C, cap), -1, np.int32)
+    nid = 0
+    for c in range(C):
+        ids[c, :fills[c]] = np.arange(nid, nid + fills[c])
+        nid += fills[c]
+    return fills, ids
+
+
+def _probes(rng, nq, C, nprobe):
+    return torch.tensor(np.stack([rng.choice(C, nprobe, replace=False)
+                                  for _ in range(nq)]), dtype=torch.int32,
+                        device=DEV)
+
+
+def ivf_case(seed, nq, C, cap, k, nprobe, lo, hi, dup):
+    """(qp, probes, g, gn, ids) on the card in the IVF segment layout;
+    ``dup`` repeats each segment's first real row, so distances tie."""
+    rng = np.random.RandomState(seed)
+    fills, ids = _segments(rng, C, cap, lo, hi)
+    real = torch.tensor(ids >= 0, device=DEV)
+    g = torch.tensor(rng.randn(C, cap, k).astype(np.float32), device=DEV)
+    if dup:
+        g = g[:, :1].expand(-1, cap, -1).contiguous()
+    g = g * real[..., None]
+    gn = torch.where(real, torch.sum(g * g, dim=2), torch.full_like(g[..., 0],
+                                                                  BIG))
+    qp = torch.tensor(rng.randn(nq, k).astype(np.float32), device=DEV)
+    return qp, _probes(rng, nq, C, nprobe), g, gn, torch.tensor(ids,
+                                                                device=DEV)
+
+
+def pq_case(seed, nq, C, cap, S, bits, nprobe, lo, hi, ties):
+    """(tables, dc, probes, codes, t, ids) on the card in the IVFPQ
+    layout; ``ties`` draws codes from two values and t, tables from
+    coarse grids, so many candidates tie exactly."""
+    rng = np.random.RandomState(seed)
+    K = 1 << bits
+    fills, ids = _segments(rng, C, cap, lo, hi)
+    real = ids >= 0
+    codes = rng.randint(0, 2 if ties else K, (C, cap, S)) * real[..., None]
+    t = np.where(real, rng.randint(0, 3, (C, cap)) if ties
+                 else rng.randn(C, cap), BIG).astype(np.float32)
+    tables = rng.randn(nq, S * K).astype(np.float32)
+    if ties:
+        tables = np.round(tables * 4) / 4
+    dc = np.abs(rng.randn(nq, nprobe)).astype(np.float32)
+    return (torch.tensor(tables, device=DEV), torch.tensor(dc, device=DEV),
+            _probes(rng, nq, C, nprobe),
+            torch.tensor(codes.astype(np.uint8), device=DEV),
+            torch.tensor(t, device=DEV), torch.tensor(ids, device=DEV))
+
+
+def compare_ivf(qp, probes, g, gn, ids, kk, dk, ik):
+    """Hold an ivf_scan kernel result against the plain version on the
+    same inputs (the metric_topk rule with each row's gn). Returns
+    (max |d_k - d_p|, ids differing at ties)."""
+    dp, ip = ivf_scan_topk_ref(qp, probes, g, gn, ids, kk)
+    qn = torch.sum(qp * qp, dim=1)
+    gn_of = torch.full((int(ids.max()) + 2,), BIG, device=DEV)
+    gn_of[ids[ids >= 0].long()] = gn[ids >= 0]            # id -1 -> BIG
+    tol = ATOL + RTOL * (qn[:, None] + gn_of[ip.long()])
+    err = (dk - dp).abs()
+    assert bool((err <= tol).all()), \
+        f"distances disagree: max err {err.max().item():.3e}"
+    pool = probes.shape[1] * g.shape[1]
+    inf = torch.full_like(dp[:, :1], float("inf"))
+    nxt = (ivf_scan_topk_ref(qp, probes, g, gn, ids, kk + 1)[0][:, kk:]
+           if kk < pool else inf)
+    apart = ((dp - torch.cat([-inf, dp[:, :-1]], 1)) > tol) & \
+        ((torch.cat([dp[:, 1:], nxt], 1) - dp) > tol)
+    same = ik == ip
+    assert bool(same[apart].all()), "ids disagree at distinct distances"
+    real = torch.sort(ik, dim=1).values
+    dup = (real[:, 1:] == real[:, :-1]) & (real[:, 1:] >= 0)
+    assert not bool(dup.any()), "duplicate ids"
+    assert torch.equal(ik < 0, ip < 0), "pad slots disagree"
+    return err.max().item(), int((~same).sum().item())
+
+
+def phase_parity_ann():
+    for seed, case in enumerate(IVF_PARITY):
+        *shape, kk, lo, hi, dup = case
+        args = ivf_case(seed, *shape, lo, hi, dup)
+        dk, ik = ivf_scan_topk(*args, kk=kk)
+        torch.cuda.synchronize()
+        err, n_diff = compare_ivf(*args, kk, dk, ik)
+        n_pad = int((ik < 0).sum())
+        if dup:
+            tied = dk[:, 1:] == dk[:, :-1]
+            assert int(tied.sum()) > 0, "no exact ties in the duplicated rows"
+            assert bool((ik[:, 1:] > ik[:, :-1])[tied & (ik[:, :-1] >= 0)]
+                        .all()), "equal distances not in ascending id order"
+        log(f"parity ivf_scan (Nq, C, cap, k, nprobe) {tuple(shape)} kk={kk}: "
+            f"max |dd| {err:.3e}, {n_diff} tie-resolved id differences, "
+            f"{n_pad} pad (-1) entries{', exact ties' if dup else ''}")
+    for seed, case in enumerate(PQ_PARITY):
+        *shape, kk, lo, hi, ties = case
+        args = pq_case(seed, *shape, lo, hi, ties)
+        dk, ik = pq_adc_topk(*args, kk=kk)
+        dp, ip = pq_adc_topk_ref(*args, kk)
+        torch.cuda.synchronize()
+        assert torch.equal(dk, dp) and torch.equal(ik, ip), \
+            f"pq_adc {tuple(shape)} kk={kk} is not bit-identical"
+        log(f"parity pq_adc (Nq, C, cap, S, bits, nprobe) {tuple(shape)} "
+            f"kk={kk}: bit-identical, {int((ik < 0).sum())} pad entries"
+            f"{', exact ties' if ties else ''}")
+    args = ivf_case(0, 2, 4, 300, 16, 2, 300, 300, False)
+    for bad in (0, 257):
+        try:
+            ivf_scan_topk(*args, kk=bad)
+        except ValueError:
+            continue
+        raise AssertionError(f"ivf_scan kk={bad} was not refused")
+    args = pq_case(0, 2, 4, 300, 200, 8, 2, 300, 300, False)
+    try:                                # a 204,800-byte LUT does not fit
+        pq_adc_topk(*args, kk=10)
+    except ValueError as e:
+        log(f"pq_adc refuses S=200, K=256: {e}")
+    else:
+        raise AssertionError("pq_adc took a LUT too large for shared memory")
+
+
 # -- training at dml-imnet1m width ------------------------------------------
 
 class IndexPairs:
@@ -311,7 +490,8 @@ class IndexPairs:
 
 
 def _reset_counts():
-    for fn in (dml_pair_fused, pairwise_sqdist, metric_topk_fused):
+    for fn in (dml_pair_fused, pairwise_sqdist, metric_topk_fused,
+               ivf_scan_topk_fused, pq_adc_topk_fused):
         fn.launches = 0
 
 
@@ -582,7 +762,9 @@ def phase_serving(exp=IMNET_1M):
     serving = {"qps": N_REQUESTS / wall, "p50_ms": p50, "p99_ms": p99,
                "spans_ms": spans,
                "mean_batch": float(np.mean(front.batch_sizes)),
-               "purity": purity, "launches": launches}
+               "purity": purity, "launches": launches, "nbrs": nbrs,
+               "labels": labels_np, "qids": qids,
+               "n_classes": exp.n_classes}
     return index, queries, serving, err
 
 
@@ -597,6 +779,29 @@ def _time(fn, iters):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def _time_graph(fn, iters):
+    """Device ms per call of ``fn`` replayed from a CUDA graph, so the
+    host's launch cost (the wrapper's torch calls, ctypes) drops out;
+    None, with the reason printed, when the calls cannot be captured."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()                            # allocations outside the capture
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    try:
+        with torch.cuda.graph(graph):
+            fn()
+    except RuntimeError as e:           # measurement only: no result used
+        log(f"  graph capture failed, device time not measured: "
+            f"{str(e).splitlines()[0]}")
+        return None
+    ms = _time(graph.replay, iters)
+    del graph
+    torch.cuda.empty_cache()
+    return ms
 
 
 def roofline(ops, nbytes):
@@ -692,6 +897,222 @@ def phase_kernels(index, queries, launches, max_err):
             "at_nq1": rows[1]}
 
 
+# -- approximate serving: IVF on ivf_scan, IVFPQ on pq_adc --------------------
+
+ANN_KERNELS = {"ivf": ivf_scan_topk_fused, "ivfpq": pq_adc_topk_fused}
+
+
+def _build_ann(name, L, gp, gn, timings):
+    if name == "ivf":
+        return IVFIndex.build_projected(
+            L, gp, gn, n_clusters=N_CLUSTERS, nprobe=NPROBE,
+            cap_factor=CAP_FACTOR, iters=KM_ITERS, seed=0, timings=timings)
+    return IVFPQIndex.build_projected(
+        L, gp, gn, n_clusters=N_CLUSTERS, nprobe=NPROBE,
+        n_subspaces=PQ_SUBSPACES, bits=PQ_BITS, rerank_depth=RERANK,
+        store="device", cap_factor=CAP_FACTOR, iters=KM_ITERS, seed=0,
+        timings=timings)
+
+
+def phase_ann(index, queries, serving):
+    """IVF and IVFPQ serving over phase 6's projected gallery and
+    requests; recall against phase 6's exact answers."""
+    L, gp, gn = index.L, index.gp, index.gn
+    queries_np = queries.cpu().numpy()
+    labels, qids = serving["labels"], serving["qids"]
+    out, built = {}, {}
+    for name, kern in ANN_KERNELS.items():
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        steps, t0 = {}, time.perf_counter()
+        ann = _build_ann(name, L, gp, gn, steps)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        fills = torch.bincount(ann.ids_pad.view(N_CLUSTERS, ann.cap)
+                               .ge(0).sum(1), minlength=ann.cap + 1)
+        extra = (f", {ann.pq.n_subspaces} x {ann.pq.bits}-bit codes "
+                 f"({ann.codes_pad.numel() / 1e6:.1f} MB, "
+                 f"{ann.code_bytes_per_row} B/row, compression "
+                 f"{ann.compression_ratio:.1f}x), rerank {ann.rerank_depth} "
+                 f"from the card" if name == "ivfpq" else
+                 f", gp_pad {ann.gp_pad.numel() * 4 / 1e9:.2f} GB")
+        log(f"{name}: built in {build_s:.1f}s "
+            f"({ {k: round(v, 2) for k, v in steps.items()} }): "
+            f"{ann.n_clusters} clusters, cap {ann.cap}, nprobe {ann.nprobe} "
+            f"-> {ann.nprobe * ann.cap} rows scanned per query; segments "
+            f"empty {int(fills[0])}, full {int(fills[-1])}{extra}")
+        engine = RetrievalEngine(ann, k_top=K_TOP, buckets=SERVE_BUCKETS)
+        engine.warmup()
+        front = MicroBatcher(engine, max_batch=MAX_BATCH, max_wait_ms=2.0)
+        kern.launches = 0                   # counts of the main path only
+        t0 = time.perf_counter()
+        pending = [(time.perf_counter(), front.submit(queries_np[i]))
+                   for i in range(N_REQUESTS)]
+        lat, nbrs = [], []
+        for t_sub, fut in pending:
+            _, nbr = fut.result(timeout=300)
+            lat.append(time.perf_counter() - t_sub)
+            nbrs.append(nbr)
+        wall = time.perf_counter() - t0
+        launches = kern.launches
+        assert front.close(), "batcher worker did not stop"
+        assert launches > 0, f"{name} serving never launched its kernel"
+        nbrs = np.stack(nbrs)
+        recall = recall_at_k(nbrs, serving["nbrs"])
+        purity = float(np.mean(labels[np.maximum(nbrs, 0)]
+                               == labels[qids][:, None]))
+        p50, p99 = percentile(np.sort(np.asarray(lat)) * 1e3, (50.0, 99.0))
+        st = engine.stats()
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        log(f"{name}: served {N_REQUESTS} requests in {wall:.3f}s: qps "
+            f"{N_REQUESTS / wall:.1f} (device-side {st['qps']:.1f}), latency "
+            f"ms p50 {p50:.2f} p99 {p99:.2f}, batches {front.n_batches}, "
+            f"kernel calls {launches}; recall@{K_TOP} vs exact {recall:.4f}, "
+            f"purity@{K_TOP} {purity:.3f} (chance "
+            f"{1 / serving['n_classes']:.3f}); peak memory {peak:.2f} GB "
+            f"(build included)")
+        assert st["backend"] == "cuda" and np.isfinite(lat).all()
+        assert recall > 0.0, f"{name}: recall@{K_TOP} is 0"
+        assert purity > 10.0 / serving["n_classes"], \
+            f"{name}: purity at chance level"
+        out[name] = {"qps": N_REQUESTS / wall, "device_qps": st["qps"],
+                     "p50_ms": p50, "p99_ms": p99, "recall": recall,
+                     "purity": purity, "peak_gb": peak, "build_s": build_s,
+                     "build_steps_s": steps, "launches": launches,
+                     "batches": front.n_batches, "cap": ann.cap}
+        built[name] = ann
+    ivf, pq = built["ivf"], built["ivfpq"]
+    # IVF scanning every cluster is the exact scan (ids apart from ties)
+    qb = queries[:MAX_BATCH].contiguous()
+    dk, ik = ivf.topk(qb, K_TOP, nprobe=N_CLUSTERS)
+    torch.cuda.synchronize()
+    err, n_diff = compare(L, qb, gp, gn, K_TOP, dk, ik)
+    log(f"ivf at nprobe = n_clusters vs exact plain: max |dd| {err:.3e}, "
+        f"{n_diff} tie-resolved id differences")
+    # each kernel against its plain version at the serving widths
+    qp = project_queries(L, qb)
+    args = _ivf_args(ivf, qp)
+    dk, ik = ivf_scan_topk(*args, kk=K_TOP)
+    out["ivf"]["max_abs_err"], n_diff = compare_ivf(*args, K_TOP, dk, ik)
+    log(f"ivf_scan at the serving widths vs plain: max |dd| "
+        f"{out['ivf']['max_abs_err']:.3e}, {n_diff} tie-resolved id "
+        f"differences")
+    args = _pq_args(pq, qp)
+    dk, ik = pq_adc_topk(*args, kk=RERANK)
+    dp, ip = pq_adc_topk_ref(*args, RERANK)
+    assert torch.equal(dk, dp) and torch.equal(ik, ip), \
+        "pq_adc at the serving widths is not bit-identical"
+    out["ivfpq"]["max_abs_err"] = 0.0
+    log("pq_adc at the serving widths vs plain: bit-identical")
+    return built, out
+
+
+def _ivf_args(ivf, qp, nprobe=NPROBE):
+    C, cap, k = ivf.n_clusters, ivf.cap, qp.shape[1]
+    probes, _ = probe(qp, ivf.centroids, nprobe)
+    return (qp, probes, ivf.gp_pad.view(C, cap, k), ivf.gn_pad.view(C, cap),
+            ivf.ids_pad.view(C, cap))
+
+
+def _pq_args(pq, qp, nprobe=NPROBE):
+    C, cap, S = pq.n_clusters, pq.cap, pq.pq.n_subspaces
+    probes, dc = probe(qp, pq.centroids, nprobe)
+    tables = pq.pq.ip_tables(qp).reshape(qp.shape[0], -1)
+    return (tables, dc, probes, pq.codes_pad.view(C, cap, S),
+            pq.t_pad.view(C, cap), pq.ids_pad.view(C, cap))
+
+
+def library_ivf(qp, probes, g, gn, k_top):
+    """Gather the probed segments + torch.bmm + torch.topk (yardstick)."""
+    nq, k = qp.shape
+    rows = g[probes.long()].reshape(nq, -1, k)
+    cross = torch.bmm(rows, qp[:, :, None])[..., 0]
+    d = torch.sum(qp * qp, 1)[:, None] + gn[probes.long()].reshape(nq, -1) \
+        - 2.0 * cross
+    return torch.topk(d.clamp_min_(0.0), k_top, dim=1, largest=False)
+
+
+def time_ann(built, ann, queries):
+    """Kernel, plain and library times of ivf_scan and pq_adc at Nq = 1
+    and 64 of the ANN phase's shapes; their kernels-line entries. Each is
+    timed twice: eager calls between CUDA events (the host's launch cost
+    included: about 30 torch calls around the kernel) and replays of a
+    CUDA graph of the same call (device time); the line's ``ms``,
+    ``plain_ms`` and ``library_ms`` are the device times."""
+    entries = []
+    for name, kk in (("ivf", K_TOP), ("ivfpq", RERANK)):
+        idx = built[name]
+        rows = {}
+        for nq in (1, MAX_BATCH):
+            qp = project_queries(idx.L, queries[:nq].contiguous())
+            if name == "ivf":
+                args = _ivf_args(idx, qp)
+                k = qp.shape[1]
+                fn = lambda: ivf_scan_topk(*args, kk=kk)  # noqa: E731
+                plain = lambda: ivf_scan_topk_ref(*args, kk)  # noqa: E731
+                probes, row_bytes = args[1], 4 * k + 8
+                ops = 2.0 * nq * NPROBE * idx.cap * k
+                extra_bytes = 4 * nq * k
+                lib = lambda: library_ivf(*args[:4], kk)  # noqa: E731
+                lib_ms = _time(lib, 3)
+            else:
+                args = _pq_args(idx, qp)
+                S = idx.pq.n_subspaces
+                fn = lambda: pq_adc_topk(*args, kk=kk)  # noqa: E731
+                plain = lambda: pq_adc_topk_ref(*args, kk)  # noqa: E731
+                probes, row_bytes = args[2], S + 8
+                ops = float(nq * NPROBE * idx.cap * (S + 3))
+                extra_bytes = 4 * (args[0].numel() + args[1].numel())
+                lib, lib_ms = None, None
+            distinct = int(torch.unique(probes).numel())
+            nbytes = (distinct * idx.cap * row_bytes + extra_bytes
+                      + 4 * probes.numel() + 8 * nq * kk)
+            eager = {"ms": _time(fn, 20), "plain_ms": _time(plain, 3),
+                     "library_ms": lib_ms}
+            graphed = {"ms": _time_graph(fn, 20),
+                       "plain_ms": _time_graph(plain, 3),
+                       "library_ms": (_time_graph(lib, 3) if lib_ms
+                                      is not None else None)}
+            # device time where the calls could be replayed from a graph
+            best = {k: graphed[k] if graphed[k] is not None else eager[k]
+                    for k in eager}
+            b_ms, b_by = roofline(ops, nbytes)
+            rows[nq] = dict(**best, bound_ms=b_ms, bound_by=b_by,
+                            eager_ms=eager, graph_ms=graphed,
+                            distinct_segments=distinct, bytes=nbytes,
+                            ops=ops)
+            fmt = lambda v: "-" if v is None else f"{v:.3f}"  # noqa: E731
+            log(f"{name} kernel Nq={nq} nprobe={NPROBE} cap={idx.cap} "
+                f"kk={kk} ({distinct} distinct segments, {nbytes / 1e6:.1f} "
+                f"MB): device ms by graph replay: kernel "
+                f"{fmt(graphed['ms'])}, plain {fmt(graphed['plain_ms'])}, "
+                f"library {fmt(graphed['library_ms'])}; eager calls "
+                f"(host launch cost included): kernel {fmt(eager['ms'])}, "
+                f"plain {fmt(eager['plain_ms'])}, library "
+                f"{fmt(eager['library_ms'])}; bound {b_ms:.3f} ms ({b_by}), "
+                f"{b_ms / best['ms']:.1%} of bound")
+        kname, src = (("ivf_scan", "kernels/ivf_scan/csrc/ivf_scan.cu")
+                      if name == "ivf" else
+                      ("pq_adc", "kernels/pq_adc/csrc/pq_adc.cu"))
+        entry = {"name": kname, "route": "cuda",
+                 "source": f"src/repro_torch/{src}",
+                 "replaces": ("src/repro/kernels/ivf_scan/kernel.py:63"
+                              if name == "ivf" else
+                              "src/repro/kernels/pq_adc/kernel.py:94"),
+                 "launches": ann[name]["launches"],
+                 "max_abs_err": ann[name]["max_abs_err"],
+                 **rows[MAX_BATCH],
+                 "shape": {"nq": MAX_BATCH, "n_clusters": N_CLUSTERS,
+                           "nprobe": NPROBE, "cap": idx.cap, "kk": kk},
+                 "at_nq1": rows[1],
+                 "serving": {k: v for k, v in ann[name].items()
+                             if k not in ("launches", "max_abs_err")}}
+        if name == "ivfpq":
+            entry["library_note"] = "no single PyTorch call computes it"
+        entries.append(entry)
+    return entries
+
+
 def library_pair(L, xs, ys, sim, lam, margin):
     """PyTorch calls for the Eq. 4 forward (yardstick only)."""
     proj = torch.matmul(xs - ys, L.T)
@@ -772,6 +1193,8 @@ def main():
     phase_build()
     phase_parity()
     phase_parity_training()
+    phase_parity_ann()
+    log(f"parity phases done at {time.perf_counter() - t0:.1f}s")
     train = phase_training()
     ev = phase_eval(train["L"], train["feats"], train["labels"])
     entries = [time_dml_pair(train["L"], train["batch"], train["launches"],
@@ -782,9 +1205,14 @@ def main():
                                 "device": train["step_parts"]}
     del train, ev
     torch.cuda.empty_cache()
+    log(f"training and eval done at {time.perf_counter() - t0:.1f}s")
     index, queries, serving, err = phase_serving()
     entries.insert(0, phase_kernels(index, queries, serving["launches"],
                                     err))
+    log(f"exact serving done at {time.perf_counter() - t0:.1f}s")
+    built, ann = phase_ann(index, queries, serving)
+    entries += time_ann(built, ann, queries)
+    log(f"ANN serving done at {time.perf_counter() - t0:.1f}s")
     print(json.dumps({"kernels": entries}), flush=True)
     log(f"total {time.perf_counter() - t0:.1f}s")
     print(json.dumps({"ok": True, "device": {

@@ -1,5 +1,5 @@
-"""Carry the JAX package's weights, index arrays and training state
-across to the port.
+"""Carry the JAX package's weights, index arrays (exact, IVF, IVFPQ)
+and training state across to the port.
 
 Every function takes plain numpy arrays (``np.asarray`` of the
 reference's ``jax.Array``s, e.g. ``jax.tree.map(np.asarray, state)``),
@@ -17,6 +17,8 @@ from repro_torch.device import resolve_device
 from repro_torch.kernels._dispatch import check_metric_factor
 from repro_torch.optim import AdamState, MomentumState, ScaleState
 from repro_torch.serve.index import ExactIndex
+from repro_torch.serve.ivf import IVFIndex
+from repro_torch.serve.pq import IVFPQIndex, ProductQuantizer
 from repro_torch.tree import tree_map
 
 _OPT_STATES = {cls.__name__: cls for cls in
@@ -43,6 +45,69 @@ def exact_index_from_jax(L_np, gp_np, gn_np, device=None) -> ExactIndex:
         torch.from_numpy(np.array(gp_np, dtype=np.float32, copy=True)),
         torch.from_numpy(np.array(gn_np, dtype=np.float32, copy=True)),
         device=dev)
+
+
+def _f32(x) -> torch.Tensor:
+    return torch.from_numpy(np.array(x, dtype=np.float32, copy=True))
+
+
+def _i32(x) -> torch.Tensor:
+    return torch.from_numpy(np.array(x, dtype=np.int32, copy=True))
+
+
+def ivf_index_from_jax(L_np, centroids_np, gp_pad_np, gn_pad_np, ids_pad_np,
+                       cap: int, n_clusters: int, nprobe: int, n_rows: int,
+                       device=None, scan_impl: str = "auto") -> IVFIndex:
+    """A port IVFIndex over the arrays of a single-device reference
+    IVFIndex (``L``, ``centroids``, the padded segments ``gp_pad`` /
+    ``gn_pad`` / ``ids_pad`` and its sizes): the same clusters and slots
+    bit for bit, no re-clustering."""
+    dev = resolve_device(device)
+    C = int(n_clusters)
+    gp_pad = _f32(gp_pad_np).reshape(C * int(cap), -1)
+    return IVFIndex(
+        L=metric_factor_from_jax(L_np, dev).contiguous(),
+        centroids=_f32(centroids_np).to(dev),
+        gp_pad=gp_pad.to(dev), gn_pad=_f32(gn_pad_np).reshape(-1).to(dev),
+        ids_pad=_i32(ids_pad_np).reshape(-1).to(dev), cap=int(cap),
+        n_clusters=C, nprobe=int(nprobe), n_rows=int(n_rows),
+        scan_impl=scan_impl)
+
+
+def pq_from_jax(codebooks_np, dim: int, device=None) -> ProductQuantizer:
+    """A reference ProductQuantizer's codebooks (S, 2**bits, sub_dim) and
+    input dim as the port's."""
+    return ProductQuantizer(codebooks=_f32(codebooks_np).to(
+        resolve_device(device)), dim=int(dim))
+
+
+def ivfpq_index_from_jax(L_np, centroids_np, codebooks_np, dim: int,
+                         codes_pad_np, t_pad_np, ids_pad_np, gp_full_np,
+                         gn_full_np, cap: int, n_clusters: int, nprobe: int,
+                         n_rows: int, rerank_depth: int = 50,
+                         store: str = "device", device=None,
+                         scan_impl: str = "auto") -> IVFPQIndex:
+    """A port IVFPQIndex over the arrays of a reference IVFPQIndex (the
+    codebooks, codes, t terms, ids and the full-precision rerank rows):
+    the same codes bit for bit. ``store`` places the rerank rows on
+    ``device`` or in host memory."""
+    if store not in ("device", "host"):
+        raise ValueError(f"unknown store {store!r} (device|host)")
+    dev = resolve_device(device)
+    pq = pq_from_jax(codebooks_np, dim, dev)
+    S = pq.n_subspaces
+    rows_dev = dev if store == "device" else torch.device("cpu")
+    return IVFPQIndex(
+        L=metric_factor_from_jax(L_np, dev).contiguous(),
+        centroids=_f32(centroids_np).to(dev), pq=pq,
+        codes_pad=torch.from_numpy(np.array(codes_pad_np, dtype=np.uint8,
+                                            copy=True)).reshape(-1, S).to(dev),
+        t_pad=_f32(t_pad_np).reshape(-1).to(dev),
+        ids_pad=_i32(ids_pad_np).reshape(-1).to(dev),
+        gp_full=_f32(gp_full_np).to(rows_dev),
+        gn_full=_f32(gn_full_np).to(rows_dev), cap=int(cap),
+        n_clusters=int(n_clusters), nprobe=int(nprobe), n_rows=int(n_rows),
+        rerank_depth=int(rerank_depth), store=store, scan_impl=scan_impl)
 
 
 def opt_state_from_jax(state, device=None):

@@ -7,8 +7,10 @@ with a plain C interface:
          -Xcompiler -fPIC -o build/kernels/<name>-<hash>.so <source>
 
 ``build/`` sits at the repository root and is git-ignored. The file name
-carries a hash of the source, so an edited source rebuilds and an
-unchanged one loads what is there. A failed build raises with nvcc's
+carries a hash of the source and of every header it includes with
+``#include "..."`` (followed recursively), so an edited source or shared
+header (``kernels/csrc/*.cuh``) rebuilds and an unchanged one loads what
+is there. A failed build raises with nvcc's
 stderr; nothing falls back. Callers pass every pointer and the stream
 as ``ctypes.c_void_p`` (a bare Python int would be cut to 32 bits).
 """
@@ -18,6 +20,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -46,9 +49,31 @@ def _nvcc() -> str:
                        "build the port's kernels")
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.MULTILINE)
+
+
+def _sources_of(source: Path) -> list:
+    """``source`` and the files it includes with quotes, recursively,
+    each once, in the order first met."""
+    seen, order, todo = set(), [], [source.resolve()]
+    while todo:
+        path = todo.pop(0)
+        if path in seen:
+            continue
+        seen.add(path)
+        order.append(path)
+        for inc in _INCLUDE.findall(path.read_bytes()):
+            dep = (path.parent / inc.decode()).resolve()
+            if dep.exists():
+                todo.append(dep)
+    return order
+
+
 def _target(source: Path) -> Path:
-    digest = hashlib.sha256(source.read_bytes()).hexdigest()[:16]
-    return BUILD_DIR / f"{source.stem}-{digest}.so"
+    h = hashlib.sha256()
+    for path in _sources_of(source):
+        h.update(path.read_bytes())
+    return BUILD_DIR / f"{source.stem}-{h.hexdigest()[:16]}.so"
 
 
 def _start(source: Path, target: Path) -> subprocess.Popen:

@@ -8,11 +8,18 @@ mask their ragged edges themselves; ``round_up`` / ``pad_axis`` /
 ``topk_by_distance`` is the one tie-breaking contract every scan path
 must agree on: ascending distance, equal distances smallest-id-first.
 ``full_f32`` is the one place the plain paths pin full-f32 products.
+``BIG`` is the pad sentinel of the segment layouts (IVF / IVFPQ);
+``check_kk``, ``segment_split``, ``check_tensor`` and ``sm_count`` serve
+the two segment-scan wrappers (ivf_scan, pq_adc).
 """
 
 from __future__ import annotations
 
 import torch
+
+# pad-slot sentinel: +BIG row norms / t terms on segment pads (the
+# reference's metric_topk.kernel.BIG); real distances never reach it
+BIG = 1e30
 
 
 def full_f32():
@@ -55,6 +62,57 @@ def check_metric_factor(L, d_in=None, *, what: str = "L"):
     return L
 
 
+def check_kk(kk: int, nprobe: int, cap: int) -> None:
+    """Validate a segment scan's kk against its probed candidate pool
+    (the reference's messages): an explicit 0 raises, never remaps."""
+    if kk < 1:
+        raise ValueError(f"kk must be >= 1, got {kk}")
+    if kk > nprobe * cap:
+        raise ValueError(f"kk={kk} > nprobe*cap={nprobe * cap} scanned "
+                         f"rows per query")
+
+
+def segment_split(nq: int, nprobe: int, cap: int, n_sm: int,
+                  tile_rows: int, waves: int = 4):
+    """Row chunks per probed segment of a segment scan that launches one
+    block per (query, probe, chunk): (nchunk, rows_per_chunk). A segment
+    is cut into chunks of whole tiles only when the Nq * nprobe blocks
+    would not fill ``waves * n_sm``; ``nchunk * rows_per_chunk >= cap``
+    and the last chunk is non-empty."""
+    nchunk = max(1, min(cdiv(waves * n_sm, nq * nprobe),
+                        cdiv(cap, tile_rows)))
+    rows = round_up(cdiv(cap, nchunk), tile_rows)
+    return cdiv(cap, rows), rows
+
+
+def check_tensor(name, x, dtype, ndim, device):
+    """A kernel wrapper's input check: device, dtype, rank, contiguity."""
+    if x.device != device:
+        raise ValueError(f"{name} is on {x.device}, expected {device}")
+    if x.dtype != dtype:
+        raise ValueError(f"{name} must be {dtype}, got {x.dtype}")
+    if x.dim() != ndim:
+        raise ValueError(f"{name} must be {ndim}-D, got {tuple(x.shape)}")
+    if not x.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+_n_sm: dict = {}
+
+
+def sm_count(device: torch.device) -> int:
+    """Streaming multiprocessors of a CUDA device (cached)."""
+    idx = device.index if device.index is not None else \
+        torch.cuda.current_device()
+    if idx not in _n_sm:
+        _n_sm[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
+    return _n_sm[idx]
+
+
+def cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
 def round_up(n: int, mult: int) -> int:
     return n + (-n) % mult
 
@@ -76,6 +134,36 @@ def pick_block(n: int, block: int, mult: int) -> int:
     return block if n >= block else round_up(n, mult)
 
 
+def map_query_chunks(fn, arrays, block: int, kk: int):
+    """Run a per-chunk (dists, ids) scan over ``block``-row chunks of the
+    query-row arrays and concatenate: the plain segment scans' way of
+    keeping their gathered (block, nprobe, cap, ...) intermediates
+    bounded (the reference's ``lax.map`` over chunks)."""
+    n = arrays[0].shape[0]
+    outs = [fn(*(a[s:s + block] for a in arrays)) for s in range(0, n, block)]
+    if not outs:
+        return (torch.zeros((0, kk), dtype=torch.float32),
+                torch.zeros((0, kk), dtype=torch.int32))
+    return (torch.cat([o[0] for o in outs]), torch.cat([o[1] for o in outs]))
+
+
+def finish_segment_scan(d: torch.Tensor, ids: torch.Tensor):
+    """A segment-scan kernel's output, in (distance, position) order, as
+    the reference presents it: candidates at the BIG sentinel are pad
+    slots and report id -1, then the final (distance, id) sort."""
+    ids = torch.where(d >= BIG, torch.full_like(ids, -1), ids)
+    return sort_by_distance_id(d, ids)
+
+
+def sort_by_distance_id(d: torch.Tensor, ids: torch.Tensor):
+    """Sort each row lexicographically by (distance, id): the final
+    presentation of every scan path (``lax.sort(..., num_keys=2)``)."""
+    by_id = torch.sort(ids, dim=-1, stable=True).indices      # minor key
+    d, ids = torch.gather(d, -1, by_id), torch.gather(ids, -1, by_id)
+    by_d = torch.sort(d, dim=-1, stable=True).indices         # major key
+    return torch.gather(d, -1, by_d), torch.gather(ids, -1, by_d)
+
+
 def topk_by_distance(d: torch.Tensor, ids: torch.Tensor, k_top: int):
     """Top-k candidates by distance with a deterministic presentation.
 
@@ -85,9 +173,5 @@ def topk_by_distance(d: torch.Tensor, ids: torch.Tensor, k_top: int):
     equal-distance neighbors come back smallest-id-first.
     """
     order = torch.sort(d, dim=-1, stable=True).indices[..., :k_top]
-    cd = torch.gather(d, -1, order)
-    ci = torch.gather(ids, -1, order)
-    by_id = torch.sort(ci, dim=-1, stable=True).indices       # minor key
-    cd, ci = torch.gather(cd, -1, by_id), torch.gather(ci, -1, by_id)
-    by_d = torch.sort(cd, dim=-1, stable=True).indices        # major key
-    return torch.gather(cd, -1, by_d), torch.gather(ci, -1, by_d)
+    return sort_by_distance_id(torch.gather(d, -1, order),
+                               torch.gather(ids, -1, order))

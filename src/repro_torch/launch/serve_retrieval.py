@@ -1,17 +1,22 @@
-"""Metric-retrieval serving launcher (exact index, micro-batched).
+"""Metric-retrieval serving launcher (exact / IVF / IVFPQ, micro-batched).
 
 Run:  PYTHONPATH=src python -m repro_torch.launch.serve_retrieval \
           [--gallery-size 20000] [--train-steps 200] [--requests 500] \
-          [--device cpu]
+          [--index exact|ivf|ivfpq] [--n-clusters 64] [--nprobe 8] \
+          [--n-subspaces 8] [--bits 8] [--rerank-depth 50] \
+          [--pq-store device|host] [--scan-impl auto] [--device cpu]
 
-Counterpart of ``repro.launch.serve_retrieval`` for the exact path:
-builds a class-structured gallery (data.pairs), learns the metric factor
-L with ``train_dml_single`` on held-out-split pairs (Eq. 4 through the
-``dml_pair`` kernel on the card; ``--train-steps 0`` keeps a random L),
-stands up ExactIndex -> RetrievalEngine -> MicroBatcher, fires
-single-query traffic through the batcher and reports QPS, latency
+Counterpart of ``repro.launch.serve_retrieval`` for the single-device
+index paths: builds a class-structured gallery (data.pairs), learns the
+metric factor L with ``train_dml_single`` on held-out-split pairs (Eq. 4
+through the ``dml_pair`` kernel on the card; ``--train-steps 0`` keeps a
+random L), stands up the index (ExactIndex on metric_topk, IVFIndex on
+ivf_scan or IVFPQIndex on pq_adc) -> RetrievalEngine -> MicroBatcher,
+fires single-query traffic through the batcher and reports QPS, latency
 percentiles, batch coalescing, the cache and neighbor class purity.
-Runs on the card unless ``--device cpu`` is given.
+Runs on the card unless ``--device cpu`` is given. The reference's
+mutable, snapshot, scheduler, tenant, mining and sharding flags are not
+ported.
 """
 
 from __future__ import annotations
@@ -27,12 +32,36 @@ from repro_torch.core.ps.trainer import train_dml_single
 from repro_torch.data import pairs as pairdata
 from repro_torch.device import resolve_device
 from repro_torch.obs import percentile
-from repro_torch.serve import ExactIndex, MicroBatcher, RetrievalEngine
+from repro_torch.serve import (ExactIndex, IVFIndex, IVFPQIndex,
+                               MicroBatcher, RetrievalEngine)
+from repro_torch.serve import scan
 
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--index", choices=["exact"], default="exact")
+    ap.add_argument("--index", choices=["exact", "ivf", "ivfpq"],
+                    default="exact")
+    ap.add_argument("--n-clusters", type=int, default=64,
+                    help="ivf/ivfpq: gallery segments")
+    ap.add_argument("--nprobe", type=int, default=8,
+                    help="ivf/ivfpq: clusters scanned per query")
+    ap.add_argument("--n-subspaces", type=int, default=8,
+                    help="ivfpq: uint8 codes per row (code bytes/row)")
+    ap.add_argument("--bits", type=int, default=8,
+                    help="ivfpq: log2 codewords per subspace (1..8)")
+    ap.add_argument("--rerank-depth", type=int, default=50,
+                    help="ivfpq: ADC candidates re-scored exactly per "
+                         "query (0 serves raw ADC distances)")
+    ap.add_argument("--pq-store", choices=["device", "host"],
+                    default="device",
+                    help="ivfpq: where the full-precision rerank rows "
+                         "live (host = host memory, saves device memory)")
+    ap.add_argument("--scan-impl", choices=["auto", "xla", "pallas"],
+                    default="auto",
+                    help="ivf/ivfpq: the reference's segment-scan knob; "
+                         "auto takes the kernel on the card and the plain "
+                         "version on the CPU, pallas (kernel) needs the "
+                         "card, xla (plain) needs --device cpu")
     ap.add_argument("--gallery-size", type=int, default=20000)
     ap.add_argument("--feat-dim", type=int, default=64)
     ap.add_argument("--proj-dim", type=int, default=32)
@@ -76,8 +105,19 @@ def main(argv=None):
         L = dml.init_params(dcfg, gen, device)
 
     # --- serving stack ---------------------------------------------------
+    ivf_kw = dict(n_clusters=args.n_clusters, nprobe=args.nprobe,
+                  scan_impl=args.scan_impl)
     t0 = time.perf_counter()
-    index = ExactIndex.build(L, torch.from_numpy(feats), device=device)
+    gallery = torch.from_numpy(feats)
+    if args.index == "ivfpq":
+        index = IVFPQIndex.build(
+            L, gallery, n_subspaces=args.n_subspaces, bits=args.bits,
+            rerank_depth=args.rerank_depth, store=args.pq_store,
+            device=device, **ivf_kw)
+    elif args.index == "ivf":
+        index = IVFIndex.build(L, gallery, device=device, **ivf_kw)
+    else:
+        index = ExactIndex.build(L, gallery, device=device)
     build_s = time.perf_counter() - t0
     engine = RetrievalEngine(index, k_top=args.k,
                              cache_size=args.cache_size)
@@ -85,6 +125,20 @@ def main(argv=None):
     print(f"index[{type(index).__name__}]: {index.size} x {args.proj_dim} "
           f"on {device} ({engine.backend} path), built+projected in "
           f"{build_s:.2f}s")
+    if isinstance(index, (IVFIndex, IVFPQIndex)):
+        scanned = index.nprobe * index.cap
+        print(f"  {type(index).__name__}: {index.n_clusters} clusters, cap "
+              f"{index.cap}, nprobe {index.nprobe} -> <= {scanned} of "
+              f"{index.size} rows scanned per query "
+              f"({scanned / max(index.size, 1):.1%}); "
+              f"scan_impl={index.scan_impl} (resolves to "
+              f"{scan.resolve_scan_impl(index.scan_impl, device=device)})")
+    if isinstance(index, IVFPQIndex):
+        print(f"  pq: {index.pq.n_subspaces} x {index.pq.bits}-bit codes "
+              f"({index.code_bytes_per_row} B/row scanned vs "
+              f"{4 * args.proj_dim + 4} full precision, "
+              f"{index.compression_ratio:.1f}x), rerank depth "
+              f"{index.rerank_depth}, store={index.store}")
     front = MicroBatcher(engine, max_batch=args.max_batch,
                          max_wait_ms=args.max_wait_ms)
 

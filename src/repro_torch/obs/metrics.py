@@ -649,14 +649,15 @@ def index_memory(index) -> Dict[str, int]:
     has no such state):
 
       gallery     full-precision projected rows + norms on device
-                  (ExactIndex gp/gn, IVF gp_pad/gn_pad segments);
+                  (ExactIndex gp/gn, IVF gp_pad/gn_pad segments, the
+                  IVFPQ rerank rows with store="device");
       codes       PQ uint8 codes + per-row t term + codebooks;
       centroids   coarse-quantizer centers (IVF/IVFPQ);
       delta       MutableIndex delta buffer (host projected rows, ids,
                   tombstone masks);
       host_store  host-resident full-precision arrays: the IVFPQ rerank
-                  store (gp_full/gn_full) and MutableIndex retained raw
-                  rows.
+                  store with store="host" (gp_full/gn_full) and
+                  MutableIndex retained raw rows.
 
     Works on any backend, including a MutableIndex wrapper (wrapper
     components add to the base's).
@@ -686,6 +687,8 @@ def index_memory(index) -> Dict[str, int]:
         add("codes", getattr(index, "codes_pad", None),
             getattr(index, "t_pad", None),
             getattr(pq, "codebooks", None))
-    add("host_store", getattr(index, "gp_full", None),
-        getattr(index, "gn_full", None))
+    full = (getattr(index, "gp_full", None), getattr(index, "gn_full", None))
+    # the IVFPQ rerank rows: host memory, or the device with store="device"
+    on_device = any(getattr(a, "is_cuda", False) for a in full)
+    add("gallery" if on_device else "host_store", *full)
     return out

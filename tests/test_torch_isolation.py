@@ -27,7 +27,8 @@ from repro_torch.core.ps.trainer import (DMLTrainConfig,
 from repro_torch.data import pairs
 from repro_torch.device import resolve_device
 from repro_torch.launch import serve_retrieval
-from repro_torch.serve import ExactIndex
+from repro_torch.serve import ExactIndex, IVFIndex, IVFPQIndex
+from repro_torch.serve.pq import ProductQuantizer
 
 REPO = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((REPO / "src" / "repro_torch").rglob("*.py")) + \
@@ -100,6 +101,16 @@ _ENTRY_POINTS = {
             y, 10), 8),
     "cli --train-steps": lambda x, y, p: serve_retrieval.main(
         ["--train-steps", "5", "--gallery-size", "100"]),
+    "IVFIndex.build": lambda x, y, p: IVFIndex.build(
+        np.eye(8, dtype=np.float32), x, n_clusters=2),
+    "IVFPQIndex.build": lambda x, y, p: IVFPQIndex.build(
+        np.eye(8, dtype=np.float32), x, n_clusters=2),
+    "ProductQuantizer.train": lambda x, y, p: ProductQuantizer.train(x),
+    "cli --index ivf": lambda x, y, p: serve_retrieval.main(
+        ["--index", "ivf", "--train-steps", "0", "--gallery-size", "100"]),
+    "cli --index ivfpq": lambda x, y, p: serve_retrieval.main(
+        ["--index", "ivfpq", "--train-steps", "0", "--gallery-size",
+         "100"]),
 }
 
 

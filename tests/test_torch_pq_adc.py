@@ -1,0 +1,141 @@
+"""The port's pq_adc (repro_torch) held against the JAX reference.
+
+Inputs are made with numpy from a seed and handed to both packages. On
+the CPU the port's ``pq_adc_topk`` runs the kernel's plain version,
+which must be **bit-identical** to the reference's XLA path
+(``use_kernel=False``): the subspace sum runs in the same sequential
+order and candidates flatten in the same probe-major / slot-minor
+order, so distances and ids are equal arrays, not merely close. (The
+reference's interpret-mode kernel is red on this tree, ROADMAP Queue 3,
+so the port is not held against it.) The CUDA kernel is checked
+against its plain version with ``torch.equal`` in
+tests/test_torch_cuda.py, which needs a card.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from repro.kernels.pq_adc import pq_adc_topk as jax_pq_adc_topk
+
+from repro_torch.kernels._dispatch import BIG
+from repro_torch.kernels.pq_adc import (pq_adc_topk, pq_adc_topk_fused,
+                                        pq_adc_topk_ref)
+from repro_torch.kernels.pq_adc.kernel import (SMEM_LIMIT, check_fits,
+                                               smem_bytes)
+
+
+def _case(seed, Nq, C, cap, S, bits, nprobe, fill_lo, fill_hi, ties=False):
+    """(tables, dc, probes, codes, t, ids) numpy arrays in the IVFPQ
+    segment layout; ``ties`` draws codes from two values and t from a
+    small integer grid, so many candidates tie exactly."""
+    rng = np.random.RandomState(seed)
+    K = 1 << bits
+    fills = rng.randint(fill_lo, fill_hi + 1, size=C)
+    ids = np.full((C, cap), -1, np.int32)
+    codes = np.zeros((C, cap, S), np.uint8)
+    t = np.full((C, cap), BIG, np.float32)
+    nid = 0
+    for c in range(C):
+        n = fills[c]
+        ids[c, :n] = np.arange(nid, nid + n)
+        nid += n
+        codes[c, :n] = rng.randint(0, 2 if ties else K, (n, S))
+        t[c, :n] = (rng.randint(0, 3, n) if ties else rng.randn(n))
+    tables = rng.randn(Nq, S * K).astype(np.float32)
+    if ties:
+        tables = np.round(tables * 4) / 4
+    dc = np.abs(rng.randn(Nq, nprobe)).astype(np.float32)
+    probes = np.stack([rng.choice(C, nprobe, replace=False)
+                       for _ in range(Nq)]).astype(np.int32)
+    return tables, dc, probes, codes, t.astype(np.float32), ids
+
+
+def _torch(arrays):
+    return [torch.from_numpy(np.array(a, copy=True)) for a in arrays]
+
+
+def _assert_bit_identical(arrays, kk, **kw):
+    d_j, i_j = jax_pq_adc_topk(*map(jnp.asarray, arrays), kk=kk,
+                               use_kernel=False, **kw)
+    d, i = pq_adc_topk(*_torch(arrays), kk=kk, **kw)
+    assert d.dtype == torch.float32 and i.dtype == torch.int32
+    np.testing.assert_array_equal(i.numpy(), np.asarray(i_j))
+    np.testing.assert_array_equal(d.numpy(), np.asarray(d_j))
+    return d, i
+
+
+# (Nq, C, cap, S, bits, nprobe, kk, fill_lo, fill_hi): the reference's
+# PQ_CASES plus kk = 1, S = 100 at 8 bits and kk at the kernel's limit
+CASES = [
+    (5, 6, 32, 4, 8, 3, 7, 32, 32),      # multi-tile segments, full fill
+    (3, 5, 24, 3, 8, 2, 5, 10, 24),      # cap not a multiple of the tile
+    (4, 7, 16, 2, 8, 2, 32, 0, 5),       # kk > real rows: -1s surface
+    (3, 4, 16, 5, 1, 2, 6, 8, 16),       # 1-bit codes
+    (3, 4, 16, 5, 2, 2, 6, 8, 16),       # 2-bit codes
+    (2, 4, 8, 3, 4, 3, 24, 2, 8),        # kk == the pool, odd S
+    (6, 9, 40, 7, 8, 4, 1, 5, 40),       # kk = 1
+    (2, 6, 24, 100, 8, 3, 50, 10, 24),   # the serving S, K
+    (2, 8, 40, 6, 8, 8, 256, 30, 40),    # kk at the kernel's limit
+]
+
+
+@pytest.mark.parametrize("Nq,C,cap,S,bits,nprobe,kk,lo,hi", CASES)
+def test_plain_bit_identical_to_reference(Nq, C, cap, S, bits, nprobe, kk,
+                                          lo, hi):
+    d, i = _assert_bit_identical(
+        _case(0, Nq, C, cap, S, bits, nprobe, lo, hi), kk, block_q=2)
+    if hi < 8:
+        assert bool((i == -1).any()) and bool((d[i == -1] >= BIG).all())
+
+
+def test_exact_ties_bit_identical_and_smallest_id_first():
+    arrays = _case(3, 6, 7, 24, 3, 2, 4, 20, 24, ties=True)
+    d, i = _assert_bit_identical(arrays, 15)
+    tied = d[:, 1:] == d[:, :-1]
+    assert int(tied.sum()) > 5
+    assert bool((i[:, 1:] > i[:, :-1])[tied].all())
+
+
+def test_sum_is_sequential_not_a_reduction():
+    # magnitudes chosen so a tree sum rounds differently from the
+    # left-to-right sum; the plain version must give the sequential one
+    S, K = 3, 2
+    tables = torch.tensor([[1e8, 0.0, 1.0, 0.0, -1e8, 0.0]])
+    codes = torch.zeros((1, 1, S), dtype=torch.uint8)
+    d, _ = pq_adc_topk_ref(tables, torch.zeros((1, 1)),
+                           torch.zeros((1, 1), dtype=torch.int32), codes,
+                           torch.full((1, 1), 1e9),
+                           torch.zeros((1, 1), dtype=torch.int32), 1)
+    ip = (np.float32(1e8) + np.float32(1.0)) + np.float32(-1e8)
+    assert d.item() == np.float32(1e9) - np.float32(2.0) * ip
+
+
+def test_rejects_bad_kk_with_the_reference_messages():
+    arrays = _case(1, 2, 4, 8, 2, 4, 2, 8, 8)
+    for kk in (0, -3, 2 * 8 + 1):
+        with pytest.raises(ValueError, match="kk") as mine:
+            pq_adc_topk(*_torch(arrays), kk=kk)
+        with pytest.raises(ValueError, match="kk") as ref:
+            jax_pq_adc_topk(*map(jnp.asarray, arrays), kk=kk)
+        assert str(mine.value) == str(ref.value)
+
+
+def test_fused_wrapper_needs_cuda_tensors():
+    tables, dc, probes, codes, t, ids = _torch(
+        _case(0, 2, 3, 8, 4, 8, 2, 8, 8))
+    with pytest.raises(ValueError, match="CUDA"):
+        pq_adc_topk_fused(probes, tables, dc, codes.reshape(24, 4),
+                          t.reshape(24), ids.reshape(24), n_codes=256, cap=8,
+                          kk=3)
+
+
+def test_shared_memory_plan_and_refusal():
+    # the serving shape: a 102,400-byte table needs the opt-in above 48 KB
+    assert 48 * 1024 < smem_bytes(100, 256, 50) <= SMEM_LIMIT
+    assert smem_bytes(100, 256, 256) <= SMEM_LIMIT
+    check_fits(100, 256, 256)
+    with pytest.raises(ValueError, match="shared memory"):
+        check_fits(200, 256, 10)           # a 204,800-byte table + tiles
