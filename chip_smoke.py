@@ -19,7 +19,10 @@ exit, and nothing falls back:
                 and k = 1000 shapes; ivf_scan and pq_adc at the CPU tests'
                 shapes, at ragged ones (cap not a multiple of the tile, -1
                 pads, probes with fewer than kk real rows, duplicated rows,
-                kk = 1 and 256) and at the serving widths;
+                kk = 1 and 256) and at the serving widths; flash_attention
+                and ssd_scan in f32 and bf16 at the CPU tests' shapes, at
+                ragged T and S, GQA 2 and 3, Dh 64 and 80, windows below,
+                at and above T, reduced zamba2's p 128 / n 16;
   4. training — the Eq. 4 path at dml-imnet1m width (d_in 21504 -> d_out
                 1000): 10,000 noisy_subspace rows and 100 classes resident
                 on the card, 50k + 50k index pairs (the reference's
@@ -55,13 +58,37 @@ exit, and nothing falls back:
                 peak memory; checks the kernel's launch count rose, IVF at
                 nprobe = n_clusters against the exact plain version, and
                 each kernel against its plain version at the full width;
-                then times both kernels at Nq = 1 and 64 and prints the
-                ``kernels`` line (all five kernels);
-  9. the last line: ``{"ok": true, "device": {...}}``.
+                then times both kernels at Nq = 1 and 64;
+  9. backbone — zamba2-2.7b at full width and depth (54 mamba2 layers,
+                d_model 2560, 80 SSM heads of p = n = 64; the shared
+                attention + GELU MLP block after every 6th layer, 32 heads
+                of 80, window 4096) from the port's seeded init, f32
+                weights: ssd_scan on layer 0's real SSD inputs and
+                flash_attention on the shared block's real q, k, v at
+                B 2, T 8192, bf16 and f32, against the plain versions;
+                then one f32 forward (B 1, T 8192) through the kernels
+                against the plain path (``plain=True``: the reference's
+                chunked Mamba2 and chunked attention), by the final hidden
+                state and by ``embed_pool``;
+ 10. service  — ``launch/serve_embeddings`` with bf16 activations: a
+                corpus of 16 x 8192-token sequences embedded in batches of
+                4, then 4 request batches of 4 x 8192 tokens ranked under
+                a seeded L (2560 -> 64), k = 5; checks that the counts rose
+                by 54 ssd_scan and 9 flash_attention launches a forward
+                batch and one pairwise_sqdist a ranked batch, finite
+                embeddings, and the ranking against the plain distances on
+                the same embeddings; prints requests/s, tokens/s, p50 / p99
+                ms a batch, peak memory and one batch's device time by
+                kind (ssd_scan, flash_attention, GEMMs, other);
+ 11. kernels  — times ssd_scan and flash_attention at the service's
+                shapes (B 4, T 8192, bf16) on real layer inputs, each
+                beside its plain version, its bound and (flash) the library
+                call, and prints the ``kernels`` line (all seven kernels);
+ 12. the last line: ``{"ok": true, "device": {...}}``.
 
 Every launch count is set to 0 just before a main-path phase (4, 5, 6,
-and each index of 8) and read just after; comparison launches come after
-the reading.
+each index of 8, and 10) and read just after; comparison launches come
+after the reading (or, for phase 9, before the counts are reset).
 
 Comparison rules (kernel vs plain, both f32, different summation order).
 Distances (metric_topk, pairwise_sqdist) may differ by atol + rtol *
@@ -76,6 +103,23 @@ rtol 1e-4 / atol 1e-5 on batches with no d2 within 1e-3 of the margin
 atol 1e-4 * max |dL|. ivf_scan: the metric_topk rule, with the row's gn
 (BIG on pads). pq_adc: ``torch.equal`` on distances and ids (the
 subspace sum runs in the same sequential order on both sides).
+flash_attention and ssd_scan: f32 against the f32 plain version within
+the reference's bounds for its kernels against their oracles (flash rtol
+1e-4 / atol 2e-5, SSD rtol = atol = 1e-4; only the summation order
+differs). bf16 inputs against the plain version computed in f32 from the
+same bf16 values, elementwise: both kernels compute in f32 and round
+their output to bf16 once, at most 2^-8 |out|. So SSD y within
+(1e-4 + 2^-8) |ref| + 1e-5, its f32 state h still within the f32 bound;
+attention, which also rounds each probability to bf16 before p v (l sums
+the f32 ones), within the f32 bound + 2^-8 (|ref| + attention(q, k, |v|)),
+the second term bounding sum_s p_s eps_s v_s / l. Each check prints max
+|d|, max |ref| and the worst share of its bound. The full-depth f32
+forward: max |a - b| / max |b| <= 1e-4 on the final hidden state and
+<= 1e-5 on embed_pool, 13 and 30 times the first card readings (7.6e-6
+and 3.3e-7; the kernel chunks the SSD by 64, the plain form by 128). The service's
+ranked distances within atol + rtol * max D
+(rtol = atol = 1e-5) of the plain ranking, ids equal wherever the plain
+distances are apart by more than that.
 """
 
 from __future__ import annotations
@@ -93,6 +137,7 @@ import torch
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 "src"))
 
+from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.configs.dml_paper import IMNET_1M  # noqa: E402
 from repro_torch.core import dml  # noqa: E402
 from repro_torch.core.dml import init_params  # noqa: E402
@@ -105,10 +150,12 @@ from repro_torch.core.ps.trainer import (  # noqa: E402
 from repro_torch.data import pairs as pairdata  # noqa: E402
 from repro_torch.data.loader import partition_pairs  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
-from repro_torch.kernels._dispatch import BIG  # noqa: E402
+from repro_torch.kernels._dispatch import BIG, topk_by_distance  # noqa: E402
 from repro_torch.kernels.dml_pair import (  # noqa: E402
     dml_pair_fused, dml_pair_loss_fused, dml_pair_loss_reference,
     dml_pair_ref)
+from repro_torch.kernels.flash_attention import (  # noqa: E402
+    attention_ref, flash_attention)
 from repro_torch.kernels.ivf_scan import (  # noqa: E402
     ivf_scan_topk, ivf_scan_topk_fused, ivf_scan_topk_ref)
 from repro_torch.kernels.metric_topk import (  # noqa: E402
@@ -118,6 +165,11 @@ from repro_torch.kernels.pairwise_dist import (  # noqa: E402
     pairwise_sqdist, pairwise_sqdist_ref)
 from repro_torch.kernels.pq_adc import (  # noqa: E402
     pq_adc_topk, pq_adc_topk_fused, pq_adc_topk_ref)
+from repro_torch.kernels.ssd_chunk import (  # noqa: E402
+    CHUNK, ssd_core, ssd_scan, ssd_scan_chunked)
+from repro_torch.launch import serve_embeddings  # noqa: E402
+from repro_torch.models import Model, attention, common, mamba2  # noqa: E402
+from repro_torch.models.transformer import shared_cfg  # noqa: E402
 from repro_torch.obs import percentile  # noqa: E402
 from repro_torch.optim import schedules, sgd  # noqa: E402
 from repro_torch.serve import (ExactIndex, IVFIndex,  # noqa: E402
@@ -491,7 +543,8 @@ class IndexPairs:
 
 def _reset_counts():
     for fn in (dml_pair_fused, pairwise_sqdist, metric_topk_fused,
-               ivf_scan_topk_fused, pq_adc_topk_fused):
+               ivf_scan_topk_fused, pq_adc_topk_fused, ssd_scan,
+               flash_attention):
         fn.launches = 0
 
 
@@ -804,9 +857,10 @@ def _time_graph(fn, iters):
     return ms
 
 
-def roofline(ops, nbytes):
-    """(least ms for ``ops`` f32 FLOP and ``nbytes`` moved, what bounds it)"""
-    t_ops, t_bytes = ops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES
+def roofline(ops, nbytes, peak_flops=PEAK_F32_FLOPS):
+    """(least ms for ``ops`` FLOP at ``peak_flops`` (f32 FFMA unless
+    given) and ``nbytes`` moved, what bounds it)"""
+    t_ops, t_bytes = ops / peak_flops, nbytes / PEAK_BYTES
     return (1e3 * max(t_ops, t_bytes),
             "operations" if t_ops >= t_bytes else "bytes")
 
@@ -1184,6 +1238,406 @@ def time_pairwise(xp, yp, launches, max_err):
             "shape": {"N": n, "M": m, "k": k}}
 
 
+# -- the zamba2-2.7b backbone: ssd_scan and flash_attention --------------------
+
+BACKBONE = "zamba2-2.7b"
+SEQ = 8192                  # tokens a sequence: the 4096 window bites
+EMB_BATCH, CORPUS_SEQS, REQUEST_BATCHES, EMB_K, EMB_PROJ = 4, 16, 4, 5, 64
+PEAK_BF16_FLOPS = 989e12    # H100 SXM, dense bf16 on the tensor cores
+# kernel against plain, f32 on both sides (only the summation order
+# differs): flash rtol 1e-4 / atol 2e-5 and SSD rtol = atol = 1e-4, the
+# reference's bounds for its kernels against their oracles. bf16 inputs
+# against the plain version computed in f32 from the same bf16 values:
+# both kernels compute in f32 and round their output to bf16 once (at most
+# 2^-8 of |out|, round to nearest), so SSD y may differ by 2^-8 |ref| on
+# top of the f32 rtol and an atol of 1e-5 (the f32 error near y = 0; the
+# f32 state h must meet the f32 bound). Attention also rounds each
+# probability to bf16 before p v while l sums the f32 ones, which moves
+# out by at most 2^-8 sum_s p_s |v_s| / l = 2^-8 attention(q, k, |v|): its
+# bound is the f32 one + 2^-8 (|ref| + attention(q, k, |v|)), elementwise.
+BF16_ROUND = 2.0 ** -8
+FA_TOL = dict(rtol=1e-4, atol=2e-5)
+SSD_TOL = {torch.float32: dict(rtol=1e-4, atol=1e-4),
+           torch.bfloat16: dict(rtol=1e-4 + BF16_ROUND, atol=1e-5)}
+# the full-depth f32 forward at B 1, kernel path against the plain path (the
+# SSD runs in chunks of 64 against the plain form's 128, attention streams
+# instead of chunking): the final hidden state and embed_pool, each as
+# max |a - b| / max |b|, within 13 and 30 times the first card readings
+# (7.6e-6 and 3.3e-7; NVIDIA H100 80GB HBM3, 700 W)
+HIDDEN_REL_BOUND = 1e-4
+EMBED_REL_BOUND = 1e-5
+# flash parity (B, T, S, H, K, Dh, causal, window): the CPU tests' shapes,
+# then ragged T and S, GQA 2 and 3, Dh 64 and 80, windows below, at and
+# above T
+FA_PARITY = [(2, 128, 128, 4, 4, 64, True, 0), (2, 128, 128, 8, 2, 64, True, 0),
+             (1, 256, 256, 4, 1, 32, False, 0), (2, 64, 64, 4, 4, 128, True, 0),
+             (1, 512, 512, 16, 4, 64, True, 0), (2, 128, 128, 6, 2, 80, True, 0),
+             (1, 256, 256, 4, 2, 32, True, 32), (2, 100, 100, 6, 2, 80, True, 0),
+             (1, 333, 333, 6, 3, 80, True, 64), (1, 200, 200, 4, 2, 64, True, 200),
+             (1, 200, 200, 4, 2, 80, True, 300), (1, 130, 70, 4, 4, 48, False, 0),
+             (2, 1000, 1000, 32, 32, 80, True, 256)]
+# ssd parity (B, H, T, p, n): the CPU tests' shapes, ragged T (1, 100,
+# 1000), reduced zamba2's p 128 / n 16, 80 heads at p = n = 64
+SSD_PARITY = [(1, 4, 64, 16, 8), (1, 2, 128, 64, 64), (1, 8, 96, 32, 16),
+              (1, 1, 256, 64, 64), (1, 3, 32, 8, 8), (2, 4, 100, 128, 16),
+              (1, 2, 1, 64, 64), (2, 4, 128, 128, 16), (2, 80, 1000, 64, 64)]
+
+
+def within(out, ref, allowed, what):
+    """Asserts |out - ref| <= allowed elementwise; returns (max |d|,
+    max |ref|, max |d| / allowed)."""
+    d = (out.float() - ref).abs()
+    worst = float((d / allowed).max())
+    assert worst <= 1.0, f"{what}: |d| reaches {worst:.3g} x its bound"
+    return float(d.max()), float(ref.abs().max()), worst
+
+
+def check_flash(q, k, v, causal, window):
+    """flash_attention against attention_ref in f32 on the same values;
+    returns (max |out - ref|, max |ref|, worst |d| / bound)."""
+    out = flash_attention(q, k, v, causal=causal, window=window)
+    qf, kf, vf = q.float(), k.float(), v.float()
+    ref = attention_ref(qf, kf, vf, causal=causal, window=window)
+    allowed = FA_TOL["atol"] + FA_TOL["rtol"] * ref.abs()
+    if q.dtype == torch.bfloat16:
+        allowed += BF16_ROUND * (ref.abs() + attention_ref(
+            qf, kf, vf.abs(), causal=causal, window=window))
+    torch.cuda.synchronize()
+    assert out.dtype == q.dtype and out.shape == q.shape
+    return within(out, ref, allowed, "flash_attention")
+
+
+def check_ssd(xs, Bm, Cm, dt, la):
+    """ssd_core (the kernel) against ssd_scan_chunked in f32 on the same
+    values, model layout; returns (max |dy|, max |y|, worst |dy| / bound,
+    max |dh|)."""
+    y, h = ssd_core(xs, Bm, Cm, dt, la)
+    yr, hr = ssd_scan_chunked(xs.float().transpose(1, 2),
+                              Bm.float()[:, None], Cm.float()[:, None],
+                              dt.transpose(1, 2), la.transpose(1, 2))
+    yr = yr.transpose(1, 2)
+    torch.cuda.synchronize()
+    assert y.dtype == xs.dtype and y.shape == xs.shape and y.is_contiguous()
+    tol = SSD_TOL[xs.dtype]
+    ey = within(y, yr, tol["atol"] + tol["rtol"] * yr.abs(), "ssd_scan y")
+    torch.testing.assert_close(h, hr, **SSD_TOL[torch.float32])
+    return (*ey, float((h - hr).abs().max()))
+
+
+def phase_parity_backbone():
+    for dtype in (torch.float32, torch.bfloat16):
+        for B, T, S, H, K, dh, causal, window in FA_PARITY:
+            rng = np.random.RandomState(T + H + dh)
+            q, k, v = (torch.tensor(rng.randn(*shape), dtype=torch.float32,
+                                    device=DEV).to(dtype)
+                       for shape in ((B, T, H, dh), (B, S, K, dh),
+                                     (B, S, K, dh)))
+            err, top, worst = check_flash(q, k, v, causal, window)
+            log(f"parity flash_attention {str(dtype)[6:]} (B, T, S, H, K, Dh)"
+                f" {(B, T, S, H, K, dh)} causal={causal} window={window}: "
+                f"max |d| {err:.3e} (max |ref| {top:.3f}), {worst:.3f} of "
+                f"the bound")
+        for B, H, T, p, n in SSD_PARITY:
+            rng = np.random.RandomState(B + H + T)
+            f = lambda *s: torch.tensor(rng.randn(*s),  # noqa: E731
+                                        dtype=torch.float32, device=DEV)
+            xs, Bm, Cm = f(B, T, H, p).to(dtype), f(B, T, n).to(dtype), \
+                f(B, T, n).to(dtype)
+            dt = f(B, T, H).abs() * 0.1
+            ey, top, worst, eh = check_ssd(xs, Bm, Cm, dt, -5.0 * dt)
+            log(f"parity ssd_scan {str(dtype)[6:]} (B, H, T, p, n) "
+                f"{(B, H, T, p, n)}: max |dy| {ey:.3e} (max |y| {top:.3f}), "
+                f"{worst:.3f} of the bound; max |dh| {eh:.3e}")
+    q = torch.randn(1, 16, 4, 64, device=DEV)
+    for bad in ((q, q[:, :, :3], q[:, :, :3]),              # H % K
+                (q.half(), q.half(), q.half()),             # dtype
+                (q.clone().requires_grad_(), q, q)):        # forward-only
+        try:
+            flash_attention(*bad)
+        except ValueError:
+            continue
+        raise AssertionError("flash_attention took what it cannot do")
+
+
+def _layer_inputs(model, tokens, dtype):
+    """Real inputs of layer 0's SSD core and of the shared attention
+    block at full width: (xs, Bm, Cm, dt, la) and (q, k, v), in
+    ``dtype``."""
+    cfg = model.cfg
+    with torch.inference_mode():
+        x = common.embed_tokens(model.embedding, tokens, cfg, dtype)
+        h = common.apply_norm(model.blocks[0]["norm1"], x, cfg)
+        _, xs, Bm, Cm, dt_v, A = mamba2._ssm_inputs(
+            model.blocks[0]["mamba"], h, cfg)
+        ssd = (xs, Bm, Cm, dt_v, dt_v * A[None, None, :])
+        scfg = shared_cfg(cfg)
+        h = common.apply_norm(model.shared["norm1"], x, scfg)
+        positions = torch.arange(tokens.shape[1], device=DEV)[None].expand(
+            tokens.shape[0], -1)
+        qkv = attention.qkv_proj(model.shared["attn"], h, positions, scfg)
+    return ssd, qkv
+
+
+def phase_backbone_parity():
+    """Full-width kernel parity (B = 2) and the full-depth f32 forward,
+    kernel path against plain path (B = 1). Returns the full-width max
+    errors."""
+    cfg = get_config(BACKBONE).replace(dtype="float32",
+                                       ssm_tile_dtype="float32")
+    t0 = time.perf_counter()
+    model = Model(cfg, device=DEV, seed=0)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    gb = n_params * 4 / 1e9
+    log(f"{BACKBONE}: {n_params / 1e9:.3f}B parameters ({gb:.2f} GB f32) "
+        f"from the seeded init in "
+        f"{time.perf_counter() - t0:.1f}s; {cfg.n_layers} mamba2 layers "
+        f"(d_model {cfg.d_model}, {cfg.ssm_heads} SSM heads, p "
+        f"{mamba2._dims(cfg)[2]}, n {cfg.ssm_state}), shared attention "
+        f"({cfg.n_heads} heads of "
+        f"{cfg.dim_per_head}, window {cfg.shared_attn_window}) every "
+        f"{cfg.shared_attn_every}")
+    rng = np.random.RandomState(2)
+    tokens = torch.from_numpy(rng.randint(0, cfg.vocab_size,
+                                          (2, SEQ))).to(DEV)
+    errs = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        (xs, Bm, Cm, dt, la), (q, k, v) = _layer_inputs(model, tokens, dtype)
+        ey, ty, wy, eh = check_ssd(xs, Bm, Cm, dt, la)
+        ef, tf, wf = check_flash(q, k, v, True, cfg.shared_attn_window)
+        errs[dtype] = {"ssd_scan": ey, "flash_attention": ef}
+        log(f"full-width parity {str(dtype)[6:]} (B 2, T {SEQ}): ssd_scan on "
+            f"layer 0's SSD core max |dy| {ey:.3e} (max |y| {ty:.4f}), "
+            f"{wy:.3f} of the bound, max |dh| {eh:.3e}; flash_attention on "
+            f"the shared block's q, k, v max |d| {ef:.3e} (max |ref| "
+            f"{tf:.4f}), {wf:.3f} of the bound")
+        del xs, Bm, Cm, dt, la, q, k, v
+    # (a) the whole f32 forward, kernel path against plain path: the final
+    # hidden state, then embed_pool (the entry point the service calls)
+    tokens = tokens[:1]
+    rel = {}
+    with torch.inference_mode():
+        h_k, _ = model.hidden({"tokens": tokens})
+        h_p, _ = model.hidden({"tokens": tokens}, plain=True)
+        assert bool(torch.isfinite(h_k).all())
+        rel["hidden"] = float((h_k - h_p).abs().max() / h_p.abs().max())
+        del h_k, h_p
+        _reset_counts()
+        t0 = time.perf_counter()
+        emb_k = model.embed_pool({"tokens": tokens})
+        torch.cuda.synchronize()
+        t_k = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        emb_p = model.embed_pool({"tokens": tokens}, plain=True)
+        torch.cuda.synchronize()
+        t_p = time.perf_counter() - t0
+    assert ssd_scan.launches == cfg.n_layers and \
+        flash_attention.launches == cfg.n_layers // cfg.shared_attn_every
+    assert bool(torch.isfinite(emb_k).all()) and emb_k.shape == (1,
+                                                                 cfg.d_model)
+    rel["embed_pool"] = float((emb_k - emb_p).abs().max() / emb_p.abs().max())
+    log(f"f32 forward, {cfg.n_layers} layers, B 1, T {SEQ}: embed_pool "
+        f"kernel path {t_k:.2f}s, plain path {t_p:.2f}s (host clock); max "
+        f"|a - b| / max |b|: final hidden state {rel['hidden']:.3e} (bound "
+        f"{HIDDEN_REL_BOUND}), embed_pool {rel['embed_pool']:.3e} (bound "
+        f"{EMBED_REL_BOUND})")
+    assert rel["hidden"] <= HIDDEN_REL_BOUND and \
+        rel["embed_pool"] <= EMBED_REL_BOUND, \
+        "the kernel path left the plain path"
+    del model
+    torch.cuda.empty_cache()
+    return {"errs": errs, "f32_rel_err": rel}
+
+
+def _category(name):
+    low = name.lower()
+    if "ssd_chunk" in low:
+        return "ssd_scan"
+    if "flash_bf16" in low or "flash_f32" in low:
+        return "flash_attention"
+    if any(s in low for s in ("gemm", "cutlass", "xmma", "nvjet", "cublas",
+                              "sm90_")):
+        return "gemm"
+    return "other"
+
+
+def phase_embedding_service():
+    """The embedding service at full width and depth: 16 x 8192-token
+    corpus sequences embedded in batches of 4, then 4 request batches of
+    4 x 8192 tokens ranked under a seeded L (2560 -> 64), k = 5."""
+    t0 = time.perf_counter()
+    model, L = serve_embeddings.build(BACKBONE, device=DEV,
+                                      proj_dim=EMB_PROJ, seed=0)
+    cfg = model.cfg
+    rng = np.random.RandomState(1)
+    corpus = serve_embeddings.token_batches(cfg.vocab_size, CORPUS_SEQS, SEQ,
+                                            EMB_BATCH, rng)
+    requests = serve_embeddings.token_batches(
+        cfg.vocab_size, REQUEST_BATCHES * EMB_BATCH, SEQ, EMB_BATCH, rng)
+    torch.cuda.synchronize()
+    log(f"embedding service: {BACKBONE} ({cfg.dtype} activations, f32 "
+        f"weights) and L {tuple(L.shape)} built in "
+        f"{time.perf_counter() - t0:.1f}s")
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()                         # counts of the main path only
+    out = serve_embeddings.serve(model, L, corpus, requests, EMB_K)
+    counts = {"ssd_scan": ssd_scan.launches,
+              "flash_attention": flash_attention.launches,
+              "pairwise_sqdist": pairwise_sqdist.launches}
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    n_fwd = len(corpus) + len(requests)
+    expect = {"ssd_scan": cfg.n_layers * n_fwd,
+              "flash_attention": cfg.n_layers // cfg.shared_attn_every * n_fwd,
+              "pairwise_sqdist": len(requests)}
+    assert counts == expect, f"launch counts {counts}, expected {expect}"
+    log(f"corpus {CORPUS_SEQS} x {SEQ} tokens embedded in "
+        f"{out['corpus_s']:.2f}s ({CORPUS_SEQS * SEQ / out['corpus_s']:.0f} "
+        f"tokens/s); {REQUEST_BATCHES} request batches of {EMB_BATCH} x "
+        f"{SEQ}: requests/s {out['requests_per_s']:.3f}, tokens/s "
+        f"{out['tokens_per_s']:.0f}, batch ms p50 {out['p50_ms']:.1f} p99 "
+        f"{out['p99_ms']:.1f} ({[round(x, 1) for x in out['batch_ms']]}); "
+        f"peak memory {peak:.2f} GB; launches {counts} = {n_fwd} forward "
+        f"batches x ({cfg.n_layers}, {cfg.n_layers // cfg.shared_attn_every})"
+        f" + one pairwise_sqdist a ranked batch")
+    # what came out: finite embeddings, ascending distances, and the
+    # ranking of the plain distances on the same embeddings
+    req, corp = out["request_emb"], out["corpus_emb"]
+    assert bool(torch.isfinite(req).all() and torch.isfinite(corp).all())
+    d, ids = out["dists"].to(DEV), out["ids"].to(DEV)
+    assert bool((d[:, 1:] >= d[:, :-1]).all())
+    Lf = L.to(torch.float32)
+    D = pairwise_sqdist_ref(req @ Lf.T, corp @ Lf.T)
+    d_ref, i_ref = topk_by_distance(D, torch.arange(
+        corp.shape[0], dtype=torch.int32, device=DEV).expand(
+        D.shape[0], -1), EMB_K)
+    err = float((d - d_ref).abs().max())
+    tol = ATOL + RTOL * float(D.max())
+    assert err <= tol, f"ranked distances off by {err:.3e}"
+    gaps = torch.diff(torch.cat([d_ref, torch.sort(D, 1).values[:, EMB_K:
+                                                                EMB_K + 1]],
+                                1), dim=1)
+    apart = torch.cat([gaps[:, :1], torch.minimum(gaps[:, 1:],
+                                                  gaps[:, :-1])], 1) > tol
+    assert bool((ids == i_ref)[apart].all()), "ranking differs from plain"
+    log(f"ranking: max |d - d_plain| {err:.3e}; ids equal to the plain "
+        f"ranking's wherever distances are apart; spread of the corpus "
+        f"embeddings {float(corp.std(0).mean()):.4f}")
+    parts = device_breakdown(lambda: serve_embeddings.embed(model,
+                                                            requests[0]))
+    split = None
+    if parts:
+        split = {}
+        for name, ms in parts.items():
+            split[_category(name)] = round(split.get(_category(name), 0.0)
+                                           + ms, 3)
+        busy = sum(parts.values())
+        top = dict(sorted(parts.items(), key=lambda kv: -kv[1])[:6])
+        log(f"one request batch's forward on the card: device busy "
+            f"{busy:.1f} ms (batch p50 {out['p50_ms']:.1f} ms host clock); "
+            f"by kind {split}; largest kernels {top}")
+    else:
+        log("one request batch's forward: device time not measured")
+    return model, requests, {
+        "requests_per_s": out["requests_per_s"],
+        "tokens_per_s": out["tokens_per_s"], "p50_ms": out["p50_ms"],
+        "p99_ms": out["p99_ms"], "batch_ms": out["batch_ms"],
+        "corpus_s": out["corpus_s"], "peak_gb": peak, "launches": counts,
+        "device_ms_by_kind": split}
+
+
+def library_attention(q, k, v, window):
+    """One PyTorch call for the banded attention (yardstick only):
+    scaled_dot_product_attention with the causal / window mask."""
+    T = q.shape[1]
+    pos = torch.arange(T, device=q.device)
+    band = (pos[None, :] <= pos[:, None]) & (pos[None, :] > pos[:, None]
+                                             - window)
+    return torch.nn.functional.scaled_dot_product_attention(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+        attn_mask=band)
+
+
+def time_backbone_kernels(model, tokens, launches, errs):
+    """Kernel, plain and library times of ssd_scan and flash_attention at
+    the service's shapes (B 4, T 8192, bf16) on real layer inputs; device
+    times from CUDA-graph replays, eager calls beside them."""
+    cfg = model.cfg
+    (xs, Bm, Cm, dt, la), (q, k, v) = _layer_inputs(model, tokens,
+                                                    torch.bfloat16)
+    B, T, H, p = xs.shape
+    n = Bm.shape[-1]
+    window = cfg.shared_attn_window
+    fmt = lambda x: "-" if x is None else f"{x:.3f}"  # noqa: E731
+    entries = []
+    with torch.inference_mode():
+        # SSD: the chunked algorithm's FLOP at the kernel's chunk Q, only
+        # what the function needs: in each chunk the lower triangle of
+        # C B^T (Q (Q + 1) / 2 entries of n products, once a batch row as
+        # B and C are shared by the heads), and per head the lower
+        # triangle of att . xs (p products an entry), C h^T and the state
+        # update (Q p n products each)
+        ops = 2.0 * B * T * ((CHUNK + 1) / 2 * n
+                             + H * ((CHUNK + 1) / 2 * p + 2 * p * n))
+        nbytes = (2 * 2 * xs.numel() + 2 * 2 * B * T * n + 2 * 4 * dt.numel()
+                  + 4 * B * H * p * n)
+        fn = lambda: ssd_core(xs, Bm, Cm, dt, la)  # noqa: E731
+        plain = lambda: ssd_scan_chunked(  # noqa: E731
+            xs.transpose(1, 2), Bm[:, None], Cm[:, None], dt.transpose(1, 2),
+            la.transpose(1, 2))
+        # flash: the allowed (t, s) entries of the causal 4096 window
+        t = np.arange(T)
+        entries_band = int(np.sum(np.minimum(t + 1, window)))
+        fa_ops = 4.0 * q.shape[-1] * entries_band * B * cfg.n_heads
+        fa_bytes = 2.0 * (q.numel() + k.numel() + v.numel() + q.numel())
+        fa = lambda: flash_attention(q, k, v, causal=True,  # noqa: E731
+                                     window=window)
+        fa_plain = lambda: attention_ref(q, k, v, causal=True,  # noqa: E731
+                                         window=window)
+        fa_lib = lambda: library_attention(q, k, v, window)  # noqa: E731
+        for name, kern, pl, lib, (b_ms, b_by), src, rep in (
+                ("ssd_scan", fn, plain, None, roofline(ops, nbytes),
+                 "ssd_chunk/csrc/ssd_chunk.cu", "ssd_chunk/kernel.py:80"),
+                ("flash_attention", fa, fa_plain, fa_lib,
+                 roofline(fa_ops, fa_bytes, PEAK_BF16_FLOPS),
+                 "flash_attention/csrc/flash_attention.cu",
+                 "flash_attention/kernel.py:80")):
+            eager = {"ms": _time(kern, 10), "plain_ms": _time(pl, 2),
+                     "library_ms": None if lib is None else _time(lib, 5)}
+            graphed = {"ms": _time_graph(kern, 10),
+                       "plain_ms": _time_graph(pl, 2),
+                       "library_ms": None if lib is None
+                       else _time_graph(lib, 5)}
+            best = {kk: graphed[kk] if graphed[kk] is not None else eager[kk]
+                    for kk in eager}
+            log(f"{name} B={B} T={T} (bf16): device ms by graph replay: "
+                f"kernel {fmt(graphed['ms'])}, plain "
+                f"{fmt(graphed['plain_ms'])}, library "
+                f"{fmt(graphed['library_ms'])}; eager: kernel "
+                f"{fmt(eager['ms'])}, plain {fmt(eager['plain_ms'])}, "
+                f"library {fmt(eager['library_ms'])}; bound {b_ms:.3f} ms "
+                f"({b_by}), {b_ms / best['ms']:.1%} of bound")
+            entry = {"name": name, "route": "cuda",
+                     "source": f"src/repro_torch/kernels/{src}",
+                     "replaces": f"src/repro/kernels/{rep}",
+                     "launches": launches[name],
+                     "max_abs_err": errs[torch.bfloat16][name],
+                     **best, "bound_ms": b_ms, "bound_by": b_by,
+                     "eager_ms": eager, "graph_ms": graphed,
+                     "max_abs_err_f32": errs[torch.float32][name]}
+            if name == "ssd_scan":
+                entry.update(shape={"B": B, "T": T, "H": H, "p": p, "n": n,
+                                    "chunk": CHUNK},
+                             library_note="no single PyTorch call computes "
+                                          "it")
+            else:
+                entry["shape"] = {"B": B, "T": T, "H": cfg.n_heads,
+                                  "K": cfg.kv_heads, "Dh": q.shape[-1],
+                                  "window": window,
+                                  "band_entries_per_head": entries_band}
+            entries.append(entry)
+    return entries
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -1194,6 +1648,7 @@ def main():
     phase_parity()
     phase_parity_training()
     phase_parity_ann()
+    phase_parity_backbone()
     log(f"parity phases done at {time.perf_counter() - t0:.1f}s")
     train = phase_training()
     ev = phase_eval(train["L"], train["feats"], train["labels"])
@@ -1213,6 +1668,19 @@ def main():
     built, ann = phase_ann(index, queries, serving)
     entries += time_ann(built, ann, queries)
     log(f"ANN serving done at {time.perf_counter() - t0:.1f}s")
+    del index, queries, serving, built, ann
+    torch.cuda.empty_cache()
+    bb = phase_backbone_parity()
+    log(f"backbone parity done at {time.perf_counter() - t0:.1f}s")
+    model, requests, svc = phase_embedding_service()
+    log(f"embedding service done at {time.perf_counter() - t0:.1f}s")
+    bb_entries = time_backbone_kernels(
+        model, torch.from_numpy(requests[0]).to(DEV), svc["launches"],
+        bb["errs"])
+    bb_entries[0]["service"] = svc
+    bb_entries[0]["forward_f32_rel_err"] = bb["f32_rel_err"]
+    entries += bb_entries
+    log(f"backbone kernels timed at {time.perf_counter() - t0:.1f}s")
     print(json.dumps({"kernels": entries}), flush=True)
     log(f"total {time.perf_counter() - t0:.1f}s")
     print(json.dumps({"ok": True, "device": {

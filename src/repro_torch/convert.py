@@ -1,5 +1,6 @@
-"""Carry the JAX package's weights, index arrays (exact, IVF, IVFPQ)
-and training state across to the port.
+"""Carry the JAX package's weights (the DML factor and the backbone
+models), index arrays (exact, IVF, IVFPQ) and training state across to
+the port.
 
 Every function takes plain numpy arrays (``np.asarray`` of the
 reference's ``jax.Array``s, e.g. ``jax.tree.map(np.asarray, state)``),
@@ -12,9 +13,11 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.configs.base import ArchConfig
 from repro_torch.core.ps.sync import PSState
 from repro_torch.device import resolve_device
 from repro_torch.kernels._dispatch import check_metric_factor
+from repro_torch.models import Model
 from repro_torch.optim import AdamState, MomentumState, ScaleState
 from repro_torch.serve.index import ExactIndex
 from repro_torch.serve.ivf import IVFIndex
@@ -135,3 +138,24 @@ def ps_state_from_jax(state, device=None) -> PSState:
         opt_state=opt_state_from_jax(state.opt_state, dev),
         step=int(np.asarray(state.step)),
         grad_ring=None if ring is None else _tensor(ring, dev))
+
+
+def model_params_from_jax(cfg: ArchConfig, params_np, device=None) -> Model:
+    """A port ``Model`` holding a reference ``Model.init`` tree (numpy
+    leaves, e.g. ``jax.tree.map(np.asarray, params)``) bit for bit:
+    ``embedding``, ``final_norm`` and ``shared`` as they are, the stacked
+    ``blocks`` (leading ``layers`` axis) unstacked into one entry of the
+    ``nn.ModuleList`` per layer."""
+    dev = resolve_device(device)
+    blocks = params_np["blocks"]
+    params = {"embedding": tree_map(lambda x: _tensor(x, dev),
+                                    params_np["embedding"]),
+              "blocks": [tree_map(lambda x, i=i: _tensor(np.asarray(x)[i],
+                                                         dev), blocks)
+                         for i in range(cfg.n_layers)],
+              "final_norm": tree_map(lambda x: _tensor(x, dev),
+                                     params_np["final_norm"])}
+    if "shared" in params_np:
+        params["shared"] = tree_map(lambda x: _tensor(x, dev),
+                                    params_np["shared"])
+    return Model(cfg, device=dev, params=params)

@@ -1,0 +1,5 @@
+from repro_torch.kernels.ssd_chunk.ops import ssd_core  # noqa: F401
+from repro_torch.kernels.ssd_chunk.kernel import ssd_scan  # noqa: F401
+from repro_torch.kernels.ssd_chunk.ref import (  # noqa: F401
+    CHUNK, ssd_scan_chunked, ssd_scan_ref,
+)

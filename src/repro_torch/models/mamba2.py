@@ -1,0 +1,203 @@
+"""Mamba2 (SSD — state-space duality) block: the full-sequence parts of
+``repro/models/mamba2.py``.
+
+Recurrence per head h (head_dim p, state n):
+    h_t = exp(dt_t * A) * h_{t-1} + dt_t * x_t B_t^T        (h: (p, n))
+    y_t = h_t C_t + D * x_t
+
+Three forms of the same function:
+  * ``apply_mamba2``        — the chunked form in plain torch (the
+                              reference's training / prefill form, its
+                              O(Q^2) tiles in ``cfg.ssm_tile_dtype``);
+                              kept for the training slice.
+  * ``apply_mamba2_kernel`` — the inference / prefill path: the SSD core
+                              through ``kernels/ssd_chunk`` (the
+                              hand-written kernel on the card, its plain
+                              chunked version on the CPU). Forward-only.
+  * ``apply_mamba2_ref``    — the exact token-by-token recurrence (the
+                              tests' oracle).
+
+The decode step and its caches wait for the decode slice (ROADMAP.md
+Queue 1 item 8).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.kernels._dispatch import full_f32
+from repro_torch.kernels.ssd_chunk import ssd_core
+from repro_torch.models import common
+
+def _dims(cfg: ArchConfig):
+    d_in = cfg.ssm_expand * cfg.d_model
+    H = cfg.ssm_heads
+    p = d_in // H
+    n = cfg.ssm_state
+    conv_ch = d_in + 2 * n
+    return d_in, H, p, n, conv_ch
+
+
+def init_mamba2(cfg: ArchConfig, gen) -> dict:
+    d = cfg.d_model
+    d_in, H, p, n, conv_ch = _dims(cfg)
+    dev = gen.device
+    w_z = common.he_init(gen, (d, d_in), d)
+    w_xbc = common.he_init(gen, (d, conv_ch), d)
+    w_dt = common.he_init(gen, (d, H), d)
+    conv_w = 0.1 * torch.randn((cfg.conv_width, conv_ch), generator=gen,
+                               device=dev)
+    w_out = common.he_init(gen, (d_in, d), d_in)
+    u = torch.rand((H,), generator=gen, device=dev)
+    dt = torch.exp(np.log(1e-3) + u * (np.log(1e-1) - np.log(1e-3)))
+    return {
+        "w_z": w_z, "w_xbc": w_xbc, "w_dt": w_dt, "conv_w": conv_w,
+        "conv_b": torch.zeros((conv_ch,), device=dev),
+        "dt_bias": torch.log(torch.expm1(dt)),              # softplus inverse
+        "A_log": torch.log(torch.arange(1, H + 1, dtype=torch.float32,
+                                        device=dev)),
+        "D": torch.ones((H,), device=dev),
+        "norm_scale": torch.ones((d_in,), device=dev),
+        "w_out": w_out,
+    }
+
+
+def _causal_conv(x, w, b):
+    """Depthwise causal conv. x (B,T,C), w (W,C). The shifted sum of the
+    reference, so no convolution library (and no TF32 on the card)
+    touches it."""
+    W = w.shape[0]
+    pad = torch.zeros((x.shape[0], W - 1, x.shape[2]), dtype=x.dtype,
+                      device=x.device)
+    xp = torch.cat([pad, x], dim=1)                     # (B, T+W-1, C)
+    T = x.shape[1]
+    out = sum(xp[:, i:i + T] * w[i].to(x.dtype) for i in range(W))
+    return out + b.to(x.dtype)
+
+
+def _proj_split(p, x, cfg: ArchConfig):
+    dt_ = x.dtype
+    z = x @ p["w_z"].to(dt_)                            # (B,T,d_in)
+    xbc = x @ p["w_xbc"].to(dt_)                        # (B,T,conv_ch)
+    dt_raw = x @ p["w_dt"].to(dt_)                      # (B,T,H)
+    return z, xbc, dt_raw
+
+
+def _post(p, y, z, cfg: ArchConfig):
+    """Gated RMSNorm + output projection. y,z (B,T,d_in)."""
+    y = y * F.silu(z)
+    yf = y.to(torch.float32)
+    var = torch.mean(torch.square(yf), dim=-1, keepdim=True)
+    y = (yf * torch.rsqrt(var + 1e-5) * p["norm_scale"]).to(y.dtype)
+    return y @ p["w_out"].to(y.dtype)
+
+
+def _ssm_inputs(p, x, cfg: ArchConfig):
+    """The projections, causal conv and decays shared by every form:
+    (z, xs (B,T,H,p), Bm, Cm (B,T,n), dt_v (B,T,H) f32, A (H,))."""
+    B, T, d = x.shape
+    d_in, H, ph, n, conv_ch = _dims(cfg)
+    z, xbc, dt_raw = _proj_split(p, x, cfg)
+    xbc = F.silu(_causal_conv(xbc, p["conv_w"], p["conv_b"]))
+    xs = xbc[..., :d_in].reshape(B, T, H, ph)
+    Bm = xbc[..., d_in:d_in + n]
+    Cm = xbc[..., d_in + n:]
+    dt_v = F.softplus(dt_raw.to(torch.float32) + p["dt_bias"])
+    A = -torch.exp(p["A_log"])                          # (H,) negative
+    return z, xs, Bm, Cm, dt_v, A
+
+
+def apply_mamba2(p, x, cfg: ArchConfig, chunk: int = None):
+    """Training/prefill forward, chunked in plain torch. x (B,T,d) ->
+    (B,T,d). The (Q, Q) and (Q, H, p) tiles are held in
+    ``cfg.ssm_tile_dtype`` and every contraction accumulates in f32, as
+    the reference's ``preferred_element_type``."""
+    full_f32()
+    B, T, d = x.shape
+    d_in, H, ph, n, conv_ch = _dims(cfg)
+    dtype = x.dtype
+    tile_dt = getattr(torch, cfg.ssm_tile_dtype)
+    chunk = min(chunk or cfg.ssm_chunk, T)
+    if T % chunk:
+        raise ValueError(f"T={T} is not a multiple of chunk={chunk}")
+    nc = T // chunk
+    z, xs, Bm, Cm, dt_v, A = _ssm_inputs(p, x, cfg)
+    la = dt_v * A[None, None, :]                        # log decay, (B,T,H)
+
+    def f32(a):     # a tile-dtype operand, contracted in f32
+        return a.to(tile_dt).to(torch.float32)
+
+    tril = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
+                                 device=x.device))
+    h = torch.zeros((B, H, ph, n), dtype=torch.float32, device=x.device)
+    ys = []
+    for c in range(nc):
+        sl = slice(c * chunk, (c + 1) * chunk)
+        xs_k, B_k, C_k = xs[:, sl], Bm[:, sl], Cm[:, sl]
+        dt_k, la_k = dt_v[:, sl], la[:, sl]
+        W = torch.cumsum(la_k, dim=1)                   # (B,Q,H), f32
+        W_last = W[:, -1]                               # (B,H)
+        C_t, B_t, x_t = f32(C_k), f32(B_k), f32(xs_k)
+        # inter-chunk: y_t += C_t (exp(W_t) h_prev)
+        decay_to_t = torch.exp(W).to(tile_dt)           # (B,Q,H)
+        ch = torch.einsum("bqn,bhpn->bqhp", C_t, f32(h))
+        y_inter = ch * decay_to_t[..., None]            # (B,Q,H,p) f32
+        # intra-chunk: dt_s exp(W_t - W_s) (C_t . B_s) x_s for s <= t
+        G = torch.einsum("bqn,bsn->bqs", C_t, B_t)      # (B,Q,S)
+        Wdiff = W[:, :, None, :] - W[:, None, :, :]     # (B,Q,S,H)
+        Ldec = torch.where(tril[None, :, :, None], torch.exp(Wdiff),
+                           torch.zeros_like(Wdiff)).to(tile_dt)
+        att = (G[..., None].to(tile_dt) * Ldec
+               * dt_k[:, None].to(tile_dt))             # (B,Q,S,H)
+        y_intra = torch.einsum("bqsh,bshp->bqhp", att.to(torch.float32),
+                               x_t)
+        # state update: h' = exp(W_last) h + sum_s exp(W_last - W_s) dt_s x_s B_s^T
+        carry_decay = torch.exp(W_last)                 # (B,H)
+        src = (torch.exp(W_last[:, None, :] - W) * dt_k).to(tile_dt)
+        xsrc = xs_k.to(tile_dt) * src[..., None]        # (B,Q,H,p)
+        h = (carry_decay[:, :, None, None] * h
+             + torch.einsum("bqhp,bqn->bhpn", xsrc.to(torch.float32), B_t))
+        ys.append((y_inter + y_intra).to(tile_dt))      # (B,Q,H,p)
+    y = torch.cat(ys, dim=1)
+    y = y + p["D"].to(tile_dt)[None, None, :, None] * xs.to(tile_dt)
+    y = y.reshape(B, T, d_in).to(dtype)
+    return _post(p, y, z, cfg)
+
+
+def apply_mamba2_kernel(p, x, cfg: ArchConfig):
+    """Inference/prefill forward through the SSD kernel: the chunk tiles
+    stay in shared memory, device memory sees the SSD inputs and outputs
+    once. Forward-only (training uses ``apply_mamba2``)."""
+    B, T, d = x.shape
+    d_in = _dims(cfg)[0]
+    z, xs, Bm, Cm, dt_v, A = _ssm_inputs(p, x, cfg)
+    la = dt_v * A[None, None, :]
+    y, _ = ssd_core(xs, Bm, Cm, dt_v, la)
+    y = y + p["D"][None, None, :, None] * xs.to(torch.float32)
+    y = y.reshape(B, T, d_in).to(x.dtype)
+    return _post(p, y, z, cfg)
+
+
+def apply_mamba2_ref(p, x, cfg: ArchConfig):
+    """Token-by-token recurrence; numerically exact, O(T) sequential."""
+    full_f32()
+    B, T, d = x.shape
+    d_in, H, ph, n, conv_ch = _dims(cfg)
+    z, xs, Bm, Cm, dt_v, A = _ssm_inputs(p, x, cfg)
+    h = torch.zeros((B, H, ph, n), dtype=torch.float32, device=x.device)
+    ys = []
+    for t in range(T):
+        decay = torch.exp(dt_v[:, t] * A[None, :])      # (B,H)
+        h = (decay[:, :, None, None] * h
+             + torch.einsum("bh,bhp,bn->bhpn", dt_v[:, t],
+                            xs[:, t].to(torch.float32),
+                            Bm[:, t].to(torch.float32)))
+        ys.append(torch.einsum("bhpn,bn->bhp", h,
+                               Cm[:, t].to(torch.float32)))
+    y = torch.stack(ys, dim=1)                          # (B,T,H,p)
+    y = y + p["D"][None, None, :, None] * xs.to(torch.float32)
+    y = y.reshape(B, T, d_in).to(x.dtype)
+    return _post(p, y, z, cfg)

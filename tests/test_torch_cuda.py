@@ -1,6 +1,8 @@
 """The port's CUDA kernels against their plain versions, on the card:
 metric_topk, dml_pair (forward and gradients), pairwise_sqdist, ivf_scan
-and pq_adc (bit for bit), and the IVF / IVFPQ indexes on the card.
+and pq_adc (bit for bit), the IVF / IVFPQ indexes on the card,
+flash_attention and ssd_scan (bf16 and f32), and a reduced zamba2
+backbone through both.
 
 Marked ``cuda``: without a card every test here skips (a CUDA kernel has
 no CPU mode). Run on a machine with one card:
@@ -317,3 +319,166 @@ def test_ann_indexes_on_the_card_launch_their_kernels(cuda_device):
     with pytest.raises(ValueError, match="xla"):
         IVFIndex.build(L, G, n_clusters=16, scan_impl="xla")
     ivf.topk(q, 10, scan_impl="pallas")
+
+
+# -- backbone kernels: flash_attention and ssd_scan ---------------------------
+# f32 kernel against the f32 plain version: flash rtol 1e-4 / atol 2e-5 and
+# SSD rtol = atol = 1e-4 (the reference's bounds for its kernels against
+# their oracles; only the summation order differs). bf16 inputs against the
+# plain version computed in f32 from the same bf16 values, elementwise:
+# both kernels round their output to bf16 once (at most 2^-8 |out|), so
+# SSD y within (1e-4 + 2^-8) |ref| + 1e-5; attention also rounds each
+# probability to bf16 before p v while l sums the f32 ones, which moves out
+# by at most 2^-8 attention(q, k, |v|), so flash within the f32 bound
+# + 2^-8 (|ref| + attention(q, k, |v|)).
+
+BF16_ROUND = 2.0 ** -8
+
+FA_SHAPES = [(2, 128, 128, 4, 4, 64, True, 0), (2, 128, 128, 8, 2, 64, True, 0),
+             (1, 256, 256, 4, 1, 32, False, 0), (2, 64, 64, 4, 4, 128, True, 0),
+             (2, 100, 100, 6, 2, 80, True, 0), (1, 333, 333, 6, 3, 80, True, 64),
+             (1, 200, 200, 4, 2, 16, True, 300), (1, 130, 70, 4, 4, 48, False, 0),
+             (1, 256, 256, 4, 2, 32, True, 256)]
+
+
+def _fa_bound(q, k, v, ref, causal, window):
+    """Elementwise bound on |kernel - ref| for q's dtype."""
+    from repro_torch.kernels.flash_attention import attention_ref
+    bound = 2e-5 + 1e-4 * ref.abs()
+    if q.dtype == torch.bfloat16:
+        bound += BF16_ROUND * (ref.abs() + attention_ref(
+            q.float(), k.float(), v.float().abs(), causal=causal,
+            window=window))
+    return bound
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,T,S,H,K,dh,causal,window", FA_SHAPES)
+def test_flash_attention_kernel_matches_plain_version(
+        cuda_device, B, T, S, H, K, dh, causal, window, dtype):
+    from repro_torch.kernels.flash_attention import (attention_ref,
+                                                     flash_attention)
+    rng = np.random.RandomState(T + H + dh)
+    q, k, v = (torch.tensor(rng.randn(*shape), dtype=torch.float32,
+                            device=cuda_device).to(dtype)
+               for shape in ((B, T, H, dh), (B, S, K, dh), (B, S, K, dh)))
+    before = flash_attention.launches
+    out = flash_attention(q, k, v, causal=causal, window=window)
+    ref = attention_ref(q.float(), k.float(), v.float(), causal=causal,
+                        window=window)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    assert out.dtype == dtype and out.shape == (B, T, H, dh)
+    bound = _fa_bound(q, k, v, ref, causal, window)
+    assert bool(((out.float() - ref).abs() <= bound).all())
+
+
+@pytest.mark.cuda
+def test_flash_attention_reads_strided_views(cuda_device):
+    """q, k, v as views into one fused (B, T, 3, H, Dh) projection."""
+    from repro_torch.kernels.flash_attention import (attention_ref,
+                                                     flash_attention)
+    qkv = torch.randn(2, 96, 3, 4, 32, device=cuda_device)
+    q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+    out = flash_attention(q, k, v, causal=True, window=40)
+    ref = attention_ref(q, k, v, causal=True, window=40)
+    torch.testing.assert_close(out, ref, rtol=1e-4, atol=2e-5)
+
+
+@pytest.mark.cuda
+def test_flash_attention_refuses_what_it_cannot_do(cuda_device):
+    from repro_torch.kernels.flash_attention import flash_attention
+    q = torch.randn(1, 16, 4, 64, device=cuda_device)
+    for bad in (torch.randn(1, 16, 4, 72, device=cuda_device),      # Dh
+                torch.randn(1, 16, 3, 64, device=cuda_device)):     # H % K
+        with pytest.raises(ValueError):
+            flash_attention(q, bad, bad)
+    with pytest.raises(ValueError, match="multiple of 16"):
+        big = torch.randn(1, 16, 4, 144, device=cuda_device)
+        flash_attention(big, big, big)
+    with pytest.raises(ValueError, match="forward-only"):
+        flash_attention(q.clone().requires_grad_(), q, q)
+    with pytest.raises(ValueError, match="bfloat16 or float32"):
+        flash_attention(q.half(), q.half(), q.half())
+
+
+SSD_SHAPES = [(1, 4, 64, 16, 8), (1, 2, 128, 64, 64), (1, 8, 96, 32, 16),
+              (1, 1, 256, 64, 64), (1, 3, 32, 8, 8), (2, 4, 100, 128, 16),
+              (2, 80, 200, 64, 64), (1, 2, 1, 64, 64)]
+
+
+def _ssd_inputs(B, H, T, p, n, dtype, device, seed=0):
+    rng = np.random.RandomState(seed)
+
+    def f(*s):
+        return torch.tensor(rng.randn(*s), dtype=torch.float32, device=device)
+    xs, Bm, Cm = f(B, T, H, p).to(dtype), f(B, T, n).to(dtype), \
+        f(B, T, n).to(dtype)
+    dt = f(B, T, H).abs() * 0.1
+    return xs, Bm, Cm, dt, -5.0 * dt
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,T,p,n", SSD_SHAPES)
+def test_ssd_scan_kernel_matches_plain_version(cuda_device, B, H, T, p, n,
+                                               dtype):
+    from repro_torch.kernels.ssd_chunk import (ssd_core, ssd_scan,
+                                               ssd_scan_chunked)
+    xs, Bm, Cm, dt, la = _ssd_inputs(B, H, T, p, n, dtype, cuda_device,
+                                     seed=B + H + T)
+    before = ssd_scan.launches
+    y, h = ssd_core(xs, Bm, Cm, dt, la)
+    yr, hr = ssd_scan_chunked(xs.float().transpose(1, 2),
+                              Bm.float()[:, None], Cm.float()[:, None],
+                              dt.transpose(1, 2), la.transpose(1, 2))
+    torch.cuda.synchronize()
+    assert ssd_scan.launches == before + 1
+    assert y.dtype == dtype and y.shape == (B, T, H, p) and y.is_contiguous()
+    tol = dict(rtol=1e-4, atol=1e-4) if dtype == torch.float32 else \
+        dict(rtol=1e-4 + BF16_ROUND, atol=1e-5)
+    torch.testing.assert_close(y.float(), yr.transpose(1, 2), **tol)
+    torch.testing.assert_close(h, hr, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_ssd_scan_refuses_what_it_cannot_do(cuda_device):
+    from repro_torch.kernels.ssd_chunk import ssd_scan
+    xs, Bm, Cm, dt, la = _ssd_inputs(1, 2, 64, 16, 8, torch.float32,
+                                     cuda_device)
+    args = (xs.transpose(1, 2), Bm[:, None].expand(1, 2, 64, 8),
+            Cm[:, None].expand(1, 2, 64, 8), dt.transpose(1, 2),
+            la.transpose(1, 2))
+    with pytest.raises(ValueError, match="forward-only"):
+        ssd_scan(args[0].clone().requires_grad_(), *args[1:])
+    with pytest.raises(ValueError, match="p <= 128"):
+        wide = torch.randn(1, 2, 64, 144, device=cuda_device)
+        ssd_scan(wide, *args[1:])
+    with pytest.raises(ValueError, match="float32"):
+        ssd_scan(*args[:3], args[3].double(), args[4])
+
+
+@pytest.mark.cuda
+def test_backbone_on_the_card_launches_both_kernels(cuda_device):
+    """Reduced zamba2 through the kernels against its plain path on the
+    card, f32 (SSD chunk 64 against the config's 128: rtol 2e-3, atol
+    2e-4, the reference's bound between those forms)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.ssd_chunk import ssd_scan
+    from repro_torch.models import Model
+    cfg = get_config("zamba2-2.7b-reduced").replace(
+        dtype="float32", ssm_tile_dtype="float32", window=40,
+        shared_attn_window=40)
+    model = Model(cfg, device=cuda_device)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 256), device=cuda_device)
+    n_ssd, n_fa = ssd_scan.launches, flash_attention.launches
+    with torch.inference_mode():
+        emb = model.embed_pool({"tokens": tokens})
+        ref = model.embed_pool({"tokens": tokens}, plain=True)
+    torch.cuda.synchronize()
+    assert ssd_scan.launches - n_ssd == cfg.n_layers
+    assert flash_attention.launches - n_fa == \
+        cfg.n_layers // cfg.shared_attn_every
+    torch.testing.assert_close(emb, ref, rtol=2e-3, atol=2e-4)

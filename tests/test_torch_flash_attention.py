@@ -1,0 +1,144 @@
+"""The port's attention held against the JAX reference: the flash
+attention kernel's plain version and the model's attention forms.
+
+Inputs are made with numpy from a seed and handed to both packages. The
+reference runs its oracle (``attention_ref``) and its Pallas kernel in
+interpret mode; the port runs ``attention_ref``, the plain version
+the CUDA kernel is held against. Tolerance in f32: rtol 1e-4, atol
+2e-5, the reference's own bound for its kernel against its oracle;
+bf16: rtol = atol = 5e-2 (its bf16 bound). The model's naive and
+chunked forms must match the reference's within 1e-5. The CUDA kernel
+itself is checked in tests/test_torch_cuda.py.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from repro.configs import get_config as jax_get_config
+from repro.configs import reduced as jax_reduced
+from repro.kernels.flash_attention import attention_ref as jax_attention_ref
+from repro.kernels.flash_attention import flash_attention as jax_flash
+from repro.models import attention as jax_attention
+
+from repro_torch.configs import get_config
+from repro_torch.kernels.flash_attention import (attention_ref,
+                                                 flash_attention)
+from repro_torch.models import attention
+
+
+def _qkv(B, T, S, H, K, dh, seed, dtype=np.float32):
+    rng = np.random.RandomState(seed)
+    return (rng.randn(B, T, H, dh).astype(dtype),
+            rng.randn(B, S, K, dh).astype(dtype),
+            rng.randn(B, S, K, dh).astype(dtype))
+
+
+def _t(*arrays):
+    return [torch.from_numpy(np.array(a, copy=True)) for a in arrays]
+
+
+def _close(a, b, rtol=1e-4, atol=2e-5):
+    np.testing.assert_allclose(np.asarray(a, np.float32),
+                               np.asarray(b, np.float32), rtol=rtol,
+                               atol=atol)
+
+
+@pytest.mark.parametrize("B,T,H,K,dh", [
+    (2, 128, 4, 4, 64),      # MHA
+    (2, 128, 8, 2, 64),      # GQA 4:1
+    (1, 256, 4, 1, 32),      # MQA
+    (2, 64, 4, 4, 128),
+    (2, 128, 6, 2, 80),      # zamba2's head dim, GQA 3:1
+])
+@pytest.mark.parametrize("causal", [True, False])
+def test_plain_version_matches_reference(B, T, H, K, dh, causal):
+    q, k, v = _qkv(B, T, T, H, K, dh, T + H)
+    ref = jax_attention_ref(*map(jnp.asarray, (q, k, v)), causal=causal)
+    ker = jax_flash(*map(jnp.asarray, (q, k, v)), causal=causal,
+                    block_q=64, block_k=64)
+    out = attention_ref(*_t(q, k, v), causal=causal)
+    assert out.shape == (B, T, H, dh) and out.dtype == torch.float32
+    _close(out, ref)
+    _close(out, ker)
+
+
+@pytest.mark.parametrize("window", [32, 64, 128, 300])
+def test_sliding_window(window):
+    q, k, v = _qkv(1, 256, 256, 4, 2, 32, window)
+    ref = jax_attention_ref(*map(jnp.asarray, (q, k, v)), causal=True,
+                            window=window)
+    ker = jax_flash(*map(jnp.asarray, (q, k, v)), causal=True,
+                    window=window, block_q=64, block_k=64)
+    out = attention_ref(*_t(q, k, v), causal=True, window=window)
+    _close(out, ref)
+    _close(out, ker)
+
+
+@pytest.mark.parametrize("T,S", [(100, 100), (37, 70), (70, 37)])
+def test_ragged_and_rectangular(T, S):
+    """T, S off every tile and T != S: the reference's wrapper takes its
+    oracle here; the port's plain version must equal it."""
+    q, k, v = _qkv(2, T, S, 6, 3, 16, T + S)
+    for causal in (True, False):
+        ref = jax_attention_ref(*map(jnp.asarray, (q, k, v)),
+                                causal=causal, window=50)
+        _close(attention_ref(*_t(q, k, v), causal=causal, window=50), ref)
+
+
+def test_row_blocks_change_nothing():
+    q, k, v = _t(*_qkv(1, 130, 130, 4, 2, 16, 9))
+    a = attention_ref(q, k, v, causal=True, window=40)
+    b = attention_ref(q, k, v, causal=True, window=40, q_block=7)
+    assert torch.equal(a, b)
+
+
+def test_bf16_inputs():
+    q, k, v = _qkv(2, 128, 128, 4, 4, 64, 3)
+    jx = [jnp.asarray(a, jnp.bfloat16) for a in (q, k, v)]
+    ref = jax_attention_ref(*jx, causal=True)
+    out = attention_ref(*(x.to(torch.bfloat16) for x in _t(q, k, v)),
+                        causal=True)
+    assert out.dtype == torch.bfloat16
+    _close(out.float(), np.asarray(ref, np.float32), rtol=5e-2, atol=5e-2)
+
+
+def test_kernel_wrapper_refuses_cpu_tensors():
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        flash_attention(*_t(*_qkv(1, 64, 64, 2, 2, 16, 0)))
+
+
+# -- the model's attention forms ---------------------------------------------
+
+@pytest.mark.parametrize("attn", ["full", "sliding"])
+@pytest.mark.parametrize("T,chunk", [(64, 16), (128, 32)])
+def test_model_attention_forms_match_reference(attn, T, chunk):
+    jcfg = jax_reduced(jax_get_config("smollm-135m")).replace(
+        attention=attn, window=40)
+    cfg = get_config("smollm-135m-reduced").replace(attention=attn,
+                                                    window=40)
+    q, k, v = _qkv(2, T, T, 4, 2, 64, T + chunk)
+    jq = list(map(jnp.asarray, (q, k, v)))
+    tq = _t(q, k, v)
+    naive = attention.attend_naive(*tq, cfg)
+    _close(naive, jax_attention.attend_naive(*jq, jcfg), rtol=1e-5,
+           atol=1e-5)
+    chunked = attention.attend_chunked(*tq, cfg, q_chunk=chunk,
+                                       kv_chunk=chunk)
+    _close(chunked, jax_attention.attend_chunked(*jq, jcfg, q_chunk=chunk,
+                                                 kv_chunk=chunk),
+           rtol=1e-5, atol=1e-5)
+    # the CPU inference path is the plain form; the kernel's plain
+    # version computes the same function
+    _close(attention.attend(*tq, cfg), naive, rtol=1e-5, atol=1e-5)
+    window = 40 if attn == "sliding" else 0
+    _close(attention_ref(*tq, causal=True, window=window), naive)
+
+
+def test_chunked_refuses_ragged_chunks():
+    cfg = get_config("smollm-135m-reduced")
+    q, k, v = _t(*_qkv(1, 100, 100, 4, 2, 16, 0))
+    with pytest.raises(ValueError, match="multiple of the chunks"):
+        attention.attend_chunked(q, k, v, cfg, q_chunk=64, kv_chunk=64)

@@ -26,7 +26,10 @@ from repro_torch.core.ps.trainer import (DMLTrainConfig,
                                          train_dml_single)
 from repro_torch.data import pairs
 from repro_torch.device import resolve_device
-from repro_torch.launch import serve_retrieval
+from repro_torch.configs import get_config
+from repro_torch.convert import model_params_from_jax
+from repro_torch.launch import serve_embeddings, serve_retrieval
+from repro_torch.models import Model
 from repro_torch.serve import ExactIndex, IVFIndex, IVFPQIndex
 from repro_torch.serve.pq import ProductQuantizer
 
@@ -119,6 +122,23 @@ def test_training_slice_entry_points_raise_without_cuda(no_cuda, name):
     x, y, p = _tiny_pairs()
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         _ENTRY_POINTS[name](x, y, p)
+
+
+_ZAMBA = get_config("zamba2-2.7b-reduced")
+_BACKBONE_ENTRY_POINTS = {
+    "Model": lambda: Model(_ZAMBA),
+    "Model dense": lambda: Model(get_config("smollm-135m-reduced")),
+    "model_params_from_jax": lambda: model_params_from_jax(
+        _ZAMBA, {"embedding": {}, "blocks": {}, "final_norm": {}}),
+    "serve_embeddings.build": lambda: serve_embeddings.build(reduced=True),
+    "cli serve_embeddings": lambda: serve_embeddings.main(["--reduced"]),
+}
+
+
+@pytest.mark.parametrize("name", list(_BACKBONE_ENTRY_POINTS))
+def test_backbone_entry_points_raise_without_cuda(no_cuda, name):
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        _BACKBONE_ENTRY_POINTS[name]()
 
 
 def _run_smoke(cwd, extra_env=None):
