@@ -11,15 +11,22 @@ exit, and nothing falls back:
   2. build    — builds every CUDA kernel of the port from ``csrc/`` (all
                 nvcc processes started together) into ``build/kernels``;
   3. parity   — each kernel against its plain PyTorch version on the
-                card: metric_topk at the CPU tests' shapes and on a gallery
-                with duplicated rows (ties); dml_pair forward (loss, d2,
-                proj) and gradients (kernel + closed-form backward against
-                autograd through the plain version) at the CPU tests'
-                shapes plus a ragged one; pairwise_sqdist at square, ragged
-                and k = 1000 shapes; ivf_scan and pq_adc at the CPU tests'
-                shapes, at ragged ones (cap not a multiple of the tile, -1
-                pads, probes with fewer than kk real rows, duplicated rows,
-                kk = 1 and 256) and at the serving widths; flash_attention
+                card: metric_topk at the CPU tests' shapes, over a
+                query-tile sweep (Nq 1, 7, 9, 64, 65, 200; k_top 1 and 256
+                at d_out 1000; d_out 33, which the wrapper pads) and on a
+                gallery with duplicated rows (ties; k_top 9 and 256);
+                dml_pair forward (loss, d2, proj) and gradients (kernel +
+                closed-form backward against autograd through the plain
+                version) at the CPU tests' shapes plus ragged ones (d 9,
+                33, 4001), and its forward at the training width (B 1000,
+                k 1000, d 21504; its proj error printed beside that of
+                ``_dispatch.tf32x3_matmul``, the plain 3xTF32 model);
+                pairwise_sqdist at square, ragged and k = 1000 shapes;
+                two calls of metric_topk, dml_pair and pairwise_sqdist on
+                the same inputs compare bit-equal; ivf_scan and pq_adc at
+                the CPU tests' shapes, at ragged ones (cap not a
+                multiple of the tile, -1 pads, probes with fewer than kk
+                real rows, duplicated rows, kk = 1 and 256) and at the serving widths; flash_attention
                 and ssd_scan in f32 and bf16 at the CPU tests' shapes, at
                 ragged T and S, GQA 2 and 3, Dh 64 and 80, windows below,
                 at and above T, reduced zamba2's p 128 / n 16;
@@ -90,6 +97,15 @@ Every launch count is set to 0 just before a main-path phase (4, 5, 6,
 each index of 8, and 10) and read just after; comparison launches come
 after the reading (or, for phase 9, before the counts are reset).
 
+Bounds (``bound_ms``): the larger of the bytes a function must move at
+3.35 TB/s and its operations at the card's peak for their type: f32
+products (metric_topk, dml_pair, pairwise_sqdist, ivf_scan, ssd_scan's
+f32 arithmetic) at the 3xTF32 rate, 495 / 3 TFLOP/s, the least time of
+an f32-accurate product on the tensor cores, with the f32 FFMA figure (67
+TFLOP/s) beside it in the log lines only (the ``kernels`` line holds
+``bound_ms``); bf16 attention at 989 TFLOP/s; pq_adc's table adds at the
+f32 rate.
+
 Comparison rules (kernel vs plain, both f32, different summation order).
 Distances (metric_topk, pairwise_sqdist) may differ by atol + rtol *
 (||a_i||^2 + ||b_j||^2) with rtol = atol = 1e-5, since f32 rounding of
@@ -150,7 +166,8 @@ from repro_torch.core.ps.trainer import (  # noqa: E402
 from repro_torch.data import pairs as pairdata  # noqa: E402
 from repro_torch.data.loader import partition_pairs  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
-from repro_torch.kernels._dispatch import BIG, topk_by_distance  # noqa: E402
+from repro_torch.kernels._dispatch import (  # noqa: E402
+    BIG, tf32x3_matmul, topk_by_distance)
 from repro_torch.kernels.dml_pair import (  # noqa: E402
     dml_pair_fused, dml_pair_loss_fused, dml_pair_loss_reference,
     dml_pair_ref)
@@ -179,13 +196,23 @@ from repro_torch.serve.ivf import probe  # noqa: E402
 from repro_torch.serve.scan import project_queries  # noqa: E402
 
 RTOL = ATOL = 1e-5
-PEAK_F32_FLOPS = 67e12          # H100 SXM, f32 outside the tensor cores
+PEAK_F32_FLOPS = 67e12          # H100 SXM, f32 FFMA outside the tensor cores
+PEAK_TF32_FLOPS = 495e12        # H100 SXM, dense TF32 on the tensor cores
+# an f32-accurate product on the tensor cores: 3xTF32, three TF32 passes
+PEAK_3XTF32_FLOPS = PEAK_TF32_FLOPS / 3
 PEAK_BYTES = 3.35e12            # H100 SXM HBM3
 PARITY_SHAPES = [(64, 1024, 128, 64, 10), (16, 300, 40, 12, 5),
                  (7, 129, 33, 9, 3), (200, 2048, 96, 48, 20),
                  (128, 512, 128, 128, 1), (8, 96, 24, 8, 96)]
+# the query-tile sweep of metric_topk: Nq at and across its 8 / 16 / 64 /
+# 128-row tiles; k_top 1 and 256 at d_out 1000 (31.25 stages of 32), and
+# d_out 33 (the wrapper pads gp to 36 columns); (Nq, M, d_in, d_out, k_top)
+MT_SWEEP = [(nq, 4000, 300, k, kt) for nq in (1, 7, 9, 64, 65, 200)
+            for k, kt in ((1000, 1), (1000, 256), (33, 10))]
 DML_SHAPES = [(8, 8, 8), (64, 32, 48), (256, 128, 512), (100, 60, 780),
-              (512, 600, 780), (32, 100, 224), (37, 16, 24)]     # (B, k, d)
+              (512, 600, 780), (32, 100, 224), (37, 16, 24),
+              (37, 16, 9), (130, 129, 33), (257, 1000, 4001)]  # (B, k, d)
+DML_FULL = (1000, 1000, 21504)  # the training width, forward only
 PD_SHAPES = [(256, 256, 256), (64, 128, 32), (37, 129, 9),
              (300, 1000, 1000), (2000, 8000, 1000)]             # (N, M, k)
 LAM = 1.3
@@ -298,29 +325,34 @@ def phase_build():
 
 
 def phase_parity():
-    for nq, m, d, k, kt in PARITY_SHAPES:
-        L, q, G = _data(nq, m, d, k, seed=nq + m)
+    for nq, m, d, k, kt in PARITY_SHAPES + MT_SWEEP:
+        L, q, G = _data(nq, m, d, k, seed=nq + m + k)
         gp, gn = project_gallery(L, G)
         dk, ik = metric_topk_fused(q, L, gp, gn, k_top=kt)
+        dk2, ik2 = metric_topk_fused(q, L, gp, gn, k_top=kt)
         torch.cuda.synchronize()
         err, n_diff = compare(L, q, gp, gn, kt, dk, ik)
+        assert torch.equal(dk, dk2) and torch.equal(ik, ik2), \
+            "two metric_topk calls differ"
         log(f"parity {(nq, m, d, k, kt)}: max |dd| {err:.3e}, "
-            f"{n_diff} tie-resolved id differences")
+            f"{n_diff} tie-resolved id differences; repeat bit-equal")
     # duplicated gallery rows: every row appears 3 times, so each true
     # neighbour ties with two copies and the smaller ids must win
     L, q, G = _data(24, 200, 32, 16, seed=7)
     G = torch.cat([G, G, G])[torch.randperm(600, generator=torch.Generator(
         device="cpu").manual_seed(0)).to(DEV)]
     gp, gn = project_gallery(L, G)
-    dk, ik = metric_topk_fused(q, L, gp, gn, k_top=9)
-    torch.cuda.synchronize()
-    err, n_diff = compare(L, q, gp, gn, 9, dk, ik)
-    tied = dk[:, 1:] == dk[:, :-1]          # copies give bitwise-equal d
-    assert int(tied.sum()) > 0, "no exact ties in the duplicated gallery"
-    assert bool((ik[:, 1:] > ik[:, :-1])[tied].all()), \
-        "equal distances not in ascending id order"
-    log(f"parity duplicated rows: max |dd| {err:.3e}, {int(tied.sum())} "
-        f"exact ties all smallest-id-first, {n_diff} id differences")
+    for kt in (9, 256):
+        dk, ik = metric_topk_fused(q, L, gp, gn, k_top=kt)
+        torch.cuda.synchronize()
+        err, n_diff = compare(L, q, gp, gn, kt, dk, ik)
+        tied = dk[:, 1:] == dk[:, :-1]      # copies give bitwise-equal d
+        assert int(tied.sum()) > 0, "no exact ties in the duplicated gallery"
+        assert bool((ik[:, 1:] > ik[:, :-1])[tied].all()), \
+            "equal distances not in ascending id order"
+        log(f"parity duplicated rows, k_top {kt}: max |dd| {err:.3e}, "
+            f"{int(tied.sum())} exact ties all smallest-id-first, {n_diff} "
+            f"id differences")
     for bad in (0, 257):
         try:
             metric_topk_fused(q, L, gp, gn, k_top=bad)
@@ -389,13 +421,39 @@ def phase_parity_training():
         log(f"parity dml_pair (B, k, d) {(B, k, d)}: forward max |d| "
             f"{_max_err(out, ref):.3e}, gradient max |d| "
             f"{_max_err(gk, gp):.3e}")
+    # the training width, forward only (a margin amid 1000 pairs' d2 has
+    # no 1e-3 gap to hold gradients at; the hinge is continuous)
+    B, k, d = DML_FULL
+    gen = torch.Generator(device=DEV).manual_seed(1)
+    L = torch.randn((k, d), generator=gen, device=DEV) / (k * d) ** 0.5
+    xs, ys = (torch.randn((B, d), generator=gen, device=DEV)
+              for _ in range(2))
+    sim = (torch.rand((B,), generator=gen, device=DEV) < 0.5).to(torch.int32)
+    margin = float(torch.median(dml_pair_ref(L, xs, ys, sim)[1]))
+    out = dml_pair_fused(L, xs, ys, sim, lam=LAM, margin=margin)
+    again = dml_pair_fused(L, xs, ys, sim, lam=LAM, margin=margin)
+    ref = dml_pair_ref(L, xs, ys, sim, LAM, margin)
+    torch.cuda.synchronize()
+    for a, b in zip(out, ref):
+        torch.testing.assert_close(a, b, rtol=2e-5, atol=1e-5)
+    assert all(torch.equal(a, b) for a, b in zip(out, again)), \
+        "two dml_pair calls differ"
+    # the plain 3xTF32 model of the kernel's product, for comparison
+    model_err = float((tf32x3_matmul(xs - ys, L) - ref[2]).abs().max())
+    log(f"parity dml_pair (B, k, d) {DML_FULL}: forward max |d| "
+        f"{_max_err(out, ref):.3e} (proj {_max_err(out[2:], ref[2:]):.3e}; "
+        f"the 3xTF32 model's proj {model_err:.3e}); repeat bit-equal")
+    del L, xs, ys, out, again, ref
     for n, m, k in PD_SHAPES:
         rng = np.random.RandomState(n + m + k)
         xp = torch.tensor(rng.randn(n, k), dtype=torch.float32, device=DEV)
         yp = torch.tensor(rng.randn(m, k), dtype=torch.float32, device=DEV)
-        err, _ = compare_dist(pairwise_sqdist(xp, yp), xp, yp)
+        D = pairwise_sqdist(xp, yp)
+        err, _ = compare_dist(D, xp, yp)
+        assert torch.equal(D, pairwise_sqdist(xp, yp)), \
+            "two pairwise_sqdist calls differ"
         log(f"parity pairwise_sqdist (N, M, k) {(n, m, k)}: max |dD| "
-            f"{err:.3e}")
+            f"{err:.3e}; repeat bit-equal")
 
 
 # -- segment-scan kernels: parity --------------------------------------------
@@ -857,19 +915,27 @@ def _time_graph(fn, iters):
     return ms
 
 
-def roofline(ops, nbytes, peak_flops=PEAK_F32_FLOPS):
-    """(least ms for ``ops`` FLOP at ``peak_flops`` (f32 FFMA unless
-    given) and ``nbytes`` moved, what bounds it)"""
+def roofline(ops, nbytes, peak_flops=PEAK_3XTF32_FLOPS):
+    """(least ms for ``ops`` FLOP at ``peak_flops`` and ``nbytes`` moved,
+    what bounds it). An f32 product's least time is at the 3xTF32 rate
+    unless another peak is given; ``ffma_bound`` keeps the f32 FFMA
+    figure for the record."""
     t_ops, t_bytes = ops / peak_flops, nbytes / PEAK_BYTES
     return (1e3 * max(t_ops, t_bytes),
             "operations" if t_ops >= t_bytes else "bytes")
 
 
+def ffma_bound(ops, nbytes):
+    """The same least time with every product f32 FFMA (67 TFLOP/s)."""
+    return roofline(ops, nbytes, PEAK_F32_FLOPS)[0]
+
+
 def bound(nq, d_in, d_out, m, k_top):
+    """(3xTF32 bound ms, what bounds it, f32 FFMA bound ms)"""
     ops = 2.0 * nq * d_in * d_out + 2.0 * nq * m * d_out
     nbytes = 4.0 * (nq * d_in + d_out * d_in + m * d_out + m
                     + 2 * nq * k_top)
-    return roofline(ops, nbytes)
+    return (*roofline(ops, nbytes), ffma_bound(ops, nbytes))
 
 
 def library(L, q, gp, gn, k_top):
@@ -928,7 +994,7 @@ def phase_kernels(index, queries, launches, max_err):
         ms = _time(lambda: metric_topk_fused(q, L, gp, gn, k_top=K_TOP), 10)
         plain_ms = _time(lambda: metric_topk_plain(L, q, gp, gn, K_TOP), 3)
         lib_ms = _time(lambda: library(L, q, gp, gn, K_TOP), 3)
-        b_ms, b_by = bound(nq, d_in, d_out, m, K_TOP)
+        b_ms, b_by, ffma_ms = bound(nq, d_in, d_out, m, K_TOP)
         parts = device_breakdown(
             lambda: metric_topk_fused(q, L, gp, gn, k_top=K_TOP))
         rows[nq] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
@@ -936,8 +1002,9 @@ def phase_kernels(index, queries, launches, max_err):
                         breakdown_ms=parts)
         log(f"metric_topk Nq={nq} M={m} d_in={d_in} d_out={d_out} "
             f"k={K_TOP}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
-            f"library {lib_ms:.3f} ms, bound {b_ms:.3f} ms ({b_by}), "
-            f"{b_ms / ms:.1%} of bound; device ms by kernel "
+            f"library {lib_ms:.3f} ms, bound {b_ms:.3f} ms ({b_by}; f32 "
+            f"FFMA {ffma_ms:.3f}), {b_ms / ms:.1%} of bound; device ms by "
+            f"kernel "
             f"{parts if parts else 'not measured'}")
     main = rows[MAX_BATCH]
     return {"name": "metric_topk", "route": "cuda",
@@ -1130,7 +1197,10 @@ def time_ann(built, ann, queries):
             # device time where the calls could be replayed from a graph
             best = {k: graphed[k] if graphed[k] is not None else eager[k]
                     for k in eager}
-            b_ms, b_by = roofline(ops, nbytes)
+            # ivf_scan's dot products at the 3xTF32 rate; pq_adc's LUT adds
+            # are no product: f32 outside the tensor cores
+            b_ms, b_by = roofline(ops, nbytes, PEAK_3XTF32_FLOPS
+                                  if name == "ivf" else PEAK_F32_FLOPS)
             rows[nq] = dict(**best, bound_ms=b_ms, bound_by=b_by,
                             eager_ms=eager, graph_ms=graphed,
                             distinct_segments=distinct, bytes=nbytes,
@@ -1198,12 +1268,14 @@ def time_dml_pair(L, batch, launches, launches_per_step, max_err,
     lib_ms = _time(lambda: library_pair(*args), 10)
     fb_ms = _time(lambda: _backward(dml_pair_loss_fused, *args), 5)
     plain_fb_ms = _time(lambda: _backward(dml_pair_loss_reference, *args), 5)
-    b_ms, b_by = roofline(2.0 * B * d * k,
-                          4.0 * (2 * B * d + k * d + B + 2 * B + B * k))
+    ops, nbytes = 2.0 * B * d * k, 4.0 * (2 * B * d + k * d + 3 * B + B * k)
+    b_ms, b_by = roofline(ops, nbytes)
+    ffma_ms = ffma_bound(ops, nbytes)
     parts = device_breakdown(fwd)
     log(f"dml_pair B={B} d={d} k={k}: kernel {ms:.3f} ms, plain "
         f"{plain_ms:.3f} ms, library {lib_ms:.3f} ms, bound {b_ms:.3f} ms "
-        f"({b_by}), {b_ms / ms:.1%} of bound; forward+backward(L) kernel "
+        f"({b_by}; f32 FFMA {ffma_ms:.3f}), {b_ms / ms:.1%} of bound; "
+        f"forward+backward(L) kernel "
         f"path {fb_ms:.3f} ms, plain {plain_fb_ms:.3f} ms; device ms by "
         f"kernel {parts if parts else 'not measured'}")
     return {"name": "dml_pair", "route": "cuda",
@@ -1211,8 +1283,8 @@ def time_dml_pair(L, batch, launches, launches_per_step, max_err,
             "replaces": "src/repro/kernels/dml_pair/kernel.py:79",
             "launches": launches, "max_abs_err": max_err, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-            "library_ms": lib_ms, "breakdown_ms": parts,
-            "fwd_bwd_ms": fb_ms, "plain_fwd_bwd_ms": plain_fb_ms,
+            "library_ms": lib_ms,
+            "breakdown_ms": parts, "fwd_bwd_ms": fb_ms, "plain_fwd_bwd_ms": plain_fb_ms,
             "launches_per_step": launches_per_step,
             "shape": {"B": B, "d_in": d, "d_out": k}}
 
@@ -1222,11 +1294,14 @@ def time_pairwise(xp, yp, launches, max_err):
     ms = _time(lambda: pairwise_sqdist(xp, yp), 10)
     plain_ms = _time(lambda: pairwise_sqdist_ref(xp, yp), 10)
     lib_ms = _time(lambda: library_pairwise(xp, yp), 10)
-    b_ms, b_by = roofline(2.0 * n * m * k, 4.0 * (n * k + m * k + n * m))
+    ops, nbytes = 2.0 * n * m * k, 4.0 * (n * k + m * k + n * m)
+    b_ms, b_by = roofline(ops, nbytes)
+    ffma_ms = ffma_bound(ops, nbytes)
     parts = device_breakdown(lambda: pairwise_sqdist(xp, yp))
     log(f"pairwise_sqdist N={n} M={m} k={k}: kernel {ms:.3f} ms, plain "
         f"{plain_ms:.3f} ms, library {lib_ms:.3f} ms, bound {b_ms:.3f} ms "
-        f"({b_by}), {b_ms / ms:.1%} of bound; device ms by kernel "
+        f"({b_by}; f32 FFMA {ffma_ms:.3f}), {b_ms / ms:.1%} of bound; "
+        f"device ms by kernel "
         f"{parts if parts else 'not measured'}")
     return {"name": "pairwise_sqdist", "route": "cuda",
             "source": "src/repro_torch/kernels/pairwise_dist/csrc/"
@@ -1234,8 +1309,8 @@ def time_pairwise(xp, yp, launches, max_err):
             "replaces": "src/repro/kernels/pairwise_dist/kernel.py:52",
             "launches": launches, "max_abs_err": max_err, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-            "library_ms": lib_ms, "breakdown_ms": parts,
-            "shape": {"N": n, "M": m, "k": k}}
+            "library_ms": lib_ms,
+            "breakdown_ms": parts, "shape": {"N": n, "M": m, "k": k}}
 
 
 # -- the zamba2-2.7b backbone: ssd_scan and flash_attention --------------------
@@ -1609,13 +1684,15 @@ def time_backbone_kernels(model, tokens, launches, errs):
                        else _time_graph(lib, 5)}
             best = {kk: graphed[kk] if graphed[kk] is not None else eager[kk]
                     for kk in eager}
+            ffma = (f"; f32 FFMA {ffma_bound(ops, nbytes):.3f}"
+                    if name == "ssd_scan" else "")
             log(f"{name} B={B} T={T} (bf16): device ms by graph replay: "
                 f"kernel {fmt(graphed['ms'])}, plain "
                 f"{fmt(graphed['plain_ms'])}, library "
                 f"{fmt(graphed['library_ms'])}; eager: kernel "
                 f"{fmt(eager['ms'])}, plain {fmt(eager['plain_ms'])}, "
                 f"library {fmt(eager['library_ms'])}; bound {b_ms:.3f} ms "
-                f"({b_by}), {b_ms / best['ms']:.1%} of bound")
+                f"({b_by}{ffma}), {b_ms / best['ms']:.1%} of bound")
             entry = {"name": name, "route": "cuda",
                      "source": f"src/repro_torch/kernels/{src}",
                      "replaces": f"src/repro/kernels/{rep}",
@@ -1625,6 +1702,8 @@ def time_backbone_kernels(model, tokens, launches, errs):
                      "eager_ms": eager, "graph_ms": graphed,
                      "max_abs_err_f32": errs[torch.float32][name]}
             if name == "ssd_scan":
+                # its f32 arithmetic at the 3xTF32 rate (the bound); the
+                # f32 FFMA figure is in the log line above
                 entry.update(shape={"B": B, "T": T, "H": H, "p": p, "n": n,
                                     "chunk": CHUNK},
                              library_note="no single PyTorch call computes "

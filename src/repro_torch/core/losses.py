@@ -36,19 +36,15 @@ def dml_pair_loss(L, batch, *, lam: float = 1.0, margin: float = 1.0,
                   compute_dtype=None):
     """Paper Eq. 4 over a pair minibatch {xs, ys, sim}.
 
-    On CUDA tensors the loss is the fused ``dml_pair`` kernel with its
-    closed-form backward, and the aux statistics come from the kernel's
-    d2; the kernel takes f32 only, so another ``compute_dtype`` raises.
-    On CPU tensors the same function runs its plain version; a
-    ``compute_dtype`` there casts the plain products as the reference
-    does.
+    In f32 (``compute_dtype`` None or float32) the loss is the fused
+    ``dml_pair`` forward with its closed-form backward: the kernel on CUDA
+    tensors, its plain version on CPU tensors; the aux statistics come
+    from its d2. Another ``compute_dtype`` (e.g. bf16) casts the products
+    as the reference does, on either device: the reference computes that
+    case with a plain cast-and-product outside its Pallas kernel.
     """
     xs, ys, sim = batch["xs"], batch["ys"], batch["sim"]
     if compute_dtype not in (None, torch.float32):
-        if xs.is_cuda:
-            raise ValueError(
-                f"compute_dtype={compute_dtype}: the CUDA dml_pair kernel "
-                f"takes float32 only (a bf16 variant is not ported yet)")
         loss = dml.objective(L, xs, ys, sim, lam=lam, margin=margin,
                              compute_dtype=compute_dtype)
         d2 = dml.mahalanobis_sqdist(L.detach(), xs, ys)

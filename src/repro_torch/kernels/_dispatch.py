@@ -3,11 +3,18 @@
 Counterpart of ``repro/kernels/_dispatch.py``. Dispatch between a kernel
 and its plain version goes by the tensor's device (CUDA -> kernel, CPU
 -> plain), so there is no ``default_interpret`` here. The CUDA kernels
-mask their ragged edges themselves; ``round_up`` / ``pad_axis`` /
-``pick_block`` serve the plain paths and the wrappers' scratch sizing.
+mask their ragged edges themselves (TMA zero-fills them in dml_pair and
+metric_topk); ``round_up`` / ``pad_axis`` / ``pick_block`` serve the
+plain paths and the wrappers' scratch sizing.
 ``topk_by_distance`` is the one tie-breaking contract every scan path
 must agree on: ascending distance, equal distances smallest-id-first.
-``full_f32`` is the one place the plain paths pin full-f32 products.
+``full_f32`` is the one place the plain paths pin full-f32 products;
+``tf32x3_matmul`` is a plain model of the 3xTF32 products the Hopper
+kernels run: ``tests/test_torch_tf32x3.py`` holds it to the kernels'
+tolerances at full width, and ``chip_smoke.py`` prints its error beside
+``dml_pair``'s at the training width; no main path calls it.
+``tma_operand`` zero-pads an operand's columns to the 16-byte row stride
+a TMA tensor map needs.
 ``BIG`` is the pad sentinel of the segment layouts (IVF / IVFPQ);
 ``check_kk``, ``segment_split``, ``check_tensor`` and ``sm_count`` serve
 the two segment-scan wrappers (ivf_scan, pq_adc).
@@ -32,6 +39,46 @@ def full_f32():
     f32, so every plain path and every backward product calls this first.
     """
     torch.backends.cuda.matmul.allow_tf32 = False
+
+
+def _tf32(x: torch.Tensor) -> torch.Tensor:
+    """Round f32 to TF32 (10 mantissa bits), to nearest with ties away
+    from zero (``cvt.rna.tf32.f32``), by bit masking; finite inputs."""
+    bits = x.contiguous().view(torch.int32)
+    mag = (bits & 0x7FFFFFFF) + 0x1000          # half of the dropped ulp
+    return ((mag & ~0x1FFF) | (bits & ~0x7FFFFFFF)).view(torch.float32)
+
+
+def tf32_split(x: torch.Tensor):
+    """(hi, lo): hi = tf32(x), lo = tf32(x - hi); x - hi is exact in f32."""
+    x = x.to(torch.float32)
+    hi = _tf32(x)
+    return hi, _tf32(x - hi)
+
+
+def tf32x3_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b^T as the kernels take it on the tensor cores: each operand
+    split into TF32 hi and lo, hi.lo + lo.hi + hi.hi with f32
+    accumulation (the lo.lo term dropped). Each TF32 product is exact in
+    f32, so the model's only rounding beyond the split is f32
+    accumulation. a (n, k), b (m, k) -> (n, m) f32."""
+    full_f32()
+    ah, al = tf32_split(a)
+    bh, bl = tf32_split(b)
+    return ah @ bl.T + al @ bh.T + ah @ bh.T
+
+
+def tma_operand(x: torch.Tensor) -> torch.Tensor:
+    """A 2-D f32 operand as a TMA tensor map takes it: rows a multiple of
+    16 bytes (4 floats) long from a 16-byte aligned base. Returns ``x``
+    itself when it already is, else a copy with its columns zero-padded
+    to a multiple of 4 (zero columns change no product and no norm)."""
+    cols = x.shape[1]
+    if cols % 4 == 0 and x.data_ptr() % 16 == 0:
+        return x
+    out = x.new_zeros((x.shape[0], round_up(cols, 4)))
+    out[:, :cols] = x
+    return out
 
 
 def check_metric_factor(L, d_in=None, *, what: str = "L"):

@@ -4,29 +4,48 @@ Counterpart of ``repro/kernels/dml_pair/kernel.py::dml_pair_fused``: the
 fused Eq. 4 forward, returning ``(losses, d2, proj)``. The library is
 built on first use (``kernels/_build.py``); nothing here touches CUDA at
 import time. The wrapper checks its inputs before it builds or launches
-anything, casts ``sim`` to f32, allocates outputs and scratch with
-``torch.empty``, launches on the current stream without synchronising,
-raises on a non-zero ``cudaError_t``, and counts its launches in
-``dml_pair_fused.launches``.
+anything, casts ``sim`` to f32, zero-pads the columns of L, xs and ys
+to a multiple of 4 where they are not (the TMA tensor maps' 16-byte row
+stride), allocates outputs and scratch with ``torch.empty``, launches on
+the current stream without synchronising, raises on a non-zero
+``cudaError_t``, and counts its launches in ``dml_pair_fused.launches``.
 """
 
 from __future__ import annotations
 
 import ctypes
 from pathlib import Path
+from typing import NamedTuple, Tuple
 
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels._dispatch import cdiv, sm_count, tma_operand
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "dml_pair.cu"
-BLOCK_Q = 64            # pairs of a tile
-BLOCK_M = 128           # L rows of a tile
-BLOCK_K = 32            # d slice staged per step
-_WAVES = 4              # blocks per SM the d split aims for
+BLOCK_M = 128           # pairs of a tile (two 64-row warpgroups)
+BLOCK_N = 128           # L rows of a tile
+BLOCK_K = 32            # d columns of a TMA stage
+STAGES = 4              # the TMA ring
+SMEM_LIMIT = 232448     # a block's shared memory on sm_90
+ALIGN = 1024            # slack for the 128-byte-swizzle alignment
+
+
+class Plan(NamedTuple):
+    grid: Tuple[int, int, int]  # (pair tiles, L-row tiles, d slices)
+    ksplit: int                 # d slices ...
+    kchunk: int                 # ... of kchunk columns, a multiple of 32
+
 
 _lib = None
-_n_sm: dict = {}
+
+
+def smem_bytes(stages: int = STAGES) -> int:
+    """Shared memory of one block: the ring of raw xs / ys / L stages,
+    two lo buffers of L, the barriers and the alignment slack (as
+    ``tf32x3::partial_smem`` counts it)."""
+    stage = (2 * BLOCK_M + BLOCK_N) * BLOCK_K * 4
+    return ALIGN + stages * stage + 2 * BLOCK_N * BLOCK_K * 4 + 2 * stages * 8
 
 
 def _library():
@@ -36,35 +55,26 @@ def _library():
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.dml_pair_launch.argtypes = [p] * 8 + [i] * 5 + [f, f, p]
         lib.dml_pair_launch.restype = i
-        for name in ("block_q", "block_m", "block_k"):
+        names = ("block_m", "block_n", "block_k", "stages", "smem")
+        for name in names:
             getattr(lib, f"dml_pair_{name}").restype = i
-        if (lib.dml_pair_block_q(), lib.dml_pair_block_m(),
-                lib.dml_pair_block_k()) != (BLOCK_Q, BLOCK_M, BLOCK_K):
+        got = tuple(getattr(lib, f"dml_pair_{n}")() for n in names)
+        if got != (BLOCK_M, BLOCK_N, BLOCK_K, STAGES, smem_bytes()):
             raise RuntimeError(f"{SOURCE} disagrees with kernel.py on its "
-                               f"tile sizes")
+                               f"tiles or shared memory: {got}")
         _lib = lib
     return _lib
 
 
-def _sm_count(device: torch.device) -> int:
-    idx = device.index if device.index is not None else \
-        torch.cuda.current_device()
-    if idx not in _n_sm:
-        _n_sm[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
-    return _n_sm[idx]
-
-
-def _cdiv(a: int, b: int) -> int:
-    return -(-a // b)
-
-
-def split_plan(B: int, d: int, k: int, n_sm: int):
-    """The d split that fills ``_WAVES * n_sm`` blocks: ``ksplit`` slices
-    of ``kchunk`` columns (a multiple of ``BLOCK_K``)."""
-    tiles = _cdiv(B, BLOCK_Q) * _cdiv(k, BLOCK_M)
-    ksplit = max(1, min(_cdiv(_WAVES * n_sm, tiles), _cdiv(d, BLOCK_K)))
-    kchunk = _cdiv(_cdiv(d, ksplit), BLOCK_K) * BLOCK_K
-    return _cdiv(d, kchunk), kchunk
+def launch_plan(B: int, d: int, k: int, n_sm: int) -> Plan:
+    """One block an SM (a block takes ``smem_bytes()``): the (pair, L-row)
+    tiles, and d split into as many slices as the tiles leave SMs for
+    (one wave), each a whole number of 32-column stages."""
+    tiles = cdiv(B, BLOCK_M) * cdiv(k, BLOCK_N)
+    ksplit = max(1, min(n_sm // tiles, cdiv(d, BLOCK_K)))
+    kchunk = cdiv(cdiv(d, ksplit), BLOCK_K) * BLOCK_K
+    ksplit = cdiv(d, kchunk)
+    return Plan((cdiv(B, BLOCK_M), cdiv(k, BLOCK_N), ksplit), ksplit, kchunk)
 
 
 def _check(name, x, ndim):
@@ -111,14 +121,17 @@ def dml_pair_fused(L: torch.Tensor, xs: torch.Tensor, ys: torch.Tensor,
     if B == 0:
         return losses, d2, proj
     lib = _library()
-    ksplit, kchunk = split_plan(B, d, k, _sm_count(device))
+    # rows of a multiple of 4 floats for the tensor maps (zero columns)
+    L, xs, ys = (tma_operand(t) for t in (L, xs, ys))
+    d4 = xs.shape[1]
+    plan = launch_plan(B, d4, k, sm_count(device))
     simf = sim.to(torch.float32).contiguous()
-    part = torch.empty((ksplit, B, k), **f32)
+    part = torch.empty((plan.ksplit, B, k), **f32)
     ptrs = [ctypes.c_void_p(t.data_ptr()) for t in
             (L, xs, ys, simf, part, losses, d2, proj)]
     stream = ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
     with torch.cuda.device(device):
-        err = lib.dml_pair_launch(*ptrs, B, d, k, ksplit, kchunk,
+        err = lib.dml_pair_launch(*ptrs, B, d4, k, plan.ksplit, plan.kchunk,
                                   float(lam), float(margin), stream)
     if err != 0:
         raise RuntimeError(f"dml_pair kernel launch failed: cudaError_t "

@@ -1,4 +1,5 @@
-// Fused metric-space top-k retrieval for Hopper (sm_90a), f32 throughout.
+// Fused metric-space top-k retrieval for Hopper (sm_90a), f32-accurate on
+// the tensor cores.
 //
 // Replaces the TPU kernel repro/kernels/metric_topk/kernel.py::
 // metric_topk_fused (Pallas) and computes the same function:
@@ -11,201 +12,105 @@
 // The (Nq, M) distance matrix never reaches device memory.
 //
 // What bounds it. At the serving shapes (Nq = 64, M = 1M, d_out = 1000,
-// d_in = 21504) the work is 2*Nq*M*d_out + 2*Nq*d_in*d_out ~ 131 GFLOP
-// of f32 FMA against ~4.1 GB read once (gp 4.0 GB + L 86 MB). Plain f32
-// runs outside the tensor cores (67 TFLOP/s): ~1.95 ms compute against
-// ~1.22 ms of memory at 3.35 TB/s, so the scan is compute-bound from
-// Nq ~ 40 up and memory-bound below.
+// d_in = 21504) the work is 2*Nq*M*d_out + 2*Nq*d_in*d_out ~ 131 GFLOP,
+// which 3xTF32 (kernels/csrc/tf32x3_sm90.cuh) does as 3 x 131 GFLOP at
+// 495 TFLOP/s, 0.80 ms, against ~4.1 GB read once (gp 4.0 GB + L 86 MB),
+// 1.22 ms at 3.35 TB/s. So the kernel is bound by reading the gallery,
+// at every Nq from 1 to 64.
 //
 // What the design does about it. The TPU kernel holds all of L in VMEM
 // and walks the gallery as a sequential grid axis carrying its running
 // top-k in scratch; here L (86 MB at this width) cannot sit in shared
 // memory and blocks run in parallel in no order. So:
 //
-//   1. project_partial: q L^T tiled over d_in (split-K), every block a
-//      BQ x 128 output tile of one d_in slice, partial sums to scratch;
+//   1. tf32x3::partial_product<N, false>: q L^T split over d_in, L rows
+//      on the wgmma M side and the query tile (N = 8 .. 128 rows, the
+//      smallest that holds the batch) on the N side, partial sums to
+//      scratch;
 //   2. project_reduce: sums the d_in slices in a fixed order (so the
-//      result is deterministic), writes qp and qn = ||qp||^2;
-//   3. scan: grid (query tile x gallery split). The query tile BQ is the
-//      smallest of 8/16/32/64 rows that holds the batch, so a small batch
-//      does not pay 64 rows of FMA (below Nq ~ 40 the scan is bound by
-//      reading gp once). Each block streams its split's gp rows through
-//      shared memory in 128-row tiles, 32-wide slices double-buffered
-//      with cp.async so the next slice loads while this one multiplies,
-//      and forms the BQ x 128 distance tile in registers with f32 FFMA
-//      (a thread owns BQ/8 queries x 4 rows). The warp that owns BQ/8
-//      queries keeps their running top-k_top as sorted
-//      (d, id) lists in shared memory; a candidate that beats a list's
-//      current k-th entry is inserted by the whole warp (count, shift,
-//      write). Each split writes its k_top candidates per query;
+//      result is deterministic), writes qn = ||qp||^2 from the f32 qp and
+//      the 3xTF32 split of qp (qhi, qlo) once for the call;
+//   3. scan: grid (query tile x gallery split), one block an SM. Each
+//      block streams its split's gallery through the TMA ring once:
+//      128-row x 32-column gp stages with the query tile's qhi / qlo
+//      slices beside them (they stay in L2). Gallery rows are the wgmma M
+//      side (two warpgroups of 64), queries the N side, so Nq = 1 costs a
+//      64 x 8 wgmma and the scan stays bound by the gallery read. Each
+//      warpgroup loads its own 64 rows of a landed stage into registers
+//      and splits them there (the wgmma's A from registers); qhi / qlo
+//      are read from shared memory as they landed. Per 128-row
+//      tile the accumulators go to a shared-memory tile; the warp that
+//      owns a query forms d = (qn + gn) - 2 cross (rounded as the plain
+//      version) for 32 rows at a time, and only rows that beat the
+//      query's current k-th (d, id) reach its sorted list (count, shift,
+//      write by the whole warp). Each split writes its k_top candidates;
 //   4. merge: one block per query merges the sorted split lists by
 //      (d, id), k_top rounds of a block-wide argmin over list heads.
 //
-// Ragged edges are masked in the kernel (no 128-lane padding as on the
-// TPU). No TF32, no bf16: every product is an f32 FFMA. wgmma, TMA and
-// 3xTF32 are later work.
+// Ragged edges are zero rows and columns of the TMA boxes, masked in the
+// epilogues; the wrapper zero-pads q, L or gp to rows of a multiple of 4
+// floats where they are not (the tensor map's 16-byte row stride). No
+// plain TF32 and no bf16: every product is 3xTF32.
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
 #include <stdint.h>
 
+#include "../../csrc/tf32x3_sm90.cuh"
+
 namespace {
 
-constexpr int BM = 128;         // gallery (or L) rows of a tile
-constexpr int BK = 32;          // contraction slice staged per step
-constexpr int THREADS = 256;    // 8 warps: warp w owns queries TQ*w..
-constexpr int TM = 4;           // rows per thread (lane, lane+32, ...)
-constexpr int QPAD = BK + 4;    // 16-byte aligned rows, float4 reads
-constexpr int MPAD = BM + 1;    // conflict-free transposed stores
+using tf32x3::A_BYTES;
+using tf32x3::BK;
+using tf32x3::BM;
+using tf32x3::ROW_BYTES;
+using tf32x3::THREADS;
+
 constexpr int MAX_K = 256;
 constexpr int KR = MAX_K / 32;  // list entries a lane holds in an insert
+constexpr int PROJ_STAGES = 4;
+constexpr int REDUCE_THREADS = 256;
 constexpr int MERGE_THREADS = 256;
 constexpr int NO_ID = 0x7fffffff;
-
-// TQ queries per thread, BQ = 8 * TQ query rows per tile: the launcher
-// picks the smallest tile that holds the batch (8, 16, 32 or 64 rows).
-template <int TQ>
-struct Tiles {
-    float a[8 * TQ][QPAD];      // A rows (queries), k contiguous
-    float b[BK][MPAD];          // B rows (gallery / L), transposed
-};
+constexpr int DPAD = BM + 4;    // cross tile rows: conflict-free stores
+// the scan keeps a producer warp beside its two warpgroups: the TMA ring
+// runs ahead through the tile epilogues (the 288-thread block gets 168
+// registers a thread, which its one register set fits)
+constexpr int SCAN_THREADS = THREADS + 32;
 
 __device__ __forceinline__ bool lex_less(float ad, int ai, float bd, int bi) {
     return ad < bd || (ad == bd && ai < bi);
 }
 
-// 4-byte global -> shared copy that bypasses registers; pred false fills
-// the destination with zero (src-size 0 reads nothing).
-__device__ __forceinline__ void cp_async4(float* dst, const float* src,
-                                          bool pred) {
-    unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
-                 :: "r"(s), "l"(src), "r"(pred ? 4 : 0));
+__host__ __device__ constexpr int scan_stage_bytes(int n) {
+    return A_BYTES + 2 * n * ROW_BYTES;         // gp, qhi, qlo slices
 }
 
-__device__ __forceinline__ void cp_async_commit() {
-    asm volatile("cp.async.commit_group;\n" ::);
+// the aligned ring, the cross tile, gn / qn, the lists and the barriers
+// (+ ALIGN of slack)
+__host__ __device__ constexpr int scan_smem(int n, int k_top, int stages) {
+    return tf32x3::ALIGN + stages * scan_stage_bytes(n) + n * DPAD * 4
+        + BM * 4 + n * 4 + n * k_top * 8 + 2 * stages * 8;
 }
 
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-    asm volatile("cp.async.wait_group %0;\n" :: "n"(N));
-}
-
-template <int TQ>
-__device__ __forceinline__ void load_slice(
-        Tiles<TQ>& t, const float* __restrict__ A, long long lda, int a0,
-        int na, const float* __restrict__ B, long long ldb, int b0, int nb,
-        int kb, int k1) {
-    const int tid = threadIdx.x;
-    #pragma unroll
-    for (int r = 0; r < 8 * TQ * BK / THREADS; ++r) {
-        int idx = tid + r * THREADS, row = idx / BK, k = idx % BK;
-        int gr = a0 + row, gk = kb + k;
-        bool ok = gr < na && gk < k1;
-        cp_async4(&t.a[row][k], ok ? A + gr * lda + gk : A, ok);
-    }
-    #pragma unroll
-    for (int r = 0; r < BM * BK / THREADS; ++r) {
-        int idx = tid + r * THREADS, row = idx / BK, k = idx % BK;
-        int gr = b0 + row, gk = kb + k;
-        bool ok = gr < nb && gk < k1;
-        cp_async4(&t.b[k][row], ok ? B + gr * ldb + gk : B, ok);
-    }
-    cp_async_commit();
-}
-
-// acc[i][j] += sum_k A[a0 + ty*TQ + i, k] * B[b0 + lane + 32 j, k] over
-// k in [k0, k1); rows past na / nb and k past k1 read as zero. Slices are
-// double-buffered: slice s+1 streams in while slice s is multiplied.
-// Summation is sequential in k for every output.
-template <int TQ>
-__device__ __forceinline__ void dot_tile(
-        Tiles<TQ>* t, const float* __restrict__ A, long long lda, int a0,
-        int na, const float* __restrict__ B, long long ldb, int b0, int nb,
-        int k0, int k1, float (&acc)[TQ][TM]) {
-    const int lane = threadIdx.x & 31, ty = threadIdx.x >> 5;
-    const int nsteps = (k1 - k0 + BK - 1) / BK;
-    // a warp whose query rows are all past na only helps load: at a batch
-    // smaller than the tile this spares the shared-memory reads of zeros.
-    // The 64-row tile keeps the branch-free loop (measured faster there).
-    const bool busy = TQ == 8 || a0 + ty * TQ < na;
-    load_slice<TQ>(t[0], A, lda, a0, na, B, ldb, b0, nb, k0, k1);
-    for (int st = 0; st < nsteps; ++st) {
-        if (st + 1 < nsteps) {
-            load_slice<TQ>(t[(st + 1) & 1], A, lda, a0, na, B, ldb, b0, nb,
-                           k0 + (st + 1) * BK, k1);
-            cp_async_wait<1>();
-        } else {
-            cp_async_wait<0>();
-        }
-        __syncthreads();
-        const Tiles<TQ>& c_t = t[st & 1];
-        if (busy) {
-            #pragma unroll
-            for (int kk = 0; kk < BK; kk += 4) {
-                float4 a[TQ];
-                #pragma unroll
-                for (int i = 0; i < TQ; ++i)
-                    a[i] = *reinterpret_cast<const float4*>(&c_t.a[ty * TQ + i][kk]);
-                #pragma unroll
-                for (int c = 0; c < 4; ++c) {
-                    float b[TM];
-                    #pragma unroll
-                    for (int j = 0; j < TM; ++j) b[j] = c_t.b[kk + c][lane + 32 * j];
-                    #pragma unroll
-                    for (int i = 0; i < TQ; ++i) {
-                        float av = c == 0 ? a[i].x : c == 1 ? a[i].y
-                                 : c == 2 ? a[i].z : a[i].w;
-                        #pragma unroll
-                        for (int j = 0; j < TM; ++j)
-                            acc[i][j] = fmaf(av, b[j], acc[i][j]);
-                    }
-                }
-            }
-        }
-        __syncthreads();        // the next load overwrites this buffer
-    }
-}
-
-// part[s, q, c] = sum_{k in slice s} q[q, k] * L[c, k]
-template <int TQ>
-__global__ void __launch_bounds__(THREADS)
-project_partial(const float* __restrict__ q, const float* __restrict__ L,
-                float* __restrict__ part, int nq, int d_in, int d_out,
-                int kchunk) {
-    extern __shared__ __align__(16) unsigned char smem[];
-    Tiles<TQ>* t = reinterpret_cast<Tiles<TQ>*>(smem);
-    const int q0 = blockIdx.x * 8 * TQ, c0 = blockIdx.y * BM, s = blockIdx.z;
-    const int k0 = s * kchunk, k1 = min(d_in, k0 + kchunk);
-    float acc[TQ][TM] = {};
-    dot_tile<TQ>(t, q, d_in, q0, nq, L, d_in, c0, d_out, k0, k1, acc);
-    const int lane = threadIdx.x & 31, ty = threadIdx.x >> 5;
-    float* out = part + (long long)s * nq * d_out;
-    #pragma unroll
-    for (int i = 0; i < TQ; ++i) {
-        int qi = q0 + ty * TQ + i;
-        if (qi >= nq) continue;
-        #pragma unroll
-        for (int j = 0; j < TM; ++j) {
-            int c = c0 + lane + 32 * j;
-            if (c < d_out) out[(long long)qi * d_out + c] = acc[i][j];
-        }
-    }
-}
-
-// qp[q, c] = sum_s part[s, q, c] (s ascending); qn[q] = sum_c qp[q, c]^2
-__global__ void __launch_bounds__(THREADS)
-project_reduce(const float* __restrict__ part, float* __restrict__ qp,
-               float* __restrict__ qn, int nq, int d_out, int nsplit) {
-    __shared__ float warp_sums[THREADS / 32];
+// qp[q, c] = sum_s part[s, q, c] (s ascending); qn[q] = sum_c qp[q, c]^2;
+// qhi / qlo (nq, dp): the 3xTF32 split of qp, zero in columns d_out..dp
+__global__ void __launch_bounds__(REDUCE_THREADS)
+project_reduce(const float* __restrict__ part, float* __restrict__ qhi,
+               float* __restrict__ qlo, float* __restrict__ qn, int nq,
+               int d_out, int dp, int nsplit) {
+    __shared__ float warp_sums[REDUCE_THREADS / 32];
     const int qi = blockIdx.x;
     float sq = 0.f;
-    for (int c = threadIdx.x; c < d_out; c += THREADS) {
+    for (int c = threadIdx.x; c < dp; c += REDUCE_THREADS) {
         float v = 0.f;
-        for (int s = 0; s < nsplit; ++s)
-            v += part[((long long)s * nq + qi) * d_out + c];
-        qp[(long long)qi * d_out + c] = v;
+        if (c < d_out)
+            for (int s = 0; s < nsplit; ++s)
+                v += part[((long long)s * nq + qi) * d_out + c];
+        float hi, lo;
+        tf32x3::split1(v, hi, lo);
+        qhi[(long long)qi * dp + c] = hi;
+        qlo[(long long)qi * dp + c] = lo;
         sq = fmaf(v, v, sq);
     }
     for (int o = 16; o > 0; o >>= 1) sq += __shfl_xor_sync(0xffffffffu, sq, o);
@@ -213,7 +118,7 @@ project_reduce(const float* __restrict__ part, float* __restrict__ qp,
     __syncthreads();
     if (threadIdx.x == 0) {
         float tot = 0.f;
-        for (int w = 0; w < THREADS / 32; ++w) tot += warp_sums[w];
+        for (int w = 0; w < REDUCE_THREADS / 32; ++w) tot += warp_sums[w];
         qn[qi] = tot;
     }
 }
@@ -255,83 +160,138 @@ __device__ __noinline__ void warp_insert(float* ld, int* li, int k,
     __syncwarp();
 }
 
-template <int TQ>
-__global__ void __launch_bounds__(THREADS)
-scan(const float* __restrict__ qp, const float* __restrict__ qn,
-     const float* __restrict__ gp, const float* __restrict__ gn,
-     float* __restrict__ cand_d, int* __restrict__ cand_i,
-     int nq, int d_out, int m, int k_top, int rows_per_split, int nsplit) {
-    constexpr int BQ = 8 * TQ;
-    extern __shared__ __align__(16) unsigned char smem[];
-    Tiles<TQ>* t = reinterpret_cast<Tiles<TQ>*>(smem);
-    float* list_d = reinterpret_cast<float*>(t + 2);
-    int* list_i = reinterpret_cast<int*>(list_d + BQ * k_top);
+// cand[q, s] = the k_top smallest (d, id) of query q over gallery split s
+// (rows [s * rows_per_split, ...)), ascending. Grid (query tiles of N,
+// nsplit); ksteps = the BK-column slices of a gp row.
+template <int N>
+__global__ void __launch_bounds__(SCAN_THREADS, 1)
+scan(const __grid_constant__ CUtensorMap gpm,
+     const __grid_constant__ CUtensorMap qhm,
+     const __grid_constant__ CUtensorMap qlm, const float* __restrict__ qn,
+     const float* __restrict__ gn, float* __restrict__ cand_d,
+     int* __restrict__ cand_i, int nq, int m, int k_top, int ksteps,
+     int rows_per_split, int nsplit, int stages) {
+    using namespace tf32x3;
+    constexpr int Q_BYTES = N * ROW_BYTES;
+    constexpr int STAGE = scan_stage_bytes(N);
+    extern __shared__ unsigned char smem_raw[];
+    unsigned char* base = align_smem(smem_raw);
+    float* cross = reinterpret_cast<float*>(base + stages * STAGE);
+    float* sgn = cross + N * DPAD;
+    float* sqn = sgn + BM;
+    float* list_d = sqn + N;
+    int* list_i = reinterpret_cast<int*>(list_d + N * k_top);
+    uint64_t* full = reinterpret_cast<uint64_t*>(list_i + N * k_top);
+    uint64_t* empty = full + stages;
 
-    const int lane = threadIdx.x & 31, ty = threadIdx.x >> 5;
-    const int q0 = blockIdx.x * BQ, s = blockIdx.y;
-    const int r0 = s * rows_per_split, r1 = min(m, r0 + rows_per_split);
+    const int q0 = blockIdx.x * N, split = blockIdx.y;
+    const int r0 = split * rows_per_split;
+    const int r1 = min(m, r0 + rows_per_split);
+    const int tiles = (r1 - r0 + BM - 1) / BM;
+    const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+    init_ring(full, empty, stages);
 
-    for (int p = threadIdx.x; p < BQ * k_top; p += THREADS) {
+    // iteration j: tile j / ksteps, slice j % ksteps, into slot j % stages
+    const int total = tiles * ksteps;
+    auto load = [&](int j) {    // the producer: iteration j into its slot
+        const int s = j % stages;
+        unsigned char* st = base + s * STAGE;
+        const int col = (j % ksteps) * BK;
+        mbar_expect_tx(&full[s], STAGE);
+        tma_load(st, &gpm, &full[s], col, r0 + (j / ksteps) * BM);
+        tma_load(st + A_BYTES, &qhm, &full[s], col, q0);
+        tma_load(st + A_BYTES + Q_BYTES, &qlm, &full[s], col, q0);
+    };
+    if (warp == THREADS / 32) {             // the producer warp
+        if (lane == 0)
+            for (int j = 0; j < total; ++j) {
+                if (j >= stages)
+                    mbar_wait(&empty[j % stages], (j / stages - 1) & 1);
+                load(j);
+            }
+        return;
+    }
+    const int tid = threadIdx.x, wg = warp / 4, wl = warp % 4;
+    for (int p = tid; p < N * k_top; p += THREADS) {
         list_d[p] = CUDART_INF_F;
         list_i[p] = NO_ID;
     }
-    float qn_r[TQ], thr_d[TQ];
-    int thr_i[TQ];
-    #pragma unroll
-    for (int i = 0; i < TQ; ++i) {
-        int qi = q0 + ty * TQ + i;
-        qn_r[i] = qi < nq ? qn[qi] : 0.f;
-        thr_d[i] = CUDART_INF_F;
-        thr_i[i] = NO_ID;
-    }
-    __syncthreads();
+    for (int p = tid; p < N; p += THREADS)
+        sqn[p] = q0 + p < nq ? qn[q0 + p] : 0.f;
+    named_sync(1, THREADS);
 
-    for (int m0 = r0; m0 < r1; m0 += BM) {
-        float acc[TQ][TM] = {};
-        dot_tile<TQ>(t, qp, d_out, q0, nq, gp, d_out, m0, r1, 0, d_out, acc);
-        float gn_r[TM];
+    float acc[N / 2], tmp[N / 2], a_hi[AFRAG], a_lo[AFRAG];
+    int it = 0;
+    for (int t = 0; t < tiles; ++t) {
         #pragma unroll
-        for (int j = 0; j < TM; ++j) {
-            int row = m0 + lane + 32 * j;
-            gn_r[j] = row < r1 ? gn[row] : 0.f;
+        for (int i = 0; i < N / 2; ++i) acc[i] = 0.f;
+        for (int kk = 0; kk < ksteps; ++kk, ++it) {
+            const int s = it % stages;
+            unsigned char* st = base + s * STAGE;
+            mbar_wait(&full[s], (it / stages) & 1);
+            if (kk > 0) {
+                promote<N>(acc, tmp, a_hi, a_lo);
+                if (tid % 128 == 0) mbar_arrive(&empty[(it - 1) % stages]);
+            }
+            // this warpgroup's 64 gallery rows, split in registers
+            load_a(reinterpret_cast<const float*>(st) + wg * 64 * BK,
+                   nullptr, a_hi, a_lo);
+            issue_stage<N>(tmp, a_hi, a_lo, st + A_BYTES,
+                           st + A_BYTES + Q_BYTES);
         }
+        promote<N>(acc, tmp, a_hi, a_lo);
+        if (tid % 128 == 0) mbar_arrive(&empty[(it - 1) % stages]);
+
+        const int m0 = r0 + t * BM;
+        named_sync(1, THREADS);             // the last tile's lists are done
         #pragma unroll
-        for (int i = 0; i < TQ; ++i) {
-            if (q0 + ty * TQ + i >= nq) continue;     // uniform in the warp
-            float* ld = list_d + (ty * TQ + i) * k_top;
-            int* li = list_i + (ty * TQ + i) * k_top;
+        for (int i = 0; i < N / 8; ++i) {
             #pragma unroll
-            for (int j = 0; j < TM; ++j) {
-                int row = m0 + lane + 32 * j;
+            for (int h = 0; h < 2; ++h) {
+                const int row = wg * 64 + wl * 16 + lane / 4 + 8 * h;
+                const int col = 8 * i + 2 * (lane % 4);
+                cross[col * DPAD + row] = acc[4 * i + 2 * h];
+                cross[(col + 1) * DPAD + row] = acc[4 * i + 2 * h + 1];
+            }
+        }
+        if (tid < BM) sgn[tid] = m0 + tid < r1 ? gn[m0 + tid] : 0.f;
+        named_sync(1, THREADS);
+        // warp w keeps queries w, w + 8, ...; lanes walk the tile's rows
+        for (int qi = warp; qi < N && q0 + qi < nq; qi += THREADS / 32) {
+            float* ld = list_d + qi * k_top;
+            int* li = list_i + qi * k_top;
+            const float qn_r = sqn[qi];
+            float thr_d = ld[k_top - 1];
+            int thr_i = li[k_top - 1];
+            #pragma unroll
+            for (int j = 0; j < BM / 32; ++j) {
+                const int rl = lane + 32 * j, row = m0 + rl;
                 // (qn + gn) - 2 * cross, rounded as the plain version
-                float d = __fsub_rn(__fadd_rn(qn_r[i], gn_r[j]),
-                                    __fmul_rn(2.f, acc[i][j]));
+                float d = __fsub_rn(__fadd_rn(qn_r, sgn[rl]),
+                                    __fmul_rn(2.f, cross[qi * DPAD + rl]));
                 d = fmaxf(d, 0.f);
-                bool pass = row < r1 && lex_less(d, row, thr_d[i], thr_i[i]);
+                const bool pass = row < r1 && lex_less(d, row, thr_d, thr_i);
                 unsigned mask = __ballot_sync(0xffffffffu, pass);
+                if (mask == 0) continue;
                 while (mask) {
-                    int src = __ffs(mask) - 1;
+                    const int src = __ffs(mask) - 1;
                     mask &= mask - 1;
-                    float cd = __shfl_sync(0xffffffffu, d, src);
-                    int ci = __shfl_sync(0xffffffffu, row, src);
+                    const float cd = __shfl_sync(0xffffffffu, d, src);
+                    const int ci = __shfl_sync(0xffffffffu, row, src);
                     warp_insert(ld, li, k_top, cd, ci, lane);
                 }
+                thr_d = ld[k_top - 1];
+                thr_i = li[k_top - 1];
             }
-            thr_d[i] = ld[k_top - 1];
-            thr_i[i] = li[k_top - 1];
         }
     }
-    __syncwarp();
-    #pragma unroll
-    for (int i = 0; i < TQ; ++i) {
-        int qi = q0 + ty * TQ + i;
-        if (qi >= nq) continue;
-        const float* ld = list_d + (ty * TQ + i) * k_top;
-        const int* li = list_i + (ty * TQ + i) * k_top;
-        long long base = ((long long)qi * nsplit + s) * k_top;
+    for (int qi = warp; qi < N && q0 + qi < nq; qi += THREADS / 32) {
+        const float* ld = list_d + qi * k_top;
+        const int* li = list_i + qi * k_top;
+        const long long out = ((long long)(q0 + qi) * nsplit + split) * k_top;
         for (int p = lane; p < k_top; p += 32) {
-            cand_d[base + p] = ld[p];
-            cand_i[base + p] = li[p];
+            cand_d[out + p] = ld[p];
+            cand_i[out + p] = li[p];
         }
     }
 }
@@ -385,38 +345,38 @@ merge(const float* __restrict__ cand_d, const int* __restrict__ cand_i,
     }
 }
 
-template <int TQ>
+template <int N>
 int launch_all(const float* q, const float* L, const float* gp,
-               const float* gn, float* part, float* qp, float* qn,
-               float* cand_d, int* cand_i, float* out_d, int* out_i,
-               int nq, int d_in, int d_out, int m, int k_top, int ksplit,
-               int kchunk, int nsplit, int rows_per_split,
-               cudaStream_t stream) {
-    constexpr int BQ = 8 * TQ;
-    const int qtiles = (nq + BQ - 1) / BQ;
-    const size_t tile_bytes = 2 * sizeof(Tiles<TQ>);
-    cudaError_t err = cudaFuncSetAttribute(
-        project_partial<TQ>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)tile_bytes);
-    if (err != cudaSuccess) return (int)err;
-    project_partial<TQ><<<dim3(qtiles, (d_out + BM - 1) / BM, ksplit),
-                          THREADS, tile_bytes, stream>>>(
-        q, L, part, nq, d_in, d_out, kchunk);
-    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+               const float* gn, float* part, float* qhi, float* qlo,
+               float* qn, float* cand_d, int* cand_i, float* out_d,
+               int* out_i, int nq, int d_in, int d_out, int dp, int m,
+               int k_top, int stages, int ksplit, int kchunk, int nsplit,
+               int rows_per_split, cudaStream_t stream) {
+    // part[s, q, c]: L rows on the M side, queries on the N side
+    int err = tf32x3::launch_partial<N, false>(
+        L, nullptr, q, part, d_out, nq, d_in, ksplit, kchunk, PROJ_STAGES,
+        (long long)nq * d_out, 1, d_out, stream);
+    if (err != 0) return err;
+    project_reduce<<<nq, REDUCE_THREADS, 0, stream>>>(part, qhi, qlo, qn, nq,
+                                                      d_out, dp, ksplit);
+    cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
 
-    project_reduce<<<nq, THREADS, 0, stream>>>(part, qp, qn, nq, d_out, ksplit);
-    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-
-    const size_t scan_bytes =
-        tile_bytes + (size_t)BQ * k_top * (sizeof(float) + sizeof(int));
-    err = cudaFuncSetAttribute(scan<TQ>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)scan_bytes);
-    if (err != cudaSuccess) return (int)err;
-    scan<TQ><<<dim3(qtiles, nsplit), THREADS, scan_bytes, stream>>>(
-        qp, qn, gp, gn, cand_d, cand_i, nq, d_out, m, k_top,
-        rows_per_split, nsplit);
-    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+    const int smem = scan_smem(N, k_top, stages);
+    if (stages < 2 || smem > tf32x3::SMEM_LIMIT)
+        return (int)cudaErrorInvalidValue;
+    CUtensorMap gpm, qhm, qlm;
+    if ((err = tf32x3::encode(&gpm, gp, dp, m, BM)) != 0) return err;
+    if ((err = tf32x3::encode(&qhm, qhi, dp, nq, N)) != 0) return err;
+    if ((err = tf32x3::encode(&qlm, qlo, dp, nq, N)) != 0) return err;
+    e = cudaFuncSetAttribute(scan<N>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem);
+    if (e != cudaSuccess) return (int)e;
+    scan<N><<<dim3((nq + N - 1) / N, nsplit), SCAN_THREADS, smem, stream>>>(
+        gpm, qhm, qlm, qn, gn, cand_d, cand_i, nq, m, k_top,
+        (dp + BK - 1) / BK, rows_per_split, nsplit, stages);
+    if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
 
     merge<<<nq, MERGE_THREADS, (size_t)nsplit * sizeof(int), stream>>>(
         cand_d, cand_i, out_d, out_i, nsplit, k_top);
@@ -430,29 +390,42 @@ extern "C" {
 int metric_topk_block_m() { return BM; }
 int metric_topk_block_k() { return BK; }
 int metric_topk_max_k() { return MAX_K; }
+int metric_topk_proj_stages() { return PROJ_STAGES; }
+int metric_topk_scan_smem(int n, int k_top, int stages) {
+    return scan_smem(n, k_top, stages);
+}
+int metric_topk_proj_smem(int n) {
+    return tf32x3::partial_smem(n, false, PROJ_STAGES);
+}
 
-// One call runs the four kernels on `stream` with 8 * tq query rows per
-// tile (tq in 1, 2, 4, 8). Scratch is the caller's: part (ksplit, nq,
-// d_out), qp (nq, d_out), qn (nq), cand_d / cand_i (nq, nsplit, k_top).
-// Returns the first non-zero cudaError_t, else 0.
+// One call runs the four kernels on `stream` with query tiles of n_tile
+// rows (8, 16, 32, 64 or 128). q (nq, d_in) and L (d_out, d_in) have d_in
+// a multiple of 4, gp (m, dp) has dp = d_out rounded up to a multiple of
+// 4, all with 16-byte aligned bases. Scratch is the caller's: part
+// (ksplit, nq, d_out), qhi / qlo (nq, dp), qn (nq), cand_d / cand_i (nq,
+// nsplit, k_top). Returns the first non-zero cudaError_t, else 0.
 int metric_topk_launch(const float* q, const float* L, const float* gp,
-                       const float* gn, float* part, float* qp, float* qn,
-                       float* cand_d, int* cand_i, float* out_d, int* out_i,
-                       int nq, int d_in, int d_out, int m, int k_top, int tq,
-                       int ksplit, int kchunk, int nsplit,
-                       int rows_per_split, void* stream_ptr) {
+                       const float* gn, float* part, float* qhi, float* qlo,
+                       float* qn, float* cand_d, int* cand_i, float* out_d,
+                       int* out_i, int nq, int d_in, int d_out, int dp, int m,
+                       int k_top, int n_tile, int stages, int ksplit,
+                       int kchunk, int nsplit, int rows_per_split,
+                       void* stream_ptr) {
     if (k_top < 1 || k_top > MAX_K || nq < 1 || m < 1 || d_out < 1 ||
-        d_in < 1)
+        d_in < 1 || d_in % 4 != 0 || dp % 4 != 0 || dp < d_out ||
+        dp >= d_out + 4 || rows_per_split % BM != 0 ||
+        (long long)nsplit * rows_per_split < m)
         return (int)cudaErrorInvalidValue;
     cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-#define METRIC_TOPK_ARGS q, L, gp, gn, part, qp, qn, cand_d, cand_i, out_d, \
-        out_i, nq, d_in, d_out, m, k_top, ksplit, kchunk, nsplit,          \
-        rows_per_split, stream
-    switch (tq) {
-        case 1: return launch_all<1>(METRIC_TOPK_ARGS);
-        case 2: return launch_all<2>(METRIC_TOPK_ARGS);
-        case 4: return launch_all<4>(METRIC_TOPK_ARGS);
+#define METRIC_TOPK_ARGS q, L, gp, gn, part, qhi, qlo, qn, cand_d, cand_i, \
+        out_d, out_i, nq, d_in, d_out, dp, m, k_top, stages, ksplit,       \
+        kchunk, nsplit, rows_per_split, stream
+    switch (n_tile) {
         case 8: return launch_all<8>(METRIC_TOPK_ARGS);
+        case 16: return launch_all<16>(METRIC_TOPK_ARGS);
+        case 32: return launch_all<32>(METRIC_TOPK_ARGS);
+        case 64: return launch_all<64>(METRIC_TOPK_ARGS);
+        case 128: return launch_all<128>(METRIC_TOPK_ARGS);
         default: return (int)cudaErrorInvalidValue;
     }
 #undef METRIC_TOPK_ARGS

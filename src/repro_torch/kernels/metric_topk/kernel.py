@@ -4,30 +4,65 @@ Counterpart of ``repro/kernels/metric_topk/kernel.py::metric_topk_fused``:
 fused query projection + factored distance + top-k, without the
 (Nq, M) distance matrix ever reaching device memory. The library is
 built on first use (``kernels/_build.py``); nothing here touches CUDA at
-import time. The wrapper checks its inputs, allocates outputs and
-scratch with ``torch.empty``, launches on the current stream without
-synchronising, raises on a non-zero ``cudaError_t``, and counts its
-launches in ``metric_topk_fused.launches``.
+import time. The wrapper checks its inputs, zero-pads the columns of q, L
+or gp to a multiple of 4 where they are not (the TMA tensor maps'
+16-byte row stride), allocates outputs and scratch with ``torch.empty``,
+launches on the current stream without synchronising, raises on a
+non-zero ``cudaError_t``, and counts its launches in
+``metric_topk_fused.launches``.
 """
 
 from __future__ import annotations
 
 import ctypes
 from pathlib import Path
+from typing import NamedTuple
 
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels._dispatch import cdiv, sm_count, tma_operand
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "metric_topk.cu"
 MAX_K_TOP = 256         # the kernel keeps per-query lists of <= 256 entries
-BLOCK_M = 128           # gallery (or L) rows of a tile
-BLOCK_K = 32            # contraction slice staged per step
-QUERY_TILES = (8, 16, 32, 64)   # query rows of a tile, chosen per batch
-_WAVES = 4              # blocks per SM the split sizes aim for
+BLOCK_M = 128           # gallery (or L) rows of a tile: two warpgroups
+BLOCK_K = 32            # columns of a TMA stage
+QUERY_TILES = (8, 16, 32, 64, 128)  # query rows of a tile (the wgmma N)
+PROJ_STAGES = 4         # the projection's TMA ring
+MAX_STAGES = 8          # the scan's TMA ring: 2..8 stages, as many as fit
+SMEM_LIMIT = 232448     # a block's shared memory on sm_90
+ALIGN = 1024            # slack for the 128-byte-swizzle alignment
+_ROW = BLOCK_K * 4      # bytes of a staged row
+_A = BLOCK_M * _ROW     # a stage's M-side tile
+
+
+class Plan(NamedTuple):
+    n_tile: int             # query rows of a tile
+    qtiles: int
+    stages: int             # the scan's ring
+    ksplit: int             # projection: d_in slices ...
+    kchunk: int             # ... of kchunk columns, a multiple of 32
+    nsplit: int             # scan: gallery splits ...
+    rows_per_split: int     # ... of whole 128-row tiles
+
 
 _lib = None
-_n_sm: dict = {}
+
+
+def scan_smem(n: int, k_top: int, stages: int) -> int:
+    """Shared memory of a scan block (as ``scan_smem`` in the source):
+    the ring of gp / qhi / qlo stages, the 128 x n cross tile (rows padded
+    by 4), gn and qn, the n sorted lists of k_top (d, id) entries, the
+    barriers, the alignment slack."""
+    return (ALIGN + stages * (_A + 2 * n * _ROW) + n * (BLOCK_M + 4) * 4
+            + BLOCK_M * 4 + n * 4 + n * k_top * 8 + 2 * stages * 8)
+
+
+def proj_smem(n: int) -> int:
+    """Shared memory of a projection block (``tf32x3::partial_smem``):
+    the ring of L / q stages, two lo buffers of the query side."""
+    return (ALIGN + PROJ_STAGES * (_A + n * _ROW) + 2 * n * _ROW
+            + 2 * PROJ_STAGES * 8)
 
 
 def _library():
@@ -35,47 +70,47 @@ def _library():
     if _lib is None:
         lib = _build.load(SOURCE)
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.metric_topk_launch.argtypes = [p] * 11 + [i] * 10 + [p]
+        lib.metric_topk_launch.argtypes = [p] * 12 + [i] * 12 + [p]
         lib.metric_topk_launch.restype = i
-        for name in ("block_m", "block_k", "max_k"):
+        for name in ("block_m", "block_k", "max_k", "proj_stages",
+                     "scan_smem", "proj_smem"):
             getattr(lib, f"metric_topk_{name}").restype = i
-        if (lib.metric_topk_block_m(), lib.metric_topk_block_k(),
-                lib.metric_topk_max_k()) != (BLOCK_M, BLOCK_K, MAX_K_TOP):
+        ok = (lib.metric_topk_block_m(), lib.metric_topk_block_k(),
+              lib.metric_topk_max_k(), lib.metric_topk_proj_stages()) == \
+            (BLOCK_M, BLOCK_K, MAX_K_TOP, PROJ_STAGES)
+        for n in QUERY_TILES:
+            ok = ok and lib.metric_topk_proj_smem(n) == proj_smem(n)
+            for kt, st in ((1, 2), (10, 4), (256, 3)):
+                ok = ok and lib.metric_topk_scan_smem(n, kt, st) == \
+                    scan_smem(n, kt, st)
+        if not ok:
             raise RuntimeError(f"{SOURCE} disagrees with kernel.py on its "
-                               f"tile sizes")
+                               f"tiles or shared memory")
         _lib = lib
     return _lib
 
 
-def _sm_count(device: torch.device) -> int:
-    idx = device.index if device.index is not None else \
-        torch.cuda.current_device()
-    if idx not in _n_sm:
-        _n_sm[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
-    return _n_sm[idx]
-
-
-def _cdiv(a: int, b: int) -> int:
-    return -(-a // b)
-
-
-def split_plan(nq: int, d_in: int, d_out: int, m: int, n_sm: int):
-    """Launch plan that fills ``_WAVES * n_sm`` blocks: the query tile
-    (the smallest of ``QUERY_TILES`` that holds the batch), the
-    projection's d_in slices (``ksplit`` of ``kchunk`` columns) and the
-    scan's gallery splits (``nsplit`` of ``rows_per_split`` rows)."""
-    block_q = next((b for b in QUERY_TILES if nq <= b), QUERY_TILES[-1])
-    target = _WAVES * n_sm
-    qtiles = _cdiv(nq, block_q)
-    ksplit = max(1, min(_cdiv(target, qtiles * _cdiv(d_out, BLOCK_M)),
-                        _cdiv(d_in, BLOCK_K)))
-    kchunk = _cdiv(_cdiv(d_in, ksplit), BLOCK_K) * BLOCK_K
-    ksplit = _cdiv(d_in, kchunk)
-    mtiles = _cdiv(m, BLOCK_M)
-    nsplit = max(1, min(_cdiv(target, qtiles), mtiles))
-    rows_per_split = _cdiv(mtiles, nsplit) * BLOCK_M
-    nsplit = _cdiv(m, rows_per_split)
-    return block_q, ksplit, kchunk, nsplit, rows_per_split
+def launch_plan(nq: int, d_in: int, d_out: int, m: int, k_top: int,
+                n_sm: int) -> Plan:
+    """The query tile (the smallest of ``QUERY_TILES`` that holds the
+    batch, halved while a 2-stage scan block would not fit its lists),
+    the scan's ring (up to ``MAX_STAGES`` that fit), the projection's d_in
+    slices and the scan's gallery splits, each aiming at one block an SM
+    (a scan block takes most of an SM's shared memory)."""
+    n = next((b for b in QUERY_TILES if nq <= b), QUERY_TILES[-1])
+    while n > QUERY_TILES[0] and scan_smem(n, k_top, 2) > SMEM_LIMIT:
+        n //= 2
+    stages = max(s for s in range(2, MAX_STAGES + 1)
+                 if scan_smem(n, k_top, s) <= SMEM_LIMIT)
+    qtiles = cdiv(nq, n)
+    ksplit = max(1, min(n_sm // (cdiv(d_out, BLOCK_M) * qtiles),
+                        cdiv(d_in, BLOCK_K)))
+    kchunk = cdiv(cdiv(d_in, ksplit), BLOCK_K) * BLOCK_K
+    mtiles = cdiv(m, BLOCK_M)
+    nsplit = max(1, min(cdiv(n_sm, qtiles), mtiles))
+    rows_per_split = cdiv(mtiles, nsplit) * BLOCK_M
+    return Plan(n, qtiles, stages, cdiv(d_in, kchunk), kchunk,
+                cdiv(m, rows_per_split), rows_per_split)
 
 
 def _check(name, x, ndim, device):
@@ -126,22 +161,26 @@ def metric_topk_fused(q: torch.Tensor, L: torch.Tensor, gp: torch.Tensor,
     if nq == 0:
         return out_d, out_i
     lib = _library()
-    block_q, ksplit, kchunk, nsplit, rps = split_plan(
-        nq, d_in, d_out, m, _sm_count(device))
+    # rows of a multiple of 4 floats for the tensor maps (zero columns)
+    q, L, gp = (tma_operand(t) for t in (q, L, gp))
+    d_in4, dp = q.shape[1], gp.shape[1]
+    plan = launch_plan(nq, d_in4, d_out, m, k_top, sm_count(device))
     f32 = dict(dtype=torch.float32, device=device)
-    part = torch.empty((ksplit, nq, d_out), **f32)
-    qp = torch.empty((nq, d_out), **f32)
+    part = torch.empty((plan.ksplit, nq, d_out), **f32)
+    qhi = torch.empty((nq, dp), **f32)
+    qlo = torch.empty((nq, dp), **f32)
     qn = torch.empty((nq,), **f32)
-    cand_d = torch.empty((nq, nsplit, k_top), **f32)
-    cand_i = torch.empty((nq, nsplit, k_top), dtype=torch.int32,
+    cand_d = torch.empty((nq, plan.nsplit, k_top), **f32)
+    cand_i = torch.empty((nq, plan.nsplit, k_top), dtype=torch.int32,
                          device=device)
     ptrs = [ctypes.c_void_p(t.data_ptr()) for t in
-            (q, L, gp, gn, part, qp, qn, cand_d, cand_i, out_d, out_i)]
+            (q, L, gp, gn, part, qhi, qlo, qn, cand_d, cand_i, out_d, out_i)]
     stream = ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
     with torch.cuda.device(device):
-        err = lib.metric_topk_launch(*ptrs, nq, d_in, d_out, m, k_top,
-                                     block_q // 8, ksplit, kchunk, nsplit,
-                                     rps, stream)
+        err = lib.metric_topk_launch(
+            *ptrs, nq, d_in4, d_out, dp, m, k_top, plan.n_tile, plan.stages,
+            plan.ksplit, plan.kchunk, plan.nsplit, plan.rows_per_split,
+            stream)
     if err != 0:
         raise RuntimeError(f"metric_topk kernel launch failed: cudaError_t "
                            f"{err}")

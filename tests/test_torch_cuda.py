@@ -82,6 +82,47 @@ def test_kernel_matches_plain_version(cuda_device, Nq, M, d, k, K):
     assert bool((ik == ip)[apart].all())
 
 
+# the query-tile sweep: Nq at and across the 8/16/64/128 tiles, k_top 1
+# and 256, d_out 1000 (31.25 stages of 32) and 33 (padded to 36)
+SWEEP = [(nq, k, kt) for nq in (1, 7, 9, 64, 65, 200)
+         for k, kt in ((1000, 10), (1000, 256), (33, 1))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Nq,k,K", SWEEP)
+def test_kernel_query_tile_sweep(cuda_device, Nq, k, K):
+    test_kernel_matches_plain_version(cuda_device, Nq, 4000, 300, k, K)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d_in,d_out", [(9, 33), (33, 9), (21504, 1000)])
+def test_kernel_repeat_calls_are_bit_equal(cuda_device, d_in, d_out):
+    L, q, G = _data(65, 2000, d_in, d_out, 3, cuda_device)
+    gp, gn = project_gallery(L, G)
+    a = metric_topk_fused(q, L, gp, gn, k_top=17)
+    b = metric_topk_fused(q, L, gp, gn, k_top=17)
+    torch.cuda.synchronize()
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K", [1, 9, MAX_K_TOP])
+def test_kernel_ties_go_to_the_smaller_id(cuda_device, K):
+    L, q, G = _data(24, 200, 32, 16, 7, cuda_device)
+    G = torch.cat([G, G, G])            # row r ties with r + 200, r + 400
+    gp, gn = project_gallery(L, G)
+    dk, ik = metric_topk(L, q, gp, gn, k_top=K)
+    dp, ip = metric_topk_plain(L, q, gp, gn, K)
+    torch.cuda.synchronize()
+    tied = dk[:, 1:] == dk[:, :-1]
+    if K > 1:
+        assert int(tied.sum()) > 0
+    assert bool((ik[:, 1:] > ik[:, :-1])[tied].all())
+    qn = torch.sum((q @ L.T) ** 2, dim=1)
+    tol = ATOL + RTOL * (qn[:, None] + gn[ip.long()])
+    assert bool(((dk - dp).abs() <= tol).all())
+
+
 @pytest.mark.cuda
 def test_kernel_refuses_what_it_cannot_do(cuda_device):
     L, q, G = _data(4, 300, 16, 8, 0, cuda_device)
@@ -98,7 +139,8 @@ def test_kernel_refuses_what_it_cannot_do(cuda_device):
 
 DML_SHAPES = [(8, 8, 8), (64, 32, 48), (256, 128, 512), (100, 60, 780),
               (512, 600, 780), (32, 100, 224), (37, 16, 24),
-              (1000, 1000, 2048)]
+              (1000, 1000, 2048), (37, 16, 9), (130, 129, 33),
+              (257, 1000, 4001)]
 
 
 def _pairs(B, k, d, seed, device):
@@ -138,16 +180,43 @@ def test_dml_pair_kernel_matches_plain_version(cuda_device, B, k, d):
 
 
 @pytest.mark.cuda
+def test_dml_pair_kernel_at_training_width(cuda_device):
+    """B 1000, k 1000, d 21504 (dml-imnet1m): forward against the plain
+    version, and two calls bit-equal."""
+    L, xs, ys, sim, margin = _pairs(1000, 1000, 21504, 1, cuda_device)
+    out = dml_pair_fused(L, xs, ys, sim, lam=1.3, margin=margin)
+    again = dml_pair_fused(L, xs, ys, sim, lam=1.3, margin=margin)
+    ref = dml_pair_ref(L, xs, ys, sim, 1.3, margin)
+    torch.cuda.synchronize()
+    for a, b in zip(out, ref):
+        torch.testing.assert_close(a, b, rtol=2e-5, atol=1e-5)
+    assert all(torch.equal(a, b) for a, b in zip(out, again))
+
+
+@pytest.mark.cuda
 def test_dml_pair_kernel_is_deterministic_and_refuses_bf16(cuda_device):
+    """Two calls are bit-equal; the kernel refuses bf16 tensors, and the
+    loss with compute_dtype bf16 takes the reference's cast-and-product
+    path instead of raising."""
     L, xs, ys, sim, margin = _pairs(300, 200, 4000, 0, cuda_device)
     a = dml_pair_fused(L, xs, ys, sim, margin=margin)
     b = dml_pair_fused(L, xs, ys, sim.float(), margin=margin)
     assert all(torch.equal(x, y) for x, y in zip(a, b))
     with pytest.raises(ValueError, match="float32"):
         dml_pair_fused(L.bfloat16(), xs, ys, sim)
-    with pytest.raises(ValueError, match="float32"):
-        losses.dml_pair_loss(L, {"xs": xs, "ys": ys, "sim": sim},
-                             compute_dtype=torch.bfloat16)
+    batch = {"xs": xs, "ys": ys, "sim": sim}
+    before = dml_pair_fused.launches
+    loss, aux = losses.dml_pair_loss(L, batch, margin=margin,
+                                     compute_dtype=torch.bfloat16)
+    loss32, aux32 = losses.dml_pair_loss(L, batch, margin=margin)
+    torch.cuda.synchronize()
+    assert dml_pair_fused.launches == before + 1      # the f32 call only
+    assert loss.dtype == torch.float32 and bool(torch.isfinite(loss))
+    # bf16 operands keep 8 mantissa bits: the loss within rtol 2e-2
+    torch.testing.assert_close(loss, loss32, rtol=2e-2, atol=1e-5)
+    for k in ("mean_sim_dist", "mean_dis_dist", "hinge_active_frac"):
+        # both from an f32 d2: the plain product's, the kernel's
+        torch.testing.assert_close(aux[k], aux32[k], rtol=2e-5, atol=1e-6)
 
 
 # -- pairwise_sqdist ---------------------------------------------------------

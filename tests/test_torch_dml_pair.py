@@ -31,7 +31,10 @@ from repro_torch.kernels.dml_pair import (dml_pair_forward, dml_pair_fused,
                                           dml_pair_loss_reference,
                                           dml_pair_ref)
 from repro_torch.kernels.dml_pair import kernel as dml_kernel
-from repro_torch.kernels.dml_pair.kernel import BLOCK_K, split_plan
+from repro_torch.kernels._dispatch import tma_operand
+from repro_torch.kernels.dml_pair.kernel import (BLOCK_K, BLOCK_M, BLOCK_N,
+                                                 SMEM_LIMIT, launch_plan,
+                                                 smem_bytes)
 
 SHAPES = [(8, 8, 8), (64, 32, 48), (100, 60, 780), (37, 16, 24)]
 LAM = 1.3
@@ -156,8 +159,45 @@ def test_cuda_wrapper_refuses_without_launching(bad):
 
 @pytest.mark.parametrize("B,d,k", [(1000, 21504, 1000), (37, 24, 16),
                                    (8, 8, 8), (4000, 780, 600),
-                                   (1, 100000, 1)])
+                                   (1, 100000, 1), (1000, 2048, 1000),
+                                   (129, 36, 257), (256, 12, 128)])
 def test_split_plan_covers_every_column(B, d, k):
-    ksplit, kchunk = split_plan(B, d, k, n_sm=132)
-    assert kchunk % BLOCK_K == 0 and ksplit >= 1
-    assert (ksplit - 1) * kchunk < d <= ksplit * kchunk
+    """The launch plan: a grid of every (pair, L-row) tile, d slices that
+    are whole 32-column stages covering d exactly once, one wave of
+    blocks at most where d allows it, and a block within 227 KB."""
+    plan = launch_plan(B, d, k, n_sm=132)
+    gx, gy, gz = plan.grid
+    assert (gx - 1) * BLOCK_M < B <= gx * BLOCK_M
+    assert (gy - 1) * BLOCK_N < k <= gy * BLOCK_N
+    assert gz == plan.ksplit >= 1 and plan.kchunk % BLOCK_K == 0
+    assert (plan.ksplit - 1) * plan.kchunk < d <= plan.ksplit * plan.kchunk
+    assert gx * gy * gz <= max(132, gx * gy)
+    assert smem_bytes() <= SMEM_LIMIT
+
+
+def test_split_plan_fills_the_card_at_training_width():
+    plan = launch_plan(1000, 21504, 1000, n_sm=132)
+    assert plan.grid == (8, 8, 2) and plan.kchunk == 10752
+    # 4 raw stages of 48 KB (xs, ys, L) and two 16 KB lo buffers of L
+    assert smem_bytes() == 1024 + 4 * 49152 + 2 * 16384 + 64
+
+
+@pytest.mark.parametrize("d", [9, 33, 1, 24])
+def test_wrapper_pads_rows_to_the_tma_stride(d):
+    """Rows not a multiple of 4 floats get zero columns (a copy); the
+    padded operands give the same products and norms, and the plan
+    covers the padded width."""
+    L, xs, ys, sim, margin = _data(37, 16, d, seed=d)
+    Lp, xp, yp = (tma_operand(_t(a)) for a in (L, xs, ys))
+    d4 = -(-d // 4) * 4
+    assert Lp.shape == (16, d4) and xp.shape == (37, d4)
+    assert bool((xp[:, d:] == 0).all()) and torch.equal(xp[:, :d], _t(xs))
+    x = _t(xs)
+    assert (tma_operand(x) is x) == (d % 4 == 0)  # no copy when aligned
+    out = dml_pair_ref(Lp, xp, yp, _t(sim), LAM, margin)
+    ref = dml_pair_ref(_t(L), _t(xs), _t(ys), _t(sim), LAM, margin)
+    for a, b in zip(out, ref):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=2e-5,
+                                   atol=1e-5)
+    plan = launch_plan(37, d4, 16, n_sm=132)
+    assert (plan.ksplit - 1) * plan.kchunk < d4 <= plan.ksplit * plan.kchunk

@@ -27,7 +27,10 @@ from repro_torch.kernels.metric_topk import (metric_topk, metric_topk_fused,
                                              metric_topk_plain,
                                              project_gallery)
 from repro_torch.kernels.metric_topk.kernel import (BLOCK_K, BLOCK_M,
-                                                    split_plan)
+                                                    MAX_K_TOP, MAX_STAGES,
+                                                    QUERY_TILES, SMEM_LIMIT,
+                                                    launch_plan, proj_smem,
+                                                    scan_smem)
 
 RTOL = ATOL = 1e-5
 
@@ -184,14 +187,84 @@ def test_fused_wrapper_refuses_cpu_tensors():
 
 @pytest.mark.parametrize("nq,d_in,d_out,m", [
     (1, 21504, 1000, 1_000_000), (64, 21504, 1000, 1_000_000),
-    (512, 96, 48, 2048), (7, 33, 9, 129)])
+    (512, 96, 48, 2048), (7, 36, 12, 129), (65, 21504, 1000, 1_000_000),
+    (200, 300, 36, 4000), (300, 8, 4, 1), (9, 1024, 1000, 128)])
 def test_split_plan_covers_every_row_and_column(nq, d_in, d_out, m):
-    block_q, ksplit, kchunk, nsplit, rps = split_plan(nq, d_in, d_out, m,
-                                                      n_sm=132)
-    assert block_q in (8, 16, 32, 64) and (block_q >= nq or block_q == 64)
-    assert kchunk % BLOCK_K == 0 and rps % BLOCK_M == 0
-    assert (ksplit - 1) * kchunk < d_in <= ksplit * kchunk
-    assert (nsplit - 1) * rps < m <= nsplit * rps
+    """The launch plan: query tiles covering the batch, the projection's
+    d_in slices (whole 32-column stages) covering d_in once, the scan's
+    gallery splits (whole 128-row tiles) covering M once, each aiming at
+    one block an SM."""
+    for k_top in (1, 10, MAX_K_TOP):
+        plan = launch_plan(nq, d_in, d_out, m, k_top, n_sm=132)
+        assert plan.n_tile in QUERY_TILES
+        assert (plan.qtiles - 1) * plan.n_tile < nq <= \
+            plan.qtiles * plan.n_tile
+        assert plan.kchunk % BLOCK_K == 0
+        assert (plan.ksplit - 1) * plan.kchunk < d_in <= \
+            plan.ksplit * plan.kchunk
+        assert plan.rows_per_split % BLOCK_M == 0
+        assert (plan.nsplit - 1) * plan.rows_per_split < m <= \
+            plan.nsplit * plan.rows_per_split
+        assert plan.qtiles * plan.nsplit <= max(133, plan.qtiles)
+        assert 2 <= plan.stages <= MAX_STAGES
+
+
+def test_query_tiles_for_every_batch_size():
+    """Nq 1..300: the smallest tile that holds the batch (8 for Nq 1 and
+    7, 16 for 9, 64 for 64, 128 for 65 and up), halved only where a
+    256-entry list would not fit, and every block within 227 KB."""
+    for nq in range(1, 301):
+        plan = launch_plan(nq, 21504, 1000, 1_000_000, 10, n_sm=132)
+        want = next((t for t in QUERY_TILES if nq <= t), QUERY_TILES[-1])
+        assert plan.n_tile == want and plan.qtiles == -(-nq // want), nq
+        assert scan_smem(want, 10, plan.stages) <= SMEM_LIMIT
+        assert proj_smem(want) <= SMEM_LIMIT
+        big = launch_plan(nq, 21504, 1000, 1_000_000, MAX_K_TOP, n_sm=132)
+        assert big.n_tile <= want, nq
+        assert scan_smem(big.n_tile, MAX_K_TOP, big.stages) <= SMEM_LIMIT
+
+
+@pytest.mark.parametrize("n", QUERY_TILES)
+@pytest.mark.parametrize("k_top", [1, 10, 64, 256])
+def test_shared_memory_budget(n, k_top):
+    """The scan's ring takes as many stages (2..8) as fit beside its
+    lists; a tile whose 2-stage block would not fit is never chosen."""
+    stages = [s for s in range(2, MAX_STAGES + 1)
+              if scan_smem(n, k_top, s) <= SMEM_LIMIT]
+    plan = launch_plan(n, 1024, 1000, 100_000, k_top, n_sm=132)
+    assert scan_smem(plan.n_tile, k_top, plan.stages) <= SMEM_LIMIT
+    if stages:
+        assert plan.n_tile == n and plan.stages == max(stages)
+    else:
+        assert plan.n_tile < n
+    assert proj_smem(n) <= SMEM_LIMIT
+    # ring + lo buffers + cross tile + lists grow with every term
+    assert scan_smem(n, k_top, 3) - scan_smem(n, k_top, 2) == \
+        BLOCK_M * BLOCK_K * 4 + 2 * n * BLOCK_K * 4 + 16
+
+
+@pytest.mark.parametrize("d_in,d_out", [(9, 33), (33, 9), (36, 1000)])
+def test_wrapper_pads_rows_to_the_tma_stride(d_in, d_out):
+    """q, L and gp with rows not a multiple of 4 floats get zero columns;
+    the padded operands give the same neighbours and distances."""
+    L, q, gp, gn = _both(5, 200, d_in, d_out, seed=d_in + d_out)
+    Lp, qp_, gpp = (_dispatch.tma_operand(_t(a)) for a in (L, q, gp))
+    assert Lp.shape == (d_out, -(-d_in // 4) * 4)
+    assert gpp.shape == (200, -(-d_out // 4) * 4)
+    assert bool((gpp[:, d_out:] == 0).all())
+    # zero columns of q and L leave qp unchanged; zero columns of gp meet
+    # the zero columns qp gets (its rows as long as gp's)
+    qp_pad = _dispatch.tma_operand(qp_ @ Lp.T)
+    d_pad, i_pad = _dispatch.topk_by_distance(
+        torch.clamp_min(torch.sum(qp_pad ** 2, 1)[:, None] + _t(gn)[None]
+                        - 2 * qp_pad @ gpp.T, 0.0),
+        torch.arange(200, dtype=torch.int32).expand(5, 200), 7)
+    d_ref, i_ref = metric_topk(_t(L), _t(q), _t(gp), _t(gn), k_top=7)
+    np.testing.assert_array_equal(i_pad.numpy(), i_ref.numpy())
+    np.testing.assert_allclose(d_pad.numpy(), d_ref.numpy(), rtol=RTOL,
+                               atol=ATOL)
+    plan = launch_plan(5, Lp.shape[1], d_out, 200, 7, n_sm=132)
+    assert plan.ksplit * plan.kchunk >= Lp.shape[1]
 
 
 @pytest.mark.parametrize("n,block,mult", [(5, 128, 8), (300, 128, 8),

@@ -167,6 +167,26 @@ def test_dml_pair_loss_and_aux_match_jax(batch):
         _close(aux[k].numpy(), aux_r[k])
 
 
+def test_dml_pair_loss_bf16_compute_dtype_matches_jax(batch):
+    """compute_dtype bf16 takes the reference's cast-and-product path (on
+    the card too, where the f32 loss is the kernel). bf16 operands keep 8
+    mantissa bits and the two frameworks sum the bf16 products in another
+    order, so the loss is held at rtol 2e-2, as the bf16 objective above;
+    the aux statistics use the f32 d2 on both sides."""
+    b = {k: batch[k] for k in ("xs", "ys", "sim")}
+    loss, aux = losses.dml_pair_loss(_t(batch["L"]), tree_map(_t, b),
+                                     lam=1.3, margin=3.0,
+                                     compute_dtype=torch.bfloat16)
+    loss_r, aux_r = jax_losses.dml_pair_loss(
+        jnp.asarray(batch["L"]), {k: jnp.asarray(v) for k, v in b.items()},
+        lam=1.3, margin=3.0, compute_dtype=jnp.bfloat16)
+    assert loss.dtype == torch.float32 and torch.isfinite(loss)
+    _close(loss.detach().numpy(), loss_r, rtol=2e-2)
+    assert set(aux) == set(aux_r)
+    for k in aux:
+        _close(aux[k].numpy(), aux_r[k])
+
+
 def test_triplet_and_lm_losses_match_jax(batch):
     trip = {"anchor": batch["xs"], "pos": batch["ys"], "neg": batch["neg"]}
     ours, _ = losses.get("dml_triplet")(_t(batch["L"]), tree_map(_t, trip))
