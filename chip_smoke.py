@@ -13,23 +13,29 @@ exit, and nothing falls back:
   3. parity   — each kernel against its plain PyTorch version on the
                 card: metric_topk at the CPU tests' shapes, over a
                 query-tile sweep (Nq 1, 7, 9, 64, 65, 200; k_top 1 and 256
-                at d_out 1000; d_out 33, which the wrapper pads) and on a
-                gallery with duplicated rows (ties; k_top 9 and 256);
+                at d_out 1000; d_out 33, which the wrapper pads), past its
+                256-entry lists on the wide path (k_top 257, 1024, 5000
+                and k_top = M) and on a gallery with duplicated rows (ties;
+                k_top 9, 256, 257 and M);
                 dml_pair forward (loss, d2, proj) and gradients (kernel +
                 closed-form backward against autograd through the plain
                 version) at the CPU tests' shapes plus ragged ones (d 9,
                 33, 4001), and its forward at the training width (B 1000,
                 k 1000, d 21504; its proj error printed beside that of
                 ``_dispatch.tf32x3_matmul``, the plain 3xTF32 model);
-                pairwise_sqdist at square, ragged and k = 1000 shapes;
-                two calls of metric_topk, dml_pair and pairwise_sqdist on
-                the same inputs compare bit-equal; ivf_scan and pq_adc at
-                the CPU tests' shapes, at ragged ones (cap not a
-                multiple of the tile, -1 pads, probes with fewer than kk
-                real rows, duplicated rows, kk = 1 and 256) and at the serving widths; flash_attention
-                and ssd_scan in f32 and bf16 at the CPU tests' shapes, at
-                ragged T and S, GQA 2 and 3, Dh 64 and 80, windows below,
-                at and above T, reduced zamba2's p 128 / n 16;
+                pairwise_sqdist at square and ragged shapes, k 9 and 1003
+                (padded to a multiple of 4), the eval width and M = 8.4M
+                (past the grid's y limit); two calls of metric_topk,
+                dml_pair and pairwise_sqdist on the same inputs compare
+                bit-equal; ivf_scan and pq_adc at the CPU tests' shapes, at
+                ragged ones (cap not a multiple of the tile, -1 pads,
+                probes with fewer than kk real rows, duplicated rows, kk =
+                1, 256, 257, 300 and 1024, the last three on the wide
+                path), pq_adc at S 200 and 1000 (its table in chunks) and
+                both at the serving widths; flash_attention and ssd_scan
+                in f32 and bf16 at the CPU tests' shapes, at ragged T and
+                S, GQA 2 and 3, Dh 64, 80 and 256, windows below, at and
+                above T, reduced zamba2's p 128 / n 16;
   4. training — the Eq. 4 path at dml-imnet1m width (d_in 21504 -> d_out
                 1000): 10,000 noisy_subspace rows and 100 classes resident
                 on the card, 50k + 50k index pairs (the reference's
@@ -64,8 +70,10 @@ exit, and nothing falls back:
                 recall@10 against phase 6's exact answers, class purity and
                 peak memory; checks the kernel's launch count rose, IVF at
                 nprobe = n_clusters against the exact plain version, and
-                each kernel against its plain version at the full width;
-                then times both kernels at Nq = 1 and 64;
+                each kernel against its plain version at the full width,
+                pq_adc also at kk 512, and IVFPQ with an exact rerank of
+                512 (recall no lower than rerank 50's); then times both
+                kernels at Nq = 1 and 64;
   9. backbone — zamba2-2.7b at full width and depth (54 mamba2 layers,
                 d_model 2560, 80 SSM heads of p = n = 64; the shared
                 attention + GELU MLP block after every 6th layer, 32 heads
@@ -76,7 +84,12 @@ exit, and nothing falls back:
                 then one f32 forward (B 1, T 8192) through the kernels
                 against the plain path (``plain=True``: the reference's
                 chunked Mamba2 and chunked attention), by the final hidden
-                state and by ``embed_pool``;
+                state and by ``embed_pool``; then gemma-7b at full width
+                (d_model 3072, 16 heads of 256, d_ff 24576), depth cut to 2
+                layers, f32, B 1, T 2048: flash_attention at Dh 256 on
+                layer 0's q, k, v in bf16 and f32, and the forward through
+                the kernels against the plain path by the final hidden
+                state and ``embed_pool`` (2 flash_attention launches);
  10. service  — ``launch/serve_embeddings`` with bf16 activations: a
                 corpus of 16 x 8192-token sequences embedded in batches of
                 4, then 4 request batches of 4 x 8192 tokens ranked under
@@ -90,12 +103,16 @@ exit, and nothing falls back:
  11. kernels  — times ssd_scan and flash_attention at the service's
                 shapes (B 4, T 8192, bf16) on real layer inputs, each
                 beside its plain version, its bound and (flash) the library
-                call, and prints the ``kernels`` line (all seven kernels);
+                call, then flash_attention at gemma-7b's shape (B 1, T
+                8192, 16 heads of 256, causal, bf16) beside
+                scaled_dot_product_attention, and prints the ``kernels``
+                line (all seven kernels; flash_attention twice);
  12. the last line: ``{"ok": true, "device": {...}}``.
 
 Every launch count is set to 0 just before a main-path phase (4, 5, 6,
-each index of 8, and 10) and read just after; comparison launches come
-after the reading (or, for phase 9, before the counts are reset).
+each index of 8, gemma's embed_pool in 9, and 10) and read just after;
+comparison launches come after the reading (or, for phase 9, before the
+counts are reset).
 
 Bounds (``bound_ms``): the larger of the bytes a function must move at
 3.35 TB/s and its operations at the card's peak for their type: f32
@@ -182,6 +199,7 @@ from repro_torch.kernels.pairwise_dist import (  # noqa: E402
     pairwise_sqdist, pairwise_sqdist_ref)
 from repro_torch.kernels.pq_adc import (  # noqa: E402
     pq_adc_topk, pq_adc_topk_fused, pq_adc_topk_ref)
+from repro_torch.kernels.pq_adc.kernel import lut_plan  # noqa: E402
 from repro_torch.kernels.ssd_chunk import (  # noqa: E402
     CHUNK, ssd_core, ssd_scan, ssd_scan_chunked)
 from repro_torch.launch import serve_embeddings  # noqa: E402
@@ -209,12 +227,20 @@ PARITY_SHAPES = [(64, 1024, 128, 64, 10), (16, 300, 40, 12, 5),
 # d_out 33 (the wrapper pads gp to 36 columns); (Nq, M, d_in, d_out, k_top)
 MT_SWEEP = [(nq, 4000, 300, k, kt) for nq in (1, 7, 9, 64, 65, 200)
             for k, kt in ((1000, 1), (1000, 256), (33, 10))]
+# k_top past the 256-entry shared-memory lists (the wide path): 257, 1024,
+# 5000 (far past the widest list) and k_top = M
+MT_WIDE = [(64, 4000, 300, 1000, 257), (7, 4000, 300, 1000, 1024),
+           (65, 20000, 96, 200, 5000), (9, 600, 40, 33, 600)]
 DML_SHAPES = [(8, 8, 8), (64, 32, 48), (256, 128, 512), (100, 60, 780),
               (512, 600, 780), (32, 100, 224), (37, 16, 24),
               (37, 16, 9), (130, 129, 33), (257, 1000, 4001)]  # (B, k, d)
 DML_FULL = (1000, 1000, 21504)  # the training width, forward only
+# (N, M, k): square, ragged, k not a multiple of 4 (9, 1003; the wrapper
+# pads), the eval width, and M above the grid's y limit of 65535 tiles
+# of 128 (narrow k)
 PD_SHAPES = [(256, 256, 256), (64, 128, 32), (37, 129, 9),
-             (300, 1000, 1000), (2000, 8000, 1000)]             # (N, M, k)
+             (300, 1000, 1000), (129, 517, 1003), (2000, 8000, 1000),
+             (5, 8_400_000, 3)]
 LAM = 1.3
 HINGE_GAP = 1e-3
 N_WORKERS = 4
@@ -224,7 +250,8 @@ KNN_K = 5
 # ivf_scan parity: (Nq, C, cap, k, nprobe, kk, fill_lo, fill_hi, dup); the
 # CPU tests' shapes, then ragged ones (cap 45 / 70 against the 32-row tile,
 # k = 1003 off the 16-byte path, empty and under-filled segments, kk = 1
-# and 256, duplicated rows), then the serving widths
+# and 256, duplicated rows), kk 257 and 1024 (the wide path; with pads
+# and ties), then the serving widths
 IVF_PARITY = [(5, 6, 32, 12, 3, 7, 32, 32, False),
               (3, 5, 24, 8, 2, 5, 10, 24, False),
               (4, 7, 16, 5, 2, 32, 0, 5, False),
@@ -233,8 +260,14 @@ IVF_PARITY = [(5, 6, 32, 12, 3, 7, 32, 32, False),
               (9, 12, 45, 1000, 8, 256, 0, 45, False),
               (3, 40, 70, 1003, 6, 256, 20, 70, False),
               (7, 10, 45, 64, 4, 30, 10, 45, True),
+              (9, 12, 45, 1000, 8, 257, 0, 45, False),
+              (3, 40, 70, 1003, 16, 1024, 20, 70, False),
+              (7, 10, 45, 64, 8, 300, 10, 45, True),
               (64, 48, 1224, 1000, 16, 10, 1000, 1224, False)]
-# pq_adc parity: (Nq, C, cap, S, bits, nprobe, kk, fill_lo, fill_hi, ties)
+# pq_adc parity: (Nq, C, cap, S, bits, nprobe, kk, fill_lo, fill_hi, ties);
+# the CPU tests' shapes, ragged ones, kk 257 and 1024 (the wide path, with
+# pads and ties), S 200 and 1000 (d_out 1000 in 5- and 1-dimensional
+# subspaces: the table in chunks), then the serving widths
 PQ_PARITY = [(5, 6, 32, 4, 8, 3, 7, 32, 32, False),
              (3, 5, 24, 3, 8, 2, 5, 10, 24, False),
              (4, 7, 16, 2, 8, 2, 32, 0, 5, False),
@@ -244,13 +277,20 @@ PQ_PARITY = [(5, 6, 32, 4, 8, 3, 7, 32, 32, False),
              (9, 12, 300, 100, 8, 6, 1, 0, 300, False),
              (9, 12, 300, 100, 8, 6, 256, 0, 300, False),
              (6, 7, 24, 3, 2, 4, 15, 20, 24, True),
-             (64, 48, 1224, 100, 8, 16, 50, 1000, 1224, False)]
+             (9, 12, 300, 100, 8, 6, 257, 0, 300, False),
+             (6, 20, 100, 3, 2, 12, 1024, 20, 100, True),
+             (5, 8, 300, 200, 8, 4, 50, 100, 300, False),
+             (3, 8, 300, 200, 8, 4, 1024, 100, 300, False),
+             (2, 4, 64, 1000, 8, 3, 20, 30, 64, False),
+             (64, 48, 1224, 100, 8, 16, 50, 1000, 1224, False),
+             (64, 48, 1224, 200, 8, 16, 50, 1000, 1224, False)]
 N_CLUSTERS, NPROBE, CAP_FACTOR, KM_ITERS = 1024, 16, 1.25, 10
-PQ_SUBSPACES, PQ_BITS, RERANK = 100, 8, 50
+PQ_SUBSPACES, PQ_BITS, RERANK, RERANK_WIDE = 100, 8, 50, 512
 SERVE_BUCKETS = (1, 8, 64, 512)
 N_REQUESTS = 256
 MAX_BATCH = 64
 K_TOP = 10
+WIDE_K = 1024               # a k_top on metric_topk's wide path, timed
 DEV = torch.device("cuda")
 
 
@@ -325,12 +365,14 @@ def phase_build():
 
 
 def phase_parity():
-    for nq, m, d, k, kt in PARITY_SHAPES + MT_SWEEP:
+    for nq, m, d, k, kt in PARITY_SHAPES + MT_SWEEP + MT_WIDE:
         L, q, G = _data(nq, m, d, k, seed=nq + m + k)
         gp, gn = project_gallery(L, G)
+        before = metric_topk_fused.launches
         dk, ik = metric_topk_fused(q, L, gp, gn, k_top=kt)
         dk2, ik2 = metric_topk_fused(q, L, gp, gn, k_top=kt)
         torch.cuda.synchronize()
+        assert metric_topk_fused.launches == before + 2
         err, n_diff = compare(L, q, gp, gn, kt, dk, ik)
         assert torch.equal(dk, dk2) and torch.equal(ik, ik2), \
             "two metric_topk calls differ"
@@ -342,7 +384,7 @@ def phase_parity():
     G = torch.cat([G, G, G])[torch.randperm(600, generator=torch.Generator(
         device="cpu").manual_seed(0)).to(DEV)]
     gp, gn = project_gallery(L, G)
-    for kt in (9, 256):
+    for kt in (9, 256, 257, 600):
         dk, ik = metric_topk_fused(q, L, gp, gn, k_top=kt)
         torch.cuda.synchronize()
         err, n_diff = compare(L, q, gp, gn, kt, dk, ik)
@@ -353,7 +395,7 @@ def phase_parity():
         log(f"parity duplicated rows, k_top {kt}: max |dd| {err:.3e}, "
             f"{int(tied.sum())} exact ties all smallest-id-first, {n_diff} "
             f"id differences")
-    for bad in (0, 257):
+    for bad in (0, 601):
         try:
             metric_topk_fused(q, L, gp, gn, k_top=bad)
         except ValueError:
@@ -544,8 +586,10 @@ def phase_parity_ann():
     for seed, case in enumerate(IVF_PARITY):
         *shape, kk, lo, hi, dup = case
         args = ivf_case(seed, *shape, lo, hi, dup)
+        before = ivf_scan_topk_fused.launches
         dk, ik = ivf_scan_topk(*args, kk=kk)
         torch.cuda.synchronize()
+        assert ivf_scan_topk_fused.launches == before + 1
         err, n_diff = compare_ivf(*args, kk, dk, ik)
         n_pad = int((ik < 0).sum())
         if dup:
@@ -559,28 +603,25 @@ def phase_parity_ann():
     for seed, case in enumerate(PQ_PARITY):
         *shape, kk, lo, hi, ties = case
         args = pq_case(seed, *shape, lo, hi, ties)
+        before = pq_adc_topk_fused.launches
         dk, ik = pq_adc_topk(*args, kk=kk)
         dp, ip = pq_adc_topk_ref(*args, kk)
         torch.cuda.synchronize()
+        assert pq_adc_topk_fused.launches == before + 1
         assert torch.equal(dk, dp) and torch.equal(ik, ip), \
             f"pq_adc {tuple(shape)} kk={kk} is not bit-identical"
+        S, K = shape[3], 1 << shape[4]
         log(f"parity pq_adc (Nq, C, cap, S, bits, nprobe) {tuple(shape)} "
             f"kk={kk}: bit-identical, {int((ik < 0).sum())} pad entries"
-            f"{', exact ties' if ties else ''}")
+            f"{', exact ties' if ties else ''}; table chunks of "
+            f"{lut_plan(S, K, kk)} subspaces")
     args = ivf_case(0, 2, 4, 300, 16, 2, 300, 300, False)
-    for bad in (0, 257):
+    for bad in (0, 601):
         try:
             ivf_scan_topk(*args, kk=bad)
         except ValueError:
             continue
         raise AssertionError(f"ivf_scan kk={bad} was not refused")
-    args = pq_case(0, 2, 4, 300, 200, 8, 2, 300, 300, False)
-    try:                                # a 204,800-byte LUT does not fit
-        pq_adc_topk(*args, kk=10)
-    except ValueError as e:
-        log(f"pq_adc refuses S=200, K=256: {e}")
-    else:
-        raise AssertionError("pq_adc took a LUT too large for shared memory")
 
 
 # -- training at dml-imnet1m width ------------------------------------------
@@ -1006,6 +1047,16 @@ def phase_kernels(index, queries, launches, max_err):
             f"FFMA {ffma_ms:.3f}), {b_ms / ms:.1%} of bound; device ms by "
             f"kernel "
             f"{parts if parts else 'not measured'}")
+    # the wide path (k_top past the 256-entry lists) at the serving width
+    q = queries[:MAX_BATCH].contiguous()
+    ms = _time(lambda: metric_topk_fused(q, L, gp, gn, k_top=WIDE_K), 5)
+    lib_ms = _time(lambda: library(L, q, gp, gn, WIDE_K), 3)
+    wide = dict(k_top=WIDE_K, ms=ms, library_ms=lib_ms,
+                breakdown_ms=device_breakdown(
+                    lambda: metric_topk_fused(q, L, gp, gn, k_top=WIDE_K)))
+    log(f"metric_topk wide path Nq={MAX_BATCH} k={WIDE_K}: kernel {ms:.3f} "
+        f"ms, library {lib_ms:.3f} ms; device ms by kernel "
+        f"{wide['breakdown_ms'] or 'not measured'}")
     main = rows[MAX_BATCH]
     return {"name": "metric_topk", "route": "cuda",
             "source": "src/repro_torch/kernels/metric_topk/csrc/"
@@ -1015,7 +1066,7 @@ def phase_kernels(index, queries, launches, max_err):
             **main,
             "shape": {"nq": MAX_BATCH, "m": m, "d_in": d_in,
                       "d_out": d_out, "k_top": K_TOP},
-            "at_nq1": rows[1]}
+            "at_nq1": rows[1], "wide": wide}
 
 
 # -- approximate serving: IVF on ivf_scan, IVFPQ on pq_adc --------------------
@@ -1125,6 +1176,23 @@ def phase_ann(index, queries, serving):
         "pq_adc at the serving widths is not bit-identical"
     out["ivfpq"]["max_abs_err"] = 0.0
     log("pq_adc at the serving widths vs plain: bit-identical")
+    # an exact rerank of RERANK_WIDE ADC candidates: pq_adc at kk 512 (the
+    # wide path), bit-identical, and a recall no lower than rerank 50's
+    dk, ik = pq_adc_topk(*args, kk=RERANK_WIDE)
+    dp, ip = pq_adc_topk_ref(*args, RERANK_WIDE)
+    assert torch.equal(dk, dp) and torch.equal(ik, ip), \
+        f"pq_adc at kk {RERANK_WIDE} is not bit-identical"
+    exact = serving["nbrs"][:MAX_BATCH]
+    before = pq_adc_topk_fused.launches
+    recall = {rr: recall_at_k(pq.topk(qb, K_TOP, rerank=rr)[1].cpu().numpy(),
+                              exact) for rr in (RERANK, RERANK_WIDE)}
+    assert pq_adc_topk_fused.launches == before + 2
+    assert recall[RERANK_WIDE] >= recall[RERANK], recall
+    log(f"ivfpq with rerank {RERANK_WIDE} (pq_adc kk {RERANK_WIDE} "
+        f"bit-identical to plain): recall@{K_TOP} of the first {MAX_BATCH} "
+        f"requests {recall[RERANK_WIDE]:.4f} (rerank {RERANK}: "
+        f"{recall[RERANK]:.4f})")
+    out["ivfpq"]["recall_by_rerank"] = recall
     return built, out
 
 
@@ -1343,14 +1411,16 @@ HIDDEN_REL_BOUND = 1e-4
 EMBED_REL_BOUND = 1e-5
 # flash parity (B, T, S, H, K, Dh, causal, window): the CPU tests' shapes,
 # then ragged T and S, GQA 2 and 3, Dh 64 and 80, windows below, at and
-# above T
+# above T; Dh 256 (gemma-7b) causal, with GQA, a window, ragged T and S
 FA_PARITY = [(2, 128, 128, 4, 4, 64, True, 0), (2, 128, 128, 8, 2, 64, True, 0),
              (1, 256, 256, 4, 1, 32, False, 0), (2, 64, 64, 4, 4, 128, True, 0),
              (1, 512, 512, 16, 4, 64, True, 0), (2, 128, 128, 6, 2, 80, True, 0),
              (1, 256, 256, 4, 2, 32, True, 32), (2, 100, 100, 6, 2, 80, True, 0),
              (1, 333, 333, 6, 3, 80, True, 64), (1, 200, 200, 4, 2, 64, True, 200),
              (1, 200, 200, 4, 2, 80, True, 300), (1, 130, 70, 4, 4, 48, False, 0),
-             (2, 1000, 1000, 32, 32, 80, True, 256)]
+             (2, 1000, 1000, 32, 32, 80, True, 256),
+             (1, 300, 300, 16, 16, 256, True, 0), (2, 128, 128, 8, 2, 256, True, 0),
+             (1, 333, 333, 4, 2, 256, True, 64), (1, 130, 70, 4, 4, 256, False, 0)]
 # ssd parity (B, H, T, p, n): the CPU tests' shapes, ragged T (1, 100,
 # 1000), reduced zamba2's p 128 / n 16, 80 heads at p = n = 64
 SSD_PARITY = [(1, 4, 64, 16, 8), (1, 2, 128, 64, 64), (1, 8, 96, 32, 16),
@@ -1524,6 +1594,117 @@ def phase_backbone_parity():
     return {"errs": errs, "f32_rel_err": rel}
 
 
+GEMMA = "gemma-7b"
+GEMMA_LAYERS, GEMMA_SEQ = 2, 2048
+GEMMA_ATTN = (1, 8192)      # (B, T) of its kernels-line entry, bf16
+
+
+def phase_gemma():
+    """gemma-7b at full width (d_model 3072, 16 heads of 256, GeGLU d_ff
+    24576, vocab 256,000), depth cut to 2 layers, random f32 weights from a
+    seed, B 1, T 2048: flash_attention at Dh 256 on layer 0's real q, k, v
+    in bf16 and f32 against the plain version, then the forward through
+    the kernels against the plain path (``plain=True``) by the final
+    hidden state and by ``embed_pool``, with the launch count of that
+    main-path call."""
+    cfg = get_config(GEMMA).replace(n_layers=GEMMA_LAYERS, dtype="float32")
+    t0 = time.perf_counter()
+    model = Model(cfg, device=DEV, seed=0)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"{GEMMA}: depth cut to {cfg.n_layers} of 28 layers, d_model "
+        f"{cfg.d_model}, {cfg.n_heads} heads of {cfg.dim_per_head}, d_ff "
+        f"{cfg.d_ff}: {n_params / 1e9:.3f}B parameters from the seeded "
+        f"init in {time.perf_counter() - t0:.1f}s")
+    tokens = torch.from_numpy(np.random.RandomState(3).randint(
+        0, cfg.vocab_size, (1, GEMMA_SEQ))).to(DEV)
+    batch = {"tokens": tokens}
+    errs = {}
+    with torch.inference_mode():
+        for dtype in (torch.bfloat16, torch.float32):
+            x = common.embed_tokens(model.embedding, tokens, cfg, dtype)
+            h = common.apply_norm(model.blocks[0]["norm1"], x, cfg)
+            q, k, v = attention.qkv_proj(model.blocks[0]["attn"], h,
+                                         torch.arange(GEMMA_SEQ,
+                                                      device=DEV)[None], cfg)
+            err, top, worst = check_flash(q, k, v, True, 0)
+            errs[dtype] = err
+            log(f"gemma parity flash_attention {str(dtype)[6:]} on layer 0's "
+                f"q, k, v {tuple(q.shape)}: max |d| {err:.3e} (max |ref| "
+                f"{top:.4f}), {worst:.3f} of the bound")
+            del x, h, q, k, v
+        h_k, _ = model.hidden(batch)
+        h_p, _ = model.hidden(batch, plain=True)
+        assert bool(torch.isfinite(h_k).all())
+        rel = {"hidden": float((h_k - h_p).abs().max() / h_p.abs().max())}
+        del h_k, h_p
+        _reset_counts()                 # counts of the main path only
+        emb_k = model.embed_pool(batch)
+        torch.cuda.synchronize()
+        launches = flash_attention.launches
+        emb_p = model.embed_pool(batch, plain=True)
+    assert launches == cfg.n_layers, \
+        f"flash_attention launched {launches} times in {cfg.n_layers} layers"
+    assert bool(torch.isfinite(emb_k).all()) and emb_k.shape == (
+        1, cfg.d_model)
+    rel["embed_pool"] = float((emb_k - emb_p).abs().max() / emb_p.abs().max())
+    log(f"gemma f32 forward, {cfg.n_layers} layers, B 1, T {GEMMA_SEQ}: "
+        f"{launches} flash_attention launches; max |a - b| / max |b|: "
+        f"final hidden state {rel['hidden']:.3e} (bound {HIDDEN_REL_BOUND}),"
+        f" embed_pool {rel['embed_pool']:.3e} (bound {EMBED_REL_BOUND})")
+    assert rel["hidden"] <= HIDDEN_REL_BOUND and \
+        rel["embed_pool"] <= EMBED_REL_BOUND, \
+        "the gemma kernel path left the plain path"
+    del model
+    torch.cuda.empty_cache()
+    return {"launches": launches, "errs": errs, "f32_rel_err": rel}
+
+
+def time_gemma_attention(gemma):
+    """flash_attention at gemma-7b's attention shape (B 1, T 8192, 16
+    heads of 256, causal, bf16) on seeded random q, k, v: kernel, plain
+    version and one ``scaled_dot_product_attention`` call, by CUDA-graph
+    replay; the kernels-line entry."""
+    B, T = GEMMA_ATTN
+    cfg = get_config(GEMMA)
+    H, dh = cfg.n_heads, cfg.dim_per_head
+    gen = torch.Generator(device=DEV).manual_seed(4)
+    q, k, v = (torch.randn((B, T, H, dh), generator=gen, device=DEV)
+               .to(torch.bfloat16) for _ in range(3))
+    fn = lambda: flash_attention(q, k, v, causal=True)  # noqa: E731
+    plain = lambda: attention_ref(q, k, v, causal=True)  # noqa: E731
+    lib = lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+        is_causal=True)
+    with torch.inference_mode():
+        eager, graphed, best = _device_times(fn, plain, lib, (10, 2, 10))
+    entries_band = T * (T + 1) // 2             # causal (t, s) pairs a head
+    b_ms, b_by = roofline(4.0 * dh * entries_band * B * H,
+                          2.0 * 4 * q.numel(), PEAK_BF16_FLOPS)
+    fmt = lambda x: "-" if x is None else f"{x:.3f}"  # noqa: E731
+    log(f"flash_attention gemma shape B={B} T={T} H={H} Dh={dh} causal "
+        f"(bf16): device ms by graph replay: kernel {fmt(graphed['ms'])}, "
+        f"plain {fmt(graphed['plain_ms'])}, library "
+        f"{fmt(graphed['library_ms'])}; eager: kernel {fmt(eager['ms'])}, "
+        f"plain {fmt(eager['plain_ms'])}, library {fmt(eager['library_ms'])}"
+        f"; bound {b_ms:.3f} ms ({b_by}), {b_ms / best['ms']:.1%} of bound")
+    return {"name": "flash_attention", "route": "cuda",
+            "source": "src/repro_torch/kernels/flash_attention/csrc/"
+                      "flash_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention/kernel.py:80",
+            "launches": gemma["launches"],
+            "max_abs_err": gemma["errs"][torch.bfloat16], **best,
+            "bound_ms": b_ms, "bound_by": b_by, "eager_ms": eager,
+            "graph_ms": graphed,
+            "max_abs_err_f32": gemma["errs"][torch.float32],
+            "forward_f32_rel_err": gemma["f32_rel_err"],
+            "shape": {"B": B, "T": T, "H": H, "K": cfg.kv_heads, "Dh": dh,
+                      "window": 0, "band_entries_per_head": entries_band,
+                      "config": GEMMA},
+            "launches_note": f"{GEMMA} cut to {GEMMA_LAYERS} layers, B 1, "
+                             f"T {GEMMA_SEQ}, one embed_pool"}
+
+
 def _category(name):
     low = name.lower()
     if "ssd_chunk" in low:
@@ -1632,6 +1813,21 @@ def library_attention(q, k, v, window):
         attn_mask=band)
 
 
+def _device_times(kern, plain, lib, iters):
+    """(eager, graphed, best) ms of ``kern``, ``plain`` and ``lib`` (None
+    where there is no library call): eager calls between CUDA events,
+    CUDA-graph replays, and the replay where it could be captured (the
+    device time), else the eager time; ``iters`` per callable."""
+    fns = {"ms": kern, "plain_ms": plain, "library_ms": lib}
+    eager = {k: None if f is None else _time(f, n)
+             for (k, f), n in zip(fns.items(), iters)}
+    graphed = {k: None if f is None else _time_graph(f, n)
+               for (k, f), n in zip(fns.items(), iters)}
+    best = {k: graphed[k] if graphed[k] is not None else eager[k]
+            for k in eager}
+    return eager, graphed, best
+
+
 def time_backbone_kernels(model, tokens, launches, errs):
     """Kernel, plain and library times of ssd_scan and flash_attention at
     the service's shapes (B 4, T 8192, bf16) on real layer inputs; device
@@ -1676,14 +1872,7 @@ def time_backbone_kernels(model, tokens, launches, errs):
                  roofline(fa_ops, fa_bytes, PEAK_BF16_FLOPS),
                  "flash_attention/csrc/flash_attention.cu",
                  "flash_attention/kernel.py:80")):
-            eager = {"ms": _time(kern, 10), "plain_ms": _time(pl, 2),
-                     "library_ms": None if lib is None else _time(lib, 5)}
-            graphed = {"ms": _time_graph(kern, 10),
-                       "plain_ms": _time_graph(pl, 2),
-                       "library_ms": None if lib is None
-                       else _time_graph(lib, 5)}
-            best = {kk: graphed[kk] if graphed[kk] is not None else eager[kk]
-                    for kk in eager}
+            eager, graphed, best = _device_times(kern, pl, lib, (10, 2, 5))
             ffma = (f"; f32 FFMA {ffma_bound(ops, nbytes):.3f}"
                     if name == "ssd_scan" else "")
             log(f"{name} B={B} T={T} (bf16): device ms by graph replay: "
@@ -1751,6 +1940,8 @@ def main():
     torch.cuda.empty_cache()
     bb = phase_backbone_parity()
     log(f"backbone parity done at {time.perf_counter() - t0:.1f}s")
+    gemma = phase_gemma()
+    log(f"gemma forward done at {time.perf_counter() - t0:.1f}s")
     model, requests, svc = phase_embedding_service()
     log(f"embedding service done at {time.perf_counter() - t0:.1f}s")
     bb_entries = time_backbone_kernels(
@@ -1759,6 +1950,9 @@ def main():
     bb_entries[0]["service"] = svc
     bb_entries[0]["forward_f32_rel_err"] = bb["f32_rel_err"]
     entries += bb_entries
+    del model
+    torch.cuda.empty_cache()
+    entries.append(time_gemma_attention(gemma))
     log(f"backbone kernels timed at {time.perf_counter() - t0:.1f}s")
     print(json.dumps({"kernels": entries}), flush=True)
     log(f"total {time.perf_counter() - t0:.1f}s")

@@ -16,8 +16,8 @@ tolerances at full width, and ``chip_smoke.py`` prints its error beside
 ``tma_operand`` zero-pads an operand's columns to the 16-byte row stride
 a TMA tensor map needs.
 ``BIG`` is the pad sentinel of the segment layouts (IVF / IVFPQ);
-``check_kk``, ``segment_split``, ``check_tensor`` and ``sm_count`` serve
-the two segment-scan wrappers (ivf_scan, pq_adc).
+``check_kk``, ``segment_split``, ``segment_scratch``, ``check_tensor``
+and ``sm_count`` serve the two segment-scan wrappers (ivf_scan, pq_adc).
 """
 
 from __future__ import annotations
@@ -130,6 +130,22 @@ def segment_split(nq: int, nprobe: int, cap: int, n_sm: int,
                         cdiv(cap, tile_rows)))
     rows = round_up(cdiv(cap, nchunk), tile_rows)
     return cdiv(cap, rows), rows
+
+
+def segment_scratch(nq: int, nprobe: int, nchunk: int, cap: int, kk: int,
+                    list_k: int, device):
+    """Scratch of a segment scan: (cand_d, cand_p, dump). Per-block
+    candidate lists (nq, nprobe * nchunk, kk) when kk <= ``list_k``;
+    else the wide path's distance of every candidate, (nq, nprobe * cap).
+    The scratch a call does not use is empty."""
+    f32, i32 = (dict(dtype=dt, device=device)
+                for dt in (torch.float32, torch.int32))
+    if kk <= list_k:
+        return (torch.empty((nq, nprobe * nchunk, kk), **f32),
+                torch.empty((nq, nprobe * nchunk, kk), **i32),
+                torch.empty((0,), **f32))
+    return (torch.empty((0,), **f32), torch.empty((0,), **i32),
+            torch.empty((nq, nprobe * cap), **f32))
 
 
 def check_tensor(name, x, dtype, ndim, device):

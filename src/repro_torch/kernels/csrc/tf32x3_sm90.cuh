@@ -1,5 +1,5 @@
 // f32-accurate matrix products on Hopper's tensor cores (sm_90a): the
-// mainloop shared by dml_pair and metric_topk.
+// mainloop shared by dml_pair, metric_topk and pairwise_dist.
 //
 // 3xTF32. Each f32 operand x is split as hi = rna_tf32(x) and
 // lo = rna_tf32(x - hi) (x - hi is exact in f32), and a . b is taken as
@@ -434,21 +434,33 @@ __host__ __device__ constexpr int partial_smem(int n, bool diff, int stages) {
         + 2 * stages * 8;
 }
 
-// out[s * ss + m * sm + n * sn] = sum over k in slice s of A[m, k] B[n, k]
-// with A = A1 - A2 when DIFF (rows of one f32 subtraction, as z = xs - ys),
-// for m < m_rows, n < n_rows. Grid (M tiles of BM, N tiles of N, slices);
-// the slices (kchunk columns each, a multiple of BK) are the slowest grid
-// axis, so blocks in flight together read the same columns through L2.
-// A reaches the wgmmas from registers (each warpgroup loads and splits its
-// own 64 rows); B, shared by both warpgroups, is split in shared memory.
-template <int N, bool DIFF>
+// The default epilogue of partial_product: the slice's partial sum to
+// out[s * ss + m * sm + n * sn].
+struct StorePartial {
+    float* out;
+    long long ss, sm, sn;
+    __device__ __forceinline__ void operator()(int s, int m, int n,
+                                               float v) const {
+        out[s * ss + (long long)m * sm + (long long)n * sn] = v;
+    }
+};
+
+// epi(s, m, n, sum over k in slice s of A[m, k] B[n, k]) with A = A1 - A2
+// when DIFF (rows of one f32 subtraction, as z = xs - ys), for m < m_rows,
+// n < n_rows: StorePartial by default, or another hook over the f32
+// accumulator fragment (pairwise_dist's distance epilogue). Grid (M tiles
+// x N tiles, slices), the M tile fastest (blockIdx.x % M tiles), so
+// neither axis is held to the grid's y limit; the slices (kchunk columns
+// each, a multiple of BK) are the slowest grid axis, so blocks in flight
+// together read the same columns through L2. A reaches the wgmmas from
+// registers (each warpgroup loads and splits its own 64 rows); B, shared
+// by both warpgroups, is split in shared memory.
+template <int N, bool DIFF, class Epi>
 __global__ void __launch_bounds__(THREADS, 1)
 partial_product(const __grid_constant__ CUtensorMap a1,
                 const __grid_constant__ CUtensorMap a2,
-                const __grid_constant__ CUtensorMap b,
-                float* __restrict__ out, int m_rows, int n_rows, int k_len,
-                int kchunk, int stages, long long ss, long long sm,
-                long long sn) {
+                const __grid_constant__ CUtensorMap b, const Epi epi,
+                int m_rows, int n_rows, int k_len, int kchunk, int stages) {
     constexpr int B_BYTES = N * ROW_BYTES;
     constexpr int STAGE = partial_stage_bytes(N, DIFF);
     constexpr int B_AT = (DIFF ? 2 : 1) * A_BYTES;
@@ -458,8 +470,9 @@ partial_product(const __grid_constant__ CUtensorMap a1,
     uint64_t* full = reinterpret_cast<uint64_t*>(lo_base + 2 * B_BYTES);
     uint64_t* empty = full + stages;
 
-    const int m0 = blockIdx.x * BM, n0 = blockIdx.y * N;
-    const int k0 = blockIdx.z * kchunk;
+    const int mtiles = (m_rows + BM - 1) / BM;
+    const int m0 = (blockIdx.x % mtiles) * BM, n0 = (blockIdx.x / mtiles) * N;
+    const int k0 = blockIdx.y * kchunk;
     const int steps = (min(k_len, k0 + kchunk) - k0 + BK - 1) / BK;
     const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
     init_ring(full, empty, stages);
@@ -514,9 +527,8 @@ partial_product(const __grid_constant__ CUtensorMap a1,
             const int m = m0 + wg * 64 + wl * 16 + lane / 4 + 8 * h;
             const int n = n0 + 8 * i + 2 * (lane % 4);
             if (m >= m_rows) continue;
-            float* o = out + blockIdx.z * ss + (long long)m * sm;
-            if (n < n_rows) o[n * sn] = acc[4 * i + 2 * h];
-            if (n + 1 < n_rows) o[(n + 1) * sn] = acc[4 * i + 2 * h + 1];
+            if (n < n_rows) epi(blockIdx.y, m, n, acc[4 * i + 2 * h]);
+            if (n + 1 < n_rows) epi(blockIdx.y, m, n + 1, acc[4 * i + 2 * h + 1]);
         }
     }
 }
@@ -560,15 +572,17 @@ inline int encode(CUtensorMap* map, const float* ptr, long long cols,
     return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
 }
 
-// Launch partial_product<N, DIFF> on `stream` (a2 unused unless DIFF).
-// Returns the first non-zero cudaError_t, else 0.
-template <int N, bool DIFF>
-int launch_partial(const float* a1, const float* a2, const float* b,
-                   float* out, int m_rows, int n_rows, int k_len, int ksplit,
-                   int kchunk, int stages, long long ss, long long sm,
-                   long long sn, cudaStream_t stream) {
-    if (kchunk % BK != 0 || ksplit < 1 || stages < 2 ||
-        partial_smem(N, DIFF, stages) > SMEM_LIMIT)
+// Launch partial_product<N, DIFF, Epi> on `stream` (a2 unused unless
+// DIFF). Returns the first non-zero cudaError_t, else 0.
+template <int N, bool DIFF, class Epi>
+int launch_partial_epi(const float* a1, const float* a2, const float* b,
+                       const Epi& epi, int m_rows, int n_rows, int k_len,
+                       int ksplit, int kchunk, int stages,
+                       cudaStream_t stream) {
+    const long long tiles =
+        (long long)((m_rows + BM - 1) / BM) * ((n_rows + N - 1) / N);
+    if (kchunk % BK != 0 || ksplit < 1 || ksplit > 65535 || stages < 2 ||
+        tiles > 0x7fffffffLL || partial_smem(N, DIFF, stages) > SMEM_LIMIT)
         return (int)cudaErrorInvalidValue;
     CUtensorMap ma1, ma2, mb;
     int err;
@@ -578,13 +592,25 @@ int launch_partial(const float* a1, const float* a2, const float* b,
     if ((err = encode(&mb, b, k_len, n_rows, N)) != 0) return err;
     const int smem = partial_smem(N, DIFF, stages);
     cudaError_t e = cudaFuncSetAttribute(
-        partial_product<N, DIFF>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        smem);
+        partial_product<N, DIFF, Epi>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return (int)e;
-    dim3 grid((m_rows + BM - 1) / BM, (n_rows + N - 1) / N, ksplit);
-    partial_product<N, DIFF><<<grid, THREADS, smem, stream>>>(
-        ma1, ma2, mb, out, m_rows, n_rows, k_len, kchunk, stages, ss, sm, sn);
+    partial_product<N, DIFF, Epi><<<dim3((unsigned)tiles, ksplit), THREADS,
+                                     smem, stream>>>(
+        ma1, ma2, mb, epi, m_rows, n_rows, k_len, kchunk, stages);
     return (int)cudaGetLastError();
+}
+
+// partial_product with the StorePartial epilogue: slice s's partial sums
+// to out[s * ss + m * sm + n * sn]
+template <int N, bool DIFF>
+int launch_partial(const float* a1, const float* a2, const float* b,
+                   float* out, int m_rows, int n_rows, int k_len, int ksplit,
+                   int kchunk, int stages, long long ss, long long sm,
+                   long long sn, cudaStream_t stream) {
+    return launch_partial_epi<N, DIFF>(a1, a2, b, StorePartial{out, ss, sm, sn},
+                                       m_rows, n_rows, k_len, ksplit, kchunk,
+                                       stages, stream);
 }
 
 }  // namespace tf32x3

@@ -1,5 +1,6 @@
-// Sorted top-k lists in shared memory and their merges, shared by the
-// segment-scan kernels (ivf_scan, pq_adc).
+// Top-k selection shared by the scan kernels: sorted lists in shared
+// memory and their merges (ivf_scan, pq_adc), and the wide selection
+// (ivf_scan, pq_adc, metric_topk).
 //
 // A list holds up to kk (distance, position) entries in ascending
 // lexicographic order; unused entries are (+inf, NO_POS). Ordering by
@@ -12,6 +13,14 @@
 //   merge_lists   one block per query merges the blocks' lists and maps
 //                 each position back to its row id through the probe
 //                 table (position = probe index * cap + slot).
+//
+// Lists stop at MAX_K entries: an insert costs KR = MAX_K / 32 entries a
+// lane, and a scan block keeps several lists in shared memory. Wider
+// selections (kk > MAX_K, up to every candidate) take the wide path: the
+// scan writes every candidate's distance to global memory, and
+// select_wide, one block per query, finds the kk smallest (distance,
+// position) keys by a radix select over their bits and writes them out
+// unordered; the wrapper's final (distance, id) sort orders them.
 //
 // The cp.async helpers copy global -> shared without registers; the
 // src-size operand zero-fills what lies past the valid bytes.
@@ -128,6 +137,18 @@ __device__ void warp_merge(const float* ld, const int* lp, int nlists,
     }
 }
 
+// the row id of query qi's candidate position pos (probe index * cap +
+// slot): ids[probes[qi, pos / cap] * cap + pos % cap], probe ids clipped
+// to [0, n_clusters) as the reference's mode="clip" gather
+__device__ __forceinline__ int pos_to_id(const int* __restrict__ probes,
+                                         const int* __restrict__ ids, int qi,
+                                         int pos, int nprobe, int n_clusters,
+                                         int cap) {
+    int seg = probes[(long long)qi * nprobe + pos / cap];
+    seg = min(max(seg, 0), n_clusters - 1);
+    return ids[(long long)seg * cap + pos % cap];
+}
+
 // out[q, r] = the r-th smallest (d, pos) over query q's nlists sorted
 // candidate lists (each kk long), with pos mapped to its row id:
 // ids[probes[q, pos / cap] * cap + pos % cap] (probe ids clipped to
@@ -172,17 +193,86 @@ merge_lists(const float* __restrict__ cand_d, const int* __restrict__ cand_p,
                 if (lex_less3(wd[v], wp[v], ws[v], fd, fp, fs)) {
                     fd = wd[v]; fp = wp[v]; fs = ws[v];
                 }
-            int id = -1;
-            if (fp != NO_POS) {
-                int seg = probes[(long long)qi * nprobe + fp / cap];
-                seg = min(max(seg, 0), n_clusters - 1);
-                id = ids[(long long)seg * cap + fp % cap];
-            }
+            const int id = fp == NO_POS ? -1
+                : pos_to_id(probes, ids, qi, fp, nprobe, n_clusters, cap);
             out_d[(long long)qi * kk + r] = fd;
             out_i[(long long)qi * kk + r] = id;
             if (fs < nlists) head[fs] += 1;
         }
         __syncthreads();
+    }
+}
+
+// -- the wide path ------------------------------------------------------------
+
+constexpr int SELECT_THREADS = 1024;
+
+// (d, pos) as one 64-bit key in the same order: a distance is >= 0 (the
+// scans clamp it), so its f32 bits order as the values do (-0 as 0)
+__device__ __forceinline__ unsigned long long select_key(float d, int pos) {
+    uint32_t u = __float_as_uint(d);
+    if (u == 0x80000000u) u = 0u;
+    return (static_cast<unsigned long long>(u) << 32) | static_cast<uint32_t>(pos);
+}
+
+// out_d / out_i[q, 0..kk) = the kk smallest (d, pos) keys of dist[q,
+// 0..pool) (pos = the column), in no order; ids through pos_to_id when
+// probes is given, else the position itself. One block per query: a
+// radix select, 8 bits a pass from the top, histograms of the keys that
+// share the prefix found so far (warp-aggregated shared atomics); it
+// stops at the first pass whose digit holds exactly the keys still
+// wanted. Then every key at or below the prefix is written out.
+__global__ void __launch_bounds__(SELECT_THREADS)
+select_wide(const float* __restrict__ dist, int pool, int kk,
+            const int* __restrict__ probes, const int* __restrict__ ids,
+            int nprobe, int n_clusters, int cap, float* __restrict__ out_d,
+            int* __restrict__ out_i) {
+    __shared__ unsigned int hist[256];
+    __shared__ unsigned long long s_prefix, s_mask;
+    __shared__ int s_rem, s_done;
+    __shared__ unsigned int s_count;
+    const int qi = blockIdx.x, tid = threadIdx.x, lane = tid & 31;
+    const float* dq = dist + (long long)qi * pool;
+    unsigned long long prefix = 0, mask = 0;
+    int rem = kk;
+    for (int shift = 56; shift >= 0; shift -= 8) {
+        for (int b = tid; b < 256; b += SELECT_THREADS) hist[b] = 0u;
+        __syncthreads();
+        for (int i = tid; i < pool; i += SELECT_THREADS) {
+            const unsigned long long key = select_key(dq[i], i);
+            if ((key & mask) == prefix) {
+                const unsigned digit = (unsigned)(key >> shift) & 255u;
+                const unsigned peers = __match_any_sync(__activemask(), digit);
+                if (lane == __ffs(peers) - 1)
+                    atomicAdd(&hist[digit], (unsigned)__popc(peers));
+            }
+        }
+        __syncthreads();
+        if (tid == 0) {
+            int below = 0, b = 0;
+            while (below + (int)hist[b] < rem) below += hist[b++];
+            s_rem = rem - below;
+            s_done = (int)hist[b] == rem - below;
+            s_prefix = prefix | ((unsigned long long)b << shift);
+            s_mask = mask | (255ull << shift);
+        }
+        __syncthreads();
+        prefix = s_prefix;
+        mask = s_mask;
+        rem = s_rem;
+        if (s_done) break;          // uniform: read after the barrier
+    }
+    if (tid == 0) s_count = 0u;
+    __syncthreads();
+    for (int i = tid; i < pool; i += SELECT_THREADS) {
+        const float d = dq[i];
+        if ((select_key(d, i) & mask) <= prefix) {
+            const long long o = (long long)qi * kk + atomicAdd(&s_count, 1u);
+            out_d[o] = d;
+            out_i[o] = probes ? pos_to_id(probes, ids, qi, i, nprobe,
+                                          n_clusters, cap)
+                              : i;
+        }
     }
 }
 

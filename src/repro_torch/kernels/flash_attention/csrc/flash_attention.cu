@@ -31,10 +31,14 @@
 // with rows padded by 8 elements (conflict-free fragment loads), s = q k^T
 // stays in registers, is turned into p in place and fed back as the A
 // operand of p v (FlashAttention-2's register reuse), with v's B
-// fragments read by ldmatrix.trans. f32 inputs stay full f32: 256 threads
-// each own a 4-row x 4-key score tile and 4 rows x Dh/16 output columns,
-// all FFMA. q, k, v are read in the model's (B, T, H, Dh) layout through
-// strides: no transposes. Rows past T and keys past S are masked (zero
+// fragments read by ldmatrix.trans. At Dh 256 (gemma-7b) o alone takes
+// 128 registers a thread, so q's fragments are read from the q tile in
+// shared memory at every kv tile instead of being held (they would take
+// 64 more and spill); the tiles are 101 KB. f32 inputs stay full f32:
+// 256 threads each own a 4-row x 4-key score tile and 4 rows x Dh/16
+// output columns, all FFMA; at Dh 256 its q, k, v and p tiles take 214 KB
+// of the 227 KB a block may have. q, k, v are read in the model's (B, T,
+// H, Dh) layout through strides: no transposes. Rows past T and keys past S are masked (zero
 // tiles, NEG_INF scores), so any T and S work.
 //
 // NEG_INF is the finite -1e30 of the TPU kernel, not -inf: a row whose keys
@@ -154,15 +158,22 @@ flash_bf16(const __nv_bfloat16* __restrict__ q,
     load_tile_bf16<DH, 128>(Qs, qp, p.q_t, q0, p.T, BQ);
     __syncthreads();
     const int r0 = warp * 16;
-    uint32_t qa[KS][4];
-    #pragma unroll
-    for (int ks = 0; ks < KS; ++ks) {
+    // q's A fragments of k step ks: held in registers up to Dh 128; above
+    // it read from the (never overwritten) q tile at every kv tile, since
+    // the 64 registers they take would spill beside the 128 of o
+    constexpr bool Q_REGS = DH <= 128;
+    auto q_frag = [&](int ks, uint32_t (&f)[4]) {
         const __nv_bfloat16* lo = Qs + (r0 + g) * LD + ks * 16 + 2 * tq;
         const __nv_bfloat16* hi = lo + 8 * LD;
-        qa[ks][0] = ld_u32(lo);
-        qa[ks][1] = ld_u32(hi);
-        qa[ks][2] = ld_u32(lo + 8);
-        qa[ks][3] = ld_u32(hi + 8);
+        f[0] = ld_u32(lo);
+        f[1] = ld_u32(hi);
+        f[2] = ld_u32(lo + 8);
+        f[3] = ld_u32(hi + 8);
+    };
+    uint32_t qa[Q_REGS ? KS : 1][4];
+    if (Q_REGS) {
+        #pragma unroll
+        for (int ks = 0; ks < KS; ++ks) q_frag(ks, qa[Q_REGS ? ks : 0]);
     }
 
     float o[NT][4];
@@ -186,11 +197,14 @@ flash_bf16(const __nv_bfloat16* __restrict__ q,
             s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
         #pragma unroll
         for (int ks = 0; ks < KS; ++ks) {
+            uint32_t qs[4];
+            if (!Q_REGS) q_frag(ks, qs);
+            const uint32_t (&qf)[4] = Q_REGS ? qa[Q_REGS ? ks : 0] : qs;
             #pragma unroll
             for (int nt = 0; nt < BK / 8; ++nt) {
                 const __nv_bfloat16* kr = Ks + (nt * 8 + g) * LD + ks * 16
                                           + 2 * tq;
-                mma_bf16(s[nt], qa[ks], ld_u32(kr), ld_u32(kr + 8));
+                mma_bf16(s[nt], qf, ld_u32(kr), ld_u32(kr + 8));
             }
         }
         // scale into the exp2 domain, mask, row maxima over the quad
@@ -463,6 +477,7 @@ int flash_attention_launch(const void* q, const void* k, const void* v,
         case 96: return launch_dh<96>(q, k, v, out, p, B, bf16, stream);
         case 112: return launch_dh<112>(q, k, v, out, p, B, bf16, stream);
         case 128: return launch_dh<128>(q, k, v, out, p, B, bf16, stream);
+        case 256: return launch_dh<256>(q, k, v, out, p, B, bf16, stream);
         default: return (int)cudaErrorInvalidValue;
     }
 }

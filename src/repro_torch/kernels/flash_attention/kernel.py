@@ -3,7 +3,7 @@
 Counterpart of ``repro/kernels/flash_attention/kernel.py::flash_attention``:
 causal / sliding-window GQA attention forward, bf16 on the tensor cores
 or full f32, any T and S (the kernel masks its ragged edges), Dh any
-multiple of 16 up to 128. q, k and v are read in the model's (B, T, H,
+multiple of 16 up to 128, and 256 (gemma-7b). q, k and v are read in the model's (B, T, H,
 Dh) layout through their strides, so no transpose is made. The kernel is
 forward-only, as the TPU kernel is: an input that requires grad raises.
 The library is built on first use (``kernels/_build.py``); nothing here
@@ -27,7 +27,9 @@ from repro_torch.kernels import _build
 SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
 BLOCK_Q = 64            # query rows of a block
 BLOCK_K = 64            # keys of a kv tile
-MAX_HEAD_DIM = 128
+# head dims the kernel is built for: every config's (zamba2 80, gemma 256,
+# the others 64 or 128) and the reduced configs'
+HEAD_DIMS = (16, 32, 48, 64, 80, 96, 112, 128, 256)
 # stride step (elements) and base alignment (bytes) of the kernel's loads:
 # 16-byte vectors for bf16, scalars for f32
 _ALIGN = {torch.bfloat16: (8, 16), torch.float32: (1, 4)}
@@ -91,9 +93,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          f"{tuple(k.shape)}, v {tuple(v.shape)}")
     if K < 1 or H % K:
         raise ValueError(f"H={H} is not a multiple of K={K}")
-    if dh % 16 or not 16 <= dh <= MAX_HEAD_DIM:
-        raise ValueError(f"head dim {dh} is not a multiple of 16 in "
-                         f"[16, {MAX_HEAD_DIM}]")
+    if dh not in HEAD_DIMS:
+        raise ValueError(f"head dim {dh} is not one of {HEAD_DIMS}")
     if window < 0:
         raise ValueError(f"window must be >= 0, got {window}")
     if window and T - window >= S:

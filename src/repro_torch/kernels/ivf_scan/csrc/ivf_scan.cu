@@ -39,6 +39,10 @@
 //   2. merge_lists (topk_list.cuh): one block per query merges its
 //      blocks' lists by (d, position) and maps positions to row ids.
 //
+// Wide lists (kk > topk_list::MAX_K): the blocks write every candidate's
+// distance to dump[q, position] instead of keeping lists, and
+// topk_list::select_wide picks the kk smallest (d, position) per query.
+//
 // Ragged edges (rows past the segment's chunk, k not a multiple of the
 // slice) are masked in the kernel; there is no 128-lane padding. The
 // distance is rounded as the plain version rounds it: (qn + gn) - 2 x.
@@ -98,13 +102,16 @@ __device__ __forceinline__ void load_slice(Slice& s, const float* __restrict__ g
     cp_async_commit();
 }
 
+// kk > 0: sorted per-warp lists of kk (d, position), merged into the
+// block's list; kk == 0: every distance to dump[q, position] (the wide
+// path)
 template <bool VEC4>
 __global__ void __launch_bounds__(THREADS)
 ivf_scan(const int* __restrict__ probes, const float* __restrict__ qp,
          const float* __restrict__ g, const float* __restrict__ gn,
-         float* __restrict__ cand_d, int* __restrict__ cand_p, int nprobe,
-         int n_clusters, int cap, int k, int kk, int rows_per_chunk,
-         int nchunk) {
+         float* __restrict__ cand_d, int* __restrict__ cand_p,
+         float* __restrict__ dump, int nprobe, int n_clusters, int cap,
+         int k, int kk, int rows_per_chunk, int nchunk) {
     extern __shared__ __align__(16) unsigned char smem[];
     Slice* tiles = reinterpret_cast<Slice*>(smem);
     const int kpad = kpad_of(k);
@@ -192,7 +199,9 @@ ivf_scan(const int* __restrict__ probes, const float* __restrict__ qp,
                                     __fmul_rn(2.f, v));
                 d = fmaxf(d, 0.f);
                 const int pos = p * cap + r;
-                if (lex_less(d, pos, thr_d, thr_p)) {
+                if (kk == 0) {
+                    if (lane == 0) dump[(long long)q * nprobe * cap + pos] = d;
+                } else if (lex_less(d, pos, thr_d, thr_p)) {
                     warp_insert(ld, lp, kk, d, pos, lane);
                     thr_d = ld[kk - 1];
                     thr_p = lp[kk - 1];
@@ -200,6 +209,7 @@ ivf_scan(const int* __restrict__ probes, const float* __restrict__ qp,
             }
         }
     }
+    if (kk == 0) return;
     __syncthreads();
     if (w == 0) {
         warp_merge(list_d, list_p, WARPS, kk, blk_d, blk_p, lane);
@@ -213,16 +223,16 @@ ivf_scan(const int* __restrict__ probes, const float* __restrict__ qp,
 
 template <bool VEC4>
 int launch_scan(const int* probes, const float* qp, const float* g,
-                const float* gn, float* cand_d, int* cand_p, long long nblocks,
-                int nprobe, int n_clusters, int cap, int k, int kk,
-                int rows_per_chunk, int nchunk, cudaStream_t stream) {
+                const float* gn, float* cand_d, int* cand_p, float* dump,
+                long long nblocks, int nprobe, int n_clusters, int cap, int k,
+                int kk, int rows_per_chunk, int nchunk, cudaStream_t stream) {
     const size_t bytes = smem_bytes(k, kk);
     cudaError_t err = cudaFuncSetAttribute(
         ivf_scan<VEC4>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
     if (err != cudaSuccess) return (int)err;
     ivf_scan<VEC4><<<(unsigned)nblocks, THREADS, bytes, stream>>>(
-        probes, qp, g, gn, cand_d, cand_p, nprobe, n_clusters, cap, k, kk,
-        rows_per_chunk, nchunk);
+        probes, qp, g, gn, cand_d, cand_p, dump, nprobe, n_clusters, cap, k,
+        kk, rows_per_chunk, nchunk);
     return (int)cudaGetLastError();
 }
 
@@ -234,28 +244,39 @@ int ivf_scan_max_k() { return topk_list::MAX_K; }
 int ivf_scan_tile_rows() { return TR; }
 long long ivf_scan_smem_bytes(int k, int kk) { return (long long)smem_bytes(k, kk); }
 
-// One call runs ivf_scan and merge_lists on `stream`. Scratch is the
-// caller's: cand_d / cand_p (nq, nprobe * nchunk, kk). vec4 != 0 takes
-// 16-byte copies (k % 4 == 0 and g 16-byte aligned). Returns the first
-// non-zero cudaError_t, else 0.
+// One call runs ivf_scan and merge_lists (kk <= MAX_K), or ivf_scan and
+// select_wide (kk > MAX_K), on `stream`. Scratch is the caller's: cand_d /
+// cand_p (nq, nprobe * nchunk, kk) for lists, dump (nq, nprobe * cap) for
+// the wide path. vec4 != 0 takes 16-byte copies (k % 4 == 0 and g
+// 16-byte aligned). Returns the first non-zero cudaError_t, else 0.
 int ivf_scan_launch(const int* probes, const float* qp, const float* g,
                     const float* gn, const int* ids, float* cand_d,
-                    int* cand_p, float* out_d, int* out_i, int nq, int nprobe,
-                    int n_clusters, int cap, int k, int kk,
-                    int rows_per_chunk, int nchunk, int vec4,
+                    int* cand_p, float* dump, float* out_d, int* out_i,
+                    int nq, int nprobe, int n_clusters, int cap, int k,
+                    int kk, int rows_per_chunk, int nchunk, int vec4,
                     void* stream_ptr) {
-    if (kk < 1 || kk > topk_list::MAX_K || nq < 1 || nprobe < 1 || cap < 1 || k < 1 ||
-        n_clusters < 1 || nchunk < 1 || rows_per_chunk < 1)
+    if (kk < 1 || (long long)kk > (long long)nprobe * cap || nq < 1 ||
+        nprobe < 1 || cap < 1 || k < 1 || n_clusters < 1 || nchunk < 1 ||
+        rows_per_chunk < 1)
         return (int)cudaErrorInvalidValue;
+    const bool wide = kk > topk_list::MAX_K;
+    const int lists = wide ? 0 : kk;
     cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
     const long long nblocks = (long long)nq * nprobe * nchunk;
     int err = vec4
-        ? launch_scan<true>(probes, qp, g, gn, cand_d, cand_p, nblocks, nprobe,
-                            n_clusters, cap, k, kk, rows_per_chunk, nchunk, stream)
-        : launch_scan<false>(probes, qp, g, gn, cand_d, cand_p, nblocks, nprobe,
-                             n_clusters, cap, k, kk, rows_per_chunk, nchunk,
-                             stream);
+        ? launch_scan<true>(probes, qp, g, gn, cand_d, cand_p, dump, nblocks,
+                            nprobe, n_clusters, cap, k, lists, rows_per_chunk,
+                            nchunk, stream)
+        : launch_scan<false>(probes, qp, g, gn, cand_d, cand_p, dump, nblocks,
+                             nprobe, n_clusters, cap, k, lists,
+                             rows_per_chunk, nchunk, stream);
     if (err != 0) return err;
+    if (wide) {
+        topk_list::select_wide<<<nq, topk_list::SELECT_THREADS, 0, stream>>>(
+            dump, nprobe * cap, kk, probes, ids, nprobe, n_clusters, cap,
+            out_d, out_i);
+        return (int)cudaGetLastError();
+    }
     const int nlists = nprobe * nchunk;
     topk_list::merge_lists<<<nq, topk_list::MERGE_THREADS, (size_t)nlists * sizeof(int), stream>>>(
         cand_d, cand_p, probes, ids, out_d, out_i, nlists, kk, nprobe,

@@ -3,12 +3,16 @@
 Counterpart of ``repro/kernels/ivf_scan/kernel.py::ivf_scan_topk_fused``:
 per query, score the rows of its probed full-precision segments with
 the factored distance and keep the top kk, without the (Nq, nprobe,
-cap, k) segment gather reaching device memory. The library is built on
-first use (``kernels/_build.py``); nothing here touches CUDA at import
-time. The wrapper checks its inputs, allocates outputs and scratch with
-``torch.empty``, launches on the current stream without synchronising,
-raises on a non-zero ``cudaError_t``, and counts its calls in
-``ivf_scan_topk_fused.launches`` (one call = the scan and merge launches).
+cap, k) segment gather reaching device memory, for every kk the
+reference takes (1 <= kk <= nprobe * cap): lists of up to ``LIST_K``
+candidates are kept in shared memory; a wider kk takes the wide path
+(every distance to a scratch buffer, then a radix select). The library
+is built on first use (``kernels/_build.py``); nothing here touches CUDA
+at import time. The wrapper checks its inputs, allocates outputs and
+scratch with ``torch.empty``, launches on the current stream without
+synchronising, raises on a non-zero ``cudaError_t``, and counts its calls
+in ``ivf_scan_topk_fused.launches`` (one call = the scan and the merge
+or select launches).
 """
 
 from __future__ import annotations
@@ -20,10 +24,11 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels._dispatch import (check_kk, check_tensor,
-                                         segment_split, sm_count)
+                                         segment_scratch, segment_split,
+                                         sm_count)
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "ivf_scan.cu"
-MAX_KK = 256            # the kernel keeps lists of <= 256 entries
+LIST_K = 256            # widest per-block lists; a wider kk goes wide
 TILE_ROWS = 32          # segment rows of a tile (8 warps x 4 rows)
 SLICE = 128             # k floats of a staged slice
 SMEM_LIMIT = 232_448 - 1024     # a block's shared memory, less static use
@@ -34,9 +39,11 @@ _lib = None
 def smem_bytes(k: int, kk: int) -> int:
     """Dynamic shared memory of one scan block (as ``csrc`` computes it):
     two 32 x 128 f32 slices, the query row padded to the slice, and nine
-    (d, position) lists of kk (eight warps' and the block's)."""
+    (d, position) lists of kk (eight warps' and the block's; none on the
+    wide path, kk > LIST_K)."""
     kpad = -(-k // SLICE) * SLICE
-    return 2 * TILE_ROWS * SLICE * 4 + 4 * kpad + 9 * kk * 8
+    lists = 9 * kk * 8 if kk <= LIST_K else 0
+    return 2 * TILE_ROWS * SLICE * 4 + 4 * kpad + lists
 
 
 def _library():
@@ -44,7 +51,7 @@ def _library():
     if _lib is None:
         lib = _build.load(SOURCE)
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.ivf_scan_launch.argtypes = [p] * 9 + [i] * 9 + [p]
+        lib.ivf_scan_launch.argtypes = [p] * 10 + [i] * 9 + [p]
         lib.ivf_scan_launch.restype = i
         lib.ivf_scan_max_k.restype = i
         lib.ivf_scan_tile_rows.restype = i
@@ -52,7 +59,7 @@ def _library():
         lib.ivf_scan_smem_bytes.restype = ctypes.c_longlong
         if (lib.ivf_scan_max_k(), lib.ivf_scan_tile_rows(),
                 lib.ivf_scan_smem_bytes(1000, 50)) != (
-                    MAX_KK, TILE_ROWS, smem_bytes(1000, 50)):
+                    LIST_K, TILE_ROWS, smem_bytes(1000, 50)):
             raise RuntimeError(f"{SOURCE} disagrees with kernel.py on its "
                                f"tile and shared-memory sizes")
         _lib = lib
@@ -69,7 +76,7 @@ def ivf_scan_topk_fused(probes: torch.Tensor, qp: torch.Tensor,
       qp: (Nq, k) f32 projected queries.
       g: (C*cap, k) f32 cluster-major segment rows; gn: (C*cap,) f32 row
         norms (+BIG pads); ids: (C*cap,) int32 row ids (-1 pads).
-      cap: rows per segment; kk: candidates kept (1..256, <= nprobe*cap).
+      cap: rows per segment; kk: candidates kept (1 <= kk <= nprobe*cap).
 
     Returns (dists (Nq, kk) f32, ids (Nq, kk) int32) in (distance,
     candidate position) order; ops.py masks d >= BIG to id -1 and sorts
@@ -94,9 +101,6 @@ def ivf_scan_topk_fused(probes: torch.Tensor, qp: torch.Tensor,
                          f"{tuple(gn.shape)}, ids {tuple(ids.shape)}, "
                          f"cap {cap}")
     check_kk(kk, nprobe, cap)
-    if kk > MAX_KK:
-        raise ValueError(f"kk={kk} > {MAX_KK}: the CUDA ivf_scan kernel keeps "
-                         f"at most {MAX_KK} candidates per query")
     if smem_bytes(k, kk) > SMEM_LIMIT:
         raise ValueError(f"k={k}, kk={kk} need {smem_bytes(k, kk)} bytes of "
                          f"shared memory a block, above {SMEM_LIMIT}")
@@ -106,13 +110,11 @@ def ivf_scan_topk_fused(probes: torch.Tensor, qp: torch.Tensor,
         return out_d, out_i
     lib = _library()
     nchunk, rpc = segment_split(nq, nprobe, cap, sm_count(device), TILE_ROWS)
-    cand_d = torch.empty((nq, nprobe * nchunk, kk), dtype=torch.float32,
-                         device=device)
-    cand_p = torch.empty((nq, nprobe * nchunk, kk), dtype=torch.int32,
-                         device=device)
+    cand_d, cand_p, dump = segment_scratch(nq, nprobe, nchunk, cap, kk,
+                                           LIST_K, device)
     vec4 = int(k % 4 == 0 and g.data_ptr() % 16 == 0)
     ptrs = [ctypes.c_void_p(t.data_ptr()) for t in
-            (probes, qp, g, gn, ids, cand_d, cand_p, out_d, out_i)]
+            (probes, qp, g, gn, ids, cand_d, cand_p, dump, out_d, out_i)]
     stream = ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
     with torch.cuda.device(device):
         err = lib.ivf_scan_launch(*ptrs, nq, nprobe, rows // cap, cap, k, kk,

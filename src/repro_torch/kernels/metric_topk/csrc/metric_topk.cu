@@ -47,6 +47,16 @@
 //   4. merge: one block per query merges the sorted split lists by
 //      (d, id), k_top rounds of a block-wide argmin over list heads.
 //
+// Lists stop at MAX_K = 256 entries (an insert costs MAX_K / 32 entries a
+// lane, and a block keeps N lists in shared memory). A wider k_top (up to
+// M) takes the wide path: steps 1-3 as above, but the scan writes every
+// distance to dump (Nq, M) instead of keeping lists, and
+// topk_list::select_wide (kernels/csrc/topk_list.cuh), one block per
+// query, radix-selects the k_top smallest (d, id) and writes them
+// unordered; the wrapper's final (d, id) sort orders them. The gallery is
+// still read once: a wider list in shared memory would shrink the query
+// tile, and each query tile reads the whole gallery.
+//
 // Ragged edges are zero rows and columns of the TMA boxes, masked in the
 // epilogues; the wrapper zero-pads q, L or gp to rows of a multiple of 4
 // floats where they are not (the tensor map's 16-byte row stride). No
@@ -57,6 +67,7 @@
 #include <stdint.h>
 
 #include "../../csrc/tf32x3_sm90.cuh"
+#include "../../csrc/topk_list.cuh"
 
 namespace {
 
@@ -66,8 +77,9 @@ using tf32x3::BM;
 using tf32x3::ROW_BYTES;
 using tf32x3::THREADS;
 
-constexpr int MAX_K = 256;
-constexpr int KR = MAX_K / 32;  // list entries a lane holds in an insert
+using topk_list::lex_less;
+using topk_list::MAX_K;         // the widest list (topk_list.cuh)
+using topk_list::warp_insert;
 constexpr int PROJ_STAGES = 4;
 constexpr int REDUCE_THREADS = 256;
 constexpr int MERGE_THREADS = 256;
@@ -77,10 +89,6 @@ constexpr int DPAD = BM + 4;    // cross tile rows: conflict-free stores
 // runs ahead through the tile epilogues (the 288-thread block gets 168
 // registers a thread, which its one register set fits)
 constexpr int SCAN_THREADS = THREADS + 32;
-
-__device__ __forceinline__ bool lex_less(float ad, int ai, float bd, int bi) {
-    return ad < bd || (ad == bd && ai < bi);
-}
 
 __host__ __device__ constexpr int scan_stage_bytes(int n) {
     return A_BYTES + 2 * n * ROW_BYTES;         // gp, qhi, qlo slices
@@ -123,54 +131,19 @@ project_reduce(const float* __restrict__ part, float* __restrict__ qhi,
     }
 }
 
-// Insert (d, id) into the ascending (d, id) list ld/li of length k; the
-// whole warp takes part. A candidate that ranks k-th or later is dropped.
-// Inserts are rare once a list fills, so it stays out of line.
-__device__ __noinline__ void warp_insert(float* ld, int* li, int k,
-                                            float d, int id, int lane) {
-    float od[KR];
-    int oi[KR];
-    int cnt = 0;
-    #pragma unroll
-    for (int r = 0; r < KR; ++r) {
-        int p = lane + 32 * r;
-        od[r] = CUDART_INF_F;
-        oi[r] = NO_ID;
-        if (p < k) {
-            od[r] = ld[p];
-            oi[r] = li[p];
-            cnt += lex_less(od[r], oi[r], d, id);
-        }
-    }
-    const int pos = __reduce_add_sync(0xffffffffu, cnt);
-    __syncwarp();
-    if (pos >= k) return;                 // uniform across the warp
-    #pragma unroll
-    for (int r = 0; r < KR; ++r) {
-        int p = lane + 32 * r;
-        if (p >= pos && p < k - 1) {
-            ld[p + 1] = od[r];
-            li[p + 1] = oi[r];
-        }
-    }
-    if (lane == 0) {
-        ld[pos] = d;
-        li[pos] = id;
-    }
-    __syncwarp();
-}
-
 // cand[q, s] = the k_top smallest (d, id) of query q over gallery split s
-// (rows [s * rows_per_split, ...)), ascending. Grid (query tiles of N,
-// nsplit); ksteps = the BK-column slices of a gp row.
-template <int N>
+// (rows [s * rows_per_split, ...)), ascending; when WIDE (the wide path,
+// k_top 0) every distance to dump[q, row] instead, a separate instance so
+// the list path's code is unchanged. Grid (query tiles of N, nsplit);
+// ksteps = the BK-column slices of a gp row.
+template <int N, bool WIDE>
 __global__ void __launch_bounds__(SCAN_THREADS, 1)
 scan(const __grid_constant__ CUtensorMap gpm,
      const __grid_constant__ CUtensorMap qhm,
      const __grid_constant__ CUtensorMap qlm, const float* __restrict__ qn,
      const float* __restrict__ gn, float* __restrict__ cand_d,
-     int* __restrict__ cand_i, int nq, int m, int k_top, int ksteps,
-     int rows_per_split, int nsplit, int stages) {
+     int* __restrict__ cand_i, float* __restrict__ dump, int nq, int m,
+     int k_top, int ksteps, int rows_per_split, int nsplit, int stages) {
     using namespace tf32x3;
     constexpr int Q_BYTES = N * ROW_BYTES;
     constexpr int STAGE = scan_stage_bytes(N);
@@ -258,9 +231,21 @@ scan(const __grid_constant__ CUtensorMap gpm,
         named_sync(1, THREADS);
         // warp w keeps queries w, w + 8, ...; lanes walk the tile's rows
         for (int qi = warp; qi < N && q0 + qi < nq; qi += THREADS / 32) {
+            const float qn_r = sqn[qi];
+            if (WIDE) {
+                float* dq = dump + (long long)(q0 + qi) * m;
+                #pragma unroll
+                for (int j = 0; j < BM / 32; ++j) {
+                    const int rl = lane + 32 * j, row = m0 + rl;
+                    const float d = __fsub_rn(
+                        __fadd_rn(qn_r, sgn[rl]),
+                        __fmul_rn(2.f, cross[qi * DPAD + rl]));
+                    if (row < r1) dq[row] = fmaxf(d, 0.f);
+                }
+                continue;
+            }
             float* ld = list_d + qi * k_top;
             int* li = list_i + qi * k_top;
-            const float qn_r = sqn[qi];
             float thr_d = ld[k_top - 1];
             int thr_i = li[k_top - 1];
             #pragma unroll
@@ -348,10 +333,10 @@ merge(const float* __restrict__ cand_d, const int* __restrict__ cand_i,
 template <int N>
 int launch_all(const float* q, const float* L, const float* gp,
                const float* gn, float* part, float* qhi, float* qlo,
-               float* qn, float* cand_d, int* cand_i, float* out_d,
-               int* out_i, int nq, int d_in, int d_out, int dp, int m,
-               int k_top, int stages, int ksplit, int kchunk, int nsplit,
-               int rows_per_split, cudaStream_t stream) {
+               float* qn, float* cand_d, int* cand_i, float* dump,
+               float* out_d, int* out_i, int nq, int d_in, int d_out, int dp,
+               int m, int k_top, int stages, int ksplit, int kchunk,
+               int nsplit, int rows_per_split, cudaStream_t stream) {
     // part[s, q, c]: L rows on the M side, queries on the N side
     int err = tf32x3::launch_partial<N, false>(
         L, nullptr, q, part, d_out, nq, d_in, ksplit, kchunk, PROJ_STAGES,
@@ -362,21 +347,29 @@ int launch_all(const float* q, const float* L, const float* gp,
     cudaError_t e = cudaGetLastError();
     if (e != cudaSuccess) return (int)e;
 
-    const int smem = scan_smem(N, k_top, stages);
+    const bool wide = k_top > MAX_K;
+    const int lists = wide ? 0 : k_top;
+    const int smem = scan_smem(N, lists, stages);
     if (stages < 2 || smem > tf32x3::SMEM_LIMIT)
         return (int)cudaErrorInvalidValue;
     CUtensorMap gpm, qhm, qlm;
     if ((err = tf32x3::encode(&gpm, gp, dp, m, BM)) != 0) return err;
     if ((err = tf32x3::encode(&qhm, qhi, dp, nq, N)) != 0) return err;
     if ((err = tf32x3::encode(&qlm, qlo, dp, nq, N)) != 0) return err;
-    e = cudaFuncSetAttribute(scan<N>,
+    auto kernel = wide ? scan<N, true> : scan<N, false>;
+    e = cudaFuncSetAttribute(kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              smem);
     if (e != cudaSuccess) return (int)e;
-    scan<N><<<dim3((nq + N - 1) / N, nsplit), SCAN_THREADS, smem, stream>>>(
-        gpm, qhm, qlm, qn, gn, cand_d, cand_i, nq, m, k_top,
+    kernel<<<dim3((nq + N - 1) / N, nsplit), SCAN_THREADS, smem, stream>>>(
+        gpm, qhm, qlm, qn, gn, cand_d, cand_i, dump, nq, m, lists,
         (dp + BK - 1) / BK, rows_per_split, nsplit, stages);
     if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+    if (wide) {
+        topk_list::select_wide<<<nq, topk_list::SELECT_THREADS, 0, stream>>>(
+            dump, m, k_top, nullptr, nullptr, 0, 1, 1, out_d, out_i);
+        return (int)cudaGetLastError();
+    }
 
     merge<<<nq, MERGE_THREADS, (size_t)nsplit * sizeof(int), stream>>>(
         cand_d, cand_i, out_d, out_i, nsplit, k_top);
@@ -399,26 +392,28 @@ int metric_topk_proj_smem(int n) {
 }
 
 // One call runs the four kernels on `stream` with query tiles of n_tile
-// rows (8, 16, 32, 64 or 128). q (nq, d_in) and L (d_out, d_in) have d_in
-// a multiple of 4, gp (m, dp) has dp = d_out rounded up to a multiple of
-// 4, all with 16-byte aligned bases. Scratch is the caller's: part
-// (ksplit, nq, d_out), qhi / qlo (nq, dp), qn (nq), cand_d / cand_i (nq,
-// nsplit, k_top). Returns the first non-zero cudaError_t, else 0.
+// rows (8, 16, 32, 64 or 128); for k_top > MAX_K the last is select_wide,
+// whose out_d / out_i rows are unordered. q (nq, d_in) and L (d_out,
+// d_in) have d_in a multiple of 4, gp (m, dp) has dp = d_out rounded up
+// to a multiple of 4, all with 16-byte aligned bases. Scratch is the
+// caller's: part (ksplit, nq, d_out), qhi / qlo (nq, dp), qn (nq), and
+// cand_d / cand_i (nq, nsplit, k_top) for k_top <= MAX_K, else dump (nq,
+// m). Returns the first non-zero cudaError_t, else 0.
 int metric_topk_launch(const float* q, const float* L, const float* gp,
                        const float* gn, float* part, float* qhi, float* qlo,
-                       float* qn, float* cand_d, int* cand_i, float* out_d,
-                       int* out_i, int nq, int d_in, int d_out, int dp, int m,
-                       int k_top, int n_tile, int stages, int ksplit,
-                       int kchunk, int nsplit, int rows_per_split,
-                       void* stream_ptr) {
-    if (k_top < 1 || k_top > MAX_K || nq < 1 || m < 1 || d_out < 1 ||
+                       float* qn, float* cand_d, int* cand_i, float* dump,
+                       float* out_d, int* out_i, int nq, int d_in, int d_out,
+                       int dp, int m, int k_top, int n_tile, int stages,
+                       int ksplit, int kchunk, int nsplit,
+                       int rows_per_split, void* stream_ptr) {
+    if (k_top < 1 || k_top > m || nq < 1 || m < 1 || d_out < 1 ||
         d_in < 1 || d_in % 4 != 0 || dp % 4 != 0 || dp < d_out ||
         dp >= d_out + 4 || rows_per_split % BM != 0 ||
         (long long)nsplit * rows_per_split < m)
         return (int)cudaErrorInvalidValue;
     cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
 #define METRIC_TOPK_ARGS q, L, gp, gn, part, qhi, qlo, qn, cand_d, cand_i, \
-        out_d, out_i, nq, d_in, d_out, dp, m, k_top, stages, ksplit,       \
+        dump, out_d, out_i, nq, d_in, d_out, dp, m, k_top, stages, ksplit, \
         kchunk, nsplit, rows_per_split, stream
     switch (n_tile) {
         case 8: return launch_all<8>(METRIC_TOPK_ARGS);

@@ -1,10 +1,14 @@
 """ctypes wrapper of the hand-written Hopper kernel ``csrc/metric_topk.cu``.
 
 Counterpart of ``repro/kernels/metric_topk/kernel.py::metric_topk_fused``:
-fused query projection + factored distance + top-k, without the
-(Nq, M) distance matrix ever reaching device memory. The library is
-built on first use (``kernels/_build.py``); nothing here touches CUDA at
-import time. The wrapper checks its inputs, zero-pads the columns of q, L
+fused query projection + factored distance + top-k, for every k_top
+the reference takes (1 <= k_top <= M). Up to ``LIST_K`` the per-query
+lists stay in shared memory and the (Nq, M) distance matrix never
+reaches device memory; a wider k_top takes the wide path (the scan
+writes every distance to a scratch (Nq, M) buffer, a radix select keeps
+the k_top smallest, and ``_dispatch.sort_by_distance_id`` orders them).
+The library is built on first use (``kernels/_build.py``); nothing here
+touches CUDA at import time. The wrapper checks its inputs, zero-pads the columns of q, L
 or gp to a multiple of 4 where they are not (the TMA tensor maps'
 16-byte row stride), allocates outputs and scratch with ``torch.empty``,
 launches on the current stream without synchronising, raises on a
@@ -21,10 +25,11 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels._dispatch import cdiv, sm_count, tma_operand
+from repro_torch.kernels._dispatch import (cdiv, sm_count,
+                                         sort_by_distance_id, tma_operand)
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "metric_topk.cu"
-MAX_K_TOP = 256         # the kernel keeps per-query lists of <= 256 entries
+LIST_K = 256            # widest per-query lists; a wider k_top goes wide
 BLOCK_M = 128           # gallery (or L) rows of a tile: two warpgroups
 BLOCK_K = 32            # columns of a TMA stage
 QUERY_TILES = (8, 16, 32, 64, 128)  # query rows of a tile (the wgmma N)
@@ -52,10 +57,12 @@ _lib = None
 def scan_smem(n: int, k_top: int, stages: int) -> int:
     """Shared memory of a scan block (as ``scan_smem`` in the source):
     the ring of gp / qhi / qlo stages, the 128 x n cross tile (rows padded
-    by 4), gn and qn, the n sorted lists of k_top (d, id) entries, the
-    barriers, the alignment slack."""
+    by 4), gn and qn, the n sorted lists of k_top (d, id) entries (none
+    on the wide path, k_top > LIST_K), the barriers, the alignment
+    slack."""
+    lists = k_top if k_top <= LIST_K else 0
     return (ALIGN + stages * (_A + 2 * n * _ROW) + n * (BLOCK_M + 4) * 4
-            + BLOCK_M * 4 + n * 4 + n * k_top * 8 + 2 * stages * 8)
+            + BLOCK_M * 4 + n * 4 + n * lists * 8 + 2 * stages * 8)
 
 
 def proj_smem(n: int) -> int:
@@ -70,14 +77,14 @@ def _library():
     if _lib is None:
         lib = _build.load(SOURCE)
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.metric_topk_launch.argtypes = [p] * 12 + [i] * 12 + [p]
+        lib.metric_topk_launch.argtypes = [p] * 13 + [i] * 12 + [p]
         lib.metric_topk_launch.restype = i
         for name in ("block_m", "block_k", "max_k", "proj_stages",
                      "scan_smem", "proj_smem"):
             getattr(lib, f"metric_topk_{name}").restype = i
         ok = (lib.metric_topk_block_m(), lib.metric_topk_block_k(),
               lib.metric_topk_max_k(), lib.metric_topk_proj_stages()) == \
-            (BLOCK_M, BLOCK_K, MAX_K_TOP, PROJ_STAGES)
+            (BLOCK_M, BLOCK_K, LIST_K, PROJ_STAGES)
         for n in QUERY_TILES:
             ok = ok and lib.metric_topk_proj_smem(n) == proj_smem(n)
             for kt, st in ((1, 2), (10, 4), (256, 3)):
@@ -150,10 +157,8 @@ def metric_topk_fused(q: torch.Tensor, L: torch.Tensor, gp: torch.Tensor,
         raise ValueError(f"shape mismatch: q {tuple(q.shape)}, L "
                          f"{tuple(L.shape)}, gp {tuple(gp.shape)}, gn "
                          f"{tuple(gn.shape)}")
-    if not 1 <= k_top <= MAX_K_TOP:
-        raise ValueError(f"k_top={k_top} outside 1..{MAX_K_TOP}: the CUDA "
-                         f"metric_topk kernel keeps at most {MAX_K_TOP} "
-                         f"neighbours per query")
+    if k_top < 1:
+        raise ValueError(f"k_top={k_top} must be >= 1")
     if k_top > m:
         raise ValueError(f"k_top={k_top} > gallery size M={m}")
     out_d = torch.empty((nq, k_top), dtype=torch.float32, device=device)
@@ -170,11 +175,14 @@ def metric_topk_fused(q: torch.Tensor, L: torch.Tensor, gp: torch.Tensor,
     qhi = torch.empty((nq, dp), **f32)
     qlo = torch.empty((nq, dp), **f32)
     qn = torch.empty((nq,), **f32)
-    cand_d = torch.empty((nq, plan.nsplit, k_top), **f32)
-    cand_i = torch.empty((nq, plan.nsplit, k_top), dtype=torch.int32,
-                         device=device)
+    wide = k_top > LIST_K
+    cand = (0, 0, 0) if wide else (nq, plan.nsplit, k_top)
+    cand_d = torch.empty(cand, **f32)
+    cand_i = torch.empty(cand, dtype=torch.int32, device=device)
+    dump = torch.empty((nq, m) if wide else (0,), **f32)
     ptrs = [ctypes.c_void_p(t.data_ptr()) for t in
-            (q, L, gp, gn, part, qhi, qlo, qn, cand_d, cand_i, out_d, out_i)]
+            (q, L, gp, gn, part, qhi, qlo, qn, cand_d, cand_i, dump, out_d,
+             out_i)]
     stream = ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
     with torch.cuda.device(device):
         err = lib.metric_topk_launch(
@@ -185,6 +193,8 @@ def metric_topk_fused(q: torch.Tensor, L: torch.Tensor, gp: torch.Tensor,
         raise RuntimeError(f"metric_topk kernel launch failed: cudaError_t "
                            f"{err}")
     metric_topk_fused.launches += 1
+    if wide:                            # the selection comes unordered
+        return sort_by_distance_id(out_d, out_i)
     return out_d, out_i
 
 

@@ -48,6 +48,21 @@
 // Ties: ordering by position at equal distance selects the same kk
 // candidates as the reference's stable top-kk over the probe-major /
 // slot-minor stream, so ids are bit-identical too after the final sort.
+//
+// Tables larger than shared memory. From about S = 146 at K = 256 the
+// table, two whole-row code tiles and the lists pass a block's 227 KB
+// (S = 200 needs 310,832 bytes at kk 50). Then the block walks each
+// 256-row tile in chunks of sc subspaces (sc from the wrapper's plan,
+// the most that fit): the chunk's sc x K table slice and the tile's sc
+// code bytes of each row are staged in shared memory, and each thread
+// carries its row's partial sum in a register from chunk to chunk,
+// adding in ascending subspace order, so the sum is the same sequential
+// one and the result stays bit-identical. The table is then read again
+// for every tile (from L2).
+//
+// Wide lists (kk > topk_list::MAX_K): the block writes every candidate's
+// distance to dump[q, position] instead of keeping lists, and
+// topk_list::select_wide picks the kk smallest (d, position) per query.
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
@@ -63,17 +78,22 @@ constexpr int THREADS = 256;
 constexpr int WARPS = THREADS / 32;
 constexpr int TR = THREADS;             // code rows per tile: one a thread
 
+__host__ __device__ inline size_t round16(size_t n) { return (n + 15) / 16 * 16; }
+
 __host__ __device__ inline size_t tile_bytes(int S) {
-    return ((size_t)TR * S + 16 + 15) / 16 * 16;   // + room for the misalignment
+    return round16((size_t)TR * S + 16);            // + room for the misalignment
 }
 
 __host__ __device__ inline size_t lut_bytes(int S, int K) {
-    return ((size_t)S * K * sizeof(float) + 15) / 16 * 16;  // tiles 16-aligned
+    return round16((size_t)S * K * sizeof(float));  // tiles 16-aligned
 }
 
-__host__ __device__ inline size_t smem_bytes(int S, int K, int kk) {
-    return lut_bytes(S, K) + 2 * tile_bytes(S) +
-           (size_t)(WARPS + 1) * kk * (sizeof(float) + sizeof(int));
+// the block's table (or table chunk), code tiles and lists: whole rows
+// double-buffered when sc == S, else one tile of sc code bytes a row
+__host__ __device__ inline size_t smem_bytes(int S, int K, int kk, int sc) {
+    const size_t lists = (size_t)(WARPS + 1) * kk * (sizeof(float) + sizeof(int));
+    if (sc >= S) return lut_bytes(S, K) + 2 * tile_bytes(S) + lists;
+    return lut_bytes(sc, K) + round16((size_t)TR * sc) + lists;
 }
 
 // The code bytes of rows [row0, row0 + nrows) into `tile`, from the
@@ -98,17 +118,22 @@ __device__ __forceinline__ int load_codes(unsigned char* tile,
     return off;
 }
 
+// kk > 0: sorted per-warp lists of kk (d, position), merged into the
+// block's list; kk == 0: every distance to dump[q, position] (the wide
+// path). CHUNKED: the table in chunks of sc subspaces (above).
+template <bool CHUNKED>
 __global__ void __launch_bounds__(THREADS)
 pq_adc(const int* __restrict__ probes, const float* __restrict__ tables,
        const float* __restrict__ dc, const uint8_t* __restrict__ codes,
        const float* __restrict__ t, float* __restrict__ cand_d,
-       int* __restrict__ cand_p, int nprobe, int n_clusters, int cap, int S,
-       int K, int kk, int rows_per_chunk, int nchunk) {
+       int* __restrict__ cand_p, float* __restrict__ dump, int nprobe,
+       int n_clusters, int cap, int S, int K, int kk, int sc,
+       int rows_per_chunk, int nchunk) {
     extern __shared__ __align__(16) unsigned char smem[];
     float* lut = reinterpret_cast<float*>(smem);
-    unsigned char* tiles = smem + lut_bytes(S, K);
-    const size_t tb = tile_bytes(S);
-    float* list_d = reinterpret_cast<float*>(tiles + 2 * tb);
+    unsigned char* tiles = smem + lut_bytes(CHUNKED ? sc : S, K);
+    const size_t tb = CHUNKED ? round16((size_t)TR * sc) : tile_bytes(S);
+    float* list_d = reinterpret_cast<float*>(tiles + (CHUNKED ? 1 : 2) * tb);
     int* list_p = reinterpret_cast<int*>(list_d + WARPS * kk);
     float* blk_d = reinterpret_cast<float*>(list_p + WARPS * kk);
     int* blk_p = reinterpret_cast<int*>(blk_d + kk);
@@ -127,11 +152,12 @@ pq_adc(const int* __restrict__ probes, const float* __restrict__ tables,
 
     // the first code tile streams in while the table is copied
     int off[2] = {0, 0};
-    if (ntiles > 0)
+    if (!CHUNKED && ntiles > 0)
         off[0] = load_codes(tiles, codes, total, seg_row0 + r0,
                             min(TR, r1 - r0), S);
     const float* tab = tables + (long long)q * S * K;
-    for (int i = threadIdx.x; i < S * K; i += THREADS) lut[i] = tab[i];
+    if (!CHUNKED)
+        for (int i = threadIdx.x; i < S * K; i += THREADS) lut[i] = tab[i];
     for (int i = threadIdx.x; i < WARPS * kk; i += THREADS) {
         list_d[i] = CUDART_INF_F;
         list_p[i] = NO_POS;
@@ -144,41 +170,69 @@ pq_adc(const int* __restrict__ probes, const float* __restrict__ tables,
 
     for (int ti = 0; ti < ntiles; ++ti) {
         const int rr = r0 + ti * TR;
-        if (ti + 1 < ntiles) {
-            const int rn = rr + TR;
-            off[(ti + 1) & 1] = load_codes(tiles + ((ti + 1) & 1) * tb, codes,
-                                           total, seg_row0 + rn,
-                                           min(TR, r1 - rn), S);
-            cp_async_wait<1>();
-        } else {
-            cp_async_wait<0>();
-        }
-        __syncthreads();            // the tile (and, at ti = 0, the table)
         const int r = rr + threadIdx.x;
         const bool valid = r < r1;
+        float ip = 0.f;
+        if (CHUNKED) {
+            const int nrows = min(TR, r1 - rr);
+            for (int s0 = 0; s0 < S; s0 += sc) {
+                const int wd = min(sc, S - s0);
+                __syncthreads();    // the last chunk's reads are done
+                for (int i = threadIdx.x; i < wd * K; i += THREADS)
+                    lut[i] = tab[(long long)s0 * K + i];
+                for (int i = threadIdx.x; i < nrows * wd; i += THREADS)
+                    tiles[i] = codes[(seg_row0 + rr + i / wd) * S + s0 + i % wd];
+                __syncthreads();
+                if (valid) {
+                    // the partial sum carries over in ascending subspace order
+                    const unsigned char* cr = tiles + threadIdx.x * wd;
+                    int j = 0;
+                    if (s0 == 0) ip = lut[cr[j++]];
+                    for (; j < wd; ++j) ip = __fadd_rn(ip, lut[j * K + cr[j]]);
+                }
+            }
+        } else {
+            if (ti + 1 < ntiles) {
+                const int rn = rr + TR;
+                off[(ti + 1) & 1] = load_codes(tiles + ((ti + 1) & 1) * tb,
+                                               codes, total, seg_row0 + rn,
+                                               min(TR, r1 - rn), S);
+                cp_async_wait<1>();
+            } else {
+                cp_async_wait<0>();
+            }
+            __syncthreads();        // the tile (and, at ti = 0, the table)
+            if (valid) {
+                const unsigned char* cr =
+                    tiles + (ti & 1) * tb + off[ti & 1] + threadIdx.x * S;
+                ip = lut[cr[0]];
+                for (int s = 1; s < S; ++s) ip = __fadd_rn(ip, lut[s * K + cr[s]]);
+            }
+        }
         float d = CUDART_INF_F;
         if (valid) {
-            const unsigned char* cr =
-                tiles + (ti & 1) * tb + off[ti & 1] + threadIdx.x * S;
-            float ip = lut[cr[0]];
-            for (int s = 1; s < S; ++s) ip = __fadd_rn(ip, lut[s * K + cr[s]]);
             d = __fsub_rn(__fadd_rn(dcv, t[seg_row0 + r]), __fmul_rn(2.f, ip));
             d = fmaxf(d, 0.f);
         }
         const int pos = p * cap + r;
-        unsigned mask = __ballot_sync(0xffffffffu,
-                                      valid && lex_less(d, pos, thr_d, thr_p));
-        while (mask) {
-            const int src = __ffs(mask) - 1;
-            mask &= mask - 1;
-            const float cd = __shfl_sync(0xffffffffu, d, src);
-            const int cp = __shfl_sync(0xffffffffu, pos, src);
-            warp_insert(ld, lp, kk, cd, cp, lane);
+        if (kk == 0) {
+            if (valid) dump[(long long)q * nprobe * cap + pos] = d;
+        } else {
+            unsigned mask = __ballot_sync(
+                0xffffffffu, valid && lex_less(d, pos, thr_d, thr_p));
+            while (mask) {
+                const int src = __ffs(mask) - 1;
+                mask &= mask - 1;
+                const float cd = __shfl_sync(0xffffffffu, d, src);
+                const int cp = __shfl_sync(0xffffffffu, pos, src);
+                warp_insert(ld, lp, kk, cd, cp, lane);
+            }
+            thr_d = ld[kk - 1];
+            thr_p = lp[kk - 1];
         }
-        thr_d = ld[kk - 1];
-        thr_p = lp[kk - 1];
-        __syncthreads();            // the load after next overwrites this tile
+        if (!CHUNKED) __syncthreads();  // the load after next overwrites this tile
     }
+    if (kk == 0) return;
     __syncthreads();
     if (w == 0) {
         warp_merge(list_d, list_p, WARPS, kk, blk_d, blk_p, lane);
@@ -190,37 +244,68 @@ pq_adc(const int* __restrict__ probes, const float* __restrict__ tables,
     }
 }
 
+template <bool CHUNKED>
+int launch_scan(const int* probes, const float* tables, const float* dc,
+                const uint8_t* codes, const float* t, float* cand_d,
+                int* cand_p, float* dump, long long nblocks, int nprobe,
+                int n_clusters, int cap, int S, int K, int kk, int sc,
+                int rows_per_chunk, int nchunk, cudaStream_t stream) {
+    const size_t bytes = smem_bytes(S, K, kk, sc);
+    cudaError_t err = cudaFuncSetAttribute(
+        pq_adc<CHUNKED>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)bytes);
+    if (err != cudaSuccess) return (int)err;
+    pq_adc<CHUNKED><<<(unsigned)nblocks, THREADS, bytes, stream>>>(
+        probes, tables, dc, codes, t, cand_d, cand_p, dump, nprobe,
+        n_clusters, cap, S, K, kk, sc, rows_per_chunk, nchunk);
+    return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
 
 int pq_adc_max_k() { return topk_list::MAX_K; }
 int pq_adc_tile_rows() { return TR; }
-long long pq_adc_smem_bytes(int S, int K, int kk) {
-    return (long long)smem_bytes(S, K, kk);
+long long pq_adc_smem_bytes(int S, int K, int kk, int sc) {
+    return (long long)smem_bytes(S, K, kk, sc);
 }
 
-// One call runs pq_adc and merge_lists on `stream`. Scratch is the
-// caller's: cand_d / cand_p (nq, nprobe * nchunk, kk). codes must be
-// 16-byte aligned. Returns the first non-zero cudaError_t, else 0.
+// One call runs pq_adc and merge_lists (kk <= MAX_K), or pq_adc and
+// select_wide (kk > MAX_K), on `stream`, the table in chunks of sc
+// subspaces when sc < S. Scratch is the caller's: cand_d / cand_p (nq,
+// nprobe * nchunk, kk) for lists, dump (nq, nprobe * cap) for the wide
+// path. codes must be 16-byte aligned. Returns the first non-zero
+// cudaError_t, else 0.
 int pq_adc_launch(const int* probes, const float* tables, const float* dc,
                   const uint8_t* codes, const float* t, const int* ids,
-                  float* cand_d, int* cand_p, float* out_d, int* out_i,
-                  int nq, int nprobe, int n_clusters, int cap, int S, int K,
-                  int kk, int rows_per_chunk, int nchunk, void* stream_ptr) {
-    if (kk < 1 || kk > topk_list::MAX_K || nq < 1 || nprobe < 1 || cap < 1 ||
-        S < 1 || K < 1 || n_clusters < 1 || nchunk < 1 || rows_per_chunk < 1)
+                  float* cand_d, int* cand_p, float* dump, float* out_d,
+                  int* out_i, int nq, int nprobe, int n_clusters, int cap,
+                  int S, int K, int kk, int sc, int rows_per_chunk,
+                  int nchunk, void* stream_ptr) {
+    if (kk < 1 || (long long)kk > (long long)nprobe * cap || nq < 1 ||
+        nprobe < 1 || cap < 1 || S < 1 || K < 1 || sc < 1 || sc > S ||
+        n_clusters < 1 || nchunk < 1 || rows_per_chunk < 1)
         return (int)cudaErrorInvalidValue;
+    const bool wide = kk > topk_list::MAX_K;
+    const int lists = wide ? 0 : kk;
+    if (smem_bytes(S, K, lists, sc) > 232448) return (int)cudaErrorInvalidValue;
     cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-    const size_t bytes = smem_bytes(S, K, kk);
-    cudaError_t err = cudaFuncSetAttribute(
-        pq_adc, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-    if (err != cudaSuccess) return (int)err;
     const long long nblocks = (long long)nq * nprobe * nchunk;
-    pq_adc<<<(unsigned)nblocks, THREADS, bytes, stream>>>(
-        probes, tables, dc, codes, t, cand_d, cand_p, nprobe, n_clusters, cap,
-        S, K, kk, rows_per_chunk, nchunk);
-    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+    int err = sc < S
+        ? launch_scan<true>(probes, tables, dc, codes, t, cand_d, cand_p,
+                            dump, nblocks, nprobe, n_clusters, cap, S, K,
+                            lists, sc, rows_per_chunk, nchunk, stream)
+        : launch_scan<false>(probes, tables, dc, codes, t, cand_d, cand_p,
+                             dump, nblocks, nprobe, n_clusters, cap, S, K,
+                             lists, sc, rows_per_chunk, nchunk, stream);
+    if (err != 0) return err;
+    if (wide) {
+        topk_list::select_wide<<<nq, topk_list::SELECT_THREADS, 0, stream>>>(
+            dump, nprobe * cap, kk, probes, ids, nprobe, n_clusters, cap,
+            out_d, out_i);
+        return (int)cudaGetLastError();
+    }
     const int nlists = nprobe * nchunk;
     topk_list::merge_lists<<<nq, topk_list::MERGE_THREADS,
                              (size_t)nlists * sizeof(int), stream>>>(

@@ -3,14 +3,18 @@
 Counterpart of ``repro/kernels/pq_adc/kernel.py::pq_adc_topk_fused``:
 per query, ADC-score the uint8 code rows of its probed segments against
 its lookup table and keep the top kk, bit-identical to the plain version
-(ref.py). The query's table lives in shared memory, so S * K * 4 bytes
-plus the code tiles and lists must fit one block's 227 KB: the wrapper
-raises ``ValueError`` when they do not (there is no other path). The
+(ref.py), for every kk the reference takes (1 <= kk <= nprobe * cap) and
+every table size. ``lut_plan`` picks how the query's table sits in a
+block's 227 KB of shared memory: whole, beside two whole-row code tiles,
+when they fit, else in chunks of subspaces (the partial sums carried in
+ascending subspace order, so the result is unchanged). Lists of up to
+``LIST_K`` candidates are kept in shared memory; a wider kk takes the
+wide path (every distance to a scratch buffer, then a radix select). The
 library is built on first use (``kernels/_build.py``); nothing here
 touches CUDA at import time. Launches on the current stream without
 synchronising, raises on a non-zero ``cudaError_t``, and counts its calls
-in ``pq_adc_topk_fused.launches`` (one call = the scan and merge
-launches).
+in ``pq_adc_topk_fused.launches`` (one call = the scan and the merge or
+select launches).
 """
 
 from __future__ import annotations
@@ -22,22 +26,45 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels._dispatch import (check_kk, check_tensor,
-                                         round_up, segment_split, sm_count)
+                                         round_up, segment_scratch,
+                                         segment_split, sm_count)
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "pq_adc.cu"
-MAX_KK = 256            # the kernel keeps lists of <= 256 entries
+LIST_K = 256            # widest per-block lists; a wider kk goes wide
 TILE_ROWS = 256         # code rows of a tile: one a thread
 SMEM_LIMIT = 232_448    # a block's shared memory on the H100
 
 _lib = None
 
 
-def smem_bytes(S: int, K: int, kk: int) -> int:
-    """Dynamic shared memory of one scan block (as ``csrc`` computes it):
-    the S x K f32 table, two code tiles of 256 rows (plus room for the
-    16-byte alignment of their start) and nine (d, position) lists of kk."""
-    tile = round_up(TILE_ROWS * S + 16, 16)
-    return round_up(4 * S * K, 16) + 2 * tile + 9 * kk * 8
+def smem_bytes(S: int, K: int, kk: int, sc: int = None) -> int:
+    """Dynamic shared memory of one scan block (as ``csrc`` computes it)
+    with the table in chunks of ``sc`` subspaces (default: whole): the
+    S x K f32 table and two code tiles of 256 whole rows (plus room for
+    the 16-byte alignment of their start) when sc = S, else an sc x K
+    table chunk and one tile of sc code bytes a row; and nine
+    (d, position) lists of kk (none on the wide path, kk > LIST_K)."""
+    sc = S if sc is None else sc
+    lists = 9 * kk * 8 if kk <= LIST_K else 0
+    if sc >= S:
+        return round_up(4 * S * K, 16) + 2 * round_up(TILE_ROWS * S + 16,
+                                                       16) + lists
+    return round_up(4 * sc * K, 16) + round_up(TILE_ROWS * sc, 16) + lists
+
+
+def lut_plan(S: int, K: int, kk: int) -> int:
+    """Subspaces of a table chunk: S (the whole table, one copy a block)
+    when the whole-table plan fits, else the most that fit the chunked
+    plan. Raises ValueError when not even one subspace fits."""
+    if smem_bytes(S, K, kk) <= SMEM_LIMIT:
+        return S
+    fits = [sc for sc in range(1, S) if smem_bytes(S, K, kk, sc) <= SMEM_LIMIT]
+    if not fits:
+        raise ValueError(
+            f"pq_adc cannot fit one K={K} table subspace, a code tile and "
+            f"kk={kk} lists in the {SMEM_LIMIT} bytes of shared memory a "
+            f"block can have")
+    return fits[-1]
 
 
 def _library():
@@ -45,32 +72,21 @@ def _library():
     if _lib is None:
         lib = _build.load(SOURCE)
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.pq_adc_launch.argtypes = [p] * 10 + [i] * 9 + [p]
+        lib.pq_adc_launch.argtypes = [p] * 11 + [i] * 10 + [p]
         lib.pq_adc_launch.restype = i
         lib.pq_adc_max_k.restype = i
         lib.pq_adc_tile_rows.restype = i
-        lib.pq_adc_smem_bytes.argtypes = [i, i, i]
+        lib.pq_adc_smem_bytes.argtypes = [i, i, i, i]
         lib.pq_adc_smem_bytes.restype = ctypes.c_longlong
+        cases = ((100, 256, 50, 100), (3, 2, 7, 3), (200, 256, 10, 120),
+                 (200, 256, 0, 150))
         if (lib.pq_adc_max_k(), lib.pq_adc_tile_rows(),
-                lib.pq_adc_smem_bytes(100, 256, 50),
-                lib.pq_adc_smem_bytes(3, 2, 7)) != (
-                    MAX_KK, TILE_ROWS, smem_bytes(100, 256, 50),
-                    smem_bytes(3, 2, 7)):
+                [lib.pq_adc_smem_bytes(*c) for c in cases]) != (
+                    LIST_K, TILE_ROWS, [smem_bytes(*c) for c in cases]):
             raise RuntimeError(f"{SOURCE} disagrees with kernel.py on its "
                                f"tile and shared-memory sizes")
         _lib = lib
     return _lib
-
-
-def check_fits(S: int, K: int, kk: int) -> None:
-    """Raise ValueError when a block's table, tiles and lists do not fit
-    its shared memory."""
-    need = smem_bytes(S, K, kk)
-    if need > SMEM_LIMIT:
-        raise ValueError(
-            f"pq_adc needs {need} bytes of shared memory a block for an "
-            f"S={S} x K={K} LUT ({4 * S * K} bytes), code tiles and kk={kk} "
-            f"lists, above the {SMEM_LIMIT} one block can have")
 
 
 def pq_adc_topk_fused(probes: torch.Tensor, tables: torch.Tensor,
@@ -85,7 +101,7 @@ def pq_adc_topk_fused(probes: torch.Tensor, tables: torch.Tensor,
       codes: (C*cap, S) uint8 segment codes; t: (C*cap,) f32 row terms
         (+BIG pads); ids: (C*cap,) int32 row ids (-1 pads).
       n_codes: codewords per subspace (K); cap: rows per segment; kk:
-        candidates kept (1..256, <= nprobe * cap).
+        candidates kept (1 <= kk <= nprobe * cap).
 
     Returns (dists (Nq, kk) f32, ids (Nq, kk) int32) in (distance,
     candidate position) order; ops.py masks d >= BIG to id -1 and sorts
@@ -114,10 +130,7 @@ def pq_adc_topk_fused(probes: torch.Tensor, tables: torch.Tensor,
                          f"{tuple(t.shape)}, ids {tuple(ids.shape)}, K {K}, "
                          f"cap {cap}")
     check_kk(kk, nprobe, cap)
-    if kk > MAX_KK:
-        raise ValueError(f"kk={kk} > {MAX_KK}: the CUDA pq_adc kernel keeps "
-                         f"at most {MAX_KK} candidates per query")
-    check_fits(S, K, kk)
+    sc = lut_plan(S, K, kk)
     if codes.data_ptr() % 16:               # the tile copies are 16-byte
         codes = codes.clone()
     out_d = torch.empty((nq, kk), dtype=torch.float32, device=device)
@@ -126,16 +139,15 @@ def pq_adc_topk_fused(probes: torch.Tensor, tables: torch.Tensor,
         return out_d, out_i
     lib = _library()
     nchunk, rpc = segment_split(nq, nprobe, cap, sm_count(device), TILE_ROWS)
-    cand_d = torch.empty((nq, nprobe * nchunk, kk), dtype=torch.float32,
-                         device=device)
-    cand_p = torch.empty((nq, nprobe * nchunk, kk), dtype=torch.int32,
-                         device=device)
+    cand_d, cand_p, dump = segment_scratch(nq, nprobe, nchunk, cap, kk,
+                                           LIST_K, device)
     ptrs = [ctypes.c_void_p(x.data_ptr()) for x in
-            (probes, tables, dc, codes, t, ids, cand_d, cand_p, out_d, out_i)]
+            (probes, tables, dc, codes, t, ids, cand_d, cand_p, dump, out_d,
+             out_i)]
     stream = ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
     with torch.cuda.device(device):
         err = lib.pq_adc_launch(*ptrs, nq, nprobe, rows // cap, cap, S, K, kk,
-                                rpc, nchunk, stream)
+                                sc, rpc, nchunk, stream)
     if err != 0:
         raise RuntimeError(f"pq_adc kernel launch failed: cudaError_t {err}")
     pq_adc_topk_fused.launches += 1

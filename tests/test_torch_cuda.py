@@ -1,8 +1,11 @@
 """The port's CUDA kernels against their plain versions, on the card:
 metric_topk, dml_pair (forward and gradients), pairwise_sqdist, ivf_scan
 and pq_adc (bit for bit), the IVF / IVFPQ indexes on the card,
-flash_attention and ssd_scan (bf16 and f32), and a reduced zamba2
-backbone through both.
+flash_attention and ssd_scan (bf16 and f32), a reduced zamba2 backbone
+through both, and a reduced gemma-7b at head dim 256. Top-k widths past
+the 256-entry shared lists (the wide path), pq_adc tables taken in
+chunks (S 200, 1000) and pairwise_sqdist past 65535 tiles of yp rows are
+among the shapes.
 
 Marked ``cuda``: without a card every test here skips (a CUDA kernel has
 no CPU mode). Run on a machine with one card:
@@ -28,7 +31,7 @@ from repro_torch.kernels.dml_pair import (dml_pair_fused, dml_pair_loss_fused,
 from repro_torch.kernels.metric_topk import (metric_topk, metric_topk_fused,
                                              metric_topk_plain,
                                              project_gallery)
-from repro_torch.kernels.metric_topk.kernel import MAX_K_TOP
+from repro_torch.kernels.metric_topk.kernel import LIST_K
 from repro_torch.kernels._dispatch import BIG
 from repro_torch.kernels.ivf_scan import (ivf_scan_topk, ivf_scan_topk_fused,
                                           ivf_scan_topk_ref)
@@ -42,8 +45,9 @@ from repro_torch.serve import IVFIndex, IVFPQIndex, recall_at_k
 RTOL = ATOL = 1e-5
 SHAPES = [(64, 1024, 128, 64, 10), (16, 300, 40, 12, 5), (7, 129, 33, 9, 3),
           (200, 2048, 96, 48, 20), (128, 512, 128, 128, 1),
-          (8, 96, 24, 8, 96), (3, 5000, 200, 150, MAX_K_TOP),
-          (40, 3000, 1000, 1000, 10)]
+          (8, 96, 24, 8, 96), (3, 5000, 200, 150, LIST_K),
+          (40, 3000, 1000, 1000, 10), (3, 5000, 200, 150, LIST_K + 1),
+          (70, 3000, 100, 64, 1024), (2, 700, 40, 24, 700)]
 
 
 @pytest.fixture
@@ -106,7 +110,7 @@ def test_kernel_repeat_calls_are_bit_equal(cuda_device, d_in, d_out):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("K", [1, 9, MAX_K_TOP])
+@pytest.mark.parametrize("K", [1, 9, LIST_K, LIST_K + 1, 600])
 def test_kernel_ties_go_to_the_smaller_id(cuda_device, K):
     L, q, G = _data(24, 200, 32, 16, 7, cuda_device)
     G = torch.cat([G, G, G])            # row r ties with r + 200, r + 400
@@ -127,8 +131,16 @@ def test_kernel_ties_go_to_the_smaller_id(cuda_device, K):
 def test_kernel_refuses_what_it_cannot_do(cuda_device):
     L, q, G = _data(4, 300, 16, 8, 0, cuda_device)
     gp, gn = project_gallery(L, G)
-    with pytest.raises(ValueError, match=str(MAX_K_TOP)):
-        metric_topk(L, q, gp, gn, k_top=MAX_K_TOP + 1)
+    # past the widest shared list the wide path answers, up to k_top = M
+    for K in (LIST_K + 1, 300):
+        dk, ik = metric_topk(L, q, gp, gn, k_top=K)
+        dp, ip = metric_topk_plain(L, q, gp, gn, K)
+        torch.cuda.synchronize()
+        assert torch.equal(torch.sort(ik, 1).values, torch.sort(ip, 1).values)
+    with pytest.raises(ValueError, match="k_top=301"):
+        metric_topk(L, q, gp, gn, k_top=301)
+    with pytest.raises(ValueError, match="k_top=0"):
+        metric_topk_fused(q, L, gp, gn, k_top=0)
     with pytest.raises(ValueError, match="contiguous"):
         metric_topk_fused(q.T.contiguous().T, L, gp, gn, k_top=3)
     with pytest.raises(ValueError, match="float32"):
@@ -221,8 +233,11 @@ def test_dml_pair_kernel_is_deterministic_and_refuses_bf16(cuda_device):
 
 # -- pairwise_sqdist ---------------------------------------------------------
 
+# k not a multiple of 4 (the wrapper pads), the eval width, a long k, and
+# M past the grid's y limit of 65535 tiles of 128 (narrow k)
 PD_SHAPES = [(64, 128, 32), (37, 129, 9), (1, 7, 3), (256, 512, 520),
-             (100, 300, 1000), (2000, 8000, 1000), (65, 200, 21504)]
+             (100, 300, 1000), (129, 517, 1003), (2000, 8000, 1000),
+             (65, 200, 21504), (5, 8_400_000, 3)]
 
 
 @pytest.mark.cuda
@@ -242,6 +257,16 @@ def test_pairwise_kernel_matches_plain_version(cuda_device, N, M, k):
     tol = ATOL + RTOL * (xn[:, None] + yn[None, :])
     assert bool(((D - D_ref).abs() <= tol).all())
     assert bool((D >= 0).all())
+
+
+@pytest.mark.cuda
+def test_pairwise_kernel_is_deterministic(cuda_device):
+    """No split of k and no atomics: repeat calls are bit-equal."""
+    rng = np.random.RandomState(0)
+    xp, yp = (torch.tensor(rng.randn(n, 1000), dtype=torch.float32,
+                           device=cuda_device) for n in (300, 2000))
+    D = pairwise_sqdist(xp, yp)
+    assert all(torch.equal(D, pairwise_sqdist(xp, yp)) for _ in range(3))
 
 
 # -- ivf_scan / pq_adc ---------------------------------------------------------
@@ -277,6 +302,8 @@ def _ivf(seed, Nq, C, cap, k, nprobe, lo, hi, device):
 IVF_SHAPES = [(5, 6, 32, 12, 3, 7, 32, 32), (4, 7, 16, 5, 2, 32, 0, 5),
               (9, 12, 45, 1000, 8, 1, 0, 45), (9, 12, 45, 1000, 8, 256, 0, 45),
               (3, 40, 70, 1003, 6, 100, 20, 70),
+              (9, 12, 45, 1000, 8, 257, 0, 45),
+              (3, 40, 70, 1003, 16, 1024, 20, 70),
               (64, 20, 1224, 1000, 16, 10, 1000, 1224),
               (1, 20, 1224, 1000, 16, 10, 1000, 1224)]
 
@@ -325,6 +352,10 @@ PQ_SHAPES = [(5, 6, 32, 4, 8, 3, 7, 32, 32), (4, 7, 16, 2, 8, 2, 32, 0, 5),
              (3, 4, 16, 5, 1, 2, 6, 8, 16), (2, 4, 8, 3, 4, 3, 24, 2, 8),
              (9, 12, 300, 100, 8, 6, 1, 0, 300),
              (9, 12, 300, 100, 8, 6, 256, 0, 300),
+             (9, 12, 300, 100, 8, 6, 257, 0, 300),
+             (3, 12, 300, 100, 8, 6, 1024, 0, 300),
+             (5, 8, 300, 200, 8, 4, 50, 100, 300),
+             (2, 4, 64, 1000, 8, 3, 20, 30, 64),
              (64, 20, 1224, 100, 8, 16, 50, 1000, 1224),
              (1, 20, 1224, 100, 8, 16, 50, 1000, 1224)]
 
@@ -345,15 +376,21 @@ def test_pq_adc_kernel_bit_identical_to_plain_version(
 
 @pytest.mark.cuda
 def test_segment_scans_refuse_what_they_cannot_do(cuda_device):
+    # kk past the widest shared list and up to the pool, and a 204,800-byte
+    # table (S 200), now run; only a kk past the probed pool is refused
     args = _ivf(0, 2, 4, 300, 16, 2, 300, 300, cuda_device)
-    with pytest.raises(ValueError, match="256"):
-        ivf_scan_topk(*args, kk=257)
+    dk, ik = ivf_scan_topk(*args, kk=600)
+    assert torch.equal(ik, ivf_scan_topk_ref(*args, 600)[1])
+    with pytest.raises(ValueError, match="nprobe"):
+        ivf_scan_topk(*args, kk=601)
     args = _pq(0, 2, 4, 300, 8, 8, 2, 300, 300, cuda_device)
-    with pytest.raises(ValueError, match="256"):
-        pq_adc_topk(*args, kk=257)
+    assert all(torch.equal(a, b) for a, b in zip(
+        pq_adc_topk(*args, kk=257), pq_adc_topk_ref(*args, 257)))
+    with pytest.raises(ValueError, match="nprobe"):
+        pq_adc_topk(*args, kk=601)
     args = _pq(0, 2, 4, 300, 200, 8, 2, 300, 300, cuda_device)
-    with pytest.raises(ValueError, match="shared memory"):
-        pq_adc_topk(*args, kk=10)           # a 204,800-byte LUT
+    assert all(torch.equal(a, b) for a, b in zip(
+        pq_adc_topk(*args, kk=10), pq_adc_topk_ref(*args, 10)))
 
 
 def _clustered(device, M=3000, d=48, k=16, blobs=20, seed=0):
@@ -376,7 +413,7 @@ def test_ann_indexes_on_the_card_launch_their_kernels(cuda_device):
     d_e, i_e = metric_topk_plain(L, q, *project_gallery(L, G), 10)
     assert torch.equal(i, i_e)
     pq = IVFPQIndex.build(L, G, n_clusters=16, nprobe=16, n_subspaces=4,
-                          bits=6, rerank_depth=MAX_K_TOP, iters=4)
+                          bits=6, rerank_depth=LIST_K, iters=4)
     before = pq_adc_topk_fused.launches
     d, i = pq.topk(q, 10)                        # full probe, deep rerank
     assert pq_adc_topk_fused.launches == before + 1
@@ -388,6 +425,24 @@ def test_ann_indexes_on_the_card_launch_their_kernels(cuda_device):
     with pytest.raises(ValueError, match="xla"):
         IVFIndex.build(L, G, n_clusters=16, scan_impl="xla")
     ivf.topk(q, 10, scan_impl="pallas")
+
+
+@pytest.mark.cuda
+def test_ivfpq_reranks_past_the_widest_list(cuda_device):
+    """rerank_depth 512 (pq_adc at kk 512, the wide path): its ADC
+    candidates equal the plain version's, and the exact rerank of a
+    superset of rerank 50's candidates recalls no less."""
+    L, G, q = _clustered(cuda_device)
+    pq = IVFPQIndex.build(L, G, n_clusters=16, nprobe=8, n_subspaces=4,
+                          bits=6, rerank_depth=512, iters=4)
+    d_e, i_e = metric_topk_plain(L, q, *project_gallery(L, G), 10)
+    before = pq_adc_topk_fused.launches
+    _, i512 = pq.topk(q, 10)
+    _, i50 = pq.topk(q, 10, rerank=50)
+    assert pq_adc_topk_fused.launches == before + 2
+    r512, r50 = (recall_at_k(i.cpu().numpy(), i_e.cpu().numpy())
+                 for i in (i512, i50))
+    assert r512 >= r50 and r512 > 0.9
 
 
 # -- backbone kernels: flash_attention and ssd_scan ---------------------------
@@ -407,7 +462,11 @@ FA_SHAPES = [(2, 128, 128, 4, 4, 64, True, 0), (2, 128, 128, 8, 2, 64, True, 0),
              (1, 256, 256, 4, 1, 32, False, 0), (2, 64, 64, 4, 4, 128, True, 0),
              (2, 100, 100, 6, 2, 80, True, 0), (1, 333, 333, 6, 3, 80, True, 64),
              (1, 200, 200, 4, 2, 16, True, 300), (1, 130, 70, 4, 4, 48, False, 0),
-             (1, 256, 256, 4, 2, 32, True, 256)]
+             (1, 256, 256, 4, 2, 32, True, 256),
+             (1, 300, 300, 16, 16, 256, True, 0),
+             (2, 128, 128, 8, 2, 256, True, 0),
+             (1, 333, 333, 4, 2, 256, True, 64),
+             (1, 130, 70, 4, 4, 256, False, 0)]
 
 
 def _fa_bound(q, k, v, ref, causal, window):
@@ -463,7 +522,7 @@ def test_flash_attention_refuses_what_it_cannot_do(cuda_device):
                 torch.randn(1, 16, 3, 64, device=cuda_device)):     # H % K
         with pytest.raises(ValueError):
             flash_attention(q, bad, bad)
-    with pytest.raises(ValueError, match="multiple of 16"):
+    with pytest.raises(ValueError, match="not one of"):
         big = torch.randn(1, 16, 4, 144, device=cuda_device)
         flash_attention(big, big, big)
     with pytest.raises(ValueError, match="forward-only"):
@@ -551,3 +610,24 @@ def test_backbone_on_the_card_launches_both_kernels(cuda_device):
     assert flash_attention.launches - n_fa == \
         cfg.n_layers // cfg.shared_attn_every
     torch.testing.assert_close(emb, ref, rtol=2e-3, atol=2e-4)
+
+
+@pytest.mark.cuda
+def test_gemma_on_the_card_launches_flash_at_head_dim_256(cuda_device):
+    """Reduced gemma-7b keeping its head dim of 256 (2 layers, 4 heads),
+    f32, through the kernel against its plain path (attention chunked
+    there, streamed here: only the summation order differs)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.models import Model
+    cfg = get_config("gemma-7b-reduced").replace(dtype="float32",
+                                                 head_dim=256)
+    model = Model(cfg, device=cuda_device)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 300), device=cuda_device)
+    before = flash_attention.launches
+    with torch.inference_mode():
+        h, _ = model.hidden({"tokens": tokens})
+        ref, _ = model.hidden({"tokens": tokens}, plain=True)
+    torch.cuda.synchronize()
+    assert flash_attention.launches - before == cfg.n_layers
+    torch.testing.assert_close(h, ref, rtol=1e-4, atol=1e-5)

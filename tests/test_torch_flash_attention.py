@@ -52,6 +52,7 @@ def _close(a, b, rtol=1e-4, atol=2e-5):
     (1, 256, 4, 1, 32),      # MQA
     (2, 64, 4, 4, 128),
     (2, 128, 6, 2, 80),      # zamba2's head dim, GQA 3:1
+    (1, 128, 4, 2, 256),     # gemma-7b's head dim, GQA 2:1
 ])
 @pytest.mark.parametrize("causal", [True, False])
 def test_plain_version_matches_reference(B, T, H, K, dh, causal):
@@ -135,6 +136,22 @@ def test_model_attention_forms_match_reference(attn, T, chunk):
     _close(attention.attend(*tq, cfg), naive, rtol=1e-5, atol=1e-5)
     window = 40 if attn == "sliding" else 0
     _close(attention_ref(*tq, causal=True, window=window), naive)
+
+
+@pytest.mark.parametrize("T,window", [(128, 0), (100, 0), (128, 48)])
+def test_model_attend_at_head_dim_256(T, window):
+    """gemma-7b's 16 heads of 256 (here 4 heads, GQA 2:1): the port's
+    ``attend`` (the plain form on the CPU; the Dh-256 kernel on the card)
+    and the kernel's plain version against the reference's ``attend``,
+    causal, full and sliding, T off the tiles."""
+    attn = "sliding" if window else "full"
+    jcfg = jax_get_config("gemma-7b").replace(attention=attn, window=window)
+    cfg = get_config("gemma-7b").replace(attention=attn, window=window)
+    q, k, v = _qkv(1, T, T, 4, 2, 256, T + window)
+    ref = jax_attention.attend(*map(jnp.asarray, (q, k, v)), jcfg)
+    tq = _t(q, k, v)
+    _close(attention.attend(*tq, cfg), ref, rtol=1e-5, atol=1e-5)
+    _close(attention_ref(*tq, causal=True, window=window), ref)
 
 
 def test_chunked_refuses_ragged_chunks():

@@ -23,7 +23,7 @@ from repro_torch.kernels import _build
 from repro_torch.kernels._dispatch import BIG, segment_split
 from repro_torch.kernels.ivf_scan import (ivf_scan_topk, ivf_scan_topk_fused,
                                           ivf_scan_topk_ref)
-from repro_torch.kernels.ivf_scan.kernel import MAX_KK, TILE_ROWS, smem_bytes
+from repro_torch.kernels.ivf_scan.kernel import LIST_K, TILE_ROWS, smem_bytes
 
 RTOL = ATOL = 1e-5
 
@@ -72,6 +72,8 @@ CASES = [
     (2, 4, 8, 130, 3, 24, 2, 8),           # k > one lane, full pool
     (6, 9, 40, 33, 4, 1, 5, 40),           # kk = 1
     (3, 5, 50, 260, 5, 60, 0, 50),         # k past two slices, -1s
+    (3, 6, 60, 20, 5, 257, 30, 60),        # kk past the widest list
+    (2, 12, 100, 16, 11, 1024, 20, 100),   # the wide path, -1s
 ]
 
 
@@ -164,9 +166,13 @@ def test_split_plan_covers_each_segment(nq, nprobe, cap):
 
 
 def test_shared_memory_plan():
-    assert smem_bytes(1000, 10) < 48 * 1024 < smem_bytes(1000, MAX_KK)
-    assert smem_bytes(1000, MAX_KK) < 227 * 1024
+    assert smem_bytes(1000, 10) < 48 * 1024 < smem_bytes(1000, LIST_K)
+    assert smem_bytes(1000, LIST_K) < 227 * 1024
     assert smem_bytes(129, 1) - smem_bytes(128, 1) == 4 * 128
+    # past LIST_K the block keeps no lists: the wide path writes its
+    # distances out, so any kk fits beside the slices and the query row
+    for kk in (LIST_K + 1, 1024, 100_000):
+        assert smem_bytes(1000, kk) == smem_bytes(1000, 0) < 48 * 1024
 
 
 def test_build_hash_covers_included_headers(tmp_path):

@@ -27,7 +27,7 @@ from repro_torch.kernels.metric_topk import (metric_topk, metric_topk_fused,
                                              metric_topk_plain,
                                              project_gallery)
 from repro_torch.kernels.metric_topk.kernel import (BLOCK_K, BLOCK_M,
-                                                    MAX_K_TOP, MAX_STAGES,
+                                                    LIST_K, MAX_STAGES,
                                                     QUERY_TILES, SMEM_LIMIT,
                                                     launch_plan, proj_smem,
                                                     scan_smem)
@@ -87,6 +87,38 @@ def test_matches_jax_xla_path(Nq, M, d, k, K):
     np.testing.assert_array_equal(i_pt.numpy(), np.asarray(i_ref))
     np.testing.assert_allclose(d_pt.numpy(), np.asarray(d_ref),
                                rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("Nq,M,d,k,K", [(9, 2048, 40, 24, 257),
+                                         (5, 2048, 40, 24, 1024),
+                                         (3, 1100, 20, 12, 1100)])
+def test_wide_k_top_matches_jax_xla_path(Nq, M, d, k, K):
+    """k_top past the kernel's 256-entry shared lists (its wide path on
+    the card), up to k_top = M: the plain path against the reference.
+    With a thousand neighbours a query, ranks whose distances lie within
+    f32 rounding of each other occur, so the rule is chip_smoke's:
+    distances within atol + rtol * (qn + gn), ids equal wherever the
+    reference's distance is apart from its neighbours' by more than that,
+    and at a near-tie the port's id carries its rank's distance."""
+    L, q, gp, gn = _both(Nq, M, d, k, seed=Nq + K)
+    d_ref, i_ref = (np.asarray(a) for a in jax_metric_topk_xla(
+        jnp.asarray(L), jnp.asarray(q), jnp.asarray(gp), jnp.asarray(gn), K))
+    d_pt, i_pt = (a.numpy() for a in metric_topk(_t(L), _t(q), _t(gp),
+                                                 _t(gn), k_top=K))
+    qp = q.astype(np.float64) @ L.T.astype(np.float64)
+    qn = np.sum(qp ** 2, 1)
+    D = qn[:, None] + gn[None, :] - 2.0 * qp @ gp.T.astype(np.float64)
+    tol = ATOL + RTOL * (qn[:, None] + gn[i_ref])
+    assert np.all(np.abs(d_pt - d_ref) <= tol)
+    nxt = np.sort(D, axis=1)[:, K:K + 1] if K < M else \
+        np.full((Nq, 1), np.inf)
+    lo = np.concatenate([np.full((Nq, 1), -np.inf), d_ref[:, :-1]], 1)
+    hi = np.concatenate([d_ref[:, 1:], nxt], 1)
+    apart = ((d_ref - lo) > tol) & ((hi - d_ref) > tol)
+    assert np.all((i_pt == i_ref)[apart]) and apart.mean() > 0.9
+    assert np.all(np.abs(np.take_along_axis(D, i_pt, 1) - d_ref) <= tol)
+    assert len(set(i_pt[0])) == K
+    assert (np.diff(d_pt, axis=1) >= 0).all()
 
 
 @pytest.mark.parametrize("shape", [(300, 40, 12), (129, 33, 33)])
@@ -194,7 +226,7 @@ def test_split_plan_covers_every_row_and_column(nq, d_in, d_out, m):
     d_in slices (whole 32-column stages) covering d_in once, the scan's
     gallery splits (whole 128-row tiles) covering M once, each aiming at
     one block an SM."""
-    for k_top in (1, 10, MAX_K_TOP):
+    for k_top in (1, 10, LIST_K):
         plan = launch_plan(nq, d_in, d_out, m, k_top, n_sm=132)
         assert plan.n_tile in QUERY_TILES
         assert (plan.qtiles - 1) * plan.n_tile < nq <= \
@@ -219,9 +251,24 @@ def test_query_tiles_for_every_batch_size():
         assert plan.n_tile == want and plan.qtiles == -(-nq // want), nq
         assert scan_smem(want, 10, plan.stages) <= SMEM_LIMIT
         assert proj_smem(want) <= SMEM_LIMIT
-        big = launch_plan(nq, 21504, 1000, 1_000_000, MAX_K_TOP, n_sm=132)
+        big = launch_plan(nq, 21504, 1000, 1_000_000, LIST_K, n_sm=132)
         assert big.n_tile <= want, nq
-        assert scan_smem(big.n_tile, MAX_K_TOP, big.stages) <= SMEM_LIMIT
+        assert scan_smem(big.n_tile, LIST_K, big.stages) <= SMEM_LIMIT
+
+
+@pytest.mark.parametrize("nq", [1, 9, 64, 200])
+@pytest.mark.parametrize("k_top", [LIST_K + 1, 1024, 5000, 1_000_000])
+def test_wide_plan_keeps_the_query_tile(nq, k_top):
+    """Past LIST_K the scan keeps no lists (the wide path writes every
+    distance out), so its blocks plan as a scan without lists: the query
+    tile that holds the batch, as at k_top 10, and a ring within 227 KB;
+    the gallery is still read once per query tile."""
+    wide = launch_plan(nq, 21504, 1000, 1_000_000, k_top, n_sm=132)
+    assert wide == launch_plan(nq, 21504, 1000, 1_000_000, 0, n_sm=132)
+    assert wide.n_tile == launch_plan(nq, 21504, 1000, 1_000_000, 10,
+                                      n_sm=132).n_tile
+    assert scan_smem(wide.n_tile, k_top, wide.stages) == \
+        scan_smem(wide.n_tile, 0, wide.stages) <= SMEM_LIMIT
 
 
 @pytest.mark.parametrize("n", QUERY_TILES)

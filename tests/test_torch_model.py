@@ -3,8 +3,9 @@
 The reference's parameters (``Model.init`` from a PRNG key) are carried
 across with ``convert.model_params_from_jax``, token ids come from a
 numpy seed, and both sides run in f32. Reduced zamba2 (2 mamba2 layers,
-one group with the shared attention block, window 64, T = 128) and
-reduced smollm-135m (GQA 4 / 2). Tolerances: the port's kernel path
+one group with the shared attention block, window 64, T = 128), reduced
+smollm-135m (GQA 4 / 2) and reduced gemma-7b (2 layers, 4 heads of 256:
+its head dim kept). Tolerances: the port's kernel path
 runs the SSD core in chunks of 64 where the reference's ``Model`` runs
 its chunked ``apply_mamba2`` (chunk 32 here), so zamba2 gets the
 reference's own bound between those forms (rtol 2e-3, atol 2e-4); the
@@ -57,11 +58,19 @@ def test_configs_equal_reference(name):
 
 # -- whole models ---------------------------------------------------------------
 
-@pytest.fixture(scope="module", params=["zamba2-2.7b", "smollm-135m"])
+# reduced gemma-7b keeps its head dim of 256 (GeGLU, embedding scaling,
+# tied embeddings): the shape of the Dh-256 attention kernel on the card
+HEAD_DIM = {"gemma-7b": dict(head_dim=256)}
+
+
+@pytest.fixture(scope="module",
+                params=["zamba2-2.7b", "smollm-135m", "gemma-7b"])
 def pair(request):
     name = request.param
-    jcfg = jax_reduced(jax_get_config(name)).replace(**F32)
-    cfg = get_config(name + "-reduced").replace(**F32)
+    extra = HEAD_DIM.get(name, {})
+    jcfg = jax_reduced(jax_get_config(name)).replace(**F32, **extra)
+    cfg = get_config(name + "-reduced").replace(**F32, **extra)
+    assert cfg.dim_per_head == jcfg.dim_per_head
     jmodel = jax_build_model(jcfg)
     params = jmodel.init(jax.random.PRNGKey(0))
     model = model_params_from_jax(cfg, jax.tree.map(np.asarray, params),

@@ -23,8 +23,8 @@ from repro.kernels.pq_adc import pq_adc_topk as jax_pq_adc_topk
 from repro_torch.kernels._dispatch import BIG
 from repro_torch.kernels.pq_adc import (pq_adc_topk, pq_adc_topk_fused,
                                         pq_adc_topk_ref)
-from repro_torch.kernels.pq_adc.kernel import (SMEM_LIMIT, check_fits,
-                                               smem_bytes)
+from repro_torch.kernels.pq_adc.kernel import (LIST_K, SMEM_LIMIT,
+                                               lut_plan, smem_bytes)
 
 
 def _case(seed, Nq, C, cap, S, bits, nprobe, fill_lo, fill_hi, ties=False):
@@ -78,7 +78,10 @@ CASES = [
     (2, 4, 8, 3, 4, 3, 24, 2, 8),        # kk == the pool, odd S
     (6, 9, 40, 7, 8, 4, 1, 5, 40),       # kk = 1
     (2, 6, 24, 100, 8, 3, 50, 10, 24),   # the serving S, K
-    (2, 8, 40, 6, 8, 8, 256, 30, 40),    # kk at the kernel's limit
+    (2, 8, 40, 6, 8, 8, 256, 30, 40),    # kk at the widest shared list
+    (2, 8, 40, 6, 8, 8, 257, 30, 40),    # kk past it: the wide path
+    (2, 9, 120, 5, 8, 9, 1024, 60, 120), # the wide path, -1s surface
+    (2, 5, 40, 200, 8, 3, 50, 20, 40),   # S 200: the table in chunks
 ]
 
 
@@ -113,6 +116,15 @@ def test_sum_is_sequential_not_a_reduction():
     assert d.item() == np.float32(1e9) - np.float32(2.0) * ip
 
 
+def test_exact_ties_on_the_wide_path():
+    arrays = _case(4, 3, 8, 100, 3, 2, 5, 60, 100, ties=True)
+    d, i = _assert_bit_identical(arrays, 300)
+    tied = d[:, 1:] == d[:, :-1]
+    real = (i[:, 1:] >= 0) & (i[:, :-1] >= 0)
+    assert int((tied & real).sum()) > 5
+    assert bool((i[:, 1:] > i[:, :-1])[tied & real].all())
+
+
 def test_rejects_bad_kk_with_the_reference_messages():
     arrays = _case(1, 2, 4, 8, 2, 4, 2, 8, 8)
     for kk in (0, -3, 2 * 8 + 1):
@@ -136,6 +148,36 @@ def test_shared_memory_plan_and_refusal():
     # the serving shape: a 102,400-byte table needs the opt-in above 48 KB
     assert 48 * 1024 < smem_bytes(100, 256, 50) <= SMEM_LIMIT
     assert smem_bytes(100, 256, 256) <= SMEM_LIMIT
-    check_fits(100, 256, 256)
+    assert lut_plan(100, 256, 256) == 100  # the whole table, as before
+    # a 204,800-byte table + whole-row tiles does not fit: the plan takes
+    # the table in chunks of subspaces instead of refusing
+    assert smem_bytes(200, 256, 10) > SMEM_LIMIT
+    sc = lut_plan(200, 256, 10)
+    assert 1 <= sc < 200 and smem_bytes(200, 256, 10, sc) <= SMEM_LIMIT
+    assert smem_bytes(200, 256, 10, sc + 1) > SMEM_LIMIT
     with pytest.raises(ValueError, match="shared memory"):
-        check_fits(200, 256, 10)           # a 204,800-byte table + tiles
+        lut_plan(1, 1 << 16, 10)           # not one subspace of 64K floats
+
+
+@pytest.mark.parametrize("S", [146, 200, 500, 1000])
+@pytest.mark.parametrize("kk", [1, 50, LIST_K, LIST_K + 1, 1024])
+def test_chunked_plan_fits_every_subspace_count(S, kk):
+    """Every (S, K, kk) the reference computes at d_out <= 1000 with
+    8-bit codes fits one block: the chunk holds the most subspaces that
+    fit, and the wide path (kk > LIST_K) keeps no lists."""
+    sc = lut_plan(S, 256, kk)
+    assert 1 <= sc <= S and smem_bytes(S, 256, kk, sc) <= SMEM_LIMIT
+    if sc < S:
+        assert smem_bytes(S, 256, kk) > SMEM_LIMIT
+        assert smem_bytes(S, 256, kk, sc + 1) > SMEM_LIMIT
+    lists = 9 * kk * 8 if kk <= LIST_K else 0
+    assert smem_bytes(S, 256, kk, 1) == 1024 + 256 + lists
+
+
+def test_s200_plain_bit_identical_at_the_eval_width():
+    """S = 200 (d_out 1000 in 5-dimensional subspaces), the shape whose
+    table the kernel now takes in chunks: the plain path against the
+    reference's XLA path, bit for bit, at kk 50 and the wide kk 512."""
+    arrays = _case(5, 3, 6, 300, 200, 8, 4, 200, 300)
+    for kk in (50, 512):
+        _assert_bit_identical(arrays, kk, block_q=2)

@@ -1,12 +1,13 @@
 """The 3xTF32 products of the Hopper kernels, modelled on the CPU.
 
-``dml_pair`` and ``metric_topk`` run every product on the tensor cores as
-3xTF32 (``kernels/csrc/tf32x3_sm90.cuh``): each f32 operand split into a
-TF32 hi (round to nearest, ties away) and a TF32 lo of the remainder,
-hi.lo + lo.hi + hi.hi accumulated in f32. ``_dispatch.tf32x3_matmul`` is
-that arithmetic in plain torch. Here it runs at the main path's
-contraction lengths (d = 21504 for dml_pair, d_out = 1000 for the
-metric_topk scan, d_in = 21504 for its projection) and is held, with the
+``dml_pair``, ``metric_topk`` and ``pairwise_sqdist`` run every product
+on the tensor cores as 3xTF32 (``kernels/csrc/tf32x3_sm90.cuh``): each
+f32 operand split into a TF32 hi (round to nearest, ties away) and a
+TF32 lo of the remainder, hi.lo + lo.hi + hi.hi accumulated in f32.
+``_dispatch.tf32x3_matmul`` is that arithmetic in plain torch. Here it
+runs at the main path's contraction lengths (d = 21504 for dml_pair,
+d_out = 1000 for the metric_topk scan and the kNN eval's
+pairwise_sqdist, d_in = 21504 for the projection) and is held, with the
 tolerances ``chip_smoke.py`` holds the kernels to, against the port's
 f32 plain versions and the JAX package's plain paths on the same numpy
 inputs:
@@ -14,7 +15,10 @@ inputs:
   * dml_pair: forward (losses, d2, proj) within rtol 2e-5 / atol 1e-5;
   * metric_topk: distances within atol + rtol * (qn + gn), rtol = atol =
     1e-5, ids equal at every rank whose plain distance is apart from its
-    neighbours' by more than that.
+    neighbours' by more than that;
+  * pairwise_sqdist (N 2000, M 8000, k 1000, the eval shape): the cross
+    term in 3xTF32 and the kernel's epilogue max((xn + yn) - 2 cross, 0),
+    within atol + rtol * (xn + yn), rtol = atol = 1e-5.
 
 As negative controls, one TF32 product (the lo terms dropped) run
 through the same checks at the same widths must fail them.
@@ -32,11 +36,13 @@ import jax.numpy as jnp
 
 from repro.kernels.dml_pair import dml_pair_ref as jax_pair_ref
 from repro.kernels.metric_topk import metric_topk_xla as jax_metric_topk_xla
+from repro.kernels.pairwise_dist import pairwise_sqdist_ref as jax_pairwise_ref
 
 from repro_torch.kernels._dispatch import (_tf32, tf32_split, tf32x3_matmul,
                                            topk_by_distance)
 from repro_torch.kernels.dml_pair import dml_pair_ref
 from repro_torch.kernels.metric_topk import metric_topk_plain
+from repro_torch.kernels.pairwise_dist import pairwise_sqdist_ref
 
 RTOL = ATOL = 1e-5
 LAM = 1.3
@@ -194,8 +200,43 @@ def test_metric_topk_at_serving_width(seed, k_top):
           k_top)
 
 
+def _pairwise_model(xp, yp, matmul=tf32x3_matmul):
+    """pairwise_sqdist's arithmetic: the cross term in 3xTF32 (or
+    ``matmul``), the row norms in f32, the epilogue (xn + yn) - 2 cross
+    clamped at 0."""
+    xn, yn = torch.sum(xp * xp, dim=1), torch.sum(yp * yp, dim=1)
+    return torch.clamp_min(xn[:, None] + yn[None, :]
+                           - 2.0 * matmul(xp, yp), 0.0)
+
+
+def _eval_points():
+    """The kNN eval's shape: 2000 held-out rows against 8000 training
+    rows, projected to d_out 1000 (O(1) entries, as projected rows are)."""
+    rng = np.random.RandomState(7)
+    xp = rng.randn(2000, 1000).astype(np.float32)
+    yp = rng.randn(8000, 1000).astype(np.float32)
+    tol = ATOL + RTOL * (np.sum(xp.astype(np.float64) ** 2, 1)[:, None]
+                         + np.sum(yp.astype(np.float64) ** 2, 1)[None, :])
+    return xp, yp, tol
+
+
+def test_pairwise_sqdist_at_eval_width():
+    xp, yp, tol = _eval_points()
+    model = _pairwise_model(_t(xp), _t(yp)).numpy()
+    plain = pairwise_sqdist_ref(_t(xp), _t(yp)).numpy()
+    ref = np.asarray(jax_pairwise_ref(jnp.asarray(xp), jnp.asarray(yp)))
+    for other in (plain, ref):
+        assert np.all(np.abs(model - other) <= tol)
+
+
 # Negative controls: the same tolerances reject one TF32 product, so a
 # kernel whose lo terms went missing cannot pass parity.
+
+def test_one_tf32_product_fails_at_eval_width():
+    xp, yp, tol = _eval_points()
+    model = _pairwise_model(_t(xp), _t(yp), matmul=_tf32x1_matmul).numpy()
+    plain = pairwise_sqdist_ref(_t(xp), _t(yp)).numpy()
+    assert not np.all(np.abs(model - plain) <= tol)
 
 @pytest.mark.parametrize("seed,k_top", [(0, 10), (1, 256)])
 def test_one_tf32_product_fails_at_serving_width(seed, k_top):
