@@ -35,7 +35,10 @@ exit, and nothing falls back:
                 both at the serving widths; flash_attention and ssd_scan
                 in f32 and bf16 at the CPU tests' shapes, at ragged T and
                 S, GQA 2 and 3, Dh 64, 80 and 256, windows below, at and
-                above T, reduced zamba2's p 128 / n 16;
+                above T, reduced zamba2's p 128 / n 16; flash also at the
+                bf16 kernel's tile edges (T = S of 127, 129, 161, 255,
+                window 1 and one kv tile, GQA 4 at Dh 256, non-causal
+                S < T) and on strided views of a fused qkv projection;
   4. training — the Eq. 4 path at dml-imnet1m width (d_in 21504 -> d_out
                 1000): 10,000 noisy_subspace rows and 100 classes resident
                 on the card, 50k + 50k index pairs (the reference's
@@ -190,6 +193,8 @@ from repro_torch.kernels.dml_pair import (  # noqa: E402
     dml_pair_ref)
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     attention_ref, flash_attention)
+from repro_torch.kernels.flash_attention.cases import (  # noqa: E402
+    PARITY as FA_PARITY)
 from repro_torch.kernels.ivf_scan import (  # noqa: E402
     ivf_scan_topk, ivf_scan_topk_fused, ivf_scan_topk_ref)
 from repro_torch.kernels.metric_topk import (  # noqa: E402
@@ -359,9 +364,27 @@ def phase_build():
     log(f"build: {len(libs)} librar(y/ies) in "
         f"{time.perf_counter() - t0:.1f}s -> {sorted(libs)}")
     for name, text in _build.build_logs.items():
+        kernel = "?"
         for line in text.splitlines():
+            entry = re.search(r"(?:entry function|properties for) '?(\w+)",
+                              line)
+            if entry:
+                kernel = _demangle(entry.group(1))
             if "registers" in line or "spill" in line:
-                log(f"  ptxas[{name}]: {line.strip()}")
+                log(f"  ptxas[{name}] {kernel}: {line.strip()}")
+
+
+def _demangle(symbol):
+    """A kernel's readable name for the ptxas report (c++filt, shipped with
+    the host compiler nvcc needs), its anonymous namespace and parameter
+    list dropped; the symbol itself where c++filt is missing."""
+    try:
+        out = subprocess.run(["c++filt", symbol], capture_output=True,
+                             text=True, timeout=10).stdout.strip()
+    except (OSError, subprocess.SubprocessError):
+        return symbol
+    out = re.sub(r"\(anonymous namespace\)::", "", out or symbol)
+    return re.sub(r"^void |\(.*\)$", "", out)
 
 
 def phase_parity():
@@ -1409,18 +1432,6 @@ SSD_TOL = {torch.float32: dict(rtol=1e-4, atol=1e-4),
 # (7.6e-6 and 3.3e-7; NVIDIA H100 80GB HBM3, 700 W)
 HIDDEN_REL_BOUND = 1e-4
 EMBED_REL_BOUND = 1e-5
-# flash parity (B, T, S, H, K, Dh, causal, window): the CPU tests' shapes,
-# then ragged T and S, GQA 2 and 3, Dh 64 and 80, windows below, at and
-# above T; Dh 256 (gemma-7b) causal, with GQA, a window, ragged T and S
-FA_PARITY = [(2, 128, 128, 4, 4, 64, True, 0), (2, 128, 128, 8, 2, 64, True, 0),
-             (1, 256, 256, 4, 1, 32, False, 0), (2, 64, 64, 4, 4, 128, True, 0),
-             (1, 512, 512, 16, 4, 64, True, 0), (2, 128, 128, 6, 2, 80, True, 0),
-             (1, 256, 256, 4, 2, 32, True, 32), (2, 100, 100, 6, 2, 80, True, 0),
-             (1, 333, 333, 6, 3, 80, True, 64), (1, 200, 200, 4, 2, 64, True, 200),
-             (1, 200, 200, 4, 2, 80, True, 300), (1, 130, 70, 4, 4, 48, False, 0),
-             (2, 1000, 1000, 32, 32, 80, True, 256),
-             (1, 300, 300, 16, 16, 256, True, 0), (2, 128, 128, 8, 2, 256, True, 0),
-             (1, 333, 333, 4, 2, 256, True, 64), (1, 130, 70, 4, 4, 256, False, 0)]
 # ssd parity (B, H, T, p, n): the CPU tests' shapes, ragged T (1, 100,
 # 1000), reduced zamba2's p 128 / n 16, 80 heads at p = n = 64
 SSD_PARITY = [(1, 4, 64, 16, 8), (1, 2, 128, 64, 64), (1, 8, 96, 32, 16),
@@ -1493,6 +1504,16 @@ def phase_parity_backbone():
             log(f"parity ssd_scan {str(dtype)[6:]} (B, H, T, p, n) "
                 f"{(B, H, T, p, n)}: max |dy| {ey:.3e} (max |y| {top:.3f}), "
                 f"{worst:.3f} of the bound; max |dh| {eh:.3e}")
+    # strided views into one fused (B, T, 3, H, Dh) projection, bf16 at Dh
+    # 80 (the tensor maps' strides) and f32
+    for dtype in (torch.bfloat16, torch.float32):
+        qkv = torch.tensor(np.random.RandomState(5).randn(2, 300, 3, 4, 80),
+                           dtype=torch.float32, device=DEV).to(dtype)
+        err, top, worst = check_flash(qkv[:, :, 0], qkv[:, :, 1],
+                                      qkv[:, :, 2], True, 40)
+        log(f"parity flash_attention {str(dtype)[6:]} on strided views of "
+            f"a fused (2, 300, 3, 4, 80) projection, window 40: max |d| "
+            f"{err:.3e} (max |ref| {top:.3f}), {worst:.3f} of the bound")
     q = torch.randn(1, 16, 4, 64, device=DEV)
     for bad in ((q, q[:, :, :3], q[:, :, :3]),              # H % K
                 (q.half(), q.half(), q.half()),             # dtype
@@ -1709,7 +1730,7 @@ def _category(name):
     low = name.lower()
     if "ssd_chunk" in low:
         return "ssd_scan"
-    if "flash_bf16" in low or "flash_f32" in low:
+    if "flash_wgmma" in low or "flash_f32" in low:
         return "flash_attention"
     if any(s in low for s in ("gemm", "cutlass", "xmma", "nvjet", "cublas",
                               "sm90_")):

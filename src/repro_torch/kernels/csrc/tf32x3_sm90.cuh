@@ -1,5 +1,6 @@
 // f32-accurate matrix products on Hopper's tensor cores (sm_90a): the
-// mainloop shared by dml_pair, metric_topk and pairwise_dist.
+// mainloop shared by dml_pair, metric_topk and pairwise_dist (the bf16
+// flash_attention kernel uses its barrier, TMA and wgmma helpers).
 //
 // 3xTF32. Each f32 operand x is split as hi = rna_tf32(x) and
 // lo = rna_tf32(x - hi) (x - hi is exact in f32), and a . b is taken as
@@ -535,27 +536,36 @@ partial_product(const __grid_constant__ CUtensorMap a1,
 
 // -- host ------------------------------------------------------------------------
 
+// cuTensorMapEncodeTiled into *fn, looked up through the CUDA runtime's
+// entry-point query (no -lcuda). Returns a cudaError_t.
+inline int tensor_map_encoder(PFN_cuTensorMapEncodeTiled* fn) {
+    static PFN_cuTensorMapEncodeTiled encode_fn = nullptr;
+    if (encode_fn == nullptr) {
+        void* ptr = nullptr;
+        cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+        cudaError_t err = cudaGetDriverEntryPointByVersion(
+            "cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault, &found);
+#else
+        cudaError_t err = cudaGetDriverEntryPoint(
+            "cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
+#endif
+        if (err != cudaSuccess) return (int)err;
+        if (found != cudaDriverEntryPointSuccess || ptr == nullptr)
+            return (int)cudaErrorSymbolNotFound;
+        encode_fn = reinterpret_cast<PFN_cuTensorMapEncodeTiled>(ptr);
+    }
+    *fn = encode_fn;
+    return 0;
+}
+
 // A row-major (rows, cols) f32 tensor as a TMA map of boxes BK x box_rows
 // with the 128-byte swizzle and zero fill past its edges. cols * 4 must be
 // a multiple of 16 and ptr 16-byte aligned. Returns a cudaError_t.
 inline int encode(CUtensorMap* map, const float* ptr, long long cols,
                   long long rows, int box_rows) {
-    static PFN_cuTensorMapEncodeTiled encode_fn = nullptr;
-    if (encode_fn == nullptr) {
-        void* fn = nullptr;
-        cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-        cudaError_t err = cudaGetDriverEntryPointByVersion(
-            "cuTensorMapEncodeTiled", &fn, 12000, cudaEnableDefault, &found);
-#else
-        cudaError_t err = cudaGetDriverEntryPoint(
-            "cuTensorMapEncodeTiled", &fn, cudaEnableDefault, &found);
-#endif
-        if (err != cudaSuccess) return (int)err;
-        if (found != cudaDriverEntryPointSuccess || fn == nullptr)
-            return (int)cudaErrorSymbolNotFound;
-        encode_fn = reinterpret_cast<PFN_cuTensorMapEncodeTiled>(fn);
-    }
+    PFN_cuTensorMapEncodeTiled encode_fn;
+    if (int err = tensor_map_encoder(&encode_fn)) return err;
     if (cols < 1 || rows < 1 || (cols * 4) % 16 != 0 ||
         reinterpret_cast<uintptr_t>(ptr) % 16 != 0)
         return (int)cudaErrorInvalidValue;

@@ -1,0 +1,32 @@
+"""The flash-attention kernel's parity cases, (B, T, S, H, K, Dh, causal,
+window) each: ``chip_smoke.py`` and the card tests hold the kernel to
+``attention_ref`` on every one, in f32 and bf16, and the CPU tests run
+``tile_plan`` on each one's (T, S, causal, window, Dh).
+
+The CPU tests' shapes; ragged T and S; GQA 2 and 3; Dh 16, 32, 48, 64 and
+80; windows below, at and above T; Dh 256 (gemma-7b) causal, with GQA, a
+window, ragged T and S. Then the bf16 kernel's tile edges (128-row q
+tiles; kv tiles of 128 keys at Dh 80, 80 keys at Dh 256): T = S of 127,
+129 and 255 (and 161 at Dh 256), window 1 and a window of one kv tile,
+GQA 4 at Dh 256, non-causal S < T.
+"""
+
+PARITY = [(2, 128, 128, 4, 4, 64, True, 0), (2, 128, 128, 8, 2, 64, True, 0),
+          (1, 256, 256, 4, 1, 32, False, 0), (2, 64, 64, 4, 4, 128, True, 0),
+          (1, 512, 512, 16, 4, 64, True, 0), (2, 128, 128, 6, 2, 80, True, 0),
+          (1, 256, 256, 4, 2, 32, True, 32), (1, 256, 256, 4, 2, 32, True, 256),
+          (2, 100, 100, 6, 2, 80, True, 0), (1, 333, 333, 6, 3, 80, True, 64),
+          (1, 200, 200, 4, 2, 64, True, 200), (1, 200, 200, 4, 2, 80, True, 300),
+          (1, 200, 200, 4, 2, 16, True, 300), (1, 130, 70, 4, 4, 48, False, 0),
+          (2, 1000, 1000, 32, 32, 80, True, 256),
+          (1, 300, 300, 16, 16, 256, True, 0), (2, 128, 128, 8, 2, 256, True, 0),
+          (1, 333, 333, 4, 2, 256, True, 64), (1, 130, 70, 4, 4, 256, False, 0),
+          # the bf16 kernel's tile edges
+          (1, 127, 127, 4, 2, 80, True, 0), (1, 129, 129, 4, 2, 80, True, 0),
+          (1, 255, 255, 4, 2, 80, True, 0), (1, 127, 127, 4, 2, 256, True, 0),
+          (1, 129, 129, 4, 2, 256, True, 0), (1, 255, 255, 4, 2, 256, True, 0),
+          (1, 300, 300, 4, 2, 80, True, 1), (1, 300, 300, 4, 2, 256, True, 1),
+          (1, 300, 300, 4, 2, 80, True, 128), (1, 300, 300, 4, 2, 256, True, 64),
+          (1, 200, 200, 16, 4, 256, True, 0), (1, 255, 129, 4, 2, 80, False, 0),
+          (1, 255, 127, 8, 2, 256, False, 0), (1, 161, 161, 4, 2, 256, True, 0),
+          (1, 300, 300, 4, 2, 256, True, 80)]

@@ -16,47 +16,88 @@
 // T = S = 8192, 32 heads of Dh 80, window 4096, bf16) a call has 25.2M
 // allowed (t, s) entries a head, 4 Dh = 320 FLOP each: 1.03 TFLOP, 1.04 ms
 // at the bf16 tensor-core rate (989 TFLOP/s), against 0.67 GB moved (q, k,
-// v read and out written once: 0.20 ms at 3.35 TB/s). So the tensor
+// v read and out written once: 0.20 ms at 3.35 TB/s). At gemma-7b's (B 1,
+// T 8192, 16 heads of 256, causal) 0.55 TFLOP, 0.56 ms. So the tensor
 // cores bound it.
 //
-// What the design does about it. The TPU kernel walks (B*H, q tile, kv
-// tile) with the kv axis innermost and sequential, carrying m, l and the
-// accumulator in VMEM, and visits every kv tile. Here one block owns one
-// (b, h, 64-row q tile) and loops over kv tiles itself, keeping the
-// online-softmax state in registers, and visits only the kv tiles that
-// hold an allowed key: a causal 8192-token call with a 4096 window does
-// 25.2M of the 67.1M (t, s) pairs. bf16 inputs: four warps of 16 query
-// rows each run mma.sync m16n8k16 (bf16 in, f32 accumulate): q's
-// fragments stay in registers, each kv tile is staged in shared memory
-// with rows padded by 8 elements (conflict-free fragment loads), s = q k^T
-// stays in registers, is turned into p in place and fed back as the A
-// operand of p v (FlashAttention-2's register reuse), with v's B
-// fragments read by ldmatrix.trans. At Dh 256 (gemma-7b) o alone takes
-// 128 registers a thread, so q's fragments are read from the q tile in
-// shared memory at every kv tile instead of being held (they would take
-// 64 more and spill); the tiles are 101 KB. f32 inputs stay full f32:
-// 256 threads each own a 4-row x 4-key score tile and 4 rows x Dh/16
-// output columns, all FFMA; at Dh 256 its q, k, v and p tiles take 214 KB
-// of the 227 KB a block may have. q, k, v are read in the model's (B, T,
-// H, Dh) layout through strides: no transposes. Rows past T and keys past S are masked (zero
-// tiles, NEG_INF scores), so any T and S work.
+// What the design does about it (bf16, flash_wgmma). The TPU kernel walks
+// (B*H, q tile, kv tile) with the kv axis innermost and sequential,
+// carrying m, l and the accumulator in VMEM, and visits every kv tile.
+// Here one block owns one (b, h, 128-row q tile): two warpgroups of 64
+// rows, 256 threads, each warpgroup carrying its rows' online-softmax
+// state in registers while the block walks the kv tiles.
+//  - Tiles come in by TMA with the 128-byte swizzle, in boxes of 64 bf16
+//    columns (Dh 80 takes two, TMA zero-fills columns 80..127): q once,
+//    k and v through rings of 2-4 slots (by what shared memory holds),
+//    each slot with its own `full` mbarrier. k and v have separate rings:
+//    a k tile is free as soon as its s = q k^T retired, a v tile only
+//    after p v. A slot is refilled by whichever warpgroup releases it
+//    second (a shared counter), so neither warpgroup ever waits for the
+//    other, and no producer warp is needed: a 288- or 384-thread block
+//    makes ptxas budget three warpgroups at 168 registers.
+//  - s = q k^T is wgmma m64nBKk16 with both operands K-major in shared
+//    memory, Dh / 16 k-steps (5 at Dh 80, none padded). o += p v is wgmma
+//    m64nDNk16 with p as the bf16 A operand in registers, converted in
+//    place from s's accumulator fragment, and v as the B operand read
+//    MN-major through the transpose bit (N = Dh; Dh below 64 runs N 64
+//    over v's zero columns).
+//  - One warpgroup overlaps its softmax with its own tensor work: tile i's
+//    s wgmma and tile i - 1's p v wgmma are issued back to back; the
+//    exponentials of tile i (one ex2.approx each) run while p v of i - 1
+//    is still in flight, and only the rescale of o waits for it. That
+//    rescale (Dh / 2 multiplies a thread) runs only when a row's max has
+//    grown by more than 2^8 since its m last moved: m may lag the true
+//    max, p then stays below 2^8, and o / l is the same. The two
+//    warpgroups are free to drift apart, so one's softmax can also hide
+//    the other's wgmmas.
+//  - A kv tile holding no allowed (t, s) pair is never visited (a causal
+//    8192-token call with a 4096 window visits 25.2M of the 67.1M pairs,
+//    plus the tile edges). A tile whose every pair is allowed runs no mask
+//    arithmetic; only edge tiles (the causal diagonal, the window's lower
+//    edge, ragged T and S) test each score. kernel.py's tile_plan mirrors
+//    this classification for the CPU tests, and the card tests hold it
+//    to the kernel's own (flash_attention_tile_plan).
+//  - kv tiles are 128 keys at Dh <= 128 and 80 at Dh 256, where o alone is
+//    128 f32 registers a thread (s 40, p 20 beside it): q 64 KB + 2 x
+//    (k + v) 80 KB of shared memory. 80 keys rather than 64 make the
+//    s wgmma wider and the walk shorter (FA3 takes the same tile).
+//  - q tiles of a causal call are launched longest first (grid y
+//    reversed), with the heads on the fastest grid axis, so the short
+//    tiles fill the tail and blocks of one kv head run together through
+//    L2.
+//  - q, k and v are read in the model's (B, T, H, Dh) layout through 4-D
+//    tensor maps over (Dh, H, T, B): no transposes; rows past T and keys
+//    past S land as zeros and are masked.
+// What holds it back now (timed against development builds without the
+// softmax and with one L2-resident kv tile; see PERF.md): the softmax is
+// only partly hidden behind the wgmmas (one block a SM leaves two warps a
+// sub-partition to hide latency with), and at Dh 80 the kv stream from
+// L2 (128 query rows per k and v byte, and 48 of the second box's 64
+// columns are zero fill) is the next limit. Warpgroups taking turns at
+// issuing (FA3's ping-pong), q fragments in registers, deeper rings and
+// split reduction chains each moved the times by less than the spread of
+// repeated runs. Next: k and v multicast to a cluster of two blocks, and
+// a 16-column box for Dh 80's tail.
 //
-// NEG_INF is the finite -1e30 of the TPU kernel, not -inf: a row whose keys
-// in one tile are all masked gets exp(NEG_INF - NEG_INF) = 1 (a later tile
-// with an allowed key scales that away by exp(NEG_INF - m) = 0), never
-// NaN. l is clamped at 1e-30 before the division. Later work: TMA and
-// wgmma with a producer warp, a cp.async ring instead of the synchronous
-// tile loads.
+// f32 inputs stay full f32 (flash_f32): 256 threads each own a 4-row x
+// 4-key score tile and 4 rows x Dh/16 output columns, all FFMA, 64-row q
+// tiles and 64-key kv tiles staged synchronously in shared memory; at Dh
+// 256 its q, k, v and p tiles take 214 KB of the 227 KB a block may have.
+//
+// NEG_INF is the finite -1e30 of the TPU kernel, not -inf: masked scores
+// never make NaN. l is clamped at 1e-30 before the division.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "../../csrc/tf32x3_sm90.cuh"
+
 namespace {
 
+namespace sm90 = tf32x3;    // barriers, TMA, proxy fences, wgmma sync
+
 constexpr float NEG_INF = -1e30f;
-constexpr int BQ = 64;              // query rows of a block
-constexpr int BK = 64;              // keys of a kv tile
 constexpr float LOG2E = 1.4426950408889634f;
 
 struct Params {
@@ -69,6 +110,659 @@ struct Params {
     float scale;                    // 1 / sqrt(Dh)
 };
 
+__device__ __forceinline__ bool allowed(const Params& p, int t, int s) {
+    return s < p.S && (!p.causal || s <= t) &&
+           (p.window == 0 || s > t - p.window);
+}
+
+// ---- bf16: TMA + wgmma ----------------------------------------------------
+
+constexpr int THREADS = 256;        // two consumer warpgroups
+constexpr int ROW_BYTES = 128;      // a box row: 64 bf16, the swizzle span
+
+template <int DH>
+struct Cfg {
+    static constexpr int BQ = 128;                  // query rows of a block
+    static constexpr int BK = DH > 128 ? 80 : 128;  // keys of a kv tile
+    static constexpr int NB = (DH + 63) / 64;       // 64-column boxes
+    static constexpr int DN = DH < 64 ? 64 : DH;    // N of p v (o columns)
+    static constexpr int Q_BYTES = NB * BQ * ROW_BYTES;
+    static constexpr int TILE_BYTES = NB * BK * ROW_BYTES;  // a k or v tile
+    static constexpr int BAR_BYTES = 128;   // full_q, full_k/v[], rel_k/v[]
+    static constexpr int FIT = (sm90::SMEM_LIMIT - sm90::ALIGN - Q_BYTES -
+                                BAR_BYTES) / (2 * TILE_BYTES);
+    static constexpr int STAGES = FIT > 4 ? 4 : FIT;
+    static constexpr int SMEM = sm90::ALIGN + Q_BYTES +
+                                2 * STAGES * TILE_BYTES + BAR_BYTES;
+    static_assert(STAGES >= 2, "two slots of k and v must fit");
+};
+
+// The kv tiles [j0, j1) of BK keys that a q tile [q0, q0 + BQ) visits:
+// every tile outside holds no allowed pair. Host code too, for
+// flash_attention_tile_plan.
+__host__ __device__ __forceinline__ void kv_tiles(const Params& p, int q0,
+                                                  int bq, int bk, int& j0,
+                                                  int& j1) {
+    const int t_end = q0 + bq < p.T ? q0 + bq : p.T;
+    const int lo = p.window > 0 && q0 - p.window + 1 > 0
+                       ? q0 - p.window + 1 : 0;
+    const int hi = p.causal && t_end < p.S ? t_end : p.S;
+    j0 = lo / bk;
+    j1 = hi > lo ? (hi + bk - 1) / bk : j0;
+}
+
+// true when every (t, s) of rows [q0, min(q0 + bq, T)) and keys
+// [s0, s0 + bk) is allowed: the tile runs no mask
+__host__ __device__ __forceinline__ bool full_tile(const Params& p, int q0,
+                                                   int bq, int s0, int bk) {
+    const int t_last = (q0 + bq < p.T ? q0 + bq : p.T) - 1;
+    const int s_last = s0 + bk - 1;
+    return s_last < p.S && (!p.causal || s_last <= q0) &&
+           (p.window == 0 || s0 > t_last - p.window);
+}
+
+// one 4-D box of a tensor map -> shared memory, completing on `bar`;
+// (c0, c1, c2, c3) = (column, head, position, batch) of its first element
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2, int c3) {
+    asm volatile(
+        "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::"
+        "complete_tx::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n"
+        :: "r"(sm90::smem_addr(dst)), "l"(reinterpret_cast<uint64_t>(map)),
+           "r"(sm90::smem_addr(bar)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+        : "memory");
+}
+
+// V tile (BK keys x 64-column boxes) as wgmma's MN-major B operand with
+// the 128-byte swizzle: the N side's 64-column atoms lie tile_rows * 128
+// bytes apart (leading byte offset), 8-key groups 1024 bytes apart
+// (stride byte offset)
+__device__ __forceinline__ uint64_t desc_mn_sw128(const void* tile,
+                                                  int tile_rows) {
+    const uint64_t a = sm90::smem_addr(tile);
+    return ((a & 0x3FFFF) >> 4) | ((uint64_t)(tile_rows * 8) << 16) |
+           (64ull << 32) | (1ull << 62);
+}
+
+// 2^x in one MUFU.EX2 (exp2f adds a denormal fix-up around it); its error,
+// about 2 ulp of f32, is far below the bf16 rounding of p before p v
+__device__ __forceinline__ float ex2(float x) {
+    float y;
+    asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+    return y;
+}
+
+template <int R>
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[R][4]) {
+    #pragma unroll
+    for (int i = 0; i < R; ++i)
+        #pragma unroll
+        for (int j = 0; j < 4; ++j)
+            asm volatile("" : "+r"(r[i][j]) :: "memory");
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+    __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+    return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// s (64 x N, f32) = a (64 x 16) b^T (N x 16) when acc == 0, += when 1:
+// both bf16 K-major in shared memory (tf32x3::desc_sw128). Fragments, as
+// tf32x3::Wgmma: thread t of the warpgroup holds d[4i + 2h + e] at row
+// 16 (t / 32) + (t % 32) / 4 + 8 h, column 8 i + 2 (t % 4) + e.
+template <int N>
+struct WgmmaSS;
+
+// o (64 x N, f32) += a (64 x 16, bf16 registers) b (16 x N, bf16 MN-major
+// in shared memory, desc_mn_sw128). a[v] holds the bf16 pair at row
+// 16 (t / 32) + (t % 32) / 4 + 8 (v % 2), columns 2 (t % 4) + 8 (v / 2)
+// and + 1.
+template <int N>
+struct WgmmaRS;
+
+template <>
+struct WgmmaSS<80> {
+    __device__ static __forceinline__ void mma(float (&d)[40], uint64_t a,
+                                               uint64_t b, int acc) {
+        asm volatile(
+            "{\n.reg .pred p;\nsetp.ne.b32 p, %42, 0;\n"
+            "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 {"
+            " %0, %1, %2, %3, %4, %5, %6, %7,"
+            " %8, %9, %10, %11, %12, %13, %14, %15,"
+            " %16, %17, %18, %19, %20, %21, %22, %23,"
+            " %24, %25, %26, %27, %28, %29, %30, %31,"
+            " %32, %33, %34, %35, %36, %37, %38, %39},"
+            " %40, %41, p, 1, 1, 0, 0;\n}\n"
+            : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+              "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+              "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+              "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+              "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+              "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+              "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
+            : "l"(a), "l"(b), "r"(acc));
+    }
+};
+
+template <>
+struct WgmmaSS<128> {
+    __device__ static __forceinline__ void mma(float (&d)[64], uint64_t a,
+                                               uint64_t b, int acc) {
+        asm volatile(
+            "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+            "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+            " %0, %1, %2, %3, %4, %5, %6, %7,"
+            " %8, %9, %10, %11, %12, %13, %14, %15,"
+            " %16, %17, %18, %19, %20, %21, %22, %23,"
+            " %24, %25, %26, %27, %28, %29, %30, %31,"
+            " %32, %33, %34, %35, %36, %37, %38, %39,"
+            " %40, %41, %42, %43, %44, %45, %46, %47,"
+            " %48, %49, %50, %51, %52, %53, %54, %55,"
+            " %56, %57, %58, %59, %60, %61, %62, %63},"
+            " %64, %65, p, 1, 1, 0, 0;\n}\n"
+            : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+              "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+              "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+              "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+              "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+              "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+              "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+              "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+              "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+              "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+              "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+            : "l"(a), "l"(b), "r"(acc));
+    }
+};
+
+template <>
+struct WgmmaRS<64> {
+    __device__ static __forceinline__ void mma(float (&d)[32],
+                                               const uint32_t (&a)[4],
+                                               uint64_t b) {
+        asm volatile(
+            "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+            "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+            " %0, %1, %2, %3, %4, %5, %6, %7,"
+            " %8, %9, %10, %11, %12, %13, %14, %15,"
+            " %16, %17, %18, %19, %20, %21, %22, %23,"
+            " %24, %25, %26, %27, %28, %29, %30, %31},"
+            " {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+            : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+              "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+              "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+              "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+              "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+              "+f"(d[30]), "+f"(d[31])
+            : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+    }
+};
+
+template <>
+struct WgmmaRS<80> {
+    __device__ static __forceinline__ void mma(float (&d)[40],
+                                               const uint32_t (&a)[4],
+                                               uint64_t b) {
+        asm volatile(
+            "{\n.reg .pred p;\nsetp.ne.b32 p, %45, 0;\n"
+            "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 {"
+            " %0, %1, %2, %3, %4, %5, %6, %7,"
+            " %8, %9, %10, %11, %12, %13, %14, %15,"
+            " %16, %17, %18, %19, %20, %21, %22, %23,"
+            " %24, %25, %26, %27, %28, %29, %30, %31,"
+            " %32, %33, %34, %35, %36, %37, %38, %39},"
+            " {%40, %41, %42, %43}, %44, p, 1, 1, 1;\n}\n"
+            : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+              "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+              "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+              "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+              "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+              "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+              "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
+            : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+    }
+};
+
+template <>
+struct WgmmaRS<96> {
+    __device__ static __forceinline__ void mma(float (&d)[48],
+                                               const uint32_t (&a)[4],
+                                               uint64_t b) {
+        asm volatile(
+            "{\n.reg .pred p;\nsetp.ne.b32 p, %53, 0;\n"
+            "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 {"
+            " %0, %1, %2, %3, %4, %5, %6, %7,"
+            " %8, %9, %10, %11, %12, %13, %14, %15,"
+            " %16, %17, %18, %19, %20, %21, %22, %23,"
+            " %24, %25, %26, %27, %28, %29, %30, %31,"
+            " %32, %33, %34, %35, %36, %37, %38, %39,"
+            " %40, %41, %42, %43, %44, %45, %46, %47},"
+            " {%48, %49, %50, %51}, %52, p, 1, 1, 1;\n}\n"
+            : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+              "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+              "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+              "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+              "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+              "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+              "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+              "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
+            : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+    }
+};
+
+template <>
+struct WgmmaRS<112> {
+    __device__ static __forceinline__ void mma(float (&d)[56],
+                                               const uint32_t (&a)[4],
+                                               uint64_t b) {
+        asm volatile(
+            "{\n.reg .pred p;\nsetp.ne.b32 p, %61, 0;\n"
+            "wgmma.mma_async.sync.aligned.m64n112k16.f32.bf16.bf16 {"
+            " %0, %1, %2, %3, %4, %5, %6, %7,"
+            " %8, %9, %10, %11, %12, %13, %14, %15,"
+            " %16, %17, %18, %19, %20, %21, %22, %23,"
+            " %24, %25, %26, %27, %28, %29, %30, %31,"
+            " %32, %33, %34, %35, %36, %37, %38, %39,"
+            " %40, %41, %42, %43, %44, %45, %46, %47,"
+            " %48, %49, %50, %51, %52, %53, %54, %55},"
+            " {%56, %57, %58, %59}, %60, p, 1, 1, 1;\n}\n"
+            : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+              "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+              "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+              "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+              "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+              "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+              "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+              "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+              "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+              "+f"(d[54]), "+f"(d[55])
+            : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+    }
+};
+
+template <>
+struct WgmmaRS<128> {
+    __device__ static __forceinline__ void mma(float (&d)[64],
+                                               const uint32_t (&a)[4],
+                                               uint64_t b) {
+        asm volatile(
+            "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+            "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+            " %0, %1, %2, %3, %4, %5, %6, %7,"
+            " %8, %9, %10, %11, %12, %13, %14, %15,"
+            " %16, %17, %18, %19, %20, %21, %22, %23,"
+            " %24, %25, %26, %27, %28, %29, %30, %31,"
+            " %32, %33, %34, %35, %36, %37, %38, %39,"
+            " %40, %41, %42, %43, %44, %45, %46, %47,"
+            " %48, %49, %50, %51, %52, %53, %54, %55,"
+            " %56, %57, %58, %59, %60, %61, %62, %63},"
+            " {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+            : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+              "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+              "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+              "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+              "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+              "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+              "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+              "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+              "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+              "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+              "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+            : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+    }
+};
+
+template <>
+struct WgmmaRS<256> {
+    __device__ static __forceinline__ void mma(float (&d)[128],
+                                               const uint32_t (&a)[4],
+                                               uint64_t b) {
+        asm volatile(
+            "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+            "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+            " %0, %1, %2, %3, %4, %5, %6, %7,"
+            " %8, %9, %10, %11, %12, %13, %14, %15,"
+            " %16, %17, %18, %19, %20, %21, %22, %23,"
+            " %24, %25, %26, %27, %28, %29, %30, %31,"
+            " %32, %33, %34, %35, %36, %37, %38, %39,"
+            " %40, %41, %42, %43, %44, %45, %46, %47,"
+            " %48, %49, %50, %51, %52, %53, %54, %55,"
+            " %56, %57, %58, %59, %60, %61, %62, %63,"
+            " %64, %65, %66, %67, %68, %69, %70, %71,"
+            " %72, %73, %74, %75, %76, %77, %78, %79,"
+            " %80, %81, %82, %83, %84, %85, %86, %87,"
+            " %88, %89, %90, %91, %92, %93, %94, %95,"
+            " %96, %97, %98, %99, %100, %101, %102, %103,"
+            " %104, %105, %106, %107, %108, %109, %110, %111,"
+            " %112, %113, %114, %115, %116, %117, %118, %119,"
+            " %120, %121, %122, %123, %124, %125, %126, %127},"
+            " {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+            : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+              "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+              "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+              "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+              "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+              "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+              "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+              "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+              "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+              "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+              "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]),
+              "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+              "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]),
+              "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+              "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+              "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+              "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]),
+              "+f"(d[102]), "+f"(d[103]), "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
+              "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]),
+              "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+              "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]),
+              "+f"(d[126]), "+f"(d[127])
+            : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+    }
+};
+
+
+// One block: rows [q0, q0 + 128) of head h, batch b; warpgroup wg owns
+// rows q0 + 64 wg .. + 63. Pipeline of a warpgroup over its n kv tiles:
+//   s_0 = q k_0^T; p_0 = softmax
+//   for i in 1 .. n-1: issue s_i = q k_i^T, issue o += p_{i-1} v_{i-1};
+//     wait s_i; release k_i; mask (edge tiles), max, exp -> p_i in s;
+//     wait p v; release v_{i-1}; rescale o; p_i -> bf16 A fragments
+//   o += p_{n-1} v_{n-1}
+template <int DH>
+__global__ void __launch_bounds__(THREADS, 1)
+flash_wgmma(const __grid_constant__ CUtensorMap qmap,
+            const __grid_constant__ CUtensorMap kmap,
+            const __grid_constant__ CUtensorMap vmap,
+            __nv_bfloat16* __restrict__ out, const Params p) {
+    using C = Cfg<DH>;
+    constexpr int BQ = C::BQ, BK = C::BK, NB = C::NB, DN = C::DN;
+    constexpr int ST = C::STAGES, TILE = C::TILE_BYTES;
+    extern __shared__ unsigned char smem_raw[];
+    unsigned char* Qs = sm90::align_smem(smem_raw);
+    unsigned char* Ks = Qs + C::Q_BYTES;
+    unsigned char* Vs = Ks + ST * TILE;
+    uint64_t* full_q = reinterpret_cast<uint64_t*>(Vs + ST * TILE);
+    uint64_t* full_k = full_q + 1;
+    uint64_t* full_v = full_k + ST;
+    int* rel_k = reinterpret_cast<int*>(full_v + ST);
+    int* rel_v = rel_k + ST;
+
+    const int qt = p.causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y;
+    const int q0 = qt * BQ, h = blockIdx.x, b = blockIdx.z;
+    const int hk = h / p.group;
+    const int tid = threadIdx.x, wg = tid / 128, lane = tid % 32;
+    int j0, j1;
+    kv_tiles(p, q0, BQ, BK, j0, j1);
+    const int n = j1 - j0;
+
+    if (tid == 0) {
+        sm90::mbar_init(full_q, 1);
+        for (int s = 0; s < ST; ++s) {
+            sm90::mbar_init(&full_k[s], 1);
+            sm90::mbar_init(&full_v[s], 1);
+            rel_k[s] = rel_v[s] = 0;
+        }
+        sm90::fence_barrier_init();
+    }
+    __syncthreads();
+
+    // kv tile j0 + i into slot i % ST of a ring
+    auto load_kv = [&](const CUtensorMap* map, unsigned char* ring,
+                       uint64_t* full, int i) {
+        const int s = i % ST;
+        sm90::mbar_expect_tx(&full[s], TILE);
+        #pragma unroll
+        for (int c = 0; c < NB; ++c)
+            tma_load_4d(ring + s * TILE + c * BK * ROW_BYTES, map, &full[s],
+                        64 * c, hk, (j0 + i) * BK, b);
+    };
+    auto load_k = [&](int i) { load_kv(&kmap, Ks, full_k, i); };
+    auto load_v = [&](int i) { load_kv(&vmap, Vs, full_v, i); };
+    // this warpgroup is done with tile i of a ring; the second warpgroup
+    // to say so refills the slot with tile i + ST
+    auto release = [&](int* rel, int i, auto&& load) {
+        if (tid % 128 == 0) {
+            const int old = atomicAdd(&rel[i % ST], 1);
+            if ((old & 1) && i + ST < n) load(i + ST);
+        }
+        __syncwarp();
+    };
+    if (tid == 0) {
+        sm90::mbar_expect_tx(full_q, C::Q_BYTES);
+        #pragma unroll
+        for (int c = 0; c < NB; ++c)
+            tma_load_4d(Qs + c * BQ * ROW_BYTES, &qmap, full_q, 64 * c, h, q0,
+                        b);
+        for (int i = 0; i < min(ST, n); ++i) {
+            load_k(i);
+            load_v(i);
+        }
+    }
+
+    // s = q k_i^T into s (this warpgroup's 64 rows)
+    const unsigned char* q_wg = Qs + wg * 64 * ROW_BYTES;
+    float s[BK / 2];
+    auto issue_s = [&](int i) {
+        const unsigned char* kt = Ks + (i % ST) * TILE;
+        #pragma unroll
+        for (int ks = 0; ks < DH / 16; ++ks) {
+            const int box = ks / 4, col = (ks % 4) * 32;
+            WgmmaSS<BK>::mma(
+                s, sm90::desc_sw128(q_wg + box * BQ * ROW_BYTES + col),
+                sm90::desc_sw128(kt + box * BK * ROW_BYTES + col), ks > 0);
+        }
+        sm90::wgmma_commit();
+    };
+    // o += p v_i
+    float o[DN / 2];
+    #pragma unroll
+    for (int i = 0; i < DN / 2; ++i) o[i] = 0.f;
+    uint32_t pf[BK / 16][4];
+    auto issue_pv = [&](int i) {
+        const unsigned char* vt = Vs + (i % ST) * TILE;
+        #pragma unroll
+        for (int kk = 0; kk < BK / 16; ++kk)
+            WgmmaRS<DN>::mma(o, pf[kk],
+                             desc_mn_sw128(vt + kk * 16 * ROW_BYTES, BK));
+        sm90::wgmma_commit();
+    };
+
+    // rows r_lo and r_lo + 8 of this thread; m in the raw score domain
+    const int r_lo = q0 + wg * 64 + (tid / 32) % 4 * 16 + lane / 4;
+    const float sl2 = p.scale * LOG2E;
+    float m_lo = NEG_INF, m_hi = NEG_INF, l_lo = 0.f, l_hi = 0.f;
+    float c_lo = 1.f, c_hi = 1.f;       // o's correction for this tile
+    // mask (edge tiles), row maxima, p = exp2((s - m) sl2) in place
+    auto softmax = [&](int i) {
+        const int s0 = (j0 + i) * BK;
+        if (!full_tile(p, q0, BQ, s0, BK)) {
+            #pragma unroll
+            for (int x = 0; x < BK / 2; ++x) {
+                const int t = r_lo + 8 * ((x / 2) % 2);
+                const int key = s0 + 8 * (x / 4) + 2 * (lane % 4) + x % 2;
+                if (!allowed(p, t, key)) s[x] = NEG_INF;
+            }
+        }
+        float mx_lo = m_lo, mx_hi = m_hi;
+        #pragma unroll
+        for (int x = 0; x < BK / 2; x += 4) {
+            mx_lo = fmaxf(mx_lo, fmaxf(s[x], s[x + 1]));
+            mx_hi = fmaxf(mx_hi, fmaxf(s[x + 2], s[x + 3]));
+        }
+        #pragma unroll
+        for (int off = 1; off <= 2; off <<= 1) {
+            mx_lo = fmaxf(mx_lo, __shfl_xor_sync(0xffffffffu, mx_lo, off));
+            mx_hi = fmaxf(mx_hi, __shfl_xor_sync(0xffffffffu, mx_hi, off));
+        }
+        // a row's m moves only when its max grew by more than 8 in the
+        // exponent: p stays below 2^8, o and l keep sharing one m, and
+        // out = o / l is unchanged (the rescale of o is mostly skipped)
+        c_lo = c_hi = 1.f;
+        if ((mx_lo - m_lo) * sl2 > 8.f) {
+            c_lo = ex2((m_lo - mx_lo) * sl2);
+            m_lo = mx_lo;
+        }
+        if ((mx_hi - m_hi) * sl2 > 8.f) {
+            c_hi = ex2((m_hi - mx_hi) * sl2);
+            m_hi = mx_hi;
+        }
+        // a row with no allowed key yet keeps p = 0 (never NaN)
+        const float mc_lo = m_lo == NEG_INF ? 0.f : m_lo * sl2;
+        const float mc_hi = m_hi == NEG_INF ? 0.f : m_hi * sl2;
+        float sum_lo = 0.f, sum_hi = 0.f;
+        #pragma unroll
+        for (int x = 0; x < BK / 2; x += 4) {
+            s[x] = ex2(fmaf(s[x], sl2, -mc_lo));
+            s[x + 1] = ex2(fmaf(s[x + 1], sl2, -mc_lo));
+            s[x + 2] = ex2(fmaf(s[x + 2], sl2, -mc_hi));
+            s[x + 3] = ex2(fmaf(s[x + 3], sl2, -mc_hi));
+            sum_lo += s[x] + s[x + 1];
+            sum_hi += s[x + 2] + s[x + 3];
+        }
+        l_lo = l_lo * c_lo + sum_lo;    // this thread's columns; summed
+        l_hi = l_hi * c_hi + sum_hi;    // over the quad at the end
+    };
+    // o *= c where a row of the warp moved its m; p (f32, in s) -> bf16
+    // A fragments: score blocks 2 kk and 2 kk + 1 are k-step kk of p v
+    auto rescale_pack = [&]() {
+        if (__any_sync(0xffffffffu, c_lo != 1.f || c_hi != 1.f)) {
+            #pragma unroll
+            for (int x = 0; x < DN / 2; x += 4) {
+                o[x] *= c_lo;
+                o[x + 1] *= c_lo;
+                o[x + 2] *= c_hi;
+                o[x + 3] *= c_hi;
+            }
+        }
+        #pragma unroll
+        for (int kk = 0; kk < BK / 16; ++kk) {
+            pf[kk][0] = pack_bf16(s[8 * kk], s[8 * kk + 1]);
+            pf[kk][1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
+            pf[kk][2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
+            pf[kk][3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
+        }
+    };
+
+    sm90::mbar_wait(full_q, 0);
+    if (n > 0) {
+        sm90::mbar_wait(&full_k[0], 0);
+        sm90::wgmma_fence();
+        issue_s(0);
+        sm90::wgmma_wait<0>();
+        sm90::fence_acc(s);
+        release(rel_k, 0, load_k);
+        softmax(0);
+        rescale_pack();
+    }
+    for (int i = 1; i < n; ++i) {
+        sm90::mbar_wait(&full_k[i % ST], (i / ST) & 1);
+        sm90::fence_acc(s);
+        sm90::fence_acc(o);
+        fence_regs(pf);
+        sm90::mbar_wait(&full_v[(i - 1) % ST], ((i - 1) / ST) & 1);
+        sm90::wgmma_fence();
+        issue_s(i);
+        issue_pv(i - 1);
+        sm90::wgmma_wait<1>();          // s_i landed; p v of i - 1 runs on
+        sm90::fence_acc(s);
+        release(rel_k, i, load_k);
+        softmax(i);
+        sm90::wgmma_wait<0>();
+        sm90::fence_acc(o);
+        fence_regs(pf);
+        release(rel_v, i - 1, load_v);
+        rescale_pack();
+    }
+    if (n > 0) {
+        sm90::mbar_wait(&full_v[(n - 1) % ST], ((n - 1) / ST) & 1);
+        sm90::fence_acc(o);
+        fence_regs(pf);
+        sm90::wgmma_fence();
+        issue_pv(n - 1);
+        sm90::wgmma_wait<0>();
+        sm90::fence_acc(o);
+        fence_regs(pf);
+    }
+
+    #pragma unroll
+    for (int off = 1; off <= 2; off <<= 1) {
+        l_lo += __shfl_xor_sync(0xffffffffu, l_lo, off);
+        l_hi += __shfl_xor_sync(0xffffffffu, l_hi, off);
+    }
+    const float inv_lo = 1.f / fmaxf(l_lo, 1e-30f);
+    const float inv_hi = 1.f / fmaxf(l_hi, 1e-30f);
+    __nv_bfloat16* o_lo = out + b * p.o_b + (long long)r_lo * p.o_t + h * p.o_h;
+    __nv_bfloat16* o_hi = o_lo + 8 * p.o_t;
+    #pragma unroll
+    for (int x = 0; x < DN / 2; x += 4) {
+        const int col = 2 * x + 2 * (lane % 4);     // 8 (x / 4) + 2 (t % 4)
+        if (col >= DH) continue;
+        if (r_lo < p.T)
+            *reinterpret_cast<__nv_bfloat162*>(o_lo + col) =
+                __floats2bfloat162_rn(o[x] * inv_lo, o[x + 1] * inv_lo);
+        if (r_lo + 8 < p.T)
+            *reinterpret_cast<__nv_bfloat162*>(o_hi + col) =
+                __floats2bfloat162_rn(o[x + 2] * inv_hi, o[x + 3] * inv_hi);
+    }
+}
+
+// (Dh, heads, positions, batch) of a (B, L, heads, Dh) bf16 tensor as a
+// 4-D TMA map of boxes 64 columns x box_rows positions, 128-byte swizzle,
+// zeros past every edge; strides in elements (multiples of 8), ptr 16-byte
+// aligned. Returns a cudaError_t.
+int encode_bf16(CUtensorMap* map, const void* ptr, int dh, int heads,
+                int len, int batch, long long s_h, long long s_t,
+                long long s_b, int box_rows) {
+    PFN_cuTensorMapEncodeTiled encode_fn;
+    if (int err = sm90::tensor_map_encoder(&encode_fn)) return err;
+    cuuint64_t dims[4] = {(cuuint64_t)dh, (cuuint64_t)heads,
+                          (cuuint64_t)len, (cuuint64_t)batch};
+    cuuint64_t strides[3] = {(cuuint64_t)s_h * 2, (cuuint64_t)s_t * 2,
+                             (cuuint64_t)s_b * 2};
+    cuuint32_t box[4] = {64, 1, (cuuint32_t)box_rows, 1};
+    cuuint32_t elem[4] = {1, 1, 1, 1};
+    CUresult r = encode_fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                           const_cast<void*>(ptr), dims, strides, box, elem,
+                           CU_TENSOR_MAP_INTERLEAVE_NONE,
+                           CU_TENSOR_MAP_SWIZZLE_128B,
+                           CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                           CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+    return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+template <int DH>
+int launch_wgmma(const void* q, const void* k, const void* v, void* out,
+                 const Params& p, int B, int K, cudaStream_t stream) {
+    using C = Cfg<DH>;
+    const int q_tiles = (p.T + C::BQ - 1) / C::BQ;
+    if (q_tiles > 65535) return (int)cudaErrorInvalidValue;
+    CUtensorMap qm, km, vm;
+    int err;
+    if ((err = encode_bf16(&qm, q, DH, p.H, p.T, B, p.q_h, p.q_t, p.q_b,
+                           C::BQ)) != 0 ||
+        (err = encode_bf16(&km, k, DH, K, p.S, B, p.k_h, p.k_s, p.k_b,
+                           C::BK)) != 0 ||
+        (err = encode_bf16(&vm, v, DH, K, p.S, B, p.v_h, p.v_s, p.v_b,
+                           C::BK)) != 0)
+        return err;
+    cudaError_t e = cudaFuncSetAttribute(
+        flash_wgmma<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        C::SMEM);
+    if (e != cudaSuccess) return (int)e;
+    flash_wgmma<DH><<<dim3(p.H, q_tiles, B), THREADS, C::SMEM, stream>>>(
+        qm, km, vm, static_cast<__nv_bfloat16*>(out), p);
+    return (int)cudaGetLastError();
+}
+
+// ---- f32: FFMA, no tensor cores ------------------------------------------
+
+constexpr int BQ = 64;              // query rows of a flash_f32 block
+constexpr int BK = 64;              // keys of its kv tile
+
 // first (tile-aligned) and one-past-last key a query tile can see
 __device__ __forceinline__ void kv_range(const Params& p, int q0,
                                          int& k_begin, int& k_end) {
@@ -77,217 +771,6 @@ __device__ __forceinline__ void kv_range(const Params& p, int q0,
     k_begin -= k_begin % BK;
     k_end = p.causal ? min(p.S, q_last + 1) : p.S;
 }
-
-__device__ __forceinline__ bool allowed(const Params& p, int t, int s) {
-    return s < p.S && (!p.causal || s <= t) &&
-           (p.window == 0 || s > t - p.window);
-}
-
-// ---- bf16: mma.sync on the tensor cores ----------------------------------
-
-__device__ __forceinline__ uint32_t ld_u32(const __nv_bfloat16* ptr) {
-    return *reinterpret_cast<const uint32_t*>(ptr);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-    __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-    return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
-                                                  const __nv_bfloat16* ptr) {
-    unsigned addr = static_cast<unsigned>(__cvta_generic_to_shared(ptr));
-    asm volatile(
-        "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-        "[%4];\n"
-        : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
-}
-
-// rows [row0, row0 + rows) of a (rows, DH) bf16 tile into shared memory,
-// 16 bytes a copy; rows at or past `limit` are zero
-template <int DH, int THREADS>
-__device__ __forceinline__ void load_tile_bf16(
-        __nv_bfloat16* dst, const __nv_bfloat16* __restrict__ src,
-        long long row_stride, int row0, int limit, int rows) {
-    constexpr int LD = DH + 8, VEC = DH / 8;
-    for (int c = threadIdx.x; c < rows * VEC; c += THREADS) {
-        const int r = c / VEC, col = (c % VEC) * 8;
-        uint4 val = make_uint4(0u, 0u, 0u, 0u);
-        if (row0 + r < limit)
-            val = *reinterpret_cast<const uint4*>(
-                src + (long long)(row0 + r) * row_stride + col);
-        *reinterpret_cast<uint4*>(dst + r * LD + col) = val;
-    }
-}
-
-// mma.sync fragments (PTX ISA, m16n8k16): lane = 4 g + tq; A holds rows
-// g, g + 8 and columns 2 tq (+1), 2 tq + 8 (+1); B columns n = g, rows
-// 2 tq (+1), 2 tq + 8 (+1); C rows g, g + 8 and columns 2 tq (+1).
-template <int DH>
-__global__ void __launch_bounds__(128)
-flash_bf16(const __nv_bfloat16* __restrict__ q,
-           const __nv_bfloat16* __restrict__ k,
-           const __nv_bfloat16* __restrict__ v,
-           __nv_bfloat16* __restrict__ out, Params p) {
-    constexpr int LD = DH + 8;      // padded rows: conflict-free fragments
-    constexpr int KS = DH / 16;     // k steps of q . k
-    constexpr int NT = DH / 8;      // 8-column tiles of the output
-    extern __shared__ __align__(16) unsigned char smem_raw[];
-    __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-    __nv_bfloat16* Ks = Qs + BQ * LD;
-    __nv_bfloat16* Vs = Ks + BK * LD;
-
-    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-    const int g = lane >> 2, tq = lane & 3;
-    const int q0 = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z;
-    const int hk = h / p.group;
-    const __nv_bfloat16* qp = q + b * p.q_b + h * p.q_h;
-    const __nv_bfloat16* kp = k + b * p.k_b + hk * p.k_h;
-    const __nv_bfloat16* vp = v + b * p.v_b + hk * p.v_h;
-    const float scale_log2 = p.scale * LOG2E;
-
-    load_tile_bf16<DH, 128>(Qs, qp, p.q_t, q0, p.T, BQ);
-    __syncthreads();
-    const int r0 = warp * 16;
-    // q's A fragments of k step ks: held in registers up to Dh 128; above
-    // it read from the (never overwritten) q tile at every kv tile, since
-    // the 64 registers they take would spill beside the 128 of o
-    constexpr bool Q_REGS = DH <= 128;
-    auto q_frag = [&](int ks, uint32_t (&f)[4]) {
-        const __nv_bfloat16* lo = Qs + (r0 + g) * LD + ks * 16 + 2 * tq;
-        const __nv_bfloat16* hi = lo + 8 * LD;
-        f[0] = ld_u32(lo);
-        f[1] = ld_u32(hi);
-        f[2] = ld_u32(lo + 8);
-        f[3] = ld_u32(hi + 8);
-    };
-    uint32_t qa[Q_REGS ? KS : 1][4];
-    if (Q_REGS) {
-        #pragma unroll
-        for (int ks = 0; ks < KS; ++ks) q_frag(ks, qa[Q_REGS ? ks : 0]);
-    }
-
-    float o[NT][4];
-    #pragma unroll
-    for (int nt = 0; nt < NT; ++nt)
-        o[nt][0] = o[nt][1] = o[nt][2] = o[nt][3] = 0.f;
-    float mA = NEG_INF, mB = NEG_INF, lA = 0.f, lB = 0.f;   // rows g, g + 8
-    const int tA = q0 + r0 + g, tB = tA + 8;
-
-    int k_begin, k_end;
-    kv_range(p, q0, k_begin, k_end);
-    for (int s0 = k_begin; s0 < k_end; s0 += BK) {
-        __syncthreads();            // every warp is done with the last tile
-        load_tile_bf16<DH, 128>(Ks, kp, p.k_s, s0, p.S, BK);
-        load_tile_bf16<DH, 128>(Vs, vp, p.v_s, s0, p.S, BK);
-        __syncthreads();
-
-        float s[BK / 8][4];
-        #pragma unroll
-        for (int nt = 0; nt < BK / 8; ++nt)
-            s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
-        #pragma unroll
-        for (int ks = 0; ks < KS; ++ks) {
-            uint32_t qs[4];
-            if (!Q_REGS) q_frag(ks, qs);
-            const uint32_t (&qf)[4] = Q_REGS ? qa[Q_REGS ? ks : 0] : qs;
-            #pragma unroll
-            for (int nt = 0; nt < BK / 8; ++nt) {
-                const __nv_bfloat16* kr = Ks + (nt * 8 + g) * LD + ks * 16
-                                          + 2 * tq;
-                mma_bf16(s[nt], qf, ld_u32(kr), ld_u32(kr + 8));
-            }
-        }
-        // scale into the exp2 domain, mask, row maxima over the quad
-        float mxA = NEG_INF, mxB = NEG_INF;
-        #pragma unroll
-        for (int nt = 0; nt < BK / 8; ++nt) {
-            #pragma unroll
-            for (int e = 0; e < 4; ++e) {
-                const int sk = s0 + nt * 8 + 2 * tq + (e & 1);
-                const bool ok = allowed(p, e < 2 ? tA : tB, sk);
-                s[nt][e] = ok ? s[nt][e] * scale_log2 : NEG_INF;
-            }
-            mxA = fmaxf(mxA, fmaxf(s[nt][0], s[nt][1]));
-            mxB = fmaxf(mxB, fmaxf(s[nt][2], s[nt][3]));
-        }
-        #pragma unroll
-        for (int off = 1; off <= 2; off <<= 1) {
-            mxA = fmaxf(mxA, __shfl_xor_sync(0xffffffffu, mxA, off));
-            mxB = fmaxf(mxB, __shfl_xor_sync(0xffffffffu, mxB, off));
-        }
-        const float mnA = fmaxf(mA, mxA), mnB = fmaxf(mB, mxB);
-        const float cA = exp2f(mA - mnA), cB = exp2f(mB - mnB);
-        mA = mnA;
-        mB = mnB;
-        float sumA = 0.f, sumB = 0.f;
-        #pragma unroll
-        for (int nt = 0; nt < BK / 8; ++nt) {
-            s[nt][0] = exp2f(s[nt][0] - mnA);
-            s[nt][1] = exp2f(s[nt][1] - mnA);
-            s[nt][2] = exp2f(s[nt][2] - mnB);
-            s[nt][3] = exp2f(s[nt][3] - mnB);
-            sumA += s[nt][0] + s[nt][1];
-            sumB += s[nt][2] + s[nt][3];
-        }
-        lA = lA * cA + sumA;        // this thread's columns; summed at the end
-        lB = lB * cB + sumB;
-        #pragma unroll
-        for (int nt = 0; nt < NT; ++nt) {
-            o[nt][0] *= cA;
-            o[nt][1] *= cA;
-            o[nt][2] *= cB;
-            o[nt][3] *= cB;
-        }
-        // o += p v: the C fragments of two score tiles are the A fragment
-        // of one 16-key step
-        #pragma unroll
-        for (int j = 0; j < BK / 16; ++j) {
-            const uint32_t a[4] = {pack_bf16(s[2 * j][0], s[2 * j][1]),
-                                   pack_bf16(s[2 * j][2], s[2 * j][3]),
-                                   pack_bf16(s[2 * j + 1][0], s[2 * j + 1][1]),
-                                   pack_bf16(s[2 * j + 1][2], s[2 * j + 1][3])};
-            const int row = j * 16 + (lane & 7) + ((lane >> 3) & 1) * 8;
-            #pragma unroll
-            for (int dn = 0; dn < DH / 16; ++dn) {
-                uint32_t bv[4];
-                ldmatrix_x4_trans(bv, Vs + row * LD + dn * 16 + (lane >> 4) * 8);
-                mma_bf16(o[2 * dn], a, bv[0], bv[1]);
-                mma_bf16(o[2 * dn + 1], a, bv[2], bv[3]);
-            }
-        }
-    }
-    #pragma unroll
-    for (int off = 1; off <= 2; off <<= 1) {
-        lA += __shfl_xor_sync(0xffffffffu, lA, off);
-        lB += __shfl_xor_sync(0xffffffffu, lB, off);
-    }
-    lA = fmaxf(lA, 1e-30f);
-    lB = fmaxf(lB, 1e-30f);
-    #pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-        const int col = nt * 8 + 2 * tq;
-        if (tA < p.T)
-            *reinterpret_cast<__nv_bfloat162*>(
-                out + b * p.o_b + (long long)tA * p.o_t + h * p.o_h + col) =
-                __floats2bfloat162_rn(o[nt][0] / lA, o[nt][1] / lA);
-        if (tB < p.T)
-            *reinterpret_cast<__nv_bfloat162*>(
-                out + b * p.o_b + (long long)tB * p.o_t + h * p.o_h + col) =
-                __floats2bfloat162_rn(o[nt][2] / lB, o[nt][3] / lB);
-    }
-}
-
-// ---- f32: FFMA, no tensor cores ------------------------------------------
 
 // thread (ty, tx) = (tid / 16, tid % 16) owns query rows 4 ty .. 4 ty + 3,
 // scores of keys tx + 16 j and output columns tx + 16 j; a row's 16
@@ -413,47 +896,69 @@ flash_f32(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 template <int DH>
-int launch_dh(const void* q, const void* k, const void* v, void* out,
-              const Params& p, int B, int bf16, cudaStream_t stream) {
+int launch_f32(const void* q, const void* k, const void* v, void* out,
+               const Params& p, int B, cudaStream_t stream) {
     const dim3 grid((p.T + BQ - 1) / BQ, p.H, B);
-    cudaError_t err;
-    if (bf16) {
-        const size_t smem = (size_t)(BQ + 2 * BK) * (DH + 8) *
-                            sizeof(__nv_bfloat16);
-        err = cudaFuncSetAttribute(flash_bf16<DH>,
-                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                   (int)smem);
-        if (err != cudaSuccess) return (int)err;
-        flash_bf16<DH><<<grid, 128, smem, stream>>>(
-            static_cast<const __nv_bfloat16*>(q),
-            static_cast<const __nv_bfloat16*>(k),
-            static_cast<const __nv_bfloat16*>(v),
-            static_cast<__nv_bfloat16*>(out), p);
-    } else {
-        const size_t smem = (size_t)((BQ + BK) * (DH + 1) + BK * DH +
-                                     BQ * (BK + 1)) * sizeof(float);
-        err = cudaFuncSetAttribute(flash_f32<DH>,
-                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                   (int)smem);
-        if (err != cudaSuccess) return (int)err;
-        flash_f32<DH><<<grid, 256, smem, stream>>>(
-            static_cast<const float*>(q), static_cast<const float*>(k),
-            static_cast<const float*>(v), static_cast<float*>(out), p);
-    }
+    const size_t smem = (size_t)((BQ + BK) * (DH + 1) + BK * DH +
+                                 BQ * (BK + 1)) * sizeof(float);
+    cudaError_t err = cudaFuncSetAttribute(
+        flash_f32<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    flash_f32<DH><<<grid, 256, smem, stream>>>(
+        static_cast<const float*>(q), static_cast<const float*>(k),
+        static_cast<const float*>(v), static_cast<float*>(out), p);
     return (int)cudaGetLastError();
+}
+
+template <int DH>
+int launch_dh(const void* q, const void* k, const void* v, void* out,
+              const Params& p, int B, int K, int bf16, cudaStream_t stream) {
+    return bf16 ? launch_wgmma<DH>(q, k, v, out, p, B, K, stream)
+                : launch_f32<DH>(q, k, v, out, p, B, stream);
 }
 
 }  // namespace
 
 extern "C" {
 
-int flash_attention_block_q() { return BQ; }
-int flash_attention_block_k() { return BK; }
+// The bf16 kernel's plan of a (T, S, causal, window) call at head dim dh,
+// computed on the host by the kernel's own kv_tiles and full_tile: plan
+// (nq, nk) row-major gets, for q tile qt and kv tile j, 0 when the kernel
+// never visits the tile, 2 when it runs no mask there and 1 when it masks
+// score by score. Returns cudaErrorInvalidValue, writing nothing, when dh
+// is not built or (nq, nk) is not the kernel's tiling of T and S.
+int flash_attention_tile_plan(int T, int S, int causal, int window, int dh,
+                              int nq, int nk, signed char* plan) {
+    const int dims[] = {16, 32, 48, 64, 80, 96, 112, 128, 256};
+    bool built = false;
+    for (int d : dims) built |= d == dh;
+    const int bq = Cfg<64>::BQ;
+    const int bk = dh > 128 ? Cfg<256>::BK : Cfg<128>::BK;
+    if (!built || T < 1 || S < 1 || window < 0 ||
+        nq != (T + bq - 1) / bq || nk != (S + bk - 1) / bk)
+        return (int)cudaErrorInvalidValue;
+    Params p{};
+    p.T = T;
+    p.S = S;
+    p.causal = causal != 0;
+    p.window = window;
+    for (int qt = 0; qt < nq; ++qt) {
+        int j0, j1;
+        kv_tiles(p, qt * bq, bq, bk, j0, j1);
+        for (int j = 0; j < nk; ++j)
+            plan[qt * nk + j] =
+                j < j0 || j >= j1 ? 0
+                : full_tile(p, qt * bq, bq, j * bk, bk) ? 2 : 1;
+    }
+    return 0;
+}
 
 // out (B, T, H, dh) = attention of q (B, T, H, dh) over k, v (B, S, K, dh),
 // element strides given for the batch, position and head axes (the last
-// axis is contiguous), on `stream`. bf16 != 0: all four tensors are bf16,
-// else f32. Returns the first non-zero cudaError_t, else 0.
+// axis is contiguous), on `stream`. bf16 != 0: all four tensors are bf16
+// (strides multiples of 8, 16-byte aligned), else f32. Returns the first
+// non-zero cudaError_t, else 0.
 int flash_attention_launch(const void* q, const void* k, const void* v,
                            void* out, int B, int T, int S, int H, int K,
                            int dh, long long q_b, long long q_t,
@@ -469,15 +974,15 @@ int flash_attention_launch(const void* q, const void* k, const void* v,
                    v_h, o_b, o_t, o_h, causal != 0, window, scale};
     cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
     switch (dh) {
-        case 16: return launch_dh<16>(q, k, v, out, p, B, bf16, stream);
-        case 32: return launch_dh<32>(q, k, v, out, p, B, bf16, stream);
-        case 48: return launch_dh<48>(q, k, v, out, p, B, bf16, stream);
-        case 64: return launch_dh<64>(q, k, v, out, p, B, bf16, stream);
-        case 80: return launch_dh<80>(q, k, v, out, p, B, bf16, stream);
-        case 96: return launch_dh<96>(q, k, v, out, p, B, bf16, stream);
-        case 112: return launch_dh<112>(q, k, v, out, p, B, bf16, stream);
-        case 128: return launch_dh<128>(q, k, v, out, p, B, bf16, stream);
-        case 256: return launch_dh<256>(q, k, v, out, p, B, bf16, stream);
+        case 16: return launch_dh<16>(q, k, v, out, p, B, K, bf16, stream);
+        case 32: return launch_dh<32>(q, k, v, out, p, B, K, bf16, stream);
+        case 48: return launch_dh<48>(q, k, v, out, p, B, K, bf16, stream);
+        case 64: return launch_dh<64>(q, k, v, out, p, B, K, bf16, stream);
+        case 80: return launch_dh<80>(q, k, v, out, p, B, K, bf16, stream);
+        case 96: return launch_dh<96>(q, k, v, out, p, B, K, bf16, stream);
+        case 112: return launch_dh<112>(q, k, v, out, p, B, K, bf16, stream);
+        case 128: return launch_dh<128>(q, k, v, out, p, B, K, bf16, stream);
+        case 256: return launch_dh<256>(q, k, v, out, p, B, K, bf16, stream);
         default: return (int)cudaErrorInvalidValue;
     }
 }

@@ -3,15 +3,19 @@
 Counterpart of ``repro/kernels/flash_attention/kernel.py::flash_attention``:
 causal / sliding-window GQA attention forward, bf16 on the tensor cores
 or full f32, any T and S (the kernel masks its ragged edges), Dh any
-multiple of 16 up to 128, and 256 (gemma-7b). q, k and v are read in the model's (B, T, H,
-Dh) layout through their strides, so no transpose is made. The kernel is
-forward-only, as the TPU kernel is: an input that requires grad raises.
-The library is built on first use (``kernels/_build.py``); nothing here
-touches CUDA at import time. The wrapper checks its inputs before it
-builds or launches anything, allocates the output with ``torch.empty``,
-launches on the current stream without synchronising, raises on a
-non-zero ``cudaError_t``, and counts its launches in
-``flash_attention.launches``.
+multiple of 16 up to 128, and 256 (gemma-7b). q, k and v are read in the
+model's (B, T, H, Dh) layout through their strides, so no transpose is
+made. bf16 runs ``flash_wgmma``: 128-row q tiles (two warpgroups), k and
+v tiles of ``block_k(Dh)`` keys brought in by TMA, both products on
+``wgmma``; f32 runs ``flash_f32`` (FFMA, 64-row tiles). ``tile_plan`` is
+the bf16 kernel's sorting of kv tiles into skipped, edge and full ones,
+in plain Python for the CPU tests. The kernel is forward-only, as the
+TPU kernel is: an input that requires grad raises. The library is built
+on first use (``kernels/_build.py``); nothing here touches CUDA at
+import time. The wrapper checks its inputs before it builds or launches
+anything, allocates the output with ``torch.empty``, launches on the
+current stream without synchronising, raises on a non-zero
+``cudaError_t``, and counts its launches in ``flash_attention.launches``.
 """
 
 from __future__ import annotations
@@ -25,16 +29,47 @@ import torch
 from repro_torch.kernels import _build
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
-BLOCK_Q = 64            # query rows of a block
-BLOCK_K = 64            # keys of a kv tile
+BLOCK_Q = 128           # query rows of a bf16 block (two warpgroups)
 # head dims the kernel is built for: every config's (zamba2 80, gemma 256,
 # the others 64 or 128) and the reduced configs'
 HEAD_DIMS = (16, 32, 48, 64, 80, 96, 112, 128, 256)
+# a bf16 kv tile's kinds in tile_plan
+SKIP, EDGE, FULL = 0, 1, 2
 # stride step (elements) and base alignment (bytes) of the kernel's loads:
-# 16-byte vectors for bf16, scalars for f32
+# 16-byte TMA rows for bf16, scalars for f32
 _ALIGN = {torch.bfloat16: (8, 16), torch.float32: (1, 4)}
 
 _lib = None
+
+
+def block_k(dh: int) -> int:
+    """Keys of a bf16 kv tile: 128, or 80 at Dh 256 (o alone takes 128
+    registers a thread there, and q + two k/v slots 224 KB)."""
+    return 80 if dh > 128 else 128
+
+
+def tile_plan(T: int, S: int, causal: bool, window: int,
+              dh: int) -> np.ndarray:
+    """(q tiles, kv tiles) int8 array of the bf16 kernel's kinds for
+    rows in blocks of BLOCK_Q and keys in blocks of ``block_k(dh)``:
+    SKIP (no allowed (t, s) pair; never visited), FULL (every pair of
+    rows < T allowed; no mask) or EDGE (masked score by score). Mirrors
+    ``kv_tiles`` and ``full_tile`` of the CUDA source; the card tests
+    hold it to ``kernel_tile_plan``, which runs those."""
+    bq, bk = BLOCK_Q, block_k(dh)
+    plan = np.full((-(-T // bq), -(-S // bk)), SKIP, np.int8)
+    for qt in range(plan.shape[0]):
+        q0 = qt * bq
+        t_last = min(q0 + bq, T) - 1
+        lo = max(0, q0 - window + 1) if window > 0 else 0
+        hi = min(S, t_last + 1) if causal else S
+        j1 = -(-hi // bk) if hi > lo else lo // bk
+        for j in range(lo // bk, j1):
+            s0, s_last = j * bk, j * bk + bk - 1
+            full = (s_last < S and (not causal or s_last <= q0)
+                    and (window == 0 or s0 > t_last - window))
+            plan[qt, j] = FULL if full else EDGE
+    return plan
 
 
 def _library():
@@ -45,14 +80,27 @@ def _library():
         lib.flash_attention_launch.argtypes = (
             [p] * 4 + [i] * 6 + [ll] * 12 + [i, i, ctypes.c_float, i, p])
         lib.flash_attention_launch.restype = i
-        for name in ("block_q", "block_k"):
-            getattr(lib, f"flash_attention_{name}").restype = i
-        if (lib.flash_attention_block_q(),
-                lib.flash_attention_block_k()) != (BLOCK_Q, BLOCK_K):
-            raise RuntimeError(f"{SOURCE} disagrees with kernel.py on its "
-                               f"tile sizes")
+        lib.flash_attention_tile_plan.argtypes = [i] * 7 + [p]
+        lib.flash_attention_tile_plan.restype = i
         _lib = lib
     return _lib
+
+
+def kernel_tile_plan(T: int, S: int, causal: bool, window: int,
+                     dh: int) -> np.ndarray:
+    """``tile_plan``'s array as the CUDA source's own ``kv_tiles`` and
+    ``full_tile`` compute it, on the host (the library is built, no card
+    is used). Raises when the source's tiling of T and S is not
+    ``tile_plan``'s."""
+    plan = np.full((-(-T // BLOCK_Q), -(-S // block_k(dh))), -1, np.int8)
+    err = _library().flash_attention_tile_plan(
+        T, S, int(causal), window, dh, *plan.shape,
+        ctypes.c_void_p(plan.ctypes.data))
+    if err != 0:
+        raise RuntimeError(f"{SOURCE} refused a tile plan of shape "
+                           f"{plan.shape} for T={T}, S={S}, Dh={dh}: "
+                           f"cudaError_t {err}")
+    return plan
 
 
 def _check(name, x, dtype, device):

@@ -33,6 +33,7 @@ from repro_torch.kernels.metric_topk import (metric_topk, metric_topk_fused,
                                              project_gallery)
 from repro_torch.kernels.metric_topk.kernel import LIST_K
 from repro_torch.kernels._dispatch import BIG
+from repro_torch.kernels.flash_attention.cases import PARITY as FA_PARITY
 from repro_torch.kernels.ivf_scan import (ivf_scan_topk, ivf_scan_topk_fused,
                                           ivf_scan_topk_ref)
 from repro_torch.kernels.pairwise_dist import (pairwise_sqdist,
@@ -41,6 +42,9 @@ from repro_torch.kernels.pairwise_dist import (pairwise_sqdist,
 from repro_torch.kernels.pq_adc import (pq_adc_topk, pq_adc_topk_fused,
                                         pq_adc_topk_ref)
 from repro_torch.serve import IVFIndex, IVFPQIndex, recall_at_k
+
+from _flash_tile_plan import (EDGE_PLANS, PARITY_PLANS,
+                              check_plan_against_mask)
 
 RTOL = ATOL = 1e-5
 SHAPES = [(64, 1024, 128, 64, 10), (16, 300, 40, 12, 5), (7, 129, 33, 9, 3),
@@ -458,15 +462,6 @@ def test_ivfpq_reranks_past_the_widest_list(cuda_device):
 
 BF16_ROUND = 2.0 ** -8
 
-FA_SHAPES = [(2, 128, 128, 4, 4, 64, True, 0), (2, 128, 128, 8, 2, 64, True, 0),
-             (1, 256, 256, 4, 1, 32, False, 0), (2, 64, 64, 4, 4, 128, True, 0),
-             (2, 100, 100, 6, 2, 80, True, 0), (1, 333, 333, 6, 3, 80, True, 64),
-             (1, 200, 200, 4, 2, 16, True, 300), (1, 130, 70, 4, 4, 48, False, 0),
-             (1, 256, 256, 4, 2, 32, True, 256),
-             (1, 300, 300, 16, 16, 256, True, 0),
-             (2, 128, 128, 8, 2, 256, True, 0),
-             (1, 333, 333, 4, 2, 256, True, 64),
-             (1, 130, 70, 4, 4, 256, False, 0)]
 
 
 def _fa_bound(q, k, v, ref, causal, window):
@@ -482,7 +477,7 @@ def _fa_bound(q, k, v, ref, causal, window):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("B,T,S,H,K,dh,causal,window", FA_SHAPES)
+@pytest.mark.parametrize("B,T,S,H,K,dh,causal,window", FA_PARITY)
 def test_flash_attention_kernel_matches_plain_version(
         cuda_device, B, T, S, H, K, dh, causal, window, dtype):
     from repro_torch.kernels.flash_attention import (attention_ref,
@@ -512,6 +507,39 @@ def test_flash_attention_reads_strided_views(cuda_device):
     out = flash_attention(q, k, v, causal=True, window=40)
     ref = attention_ref(q, k, v, causal=True, window=40)
     torch.testing.assert_close(out, ref, rtol=1e-4, atol=2e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T,S,causal,window,dh", PARITY_PLANS + EDGE_PLANS)
+def test_flash_attention_tile_plan_is_the_kernels(cuda_device, T, S, causal,
+                                                  window, dh):
+    """The CUDA source's own skip / edge / full classification (its
+    kv_tiles and full_tile, run on the host) against the brute-force mask,
+    and equal to kernel.py's tile_plan, which the CPU tests check."""
+    from repro_torch.kernels.flash_attention.kernel import (kernel_tile_plan,
+                                                            tile_plan)
+    plan = kernel_tile_plan(T, S, causal, window, dh)
+    check_plan_against_mask(plan, T, S, causal, window, dh)
+    np.testing.assert_array_equal(plan, tile_plan(T, S, causal, window, dh))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dh", [80, 256])
+def test_flash_attention_reads_strided_bf16_views(cuda_device, dh):
+    """The bf16 kernel's tensor maps over views into one fused (B, T, 3,
+    H, Dh) projection: position stride 3 H Dh, a k / v offset of H Dh."""
+    from repro_torch.kernels.flash_attention import (attention_ref,
+                                                     flash_attention)
+    rng = np.random.RandomState(dh)
+    qkv = torch.tensor(rng.randn(2, 200, 3, 4, dh), dtype=torch.float32,
+                       device=cuda_device).to(torch.bfloat16)
+    q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+    out = flash_attention(q, k, v, causal=True, window=40)
+    ref = attention_ref(q.float(), k.float(), v.float(), causal=True,
+                        window=40)
+    torch.cuda.synchronize()
+    bound = _fa_bound(q, k, v, ref, True, 40)
+    assert bool(((out.float() - ref).abs() <= bound).all())
 
 
 @pytest.mark.cuda

@@ -26,7 +26,12 @@ from repro.models import attention as jax_attention
 from repro_torch.configs import get_config
 from repro_torch.kernels.flash_attention import (attention_ref,
                                                  flash_attention)
+from repro_torch.kernels.flash_attention.kernel import (BLOCK_Q, SKIP,
+                                                        block_k, tile_plan)
 from repro_torch.models import attention
+
+from _flash_tile_plan import (EDGE_PLANS, PARITY_PLANS,
+                              check_plan_against_mask)
 
 
 def _qkv(B, T, S, H, K, dh, seed, dtype=np.float32):
@@ -109,6 +114,27 @@ def test_bf16_inputs():
 def test_kernel_wrapper_refuses_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA tensors"):
         flash_attention(*_t(*_qkv(1, 64, 64, 2, 2, 16, 0)))
+
+
+# -- the bf16 kernel's tile plan ---------------------------------------------
+
+@pytest.mark.parametrize("T,S,causal,window,dh", PARITY_PLANS + EDGE_PLANS)
+def test_tile_plan_against_brute_force_mask(T, S, causal, window, dh):
+    """The kernel runs no mask in a full tile and never visits a skipped
+    one: tile_plan's classification against a numpy mask."""
+    check_plan_against_mask(tile_plan(T, S, causal, window, dh), T, S,
+                            causal, window, dh)
+
+
+def test_tile_plan_visits_the_band_once():
+    """zamba2's service shape: every allowed pair lies in a visited tile,
+    and the visited tiles stay within one tile of the band's edges."""
+    T, window = 8192, 4096
+    plan = tile_plan(T, T, True, window, 80)
+    bk = block_k(80)
+    band = sum(min(t + 1, window) for t in range(T))
+    visited = int((plan != SKIP).sum()) * BLOCK_Q * bk
+    assert band <= visited <= band + 3 * T * bk
 
 
 # -- the model's attention forms ---------------------------------------------
