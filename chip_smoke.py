@@ -35,7 +35,11 @@ exit, and nothing falls back:
                 both at the serving widths; flash_attention and ssd_scan
                 in f32 and bf16 at the CPU tests' shapes, at ragged T and
                 S, GQA 2 and 3, Dh 64, 80 and 256, windows below, at and
-                above T, reduced zamba2's p 128 / n 16; flash also at the
+                above T, reduced zamba2's p 128 / n 16; ssd_scan also on
+                the cases of kernels/ssd_chunk/cases.py (segments forced
+                by explicit plans across T's segment edges, odd head
+                pairs, one input under two plans, views no TMA map
+                describes, B and C per head); flash also at the
                 bf16 kernel's tile edges (T = S of 127, 129, 161, 255,
                 window 1 and one kv tile, GQA 4 at Dh 256, non-causal
                 S < T) and on strided views of a fused qkv projection;
@@ -119,12 +123,15 @@ counts are reset).
 
 Bounds (``bound_ms``): the larger of the bytes a function must move at
 3.35 TB/s and its operations at the card's peak for their type: f32
-products (metric_topk, dml_pair, pairwise_sqdist, ivf_scan, ssd_scan's
-f32 arithmetic) at the 3xTF32 rate, 495 / 3 TFLOP/s, the least time of
-an f32-accurate product on the tensor cores, with the f32 FFMA figure (67
-TFLOP/s) beside it in the log lines only (the ``kernels`` line holds
-``bound_ms``); bf16 attention at 989 TFLOP/s; pq_adc's table adds at the
-f32 rate.
+products (metric_topk, dml_pair, pairwise_sqdist, ivf_scan) at the
+3xTF32 rate, 495 / 3 TFLOP/s, the least time of an f32-accurate product
+on the tensor cores, with the f32 FFMA figure (67 TFLOP/s) beside it in
+the log lines only (the ``kernels`` line holds ``bound_ms``); ssd_scan
+on bf16 inputs at the rate of its own f32-accurate arithmetic, three
+bf16 passes a product (989 / 3 TFLOP/s) and C B^T in one (989), its
+FLOP count at a chunk of 64 fixed in SSD_BOUND_CHUNK, with the 3xTF32
+and 2xTF32 figures in its log line only; bf16 attention at 989 TFLOP/s;
+pq_adc's table adds at the f32 rate.
 
 Comparison rules (kernel vs plain, both f32, different summation order).
 Distances (metric_topk, pairwise_sqdist) may differ by atol + rtol *
@@ -206,7 +213,10 @@ from repro_torch.kernels.pq_adc import (  # noqa: E402
     pq_adc_topk, pq_adc_topk_fused, pq_adc_topk_ref)
 from repro_torch.kernels.pq_adc.kernel import lut_plan  # noqa: E402
 from repro_torch.kernels.ssd_chunk import (  # noqa: E402
-    CHUNK, ssd_core, ssd_scan, ssd_scan_chunked)
+    segment_plan, ssd_core, ssd_scan, ssd_scan_chunked)
+from repro_torch.kernels.ssd_chunk import cases as ssd_cases  # noqa: E402
+from repro_torch.kernels.ssd_chunk.cases import (  # noqa: E402
+    BF16_ROUND, SSD_TOL)
 from repro_torch.launch import serve_embeddings  # noqa: E402
 from repro_torch.models import Model, attention, common, mamba2  # noqa: E402
 from repro_torch.models.transformer import shared_cfg  # noqa: E402
@@ -1411,20 +1421,16 @@ SEQ = 8192                  # tokens a sequence: the 4096 window bites
 EMB_BATCH, CORPUS_SEQS, REQUEST_BATCHES, EMB_K, EMB_PROJ = 4, 16, 4, 5, 64
 PEAK_BF16_FLOPS = 989e12    # H100 SXM, dense bf16 on the tensor cores
 # kernel against plain, f32 on both sides (only the summation order
-# differs): flash rtol 1e-4 / atol 2e-5 and SSD rtol = atol = 1e-4, the
-# reference's bounds for its kernels against their oracles. bf16 inputs
-# against the plain version computed in f32 from the same bf16 values:
-# both kernels compute in f32 and round their output to bf16 once (at most
-# 2^-8 of |out|, round to nearest), so SSD y may differ by 2^-8 |ref| on
-# top of the f32 rtol and an atol of 1e-5 (the f32 error near y = 0; the
-# f32 state h must meet the f32 bound). Attention also rounds each
-# probability to bf16 before p v while l sums the f32 ones, which moves
-# out by at most 2^-8 sum_s p_s |v_s| / l = 2^-8 attention(q, k, |v|): its
-# bound is the f32 one + 2^-8 (|ref| + attention(q, k, |v|)), elementwise.
-BF16_ROUND = 2.0 ** -8
+# differs): flash rtol 1e-4 / atol 2e-5, the reference's bound for its
+# kernel against its oracle (SSD_TOL: kernels/ssd_chunk/cases.py). bf16
+# inputs against the plain version computed in f32 from the same bf16
+# values: the kernel computes in f32 and rounds its output to bf16 once
+# (at most BF16_ROUND = 2^-8 of |out|, round to nearest), and also rounds
+# each probability to bf16 before p v while l sums the f32 ones, which
+# moves out by at most 2^-8 sum_s p_s |v_s| / l = 2^-8 attention(q, k,
+# |v|): its bound is the f32 one + 2^-8 (|ref| + attention(q, k, |v|)),
+# elementwise.
 FA_TOL = dict(rtol=1e-4, atol=2e-5)
-SSD_TOL = {torch.float32: dict(rtol=1e-4, atol=1e-4),
-           torch.bfloat16: dict(rtol=1e-4 + BF16_ROUND, atol=1e-5)}
 # the full-depth f32 forward at B 1, kernel path against the plain path (the
 # SSD runs in chunks of 64 against the plain form's 128, attention streams
 # instead of chunking): the final hidden state and embed_pool, each as
@@ -1432,11 +1438,11 @@ SSD_TOL = {torch.float32: dict(rtol=1e-4, atol=1e-4),
 # (7.6e-6 and 3.3e-7; NVIDIA H100 80GB HBM3, 700 W)
 HIDDEN_REL_BOUND = 1e-4
 EMBED_REL_BOUND = 1e-5
-# ssd parity (B, H, T, p, n): the CPU tests' shapes, ragged T (1, 100,
-# 1000), reduced zamba2's p 128 / n 16, 80 heads at p = n = 64
-SSD_PARITY = [(1, 4, 64, 16, 8), (1, 2, 128, 64, 64), (1, 8, 96, 32, 16),
-              (1, 1, 256, 64, 64), (1, 3, 32, 8, 8), (2, 4, 100, 128, 16),
-              (1, 2, 1, 64, 64), (2, 4, 128, 128, 16), (2, 80, 1000, 64, 64)]
+# the SSD bound's FLOP count takes the chunk length of the TPU kernel's
+# chunked algorithm at Q = 64, fixed here so that a change of the kernel's
+# own chunk does not move the yardstick
+SSD_BOUND_CHUNK = 64
+PEAK_2XTF32_FLOPS = 495e12 / 2      # two TF32 passes, for comparison
 
 
 def within(out, ref, allowed, what):
@@ -1480,6 +1486,66 @@ def check_ssd(xs, Bm, Cm, dt, la):
     return (*ey, float((h - hr).abs().max()))
 
 
+def check_ssd_panes(args, chunks_per_segment=None):
+    """ssd_scan on pane-layout inputs (any views) under an explicit plan
+    against ssd_scan_chunked in float64 (ssd_cases.reference); returns (y,
+    max |dy|, worst |dy| / bound, max |dh|)."""
+    xs = args[0]
+    y, h = ssd_scan(*args, chunks_per_segment=chunks_per_segment)
+    yr, hr = ssd_cases.reference(*args)
+    torch.cuda.synchronize()
+    assert y.dtype == xs.dtype and y.shape == xs.shape
+    tol = SSD_TOL[xs.dtype]
+    ey = within(y, yr, tol["atol"] + tol["rtol"] * yr.abs(), "ssd_scan y")
+    torch.testing.assert_close(h, hr.float(), **SSD_TOL[torch.float32])
+    return y, ey[0], ey[2], float((h - hr).abs().max())
+
+
+def parity_ssd(dtype):
+    """Every SSD case of kernels/ssd_chunk/cases.py in ``dtype``."""
+    name = str(dtype)[6:]
+    for B, H, T, p, n in ssd_cases.PARITY:
+        xs, Bm, Cm, dt, la = ssd_cases.inputs(B, H, T, p, n, dtype, DEV,
+                                              seed=B + H + T)
+        ey, top, worst, eh = check_ssd(xs, Bm, Cm, dt, la)
+        log(f"parity ssd_scan {name} (B, H, T, p, n) {(B, H, T, p, n)} "
+            f"plan {segment_plan(B, H, T)[0]} chunks a segment: max |dy| "
+            f"{ey:.3e} (max |y| {top:.3f}), {worst:.3f} of the bound; max "
+            f"|dh| {eh:.3e}")
+    for B, H, T, p, n, cps in ssd_cases.PLANNED:
+        args = ssd_cases.panes(*ssd_cases.inputs(B, H, T, p, n, dtype, DEV,
+                                                 seed=T + cps,
+                                                 decay=ssd_cases.SLOW))
+        _, ey, worst, eh = check_ssd_panes(args, cps)
+        log(f"parity ssd_scan {name} (B, H, T, p, n) {(B, H, T, p, n)} "
+            f"{cps} chunks a segment: max |dy| {ey:.3e}, {worst:.3f} of the "
+            f"bound; max |dh| {eh:.3e}")
+    B, H, T, p, n, plans = ssd_cases.TWO_PLANS
+    args = ssd_cases.panes(*ssd_cases.inputs(B, H, T, p, n, dtype, DEV,
+                                             seed=3, decay=ssd_cases.SLOW))
+    y1, *_ = check_ssd_panes(args, plans[0])
+    y2, *_ = check_ssd_panes(args, plans[1])
+    # the two outputs round to bf16 once each: one bf16 step apart at most
+    tol = SSD_TOL[torch.float32]
+    rtol = tol["rtol"] + (2 * BF16_ROUND if dtype == torch.bfloat16 else 0)
+    e12 = within(y1, y2.float(), tol["atol"] + rtol * y2.float().abs(),
+                 "ssd_scan under two plans")
+    log(f"parity ssd_scan {name} {(B, H, T, p, n)} under {plans[0]} and "
+        f"{plans[1]} chunks a segment: max |y1 - y2| {e12[0]:.3e}, "
+        f"{e12[2]:.3f} of the bound")
+    B, H, T, p, n, grow_cps = ssd_cases.GROWING
+    growing = ssd_cases.panes(*ssd_cases.inputs(B, H, T, p, n, dtype, DEV,
+                                                seed=11,
+                                                decay=ssd_cases.GROW))
+    for what, args, cps in (
+            ("views TMA cannot describe", ssd_cases.strided(dtype, DEV), None),
+            ("B and C per head", ssd_cases.per_head(dtype, DEV), 2),
+            ("la > 0", growing, grow_cps)):
+        _, ey, worst, eh = check_ssd_panes(args, cps)
+        log(f"parity ssd_scan {name} {what} {tuple(args[0].shape)}: max "
+            f"|dy| {ey:.3e}, {worst:.3f} of the bound; max |dh| {eh:.3e}")
+
+
 def phase_parity_backbone():
     for dtype in (torch.float32, torch.bfloat16):
         for B, T, S, H, K, dh, causal, window in FA_PARITY:
@@ -1493,17 +1559,7 @@ def phase_parity_backbone():
                 f" {(B, T, S, H, K, dh)} causal={causal} window={window}: "
                 f"max |d| {err:.3e} (max |ref| {top:.3f}), {worst:.3f} of "
                 f"the bound")
-        for B, H, T, p, n in SSD_PARITY:
-            rng = np.random.RandomState(B + H + T)
-            f = lambda *s: torch.tensor(rng.randn(*s),  # noqa: E731
-                                        dtype=torch.float32, device=DEV)
-            xs, Bm, Cm = f(B, T, H, p).to(dtype), f(B, T, n).to(dtype), \
-                f(B, T, n).to(dtype)
-            dt = f(B, T, H).abs() * 0.1
-            ey, top, worst, eh = check_ssd(xs, Bm, Cm, dt, -5.0 * dt)
-            log(f"parity ssd_scan {str(dtype)[6:]} (B, H, T, p, n) "
-                f"{(B, H, T, p, n)}: max |dy| {ey:.3e} (max |y| {top:.3f}), "
-                f"{worst:.3f} of the bound; max |dh| {eh:.3e}")
+        parity_ssd(dtype)
     # strided views into one fused (B, T, 3, H, Dh) projection, bf16 at Dh
     # 80 (the tensor maps' strides) and f32
     for dtype in (torch.bfloat16, torch.float32):
@@ -1728,7 +1784,7 @@ def time_gemma_attention(gemma):
 
 def _category(name):
     low = name.lower()
-    if "ssd_chunk" in low:
+    if "ssd_chunk_scan" in low or "ssd_chunk_states" in low:
         return "ssd_scan"
     if "flash_wgmma" in low or "flash_f32" in low:
         return "flash_attention"
@@ -1862,16 +1918,22 @@ def time_backbone_kernels(model, tokens, launches, errs):
     fmt = lambda x: "-" if x is None else f"{x:.3f}"  # noqa: E731
     entries = []
     with torch.inference_mode():
-        # SSD: the chunked algorithm's FLOP at the kernel's chunk Q, only
+        # SSD: the chunked algorithm's FLOP at Q = SSD_BOUND_CHUNK, only
         # what the function needs: in each chunk the lower triangle of
         # C B^T (Q (Q + 1) / 2 entries of n products, once a batch row as
         # B and C are shared by the heads), and per head the lower
         # triangle of att . xs (p products an entry), C h^T and the state
         # update (Q p n products each)
-        ops = 2.0 * B * T * ((CHUNK + 1) / 2 * n
-                             + H * ((CHUNK + 1) / 2 * p + 2 * p * n))
+        Qb = SSD_BOUND_CHUNK
+        ops_g = 2.0 * B * T * (Qb + 1) / 2 * n
+        ops = ops_g + 2.0 * B * T * H * ((Qb + 1) / 2 * p + 2 * p * n)
+        # the kernel's bf16 arithmetic runs three bf16 passes a product
+        # (989 / 3 TFLOP/s), but C B^T, bf16 on both sides, in one: it
+        # counts a third at the three-pass rate
+        ops_bf16 = ops - ops_g + ops_g / 3
         nbytes = (2 * 2 * xs.numel() + 2 * 2 * B * T * n + 2 * 4 * dt.numel()
                   + 4 * B * H * p * n)
+        cps, hpb, grid = segment_plan(B, H, T)
         fn = lambda: ssd_core(xs, Bm, Cm, dt, la)  # noqa: E731
         plain = lambda: ssd_scan_chunked(  # noqa: E731
             xs.transpose(1, 2), Bm[:, None], Cm[:, None], dt.transpose(1, 2),
@@ -1887,15 +1949,21 @@ def time_backbone_kernels(model, tokens, launches, errs):
                                          window=window)
         fa_lib = lambda: library_attention(q, k, v, window)  # noqa: E731
         for name, kern, pl, lib, (b_ms, b_by), src, rep in (
-                ("ssd_scan", fn, plain, None, roofline(ops, nbytes),
+                ("ssd_scan", fn, plain, None,
+                 roofline(ops_bf16, nbytes, PEAK_BF16_FLOPS / 3),
                  "ssd_chunk/csrc/ssd_chunk.cu", "ssd_chunk/kernel.py:80"),
                 ("flash_attention", fa, fa_plain, fa_lib,
                  roofline(fa_ops, fa_bytes, PEAK_BF16_FLOPS),
                  "flash_attention/csrc/flash_attention.cu",
                  "flash_attention/kernel.py:80")):
             eager, graphed, best = _device_times(kern, pl, lib, (10, 2, 5))
-            ffma = (f"; f32 FFMA {ffma_bound(ops, nbytes):.3f}"
-                    if name == "ssd_scan" else "")
+            ffma = (f"; operations at the bf16 arithmetic "
+                    f"{1e3 * ops_bf16 * 3 / PEAK_BF16_FLOPS:.3f}"
+                    f"; 3xTF32 {roofline(ops, nbytes)[0]:.3f}; 2xTF32 "
+                    f"{roofline(ops, nbytes, PEAK_2XTF32_FLOPS)[0]:.3f}"
+                    f"; f32 FFMA {ffma_bound(ops, nbytes):.3f}; plan "
+                    f"{cps} chunks a segment, {hpb} heads a block, grid "
+                    f"{grid}" if name == "ssd_scan" else "")
             log(f"{name} B={B} T={T} (bf16): device ms by graph replay: "
                 f"kernel {fmt(graphed['ms'])}, plain "
                 f"{fmt(graphed['plain_ms'])}, library "
@@ -1912,10 +1980,13 @@ def time_backbone_kernels(model, tokens, launches, errs):
                      "eager_ms": eager, "graph_ms": graphed,
                      "max_abs_err_f32": errs[torch.float32][name]}
             if name == "ssd_scan":
-                # its f32 arithmetic at the 3xTF32 rate (the bound); the
-                # f32 FFMA figure is in the log line above
                 entry.update(shape={"B": B, "T": T, "H": H, "p": p, "n": n,
-                                    "chunk": CHUNK},
+                                    "chunk": SSD_BOUND_CHUNK,
+                                    "plan": {"chunks_per_segment": cps,
+                                             "heads_per_block": hpb,
+                                             "segments": grid[0],
+                                             "blocks": grid[0] * grid[1]
+                                             * grid[2]}},
                              library_note="no single PyTorch call computes "
                                           "it")
             else:

@@ -1,6 +1,7 @@
 // f32-accurate matrix products on Hopper's tensor cores (sm_90a): the
 // mainloop shared by dml_pair, metric_topk and pairwise_dist (the bf16
-// flash_attention kernel uses its barrier, TMA and wgmma helpers).
+// flash_attention kernel and the ssd_chunk scan use its barrier, TMA,
+// wgmma and split helpers).
 //
 // 3xTF32. Each f32 operand x is split as hi = rna_tf32(x) and
 // lo = rna_tf32(x - hi) (x - hi is exact in f32), and a . b is taken as
@@ -52,6 +53,7 @@
 #pragma once
 
 #include <cuda.h>
+#include <cuda_bf16.h>
 #include <cudaTypedefs.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -119,6 +121,20 @@ __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
         "complete_tx::bytes [%0], [%1, {%3, %4}], [%2];\n"
         :: "r"(smem_addr(dst)), "l"(reinterpret_cast<uint64_t>(map)),
            "r"(smem_addr(bar)), "r"(col), "r"(row)
+        : "memory");
+}
+
+// one 4-D box of a tensor map -> shared memory, completing on `bar`;
+// (c0, c1, c2, c3) are the coordinates of its first element, innermost
+// first
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2, int c3) {
+    asm volatile(
+        "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::"
+        "complete_tx::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n"
+        :: "r"(smem_addr(dst)), "l"(reinterpret_cast<uint64_t>(map)),
+           "r"(smem_addr(bar)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
         : "memory");
 }
 
@@ -279,6 +295,334 @@ struct Wgmma<128> {
 };
 
 
+// -- bf16 wgmma (flash_attention, ssd_chunk) --------------------------------
+
+// A bf16 tile of 128-byte rows along K (64-column boxes, as TMA lands
+// them, e.g. flash's V tile of BK keys) as wgmma's MN-major operand with
+// the 128-byte swizzle: the MN side's 64-column atoms lie tile_rows * 128
+// bytes apart (leading byte offset), 8-row groups of K 1024 bytes apart
+// (stride byte offset)
+__device__ __forceinline__ uint64_t desc_mn_sw128(const void* tile,
+                                                  int tile_rows) {
+    const uint64_t a = smem_addr(tile);
+    return ((a & 0x3FFFF) >> 4) | ((uint64_t)(tile_rows * 8) << 16) |
+           (64ull << 32) | (1ull << 62);
+}
+
+template <int R>
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[R][4]) {
+    #pragma unroll
+    for (int i = 0; i < R; ++i)
+        #pragma unroll
+        for (int j = 0; j < 4; ++j)
+            asm volatile("" : "+r"(r[i][j]) :: "memory");
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+    __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+    return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// s (64 x N, f32) = a (64 x 16) b^T (N x 16) when acc == 0, += when 1:
+// both bf16 K-major in shared memory (tf32x3::desc_sw128). Fragments, as
+// tf32x3::Wgmma: thread t of the warpgroup holds d[4i + 2h + e] at row
+// 16 (t / 32) + (t % 32) / 4 + 8 h, column 8 i + 2 (t % 4) + e.
+template <int N>
+struct WgmmaSS;
+
+// o (64 x N, f32) += a (64 x 16, bf16 registers) b (16 x N, bf16 MN-major
+// in shared memory, desc_mn_sw128). a[v] holds the bf16 pair at row
+// 16 (t / 32) + (t % 32) / 4 + 8 (v % 2), columns 2 (t % 4) + 8 (v / 2)
+// and + 1.
+template <int N>
+struct WgmmaRS;
+
+template <>
+struct WgmmaSS<80> {
+    __device__ static __forceinline__ void mma(float (&d)[40], uint64_t a,
+                                               uint64_t b, int acc) {
+        asm volatile(
+            "{\n.reg .pred p;\nsetp.ne.b32 p, %42, 0;\n"
+            "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 {"
+            " %0, %1, %2, %3, %4, %5, %6, %7,"
+            " %8, %9, %10, %11, %12, %13, %14, %15,"
+            " %16, %17, %18, %19, %20, %21, %22, %23,"
+            " %24, %25, %26, %27, %28, %29, %30, %31,"
+            " %32, %33, %34, %35, %36, %37, %38, %39},"
+            " %40, %41, p, 1, 1, 0, 0;\n}\n"
+            : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+              "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+              "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+              "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+              "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+              "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+              "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
+            : "l"(a), "l"(b), "r"(acc));
+    }
+};
+
+template <>
+struct WgmmaSS<128> {
+    __device__ static __forceinline__ void mma(float (&d)[64], uint64_t a,
+                                               uint64_t b, int acc) {
+        asm volatile(
+            "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+            "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+            " %0, %1, %2, %3, %4, %5, %6, %7,"
+            " %8, %9, %10, %11, %12, %13, %14, %15,"
+            " %16, %17, %18, %19, %20, %21, %22, %23,"
+            " %24, %25, %26, %27, %28, %29, %30, %31,"
+            " %32, %33, %34, %35, %36, %37, %38, %39,"
+            " %40, %41, %42, %43, %44, %45, %46, %47,"
+            " %48, %49, %50, %51, %52, %53, %54, %55,"
+            " %56, %57, %58, %59, %60, %61, %62, %63},"
+            " %64, %65, p, 1, 1, 0, 0;\n}\n"
+            : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+              "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+              "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+              "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+              "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+              "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+              "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+              "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+              "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+              "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+              "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+            : "l"(a), "l"(b), "r"(acc));
+    }
+};
+
+template <>
+struct WgmmaRS<64> {
+    __device__ static __forceinline__ void mma(float (&d)[32],
+                                               const uint32_t (&a)[4],
+                                               uint64_t b) {
+        asm volatile(
+            "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+            "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+            " %0, %1, %2, %3, %4, %5, %6, %7,"
+            " %8, %9, %10, %11, %12, %13, %14, %15,"
+            " %16, %17, %18, %19, %20, %21, %22, %23,"
+            " %24, %25, %26, %27, %28, %29, %30, %31},"
+            " {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+            : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+              "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+              "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+              "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+              "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+              "+f"(d[30]), "+f"(d[31])
+            : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+    }
+};
+
+template <>
+struct WgmmaRS<80> {
+    __device__ static __forceinline__ void mma(float (&d)[40],
+                                               const uint32_t (&a)[4],
+                                               uint64_t b) {
+        asm volatile(
+            "{\n.reg .pred p;\nsetp.ne.b32 p, %45, 0;\n"
+            "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 {"
+            " %0, %1, %2, %3, %4, %5, %6, %7,"
+            " %8, %9, %10, %11, %12, %13, %14, %15,"
+            " %16, %17, %18, %19, %20, %21, %22, %23,"
+            " %24, %25, %26, %27, %28, %29, %30, %31,"
+            " %32, %33, %34, %35, %36, %37, %38, %39},"
+            " {%40, %41, %42, %43}, %44, p, 1, 1, 1;\n}\n"
+            : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+              "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+              "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+              "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+              "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+              "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+              "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
+            : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+    }
+};
+
+template <>
+struct WgmmaRS<96> {
+    __device__ static __forceinline__ void mma(float (&d)[48],
+                                               const uint32_t (&a)[4],
+                                               uint64_t b) {
+        asm volatile(
+            "{\n.reg .pred p;\nsetp.ne.b32 p, %53, 0;\n"
+            "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 {"
+            " %0, %1, %2, %3, %4, %5, %6, %7,"
+            " %8, %9, %10, %11, %12, %13, %14, %15,"
+            " %16, %17, %18, %19, %20, %21, %22, %23,"
+            " %24, %25, %26, %27, %28, %29, %30, %31,"
+            " %32, %33, %34, %35, %36, %37, %38, %39,"
+            " %40, %41, %42, %43, %44, %45, %46, %47},"
+            " {%48, %49, %50, %51}, %52, p, 1, 1, 1;\n}\n"
+            : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+              "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+              "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+              "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+              "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+              "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+              "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+              "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
+            : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+    }
+};
+
+template <>
+struct WgmmaRS<112> {
+    __device__ static __forceinline__ void mma(float (&d)[56],
+                                               const uint32_t (&a)[4],
+                                               uint64_t b) {
+        asm volatile(
+            "{\n.reg .pred p;\nsetp.ne.b32 p, %61, 0;\n"
+            "wgmma.mma_async.sync.aligned.m64n112k16.f32.bf16.bf16 {"
+            " %0, %1, %2, %3, %4, %5, %6, %7,"
+            " %8, %9, %10, %11, %12, %13, %14, %15,"
+            " %16, %17, %18, %19, %20, %21, %22, %23,"
+            " %24, %25, %26, %27, %28, %29, %30, %31,"
+            " %32, %33, %34, %35, %36, %37, %38, %39,"
+            " %40, %41, %42, %43, %44, %45, %46, %47,"
+            " %48, %49, %50, %51, %52, %53, %54, %55},"
+            " {%56, %57, %58, %59}, %60, p, 1, 1, 1;\n}\n"
+            : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+              "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+              "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+              "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+              "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+              "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+              "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+              "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+              "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+              "+f"(d[54]), "+f"(d[55])
+            : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+    }
+};
+
+template <>
+struct WgmmaRS<128> {
+    __device__ static __forceinline__ void mma(float (&d)[64],
+                                               const uint32_t (&a)[4],
+                                               uint64_t b) {
+        asm volatile(
+            "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+            "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+            " %0, %1, %2, %3, %4, %5, %6, %7,"
+            " %8, %9, %10, %11, %12, %13, %14, %15,"
+            " %16, %17, %18, %19, %20, %21, %22, %23,"
+            " %24, %25, %26, %27, %28, %29, %30, %31,"
+            " %32, %33, %34, %35, %36, %37, %38, %39,"
+            " %40, %41, %42, %43, %44, %45, %46, %47,"
+            " %48, %49, %50, %51, %52, %53, %54, %55,"
+            " %56, %57, %58, %59, %60, %61, %62, %63},"
+            " {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+            : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+              "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+              "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+              "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+              "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+              "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+              "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+              "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+              "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+              "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+              "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+            : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+    }
+};
+
+template <>
+struct WgmmaRS<256> {
+    __device__ static __forceinline__ void mma(float (&d)[128],
+                                               const uint32_t (&a)[4],
+                                               uint64_t b) {
+        asm volatile(
+            "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+            "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+            " %0, %1, %2, %3, %4, %5, %6, %7,"
+            " %8, %9, %10, %11, %12, %13, %14, %15,"
+            " %16, %17, %18, %19, %20, %21, %22, %23,"
+            " %24, %25, %26, %27, %28, %29, %30, %31,"
+            " %32, %33, %34, %35, %36, %37, %38, %39,"
+            " %40, %41, %42, %43, %44, %45, %46, %47,"
+            " %48, %49, %50, %51, %52, %53, %54, %55,"
+            " %56, %57, %58, %59, %60, %61, %62, %63,"
+            " %64, %65, %66, %67, %68, %69, %70, %71,"
+            " %72, %73, %74, %75, %76, %77, %78, %79,"
+            " %80, %81, %82, %83, %84, %85, %86, %87,"
+            " %88, %89, %90, %91, %92, %93, %94, %95,"
+            " %96, %97, %98, %99, %100, %101, %102, %103,"
+            " %104, %105, %106, %107, %108, %109, %110, %111,"
+            " %112, %113, %114, %115, %116, %117, %118, %119,"
+            " %120, %121, %122, %123, %124, %125, %126, %127},"
+            " {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+            : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+              "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+              "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+              "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+              "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+              "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+              "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+              "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+              "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+              "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+              "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]),
+              "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+              "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]),
+              "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+              "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+              "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+              "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]),
+              "+f"(d[102]), "+f"(d[103]), "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
+              "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]),
+              "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+              "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]),
+              "+f"(d[126]), "+f"(d[127])
+            : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+    }
+};
+
+// s (64 x 32, f32) = a b^T as WgmmaSS: both bf16 K-major in shared memory
+template <>
+struct WgmmaSS<32> {
+    __device__ static __forceinline__ void mma(float (&d)[16], uint64_t a,
+                                               uint64_t b, int acc) {
+        asm volatile(
+            "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+            "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+            " %0, %1, %2, %3, %4, %5, %6, %7,"
+            " %8, %9, %10, %11, %12, %13, %14, %15},"
+            " %16, %17, p, 1, 1, 0, 0;\n}\n"
+            : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+              "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+              "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+            : "l"(a), "l"(b), "r"(acc));
+    }
+};
+
+// o (64 x 64, f32) += a (64 x 16, bf16 registers, as WgmmaRS) b^T with b
+// (64 x 16) K-major in shared memory (desc_sw128)
+struct WgmmaRSK64 {
+    __device__ static __forceinline__ void mma(float (&d)[32],
+                                               const uint32_t (&a)[4],
+                                               uint64_t b) {
+        asm volatile(
+            "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+            "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+            " %0, %1, %2, %3, %4, %5, %6, %7,"
+            " %8, %9, %10, %11, %12, %13, %14, %15,"
+            " %16, %17, %18, %19, %20, %21, %22, %23,"
+            " %24, %25, %26, %27, %28, %29, %30, %31},"
+            " {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+            : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+              "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+              "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+              "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+              "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+              "+f"(d[30]), "+f"(d[31])
+            : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+    }
+};
+
+
 // -- 3xTF32 ---------------------------------------------------------------
 
 __device__ __forceinline__ float to_tf32(float x) {
@@ -290,6 +634,21 @@ __device__ __forceinline__ float to_tf32(float x) {
 __device__ __forceinline__ void split1(float x, float& hi, float& lo) {
     hi = to_tf32(x);
     lo = to_tf32(x - hi);
+}
+
+// split1 on the integer pipes: round to nearest with ties away from zero
+// by adding half of the dropped 13 bits to the magnitude and clearing
+// them, bit for bit cvt.rna's result for finite x (and
+// _dispatch._tf32's). cvt runs on the conversion pipe, a quarter of the
+// FMA rate; a kernel that splits every operand of every product itself
+// (ssd_chunk) takes this one.
+__device__ __forceinline__ float to_tf32_int(float x) {
+    return __uint_as_float((__float_as_uint(x) + 0x1000u) & 0xffffe000u);
+}
+
+__device__ __forceinline__ void split1_int(float x, float& hi, float& lo) {
+    hi = to_tf32_int(x);
+    lo = to_tf32_int(x - hi);
 }
 
 // x <- hi(x), lo <- lo(x) over `bytes` of a tile; threads [tid, nthr)

@@ -161,30 +161,6 @@ __host__ __device__ __forceinline__ bool full_tile(const Params& p, int q0,
            (p.window == 0 || s0 > t_last - p.window);
 }
 
-// one 4-D box of a tensor map -> shared memory, completing on `bar`;
-// (c0, c1, c2, c3) = (column, head, position, batch) of its first element
-__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
-                                            uint64_t* bar, int c0, int c1,
-                                            int c2, int c3) {
-    asm volatile(
-        "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::"
-        "complete_tx::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n"
-        :: "r"(sm90::smem_addr(dst)), "l"(reinterpret_cast<uint64_t>(map)),
-           "r"(sm90::smem_addr(bar)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
-        : "memory");
-}
-
-// V tile (BK keys x 64-column boxes) as wgmma's MN-major B operand with
-// the 128-byte swizzle: the N side's 64-column atoms lie tile_rows * 128
-// bytes apart (leading byte offset), 8-key groups 1024 bytes apart
-// (stride byte offset)
-__device__ __forceinline__ uint64_t desc_mn_sw128(const void* tile,
-                                                  int tile_rows) {
-    const uint64_t a = sm90::smem_addr(tile);
-    return ((a & 0x3FFFF) >> 4) | ((uint64_t)(tile_rows * 8) << 16) |
-           (64ull << 32) | (1ull << 62);
-}
-
 // 2^x in one MUFU.EX2 (exp2f adds a denormal fix-up around it); its error,
 // about 2 ulp of f32, is far below the bf16 rounding of p before p v
 __device__ __forceinline__ float ex2(float x) {
@@ -192,278 +168,6 @@ __device__ __forceinline__ float ex2(float x) {
     asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
     return y;
 }
-
-template <int R>
-__device__ __forceinline__ void fence_regs(uint32_t (&r)[R][4]) {
-    #pragma unroll
-    for (int i = 0; i < R; ++i)
-        #pragma unroll
-        for (int j = 0; j < 4; ++j)
-            asm volatile("" : "+r"(r[i][j]) :: "memory");
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-    __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-    return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// s (64 x N, f32) = a (64 x 16) b^T (N x 16) when acc == 0, += when 1:
-// both bf16 K-major in shared memory (tf32x3::desc_sw128). Fragments, as
-// tf32x3::Wgmma: thread t of the warpgroup holds d[4i + 2h + e] at row
-// 16 (t / 32) + (t % 32) / 4 + 8 h, column 8 i + 2 (t % 4) + e.
-template <int N>
-struct WgmmaSS;
-
-// o (64 x N, f32) += a (64 x 16, bf16 registers) b (16 x N, bf16 MN-major
-// in shared memory, desc_mn_sw128). a[v] holds the bf16 pair at row
-// 16 (t / 32) + (t % 32) / 4 + 8 (v % 2), columns 2 (t % 4) + 8 (v / 2)
-// and + 1.
-template <int N>
-struct WgmmaRS;
-
-template <>
-struct WgmmaSS<80> {
-    __device__ static __forceinline__ void mma(float (&d)[40], uint64_t a,
-                                               uint64_t b, int acc) {
-        asm volatile(
-            "{\n.reg .pred p;\nsetp.ne.b32 p, %42, 0;\n"
-            "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 {"
-            " %0, %1, %2, %3, %4, %5, %6, %7,"
-            " %8, %9, %10, %11, %12, %13, %14, %15,"
-            " %16, %17, %18, %19, %20, %21, %22, %23,"
-            " %24, %25, %26, %27, %28, %29, %30, %31,"
-            " %32, %33, %34, %35, %36, %37, %38, %39},"
-            " %40, %41, p, 1, 1, 0, 0;\n}\n"
-            : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-              "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-              "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-              "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-              "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-              "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-              "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
-            : "l"(a), "l"(b), "r"(acc));
-    }
-};
-
-template <>
-struct WgmmaSS<128> {
-    __device__ static __forceinline__ void mma(float (&d)[64], uint64_t a,
-                                               uint64_t b, int acc) {
-        asm volatile(
-            "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-            "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-            " %0, %1, %2, %3, %4, %5, %6, %7,"
-            " %8, %9, %10, %11, %12, %13, %14, %15,"
-            " %16, %17, %18, %19, %20, %21, %22, %23,"
-            " %24, %25, %26, %27, %28, %29, %30, %31,"
-            " %32, %33, %34, %35, %36, %37, %38, %39,"
-            " %40, %41, %42, %43, %44, %45, %46, %47,"
-            " %48, %49, %50, %51, %52, %53, %54, %55,"
-            " %56, %57, %58, %59, %60, %61, %62, %63},"
-            " %64, %65, p, 1, 1, 0, 0;\n}\n"
-            : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-              "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-              "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-              "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-              "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-              "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-              "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
-              "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-              "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
-              "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-              "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-            : "l"(a), "l"(b), "r"(acc));
-    }
-};
-
-template <>
-struct WgmmaRS<64> {
-    __device__ static __forceinline__ void mma(float (&d)[32],
-                                               const uint32_t (&a)[4],
-                                               uint64_t b) {
-        asm volatile(
-            "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-            "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-            " %0, %1, %2, %3, %4, %5, %6, %7,"
-            " %8, %9, %10, %11, %12, %13, %14, %15,"
-            " %16, %17, %18, %19, %20, %21, %22, %23,"
-            " %24, %25, %26, %27, %28, %29, %30, %31},"
-            " {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-            : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-              "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-              "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-              "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-              "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-              "+f"(d[30]), "+f"(d[31])
-            : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-    }
-};
-
-template <>
-struct WgmmaRS<80> {
-    __device__ static __forceinline__ void mma(float (&d)[40],
-                                               const uint32_t (&a)[4],
-                                               uint64_t b) {
-        asm volatile(
-            "{\n.reg .pred p;\nsetp.ne.b32 p, %45, 0;\n"
-            "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 {"
-            " %0, %1, %2, %3, %4, %5, %6, %7,"
-            " %8, %9, %10, %11, %12, %13, %14, %15,"
-            " %16, %17, %18, %19, %20, %21, %22, %23,"
-            " %24, %25, %26, %27, %28, %29, %30, %31,"
-            " %32, %33, %34, %35, %36, %37, %38, %39},"
-            " {%40, %41, %42, %43}, %44, p, 1, 1, 1;\n}\n"
-            : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-              "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-              "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-              "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-              "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-              "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-              "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
-            : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-    }
-};
-
-template <>
-struct WgmmaRS<96> {
-    __device__ static __forceinline__ void mma(float (&d)[48],
-                                               const uint32_t (&a)[4],
-                                               uint64_t b) {
-        asm volatile(
-            "{\n.reg .pred p;\nsetp.ne.b32 p, %53, 0;\n"
-            "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 {"
-            " %0, %1, %2, %3, %4, %5, %6, %7,"
-            " %8, %9, %10, %11, %12, %13, %14, %15,"
-            " %16, %17, %18, %19, %20, %21, %22, %23,"
-            " %24, %25, %26, %27, %28, %29, %30, %31,"
-            " %32, %33, %34, %35, %36, %37, %38, %39,"
-            " %40, %41, %42, %43, %44, %45, %46, %47},"
-            " {%48, %49, %50, %51}, %52, p, 1, 1, 1;\n}\n"
-            : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-              "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-              "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-              "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-              "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-              "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-              "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
-              "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
-            : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-    }
-};
-
-template <>
-struct WgmmaRS<112> {
-    __device__ static __forceinline__ void mma(float (&d)[56],
-                                               const uint32_t (&a)[4],
-                                               uint64_t b) {
-        asm volatile(
-            "{\n.reg .pred p;\nsetp.ne.b32 p, %61, 0;\n"
-            "wgmma.mma_async.sync.aligned.m64n112k16.f32.bf16.bf16 {"
-            " %0, %1, %2, %3, %4, %5, %6, %7,"
-            " %8, %9, %10, %11, %12, %13, %14, %15,"
-            " %16, %17, %18, %19, %20, %21, %22, %23,"
-            " %24, %25, %26, %27, %28, %29, %30, %31,"
-            " %32, %33, %34, %35, %36, %37, %38, %39,"
-            " %40, %41, %42, %43, %44, %45, %46, %47,"
-            " %48, %49, %50, %51, %52, %53, %54, %55},"
-            " {%56, %57, %58, %59}, %60, p, 1, 1, 1;\n}\n"
-            : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-              "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-              "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-              "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-              "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-              "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-              "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
-              "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-              "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
-              "+f"(d[54]), "+f"(d[55])
-            : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-    }
-};
-
-template <>
-struct WgmmaRS<128> {
-    __device__ static __forceinline__ void mma(float (&d)[64],
-                                               const uint32_t (&a)[4],
-                                               uint64_t b) {
-        asm volatile(
-            "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-            "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-            " %0, %1, %2, %3, %4, %5, %6, %7,"
-            " %8, %9, %10, %11, %12, %13, %14, %15,"
-            " %16, %17, %18, %19, %20, %21, %22, %23,"
-            " %24, %25, %26, %27, %28, %29, %30, %31,"
-            " %32, %33, %34, %35, %36, %37, %38, %39,"
-            " %40, %41, %42, %43, %44, %45, %46, %47,"
-            " %48, %49, %50, %51, %52, %53, %54, %55,"
-            " %56, %57, %58, %59, %60, %61, %62, %63},"
-            " {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-            : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-              "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-              "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-              "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-              "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-              "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-              "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
-              "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-              "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
-              "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-              "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-            : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-    }
-};
-
-template <>
-struct WgmmaRS<256> {
-    __device__ static __forceinline__ void mma(float (&d)[128],
-                                               const uint32_t (&a)[4],
-                                               uint64_t b) {
-        asm volatile(
-            "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
-            "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
-            " %0, %1, %2, %3, %4, %5, %6, %7,"
-            " %8, %9, %10, %11, %12, %13, %14, %15,"
-            " %16, %17, %18, %19, %20, %21, %22, %23,"
-            " %24, %25, %26, %27, %28, %29, %30, %31,"
-            " %32, %33, %34, %35, %36, %37, %38, %39,"
-            " %40, %41, %42, %43, %44, %45, %46, %47,"
-            " %48, %49, %50, %51, %52, %53, %54, %55,"
-            " %56, %57, %58, %59, %60, %61, %62, %63,"
-            " %64, %65, %66, %67, %68, %69, %70, %71,"
-            " %72, %73, %74, %75, %76, %77, %78, %79,"
-            " %80, %81, %82, %83, %84, %85, %86, %87,"
-            " %88, %89, %90, %91, %92, %93, %94, %95,"
-            " %96, %97, %98, %99, %100, %101, %102, %103,"
-            " %104, %105, %106, %107, %108, %109, %110, %111,"
-            " %112, %113, %114, %115, %116, %117, %118, %119,"
-            " %120, %121, %122, %123, %124, %125, %126, %127},"
-            " {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
-            : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-              "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-              "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-              "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-              "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-              "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-              "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
-              "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-              "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
-              "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-              "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]),
-              "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
-              "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]),
-              "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
-              "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
-              "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
-              "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]),
-              "+f"(d[102]), "+f"(d[103]), "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
-              "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]),
-              "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
-              "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]),
-              "+f"(d[126]), "+f"(d[127])
-            : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-    }
-};
-
 
 // One block: rows [q0, q0 + 128) of head h, batch b; warpgroup wg owns
 // rows q0 + 64 wg .. + 63. Pipeline of a warpgroup over its n kv tiles:
@@ -517,7 +221,7 @@ flash_wgmma(const __grid_constant__ CUtensorMap qmap,
         sm90::mbar_expect_tx(&full[s], TILE);
         #pragma unroll
         for (int c = 0; c < NB; ++c)
-            tma_load_4d(ring + s * TILE + c * BK * ROW_BYTES, map, &full[s],
+            sm90::tma_load_4d(ring + s * TILE + c * BK * ROW_BYTES, map, &full[s],
                         64 * c, hk, (j0 + i) * BK, b);
     };
     auto load_k = [&](int i) { load_kv(&kmap, Ks, full_k, i); };
@@ -535,7 +239,7 @@ flash_wgmma(const __grid_constant__ CUtensorMap qmap,
         sm90::mbar_expect_tx(full_q, C::Q_BYTES);
         #pragma unroll
         for (int c = 0; c < NB; ++c)
-            tma_load_4d(Qs + c * BQ * ROW_BYTES, &qmap, full_q, 64 * c, h, q0,
+            sm90::tma_load_4d(Qs + c * BQ * ROW_BYTES, &qmap, full_q, 64 * c, h, q0,
                         b);
         for (int i = 0; i < min(ST, n); ++i) {
             load_k(i);
@@ -551,7 +255,7 @@ flash_wgmma(const __grid_constant__ CUtensorMap qmap,
         #pragma unroll
         for (int ks = 0; ks < DH / 16; ++ks) {
             const int box = ks / 4, col = (ks % 4) * 32;
-            WgmmaSS<BK>::mma(
+            sm90::WgmmaSS<BK>::mma(
                 s, sm90::desc_sw128(q_wg + box * BQ * ROW_BYTES + col),
                 sm90::desc_sw128(kt + box * BK * ROW_BYTES + col), ks > 0);
         }
@@ -566,8 +270,8 @@ flash_wgmma(const __grid_constant__ CUtensorMap qmap,
         const unsigned char* vt = Vs + (i % ST) * TILE;
         #pragma unroll
         for (int kk = 0; kk < BK / 16; ++kk)
-            WgmmaRS<DN>::mma(o, pf[kk],
-                             desc_mn_sw128(vt + kk * 16 * ROW_BYTES, BK));
+            sm90::WgmmaRS<DN>::mma(o, pf[kk],
+                             sm90::desc_mn_sw128(vt + kk * 16 * ROW_BYTES, BK));
         sm90::wgmma_commit();
     };
 
@@ -640,10 +344,10 @@ flash_wgmma(const __grid_constant__ CUtensorMap qmap,
         }
         #pragma unroll
         for (int kk = 0; kk < BK / 16; ++kk) {
-            pf[kk][0] = pack_bf16(s[8 * kk], s[8 * kk + 1]);
-            pf[kk][1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
-            pf[kk][2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
-            pf[kk][3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
+            pf[kk][0] = sm90::pack_bf16(s[8 * kk], s[8 * kk + 1]);
+            pf[kk][1] = sm90::pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
+            pf[kk][2] = sm90::pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
+            pf[kk][3] = sm90::pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
         }
     };
 
@@ -662,7 +366,7 @@ flash_wgmma(const __grid_constant__ CUtensorMap qmap,
         sm90::mbar_wait(&full_k[i % ST], (i / ST) & 1);
         sm90::fence_acc(s);
         sm90::fence_acc(o);
-        fence_regs(pf);
+        sm90::fence_regs(pf);
         sm90::mbar_wait(&full_v[(i - 1) % ST], ((i - 1) / ST) & 1);
         sm90::wgmma_fence();
         issue_s(i);
@@ -673,19 +377,19 @@ flash_wgmma(const __grid_constant__ CUtensorMap qmap,
         softmax(i);
         sm90::wgmma_wait<0>();
         sm90::fence_acc(o);
-        fence_regs(pf);
+        sm90::fence_regs(pf);
         release(rel_v, i - 1, load_v);
         rescale_pack();
     }
     if (n > 0) {
         sm90::mbar_wait(&full_v[(n - 1) % ST], ((n - 1) / ST) & 1);
         sm90::fence_acc(o);
-        fence_regs(pf);
+        sm90::fence_regs(pf);
         sm90::wgmma_fence();
         issue_pv(n - 1);
         sm90::wgmma_wait<0>();
         sm90::fence_acc(o);
-        fence_regs(pf);
+        sm90::fence_regs(pf);
     }
 
     #pragma unroll

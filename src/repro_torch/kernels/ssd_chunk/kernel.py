@@ -3,15 +3,21 @@
 Counterpart of ``repro/kernels/ssd_chunk/kernel.py::ssd_scan``: the
 Mamba2 SSD scan over B x H panes, f32 arithmetic on bf16 or f32 x, B, C,
 any T (the kernel zero-fills a ragged last chunk), p <= 128, n <= 64.
-Inputs are read through their strides: a (B, H, T, p) view of the
-model's (B, T, H, p) activations, B and C expanded over heads with a
-head stride of 0. The kernel is forward-only, as the TPU kernel is: an
-input that requires grad raises. The library is built on first use
+The kernel is segment-parallel over T: ``segment_plan`` cuts T into
+segments of whole chunks, a state pass writes each segment's end state
+from a zero start and the scan pass runs every segment from its combined
+start state (``ref.ssd_scan_segmented`` is the same order of work in
+plain torch). Inputs are read through their strides: a (B, H, T, p) view
+of the model's (B, T, H, p) activations, B and C expanded over heads
+with a head stride of 0 (a block then takes two heads and computes C B^T
+once for both; B and C with their own head stride take one head a
+block). The kernel is forward-only, as the TPU kernel is: an input that
+requires grad raises. The library is built on first use
 (``kernels/_build.py``); nothing here touches CUDA at import time. The
 wrapper checks its inputs before it builds or launches anything,
-allocates the outputs with ``torch.empty``, launches on the current
-stream without synchronising, raises on a non-zero ``cudaError_t``, and
-counts its launches in ``ssd_scan.launches``.
+allocates the outputs and the state pass's scratch with ``torch.empty``,
+launches on the current stream without synchronising, raises on a
+non-zero ``cudaError_t``, and counts its calls in ``ssd_scan.launches``.
 """
 
 from __future__ import annotations
@@ -22,10 +28,34 @@ from pathlib import Path
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels._dispatch import cdiv
 from repro_torch.kernels.ssd_chunk.ref import CHUNK
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "ssd_chunk.cu"
 MAX_P, MAX_N = 128, 64
+HEADS_PER_BLOCK = 2         # one head a warpgroup, sharing C B^T
+MAX_SEGMENTS = 32           # the scan blocks combine up to 31 end states
+MIN_SEGMENT_CHUNKS = 4
+TARGET_BLOCKS = 4 * 132     # four blocks per SM of an H100 SXM
+
+
+def segment_plan(B: int, H: int, T: int, shared_bc: bool = True):
+    """(chunks_per_segment, heads_per_block, grid) of the kernel's scan
+    pass. Heads go two a block when B and C are shared by the heads
+    (``shared_bc``), else one. T's chunks are cut into the fewest
+    segments of at least ``MIN_SEGMENT_CHUNKS`` chunks that give
+    ``TARGET_BLOCKS`` blocks, at most ``MAX_SEGMENTS``; a short T or a
+    large B x H stays one segment. grid = (segments, head groups, B):
+    the scan pass launches their product, the state pass B x groups x
+    (segments - 1)."""
+    chunks = cdiv(T, CHUNK)
+    hpb = HEADS_PER_BLOCK if shared_bc else 1
+    groups = cdiv(H, hpb)
+    want = cdiv(TARGET_BLOCKS, B * groups)
+    segs = max(1, min(want, chunks // MIN_SEGMENT_CHUNKS, MAX_SEGMENTS))
+    cps = cdiv(chunks, segs)
+    return cps, hpb, (cdiv(chunks, cps), groups, B)
+
 
 _lib = None
 
@@ -35,12 +65,14 @@ def _library():
     if _lib is None:
         lib = _build.load(SOURCE)
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.ssd_scan_launch.argtypes = [p] * 7 + [i] * 5 + [ll] * 18 + [i, p]
+        lib.ssd_scan_launch.argtypes = [p] * 9 + [i] * 7 + [ll] * 18 + [i, p]
         lib.ssd_scan_launch.restype = i
-        for name in ("length", "max_p", "max_n"):
+        names = ("length", "max_p", "max_n", "heads_per_block",
+                 "max_segments")
+        for name in names:
             getattr(lib, f"ssd_chunk_{name}").restype = i
-        if (lib.ssd_chunk_length(), lib.ssd_chunk_max_p(),
-                lib.ssd_chunk_max_n()) != (CHUNK, MAX_P, MAX_N):
+        if tuple(getattr(lib, f"ssd_chunk_{name}")() for name in names) != (
+                CHUNK, MAX_P, MAX_N, HEADS_PER_BLOCK, MAX_SEGMENTS):
             raise RuntimeError(f"{SOURCE} disagrees with kernel.py on its "
                                f"chunk or tile sizes")
         _lib = lib
@@ -59,13 +91,15 @@ def _check(name, x, dtype, ndim, device):
 
 
 def ssd_scan(xs: torch.Tensor, Bm: torch.Tensor, Cm: torch.Tensor,
-             dt: torch.Tensor, la: torch.Tensor):
+             dt: torch.Tensor, la: torch.Tensor,
+             chunks_per_segment: int | None = None):
     """The SSD scan on the card over B x H panes: xs (B,H,T,p), Bm/Cm
     (B,H,T,n), dt/la (B,H,T); any strides, the last axis of xs, Bm and
     Cm contiguous; xs, Bm and Cm bf16 or f32 alike, dt and la f32.
-    Returns (y (B,H,T,p) in xs's dtype, h_final (B,H,p,n) f32). y is a
-    view of (B,T,H,p) memory, so ``y.transpose(1, 2)`` is the model's
-    contiguous layout."""
+    ``chunks_per_segment`` overrides ``segment_plan``'s (at most
+    ``MAX_SEGMENTS`` segments). Returns (y (B,H,T,p) in xs's dtype,
+    h_final (B,H,p,n) f32). y is a view of (B,T,H,p) memory, so
+    ``y.transpose(1, 2)`` is the model's contiguous layout."""
     device = xs.device
     if device.type != "cuda":
         raise ValueError(f"ssd_scan runs on CUDA tensors, got {device}")
@@ -94,14 +128,28 @@ def ssd_scan(xs: torch.Tensor, Bm: torch.Tensor, Cm: torch.Tensor,
     hf = torch.empty((B, H, p, n), dtype=torch.float32, device=device)
     if B * H == 0 or T == 0:
         return y, hf.zero_()
+    shared = Bm.stride(1) == 0 and Cm.stride(1) == 0
+    cps, hpb, (segs, _, _) = segment_plan(B, H, T, shared)
+    if chunks_per_segment is not None:
+        cps = chunks_per_segment
+        segs = cdiv(cdiv(T, CHUNK), max(cps, 1))
+        if cps < 1 or segs > MAX_SEGMENTS:
+            raise ValueError(f"chunks_per_segment={cps} gives {segs} "
+                             f"segments; the kernel takes 1..{MAX_SEGMENTS}")
+    # the state pass's end states and log decays, segments 0 .. S - 2
+    es = torch.empty((B * H * (segs - 1) * p * n,), dtype=torch.float32,
+                     device=device)
+    lam = torch.empty((B * H * (segs - 1),), dtype=torch.float32,
+                      device=device)
     lib = _library()
     stream = ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
     strides = [s for x in (xs, Bm, Cm, dt, la, y) for s in x.stride()[:3]]
     with torch.cuda.device(device):
         err = lib.ssd_scan_launch(
             *(ctypes.c_void_p(x.data_ptr()) for x in (xs, Bm, Cm, dt, la, y,
-                                                       hf)),
-            B, H, T, p, n, *strides, int(xs.dtype == torch.bfloat16), stream)
+                                                       hf, es, lam)),
+            B, H, T, p, n, cps, hpb, *strides,
+            int(xs.dtype == torch.bfloat16), stream)
     if err != 0:
         raise RuntimeError(f"ssd_scan kernel launch failed: cudaError_t "
                            f"{err}")

@@ -2,11 +2,15 @@
 
 ``ssd_scan_ref`` is the port of ``repro/kernels/ssd_chunk/ref.py``: the
 exact token-by-token recurrence, kept as the tests' oracle (a Python
-loop over T: small inputs only). ``ssd_scan_chunked`` is the kernel's own
+loop over T: small inputs only). ``ssd_scan_chunked`` is the chunked
 arithmetic (chunks of ``CHUNK`` steps, prefix-summed log decays, the
 masked Q x Q decay-weighted scores and the carried (p, n) state),
 vectorised over panes: the plain version the card's kernel is held
 against, and what ``ops.ssd_core`` runs on the CPU.
+``ssd_scan_segmented`` is the card kernel's own order of work: T cut into
+segments of whole chunks, each segment's end state from a zero start
+(the state pass), the segments' start states combined from those, then
+the chunked scan of every segment from its start state (the scan pass).
 
 Both take the pane layout with any leading pane axes: xs (..., T, p),
 Bm / Cm (..., T, n), dt / la (..., T); Bm / Cm may broadcast over the
@@ -43,18 +47,20 @@ def ssd_scan_ref(xs, Bm, Cm, dt, la):
     return y.to(xs.dtype), h
 
 
-def ssd_scan_chunked(xs, Bm, Cm, dt, la, chunk: int = CHUNK):
-    """The chunked scan in the kernel's arithmetic, all f32. A ragged last
-    chunk is zero-padded, which is exact (zero x, B, C, dt and la add
-    nothing and decay nothing). Returns (y (..., T, p) in xs's dtype,
-    h_final (..., p, n) f32)."""
+def ssd_scan_chunked(xs, Bm, Cm, dt, la, chunk: int = CHUNK, h0=None,
+                     acc=torch.float32):
+    """The chunked scan, all in ``acc`` (f32; the card tests' reference
+    takes float64), from the state ``h0`` (..., p, n) (zero when None). A
+    ragged last chunk is zero-padded, which is exact (zero x, B, C, dt and
+    la add nothing and decay nothing). Returns (y (..., T, p) in xs's
+    dtype, h_final (..., p, n) in ``acc``)."""
     full_f32()
     T = xs.shape[-2]
     nc = -(-T // chunk)
     pad = nc * chunk - T
 
     def padded(a, seq_axis):
-        a = a.to(torch.float32)
+        a = a.to(acc)
         if not pad:
             return a
         shape = list(a.shape)
@@ -64,8 +70,10 @@ def ssd_scan_chunked(xs, Bm, Cm, dt, la, chunk: int = CHUNK):
     x, Bf, Cf = padded(xs, -2), padded(Bm, -2), padded(Cm, -2)
     dtf, laf = padded(dt, -1), padded(la, -1)
     lead = torch.broadcast_shapes(x.shape[:-2], Bf.shape[:-2])
-    h = torch.zeros(lead + (x.shape[-1], Bf.shape[-1]), dtype=torch.float32,
+    h = torch.zeros(lead + (x.shape[-1], Bf.shape[-1]), dtype=acc,
                     device=xs.device)
+    if h0 is not None:
+        h = h + h0.to(acc)
     tril = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
                                  device=xs.device))
     ys = []
@@ -87,3 +95,43 @@ def ssd_scan_chunked(xs, Bm, Cm, dt, la, chunk: int = CHUNK):
              + (x_c * src[..., None]).transpose(-1, -2) @ B_c)
     y = torch.cat(ys, dim=-2)[..., :T, :]
     return y.to(xs.dtype), h
+
+
+def ssd_scan_segmented(xs, Bm, Cm, dt, la, chunks_per_segment: int,
+                       chunk: int = CHUNK):
+    """The scan in the card kernel's order of work, all f32: T cut into S
+    segments of ``chunks_per_segment`` chunks (the last one ragged, zero
+    padded). State pass: each segment's end state E_s from a zero start
+    and its total log decay L_s = sum la. Combine: h_start(0) = 0,
+    h_start(s + 1) = exp(L_s) h_start(s) + E_s. Scan pass: the chunked
+    scan of every segment from h_start(s); h_final is the last segment's
+    end state. Returns (y (..., T, p) in xs's dtype, h_final (..., p, n)
+    f32)."""
+    full_f32()
+    T = xs.shape[-2]
+    seg = chunks_per_segment * chunk
+    S = -(-T // seg)
+    pad = S * seg - T
+
+    def split(a, seq_axis):
+        a = a.to(torch.float32)
+        if pad:
+            shape = list(a.shape)
+            shape[seq_axis] = pad
+            a = torch.cat([a, a.new_zeros(shape)], dim=seq_axis)
+        shape = list(a.shape)
+        at = a.dim() + seq_axis
+        return a.reshape(shape[:at] + [S, seg] + shape[at + 1:])
+
+    x, Bf, Cf = split(xs, -2), split(Bm, -2), split(Cm, -2)
+    dtf, laf = split(dt, -1), split(la, -1)
+    _, E = ssd_scan_chunked(x, Bf, Cf, dtf, laf, chunk)     # (..., S, p, n)
+    lam = laf.sum(dim=-1)                                   # (..., S)
+    starts, h = [], torch.zeros_like(E[..., 0, :, :])
+    for s in range(S):
+        starts.append(h)
+        h = torch.exp(lam[..., s])[..., None, None] * h + E[..., s, :, :]
+    y, hs = ssd_scan_chunked(x, Bf, Cf, dtf, laf, chunk,
+                             h0=torch.stack(starts, dim=-3))
+    y = y.reshape(y.shape[:-3] + (S * seg, y.shape[-1]))[..., :T, :]
+    return y.to(xs.dtype), hs[..., -1, :, :]

@@ -34,6 +34,11 @@ from repro_torch.kernels.metric_topk import (metric_topk, metric_topk_fused,
 from repro_torch.kernels.metric_topk.kernel import LIST_K
 from repro_torch.kernels._dispatch import BIG
 from repro_torch.kernels.flash_attention.cases import PARITY as FA_PARITY
+from repro_torch.kernels.ssd_chunk import cases as ssd_cases
+from repro_torch.kernels.ssd_chunk.cases import PARITY as SSD_PARITY
+from repro_torch.kernels.ssd_chunk.cases import PLANNED as SSD_PLANNED
+from repro_torch.kernels.ssd_chunk.cases import TWO_PLANS as SSD_TWO_PLANS
+from repro_torch.kernels.ssd_chunk.cases import BF16_ROUND, SSD_TOL
 from repro_torch.kernels.ivf_scan import (ivf_scan_topk, ivf_scan_topk_fused,
                                           ivf_scan_topk_ref)
 from repro_torch.kernels.pairwise_dist import (pairwise_sqdist,
@@ -450,18 +455,14 @@ def test_ivfpq_reranks_past_the_widest_list(cuda_device):
 
 
 # -- backbone kernels: flash_attention and ssd_scan ---------------------------
-# f32 kernel against the f32 plain version: flash rtol 1e-4 / atol 2e-5 and
-# SSD rtol = atol = 1e-4 (the reference's bounds for its kernels against
-# their oracles; only the summation order differs). bf16 inputs against the
-# plain version computed in f32 from the same bf16 values, elementwise:
-# both kernels round their output to bf16 once (at most 2^-8 |out|), so
-# SSD y within (1e-4 + 2^-8) |ref| + 1e-5; attention also rounds each
-# probability to bf16 before p v while l sums the f32 ones, which moves out
-# by at most 2^-8 attention(q, k, |v|), so flash within the f32 bound
-# + 2^-8 (|ref| + attention(q, k, |v|)).
-
-BF16_ROUND = 2.0 ** -8
-
+# f32 kernel against the f32 plain version: flash rtol 1e-4 / atol 2e-5
+# (the reference's bound for its kernel against its oracle; only the
+# summation order differs); SSD within SSD_TOL (kernels/ssd_chunk/cases.py).
+# bf16 inputs against the plain version computed in f32 from the same bf16
+# values, elementwise: the kernel rounds its output to bf16 once (at most
+# BF16_ROUND = 2^-8 |out|) and each probability to bf16 before p v while l
+# sums the f32 ones, which moves out by at most 2^-8 attention(q, k, |v|),
+# so flash within the f32 bound + 2^-8 (|ref| + attention(q, k, |v|)).
 
 
 def _fa_bound(q, k, v, ref, causal, window):
@@ -559,31 +560,26 @@ def test_flash_attention_refuses_what_it_cannot_do(cuda_device):
         flash_attention(q.half(), q.half(), q.half())
 
 
-SSD_SHAPES = [(1, 4, 64, 16, 8), (1, 2, 128, 64, 64), (1, 8, 96, 32, 16),
-              (1, 1, 256, 64, 64), (1, 3, 32, 8, 8), (2, 4, 100, 128, 16),
-              (2, 80, 200, 64, 64), (1, 2, 1, 64, 64)]
-
-
-def _ssd_inputs(B, H, T, p, n, dtype, device, seed=0):
-    rng = np.random.RandomState(seed)
-
-    def f(*s):
-        return torch.tensor(rng.randn(*s), dtype=torch.float32, device=device)
-    xs, Bm, Cm = f(B, T, H, p).to(dtype), f(B, T, n).to(dtype), \
-        f(B, T, n).to(dtype)
-    dt = f(B, T, H).abs() * 0.1
-    return xs, Bm, Cm, dt, -5.0 * dt
+def _ssd_check(y, h, xs, Bm, Cm, dt, la):
+    """y (B, H, T, p) and h of the kernel against ssd_scan_chunked in
+    float64 on the same values, pane layout; B and C may be expanded
+    views."""
+    yr, hr = ssd_cases.reference(xs, Bm, Cm, dt, la)
+    torch.cuda.synchronize()
+    assert y.dtype == xs.dtype and y.shape == xs.shape
+    torch.testing.assert_close(y.double(), yr, **SSD_TOL[xs.dtype])
+    torch.testing.assert_close(h, hr.float(), **SSD_TOL[torch.float32])
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("B,H,T,p,n", SSD_SHAPES)
+@pytest.mark.parametrize("B,H,T,p,n", SSD_PARITY)
 def test_ssd_scan_kernel_matches_plain_version(cuda_device, B, H, T, p, n,
                                                dtype):
     from repro_torch.kernels.ssd_chunk import (ssd_core, ssd_scan,
                                                ssd_scan_chunked)
-    xs, Bm, Cm, dt, la = _ssd_inputs(B, H, T, p, n, dtype, cuda_device,
-                                     seed=B + H + T)
+    xs, Bm, Cm, dt, la = ssd_cases.inputs(B, H, T, p, n, dtype, cuda_device,
+                                          seed=B + H + T)
     before = ssd_scan.launches
     y, h = ssd_core(xs, Bm, Cm, dt, la)
     yr, hr = ssd_scan_chunked(xs.float().transpose(1, 2),
@@ -592,17 +588,86 @@ def test_ssd_scan_kernel_matches_plain_version(cuda_device, B, H, T, p, n,
     torch.cuda.synchronize()
     assert ssd_scan.launches == before + 1
     assert y.dtype == dtype and y.shape == (B, T, H, p) and y.is_contiguous()
-    tol = dict(rtol=1e-4, atol=1e-4) if dtype == torch.float32 else \
-        dict(rtol=1e-4 + BF16_ROUND, atol=1e-5)
-    torch.testing.assert_close(y.float(), yr.transpose(1, 2), **tol)
-    torch.testing.assert_close(h, hr, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(y.float(), yr.transpose(1, 2),
+                               **SSD_TOL[dtype])
+    torch.testing.assert_close(h, hr, **SSD_TOL[torch.float32])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,T,p,n,cps", SSD_PLANNED)
+def test_ssd_scan_kernel_under_explicit_plans(cuda_device, B, H, T, p, n,
+                                              cps, dtype):
+    """Segments forced by an explicit plan: T across segment edges, odd
+    head pairs, p 8 / 128, n 8 / 64, up to 32 segments."""
+    from repro_torch.kernels.ssd_chunk import ssd_scan
+    args = ssd_cases.panes(*ssd_cases.inputs(B, H, T, p, n, dtype,
+                                             cuda_device, seed=T + cps,
+                                             decay=ssd_cases.SLOW))
+    y, h = ssd_scan(*args, chunks_per_segment=cps)
+    _ssd_check(y, h, *args)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_scan_plans_agree(cuda_device, dtype):
+    """One input under two plans: y within the f32 bound of each other
+    (bf16: the two outputs round once each, so they may sit one bf16 step
+    apart on top of it)."""
+    from repro_torch.kernels.ssd_chunk import ssd_scan
+    B, H, T, p, n, plans = SSD_TWO_PLANS
+    args = ssd_cases.panes(*ssd_cases.inputs(B, H, T, p, n, dtype,
+                                             cuda_device, seed=3,
+                                             decay=ssd_cases.SLOW))
+    (y1, h1), (y2, h2) = (ssd_scan(*args, chunks_per_segment=c)
+                          for c in plans)
+    _ssd_check(y1, h1, *args)
+    _ssd_check(y2, h2, *args)
+    tol = SSD_TOL[torch.float32]
+    if dtype == torch.bfloat16:
+        tol = dict(rtol=tol["rtol"] + 2 * BF16_ROUND,
+                   atol=SSD_TOL[dtype]["atol"])
+    torch.testing.assert_close(y1.float(), y2.float(), **tol)
+    torch.testing.assert_close(h1, h2, **SSD_TOL[torch.float32])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_scan_reads_views_tma_cannot_describe(cuda_device, dtype):
+    from repro_torch.kernels.ssd_chunk import ssd_scan
+    args = ssd_cases.strided(dtype, cuda_device)
+    y, h = ssd_scan(*args)
+    _ssd_check(y, h, *args)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_scan_takes_b_and_c_per_head(cuda_device, dtype):
+    from repro_torch.kernels.ssd_chunk import ssd_scan
+    args = ssd_cases.per_head(dtype, cuda_device)
+    y, h = ssd_scan(*args, chunks_per_segment=2)
+    _ssd_check(y, h, *args)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_scan_takes_growing_states(cuda_device, dtype):
+    """la > 0: exp(W_t - W_s) above 1 below the diagonal, over three
+    segments."""
+    from repro_torch.kernels.ssd_chunk import ssd_scan
+    B, H, T, p, n, cps = ssd_cases.GROWING
+    args = ssd_cases.panes(*ssd_cases.inputs(B, H, T, p, n, dtype,
+                                             cuda_device, seed=11,
+                                             decay=ssd_cases.GROW))
+    y, h = ssd_scan(*args, chunks_per_segment=cps)
+    _ssd_check(y, h, *args)
 
 
 @pytest.mark.cuda
 def test_ssd_scan_refuses_what_it_cannot_do(cuda_device):
     from repro_torch.kernels.ssd_chunk import ssd_scan
-    xs, Bm, Cm, dt, la = _ssd_inputs(1, 2, 64, 16, 8, torch.float32,
-                                     cuda_device)
+    xs, Bm, Cm, dt, la = ssd_cases.inputs(1, 2, 64, 16, 8, torch.float32,
+                                          cuda_device, seed=0)
     args = (xs.transpose(1, 2), Bm[:, None].expand(1, 2, 64, 8),
             Cm[:, None].expand(1, 2, 64, 8), dt.transpose(1, 2),
             la.transpose(1, 2))
@@ -613,6 +678,9 @@ def test_ssd_scan_refuses_what_it_cannot_do(cuda_device):
         ssd_scan(wide, *args[1:])
     with pytest.raises(ValueError, match="float32"):
         ssd_scan(*args[:3], args[3].double(), args[4])
+    for bad in (0, -1):
+        with pytest.raises(ValueError, match="segments"):
+            ssd_scan(*args, chunks_per_segment=bad)
 
 
 @pytest.mark.cuda

@@ -12,7 +12,12 @@ the recurrence). The Mamba2 layer: the port's three forms against the
 reference's on reduced zamba2 in f32, rtol 2e-3 / atol 2e-4 where the
 two sides take different SSD forms (the reference's bound between its
 kernel path and its chunked form), 1e-4 where they take the same form.
-The CUDA kernel itself is checked in tests/test_torch_cuda.py.
+``ssd_scan_segmented``, the card kernel's order of work (a state pass
+per segment of whole chunks, the combine, the scan from each segment's
+start state), is held to the reference's oracle and its interpret-mode
+kernel at the same rtol = atol = 1e-4 across segment edges, and
+``segment_plan`` to its contract. The CUDA kernel itself is checked in
+tests/test_torch_cuda.py.
 """
 
 import numpy as np
@@ -30,8 +35,10 @@ from repro.kernels.ssd_chunk import ssd_scan_ref as jax_ssd_scan_ref
 from repro.models import mamba2 as jax_mamba2
 
 from repro_torch.configs import get_config
-from repro_torch.kernels.ssd_chunk import (CHUNK, ssd_core, ssd_scan,
-                                           ssd_scan_chunked, ssd_scan_ref)
+from repro_torch.kernels.ssd_chunk import (CHUNK, segment_plan, ssd_core,
+                                           ssd_scan, ssd_scan_chunked,
+                                           ssd_scan_ref, ssd_scan_segmented)
+from repro_torch.kernels.ssd_chunk.kernel import TARGET_BLOCKS
 from repro_torch.models import mamba2
 
 SHAPES = [(4, 64, 16, 8, 16), (2, 128, 64, 64, 32), (8, 96, 32, 16, 48),
@@ -139,6 +146,102 @@ def test_ssd_core_matches_reference(B, T, H, p, n):
     assert y.shape == (B, T, H, p) and h.shape == (B, H, p, n)
     _close(y, yr)
     _close(h, hr)
+
+
+# (T, chunks_per_segment): one chunk, ragged single chunks, one segment
+# exactly, a segment +- 1 token, a last segment of one partial chunk, and
+# 1, 2, 3 and 8 segments
+SEGMENTED = [(1, 1), (63, 1), (64, 1), (65, 1), (128, 2), (127, 1),
+             (129, 2), (266, 2), (384, 2), (512, 1), (500, 1)]
+
+
+def _jax_chunk(T):
+    """The reference kernel's chunk for T: the largest divisor of T up to
+    128 (its wrapper needs T % chunk == 0)."""
+    return max(d for d in range(1, 129) if T % d == 0)
+
+
+@pytest.mark.parametrize("T,cps", SEGMENTED)
+def test_segmented_mirror_matches_reference(T, cps):
+    """Three heads sharing B and C (a head pair and a single head on the
+    card) through the segmented order of work, against the reference's
+    oracle and its interpret-mode kernel on the expanded panes; decay slow
+    enough that a segment's start state still weighs in."""
+    H, p, n = 3, 16, 8
+    rng = np.random.RandomState(T + cps)
+    xs = rng.randn(1, H, T, p).astype(np.float32)
+    Bm, Cm = (rng.randn(1, 1, T, n).astype(np.float32) for _ in range(2))
+    dt = (np.abs(rng.randn(1, H, T)) * 0.1).astype(np.float32)
+    la = (-np.abs(rng.randn(1, H, T)) * 0.01).astype(np.float32)
+    y, h = ssd_scan_segmented(*_t(xs, Bm, Cm, dt, la), cps)
+    panes = (xs[0], np.repeat(Bm[0], H, 0), np.repeat(Cm[0], H, 0), dt[0],
+             la[0])
+    yr, hr = jax_ssd_scan_ref(*map(jnp.asarray, panes))
+    yk, hk = jax_ssd_scan(*map(jnp.asarray, panes), chunk=_jax_chunk(T))
+    assert y.shape == (1, H, T, p) and h.shape == (1, H, p, n)
+    for ref_y, ref_h in ((yr, hr), (yk, hk)):
+        _close(y[0], ref_y)
+        _close(h[0], ref_h)
+
+
+@pytest.mark.parametrize("cps", [1, 2, 3])
+def test_segmented_mirror_takes_growing_states(cps):
+    """la > 0, so exp(W_t - W_s) exceeds 1 below the diagonal and the
+    combine multiplies by more than 1: the mirror against the reference's
+    oracle and its interpret-mode kernel, T = 300 over 2 to 5 segments."""
+    H, T, p, n = 3, 300, 16, 8
+    rng = np.random.RandomState(cps)
+    xs = rng.randn(1, H, T, p).astype(np.float32)
+    Bm, Cm = (rng.randn(1, 1, T, n).astype(np.float32) for _ in range(2))
+    dt = (np.abs(rng.randn(1, H, T)) * 0.1).astype(np.float32)
+    la = (np.abs(rng.randn(1, H, T)) * 0.005).astype(np.float32)
+    y, h = ssd_scan_segmented(*_t(xs, Bm, Cm, dt, la), cps)
+    panes = (xs[0], np.repeat(Bm[0], H, 0), np.repeat(Cm[0], H, 0), dt[0],
+             la[0])
+    yr, hr = jax_ssd_scan_ref(*map(jnp.asarray, panes))
+    yk, hk = jax_ssd_scan(*map(jnp.asarray, panes), chunk=_jax_chunk(T))
+    for ref_y, ref_h in ((yr, hr), (yk, hk)):
+        _close(y[0], ref_y)
+        _close(h[0], ref_h)
+
+
+@pytest.mark.parametrize("cps", [1, 2, 3])
+def test_segmented_mirror_follows_the_chunked_scan(cps):
+    """More segments change only the rounding: the segmented order of
+    work against the one-segment chunked scan at slow decay, where the
+    combined start states carry most of the state."""
+    args = _t(*_panes(4, 640, 16, 8, cps))
+    args[4] = args[4] * 0.02
+    y, h = ssd_scan_segmented(*args, cps)
+    y1, h1 = ssd_scan_chunked(*args)
+    _close(y, y1)
+    _close(h, h1)
+
+
+@pytest.mark.parametrize("B,H,T", [(4, 80, 8192), (1, 80, 8192),
+                                   (2, 80, 8192), (1, 4, 64), (2, 80, 1000),
+                                   (1, 3, 200), (1, 1, 8192), (2, 4, 100),
+                                   (1, 3, 1), (64, 80, 8192)])
+@pytest.mark.parametrize("shared", [True, False])
+def test_segment_plan_covers_t(B, H, T, shared):
+    cps, hpb, grid = segment_plan(B, H, T, shared)
+    segs, groups, bsz = grid
+    chunks = -(-T // CHUNK)
+    assert hpb == (2 if shared else 1)
+    assert groups == -(-H // hpb) and bsz == B
+    assert 1 <= segs <= 32 and cps >= 1
+    assert (segs - 1) * cps < chunks <= segs * cps      # T covered exactly
+    assert segs == 1 or cps >= 4                        # no tiny segments
+
+
+def test_segment_plan_fills_the_card_at_the_service_shape():
+    """zamba2's service shape (B 4, T 8192, 80 heads) gets several
+    segments and at least the aimed block count; short inputs and large
+    batches collapse to one segment."""
+    cps, hpb, (segs, groups, bsz) = segment_plan(4, 80, 8192)
+    assert segs > 1 and segs * groups * bsz >= TARGET_BLOCKS >= 4 * 132
+    assert segment_plan(1, 4, 64)[2][0] == 1
+    assert segment_plan(64, 80, 8192)[2][0] == 1
 
 
 def test_kernel_wrapper_refuses_cpu_tensors():
