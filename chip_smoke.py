@@ -31,8 +31,12 @@ exit, and nothing falls back:
                 ragged ones (cap not a multiple of the tile, -1 pads,
                 probes with fewer than kk real rows, duplicated rows, kk =
                 1, 256, 257, 300 and 1024, the last three on the wide
-                path), pq_adc at S 200 and 1000 (its table in chunks) and
-                both at the serving widths; flash_attention and ssd_scan
+                path), pq_adc at S 128, 200 and 1000 (its table beside one
+                code tile, then in chunks) and both at the serving widths
+                (Nq 64 and 1), on 64 queries that probe the same 16
+                clusters and on probe ids repeated in a row; ivf_scan's
+                work plan made on the card against ``work_plan``, 9,600
+                pairs (two plan launches) and k 50,000; flash_attention and ssd_scan
                 in f32 and bf16 at the CPU tests' shapes, at ragged T and
                 S, GQA 2 and 3, Dh 64, 80 and 256, windows below, at and
                 above T, reduced zamba2's p 128 / n 16; ssd_scan also on
@@ -80,7 +84,10 @@ exit, and nothing falls back:
                 each kernel against its plain version at the full width,
                 pq_adc also at kk 512, and IVFPQ with an exact rerank of
                 512 (recall no lower than rerank 50's); then times both
-                kernels at Nq = 1 and 64;
+                kernels at Nq = 1 and 64, splits one Nq 64 call of each
+                into its launches (CUDA events its launcher records
+                between them) and pq_adc's blocks into phases (their
+                clock stamps);
   9. backbone — zamba2-2.7b at full width and depth (54 mamba2 layers,
                 d_model 2560, 80 SSM heads of p = n = 64; the shared
                 attention + GELU MLP block after every 6th layer, 32 heads
@@ -131,7 +138,9 @@ on bf16 inputs at the rate of its own f32-accurate arithmetic, three
 bf16 passes a product (989 / 3 TFLOP/s) and C B^T in one (989), its
 FLOP count at a chunk of 64 fixed in SSD_BOUND_CHUNK, with the 3xTF32
 and 2xTF32 figures in its log line only; bf16 attention at 989 TFLOP/s;
-pq_adc's table adds at the f32 rate.
+pq_adc's table adds at the f32 rate, with its shared-memory lookups
+(4 bytes each, 128 bytes a clock an SM at the 1.98 GHz boost clock)
+beside the bound in its log line only.
 
 Comparison rules (kernel vs plain, both f32, different summation order).
 Distances (metric_topk, pairwise_sqdist) may differ by atol + rtol *
@@ -211,6 +220,8 @@ from repro_torch.kernels.pairwise_dist import (  # noqa: E402
     pairwise_sqdist, pairwise_sqdist_ref)
 from repro_torch.kernels.pq_adc import (  # noqa: E402
     pq_adc_topk, pq_adc_topk_fused, pq_adc_topk_ref)
+from repro_torch.kernels.ivf_scan.kernel import (  # noqa: E402
+    device_plan, max_groups, work_plan)
 from repro_torch.kernels.pq_adc.kernel import lut_plan  # noqa: E402
 from repro_torch.kernels.ssd_chunk import (  # noqa: E402
     segment_plan, ssd_core, ssd_scan, ssd_scan_chunked)
@@ -234,6 +245,8 @@ PEAK_TF32_FLOPS = 495e12        # H100 SXM, dense TF32 on the tensor cores
 # an f32-accurate product on the tensor cores: 3xTF32, three TF32 passes
 PEAK_3XTF32_FLOPS = PEAK_TF32_FLOPS / 3
 PEAK_BYTES = 3.35e12            # H100 SXM HBM3
+# shared memory: 128 bytes a clock an SM, 132 SMs, 1.98 GHz boost clock
+PEAK_SMEM_BYTES = 128 * 132 * 1.98e9
 PARITY_SHAPES = [(64, 1024, 128, 64, 10), (16, 300, 40, 12, 5),
                  (7, 129, 33, 9, 3), (200, 2048, 96, 48, 20),
                  (128, 512, 128, 128, 1), (8, 96, 24, 8, 96)]
@@ -262,43 +275,67 @@ N_WORKERS = 4
 TRAIN_SAMPLES, TRAIN_CLASSES, N_HOLD = 10_000, 100, 2_000
 TRAIN_STEPS = {"bsp": 50, "local": 8, "ssp": 6}
 KNN_K = 5
-# ivf_scan parity: (Nq, C, cap, k, nprobe, kk, fill_lo, fill_hi, dup); the
-# CPU tests' shapes, then ragged ones (cap 45 / 70 against the 32-row tile,
-# k = 1003 off the 16-byte path, empty and under-filled segments, kk = 1
-# and 256, duplicated rows), kk 257 and 1024 (the wide path; with pads
-# and ties), then the serving widths
-IVF_PARITY = [(5, 6, 32, 12, 3, 7, 32, 32, False),
-              (3, 5, 24, 8, 2, 5, 10, 24, False),
-              (4, 7, 16, 5, 2, 32, 0, 5, False),
-              (2, 4, 8, 130, 3, 24, 2, 8, False),
-              (9, 12, 45, 1000, 8, 1, 0, 45, False),
-              (9, 12, 45, 1000, 8, 256, 0, 45, False),
-              (3, 40, 70, 1003, 6, 256, 20, 70, False),
-              (7, 10, 45, 64, 4, 30, 10, 45, True),
-              (9, 12, 45, 1000, 8, 257, 0, 45, False),
-              (3, 40, 70, 1003, 16, 1024, 20, 70, False),
-              (7, 10, 45, 64, 8, 300, 10, 45, True),
-              (64, 48, 1224, 1000, 16, 10, 1000, 1224, False)]
-# pq_adc parity: (Nq, C, cap, S, bits, nprobe, kk, fill_lo, fill_hi, ties);
-# the CPU tests' shapes, ragged ones, kk 257 and 1024 (the wide path, with
-# pads and ties), S 200 and 1000 (d_out 1000 in 5- and 1-dimensional
-# subspaces: the table in chunks), then the serving widths
-PQ_PARITY = [(5, 6, 32, 4, 8, 3, 7, 32, 32, False),
-             (3, 5, 24, 3, 8, 2, 5, 10, 24, False),
-             (4, 7, 16, 2, 8, 2, 32, 0, 5, False),
-             (3, 4, 16, 5, 1, 2, 6, 8, 16, False),
-             (3, 4, 16, 5, 2, 2, 6, 8, 16, False),
-             (2, 4, 8, 3, 4, 3, 24, 2, 8, False),
-             (9, 12, 300, 100, 8, 6, 1, 0, 300, False),
-             (9, 12, 300, 100, 8, 6, 256, 0, 300, False),
-             (6, 7, 24, 3, 2, 4, 15, 20, 24, True),
-             (9, 12, 300, 100, 8, 6, 257, 0, 300, False),
-             (6, 20, 100, 3, 2, 12, 1024, 20, 100, True),
-             (5, 8, 300, 200, 8, 4, 50, 100, 300, False),
-             (3, 8, 300, 200, 8, 4, 1024, 100, 300, False),
-             (2, 4, 64, 1000, 8, 3, 20, 30, 64, False),
-             (64, 48, 1224, 100, 8, 16, 50, 1000, 1224, False),
-             (64, 48, 1224, 200, 8, 16, 50, 1000, 1224, False)]
+# ivf_scan parity: (Nq, C, cap, k, nprobe, kk, fill_lo, fill_hi, dup,
+# probes); the CPU tests' shapes, then ragged ones (cap 45 / 70 against the
+# 32-row tile, k = 1003 off the 16-byte path, empty and under-filled
+# segments, kk = 1 and 256, duplicated rows), kk 257 and 1024 (the wide
+# path; with pads and ties), the serving widths at Nq 64 and 1, and the
+# cluster-major plan's edges: every query probing the same 16 clusters
+# (groups of 8 pairs, one hot segment each), probe ids repeated in a row
+# and out of range (clipped), 9,600 pairs (two plan launches), Nq 1 at kk
+# 256 (more lists than the merge stages at once: merged in batches), and
+# k 50,000 (past the old kernel's query row in shared memory). probes:
+# "distinct", "skewed" or "repeat" (``_probes``)
+IVF_PARITY = [(5, 6, 32, 12, 3, 7, 32, 32, False, "distinct"),
+              (3, 5, 24, 8, 2, 5, 10, 24, False, "distinct"),
+              (4, 7, 16, 5, 2, 32, 0, 5, False, "distinct"),
+              (2, 4, 8, 130, 3, 24, 2, 8, False, "distinct"),
+              (9, 12, 45, 1000, 8, 1, 0, 45, False, "distinct"),
+              (9, 12, 45, 1000, 8, 256, 0, 45, False, "distinct"),
+              (3, 40, 70, 1003, 6, 256, 20, 70, False, "distinct"),
+              (7, 10, 45, 64, 4, 30, 10, 45, True, "distinct"),
+              (9, 12, 45, 1000, 8, 257, 0, 45, False, "distinct"),
+              (3, 40, 70, 1003, 16, 1024, 20, 70, False, "distinct"),
+              (7, 10, 45, 64, 8, 300, 10, 45, True, "distinct"),
+              (64, 48, 1224, 1000, 16, 10, 1000, 1224, False, "distinct"),
+              (1, 48, 1224, 1000, 16, 10, 1000, 1224, False, "distinct"),
+              (64, 48, 1224, 1000, 16, 10, 1000, 1224, False, "skewed"),
+              (64, 40, 70, 1003, 16, 300, 20, 70, False, "skewed"),
+              (9, 12, 45, 1000, 8, 20, 0, 45, False, "repeat"),
+              (7, 10, 45, 64, 8, 300, 10, 45, True, "repeat"),
+              (600, 64, 40, 16, 16, 10, 10, 40, False, "distinct"),
+              (1, 48, 1224, 64, 16, 256, 1000, 1224, False, "distinct"),
+              (3, 4, 40, 50_000, 2, 7, 20, 40, False, "distinct")]
+# pq_adc parity: (Nq, C, cap, S, bits, nprobe, kk, fill_lo, fill_hi, ties,
+# probes); the CPU tests' shapes, ragged ones, kk 257 and 1024 (the wide
+# path, with pads and ties), S 200 and 1000 (d_out 1000 in 5- and
+# 1-dimensional subspaces: the table in chunks), S 128 (whole table, one
+# code tile), the serving widths at Nq 64 and 1 (and Nq 1 at kk 256: more
+# lists than the merge stages at once, merged in batches), every query
+# probing the same clusters, and probe ids repeated in a row (in range:
+# the plain version gathers without clipping)
+PQ_PARITY = [(5, 6, 32, 4, 8, 3, 7, 32, 32, False, "distinct"),
+             (3, 5, 24, 3, 8, 2, 5, 10, 24, False, "distinct"),
+             (4, 7, 16, 2, 8, 2, 32, 0, 5, False, "distinct"),
+             (3, 4, 16, 5, 1, 2, 6, 8, 16, False, "distinct"),
+             (3, 4, 16, 5, 2, 2, 6, 8, 16, False, "distinct"),
+             (2, 4, 8, 3, 4, 3, 24, 2, 8, False, "distinct"),
+             (9, 12, 300, 100, 8, 6, 1, 0, 300, False, "distinct"),
+             (9, 12, 300, 100, 8, 6, 256, 0, 300, False, "distinct"),
+             (6, 7, 24, 3, 2, 4, 15, 20, 24, True, "distinct"),
+             (9, 12, 300, 100, 8, 6, 257, 0, 300, False, "distinct"),
+             (6, 20, 100, 3, 2, 12, 1024, 20, 100, True, "distinct"),
+             (5, 8, 300, 200, 8, 4, 50, 100, 300, False, "distinct"),
+             (3, 8, 300, 200, 8, 4, 1024, 100, 300, False, "distinct"),
+             (2, 4, 64, 1000, 8, 3, 20, 30, 64, False, "distinct"),
+             (4, 8, 600, 128, 8, 4, 256, 300, 600, False, "distinct"),
+             (64, 48, 1224, 100, 8, 16, 50, 1000, 1224, False, "distinct"),
+             (1, 48, 1224, 100, 8, 16, 50, 1000, 1224, False, "distinct"),
+             (1, 48, 1224, 100, 8, 16, 256, 1000, 1224, False, "distinct"),
+             (64, 48, 1224, 200, 8, 16, 50, 1000, 1224, False, "distinct"),
+             (64, 48, 1224, 100, 8, 16, 50, 1000, 1224, False, "skewed"),
+             (64, 48, 1224, 100, 8, 16, 512, 1000, 1224, False, "skewed"),
+             (9, 12, 300, 100, 8, 6, 40, 0, 300, True, "repeat")]
 N_CLUSTERS, NPROBE, CAP_FACTOR, KM_ITERS = 1024, 16, 1.25, 10
 PQ_SUBSPACES, PQ_BITS, RERANK, RERANK_WIDE = 100, 8, 50, 512
 SERVE_BUCKETS = (1, 8, 64, 512)
@@ -544,15 +581,26 @@ def _segments(rng, C, cap, lo, hi):
     return fills, ids
 
 
-def _probes(rng, nq, C, nprobe):
-    return torch.tensor(np.stack([rng.choice(C, nprobe, replace=False)
-                                  for _ in range(nq)]), dtype=torch.int32,
-                        device=DEV)
+def _probes(rng, nq, C, nprobe, mode="distinct"):
+    """(nq, nprobe) int32 probe ids: distinct clusters a row; "skewed":
+    every row the same clusters; "repeat": ids repeated within a row and,
+    in the ivf cases, out of range (the scan clips them)."""
+    if mode == "skewed":
+        pr = np.tile(rng.choice(C, nprobe, replace=False), (nq, 1))
+    elif mode == "repeat":
+        pr = rng.randint(0, C, (nq, nprobe))
+        pr[:, 1] = pr[:, 0]
+        pr[:, 2::3] = pr[:, 2:3]
+    else:
+        pr = np.stack([rng.choice(C, nprobe, replace=False)
+                       for _ in range(nq)])
+    return torch.tensor(pr, dtype=torch.int32, device=DEV)
 
 
-def ivf_case(seed, nq, C, cap, k, nprobe, lo, hi, dup):
+def ivf_case(seed, nq, C, cap, k, nprobe, lo, hi, dup, mode="distinct"):
     """(qp, probes, g, gn, ids) on the card in the IVF segment layout;
-    ``dup`` repeats each segment's first real row, so distances tie."""
+    ``dup`` repeats each segment's first real row, so distances tie;
+    ``mode`` as ``_probes`` ("repeat" also puts ids out of range)."""
     rng = np.random.RandomState(seed)
     fills, ids = _segments(rng, C, cap, lo, hi)
     real = torch.tensor(ids >= 0, device=DEV)
@@ -563,11 +611,15 @@ def ivf_case(seed, nq, C, cap, k, nprobe, lo, hi, dup):
     gn = torch.where(real, torch.sum(g * g, dim=2), torch.full_like(g[..., 0],
                                                                   BIG))
     qp = torch.tensor(rng.randn(nq, k).astype(np.float32), device=DEV)
-    return qp, _probes(rng, nq, C, nprobe), g, gn, torch.tensor(ids,
-                                                                device=DEV)
+    probes = _probes(rng, nq, C, nprobe, mode)
+    if mode == "repeat":
+        probes[:, -1] = C + 3
+        probes[0, 0] = -2
+    return qp, probes, g, gn, torch.tensor(ids, device=DEV)
 
 
-def pq_case(seed, nq, C, cap, S, bits, nprobe, lo, hi, ties):
+def pq_case(seed, nq, C, cap, S, bits, nprobe, lo, hi, ties,
+            mode="distinct"):
     """(tables, dc, probes, codes, t, ids) on the card in the IVFPQ
     layout; ``ties`` draws codes from two values and t, tables from
     coarse grids, so many candidates tie exactly."""
@@ -583,15 +635,16 @@ def pq_case(seed, nq, C, cap, S, bits, nprobe, lo, hi, ties):
         tables = np.round(tables * 4) / 4
     dc = np.abs(rng.randn(nq, nprobe)).astype(np.float32)
     return (torch.tensor(tables, device=DEV), torch.tensor(dc, device=DEV),
-            _probes(rng, nq, C, nprobe),
+            _probes(rng, nq, C, nprobe, mode),
             torch.tensor(codes.astype(np.uint8), device=DEV),
             torch.tensor(t, device=DEV), torch.tensor(ids, device=DEV))
 
 
-def compare_ivf(qp, probes, g, gn, ids, kk, dk, ik):
+def compare_ivf(qp, probes, g, gn, ids, kk, dk, ik, repeats=False):
     """Hold an ivf_scan kernel result against the plain version on the
     same inputs (the metric_topk rule with each row's gn). Returns
-    (max |d_k - d_p|, ids differing at ties)."""
+    (max |d_k - d_p|, ids differing at ties). ``repeats``: a row probes
+    some cluster twice, so an id may come back twice."""
     dp, ip = ivf_scan_topk_ref(qp, probes, g, gn, ids, kk)
     qn = torch.sum(qp * qp, dim=1)
     gn_of = torch.full((int(ids.max()) + 2,), BIG, device=DEV)
@@ -610,44 +663,64 @@ def compare_ivf(qp, probes, g, gn, ids, kk, dk, ik):
     assert bool(same[apart].all()), "ids disagree at distinct distances"
     real = torch.sort(ik, dim=1).values
     dup = (real[:, 1:] == real[:, :-1]) & (real[:, 1:] >= 0)
-    assert not bool(dup.any()), "duplicate ids"
+    assert repeats or not bool(dup.any()), "duplicate ids"
     assert torch.equal(ik < 0, ip < 0), "pad slots disagree"
     return err.max().item(), int((~same).sum().item())
 
 
 def phase_parity_ann():
+    # ivf_scan's work plan, made on the card, against its plain mirror
+    rng = np.random.RandomState(0)
+    for nq, C, nprobe, mode in ((1, 1024, 16, "distinct"),
+                                (64, 1024, 16, "distinct"),
+                                (64, 1024, 16, "skewed"),
+                                (64, 7, 16, "repeat"),
+                                (512, 1024, 16, "distinct")):
+        probes = _probes(rng, nq, C, nprobe, mode)
+        if mode == "repeat":
+            probes[:, -1] = C + 3
+        got = device_plan(probes, C)
+        (_, *want), = work_plan(probes.cpu(), C)
+        assert all(torch.equal(a, b) for a, b in zip(got, want)), \
+            f"ivf_scan's plan differs from work_plan at {(nq, C, nprobe)}"
+        log(f"ivf_scan plan (Nq, C, nprobe) {(nq, C, nprobe)} {mode}: "
+            f"{len(got[1])} groups (at most {max_groups(nq * nprobe, C)}), "
+            f"equal to work_plan")
     for seed, case in enumerate(IVF_PARITY):
-        *shape, kk, lo, hi, dup = case
-        args = ivf_case(seed, *shape, lo, hi, dup)
+        *shape, kk, lo, hi, dup, mode = case
+        args = ivf_case(seed, *shape, lo, hi, dup, mode)
         before = ivf_scan_topk_fused.launches
         dk, ik = ivf_scan_topk(*args, kk=kk)
         torch.cuda.synchronize()
         assert ivf_scan_topk_fused.launches == before + 1
-        err, n_diff = compare_ivf(*args, kk, dk, ik)
+        err, n_diff = compare_ivf(*args, kk, dk, ik, mode == "repeat")
         n_pad = int((ik < 0).sum())
         if dup:
             tied = dk[:, 1:] == dk[:, :-1]
             assert int(tied.sum()) > 0, "no exact ties in the duplicated rows"
-            assert bool((ik[:, 1:] > ik[:, :-1])[tied & (ik[:, :-1] >= 0)]
-                        .all()), "equal distances not in ascending id order"
-        log(f"parity ivf_scan (Nq, C, cap, k, nprobe) {tuple(shape)} kk={kk}: "
-            f"max |dd| {err:.3e}, {n_diff} tie-resolved id differences, "
-            f"{n_pad} pad (-1) entries{', exact ties' if dup else ''}")
+            order = (ik[:, 1:] >= ik[:, :-1] if mode == "repeat"
+                     else ik[:, 1:] > ik[:, :-1])
+            assert bool(order[tied & (ik[:, :-1] >= 0)].all()), \
+                "equal distances not in ascending id order"
+        log(f"parity ivf_scan (Nq, C, cap, k, nprobe) {tuple(shape)} kk={kk} "
+            f"{mode}: max |dd| {err:.3e}, {n_diff} tie-resolved id "
+            f"differences, {n_pad} pad (-1) entries"
+            f"{', exact ties' if dup else ''}")
     for seed, case in enumerate(PQ_PARITY):
-        *shape, kk, lo, hi, ties = case
-        args = pq_case(seed, *shape, lo, hi, ties)
+        *shape, kk, lo, hi, ties, mode = case
+        args = pq_case(seed, *shape, lo, hi, ties, mode)
         before = pq_adc_topk_fused.launches
         dk, ik = pq_adc_topk(*args, kk=kk)
         dp, ip = pq_adc_topk_ref(*args, kk)
         torch.cuda.synchronize()
         assert pq_adc_topk_fused.launches == before + 1
         assert torch.equal(dk, dp) and torch.equal(ik, ip), \
-            f"pq_adc {tuple(shape)} kk={kk} is not bit-identical"
+            f"pq_adc {tuple(shape)} kk={kk} {mode} is not bit-identical"
         S, K = shape[3], 1 << shape[4]
         log(f"parity pq_adc (Nq, C, cap, S, bits, nprobe) {tuple(shape)} "
-            f"kk={kk}: bit-identical, {int((ik < 0).sum())} pad entries"
-            f"{', exact ties' if ties else ''}; table chunks of "
-            f"{lut_plan(S, K, kk)} subspaces")
+            f"kk={kk} {mode}: bit-identical, {int((ik < 0).sum())} pad "
+            f"entries{', exact ties' if ties else ''}; table plan (subspaces "
+            f"a chunk, code tiles) {lut_plan(S, K, kk)}")
     args = ivf_case(0, 2, 4, 300, 16, 2, 300, 300, False)
     for bad in (0, 601):
         try:
@@ -1244,6 +1317,72 @@ def _pq_args(pq, qp, nprobe=NPROBE):
             pq.t_pad.view(C, cap), pq.ids_pad.view(C, cap))
 
 
+def _ivf_fused(args, kk, marks):
+    """ivf_scan_topk_fused on ``_ivf_args``'s tensors, as
+    ops.ivf_scan_topk calls it, recording ``marks`` between launches."""
+    qp, probes, g, gn, ids = args
+    C, cap, k = g.shape
+    return ivf_scan_topk_fused(
+        probes.to(torch.int32).contiguous(), qp.contiguous(),
+        g.reshape(C * cap, k).contiguous(), gn.reshape(-1).contiguous(),
+        ids.reshape(-1).contiguous(), cap=cap, kk=kk, marks=marks)
+
+
+def _pq_fused(args, kk, stamps=None, marks=None):
+    """pq_adc_topk_fused on ``_pq_args``'s tensors, as ops.pq_adc_topk
+    calls it, with the blocks' clock stamps written to ``stamps`` and
+    ``marks`` recorded between launches."""
+    tables, dc, probes, codes, t, ids = args
+    C, cap, S = codes.shape
+    return pq_adc_topk_fused(
+        probes.to(torch.int32).contiguous(), tables.contiguous(),
+        dc.contiguous(), codes.reshape(C * cap, S).contiguous(),
+        t.reshape(-1).contiguous(), ids.reshape(-1).contiguous(),
+        n_codes=tables.shape[1] // S, cap=cap, kk=kk, stamps=stamps,
+        marks=marks)
+
+
+def launch_split(call, names):
+    """Device ms of each launch of one segment-scan call: the time
+    between the CUDA events its launcher records around them (``call``
+    takes the events). torch.profiler's record of these launches is not
+    to be relied on in chip_smoke's runs (PERF.md §7)."""
+    call(None)                                  # warm
+    marks = [torch.cuda.Event(enable_timing=True)
+             for _ in range(len(names) + 1)]
+    call(marks)
+    torch.cuda.synchronize()
+    out = {n: marks[i].elapsed_time(marks[i + 1])
+           for i, n in enumerate(names)}
+    log(f"  launches (CUDA events): "
+        f"{ {n: round(v, 4) for n, v in out.items()} } ms")
+    return out
+
+
+def stamp_split(call, rows):
+    """Where a scan kernel's block time goes, from one call that writes
+    five stamps a block (``%globaltimer`` ns, thread 0): start, table and
+    first tile landed, tiles done, end; and the time thread 0's warp
+    spent inserting candidates. Shares of the summed block time."""
+    st = torch.zeros((rows, 5), dtype=torch.int64, device=DEV)
+    call(st)
+    torch.cuda.synchronize()
+    st = st[st[:, 3] > 0].double()
+    t0, t1, t2, t3, ins = st.unbind(1)
+    busy = float((t3 - t0).sum())
+    out = {"blocks": st.shape[0],
+           "span_ms": float(t3.max() - t0.min()) / 1e6,
+           "mean_block_us": busy / st.shape[0] / 1e3,
+           "share": {"table_and_first_tile": float((t1 - t0).sum()) / busy,
+                     "score": float((t2 - t1 - ins).sum()) / busy,
+                     "insert": float(ins.sum()) / busy,
+                     "block_list": float((t3 - t2).sum()) / busy}}
+    log(f"  clock stamps: {out['blocks']} blocks over {out['span_ms']:.3f} "
+        f"ms, {out['mean_block_us']:.2f} us a block; shares "
+        f"{ {k: round(v, 4) for k, v in out['share'].items()} }")
+    return out
+
+
 def library_ivf(qp, probes, g, gn, k_top):
     """Gather the probed segments + torch.bmm + torch.topk (yardstick)."""
     nq, k = qp.shape
@@ -1306,6 +1445,23 @@ def time_ann(built, ann, queries):
                             eager_ms=eager, graph_ms=graphed,
                             distinct_segments=distinct, bytes=nbytes,
                             ops=ops)
+            # pq_adc's S table lookups a scanned row, in the log line only
+            lookup_ms = (1e3 * nq * NPROBE * idx.cap * S * 4 / PEAK_SMEM_BYTES
+                         if name == "ivfpq" else None)
+            if nq == MAX_BATCH:
+                # the launches apart (CUDA events), and pq_adc's own phases
+                # from its blocks' clock stamps
+                if name == "ivf":
+                    rows[nq]["launch_ms"] = launch_split(
+                        lambda m: _ivf_fused(args, kk, marks=m),
+                        ("plan", "scan", "merge"))
+                else:
+                    rows[nq]["launch_ms"] = launch_split(
+                        lambda m: _pq_fused(args, kk, marks=m),
+                        ("scan", "merge"))
+                    rows[nq]["split"] = stamp_split(
+                        lambda st: _pq_fused(args, kk, stamps=st),
+                        nq * NPROBE * idx.cap)
             fmt = lambda v: "-" if v is None else f"{v:.3f}"  # noqa: E731
             log(f"{name} kernel Nq={nq} nprobe={NPROBE} cap={idx.cap} "
                 f"kk={kk} ({distinct} distinct segments, {nbytes / 1e6:.1f} "
@@ -1315,7 +1471,9 @@ def time_ann(built, ann, queries):
                 f"(host launch cost included): kernel {fmt(eager['ms'])}, "
                 f"plain {fmt(eager['plain_ms'])}, library "
                 f"{fmt(eager['library_ms'])}; bound {b_ms:.3f} ms ({b_by}), "
-                f"{b_ms / best['ms']:.1%} of bound")
+                f"{b_ms / best['ms']:.1%} of bound"
+                + (f"; shared-memory lookups {lookup_ms:.3f} ms"
+                   if lookup_ms is not None else ""))
         kname, src = (("ivf_scan", "kernels/ivf_scan/csrc/ivf_scan.cu")
                       if name == "ivf" else
                       ("pq_adc", "kernels/pq_adc/csrc/pq_adc.cu"))

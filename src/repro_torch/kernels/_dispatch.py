@@ -16,11 +16,14 @@ tolerances at full width, and ``chip_smoke.py`` prints its error beside
 ``tma_operand`` zero-pads an operand's columns to the 16-byte row stride
 a TMA tensor map needs.
 ``BIG`` is the pad sentinel of the segment layouts (IVF / IVFPQ);
-``check_kk``, ``segment_split``, ``segment_scratch``, ``check_tensor``
-and ``sm_count`` serve the two segment-scan wrappers (ivf_scan, pq_adc).
+``check_kk``, ``segment_split``, ``segment_scratch``, ``event_handles``,
+``check_tensor`` and ``sm_count`` serve the two segment-scan wrappers
+(ivf_scan, pq_adc).
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -119,33 +122,48 @@ def check_kk(kk: int, nprobe: int, cap: int) -> None:
                          f"rows per query")
 
 
-def segment_split(nq: int, nprobe: int, cap: int, n_sm: int,
-                  tile_rows: int, waves: int = 4):
-    """Row chunks per probed segment of a segment scan that launches one
-    block per (query, probe, chunk): (nchunk, rows_per_chunk). A segment
-    is cut into chunks of whole tiles only when the Nq * nprobe blocks
-    would not fill ``waves * n_sm``; ``nchunk * rows_per_chunk >= cap``
-    and the last chunk is non-empty."""
-    nchunk = max(1, min(cdiv(waves * n_sm, nq * nprobe),
+def segment_split(units: int, cap: int, n_sm: int, tile_rows: int,
+                  waves: int = 4):
+    """Row chunks per segment of a segment scan that launches one block
+    per (unit of work, chunk): (nchunk, rows_per_chunk). A segment is cut
+    into chunks of whole tiles only when ``units`` blocks would not fill
+    ``waves * n_sm``; ``nchunk * rows_per_chunk >= cap`` and the last
+    chunk is non-empty."""
+    nchunk = max(1, min(cdiv(waves * n_sm, max(units, 1)),
                         cdiv(cap, tile_rows)))
     rows = round_up(cdiv(cap, nchunk), tile_rows)
     return cdiv(cap, rows), rows
 
 
-def segment_scratch(nq: int, nprobe: int, nchunk: int, cap: int, kk: int,
-                    list_k: int, device):
-    """Scratch of a segment scan: (cand_d, cand_p, dump). Per-block
-    candidate lists (nq, nprobe * nchunk, kk) when kk <= ``list_k``;
-    else the wide path's distance of every candidate, (nq, nprobe * cap).
-    The scratch a call does not use is empty."""
+def segment_scratch(nq: int, nlists: int, pool: int, kk: int, list_k: int,
+                    device):
+    """Scratch of a segment scan: (cand_d, cand_p, dump). ``nlists``
+    candidate lists of kk a query, (nq, nlists, kk), when kk <=
+    ``list_k``; else the wide path's distance of every candidate, (nq,
+    pool). The scratch a call does not use is empty."""
     f32, i32 = (dict(dtype=dt, device=device)
                 for dt in (torch.float32, torch.int32))
     if kk <= list_k:
-        return (torch.empty((nq, nprobe * nchunk, kk), **f32),
-                torch.empty((nq, nprobe * nchunk, kk), **i32),
+        return (torch.empty((nq, nlists, kk), **f32),
+                torch.empty((nq, nlists, kk), **i32),
                 torch.empty((0,), **f32))
     return (torch.empty((0,), **f32), torch.empty((0,), **i32),
-            torch.empty((nq, nprobe * cap), **f32))
+            torch.empty((nq, pool), **f32))
+
+
+def event_handles(marks, n: int):
+    """The cudaEvent_t handles of ``marks`` (n ``torch.cuda.Event``s, or
+    None) as a ctypes array for a segment scan's launcher, which records
+    them between its launches; None passes a null pointer. Each event is
+    recorded here once so that its handle exists."""
+    if marks is None:
+        return None
+    if len(marks) != n:
+        raise ValueError(f"marks takes {n} events, got {len(marks)}")
+    for ev in marks:
+        ev.record()
+    return (ctypes.c_void_p * n)(*(ctypes.c_void_p(ev.cuda_event)
+                                   for ev in marks))
 
 
 def check_tensor(name, x, dtype, ndim, device):

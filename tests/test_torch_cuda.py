@@ -5,7 +5,8 @@ flash_attention and ssd_scan (bf16 and f32), a reduced zamba2 backbone
 through both, and a reduced gemma-7b at head dim 256. Top-k widths past
 the 256-entry shared lists (the wide path), pq_adc tables taken in
 chunks (S 200, 1000) and pairwise_sqdist past 65535 tiles of yp rows are
-among the shapes.
+among the shapes; so are ivf_scan's plan (made on the card, against
+``work_plan``) and both segment scans on skewed and repeated probes.
 
 Marked ``cuda``: without a card every test here skips (a CUDA kernel has
 no CPU mode). Run on a machine with one card:
@@ -41,6 +42,8 @@ from repro_torch.kernels.ssd_chunk.cases import TWO_PLANS as SSD_TWO_PLANS
 from repro_torch.kernels.ssd_chunk.cases import BF16_ROUND, SSD_TOL
 from repro_torch.kernels.ivf_scan import (ivf_scan_topk, ivf_scan_topk_fused,
                                           ivf_scan_topk_ref)
+from repro_torch.kernels.ivf_scan.kernel import (device_plan, max_groups,
+                                                 work_plan)
 from repro_torch.kernels.pairwise_dist import (pairwise_sqdist,
                                                pairwise_sqdist_any,
                                                pairwise_sqdist_ref)
@@ -290,13 +293,22 @@ def _segments(rng, C, cap, lo, hi, device):
     return torch.tensor(ids, device=device)
 
 
-def _probes(rng, Nq, C, nprobe, device):
-    return torch.tensor(np.stack([rng.choice(C, nprobe, replace=False)
-                                  for _ in range(Nq)]), dtype=torch.int32,
-                        device=device)
+def _probes(rng, Nq, C, nprobe, device, mode="distinct"):
+    """Distinct clusters a row; "skewed": every row the same clusters;
+    "repeat": ids repeated within a row."""
+    if mode == "skewed":
+        pr = np.tile(rng.choice(C, nprobe, replace=False), (Nq, 1))
+    elif mode == "repeat":
+        pr = rng.randint(0, C, (Nq, nprobe))
+        pr[:, 1] = pr[:, 0]
+        pr[:, 2::3] = pr[:, 2:3]
+    else:
+        pr = np.stack([rng.choice(C, nprobe, replace=False)
+                       for _ in range(Nq)])
+    return torch.tensor(pr, dtype=torch.int32, device=device)
 
 
-def _ivf(seed, Nq, C, cap, k, nprobe, lo, hi, device):
+def _ivf(seed, Nq, C, cap, k, nprobe, lo, hi, device, mode="distinct"):
     rng = np.random.RandomState(seed)
     ids = _segments(rng, C, cap, lo, hi, device)
     real = ids >= 0
@@ -305,7 +317,29 @@ def _ivf(seed, Nq, C, cap, k, nprobe, lo, hi, device):
     gn = torch.where(real, torch.sum(g * g, 2), torch.full_like(g[..., 0],
                                                                 BIG))
     qp = torch.tensor(rng.randn(Nq, k), dtype=torch.float32, device=device)
-    return qp, _probes(rng, Nq, C, nprobe, device), g, gn, ids
+    probes = _probes(rng, Nq, C, nprobe, device, mode)
+    if mode == "repeat":                  # out of range: clipped
+        probes[:, -1] = C + 3
+        probes[0, 0] = -2
+    return qp, probes, g, gn, ids
+
+
+def _assert_ivf_close(args, kk, dk, ik):
+    """The comparison rule of the module docstring."""
+    qp, probes, g, gn, ids = args
+    dp, ip = ivf_scan_topk_ref(*args, kk)
+    gn_of = torch.full((int(ids.max()) + 2,), BIG, device=qp.device)
+    gn_of[ids[ids >= 0].long()] = gn[ids >= 0]
+    qn = torch.sum(qp * qp, 1)
+    tol = ATOL + RTOL * (qn[:, None] + gn_of[ip.long()])
+    assert bool(((dk - dp).abs() <= tol).all())
+    inf = torch.full_like(dp[:, :1], float("inf"))
+    nxt = (ivf_scan_topk_ref(*args, kk + 1)[0][:, kk:]
+           if kk < probes.shape[1] * g.shape[1] else inf)
+    apart = ((dp - torch.cat([-inf, dp[:, :-1]], 1)) > tol) & \
+        ((torch.cat([dp[:, 1:], nxt], 1) - dp) > tol)
+    assert bool((ik == ip)[apart].all())
+    assert torch.equal(ik < 0, ip < 0)
 
 
 IVF_SHAPES = [(5, 6, 32, 12, 3, 7, 32, 32), (4, 7, 16, 5, 2, 32, 0, 5),
@@ -322,27 +356,74 @@ IVF_SHAPES = [(5, 6, 32, 12, 3, 7, 32, 32), (4, 7, 16, 5, 2, 32, 0, 5),
 def test_ivf_scan_kernel_matches_plain_version(cuda_device, Nq, C, cap, k,
                                                nprobe, kk, lo, hi):
     args = _ivf(Nq + C + cap, Nq, C, cap, k, nprobe, lo, hi, cuda_device)
-    qp, probes, g, gn, ids = args
     before = ivf_scan_topk_fused.launches
     dk, ik = ivf_scan_topk(*args, kk=kk)
-    dp, ip = ivf_scan_topk_ref(*args, kk)
     torch.cuda.synchronize()
     assert ivf_scan_topk_fused.launches == before + 1
-    gn_of = torch.full((int(ids.max()) + 2,), BIG, device=cuda_device)
-    gn_of[ids[ids >= 0].long()] = gn[ids >= 0]
-    qn = torch.sum(qp * qp, 1)
-    tol = ATOL + RTOL * (qn[:, None] + gn_of[ip.long()])
-    assert bool(((dk - dp).abs() <= tol).all())
-    inf = torch.full_like(dp[:, :1], float("inf"))
-    nxt = (ivf_scan_topk_ref(*args, kk + 1)[0][:, kk:]
-           if kk < nprobe * cap else inf)
-    apart = ((dp - torch.cat([-inf, dp[:, :-1]], 1)) > tol) & \
-        ((torch.cat([dp[:, 1:], nxt], 1) - dp) > tol)
-    assert bool((ik == ip)[apart].all())
-    assert torch.equal(ik < 0, ip < 0)
+    _assert_ivf_close(args, kk, dk, ik)
 
 
-def _pq(seed, Nq, C, cap, S, bits, nprobe, lo, hi, device):
+# the cluster-major plan's edges: (probes, Nq, C, cap, k, nprobe, kk, lo,
+# hi): every query on the same 16 clusters (one hot segment per group of
+# 8 pairs; lists and the wide path), ids repeated in a row and out of
+# range, 9,600 pairs (two plan launches), Nq 1 at the serving widths, and
+# at kk 256 (624 lists of 256: merged in batches of 64)
+IVF_PLAN_SHAPES = [("skewed", 64, 48, 300, 1000, 16, 10, 200, 300),
+                   ("skewed", 64, 40, 70, 1003, 16, 300, 20, 70),
+                   ("skewed", 3, 5, 40, 8, 5, 24, 20, 40),
+                   ("repeat", 9, 12, 45, 1000, 8, 20, 0, 45),
+                   ("repeat", 7, 10, 45, 64, 8, 300, 10, 45),
+                   ("distinct", 600, 64, 40, 16, 16, 10, 10, 40),
+                   ("distinct", 1, 48, 1224, 1000, 16, 10, 1000, 1224),
+                   ("distinct", 1, 48, 1224, 64, 16, 256, 1000, 1224)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode,Nq,C,cap,k,nprobe,kk,lo,hi", IVF_PLAN_SHAPES)
+def test_ivf_scan_kernel_at_the_plans_edges(cuda_device, mode, Nq, C, cap, k,
+                                            nprobe, kk, lo, hi):
+    args = _ivf(Nq + cap, Nq, C, cap, k, nprobe, lo, hi, cuda_device, mode)
+    dk, ik = ivf_scan_topk(*args, kk=kk)
+    torch.cuda.synchronize()
+    _assert_ivf_close(args, kk, dk, ik)
+    if mode == "repeat":                  # a row scans one cluster twice
+        assert bool((torch.sort(ik, 1).values[:, 1:] ==
+                     torch.sort(ik, 1).values[:, :-1]).any())
+
+
+@pytest.mark.cuda
+def test_ivf_scan_takes_k_past_the_old_query_row_limit(cuda_device):
+    """k 50,000: the old kernel kept the query row whole in shared memory
+    (k up to ~49,600); the group's query slices now stream beside g's."""
+    args = _ivf(5, 3, 4, 40, 50_000, 2, 20, 40, cuda_device)
+    dk, ik = ivf_scan_topk(*args, kk=7)
+    torch.cuda.synchronize()
+    _assert_ivf_close(args, 7, dk, ik)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Nq,C,nprobe,mode", [
+    (1, 1024, 16, "distinct"), (64, 1024, 16, "distinct"),
+    (64, 1024, 16, "skewed"), (64, 7, 16, "repeat"), (3, 2, 40, "repeat"),
+    (512, 1024, 16, "distinct"), (512, 100, 16, "distinct")])
+def test_ivf_scan_plan_kernel_matches_work_plan(cuda_device, Nq, C, nprobe,
+                                                mode):
+    """The plan the card makes (order, group starts, counts, segments)
+    equals ``work_plan``'s, and its group count stays within the grid's
+    bound."""
+    rng = np.random.RandomState(Nq + C)
+    probes = _probes(rng, Nq, C, nprobe, cuda_device, mode)
+    if mode == "repeat":
+        probes[:, -1] = C + 3
+        probes[0, 0] = -2
+    got = device_plan(probes, C)
+    (_, *want), = work_plan(probes.cpu(), C)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert len(got[1]) <= max_groups(Nq * nprobe, C)
+
+
+def _pq(seed, Nq, C, cap, S, bits, nprobe, lo, hi, device,
+        mode="distinct"):
     rng = np.random.RandomState(seed)
     K = 1 << bits
     ids = _segments(rng, C, cap, lo, hi, device)
@@ -352,7 +433,7 @@ def _pq(seed, Nq, C, cap, S, bits, nprobe, lo, hi, device):
     f32 = dict(dtype=torch.float32, device=device)
     return (torch.tensor(rng.randn(Nq, S * K), **f32),
             torch.tensor(np.abs(rng.randn(Nq, nprobe)), **f32),
-            _probes(rng, Nq, C, nprobe, device),
+            _probes(rng, Nq, C, nprobe, device, mode),
             torch.tensor(codes.astype(np.uint8), device=device),
             torch.tensor(t, **f32), ids)
 
@@ -380,6 +461,32 @@ def test_pq_adc_kernel_bit_identical_to_plain_version(
     dp, ip = pq_adc_topk_ref(*args, kk)
     torch.cuda.synchronize()
     assert pq_adc_topk_fused.launches == before + 1
+    assert torch.equal(dk, dp) and torch.equal(ik, ip)
+
+
+# (probes, Nq, C, cap, S, bits, nprobe, kk, lo, hi): every query on the
+# same clusters (lists and the wide path), ids repeated in a row, S 128
+# (the whole table beside one code tile), Nq 1 at the serving widths, and
+# at kk 256 (80 lists of 256: merged in batches of 64)
+PQ_PLAN_SHAPES = [("skewed", 64, 48, 300, 100, 8, 16, 50, 200, 300),
+                  ("skewed", 8, 48, 300, 100, 8, 16, 512, 200, 300),
+                  ("repeat", 9, 12, 300, 100, 8, 6, 40, 0, 300),
+                  ("repeat", 5, 6, 32, 4, 8, 6, 7, 20, 32),
+                  ("distinct", 4, 8, 600, 128, 8, 4, 256, 300, 600),
+                  ("distinct", 1, 48, 1224, 100, 8, 16, 50, 1000, 1224),
+                  ("distinct", 1, 48, 1224, 100, 8, 16, 256, 1000, 1224)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode,Nq,C,cap,S,bits,nprobe,kk,lo,hi",
+                         PQ_PLAN_SHAPES)
+def test_pq_adc_kernel_bit_identical_at_the_plans_edges(
+        cuda_device, mode, Nq, C, cap, S, bits, nprobe, kk, lo, hi):
+    args = _pq(Nq + cap, Nq, C, cap, S, bits, nprobe, lo, hi, cuda_device,
+               mode)
+    dk, ik = pq_adc_topk(*args, kk=kk)
+    dp, ip = pq_adc_topk_ref(*args, kk)
+    torch.cuda.synchronize()
     assert torch.equal(dk, dp) and torch.equal(ik, ip)
 
 

@@ -5,10 +5,14 @@ the CPU the port's ``ivf_scan_topk`` runs the kernel's plain version;
 the reference runs its XLA path and its Pallas kernel in interpret mode
 (as tests/test_scan_kernels.py does). Ids must be equal and distances
 within atol + rtol * (qn + gn), rtol = atol = 1e-5 (f32 on both sides,
-different summation order). The CUDA kernel itself is checked against
-its plain version in tests/test_torch_cuda.py, which needs a card.
-Also here: the wrapper's launch plan and refusals, and the build
-helper's source hash (it covers included headers).
+different summation order). ``ivf_scan_grouped``, the same function in
+the kernel's cluster-major order of work, is held to the same rule
+against both, and its work plan (``work_plan``) to the plan's contract:
+every (query, probe, chunk) once, groups of at most 8 pairs of one
+segment. The CUDA kernel itself is checked against its plain version,
+and its own plan against ``work_plan``, in tests/test_torch_cuda.py,
+which needs a card. Also here: the wrapper's launch plan and refusals,
+and the build helper's source hash (it covers included headers).
 """
 
 import numpy as np
@@ -20,10 +24,14 @@ import jax.numpy as jnp
 from repro.kernels.ivf_scan import ivf_scan_topk as jax_ivf_scan_topk
 
 from repro_torch.kernels import _build
-from repro_torch.kernels._dispatch import BIG, segment_split
-from repro_torch.kernels.ivf_scan import (ivf_scan_topk, ivf_scan_topk_fused,
+from repro_torch.kernels._dispatch import BIG, cdiv, segment_split
+from repro_torch.kernels.ivf_scan import (ivf_scan_grouped, ivf_scan_topk,
+                                          ivf_scan_topk_fused,
                                           ivf_scan_topk_ref)
-from repro_torch.kernels.ivf_scan.kernel import LIST_K, TILE_ROWS, smem_bytes
+from repro_torch.kernels.ivf_scan.kernel import (GROUP, LIST_K, PLAN_MAX,
+                                                 SMEM_LIMIT, TILE_ROWS,
+                                                 max_groups, smem_bytes,
+                                                 work_plan)
 
 RTOL = ATOL = 1e-5
 
@@ -155,24 +163,159 @@ def test_fused_wrapper_needs_cuda_tensors():
                                            (3, 2, 24), (1, 1, 7),
                                            (512, 16, 1224), (2, 1024, 33)])
 def test_split_plan_covers_each_segment(nq, nprobe, cap):
-    nchunk, rows = segment_split(nq, nprobe, cap, 132, TILE_ROWS)
+    """ivf_scan's scan has at least ceil(nq * nprobe / 8) blocks before
+    splitting (groups of 8 pairs); a segment is cut into chunks of whole
+    tiles only when they would not fill 4 waves of 132 SMs."""
+    units = cdiv(nq * nprobe, GROUP)
+    nchunk, rows = segment_split(units, cap, 132, TILE_ROWS)
     assert rows % TILE_ROWS == 0 and nchunk >= 1
     assert (nchunk - 1) * rows < cap <= nchunk * rows
-    if nq * nprobe >= 4 * 132:
+    if units >= 4 * 132:
         assert nchunk == 1              # enough blocks without chunks
     else:
-        assert nq * nprobe * nchunk >= min(4 * 132 // 2,
-                                           nq * nprobe * -(-cap // TILE_ROWS))
+        assert units * nchunk >= min(4 * 132 // 2,
+                                     units * -(-cap // TILE_ROWS))
+
+
+def _probes_of(mode, Nq, C, nprobe, seed=0):
+    """(Nq, nprobe) int32 probes: "distinct" clusters a row, "skewed"
+    (every row the same clusters: one hot segment a group), "repeat" (ids
+    repeated in a row and out of range, so clipping makes more repeats)."""
+    rng = np.random.RandomState(seed)
+    if mode == "skewed":
+        pr = np.tile(rng.choice(C, nprobe, replace=False), (Nq, 1))
+    elif mode == "repeat":
+        pr = rng.randint(-3, C + 3, (Nq, nprobe))
+        pr[:, 1] = pr[:, 0]
+    else:
+        pr = np.stack([rng.choice(C, nprobe, replace=False)
+                       for _ in range(Nq)])
+    return torch.tensor(pr, dtype=torch.int32)
+
+
+# (probes, Nq, C, nprobe): duplicates after clipping, one hot segment
+# probed by every query, Nq 1, Nq * nprobe not a multiple of 8, more pairs
+# than one plan launch takes
+PLAN_CASES = [("repeat", 5, 6, 7), ("repeat", 64, 3, 16),
+              ("skewed", 64, 1024, 16), ("skewed", 64, 40, 1),
+              ("distinct", 1, 1024, 16), ("distinct", 1, 5, 3),
+              ("distinct", 3, 9, 5), ("distinct", 700, 1024, 16)]
+
+
+@pytest.mark.parametrize("mode,Nq,C,nprobe", PLAN_CASES)
+def test_work_plan_covers_each_pair_once_in_groups_of_one_segment(
+        mode, Nq, C, nprobe):
+    probes = _probes_of(mode, Nq, C, nprobe)
+    seg = probes.reshape(-1).long().clamp(0, C - 1)
+    seen = []
+    rounds = work_plan(probes, C)
+    assert len(rounds) == cdiv(Nq * nprobe, PLAN_MAX)
+    for pair0, order, gfirst, gcount, gseg in rounds:
+        npairs = order.numel()
+        assert len(gfirst) <= max_groups(npairs, C)
+        # order: the round's pairs sorted by (segment, pair), stably
+        key = seg[order] * (Nq * nprobe) + order
+        assert bool((key[1:] > key[:-1]).all())
+        assert sorted(order.tolist()) == list(range(pair0, pair0 + npairs))
+        assert int(gcount.sum()) == npairs
+        assert bool((gcount >= 1).all() and (gcount <= GROUP).all())
+        for f, n, s in zip(gfirst.tolist(), gcount.tolist(), gseg.tolist()):
+            pairs = order[f:f + n]
+            assert bool((seg[pairs] == s).all())      # one segment a group
+            # groups are cut from the start of their segment's run
+            assert int((seg[order[:f]] == s).sum()) % GROUP == 0
+            seen += pairs.tolist()
+    assert sorted(seen) == list(range(Nq * nprobe))   # each pair once
+    # a hot segment probed by every query: groups of 8, and the count
+    # the grid's bound allows
+    if mode == "skewed":
+        assert len(rounds[0][2]) == nprobe * cdiv(Nq, GROUP)
+
+
+@pytest.mark.parametrize("mode,Nq,C,nprobe", PLAN_CASES[:6])
+def test_blocks_cover_each_query_probe_chunk_once(mode, Nq, C, nprobe):
+    """The scan's blocks, one per (group, chunk), with each group's pairs,
+    cover every (query, probe, chunk) exactly once: the candidate-list
+    slots the merge reads."""
+    cap = 300
+    probes = _probes_of(mode, Nq, C, nprobe)
+    nchunk, _ = segment_split(cdiv(Nq * nprobe, GROUP), cap, 132, TILE_ROWS)
+    slots = []
+    for _, order, gfirst, gcount, _ in work_plan(probes, C):
+        for f, n in zip(gfirst.tolist(), gcount.tolist()):
+            for c in range(nchunk):
+                slots += [p * nchunk + c for p in order[f:f + n].tolist()]
+    assert sorted(slots) == list(range(Nq * nprobe * nchunk))
+
+
+def test_max_groups_bounds_every_plan():
+    rng = np.random.RandomState(3)
+    for _ in range(40):
+        Nq, nprobe, C = rng.randint(1, 40), rng.randint(1, 20), \
+            rng.randint(1, 60)
+        probes = torch.tensor(rng.randint(0, C, (Nq, nprobe)),
+                              dtype=torch.int32)
+        (_, _, gfirst, _, _), = work_plan(probes, C)
+        assert len(gfirst) <= max_groups(Nq * nprobe, C) <= Nq * nprobe
+
+
+@pytest.mark.parametrize("Nq,C,cap,k,nprobe,kk,lo,hi", CASES)
+def test_grouped_mirror_matches_reference_xla(Nq, C, cap, k, nprobe, kk, lo,
+                                              hi):
+    arrays = _case(5, Nq, C, cap, k, nprobe, lo, hi)
+    d_j, i_j = jax_ivf_scan_topk(*map(jnp.asarray, arrays), kk=kk,
+                                 use_kernel=False)
+    d, i = ivf_scan_grouped(*_torch(arrays), kk=kk)
+    np.testing.assert_array_equal(i.numpy(), np.asarray(i_j))
+    qp = arrays[0]
+    tol = ATOL + RTOL * (np.sum(qp ** 2, 1)[:, None] + np.abs(d.numpy()))
+    assert (np.abs(d.numpy() - np.asarray(d_j)) <= tol).all()
+
+
+@pytest.mark.parametrize("Nq,C,cap,k,nprobe,kk,lo,hi", CASES[:3:2])
+def test_grouped_mirror_matches_reference_interpret_kernel(
+        Nq, C, cap, k, nprobe, kk, lo, hi):
+    arrays = _case(6, Nq, C, cap, k, nprobe, lo, hi)
+    d_j, i_j = jax_ivf_scan_topk(*map(jnp.asarray, arrays), kk=kk, block_q=2,
+                                 block_m=8, use_kernel=True, interpret=True)
+    d, i = ivf_scan_grouped(*_torch(arrays), kk=kk)
+    np.testing.assert_array_equal(i.numpy(), np.asarray(i_j))
+    np.testing.assert_allclose(d.numpy(), np.asarray(d_j), rtol=1e-4,
+                               atol=1e-4)
+
+
+@pytest.mark.parametrize("mode,Nq,C,cap,k,nprobe,kk", [
+    ("skewed", 64, 12, 40, 9, 4, 10), ("skewed", 20, 30, 24, 5, 6, 100),
+    ("repeat", 9, 8, 30, 12, 6, 20), ("repeat", 3, 5, 16, 7, 5, 80),
+    ("distinct", 1, 20, 300, 16, 16, 10), ("distinct", 1, 20, 300, 16, 16,
+                                           257)])
+def test_grouped_mirror_matches_plain_version(mode, Nq, C, cap, k, nprobe,
+                                              kk):
+    """Skewed and repeated probes, and Nq 1 (a segment split into 32-row
+    chunks): the grouped order of work gives the plain version's ids and
+    its distances to f32 rounding; with repeated probes, both keep an id
+    twice where a row scans its cluster twice."""
+    qp, _, g, gn, ids = _torch(_case(7, Nq, C, cap, k, nprobe, cap // 2,
+                                     cap))
+    probes = _probes_of(mode, Nq, C, nprobe)
+    d, i = ivf_scan_grouped(qp, probes, g, gn, ids, kk)
+    dp, ip = ivf_scan_topk_ref(qp, probes, g, gn, ids, kk)
+    assert torch.equal(i, ip)
+    tol = ATOL + RTOL * (torch.sum(qp ** 2, 1)[:, None] + dp.abs())
+    assert bool(((d - dp).abs() <= tol).all())
 
 
 def test_shared_memory_plan():
-    assert smem_bytes(1000, 10) < 48 * 1024 < smem_bytes(1000, LIST_K)
-    assert smem_bytes(1000, LIST_K) < 227 * 1024
-    assert smem_bytes(129, 1) - smem_bytes(128, 1) == 4 * 128
-    # past LIST_K the block keeps no lists: the wide path writes its
-    # distances out, so any kk fits beside the slices and the query row
-    for kk in (LIST_K + 1, 1024, 100_000):
-        assert smem_bytes(1000, kk) == smem_bytes(1000, 0) < 48 * 1024
+    """A scan block's shared memory fits the card for every kk (lists of
+    up to LIST_K; wider kk keeps none) and does not grow with k: the
+    query rows stream through the stages beside the segment's."""
+    stages = 3 * (TILE_ROWS + GROUP) * 128 * 4 + 4 * GROUP * TILE_ROWS
+    for kk in range(1, 2 * LIST_K):
+        assert smem_bytes(kk) <= SMEM_LIMIT
+        assert smem_bytes(kk) == stages + (GROUP * kk * 8 if kk <= LIST_K
+                                           else 0)
+    assert smem_bytes(100_000) == stages
+    assert smem_bytes(LIST_K) < 96 * 1024     # two blocks an SM
 
 
 def test_build_hash_covers_included_headers(tmp_path):

@@ -23,8 +23,9 @@ from repro.kernels.pq_adc import pq_adc_topk as jax_pq_adc_topk
 from repro_torch.kernels._dispatch import BIG
 from repro_torch.kernels.pq_adc import (pq_adc_topk, pq_adc_topk_fused,
                                         pq_adc_topk_ref)
-from repro_torch.kernels.pq_adc.kernel import (LIST_K, SMEM_LIMIT,
-                                               lut_plan, smem_bytes)
+from repro_torch.kernels.pq_adc.kernel import (LIST_K, PIECE_ROWS,
+                                               SMEM_LIMIT, lut_plan,
+                                               smem_bytes, unit_plan)
 
 
 def _case(seed, Nq, C, cap, S, bits, nprobe, fill_lo, fill_hi, ties=False):
@@ -145,33 +146,65 @@ def test_fused_wrapper_needs_cuda_tensors():
 
 
 def test_shared_memory_plan_and_refusal():
-    # the serving shape: a 102,400-byte table needs the opt-in above 48 KB
+    # the serving shape: a 102,400-byte table beside two tiles of two
+    # 256-row pieces needs the opt-in above 48 KB and fits one block an SM
     assert 48 * 1024 < smem_bytes(100, 256, 50) <= SMEM_LIMIT
-    assert smem_bytes(100, 256, 256) <= SMEM_LIMIT
-    assert lut_plan(100, 256, 256) == 100  # the whole table, as before
+    assert lut_plan(100, 256, 50) == (100, 2)
+    assert lut_plan(100, 256, 256) == (100, 2)  # the whole table, two tiles
+    # S 128: the whole table fits beside one tile, not two
+    assert lut_plan(128, 256, 50) == (128, 1)
+    assert smem_bytes(128, 256, 50, 128, 2) > SMEM_LIMIT
     # a 204,800-byte table + whole-row tiles does not fit: the plan takes
     # the table in chunks of subspaces instead of refusing
-    assert smem_bytes(200, 256, 10) > SMEM_LIMIT
-    sc = lut_plan(200, 256, 10)
-    assert 1 <= sc < 200 and smem_bytes(200, 256, 10, sc) <= SMEM_LIMIT
+    assert smem_bytes(200, 256, 10, 200, 1) > SMEM_LIMIT
+    sc, nstage = lut_plan(200, 256, 10)
+    assert 1 <= sc < 200 and nstage == 1
+    assert smem_bytes(200, 256, 10, sc) <= SMEM_LIMIT
     assert smem_bytes(200, 256, 10, sc + 1) > SMEM_LIMIT
     with pytest.raises(ValueError, match="shared memory"):
         lut_plan(1, 1 << 16, 10)           # not one subspace of 64K floats
 
 
-@pytest.mark.parametrize("S", [146, 200, 500, 1000])
+@pytest.mark.parametrize("S", [1, 4, 100, 128, 146, 200, 500, 1000])
 @pytest.mark.parametrize("kk", [1, 50, LIST_K, LIST_K + 1, 1024])
 def test_chunked_plan_fits_every_subspace_count(S, kk):
     """Every (S, K, kk) the reference computes at d_out <= 1000 with
-    8-bit codes fits one block: the chunk holds the most subspaces that
-    fit, and the wide path (kk > LIST_K) keeps no lists."""
-    sc = lut_plan(S, 256, kk)
-    assert 1 <= sc <= S and smem_bytes(S, 256, kk, sc) <= SMEM_LIMIT
+    8-bit codes fits one block: the whole table beside two code tiles,
+    else beside one, else a chunk of the most subspaces that fit; the
+    wide path (kk > LIST_K) keeps no lists."""
+    sc, nstage = lut_plan(S, 256, kk)
+    assert 1 <= sc <= S and nstage in (1, 2)
+    assert smem_bytes(S, 256, kk, sc, nstage) <= SMEM_LIMIT
+    if nstage == 1 and sc == S:
+        assert smem_bytes(S, 256, kk, S, 2) > SMEM_LIMIT
     if sc < S:
-        assert smem_bytes(S, 256, kk) > SMEM_LIMIT
+        assert smem_bytes(S, 256, kk, S, 1) > SMEM_LIMIT
         assert smem_bytes(S, 256, kk, sc + 1) > SMEM_LIMIT
-    lists = 9 * kk * 8 if kk <= LIST_K else 0
-    assert smem_bytes(S, 256, kk, 1) == 1024 + 256 + lists
+    lists = 12 * kk * 8 if kk <= LIST_K else 0
+    assert smem_bytes(S, 256, kk, 1, 1) == (
+        (1024 + 2 * 256 if S > 1 else 1024 + 2 * 272) + lists)
+
+
+@pytest.mark.parametrize("nq,nprobe,cap", [(1, 16, 1224), (64, 16, 1224),
+                                           (3, 2, 24), (1, 1, 7),
+                                           (512, 16, 1224), (2, 1024, 33),
+                                           (7, 5, 300)])
+def test_unit_plan_covers_each_piece_once(nq, nprobe, cap):
+    """A query's pieces (a probe's chunk of 256 rows) dealt out in units
+    of ppb: each piece in exactly one block, units of whole tiles (two
+    pieces) but the last, and about 4 waves of 132 blocks when there are
+    enough pieces."""
+    ppb, nunits = unit_plan(nq, nprobe, cap, 132)
+    npieces = nprobe * -(-cap // PIECE_ROWS)
+    assert 1 <= ppb <= npieces and nunits == -(-npieces // ppb)
+    pieces = [j for u in range(nunits)
+              for j in range(u * ppb, min(npieces, (u + 1) * ppb))]
+    assert pieces == list(range(npieces))
+    assert ppb == 1 or ppb % 2 == 0 or ppb == npieces
+    if nq * npieces >= 8 * 132:
+        assert nq * nunits >= 2 * 132          # the card stays full
+    else:
+        assert ppb <= 2                        # small batches: small units
 
 
 def test_s200_plain_bit_identical_at_the_eval_width():
