@@ -47,6 +47,15 @@ exit, and nothing falls back:
                 bf16 kernel's tile edges (T = S of 127, 129, 161, 255,
                 window 1 and one kv tile, GQA 4 at Dh 256, non-causal
                 S < T) and on strided views of a fused qkv projection;
+                the asynchronous PS: its server's rule on messages made on
+                four worker streams, once with the workers' streams and
+                once with the server's held back by a spinning kernel
+                (``torch.equal`` to the same rule run on one stream; each
+                case fails without one of ``_receive``'s guards), one
+                worker message against ``objective_value_and_grad``; and
+                the Fig. 4 baselines (``xing2002.pgd_step``, one ITML
+                sweep, KISS ``fit`` with PCA) against the same calls on
+                the CPU;
   4. training — the Eq. 4 path at dml-imnet1m width (d_in 21504 -> d_out
                 1000): 10,000 noisy_subspace rows and 100 classes resident
                 on the card, 50k + 50k index pairs (the reference's
@@ -63,6 +72,36 @@ exit, and nothing falls back:
                 through pairwise_sqdist; checks the launch count and that
                 the kernel path's predictions equal the plain path's
                 except at a k-th / (k+1)-th distance tie;
+ 5a. async PS — ``run_async_dml`` (the paper's §4.2 server) at
+                dml-imnet1m width on phase 4's data, from phase 4's
+                rescaled initial L: P worker threads and the server
+                thread, each on a CUDA stream of its own, server_batch 4,
+                lr 1e-3, 100 steps a worker, at P = 1, 2 and 4; the P =
+                4 call is checked: P x 100 messages from every worker, 1
+                <= updates <= messages, a finite L, the last 20 messages'
+                mean loss below the first 20's and every thread
+                finished; prints ms a message a worker, messages/s,
+                updates, messages an update, the deepest inbound queue
+                and peak memory; each call runs once under the profiler
+                (host time of that call, device busy time as the union
+                of kernel and copy intervals over all streams, idle
+                share);
+ 5b. Fig. 3   — on those three calls: wall time and messages/s, and
+                the virtual-time speedup of ``benchmarks/fig3_speedup.py``
+                (findings, not checks: the P threads share one card);
+ 5c. Fig. 4   — the reference's Fig. 4 recipe at dml-mnist width (d 780,
+                k 600, 1000 pairs a batch): noisy_subspace at noise 3.0,
+                60,000 rows, 100k + 100k train and 2,000 + 2,000 eval
+                pairs; ours (``train_dml_single`` on dml_pair, 250 steps,
+                lr 1e-2, from the rescaled ``init_params``), Xing2002 (50
+                PGD steps, lr 5e-2), ITML (4,000 constraints, 2 sweeps),
+                KISS (PCA to 390, ridge 1e-4) and Euclidean; checks 250
+                dml_pair launches, every M finite and PSD, every AP in
+                [0, 1]; prints each AP and training time (ours takes
+                its batches from host numpy, the baselines their pairs
+                on the card; both these calls under the profiler) and
+                whether each of the reference's three Fig. 4 claims
+                holds;
   6. serving  — the exact-serving path at dml-imnet1m width (1M x 21504
                 -> 1000): a random L from a seeded generator, a 1M-row
                 llc_like gallery generated and projected on the card in
@@ -123,8 +162,10 @@ exit, and nothing falls back:
                 line (all seven kernels; flash_attention twice);
  12. the last line: ``{"ok": true, "device": {...}}``.
 
-Every launch count is set to 0 just before a main-path phase (4, 5, 6,
-each index of 8, gemma's embed_pool in 9, and 10) and read just after;
+Every launch count is set to 0 just before a main-path phase (4, 5, 5a,
+5c, 6, each index of 8, gemma's embed_pool in 9, and 10) and read just
+after (5a launches no kernel: its gradient is the reference's plain
+autograd product);
 comparison launches come after the reading (or, for phase 9, before the
 counts are reset).
 
@@ -178,9 +219,11 @@ from __future__ import annotations
 
 import json
 import os
+import queue
 import re
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -190,15 +233,15 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 "src"))
 
 from repro_torch.configs import get_config  # noqa: E402
-from repro_torch.configs.dml_paper import IMNET_1M  # noqa: E402
-from repro_torch.core import dml  # noqa: E402
+from repro_torch.configs.dml_paper import IMNET_1M, MNIST  # noqa: E402
+from repro_torch.core import dml, itml, kiss, xing2002  # noqa: E402
 from repro_torch.core.dml import init_params  # noqa: E402
 from repro_torch.core.eval_tasks import knn_accuracy, knn_vote  # noqa: E402
 from repro_torch.core.losses import dml_pair_loss  # noqa: E402
-from repro_torch.core.ps import sync  # noqa: E402
+from repro_torch.core.ps import simulator, sync  # noqa: E402
 from repro_torch.core.ps.trainer import (  # noqa: E402
     DMLTrainConfig, make_worker_streams, stack_worker_streams,
-    train_dml_distributed)
+    train_dml_distributed, train_dml_single)
 from repro_torch.data import pairs as pairdata  # noqa: E402
 from repro_torch.data.loader import partition_pairs  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
@@ -259,9 +302,10 @@ MT_SWEEP = [(nq, 4000, 300, k, kt) for nq in (1, 7, 9, 64, 65, 200)
 # 5000 (far past the widest list) and k_top = M
 MT_WIDE = [(64, 4000, 300, 1000, 257), (7, 4000, 300, 1000, 1024),
            (65, 20000, 96, 200, 5000), (9, 600, 40, 33, 600)]
+# (B, k, d); (1000, 600, 780) is Fig. 4's "ours" (phase 5c)
 DML_SHAPES = [(8, 8, 8), (64, 32, 48), (256, 128, 512), (100, 60, 780),
-              (512, 600, 780), (32, 100, 224), (37, 16, 24),
-              (37, 16, 9), (130, 129, 33), (257, 1000, 4001)]  # (B, k, d)
+              (512, 600, 780), (1000, 600, 780), (32, 100, 224),
+              (37, 16, 24), (37, 16, 9), (130, 129, 33), (257, 1000, 4001)]
 DML_FULL = (1000, 1000, 21504)  # the training width, forward only
 # (N, M, k): square, ragged, k not a multiple of 4 (9, 1003; the wrapper
 # pads), the eval width, and M above the grid's y limit of 65535 tiles
@@ -275,6 +319,21 @@ N_WORKERS = 4
 TRAIN_SAMPLES, TRAIN_CLASSES, N_HOLD = 10_000, 100, 2_000
 TRAIN_STEPS = {"bsp": 50, "local": 8, "ssp": 6}
 KNN_K = 5
+# the asynchronous PS phase (dml-imnet1m width, phase 4's data): the P
+# whose call takes the checks, constant lr (the base rate of bsp's
+# schedule), messages an update; the Fig. 3 measurement at P = 1, 2, 4,
+# steps a worker; the server-rule parity check's messages are chains of
+# this many elementwise steps (few: every launch queued behind a held
+# stream must fit the launch queue, or the host blocks until the hold
+# ends), and the side it holds back spins this many cycles (about 0.5 s
+# at the H100's clocks)
+ASYNC_P, ASYNC_LR, ASYNC_SERVER_BATCH = 4, 1e-3, 4
+FIG3_WORKERS, FIG3_STEPS = (1, 2, 4), 100
+ASYNC_MSG_CHAIN, ASYNC_HOLD_CYCLES = 2, 1_000_000_000
+# Fig. 4 at dml-mnist width: noise 3.0, where the methods separate (at
+# the default 0.3 every learned method saturates at AP ~1); lr 1e-2, as
+# the reference's 5e-2 diverges at this width with or without the rescale
+FIG4_NOISE, FIG4_STEPS, FIG4_LR = 3.0, 250, 1e-2
 # ivf_scan parity: (Nq, C, cap, k, nprobe, kk, fill_lo, fill_hi, dup,
 # probes); the CPU tests' shapes, then ragged ones (cap 45 / 70 against the
 # 32-row tile, k = 1003 off the 16-byte path, empty and under-filled
@@ -568,6 +627,196 @@ def phase_parity_training():
             f"{err:.3e}; repeat bit-equal")
 
 
+# -- the asynchronous PS and the Fig. 4 baselines: parity -------------------
+
+def _message(i, shape):
+    """A deterministic gradient message: a short chain of elementwise
+    ops, bit-reproducible on any stream."""
+    x = torch.arange(shape[1], dtype=torch.float32, device=DEV) * 1e-4 \
+        + 0.01 * (i + 1)
+    x = x.expand(shape).contiguous()
+    for _ in range(ASYNC_MSG_CHAIN):
+        x = torch.sin(x) * 1.25 + 0.1
+    return x
+
+
+def _server_case(late, first, P=4, K=4, shape=(2048, 4096)):
+    """One ``_Server`` run on P x K messages (``_message(first + i)``)
+    made on P worker streams and queued before it starts, with one side
+    held back by a spinning kernel, so that a missing guard of
+    ``simulator._receive`` shows:
+
+    ``late="producers"``: each worker stream spins before it writes its
+    messages, so the server's stream reads them before they are written
+    unless it waits on the producer's event (``wait_event``);
+    ``late="server"``: the server's stream spins before its first read;
+    once the server thread has taken every message (and dropped the
+    references to all but the last batch), each worker stream allocates
+    and writes NaN into P x K blocks of the messages' size, so a message
+    block handed back to its producer's stream before the server's read
+    ran is overwritten unless the server marked it (``record_stream``).
+
+    Checks that the window was open (the held side had not finished when
+    the other side's work was done), then that the server's L and every
+    broadcast equal the same means and updates done sequentially on one
+    stream."""
+    cfg = simulator.AsyncPSConfig(n_workers=P, lr=1e-2, server_batch=3)
+    L0 = torch.randn(shape, generator=torch.Generator(
+        device=DEV).manual_seed(11), device=DEV)
+    # the sequential rule first: it also loads every kernel the held run
+    # launches (a first launch loads its module, which can block the host
+    # until the hold ends)
+    msgs = [_message(first + i, shape) for i in range(P * K)]
+    L = L0
+    for c in range(0, len(msgs), cfg.server_batch):
+        grp = msgs[c:c + cfg.server_batch]
+        g = grp[0]
+        for h in grp[1:]:
+            g = g + h
+        L = L - cfg.lr * (g / len(grp))
+    del msgs, grp, g
+    torch.cuda._sleep(1)
+    torch.full((1,), float("nan"), device=DEV)
+    inboxes = [queue.Queue(maxsize=1) for _ in range(P)]
+    server = simulator._Server(L0, cfg, inboxes)
+    streams = [torch.cuda.Stream() for _ in range(P)]
+    n_up = -(-P * K // cfg.server_batch)
+    torch.cuda.synchronize()
+    for s in (streams if late == "producers" else [server.stream]):
+        with torch.cuda.stream(s):
+            torch.cuda._sleep(ASYNC_HOLD_CYCLES)
+    for j in range(K):
+        for w, s in enumerate(streams):
+            with torch.cuda.stream(s):
+                server.inbound.put(simulator._send(
+                    _message(first + j * P + w, shape), s))
+    server.start()
+    while server.n_updates < n_up and server.thread.is_alive():
+        time.sleep(1e-3)
+    junk = []
+    if late == "server":
+        for s in streams:
+            with torch.cuda.stream(s):
+                junk += [torch.full(shape, float("nan"), device=DEV)
+                         for _ in range(P * K)]
+        for s in streams:
+            s.synchronize()
+        assert not server.stream.query(), \
+            "the server's stream ran before the worker streams' writes"
+    else:
+        assert not any(s.query() for s in streams), \
+            "a worker stream finished before the server took its messages"
+    server.stop()
+    assert server.error is None and not server.thread.is_alive()
+    torch.cuda.synchronize()
+    del junk
+    assert server.n_updates == n_up, f"{server.n_updates} server updates"
+    assert torch.equal(server.L, L), \
+        f"late {late}: server L differs from the sequential rule"
+    for inbox in inboxes:
+        assert torch.equal(simulator._receive(inbox.get_nowait(), None), L), \
+            f"late {late}: a broadcast differs from the sequential rule"
+    log(f"parity async PS server, {late} held back: {P * K} messages of "
+        f"{shape} from {P} worker streams, server_batch "
+        f"{cfg.server_batch}: {server.n_updates} updates, L and {P} "
+        f"broadcasts bit-equal to the sequential rule on one stream")
+
+
+def parity_async_server():
+    """``_Server``'s update rule across streams: the two cases of
+    ``_server_case``, each of which fails without one of ``_receive``'s
+    guards (the producer's event, ``record_stream``)."""
+    _server_case("producers", 0)
+    _server_case("server", 100)
+
+
+def parity_async_worker():
+    """One worker message (the worker on its own stream) against
+    ``objective_value_and_grad`` on the same L and batch."""
+    B, k, d, n = 512, 128, 1024, 4096
+    rng = np.random.RandomState(12)
+    pairs_np = {"xs": rng.randn(n, d).astype(np.float32),
+                "ys": rng.randn(n, d).astype(np.float32),
+                "sim": (rng.rand(n) < 0.5).astype(np.int32)}
+    L0 = torch.tensor(rng.randn(k, d) / np.sqrt(2.0 * d * k),
+                      dtype=torch.float32, device=DEV)
+    cfg = simulator.AsyncPSConfig(n_workers=2, lr=1e-2, batch_size=B,
+                                  steps_per_worker=1, seed=4)
+    streams = make_worker_streams(pairs_np, 2, B, seed=cfg.seed + 1000,
+                                  device=DEV)
+    server = simulator._Server(L0, cfg, [])
+    trace = []
+    torch.cuda.synchronize()
+    worker = simulator._Worker(1, L0, streams[1], cfg, server,
+                               queue.Queue(maxsize=1),
+                               simulator._make_grad_fn(cfg.lam, cfg.margin),
+                               trace, threading.Lock(), time.perf_counter())
+    worker.start()
+    worker.join()
+    assert worker.error is None and not worker.thread.is_alive()
+    torch.cuda.synchronize()
+    g = simulator._receive(server.inbound.get_nowait(), None)
+    b = next(make_worker_streams(pairs_np, 2, B, seed=cfg.seed + 1000,
+                                 device=DEV)[1])
+    loss, g_ref = dml.objective_value_and_grad(L0, b["xs"], b["ys"],
+                                               b["sim"], cfg.lam, cfg.margin)
+    torch.testing.assert_close(g, g_ref, rtol=1e-5, atol=1e-7)
+    assert abs(trace[0][2] - float(loss)) <= 1e-5 * abs(float(loss))
+    log(f"parity async PS worker message (B, k, d) {(B, k, d)}: max |dg| "
+        f"{float((g - g_ref).abs().max()):.3e} (max |g| "
+        f"{float(g_ref.abs().max()):.3e}), bit-equal {torch.equal(g, g_ref)}; "
+        f"loss {trace[0][2]:.6f} vs {float(loss):.6f}")
+
+
+def _rel_err(a, b):
+    a, b = a.cpu(), b.cpu()
+    return float((a - b).abs().max() / b.abs().max())
+
+
+def parity_baselines():
+    """``xing2002.pgd_step``, one ITML sweep and KISS ``fit`` (PCA) on the
+    card against the same calls with ``device="cpu"``: eigh and inv are
+    cuSOLVER there and LAPACK here, products sum in other orders. Held to
+    max |card - cpu| <= tol * max |cpu|: 1e-4 for pgd_step and ITML,
+    1e-3 for KISS (two inversions of covariances before its projection)."""
+    d = 96
+    feats, labels = pairdata.make_features(pairdata.PairDatasetConfig(
+        n_samples=800, feat_dim=d, n_classes=5, kind="noisy_subspace",
+        noise=1.0, seed=3))
+    feats = feats / np.float32(np.sqrt(2 * 9.0 * d))
+    p = pairdata.sample_pairs(feats, labels, 1000, 1000, seed=4)
+    rng = np.random.RandomState(6)
+    A = rng.randn(d, d // 2) / np.sqrt(d)
+    M0 = torch.tensor(A @ A.T, dtype=torch.float32)
+    outs = {}
+    for dev in ("cpu", DEV):
+        t = {k: torch.from_numpy(v).to(dev) for k, v in p.items()}
+        M, loss = xing2002.pgd_step(M0.to(dev), t["xs"][:500],
+                                    t["ys"][:500], t["sim"][:500],
+                                    lam=1.0, margin=1.0, lr=5.0)
+        Mi = itml.fit(itml.ITMLConfig(feat_dim=d, sweeps=1), t["xs"][:300],
+                      t["ys"][:300], t["sim"][:300], device=dev)
+        Mk, proj = kiss.fit(kiss.KISSConfig(feat_dim=d, pca_dim=d // 2,
+                                            ridge=1e-4),
+                            t["xs"], t["ys"], t["sim"], device=dev)
+        outs[str(dev)] = (M, loss, Mi, proj @ Mk @ proj.T)
+    cpu, card = outs["cpu"], outs[str(DEV)]
+    errs = {name: _rel_err(card[i], cpu[i])
+            for i, name in ((0, "pgd_step M"), (1, "pgd_step loss"),
+                            (2, "ITML M"), (3, "KISS proj M proj^T"))}
+    for name, tol in (("pgd_step M", 1e-4), ("pgd_step loss", 1e-4),
+                      ("ITML M", 1e-4), ("KISS proj M proj^T", 1e-3)):
+        assert errs[name] <= tol, f"{name}: card vs cpu {errs[name]:.3e}"
+    log("parity baselines, card vs cpu (max |d| / max |cpu|), d 96: " +
+        ", ".join(f"{k} {v:.3e}" for k, v in errs.items()))
+
+
+def phase_parity_async():
+    parity_async_server()
+    parity_async_worker()
+    parity_baselines()
+
+
 # -- segment-scan kernels: parity --------------------------------------------
 
 def _segments(rng, C, cap, lo, hi):
@@ -777,6 +1026,7 @@ def phase_training(exp=IMNET_1M):
     d2 = float(torch.mean(dml.mahalanobis_sqdist(L, probe["xs"],
                                                  probe["ys"])))
     L = L * float(np.sqrt(2.0 * cfg.margin / max(d2, 1e-9)))
+    L_init = L.clone()                      # the async PS phases start here
     log(f"init rescale: mean d2 {d2:.1f} -> ~{2 * cfg.margin}")
 
     source = IndexPairs(train_x, train_idx)
@@ -852,8 +1102,9 @@ def phase_training(exp=IMNET_1M):
     torch.cuda.synchronize()
     for a, b in zip(out, ref):
         torch.testing.assert_close(a, b, rtol=2e-5, atol=1e-5)
-    return {"L": L, "feats": feats, "labels": labels, "batch": batch,
-            "launches": launches, "launches_per_step": launches / n_steps,
+    return {"L": L, "L_init": L_init, "source": source, "feats": feats,
+            "labels": labels, "batch": batch, "launches": launches,
+            "launches_per_step": launches / n_steps,
             "max_err": _max_err(out, ref), "step_ms": step_ms,
             "step_parts": step_parts, "losses": histories, "peak_gb": peak_gb}
 
@@ -905,6 +1156,213 @@ def phase_eval(L, feats, labels):
     return {"acc": acc, "launches": launches, "max_err": errs["learned"],
             "xp": proj["learned"][0], "yp": proj["learned"][1]}
 
+
+# -- the asynchronous parameter server (§4.2) and Fig. 3 ---------------------
+
+def _async_cfg(exp, n_workers, steps):
+    return simulator.AsyncPSConfig(
+        n_workers=n_workers, lr=ASYNC_LR, batch_size=exp.batch_size,
+        lam=exp.dml.lam, margin=exp.dml.margin, steps_per_worker=steps,
+        server_batch=ASYNC_SERVER_BATCH)
+
+
+def check_async(trace, stats, L, wall, peak_gb, launches, P, steps,
+                exp=IMNET_1M):
+    """Phase 5a's checks and prints on one ``run_async_dml`` call."""
+    n_msg, span = len(trace), trace[-1][0]
+    losses = [loss for _, _, loss in trace]
+    assert n_msg == P * steps == stats["messages"], f"{n_msg} messages"
+    assert {w for _, w, _ in trace} == set(range(P)), \
+        "a worker is missing from the trace"
+    assert 1 <= stats["n_updates"] <= n_msg, f"{stats['n_updates']} updates"
+    assert bool(torch.isfinite(L).all()), "the final L is not finite"
+    assert np.all(np.isfinite(losses))
+    first, last = np.mean(losses[:20]), np.mean(losses[-20:])
+    assert last < first, f"async loss did not fall: {first} -> {last}"
+    log(f"async PS (d_in {exp.dml.feat_dim}, d_out {exp.dml.proj_dim}, "
+        f"{exp.batch_size} pairs a message, P = {P}, server_batch "
+        f"{ASYNC_SERVER_BATCH}, lr {ASYNC_LR}, {steps} steps a worker): "
+        f"every thread finished; {n_msg} messages in {span:.3f}s after the "
+        f"warm-up ({wall:.3f}s the whole call): "
+        f"{1e3 * span / steps:.2f} ms a message a worker, "
+        f"{n_msg / span:.1f} messages/s; {stats['n_updates']} server "
+        f"updates, {n_msg / stats['n_updates']:.2f} messages an update; "
+        f"deepest inbound queue {stats['max_queue']}; loss of the first 20 "
+        f"messages {first:.4f} -> last 20 {last:.4f}; peak memory "
+        f"{peak_gb:.2f} GB; kernel launches {launches} (host clock, under "
+        f"the profiler)")
+
+
+def phase_async_ps(train, exp=IMNET_1M):
+    """Phases 5a and 5b: ``run_async_dml`` at dml-imnet1m width on phase
+    4's on-card features and index pairs, from phase 4's rescaled initial
+    L, at P = 1, 2 and 4: P worker threads and the server thread, each on
+    a CUDA stream of its own, on one card. The gradient is the
+    reference's plain autograd product, so no kernel of the port runs
+    here. Each call runs once, under the profiler (``profiled``); the
+    P = ASYNC_P call also takes 5a's checks.
+
+    5b is the Fig. 3 measurement of ``benchmarks/fig3_speedup.py:53-87``.
+    Virtual time: worker p's i-th message lands at i * tau, tau the
+    seconds a message at P = 1; the target is the mean of P = 1's last 30
+    losses; the curve is smoothed over 15 messages. Findings only: the P
+    threads share one card, so the wall-clock speedup is not the paper's
+    cluster speedup."""
+    results, target = {}, None
+    for P in FIG3_WORKERS:
+        cfg = _async_cfg(exp, P, FIG3_STEPS)
+        stats = {}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _reset_counts()                     # counts of this path only
+        (L, trace), wall = profiled(
+            lambda: simulator.run_async_dml(cfg, train["source"],
+                                            train["L_init"], stats=stats),
+            what=f"one async PS call (P = {P}, {P + 1} streams, "
+                 f"{P * FIG3_STEPS} messages)")
+        if P == ASYNC_P:
+            check_async(trace, stats, L, wall,
+                        torch.cuda.max_memory_allocated() / 1e9,
+                        {fn.__name__: fn.launches
+                         for fn in (dml_pair_fused, pairwise_sqdist)},
+                        P, FIG3_STEPS, exp)
+        del L
+        tau = wall / len(trace) if P == FIG3_WORKERS[0] else \
+            results[FIG3_WORKERS[0]]["tau_s"]
+        counts, vts, ls = {}, [], []
+        for _, wid, loss in trace:
+            counts[wid] = counts.get(wid, 0) + 1
+            vts.append(counts[wid] * tau)
+            ls.append(loss)
+        vts, ls = np.array(vts), np.array(ls)
+        order = np.argsort(vts, kind="stable")
+        smooth = np.convolve(ls[order], np.ones(15) / 15, mode="same")
+        if P == FIG3_WORKERS[0]:
+            target = float(ls[-30:].mean())
+            t_reach = float(vts.max())
+        else:
+            hit = np.nonzero(smooth <= target)[0]
+            t_reach = float(vts[order][hit[0]]) if len(hit) else \
+                float(vts.max())
+        results[P] = {"wall_s": wall, "tau_s": tau, "t_reach": t_reach,
+                      "messages_per_s": len(trace) / trace[-1][0]}
+    r1 = results[FIG3_WORKERS[0]]
+    for P, r in results.items():
+        r["speedup"] = r1["t_reach"] / max(r["t_reach"], 1e-9)
+        log(f"fig3 P = {P}: wall {r['wall_s']:.3f}s for {P * FIG3_STEPS} "
+            f"messages, {r['messages_per_s']:.1f} messages/s on the one "
+            f"card (wall-clock ratio to P = 1: "
+            f"{r['messages_per_s'] / r1['messages_per_s']:.2f}); "
+            f"virtual-time speedup {r['speedup']:.2f} (ideal {P}; tau "
+            f"{1e3 * r['tau_s']:.2f} ms, target loss {target:.4f}, virtual "
+            f"t_reach {r['t_reach']:.3f}s). The P threads share one card: "
+            f"the wall clock is not the paper's cluster speedup")
+
+
+# -- Fig. 4: ours against Xing 2002, ITML, KISS and Euclidean ---------------
+
+def phase_fig4(exp=MNIST):
+    """The reference's Fig. 4 recipe (``benchmarks/fig4_quality.py:37-91``)
+    at dml-mnist full width (d 780, k 600, 1000 pairs a batch), on the
+    card: noisy_subspace at noise FIG4_NOISE, 60,000 rows, 10 classes,
+    100k + 100k train and 2,000 + 2,000 eval pairs. "Ours" is
+    ``train_dml_single`` (Eq. 4 on ``dml_pair``) from the scale-aware
+    rescale of ``init_params`` at lr FIG4_LR; the baselines take the
+    reference's settings. Returns the dml_pair launches of "ours"."""
+    d, k = exp.dml.feat_dim, exp.dml.proj_dim
+    t0 = time.perf_counter()
+    data_cfg = pairdata.PairDatasetConfig(
+        n_samples=exp.n_samples, feat_dim=d, n_classes=exp.n_classes,
+        kind="noisy_subspace", noise=FIG4_NOISE, seed=0)
+    train_pairs, eval_pairs = pairdata.train_eval_split(
+        data_cfg, exp.n_similar, exp.n_dissimilar, 2000, 2000)
+    ev = {key: torch.from_numpy(v).to(DEV) for key, v in eval_pairs.items()}
+    tr = {key: torch.from_numpy(v).to(DEV) for key, v in train_pairs.items()}
+    torch.cuda.synchronize()
+    gb = 2 * tr["xs"].numel() * 4 / 1e9
+    log(f"fig4 data: {exp.n_samples} x {d} noisy_subspace rows (noise "
+        f"{FIG4_NOISE}), {exp.n_classes} classes, {exp.n_similar} + "
+        f"{exp.n_dissimilar} train pairs ({gb:.2f} GB on the card), 2000 + "
+        f"2000 eval pairs, in {time.perf_counter() - t0:.1f}s")
+    Ms, secs, scores = {}, {}, {}
+
+    # ours: the example's scale-aware init (initial ||Lz||^2 ~ 2 * margin)
+    L0 = init_params(exp.dml, torch.Generator(device=DEV).manual_seed(0), DEV)
+    probe = next(pairdata.pair_batches(train_pairs, 256, seed=99,
+                                       device=DEV))
+    d2 = float(torch.mean(dml.mahalanobis_sqdist(L0, probe["xs"],
+                                                 probe["ys"])))
+    L0 = L0 * float(np.sqrt(2.0 * exp.dml.margin / max(d2, 1e-9)))
+    _reset_counts()                         # counts of this path only
+    (L, hist), secs["ours"] = profiled(
+        lambda: train_dml_single(exp.dml, train_pairs, steps=FIG4_STEPS,
+                                 batch_size=exp.batch_size, lr=FIG4_LR,
+                                 seed=0, L0=L0),
+        what=f"Fig. 4 ours ({FIG4_STEPS} steps, batches from host numpy)")
+    launches = dml_pair_fused.launches
+    assert launches == FIG4_STEPS, f"dml_pair launched {launches} times"
+    Ms["ours"] = dml.M_from_L(L)
+    scores["ours"] = dml.pair_scores(L, ev["xs"], ev["ys"])
+    log(f"fig4 ours: init rescale mean d2 {d2:.1f} -> ~{2 * exp.dml.margin}"
+        f"; loss {hist[0]['loss']:.4f} -> {hist[-1]['loss']:.4f} in "
+        f"{FIG4_STEPS} steps; dml_pair launches {launches}")
+
+    (Ms["xing2002"], xl), secs["xing2002"] = profiled(
+        lambda: xing2002.fit(
+            xing2002.XingConfig(feat_dim=d, lr=5e-2, steps=FIG4_STEPS // 5),
+            tr["xs"], tr["ys"], tr["sim"], batch_size=exp.batch_size),
+        what=f"Fig. 4 Xing2002 ({FIG4_STEPS // 5} steps, pairs on the card)")
+
+    n_c = min(4000, tr["xs"].shape[0])
+    t = time.perf_counter()
+    Ms["itml"] = itml.fit(itml.ITMLConfig(feat_dim=d, gamma=1e-3, sweeps=2),
+                          tr["xs"][:n_c], tr["ys"][:n_c], tr["sim"][:n_c])
+    torch.cuda.synchronize()
+    secs["itml"] = time.perf_counter() - t
+
+    t = time.perf_counter()
+    Ms["kiss"], proj = kiss.fit(
+        kiss.KISSConfig(feat_dim=d, pca_dim=min(k, d // 2), ridge=1e-4),
+        tr["xs"], tr["ys"], tr["sim"])
+    torch.cuda.synchronize()
+    secs["kiss"] = time.perf_counter() - t
+    secs["euclidean"] = 0.0
+
+    for name in ("xing2002", "itml"):
+        scores[name] = dml.pair_scores_M(Ms[name], ev["xs"], ev["ys"])
+    scores["kiss"] = dml.pair_scores_M(Ms["kiss"], ev["xs"] @ proj,
+                                       ev["ys"] @ proj)
+    scores["euclidean"] = dml.pair_scores_euclidean(ev["xs"], ev["ys"])
+    ap = {name: float(dml.average_precision(s, ev["sim"]))
+          for name, s in scores.items()}
+    for name, M in Ms.items():
+        w = torch.linalg.eigvalsh(M.double())
+        assert bool(torch.isfinite(M).all()), f"{name}: M is not finite"
+        assert float(w.min()) >= -1e-4 * float(w.max()), \
+            f"{name}: M is not PSD (eigenvalues {float(w.min()):.3e} .. " \
+            f"{float(w.max()):.3e})"
+    assert all(0.0 <= v <= 1.0 for v in ap.values()), ap
+    for name in ap:
+        log(f"fig4 {name:10s} AP {ap[name]:.4f}, train {secs[name]:.3f}s"
+            + (f" ({len(xl)} steps, loss {xl[0]:.4f} -> {xl[-1]:.4f})"
+               if name == "xing2002" else ""))
+    best_other = max(v for key, v in ap.items() if key != "ours")
+    claims = {
+        "ours at or near the best AP (within 0.02)":
+            ap["ours"] >= best_other - 0.02,
+        "ours above Euclidean": ap["ours"] > ap["euclidean"],
+        "ours trains faster than Xing2002 (ours fed from host numpy, "
+        "Xing2002 from pairs on the card)":
+            secs["ours"] < secs["xing2002"],
+    }
+    for claim, holds in claims.items():
+        log(f"fig4 claim: {claim}: {'holds' if holds else 'does not hold'}")
+    log("fig4: every M finite and PSD (least eigenvalue >= -1e-4 x the "
+        "largest), every AP in [0, 1]")
+    return launches
+
+
+# -- exact serving at dml-imnet1m width --------------------------------------
 
 def make_gallery(gen, n, d_in, n_classes, L, query_rows, block=16384,
                  noise=0.3, sparsity=0.9):
@@ -1092,15 +1550,9 @@ def library(L, q, gp, gn, k_top):
     return torch.topk(d.clamp_min_(0.0), k_top, dim=1, largest=False)
 
 
-def device_breakdown(fn):
-    """Device milliseconds by kernel name over one call (torch.profiler);
-    None when the profiler records no device time."""
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
+def _by_kernel(prof):
+    """Device ms by kernel name over a finished torch.profiler run; None
+    when it recorded no device time."""
     out = {}
     for ev in prof.key_averages():
         ms = (getattr(ev, "device_time_total", 0) or 0) / 1e3
@@ -1111,6 +1563,18 @@ def device_breakdown(fn):
         name = m.group(1) if m else key[:40]
         out[name] = round(out.get(name, 0.0) + ms, 4)
     return out or None
+
+
+def device_breakdown(fn):
+    """Device milliseconds by kernel name over one call (torch.profiler);
+    None when the profiler records no device time."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return _by_kernel(prof)
 
 
 def step_profile(fn, step_ms, top=6):
@@ -1129,6 +1593,46 @@ def step_profile(fn, step_ms, top=6):
         f"{step_ms:.3f} ms per step (host clock), idle share "
         f"{1 - busy / step_ms:.1%}; device ms by kernel {out}")
     return {"busy_ms": round(busy, 4), "by_kernel": out}
+
+
+def profiled(fn, what, top=6):
+    """Run ``fn`` once under torch.profiler and log where its time went:
+    the host time of this very call, the device's busy time as the union
+    of its kernel and copy intervals over every stream (kernels on
+    several streams overlap, so their sum can pass the busy time), the
+    device's idle share of the host time, and device ms by kernel (the
+    largest ``top``, summed over streams). Returns (fn's result, host
+    seconds of the call)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        host = time.perf_counter() - t0
+    spans = sorted((ev.time_range.start, ev.time_range.end)
+                   for ev in prof.events()
+                   if ev.device_type == DeviceType.CUDA)
+    busy_us, end = 0.0, float("-inf")
+    for a, b in spans:
+        if b > end:
+            busy_us += b - max(a, end)
+            end = b
+    parts = _by_kernel(prof)
+    if not spans or parts is None:
+        log(f"{what} on the card: {1e3 * host:.3f} ms (host clock); "
+            f"device time not measured")
+        return out, host
+    busy, summed = busy_us / 1e3, sum(parts.values())
+    top_parts = dict(sorted(parts.items(), key=lambda kv: -kv[1])[:top])
+    top_parts["other"] = round(summed - sum(top_parts.values()), 4)
+    log(f"{what} on the card, profiled: {1e3 * host:.3f} ms (host clock, "
+        f"this call); device busy {busy:.3f} ms (union of kernel and copy "
+        f"intervals over all streams), idle share {1 - busy / (1e3 * host):.1%}"
+        f"; kernel and copy ms summed over streams {summed:.3f}; device ms "
+        f"by kernel {top_parts}")
+    return out, host
 
 
 def phase_kernels(index, queries, launches, max_err):
@@ -2165,6 +2669,7 @@ def main():
     phase_build()
     phase_parity()
     phase_parity_training()
+    phase_parity_async()
     phase_parity_ann()
     phase_parity_backbone()
     log(f"parity phases done at {time.perf_counter() - t0:.1f}s")
@@ -2176,9 +2681,14 @@ def main():
                              ev["max_err"])]
     entries[0]["train_step"] = {"ms": train["step_ms"]["bsp"],
                                 "device": train["step_parts"]}
+    log(f"training and eval done at {time.perf_counter() - t0:.1f}s")
+    phase_async_ps(train)
+    log(f"async PS and Fig. 3 done at {time.perf_counter() - t0:.1f}s")
     del train, ev
     torch.cuda.empty_cache()
-    log(f"training and eval done at {time.perf_counter() - t0:.1f}s")
+    entries[0]["fig4_launches"] = phase_fig4()
+    torch.cuda.empty_cache()
+    log(f"Fig. 4 done at {time.perf_counter() - t0:.1f}s")
     index, queries, serving, err = phase_serving()
     entries.insert(0, phase_kernels(index, queries, serving["launches"],
                                     err))

@@ -162,7 +162,8 @@ def test_kernel_refuses_what_it_cannot_do(cuda_device):
 # -- dml_pair ----------------------------------------------------------------
 
 DML_SHAPES = [(8, 8, 8), (64, 32, 48), (256, 128, 512), (100, 60, 780),
-              (512, 600, 780), (32, 100, 224), (37, 16, 24),
+              (512, 600, 780), (1000, 600, 780), (32, 100, 224),
+              (37, 16, 24),
               (1000, 1000, 2048), (37, 16, 9), (130, 129, 33),
               (257, 1000, 4001)]
 

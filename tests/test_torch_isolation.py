@@ -17,10 +17,10 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.core import dml
+from repro_torch.core import dml, itml, kiss, xing2002
 from repro_torch.core.eval_tasks import (knn_accuracy, knn_classify,
                                          metric_kmeans)
-from repro_torch.core.ps import sync
+from repro_torch.core.ps import simulator, sync
 from repro_torch.core.ps.trainer import (DMLTrainConfig,
                                          train_dml_distributed,
                                          train_dml_single)
@@ -114,6 +114,16 @@ _ENTRY_POINTS = {
     "cli --index ivfpq": lambda x, y, p: serve_retrieval.main(
         ["--index", "ivfpq", "--train-steps", "0", "--gallery-size",
          "100"]),
+    "run_async_dml": lambda x, y, p: simulator.run_async_dml(
+        simulator.AsyncPSConfig(n_workers=2, steps_per_worker=1), p,
+        np.zeros((4, 8), np.float32)),
+    "xing2002.fit": lambda x, y, p: xing2002.fit(
+        xing2002.XingConfig(feat_dim=8, steps=1), p["xs"], p["ys"],
+        p["sim"]),
+    "itml.fit": lambda x, y, p: itml.fit(
+        itml.ITMLConfig(feat_dim=8, sweeps=1), p["xs"], p["ys"], p["sim"]),
+    "kiss.fit": lambda x, y, p: kiss.fit(
+        kiss.KISSConfig(feat_dim=8), p["xs"], p["ys"], p["sim"]),
 }
 
 
