@@ -127,6 +127,36 @@ exit, and nothing falls back:
                 into its launches (CUDA events its launcher records
                 between them) and pq_adc's blocks into phases (their
                 clock stamps);
+ 8b. mutation — phase 6's and 8's three indexes, each wrapped as a
+                ``MutableIndex`` (ids 0..M-1, auto-compaction off), take
+                the same churn in batches of 4,096 rows: 16,384 new rows
+                of the requests' classes, 4,096 ids re-upserted with
+                fresh rows, 4,096 ids deleted (both id sets hold phase
+                6's first two neighbours of the requests), rows made and
+                projected on the card; each batch must flush the engine's
+                cache once. 8,192 dead base slots, so the base is asked
+                for k 8,202 (the wide paths). The 256 requests go through
+                RetrievalEngine -> MicroBatcher with tombstones live, then
+                after ``compact()`` (IVF / IVFPQ fold into their headroom:
+                no rebuild); the exact answers are held to the plain scan
+                over the live rows (compare()'s rule) both times, IVF and
+                IVFPQ recall@10 to the exact mutable's; the launch counts
+                of the base's kernel and of the delta scan (metric_topk)
+                must rise; the engine's registry holds the compaction
+                event. The exact mutable round-trips a ~4 GB snapshot
+                (build/snapshots/, git-ignored, deleted at the phase's
+                end), answers bit for bit. Then a cut of 32,768 rows at
+                full width, raw rows retained in host memory: exact and
+                IVF (128 clusters, nprobe 128) swap to a second seeded L
+                and to one of rank 500, each equal to a fresh build; the
+                IVF and IVFPQ mutables round-trip their snapshots with
+                raw rows; the IVF takes rows past its free capacity and
+                spills into a rebuild. Last, each base's kernel at k
+                8,202 on 64 queries against its plain version, and the
+                base calls' device ms at k 10 and k 8,202. Prints rows/s,
+                compaction s, QPS and p50 / p99, swap seconds by step,
+                snapshot GB and seconds, and peak memory, each beside the
+                card's name and power limit;
   9. backbone — zamba2-2.7b at full width and depth (54 mamba2 layers,
                 d_model 2560, 80 SSM heads of p = n = 64; the shared
                 attention + GELU MLP block after every 6th layer, 32 heads
@@ -163,8 +193,8 @@ exit, and nothing falls back:
  12. the last line: ``{"ok": true, "device": {...}}``.
 
 Every launch count is set to 0 just before a main-path phase (4, 5, 5a,
-5c, 6, each index of 8, gemma's embed_pool in 9, and 10) and read just
-after (5a launches no kernel: its gradient is the reference's plain
+5c, 6, each index of 8, each serving run of 8b, gemma's embed_pool in 9,
+and 10) and read just after (5a launches no kernel: its gradient is the reference's plain
 autograd product);
 comparison launches come after the reading (or, for phase 9, before the
 counts are reset).
@@ -217,10 +247,12 @@ distances are apart by more than that.
 
 from __future__ import annotations
 
+import gc
 import json
 import os
 import queue
 import re
+import shutil
 import subprocess
 import sys
 import threading
@@ -257,8 +289,8 @@ from repro_torch.kernels.flash_attention.cases import (  # noqa: E402
 from repro_torch.kernels.ivf_scan import (  # noqa: E402
     ivf_scan_topk, ivf_scan_topk_fused, ivf_scan_topk_ref)
 from repro_torch.kernels.metric_topk import (  # noqa: E402
-    metric_sqdist_factored, metric_topk_fused, metric_topk_plain,
-    project_gallery)
+    metric_sqdist_factored, metric_topk, metric_topk_fused,
+    metric_topk_plain, project_gallery)
 from repro_torch.kernels.pairwise_dist import (  # noqa: E402
     pairwise_sqdist, pairwise_sqdist_ref)
 from repro_torch.kernels.pq_adc import (  # noqa: E402
@@ -277,8 +309,9 @@ from repro_torch.models.transformer import shared_cfg  # noqa: E402
 from repro_torch.obs import percentile  # noqa: E402
 from repro_torch.optim import schedules, sgd  # noqa: E402
 from repro_torch.serve import (ExactIndex, IVFIndex,  # noqa: E402
-                               IVFPQIndex, MicroBatcher, RetrievalEngine,
-                               recall_at_k)
+                               IVFPQIndex, MicroBatcher, MutableIndex,
+                               RetrievalEngine, load_index, recall_at_k,
+                               save_index)
 from repro_torch.serve.ivf import probe  # noqa: E402
 from repro_torch.serve.scan import project_queries  # noqa: E402
 
@@ -402,6 +435,16 @@ N_REQUESTS = 256
 MAX_BATCH = 64
 K_TOP = 10
 WIDE_K = 1024               # a k_top on metric_topk's wide path, timed
+# phase 8b: the churn at full width (rows upserted as new, ids re-upserted
+# with fresh rows, ids deleted; batches of MUT_BATCH rows), the engine's
+# buckets there (the batcher's batches reach 64), and the cut for the
+# metric swaps, the spill and the raw-row snapshots: rows (widths kept),
+# IVF clusters, the changed rank; snapshots go to a git-ignored directory
+MUT_NEW, MUT_UPDATE, MUT_DELETE, MUT_BATCH = 16_384, 4_096, 4_096, 4_096
+MUT_BUCKETS = (1, 8, 64)
+CUT_ROWS, CUT_CLUSTERS, CUT_RANK = 32_768, 128, 500
+SNAPSHOT_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                            "build", "snapshots")
 DEV = torch.device("cuda")
 
 
@@ -1364,31 +1407,39 @@ def phase_fig4(exp=MNIST):
 
 # -- exact serving at dml-imnet1m width --------------------------------------
 
+def class_rows(gen, lab, classes, noise=0.3):
+    """Raw llc_like rows of the classes ``lab`` (make_features' recipe:
+    |center| magnitudes on the class support mask plus masked |noise|),
+    on the card. ``classes`` is (mags, masks) from ``make_gallery``."""
+    mags, masks = classes
+    return mags[lab] + noise * torch.randn(
+        (len(lab), mags.shape[1]), generator=gen, device=DEV).abs() \
+        * masks[lab]
+
+
 def make_gallery(gen, n, d_in, n_classes, L, query_rows, block=16384,
-                 noise=0.3, sparsity=0.9):
-    """llc_like rows (make_features' recipe: class support masks, |center|
-    magnitudes, masked |noise|) generated on the card block by block and
-    projected through L; the raw rows never stay resident. Returns
-    (gp, gn, labels, raw rows at ``query_rows``)."""
+                 sparsity=0.9):
+    """llc_like rows (class support masks, |center| magnitudes, masked
+    |noise|) generated on the card block by block and projected through
+    L; the raw rows never stay resident. Returns (gp, gn, labels, raw rows
+    at ``query_rows``, the classes (mags, masks) for ``class_rows``)."""
     labels = torch.randint(0, n_classes, (n,), generator=gen, device=DEV)
     centers = torch.randn((n_classes, d_in), generator=gen, device=DEV)
     masks = torch.rand((n_classes, d_in), generator=gen,
                        device=DEV) < (1.0 - sparsity)
-    mags = centers.abs() * masks
+    classes = (centers.abs() * masks, masks)
     gp = torch.empty((n, L.shape[0]), dtype=torch.float32, device=DEV)
     gn = torch.empty((n,), dtype=torch.float32, device=DEV)
     raw_q = torch.empty((len(query_rows), d_in), device=DEV)
     qrows = torch.as_tensor(query_rows, device=DEV)
     for b0 in range(0, n, block):
         b1 = min(n, b0 + block)
-        lab = labels[b0:b1]
-        x = mags[lab] + noise * torch.randn(
-            (b1 - b0, d_in), generator=gen, device=DEV).abs() * masks[lab]
+        x = class_rows(gen, labels[b0:b1], classes)
         gp[b0:b1], gn[b0:b1] = project_gallery(L, x)
         hit = (qrows >= b0) & (qrows < b1)
         raw_q[hit] = x[qrows[hit] - b0]
         del x
-    return gp, gn, labels, raw_q
+    return gp, gn, labels, raw_q, classes
 
 
 def span_means(traces):
@@ -1408,6 +1459,28 @@ def span_means(traces):
     return {k: round(1e3 * tot[k] / cnt[k], 3) for k in sorted(tot)}
 
 
+def _serve(engine, queries_np):
+    """The requests through a MicroBatcher, one at a time; returns
+    ({wall, qps, p50_ms, p99_ms, batches, mean_batch}, dists, ids)."""
+    front = MicroBatcher(engine, max_batch=MAX_BATCH, max_wait_ms=2.0)
+    t0 = time.perf_counter()
+    pending = [(time.perf_counter(), front.submit(q)) for q in queries_np]
+    lat, dists, nbrs = [], [], []
+    for t_sub, fut in pending:
+        d, nbr = fut.result(timeout=300)
+        lat.append(time.perf_counter() - t_sub)
+        dists.append(d)
+        nbrs.append(nbr)
+    wall = time.perf_counter() - t0
+    assert front.close(), "batcher worker did not stop"
+    assert np.isfinite(lat).all()
+    p50, p99 = percentile(np.sort(np.asarray(lat)) * 1e3, (50.0, 99.0))
+    return ({"wall": wall, "qps": len(lat) / wall, "p50_ms": p50,
+             "p99_ms": p99, "batches": front.n_batches,
+             "mean_batch": float(np.mean(front.batch_sizes))},
+            np.stack(dists), np.stack(nbrs))
+
+
 def phase_serving(exp=IMNET_1M):
     cfg = exp.dml
     gen = torch.Generator(device=DEV).manual_seed(0)
@@ -1415,8 +1488,8 @@ def phase_serving(exp=IMNET_1M):
     rng = np.random.RandomState(1)
     qids = rng.randint(0, exp.n_samples, N_REQUESTS)
     t0 = time.perf_counter()
-    gp, gn, labels, raw_q = make_gallery(gen, exp.n_samples, cfg.feat_dim,
-                                         exp.n_classes, L, qids)
+    gp, gn, labels, raw_q, classes = make_gallery(
+        gen, exp.n_samples, cfg.feat_dim, exp.n_classes, L, qids)
     index = ExactIndex.from_projected(L, gp, gn)
     torch.cuda.synchronize()
     log(f"serving: {exp.name} gallery {index.size} x {cfg.feat_dim} -> "
@@ -1432,39 +1505,27 @@ def phase_serving(exp=IMNET_1M):
     engine.warmup()
     log(f"warmup over buckets {SERVE_BUCKETS}: "
         f"{time.perf_counter() - t0:.2f}s")
-    front = MicroBatcher(engine, max_batch=MAX_BATCH, max_wait_ms=2.0)
 
     engine.tracer.sample_rate = 1.0         # every request's span tree
     metric_topk_fused.launches = 0          # counts of the main path only
-    t0 = time.perf_counter()
-    pending = [(time.perf_counter(), front.submit(queries_np[i]))
-               for i in range(N_REQUESTS)]
-    lat, nbrs = [], []
-    for t_sub, fut in pending:
-        _, nbr = fut.result(timeout=300)
-        lat.append(time.perf_counter() - t_sub)
-        nbrs.append(nbr)
-    wall = time.perf_counter() - t0
+    served, _, nbrs = _serve(engine, queries_np)
     launches = metric_topk_fused.launches
-    assert front.close(), "batcher worker did not stop"
     assert launches > 0, "the serving path never launched the kernel"
 
-    nbrs = np.stack(nbrs)
     labels_np = labels.cpu().numpy()
     purity = float(np.mean(labels_np[nbrs] == labels_np[qids][:, None]))
-    lat_ms = np.sort(np.asarray(lat)) * 1e3
-    p50, p99 = percentile(lat_ms, (50.0, 99.0))
+    p50, p99 = served["p50_ms"], served["p99_ms"]
     st = engine.stats()
-    log(f"served {N_REQUESTS} requests in {wall:.3f}s: qps "
-        f"{N_REQUESTS / wall:.1f} (device-side {st['qps']:.1f}), latency "
-        f"ms p50 {p50:.2f} p99 {p99:.2f}, batches {front.n_batches} mean "
-        f"{np.mean(front.batch_sizes):.1f}, kernel launches {launches}, "
+    log(f"served {N_REQUESTS} requests in {served['wall']:.3f}s: qps "
+        f"{served['qps']:.1f} (device-side {st['qps']:.1f}), latency "
+        f"ms p50 {p50:.2f} p99 {p99:.2f}, batches {served['batches']} mean "
+        f"{served['mean_batch']:.1f}, kernel launches {launches}, "
         f"backend {st['backend']}")
     log(f"neighbour class purity@{K_TOP}: {purity:.3f} "
         f"(chance {1.0 / exp.n_classes:.3f})")
     spans = span_means(engine.tracer.drain())
     log(f"mean span ms (host clock): {spans}")
-    assert np.isfinite(lat_ms).all() and st["backend"] == "cuda"
+    assert st["backend"] == "cuda"
     assert purity > 10.0 / exp.n_classes, "purity at chance level"
 
     # one full batch, kernel against plain on the card
@@ -1475,12 +1536,11 @@ def phase_serving(exp=IMNET_1M):
     err, n_diff = compare(L, qb, gp, gn, K_TOP, dk, ik)
     log(f"full batch vs plain: max |dd| {err:.3e}, {n_diff} tie-resolved "
         f"id differences")
-    serving = {"qps": N_REQUESTS / wall, "p50_ms": p50, "p99_ms": p99,
-               "spans_ms": spans,
-               "mean_batch": float(np.mean(front.batch_sizes)),
+    serving = {"qps": served["qps"], "p50_ms": p50, "p99_ms": p99,
+               "spans_ms": spans, "mean_batch": served["mean_batch"],
                "purity": purity, "launches": launches, "nbrs": nbrs,
                "labels": labels_np, "qids": qids,
-               "n_classes": exp.n_classes}
+               "n_classes": exp.n_classes, "classes": classes}
     return index, queries, serving, err
 
 
@@ -1725,43 +1785,32 @@ def phase_ann(index, queries, serving):
             f"empty {int(fills[0])}, full {int(fills[-1])}{extra}")
         engine = RetrievalEngine(ann, k_top=K_TOP, buckets=SERVE_BUCKETS)
         engine.warmup()
-        front = MicroBatcher(engine, max_batch=MAX_BATCH, max_wait_ms=2.0)
         kern.launches = 0                   # counts of the main path only
-        t0 = time.perf_counter()
-        pending = [(time.perf_counter(), front.submit(queries_np[i]))
-                   for i in range(N_REQUESTS)]
-        lat, nbrs = [], []
-        for t_sub, fut in pending:
-            _, nbr = fut.result(timeout=300)
-            lat.append(time.perf_counter() - t_sub)
-            nbrs.append(nbr)
-        wall = time.perf_counter() - t0
+        served, _, nbrs = _serve(engine, queries_np)
         launches = kern.launches
-        assert front.close(), "batcher worker did not stop"
         assert launches > 0, f"{name} serving never launched its kernel"
-        nbrs = np.stack(nbrs)
         recall = recall_at_k(nbrs, serving["nbrs"])
         purity = float(np.mean(labels[np.maximum(nbrs, 0)]
                                == labels[qids][:, None]))
-        p50, p99 = percentile(np.sort(np.asarray(lat)) * 1e3, (50.0, 99.0))
+        p50, p99 = served["p50_ms"], served["p99_ms"]
         st = engine.stats()
         peak = torch.cuda.max_memory_allocated() / 1e9
-        log(f"{name}: served {N_REQUESTS} requests in {wall:.3f}s: qps "
-            f"{N_REQUESTS / wall:.1f} (device-side {st['qps']:.1f}), latency "
-            f"ms p50 {p50:.2f} p99 {p99:.2f}, batches {front.n_batches}, "
-            f"kernel calls {launches}; recall@{K_TOP} vs exact {recall:.4f}, "
-            f"purity@{K_TOP} {purity:.3f} (chance "
+        log(f"{name}: served {N_REQUESTS} requests in {served['wall']:.3f}s: "
+            f"qps {served['qps']:.1f} (device-side {st['qps']:.1f}), "
+            f"latency ms p50 {p50:.2f} p99 {p99:.2f}, batches "
+            f"{served['batches']}, kernel calls {launches}; recall@{K_TOP} "
+            f"vs exact {recall:.4f}, purity@{K_TOP} {purity:.3f} (chance "
             f"{1 / serving['n_classes']:.3f}); peak memory {peak:.2f} GB "
             f"(build included)")
-        assert st["backend"] == "cuda" and np.isfinite(lat).all()
+        assert st["backend"] == "cuda"
         assert recall > 0.0, f"{name}: recall@{K_TOP} is 0"
         assert purity > 10.0 / serving["n_classes"], \
             f"{name}: purity at chance level"
-        out[name] = {"qps": N_REQUESTS / wall, "device_qps": st["qps"],
+        out[name] = {"qps": served["qps"], "device_qps": st["qps"],
                      "p50_ms": p50, "p99_ms": p99, "recall": recall,
                      "purity": purity, "peak_gb": peak, "build_s": build_s,
                      "build_steps_s": steps, "launches": launches,
-                     "batches": front.n_batches, "cap": ann.cap}
+                     "batches": served["batches"], "cap": ann.cap}
         built[name] = ann
     ivf, pq = built["ivf"], built["ivfpq"]
     # IVF scanning every cluster is the exact scan (ids apart from ties)
@@ -1998,6 +2047,354 @@ def time_ann(built, ann, queries):
             entry["library_note"] = "no single PyTorch call computes it"
         entries.append(entry)
     return entries
+
+
+# -- the mutable gallery and its snapshots at dml-imnet1m width --------------
+
+MUT_KERNELS = {"exact": metric_topk_fused, "ivf": ivf_scan_topk_fused,
+               "ivfpq": pq_adc_topk_fused}
+MUT_KNAMES = {"exact": "metric_topk", "ivf": "ivf_scan", "ivfpq": "pq_adc"}
+
+
+def _churn_plan(serving, exp, rng):
+    """The full-width churn: MUT_NEW new rows of the requests' classes (so
+    they compete for the answers), MUT_UPDATE ids re-upserted with fresh
+    rows of their own classes and MUT_DELETE ids deleted, each id set
+    holding phase 6's first or second neighbours of the requests. Its raw
+    rows are made on the card by ``class_rows`` for each base anew, from
+    one seed (the same rows each time), MUT_BATCH rows a batch."""
+    labels = serving["labels"]
+    hot = np.unique(serving["nbrs"][:, :2])
+    order = rng.permutation(exp.n_samples)
+    cold = order[~np.isin(order, hot)]
+    n_u = MUT_UPDATE - len(hot[1::2])
+    upd = np.concatenate([hot[1::2], cold[:n_u]])
+    dele = np.concatenate([hot[0::2],
+                           cold[n_u:n_u + MUT_DELETE - len(hot[0::2])]])
+    new_lab = labels[serving["qids"]][rng.randint(0, N_REQUESTS, MUT_NEW)]
+    return {"new_lab": torch.from_numpy(new_lab).to(DEV), "upd": upd,
+            "upd_lab": torch.from_numpy(labels[upd]).to(DEV), "del": dele,
+            "classes": serving["classes"], "seed": 2}
+
+
+def _churn(mut, engine, plan, probe):
+    """Apply the plan in batches (one version bump each), checking that
+    each batch flushes the engine's cache once: the probe request, cached
+    before the batch, misses after it and hits again. Returns rows/s of
+    upserts and of deletes, and the number of batches."""
+    gen = torch.Generator(device=DEV).manual_seed(plan["seed"])
+    batches = [("upsert", plan["new_lab"][s:s + MUT_BATCH], None)
+               for s in range(0, MUT_NEW, MUT_BATCH)]
+    batches += [("upsert", plan["upd_lab"], plan["upd"]),
+                ("delete", None, plan["del"])]
+    engine.search(probe)
+    secs, rows = {"upsert": 0.0, "delete": 0.0}, {"upsert": 0, "delete": 0}
+    for kind, lab, ids in batches:
+        x = None if lab is None else class_rows(gen, lab, plan["classes"])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if x is None:
+            mut.delete(ids)
+        else:
+            mut.upsert(x, ids=ids)
+        torch.cuda.synchronize()
+        secs[kind] += time.perf_counter() - t0
+        rows[kind] += len(ids) if x is None else len(x)
+        misses, hits = engine.cache_misses, engine.cache_hits
+        engine.search(probe)
+        engine.search(probe)
+        assert engine.cache_misses == misses + 1 and \
+            engine.cache_hits == hits + 1, \
+            "a mutation batch did not flush the engine's cache once"
+    return {k: rows[k] / secs[k] for k in secs}, len(batches)
+
+
+def _check_live(L, queries, dists, nbrs, gp, gn, live):
+    """Served answers (external ids) against the plain exact scan over the
+    live rows (gp, gn in ascending-id order ``live``), under compare()'s
+    rule, MAX_BATCH requests at a time. Returns the max |dd|."""
+    live_t = torch.from_numpy(live).to(DEV)
+    err = 0.0
+    for s in range(0, len(nbrs), MAX_BATCH):
+        ik = torch.from_numpy(nbrs[s:s + MAX_BATCH]).to(DEV)
+        pos = torch.searchsorted(live_t, ik).clamp_max(len(live) - 1)
+        assert torch.equal(live_t[pos], ik), "an answer is not a live row"
+        e, _ = compare(L, queries[s:s + MAX_BATCH].contiguous(), gp, gn,
+                       ik.shape[1], torch.from_numpy(
+                           dists[s:s + MAX_BATCH]).to(DEV), pos)
+        err = max(err, e)
+    return err
+
+
+def _counted_serve(engine, queries_np, name):
+    """_serve with every mutable-path launch count set to 0 just before
+    and read just after; the base's kernel must have launched, and the
+    delta scan's (metric_topk) while the delta holds rows."""
+    for kern in MUT_KERNELS.values():
+        kern.launches = 0
+    served = _serve(engine, queries_np)
+    launches = {MUT_KNAMES[k]: kern.launches
+                for k, kern in MUT_KERNELS.items()}
+    assert launches[MUT_KNAMES[name]] > 0, f"{name}: base kernel idle"
+    assert launches["metric_topk"] > 0 or not len(engine.index.delta_ids), \
+        f"{name}: delta scan idle"
+    served[0]["launches"] = launches
+    return served
+
+
+def _snapshot_round_trip(mut, sub, L, q, card):
+    """save_index / load_index through build/snapshots/<sub> on the card:
+    the loaded index answers bit for bit as the saved one. Returns GB,
+    save s, load s."""
+    path = os.path.join(SNAPSHOT_DIR, sub)
+    d0, i0 = mut.topk(q, K_TOP)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    save_index(mut, path)
+    save_s = time.perf_counter() - t0
+    gb = sum(os.path.getsize(os.path.join(path, f))
+             for f in os.listdir(path)) / 1e9
+    t0 = time.perf_counter()
+    loaded = load_index(path, expect_L=L)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    d1, i1 = loaded.topk(q, K_TOP)
+    assert torch.equal(d0, d1) and torch.equal(i0, i1), \
+        f"{sub}: the loaded snapshot answers differently"
+    assert loaded.version == mut.version and loaded.size == mut.size
+    log(f"mutation snapshot {sub}: {gb:.3f} GB, save {save_s:.2f} s, load "
+        f"{load_s:.2f} s, answers bit for bit [{card}]")
+    return {"gb": gb, "save_s": save_s, "load_s": load_s}
+
+
+def _mutable_run(name, base, L, queries, queries_np, plan, card,
+                 exact=None):
+    """Phase 8b on one base: wrap it, churn, serve with tombstones live,
+    check, (exact: snapshot round trip), compact, serve again, check.
+    ``exact``: the exact mutable's answers before and after compaction,
+    which IVF and IVFPQ recall is measured against."""
+    M = base.size
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    mut = MutableIndex(base, L, auto_compact_delta=0, auto_compact_dead=0)
+    wrap_s = time.perf_counter() - t0
+    engine = RetrievalEngine(mut, k_top=K_TOP, buckets=MUT_BUCKETS)
+    engine.warmup()
+    rates, n_batches = _churn(mut, engine, plan, queries_np[:1])
+    n_dead = len(plan["upd"]) + len(plan["del"])
+    assert mut.size == M + MUT_NEW - MUT_DELETE and \
+        mut.tombstones == n_dead and \
+        mut.delta_rows == MUT_NEW + MUT_UPDATE, "churn counts"
+    out = {"wrap_s": wrap_s, "upsert_rows_s": rates["upsert"],
+           "delete_rows_s": rates["delete"], "batches": n_batches,
+           "k_base": K_TOP + n_dead}
+    live, d_live, n_live = _counted_serve(engine, queries_np, name)
+    out["live"] = live
+    if name == "exact":
+        gp, gn, ids, _ = mut._live_state()
+        out["max_abs_err"] = _check_live(L, queries, d_live, n_live, gp, gn,
+                                         ids)
+        del gp, gn
+        out["snapshot"] = _snapshot_round_trip(
+            mut, "exact", L, queries[:MAX_BATCH].contiguous(), card)
+    else:
+        live["recall"] = recall_at_k(n_live, exact["live"])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    assert mut.compact()
+    torch.cuda.synchronize()
+    out["compact_s"] = time.perf_counter() - t0
+    assert mut.n_rebuilds == 0, f"{name}: compaction spilled"
+    assert len(engine.registry.events("index_compaction")) == 1
+    assert mut.size == mut.base.size == M + MUT_NEW - MUT_DELETE
+    post, d_post, n_post = _counted_serve(engine, queries_np, name)
+    out["compacted"] = post
+    if name == "exact":
+        b = mut.base
+        out["max_abs_err"] = max(out["max_abs_err"], _check_live(
+            L, queries, d_post, n_post, b.gp, b.gn, mut.base_ids))
+        answers = {"live": n_live, "compacted": n_post}
+    else:
+        post["recall"] = recall_at_k(n_post, exact["compacted"])
+        answers = None
+    st = engine.stats()
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    recall = (f", recall@{K_TOP} vs the exact mutable {live['recall']:.4f} "
+              f"-> {post['recall']:.4f}" if name != "exact" else
+              f", answers = the plain scan over the live rows (max |dd| "
+              f"{out['max_abs_err']:.3e})")
+    log(f"mutation {name}: wrapped {M} rows in {wrap_s:.2f} s; {n_batches} "
+        f"batches: upsert {rates['upsert']:.0f} rows/s, delete "
+        f"{rates['delete']:.0f} rows/s; tombstones live (base at k "
+        f"{out['k_base']}): qps {live['qps']:.1f}, p50 {live['p50_ms']:.2f} "
+        f"p99 {live['p99_ms']:.2f} ms, launches {live['launches']}; "
+        f"compaction {out['compact_s']:.2f} s; compacted: qps "
+        f"{post['qps']:.1f}, p50 {post['p50_ms']:.2f} p99 "
+        f"{post['p99_ms']:.2f} ms{recall}; stats size "
+        f"{st['gallery_size']}, compactions {st['compactions']}; peak "
+        f"memory {out['peak_gb']:.2f} GB [{card}]")
+    del mut, engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out, answers
+
+
+def _project(L, raw, block=8192):
+    """Host raw rows projected on the card (a fresh build's rows)."""
+    parts = [project_gallery(L, torch.from_numpy(raw[s:s + block]).to(DEV))
+             for s in range(0, raw.shape[0], block)]
+    return (torch.cat([p[0] for p in parts]),
+            torch.cat([p[1] for p in parts]))
+
+
+def _check_fresh(mut, L, q, **kw):
+    """A mutable just swapped or compacted (its raw rows are the live ones,
+    in ascending-id order) against a fresh exact build under L of those
+    rows (compare()'s rule). Returns the max |dd|."""
+    assert mut.delta_rows == 0 and mut.tombstones == 0
+    gp, gn = _project(L, mut.raw_base)
+    dk, ik = mut.topk(q, K_TOP, **kw)
+    return _check_live(L, q, dk.cpu().numpy(), ik.cpu().numpy(), gp, gn,
+                       mut.base_ids)
+
+
+def _mutation_cut(L, classes, exp, gen, card):
+    """Metric swaps, an IVF spill rebuild and the raw-row snapshots on a
+    CUT_ROWS-row gallery at full width, raw rows retained in host
+    memory."""
+    d_out, d_in = L.shape
+    lab = torch.randint(0, exp.n_classes, (CUT_ROWS + 2048,), generator=gen,
+                        device=DEV)
+    raw = torch.cat([class_rows(gen, lab[s:s + MUT_BATCH], classes)
+                     for s in range(0, CUT_ROWS, MUT_BATCH)])
+    q = (raw[::CUT_ROWS // MAX_BATCH] + 0.1 * torch.randn(
+        (MAX_BATCH, d_in), generator=gen, device=DEV)).contiguous()
+    extra = class_rows(gen, lab[CUT_ROWS:], classes)
+    kw = {"exact": {},
+          "ivf": dict(n_clusters=CUT_CLUSTERS, nprobe=CUT_CLUSTERS,
+                      iters=KM_ITERS),
+          "ivfpq": dict(n_clusters=CUT_CLUSTERS, nprobe=NPROBE,
+                        n_subspaces=PQ_SUBSPACES, bits=PQ_BITS,
+                        rerank_depth=RERANK, iters=KM_ITERS)}
+    muts = {}
+    for name, bkw in kw.items():
+        t0 = time.perf_counter()
+        muts[name] = MutableIndex.build(L, raw, base=name, retain_raw=True,
+                                        auto_compact_delta=0,
+                                        auto_compact_dead=0, **bkw)
+        muts[name].upsert(extra[:1024])
+        muts[name].delete(np.arange(0, CUT_ROWS, 32))
+        torch.cuda.synchronize()
+        log(f"mutation cut {name}: built over {CUT_ROWS} x {d_in} rows "
+            f"(raw {muts[name].raw_base.nbytes / 1e9:.2f} GB in host "
+            f"memory) and churned in {time.perf_counter() - t0:.2f} s "
+            f"[{card}]")
+    del raw
+    out = {"swap": {}}
+    L2 = torch.randn((d_out, d_in), generator=gen, device=DEV) / d_in ** 0.5
+    L3 = torch.randn((CUT_RANK, d_in), generator=gen, device=DEV) / d_in ** 0.5
+    for name in ("exact", "ivf"):
+        m = muts[name]
+        probe_kw = {"nprobe": CUT_CLUSTERS} if name == "ivf" else {}
+        for tag, L_new in (("same_rank", L2), (f"rank_{CUT_RANK}", L3)):
+            steps = {}
+            t0 = time.perf_counter()
+            m.swap_metric(L_new, timings=steps)
+            total = time.perf_counter() - t0
+            err = _check_fresh(m, L_new, q, **probe_kw)
+            out["swap"][f"{name}_{tag}"] = dict(s=total, **steps)
+            log(f"mutation cut {name}: swap_metric to {tuple(L_new.shape)} "
+                f"over {m.size} rows in {total:.2f} s "
+                f"({ {k: round(v, 3) for k, v in steps.items()} }); equals "
+                f"a fresh build (max |dd| {err:.3e}) [{card}]")
+    m = muts["ivf"]
+    m.upsert(extra[1024:1280])
+    m.delete(np.arange(1, CUT_ROWS, 64))
+    out["snapshot"] = {n: _snapshot_round_trip(muts[n], f"cut_{n}",
+                                               muts[n].L, q, card)
+                       for n in ("ivf", "ivfpq")}
+    free = m.base.n_clusters * m.base.cap - m.base.size
+    m.upsert(class_rows(gen, lab[:free + 512], classes))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    m.compact()
+    torch.cuda.synchronize()
+    spill_s = time.perf_counter() - t0
+    assert m.n_rebuilds == 1, "the IVF fold past its headroom did not spill"
+    err = _check_fresh(m, m.L, q, nprobe=CUT_CLUSTERS)
+    out["spill_s"] = spill_s
+    log(f"mutation cut ivf: {free + 512} rows upserted past {free} free "
+        f"slots -> spill rebuild in {spill_s:.2f} s over {m.size} rows "
+        f"(n_rebuilds {m.n_rebuilds}); equals a fresh build (max |dd| "
+        f"{err:.3e}) [{card}]")
+    return out
+
+
+
+def phase_mutation(index, queries, serving, built, card, exp=IMNET_1M):
+    """Phase 8b: the mutable gallery over phase 6's and phase 8's indexes
+    and requests, the cut, then each base's kernel at k_base on Nq 64
+    against its plain version, and the base calls' device ms."""
+    t_phase = time.perf_counter()
+    L = index.L
+    queries_np = queries.cpu().numpy()
+    gen = torch.Generator(device=DEV).manual_seed(3)
+    plan = _churn_plan(serving, exp, np.random.RandomState(3))
+    shutil.rmtree(SNAPSHOT_DIR, ignore_errors=True)
+    try:
+        runs, exact = {}, None
+        for name, base in (("exact", index), ("ivf", built["ivf"]),
+                           ("ivfpq", built["ivfpq"])):
+            runs[name], answers = _mutable_run(name, base, L, queries,
+                                               queries_np, plan, card, exact)
+            exact = exact or answers
+        new_hit = float(np.mean((exact["live"] >= index.size).any(1)))
+        del plan
+        cut = _mutation_cut(L, serving["classes"], exp, gen, card)
+    finally:
+        shutil.rmtree(SNAPSHOT_DIR, ignore_errors=True)
+
+    # the bases at k_base on Nq 64 (the wide paths): each kernel against
+    # its plain version, then the base calls' device ms at k 10 and k_base
+    k_wide = runs["exact"]["k_base"]
+    qb = queries[:MAX_BATCH].contiguous()
+    ivf, pq = built["ivf"], built["ivfpq"]
+    errs = {}
+    dk, ik = metric_topk(L, qb, index.gp, index.gn, k_top=k_wide)
+    errs["metric_topk"], _ = compare(L, qb, index.gp, index.gn, k_wide, dk,
+                                     ik)
+    qp = project_queries(L, qb)
+    args = _ivf_args(ivf, qp)
+    dk, ik = ivf_scan_topk(*args, kk=k_wide)
+    errs["ivf_scan"], _ = compare_ivf(*args, k_wide, dk, ik)
+    args = _pq_args(pq, qp)
+    dk, ik = pq_adc_topk(*args, kk=k_wide)
+    dp, ip = pq_adc_topk_ref(*args, k_wide)
+    assert torch.equal(dk, dp) and torch.equal(ik, ip), \
+        f"pq_adc at kk {k_wide} is not bit-identical"
+    errs["pq_adc"] = 0.0
+    del dk, ik, dp, ip, args
+    calls = {n: {k: _time(lambda b=b, k=k: b.topk(qb, k), 5)
+                 for k in (K_TOP, k_wide)}
+             for n, b in (("exact", index), ("ivf", ivf), ("ivfpq", pq))}
+    peak = max(torch.cuda.max_memory_allocated() / 1e9,
+               *(r["peak_gb"] for r in runs.values()))
+    log(f"mutation: base calls at Nq {MAX_BATCH} against their plain "
+        f"versions at k {k_wide}: max |dd| {errs}; device ms at k "
+        f"{K_TOP} / {k_wide}: "
+        f"{ {n: [round(v, 3) for v in c.values()] for n, c in calls.items()} }"
+        f"; requests answered with an upserted row (exact, tombstones live): "
+        f"{new_hit:.3f}; peak memory {peak:.2f} GB; phase "
+        f"{time.perf_counter() - t_phase:.1f} s [{card}]")
+    kernels = {MUT_KNAMES[n]: {
+        "launches": {f"{when}_{k}": r[when]["launches"][MUT_KNAMES[n]]
+                     for k, r in runs.items()
+                     for when in ("live", "compacted")},
+        "k_base": k_wide, "max_abs_err_k_base": errs[MUT_KNAMES[n]],
+        "base_call_ms": calls[n]} for n in MUT_KERNELS}
+    return {"runs": runs, "cut": cut, "kernels": kernels, "peak_gb": peak,
+            "new_row_share": new_hit}
 
 
 def library_pair(L, xs, ys, sim, lam, margin):
@@ -2665,7 +3062,7 @@ def main():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         sys.exit(1)
     t0 = time.perf_counter()
-    phase_device()
+    card = phase_device()
     phase_build()
     phase_parity()
     phase_parity_training()
@@ -2696,7 +3093,12 @@ def main():
     built, ann = phase_ann(index, queries, serving)
     entries += time_ann(built, ann, queries)
     log(f"ANN serving done at {time.perf_counter() - t0:.1f}s")
-    del index, queries, serving, built, ann
+    mutation = phase_mutation(index, queries, serving, built, card)
+    for entry in entries:
+        if entry["name"] in mutation["kernels"]:
+            entry["mutation"] = mutation["kernels"][entry["name"]]
+    log(f"mutation done at {time.perf_counter() - t0:.1f}s")
+    del index, queries, serving, built, ann, mutation
     torch.cuda.empty_cache()
     bb = phase_backbone_parity()
     log(f"backbone parity done at {time.perf_counter() - t0:.1f}s")

@@ -1,6 +1,6 @@
 """Carry the JAX package's weights (the DML factor and the backbone
-models), index arrays (exact, IVF, IVFPQ) and training state across to
-the port.
+models), index arrays (exact, IVF, IVFPQ, and a mutable index's state
+over any of them) and training state across to the port.
 
 Every function takes plain numpy arrays (``np.asarray`` of the
 reference's ``jax.Array``s, e.g. ``jax.tree.map(np.asarray, state)``),
@@ -21,6 +21,7 @@ from repro_torch.models import Model
 from repro_torch.optim import AdamState, MomentumState, ScaleState
 from repro_torch.serve.index import ExactIndex
 from repro_torch.serve.ivf import IVFIndex
+from repro_torch.serve.mutable import MutableIndex
 from repro_torch.serve.pq import IVFPQIndex, ProductQuantizer
 from repro_torch.tree import tree_map
 
@@ -111,6 +112,36 @@ def ivfpq_index_from_jax(L_np, centroids_np, codebooks_np, dim: int,
         gn_full=_f32(gn_full_np).to(rows_dev), cap=int(cap),
         n_clusters=int(n_clusters), nprobe=int(nprobe), n_rows=int(n_rows),
         rerank_depth=int(rerank_depth), store=store, scan_impl=scan_impl)
+
+
+def mutable_index_from_jax(mut_np_state: dict, device=None) -> MutableIndex:
+    """A port MutableIndex in the state of a reference MutableIndex.
+
+    ``mut_np_state`` holds numpy arrays and plain values under the
+    reference's attribute names: ``base_type`` ("exact" | "ivf" |
+    "ivfpq") and ``base``, the base's arrays and sizes as the keyword
+    arguments of ``exact_`` / ``ivf_`` / ``ivfpq_index_from_jax`` (``L_np``,
+    ``gp_np``, ...; ``device`` aside); then ``base_ids``, ``dead_base``,
+    ``delta_gp``, ``delta_gn``, ``delta_ids``, ``dead_delta``,
+    ``raw_base`` and ``raw_delta`` (None without retained rows),
+    ``next_id``, ``version``, ``n_upserts``, ``n_deletes``,
+    ``n_compactions``, ``n_rebuilds``, ``n_swaps``, ``base_kwargs``,
+    ``auto_compact_delta`` and ``auto_compact_dead``. The base's arrays
+    and the delta rows arrive bit for bit."""
+    st = mut_np_state
+    dev = resolve_device(device)
+    build = {"exact": exact_index_from_jax, "ivf": ivf_index_from_jax,
+             "ivfpq": ivfpq_index_from_jax}[st["base_type"]]
+    base = build(**st["base"], device=dev)
+    mut = MutableIndex(base, base.L, ids=st["base_ids"], raw=st["raw_base"],
+                       base_kwargs=st["base_kwargs"],
+                       auto_compact_delta=st["auto_compact_delta"],
+                       auto_compact_dead=st["auto_compact_dead"])
+    mut._restore(dead_base=st["dead_base"], delta_gp=st["delta_gp"],
+                 delta_gn=st["delta_gn"], delta_ids=st["delta_ids"],
+                 dead_delta=st["dead_delta"], raw_delta=st["raw_delta"],
+                 next_id=st["next_id"], version=st["version"], counters=st)
+    return mut
 
 
 def opt_state_from_jax(state, device=None):

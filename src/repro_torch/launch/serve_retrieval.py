@@ -4,7 +4,8 @@ Run:  PYTHONPATH=src python -m repro_torch.launch.serve_retrieval \
           [--gallery-size 20000] [--train-steps 200] [--requests 500] \
           [--index exact|ivf|ivfpq] [--n-clusters 64] [--nprobe 8] \
           [--n-subspaces 8] [--bits 8] [--rerank-depth 50] \
-          [--pq-store device|host] [--scan-impl auto] [--device cpu]
+          [--pq-store device|host] [--scan-impl auto] [--device cpu] \
+          [--mutable] [--churn N] [--snapshot-dir DIR]
 
 Counterpart of ``repro.launch.serve_retrieval`` for the single-device
 index paths: builds a class-structured gallery (data.pairs), learns the
@@ -14,9 +15,16 @@ random L), stands up the index (ExactIndex on metric_topk, IVFIndex on
 ivf_scan or IVFPQIndex on pq_adc) -> RetrievalEngine -> MicroBatcher,
 fires single-query traffic through the batcher and reports QPS, latency
 percentiles, batch coalescing, the cache and neighbor class purity.
-Runs on the card unless ``--device cpu`` is given. The reference's
-mutable, snapshot, scheduler, tenant, mining and sharding flags are not
-ported.
+Runs on the card unless ``--device cpu`` is given.
+
+``--mutable`` wraps the index in a MutableIndex (streaming upserts /
+deletes / compaction / metric hot-swap; raw rows retained); ``--churn N``
+then upserts N rows and deletes N after the traffic run and reports the
+lifecycle counters. ``--snapshot-dir`` restarts without re-projecting: a
+snapshot there is loaded (its L fingerprint checked against this run's
+metric), else the built index is saved there (and again after churn).
+The reference's scheduler, tenant, mining, tracing and sharding flags
+are not ported.
 """
 
 from __future__ import annotations
@@ -33,7 +41,8 @@ from repro_torch.data import pairs as pairdata
 from repro_torch.device import resolve_device
 from repro_torch.obs import percentile
 from repro_torch.serve import (ExactIndex, IVFIndex, IVFPQIndex,
-                               MicroBatcher, RetrievalEngine)
+                               MicroBatcher, MutableIndex, RetrievalEngine,
+                               has_snapshot, load_index, save_index)
 from repro_torch.serve import scan
 
 
@@ -77,10 +86,21 @@ def main(argv=None):
     ap.add_argument("--max-wait-ms", type=float, default=2.0)
     ap.add_argument("--cache-size", type=int, default=1024,
                     help="engine hot-query LRU entries (0 disables)")
+    ap.add_argument("--mutable", action="store_true",
+                    help="wrap the index in a MutableIndex (retains raw "
+                         "features for metric hot-swap)")
+    ap.add_argument("--churn", type=int, default=0,
+                    help="with --mutable: upsert+delete this many rows "
+                         "after the traffic run")
+    ap.add_argument("--snapshot-dir", default=None,
+                    help="load the index from this snapshot if present, "
+                         "else save the built index there")
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda; cpu runs the "
                          "kernel's plain version)")
     args = ap.parse_args(argv)
+    if args.churn and not args.mutable:
+        ap.error("--churn requires --mutable")
     device = resolve_device(args.device)
 
     # --- data + metric ---------------------------------------------------
@@ -107,38 +127,53 @@ def main(argv=None):
     # --- serving stack ---------------------------------------------------
     ivf_kw = dict(n_clusters=args.n_clusters, nprobe=args.nprobe,
                   scan_impl=args.scan_impl)
+    ivfpq_kw = dict(ivf_kw, n_subspaces=args.n_subspaces, bits=args.bits,
+                    rerank_depth=args.rerank_depth, store=args.pq_store)
+    base_kw = {"exact": {}, "ivf": ivf_kw, "ivfpq": ivfpq_kw}[args.index]
     t0 = time.perf_counter()
     gallery = torch.from_numpy(feats)
-    if args.index == "ivfpq":
-        index = IVFPQIndex.build(
-            L, gallery, n_subspaces=args.n_subspaces, bits=args.bits,
-            rerank_depth=args.rerank_depth, store=args.pq_store,
-            device=device, **ivf_kw)
+    loaded = bool(args.snapshot_dir) and has_snapshot(args.snapshot_dir)
+    if loaded:
+        index = load_index(args.snapshot_dir, expect_L=L, device=device)
+        if args.mutable and not isinstance(index, MutableIndex):
+            ap.error(f"--mutable requested but {args.snapshot_dir} holds "
+                     f"a frozen {type(index).__name__} snapshot; point "
+                     f"--snapshot-dir elsewhere or drop --mutable")
+    elif args.mutable:
+        index = MutableIndex.build(L, gallery, base=args.index,
+                                   retain_raw=True, device=device, **base_kw)
+    elif args.index == "ivfpq":
+        index = IVFPQIndex.build(L, gallery, device=device, **ivfpq_kw)
     elif args.index == "ivf":
         index = IVFIndex.build(L, gallery, device=device, **ivf_kw)
     else:
         index = ExactIndex.build(L, gallery, device=device)
     build_s = time.perf_counter() - t0
+    if args.snapshot_dir and not loaded:
+        save_index(index, args.snapshot_dir)
+        print(f"snapshot saved to {args.snapshot_dir}")
     engine = RetrievalEngine(index, k_top=args.k,
                              cache_size=args.cache_size)
     engine.warmup()
+    verb = "loaded from snapshot" if loaded else "built+projected"
     print(f"index[{type(index).__name__}]: {index.size} x {args.proj_dim} "
-          f"on {device} ({engine.backend} path), built+projected in "
+          f"on {device} ({engine.backend} path), {verb} in "
           f"{build_s:.2f}s")
-    if isinstance(index, (IVFIndex, IVFPQIndex)):
-        scanned = index.nprobe * index.cap
-        print(f"  {type(index).__name__}: {index.n_clusters} clusters, cap "
-              f"{index.cap}, nprobe {index.nprobe} -> <= {scanned} of "
-              f"{index.size} rows scanned per query "
-              f"({scanned / max(index.size, 1):.1%}); "
-              f"scan_impl={index.scan_impl} (resolves to "
-              f"{scan.resolve_scan_impl(index.scan_impl, device=device)})")
-    if isinstance(index, IVFPQIndex):
-        print(f"  pq: {index.pq.n_subspaces} x {index.pq.bits}-bit codes "
-              f"({index.code_bytes_per_row} B/row scanned vs "
+    ann = index.base if isinstance(index, MutableIndex) else index
+    if isinstance(ann, (IVFIndex, IVFPQIndex)):
+        scanned = ann.nprobe * ann.cap
+        print(f"  {type(ann).__name__}: {ann.n_clusters} clusters, cap "
+              f"{ann.cap}, nprobe {ann.nprobe} -> <= {scanned} of "
+              f"{ann.size} rows scanned per query "
+              f"({scanned / max(ann.size, 1):.1%}); "
+              f"scan_impl={ann.scan_impl} (resolves to "
+              f"{scan.resolve_scan_impl(ann.scan_impl, device=device)})")
+    if isinstance(ann, IVFPQIndex):
+        print(f"  pq: {ann.pq.n_subspaces} x {ann.pq.bits}-bit codes "
+              f"({ann.code_bytes_per_row} B/row scanned vs "
               f"{4 * args.proj_dim + 4} full precision, "
-              f"{index.compression_ratio:.1f}x), rerank depth "
-              f"{index.rerank_depth}, store={index.store}")
+              f"{ann.compression_ratio:.1f}x), rerank depth "
+              f"{ann.rerank_depth}, store={ann.store}")
     front = MicroBatcher(engine, max_batch=args.max_batch,
                          max_wait_ms=args.max_wait_ms)
 
@@ -155,7 +190,12 @@ def main(argv=None):
     for qid, t_sub, fut in pending:
         _, nbr = fut.result(timeout=60)
         lat.append(time.perf_counter() - t_sub)
-        purity.append(float(np.mean(labels[np.asarray(nbr)] == labels[qid])))
+        # a loaded post-churn snapshot can serve rows upserted after this
+        # run's label table was made; score only known ids
+        nbr = np.asarray(nbr)
+        known = nbr[(nbr >= 0) & (nbr < len(labels))]
+        if len(known):
+            purity.append(float(np.mean(labels[known] == labels[qid])))
     wall = time.perf_counter() - t0
     front.close()
 
@@ -174,6 +214,27 @@ def main(argv=None):
           f"({st['cache_entries']} entries)")
     print(f"neighbor class purity@{args.k}: {np.mean(purity):.3f} "
           f"(chance {1.0 / args.n_classes:.3f})")
+
+    # --- mutation lifecycle ----------------------------------------------
+    if args.mutable and args.churn > 0:
+        n = min(args.churn, index.size // 2)
+        fresh = feats[rng.randint(0, len(feats), n)] \
+            + 0.1 * rng.randn(n, args.feat_dim).astype(np.float32)
+        new_ids = index.upsert(fresh)
+        retire = index.live_ids()[:n]
+        retire = retire[~np.isin(retire, new_ids)]
+        index.delete(retire)
+        _, i_m = engine.search(noisy[:8])
+        st = engine.stats()
+        print(f"churn: +{n} upserts / -{len(retire)} deletes -> "
+              f"size {index.size}, delta_rows {st['delta_rows']}, "
+              f"tombstones {st['tombstones']}, "
+              f"compactions {st['compactions']} "
+              f"(version {index.version}); new ids reachable: "
+              f"{bool(np.isin(i_m, new_ids).any())}")
+        if args.snapshot_dir:
+            save_index(index, args.snapshot_dir)
+            print(f"post-churn snapshot saved to {args.snapshot_dir}")
 
 
 if __name__ == "__main__":

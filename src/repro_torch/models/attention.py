@@ -14,7 +14,7 @@ Execution paths:
                          on the CPU.
 
 The decode path (``decode_attend``, KV caches) waits for the decode
-slice (ROADMAP.md Queue 1 item 8).
+slice (ROADMAP.md Queue 1 item 7).
 """
 
 from __future__ import annotations

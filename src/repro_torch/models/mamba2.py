@@ -18,7 +18,7 @@ Three forms of the same function:
                               tests' oracle).
 
 The decode step and its caches wait for the decode slice (ROADMAP.md
-Queue 1 item 8).
+Queue 1 item 7).
 """
 
 from __future__ import annotations

@@ -27,7 +27,7 @@ def init_mlp(cfg: ArchConfig, gen) -> dict:
         return {"w_up": common.he_init(gen, (d, f), d), "b_up": zeros(f),
                 "w_down": common.he_init(gen, (f, d), f), "b_down": zeros(d)}
     raise NotImplementedError(f"mlp_kind {cfg.mlp_kind!r} is not ported yet "
-                              f"(ROADMAP.md Queue 1 item 8)")
+                              f"(ROADMAP.md Queue 1 item 7)")
 
 
 def gelu_tanh(x):
@@ -46,4 +46,4 @@ def apply_mlp(p, x, cfg: ArchConfig):
         h = gelu_tanh(x @ p["w_up"].to(dt) + p["b_up"].to(dt))
         return h @ p["w_down"].to(dt) + p["b_down"].to(dt)
     raise NotImplementedError(f"mlp_kind {cfg.mlp_kind!r} is not ported yet "
-                              f"(ROADMAP.md Queue 1 item 8)")
+                              f"(ROADMAP.md Queue 1 item 7)")

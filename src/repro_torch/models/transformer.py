@@ -7,7 +7,7 @@ full-sequence forward of ``repro/models/transformer.py``.
                      MLP block (sliding window ``shared_attn_window``)
 
 The ssm (rwkv6), moe, vlm and audio families, decode and its caches wait
-for later slices (ROADMAP.md Queue 1 item 8): ``Model`` raises
+for later slices (ROADMAP.md Queue 1 item 7): ``Model`` raises
 ``NotImplementedError`` for them.
 
 Public surface:
@@ -136,7 +136,7 @@ class Model(nn.Module):
         if cfg.family not in FAMILIES:
             raise NotImplementedError(
                 f"family {cfg.family!r} ({cfg.name}) is not ported yet: the "
-                f"port builds {FAMILIES} (ROADMAP.md Queue 1 item 8)")
+                f"port builds {FAMILIES} (ROADMAP.md Queue 1 item 7)")
         self.cfg = cfg
         dev = resolve_device(device)
         if params is None:

@@ -100,8 +100,19 @@ class RetrievalEngine:
         self._cache: "collections.OrderedDict" = collections.OrderedDict()
         self._cache_index = index
         self._cache_version = index.version
+        self._adopt_index()
+
+    def _adopt_index(self):
+        """Point the index's lifecycle events (mutable compaction, spill
+        rebuild, metric swap, snapshot save) at this engine's registry.
+        Re-run by the gauge collector, so a swapped-in index is adopted
+        too."""
+        if (hasattr(self.index, "registry")
+                and getattr(self.index, "registry", None) is None):
+            self.index.registry = self.registry
 
     def _collect_gauges(self):
+        self._adopt_index()
         self._g_cache_entries.set(len(self._cache))
         self._g_gallery_rows.set(self.index.size)
         mem = index_memory(self.index)
@@ -275,10 +286,15 @@ class RetrievalEngine:
 
     def stats(self) -> dict:
         """Serving counters as a plain dict — the same keys as the
-        reference's ``stats()``; ``backend`` is "cuda" or "cpu"."""
+        reference's ``stats()``; ``backend`` is "cuda" or "cpu".
+
+        Backend extras appear when the index has them and they are not
+        None: delta_rows / tombstones / compactions (MutableIndex),
+        code_bytes_per_row / compression_ratio (IVFPQIndex), scan_impl
+        (IVF / IVFPQ)."""
         busy = self.busy_s
         qps = self.n_device_queries / busy if busy > 0 else 0.0
-        return {
+        out = {
             "n_requests": self.n_requests,
             "n_queries": self.n_queries,
             "n_device_queries": self.n_device_queries,
@@ -293,3 +309,13 @@ class RetrievalEngine:
             "cache_misses": self.cache_misses,
             "cache_entries": len(self._cache),
         }
+        for key, attr in (("delta_rows", "delta_rows"),
+                          ("tombstones", "tombstones"),
+                          ("compactions", "n_compactions"),
+                          ("code_bytes_per_row", "code_bytes_per_row"),
+                          ("compression_ratio", "compression_ratio"),
+                          ("scan_impl", "scan_impl")):
+            value = getattr(self.index, attr, None)
+            if value is not None:
+                out[key] = value
+        return out

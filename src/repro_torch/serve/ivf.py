@@ -218,7 +218,8 @@ def capacity(M: int, n_clusters: int, cap_factor: float) -> int:
 
 class StepClock:
     """Seconds of successive build steps into ``out`` (when given), each
-    step ended by a device synchronisation."""
+    step ended by a device synchronisation; a step lapped again adds to
+    its entry."""
 
     def __init__(self, device: torch.device, out: Optional[dict]):
         self.device, self.out, self.t = device, out, time.perf_counter()
@@ -229,7 +230,7 @@ class StepClock:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         t = time.perf_counter()
-        self.out[name] = t - self.t
+        self.out[name] = self.out.get(name, 0.0) + t - self.t
         self.t = t
 
 

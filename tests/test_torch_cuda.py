@@ -2,10 +2,11 @@
 metric_topk, dml_pair (forward and gradients), pairwise_sqdist, ivf_scan
 and pq_adc (bit for bit), the IVF / IVFPQ indexes on the card,
 flash_attention and ssd_scan (bf16 and f32), a reduced zamba2 backbone
-through both, and a reduced gemma-7b at head dim 256. Top-k widths past
-the 256-entry shared lists (the wide path), pq_adc tables taken in
-chunks (S 200, 1000) and pairwise_sqdist past 65535 tiles of yp rows are
-among the shapes; so are ivf_scan's plan (made on the card, against
+through both, a reduced gemma-7b at head dim 256, and the mutable
+gallery (card against the CPU port, and its snapshot round trip). Top-k
+widths past the 256-entry shared lists (the wide path), pq_adc tables
+taken in chunks (S 200, 1000) and pairwise_sqdist past 65535 tiles of yp
+rows are among the shapes; so are ivf_scan's plan (made on the card, against
 ``work_plan``) and both segment scans on skewed and repeated probes.
 
 Marked ``cuda``: without a card every test here skips (a CUDA kernel has
@@ -560,6 +561,86 @@ def test_ivfpq_reranks_past_the_widest_list(cuda_device):
     r512, r50 = (recall_at_k(i.cpu().numpy(), i_e.cpu().numpy())
                  for i in (i512, i50))
     assert r512 >= r50 and r512 > 0.9
+
+
+def _assert_same_neighbours(mut, q, d, i, d_ref, i_ref):
+    """A card answer (d, i) against the CPU port's (d_ref, i_ref), external
+    ids: distances within atol + rtol * (qn + gn); where the ids differ,
+    the card's neighbour lies at the CPU's distance of that rank (a tie)."""
+    gp, gn, live, _ = mut._live_state()
+    qp = torch.as_tensor(q).cpu() @ mut.L.cpu().T
+    qn = torch.sum(qp * qp, dim=1)[:, None]
+    rows = torch.from_numpy(np.searchsorted(live, i.cpu().numpy()))
+    tol = ATOL + RTOL * (qn + gn.cpu()[rows])
+    assert bool(((d.cpu() - d_ref).abs() <= tol).all())
+    d_own = torch.sum(torch.square(qp[:, None, :] - gp.cpu()[rows]), dim=2)
+    differ = i.cpu() != i_ref
+    assert bool(((d_own - d_ref).abs() <= tol)[differ].all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("base", ["exact", "ivf", "ivfpq"])
+def test_mutable_on_the_card_matches_the_cpu_port(cuda_device, base):
+    """One op sequence (upsert, delete, update, fold, swap_metric) on a
+    card MutableIndex and a CPU one from the same numpy rows; IVF and
+    IVFPQ at nprobe = n_clusters with a rerank over every probed row."""
+    from repro_torch.serve import MutableIndex
+    L, G, q = (t.cpu().numpy() for t in _clustered(cuda_device))
+    kw = {"exact": {}, "ivf": dict(n_clusters=16, nprobe=16, iters=4),
+          "ivfpq": dict(n_clusters=16, nprobe=16, n_subspaces=4, bits=6,
+                        rerank_depth=5000, iters=4)}[base]
+    muts = [MutableIndex.build(L, G, base=base, retain_raw=True,
+                               auto_compact_delta=0, auto_compact_dead=0,
+                               device=dev, **kw)
+            for dev in (cuda_device, "cpu")]
+    rng = np.random.RandomState(3)
+    kernel = {"exact": metric_topk_fused, "ivf": ivf_scan_topk_fused,
+              "ivfpq": pq_adc_topk_fused}[base]
+    new, upd = (rng.randn(n, G.shape[1]).astype(np.float32)
+                for n in (300, 20))
+    L_new = (rng.randn(L.shape[0] // 2, L.shape[1]) / 5).astype(np.float32)
+    steps = [lambda m: m.upsert(new),
+             lambda m: m.delete(np.arange(0, 600, 3)),
+             lambda m: m.upsert(upd, ids=np.arange(1, 41, 2)),
+             lambda m: m.compact(),
+             lambda m: m.swap_metric(L_new, block_rows=1000)]
+    for step in steps:
+        for m in muts:
+            step(m)
+        launched = (kernel.launches, metric_topk_fused.launches)
+        d, i = muts[0].topk(torch.from_numpy(q), 10)
+        torch.cuda.synchronize()
+        assert kernel.launches > launched[0]
+        if muts[0].delta_rows:                  # the delta scan's kernel
+            assert metric_topk_fused.launches > launched[1] + (
+                base == "exact")
+        d_ref, i_ref = muts[1].topk(torch.from_numpy(q), 10)
+        assert d.is_cuda and i.dtype == torch.int64
+        _assert_same_neighbours(muts[1], q, d, i, d_ref, i_ref)
+        assert muts[0].version == muts[1].version
+        assert muts[0].size == muts[1].size
+
+
+@pytest.mark.cuda
+def test_snapshot_round_trip_on_the_card(cuda_device, tmp_path):
+    """A card MutableIndex over IVFPQ saved and loaded on the card answers
+    bit for bit; loaded on the CPU, it answers as the CPU port does."""
+    from repro_torch.serve import MutableIndex, load_index, save_index
+    L, G, q = _clustered(cuda_device)
+    mut = MutableIndex.build(L, G, base="ivfpq", retain_raw=True,
+                             auto_compact_delta=0, auto_compact_dead=0,
+                             n_clusters=16, nprobe=16, n_subspaces=4,
+                             bits=6, rerank_depth=5000, iters=4)
+    mut.upsert(torch.randn(50, G.shape[1], device=cuda_device))
+    mut.delete(np.arange(0, 100, 7))
+    d_ref, i_ref = mut.topk(q, 10)
+    save_index(mut, str(tmp_path))
+    loaded = load_index(str(tmp_path), expect_L=L)
+    d, i = loaded.topk(q, 10)
+    assert torch.equal(d, d_ref) and torch.equal(i, i_ref)
+    on_cpu = load_index(str(tmp_path), device="cpu")
+    d_c, i_c = on_cpu.topk(q.cpu(), 10)
+    _assert_same_neighbours(on_cpu, q, d, i, d_c, i_c)
 
 
 # -- backbone kernels: flash_attention and ssd_scan ---------------------------

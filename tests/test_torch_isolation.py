@@ -30,7 +30,8 @@ from repro_torch.configs import get_config
 from repro_torch.convert import model_params_from_jax
 from repro_torch.launch import serve_embeddings, serve_retrieval
 from repro_torch.models import Model
-from repro_torch.serve import ExactIndex, IVFIndex, IVFPQIndex
+from repro_torch.serve import (ExactIndex, IVFIndex, IVFPQIndex,
+                               MutableIndex, load_index)
 from repro_torch.serve.pq import ProductQuantizer
 
 REPO = Path(__file__).resolve().parents[1]
@@ -109,6 +110,11 @@ _ENTRY_POINTS = {
     "IVFPQIndex.build": lambda x, y, p: IVFPQIndex.build(
         np.eye(8, dtype=np.float32), x, n_clusters=2),
     "ProductQuantizer.train": lambda x, y, p: ProductQuantizer.train(x),
+    "MutableIndex.build": lambda x, y, p: MutableIndex.build(
+        np.eye(8, dtype=np.float32), x),
+    "load_index": lambda x, y, p: load_index("no-such-snapshot"),
+    "cli --mutable": lambda x, y, p: serve_retrieval.main(
+        ["--mutable", "--train-steps", "0", "--gallery-size", "100"]),
     "cli --index ivf": lambda x, y, p: serve_retrieval.main(
         ["--index", "ivf", "--train-steps", "0", "--gallery-size", "100"]),
     "cli --index ivfpq": lambda x, y, p: serve_retrieval.main(

@@ -131,7 +131,7 @@ def test_seeded_init_is_deterministic():
 @pytest.mark.parametrize("name", ["rwkv6-1.6b", "granite-moe-1b-a400m",
                                   "pixtral-12b", "hubert-xlarge"])
 def test_families_not_ported_raise(name):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
         Model(get_config(name + "-reduced"), device="cpu")
 
 
