@@ -157,6 +157,62 @@ exit, and nothing falls back:
                 compaction s, QPS and p50 / p99, swap seconds by step,
                 snapshot GB and seconds, and peak memory, each beside the
                 card's name and power limit;
+ 8c. front end — a RequestScheduler with default settings (max_batch 64,
+                2 ms wait, watermarks 32 / 4, windows 50 / 500 ms; classes
+                interactive 100 ms / 256, batch 1 s / 1024, mining 10 s /
+                4096) in front of an engine over each of phases 6 and 8's
+                indexes, its ladder run up front (``warmup``). Steady:
+                the 256 requests in a 70/20/10 class mix, 8 every 8 ms;
+                the ladder must not move, every batch must run at level
+                0's knobs and equal the plain version there, and each
+                answer the MicroBatcher's for the same request
+                (``_agree``: compare()'s rule where both scanned the same
+                segments and, IVFPQ, reranked the same ADC candidates; the
+                projection's rounding follows the batch's bucket, so
+                requests that probed otherwise are counted, at most
+                ``FE_OTHER_MAX``, 5 of 256). Burst: 4,096 requests at once (the 256 rows x
+                16 with fresh seeded noise, the same mix) under the tracer
+                at rate 1.0; every future resolves once (served,
+                RejectedError at submit, DeadlineExceededError), the
+                engine sees exactly the served rows, each batch span
+                carries its level and knobs, each batch equals the plain
+                version at its knobs (pq_adc's plain version in the
+                IVFPQ call: bit for bit); IVF and IVFPQ step down at
+                least one level, and a request every 10 ms afterwards
+                (mining class) brings the ladder back to level 0; the
+                exact engine's ladder is ``({},)``. Prints QPS, p50 /
+                p99 and served / rejected / expired by class, each
+                transition with its trigger, seconds at each level, and
+                the ms at Nq 64 of ivf_scan / pq_adc and of the index call
+                at each level (graph replay and eager);
+ 8d. tenants — after phases 6 and 8's indexes are freed: a TenantRouter
+                over 262,144 llc_like rows at d_in 21504 made on the card
+                (22.5 GB, taken without a copy; 1M rows would be 86 GB),
+                tenants t0 exact on phase 6's L (interactive), t1 IVF 256
+                clusters nprobe 16 (batch), t2 IVFPQ 256 clusters 100 x
+                8-bit rerank 50 (batch), t3 exact at rank 500 (mining),
+                seeded factors; a shadow arm on t1 (rate 0.25); a
+                scheduler without degradation (``registry=
+                router.registry``) and 256 requests a tenant through
+                ``router.submit``; every engine call of that traffic (the
+                shadow's single-query calls too) against the plain
+                version on its inputs (``_check_calls``: metric_topk,
+                ivf_scan, pq_adc at 8d's view shapes), each answer
+                against ``router.search`` (``_agree``), t0's against the
+                plain scan; promote, then t1's answers against the plain
+                version and a fresh build of the candidate's view in a
+                second router over the same store, bit for bit; 16,384
+                rows added and 4,096 removed, each view rebuilt lazily,
+                t1 and t2's first calls on the rebuilt views against the
+                plain version, the exact tenants against the plain scan
+                over the live rows;
+                ``memory()`` counts the store once; ``save_tenants`` /
+                ``load_tenants`` of a 32,768-row cut (build/snapshots/,
+                deleted at the phase's end) bit for bit, and a swapped
+                factor raises TenantFingerprintError. Prints view build
+                s, QPS and p50 / p99 by tenant, promote s, the shadow's
+                overlap@10 and latency ratio, rebuild s, memory and peak
+                memory;
   9. backbone — zamba2-2.7b at full width and depth (54 mamba2 layers,
                 d_model 2560, 80 SSM heads of p = n = 64; the shared
                 attention + GELU MLP block after every 6th layer, 32 heads
@@ -193,9 +249,10 @@ exit, and nothing falls back:
  12. the last line: ``{"ok": true, "device": {...}}``.
 
 Every launch count is set to 0 just before a main-path phase (4, 5, 5a,
-5c, 6, each index of 8, each serving run of 8b, gemma's embed_pool in 9,
-and 10) and read just after (5a launches no kernel: its gradient is the reference's plain
-autograd product);
+5c, 6, each index of 8, each serving run of 8b, each burst of 8c, 8d's
+tenant traffic, gemma's embed_pool in 9, and 10) and read just after
+(5a launches no kernel: its gradient is the reference's plain autograd
+product);
 comparison launches come after the reading (or, for phase 9, before the
 counts are reset).
 
@@ -308,10 +365,14 @@ from repro_torch.models import Model, attention, common, mamba2  # noqa: E402
 from repro_torch.models.transformer import shared_cfg  # noqa: E402
 from repro_torch.obs import percentile  # noqa: E402
 from repro_torch.optim import schedules, sgd  # noqa: E402
-from repro_torch.serve import (ExactIndex, IVFIndex,  # noqa: E402
-                               IVFPQIndex, MicroBatcher, MutableIndex,
-                               RetrievalEngine, load_index, recall_at_k,
-                               save_index)
+from repro_torch.serve import (DeadlineExceededError,  # noqa: E402
+                               ExactIndex, IVFIndex, IVFPQIndex,
+                               MicroBatcher, MutableIndex, RejectedError,
+                               RequestScheduler, RetrievalEngine,
+                               TenantFingerprintError, TenantRouter,
+                               default_ladder, load_index, load_tenants,
+                               recall_at_k, save_index, save_tenants)
+from repro_torch.serve import pq as pq_mod  # noqa: E402
 from repro_torch.serve.ivf import probe  # noqa: E402
 from repro_torch.serve.scan import project_queries  # noqa: E402
 
@@ -358,11 +419,12 @@ KNN_K = 5
 # steps a worker; the server-rule parity check's messages are chains of
 # this many elementwise steps (few: every launch queued behind a held
 # stream must fit the launch queue, or the host blocks until the hold
-# ends), and the side it holds back spins this many cycles (about 0.5 s
-# at the H100's clocks)
+# ends), and the side it holds back spins this many cycles (about 2 s
+# at the H100's clocks, so that the host's checks land inside the hold
+# on a loaded host too)
 ASYNC_P, ASYNC_LR, ASYNC_SERVER_BATCH = 4, 1e-3, 4
 FIG3_WORKERS, FIG3_STEPS = (1, 2, 4), 100
-ASYNC_MSG_CHAIN, ASYNC_HOLD_CYCLES = 2, 1_000_000_000
+ASYNC_MSG_CHAIN, ASYNC_HOLD_CYCLES = 2, 4_000_000_000
 # Fig. 4 at dml-mnist width: noise 3.0, where the methods separate (at
 # the default 0.3 every learned method saturates at AP ~1); lr 1e-2, as
 # the reference's 5e-2 diverges at this width with or without the rescale
@@ -2397,6 +2459,747 @@ def phase_mutation(index, queries, serving, built, card, exp=IMNET_1M):
             "new_row_share": new_hit}
 
 
+# -- the traffic-shaped front end at dml-imnet1m width (phase 8c) ------------
+
+FE_CLASSES, FE_MIX = ("interactive", "batch", "mining"), (0.7, 0.2, 0.1)
+FE_BURST = 4_096            # requests submitted at once (16 x the 256 rows)
+FE_STEADY_GROUP, FE_STEADY_GAP_S = 8, 0.008     # 1,000 requests/s
+FE_TRICKLE_GAP_S, FE_TRICKLE_MAX_S = 0.01, 5.0  # after the burst drains
+FE_OTHER_MAX = N_REQUESTS // 50   # steady requests on other segments
+CHECK_ROWS = 32             # query rows a plain IVF / IVFPQ check holds
+FE_KERNELS = {"exact": metric_topk_fused, "ivf": ivf_scan_topk_fused,
+              "ivfpq": pq_adc_topk_fused}
+
+
+def _same_answers(L, queries, gn, d, i, d_ref, i_ref):
+    """Two served answers to the same requests, held as compare() holds a
+    kernel to its plain version: distances within atol + rtol * (qn + gn
+    of the id), ids equal at every rank whose distance is apart from its
+    neighbours' by more than that (the last rank's right neighbour is not
+    known, so it counts as near), and at a near-tie the other answer's id
+    carries the same distance. Returns (max |dd|, requests whose ids
+    differ at a near-tie)."""
+    qn = torch.sum(torch.square(project_queries(L, queries)), dim=1)
+    ids = torch.from_numpy(np.asarray(i_ref, np.int64)).to(DEV)
+    tol = ATOL + RTOL * (qn[:, None] + gn[ids])
+    dr = torch.from_numpy(d_ref).to(DEV)
+    err = (torch.from_numpy(d).to(DEV) - dr).abs()
+    assert bool((err <= tol).all()), \
+        f"distances differ: max err {err.max().item():.3e}"
+    inf = torch.full_like(dr[:, :1], float("inf"))
+    apart = ((dr - torch.cat([-inf, dr[:, :-1]], 1)) > tol) & \
+        ((torch.cat([dr[:, 1:], -inf], 1) - dr) > tol)
+    same = torch.from_numpy(np.asarray(i) == np.asarray(i_ref)).to(DEV)
+    bad = (~same & apart).any(1)
+    if bool(bad.any()):
+        r = int(torch.nonzero(bad)[0])
+        raise AssertionError(f"ids differ at distinct distances: "
+                             f"{i[r]} vs {i_ref[r]}, {d[r]} vs {d_ref[r]}")
+    return float(err.max()), int((~same).any(1).sum())
+
+
+def _pq_plain_topk(pq, q, k, **knobs):
+    """IVFPQIndex.topk with pq_adc's plain version in place of the kernel
+    (everything else in the call unchanged), CHECK_ROWS query rows at a
+    time (each row's answer is its own: the plain version's gathers stay
+    a few GB)."""
+    def plain(tables, dc, probes, *seg, kk, block_q):
+        outs = [pq_adc_topk_ref(tables[s:s + CHECK_ROWS],
+                                dc[s:s + CHECK_ROWS],
+                                probes[s:s + CHECK_ROWS], *seg, kk)
+                for s in range(0, probes.shape[0], CHECK_ROWS)]
+        return tuple(torch.cat(o) for o in zip(*outs))
+
+    saved = pq_mod.pq_adc_topk
+    pq_mod.pq_adc_topk = plain
+    try:
+        return pq.topk(q, k, **knobs)
+    finally:
+        pq_mod.pq_adc_topk = saved
+
+
+def _check_batch(name, base, gn, qs, knobs, dk, ik, bucket):
+    """One engine call at ``knobs`` against the plain version at the same
+    knobs on the same (bucket-padded) queries. ``gn``: the exact index's
+    row norms (unused by IVF and IVFPQ). Returns max |dd|."""
+    n = qs.shape[0]
+    q = torch.zeros((bucket, qs.shape[1]), device=DEV)
+    q[:n] = torch.from_numpy(qs).to(DEV)
+    dk = torch.from_numpy(dk).to(DEV)
+    ik = torch.from_numpy(ik).to(DEV)
+    if name == "exact":
+        return compare(base.L, q[:n].contiguous(), base.gp, gn, K_TOP, dk,
+                       ik)[0]
+    if name == "ivf":
+        qp = project_queries(base.L, q)
+        qp, probes, *seg = _ivf_args(base, qp,
+                                     knobs.get("nprobe", base.nprobe))
+        err = 0.0
+        for s in range(0, n, CHECK_ROWS):
+            r = slice(s, min(s + CHECK_ROWS, n))
+            err = max(err, compare_ivf(qp[r], probes[r], *seg, K_TOP, dk[r],
+                                       ik[r])[0])
+        return err
+    dp, ip = _pq_plain_topk(base, q, K_TOP, **knobs)
+    assert torch.equal(dp[:n], dk) and torch.equal(ip[:n], ik), \
+        "ivfpq: a served answer differs from the plain version at its knobs"
+    return 0.0
+
+
+def _check_calls(name, base, gn, engine, calls):
+    """Every recorded engine call (``_record``) against the plain version
+    at its knobs, on ``engine``'s bucket for its size. Returns max |dd|."""
+    assert calls, "no engine call was recorded"
+    return max(_check_batch(name, base, gn, qs, kw, *ans,
+                            engine._bucket(len(qs)))
+               for qs, kw, ans in calls)
+
+
+def _level_times(transitions, t0, t1):
+    """Seconds at each ladder level between clock times t0 and t1."""
+    out, level, t = {}, 0, t0
+    for tr in transitions:
+        out[level] = out.get(level, 0.0) + tr.t - t
+        level, t = tr.level_to, tr.t
+    out[level] = out.get(level, 0.0) + t1 - t
+    return {lv: round(s, 4) for lv, s in sorted(out.items())}
+
+
+def _steady(sched, queries_np, mix):
+    """The requests at FE_STEADY_GROUP every FE_STEADY_GAP_S (below the
+    high watermark): every one must be served. Returns qps, p50, p99."""
+    futs, done = [], {}
+    t0 = time.perf_counter()
+    for i, q in enumerate(queries_np):
+        f = sched.submit(q, priority=str(mix[i]))
+        f.add_done_callback(lambda _, i=i: done.__setitem__(
+            i, time.perf_counter()))
+        futs.append((time.perf_counter(), f))
+        if (i + 1) % FE_STEADY_GROUP == 0:
+            time.sleep(FE_STEADY_GAP_S)
+    for _, f in futs:
+        f.result(timeout=120)
+    wall = time.perf_counter() - t0
+    lat = np.array([done[i] - t for i, (t, _) in enumerate(futs)]) * 1e3
+    p50, p99 = percentile(lat, (50.0, 99.0))
+    return {"qps": len(futs) / wall, "p50_ms": p50, "p99_ms": p99}
+
+
+def _record(engine):
+    """Record every engine.search call from here on as (query rows, knobs,
+    (dists, ids)), a single query as one row; ``del engine.search`` stops
+    it. Returns the list."""
+    calls, real = [], engine.search
+
+    def record(qs, k_top=None, *, span=None, **kw):
+        out = real(qs, k_top, span=span, **kw)
+        calls.append((np.atleast_2d(np.array(qs, np.float32)), dict(kw),
+                      tuple(np.atleast_2d(a) for a in out)))
+        return out
+
+    engine.search = record
+    return calls
+
+
+def _by_request(calls, queries_np):
+    """Each request row's (call index, row in the call)."""
+    where = {}
+    for c, (qs, _, _) in enumerate(calls):
+        for r, row in enumerate(qs):
+            where[row.tobytes()] = (c, r)
+    return [where[q.tobytes()] for q in queries_np]
+
+
+def _candidates(name, base, engine, calls):
+    """Per call, the segments each row probed and (IVFPQ) the ADC
+    candidates it reranked, recomputed as the index computed them: on the
+    call's bucket-padded queries (the projection's rounding depends on
+    the bucket, a cuBLAS shape)."""
+    out = []
+    for qs, kw, _ in calls:
+        n = qs.shape[0]
+        q = torch.zeros((engine._bucket(n), qs.shape[1]), device=DEV)
+        q[:n] = torch.from_numpy(qs).to(DEV)
+        qp = project_queries(base.L, q)
+        nprobe = kw.get("nprobe", base.nprobe)
+        if name == "ivf":
+            probes = _ivf_args(base, qp, nprobe)[1]
+            cand = None
+        else:
+            args = _pq_args(base, qp, nprobe)
+            probes = args[2]
+            rr = min(kw.get("rerank", base.rerank_depth), nprobe * base.cap)
+            cand = pq_adc_topk(*args, kk=max(K_TOP, rr))[1][:n].cpu()
+        out.append((torch.sort(probes[:n], 1).values.cpu(), cand))
+    return out
+
+
+def _agree(name, base, engine, queries, gn, ref_calls, calls):
+    """Two runs' answers to the same requests (each run's engine calls as
+    ``_record`` keeps them), request by request: wherever both runs
+    scanned the same segments (and, IVFPQ, reranked the same ADC
+    candidates), the answers agree under ``_same_answers``; requests
+    that scanned others are counted. ``gn``: the row norms by answer id.
+    Returns (max |dd|, requests with ids resolved otherwise at a
+    near-tie, requests with other ids in all, requests with other
+    segments or candidates)."""
+    queries_np = queries.cpu().numpy()
+    at_ref, at = (_by_request(cl, queries_np) for cl in (ref_calls, calls))
+    d_ref, i_ref, d, i = (np.stack([cl[c][2][j][r] for c, r in where])
+                          for cl, where, j in ((ref_calls, at_ref, 0),
+                                               (ref_calls, at_ref, 1),
+                                               (calls, at, 0),
+                                               (calls, at, 1)))
+    same = np.ones(len(queries_np), bool)
+    if name != "exact":
+        cr, cc = (_candidates(name, base, engine, cl)
+                  for cl in (ref_calls, calls))
+        for k, ((c1, r1), (c2, r2)) in enumerate(zip(at_ref, at)):
+            same[k] = torch.equal(cr[c1][0][r1], cc[c2][0][r2]) and (
+                cr[c1][1] is None or torch.equal(
+                    torch.sort(cr[c1][1][r1]).values,
+                    torch.sort(cc[c2][1][r2]).values))
+    err, ties = _same_answers(base.L, queries[same], gn, d[same], i[same],
+                              d_ref[same], i_ref[same]) \
+        if same.any() else (0.0, 0)
+    return err, ties, int((i_ref != i).any(1).sum()), int((~same).sum())
+
+
+def _burst(sched, engine, qb, mix):
+    """FE_BURST requests submitted at once under the tracer; every future
+    resolves exactly once (served, RejectedError at submit, or
+    DeadlineExceededError). Returns the burst's outcome record."""
+    calls = _record(engine)
+    engine.tracer.sample_rate, engine.tracer.max_traces = 1.0, 2 * FE_BURST
+    engine.tracer.drain()
+    n_q, n_dev, n_hit = (engine.n_queries, engine.n_device_queries,
+                         engine.cache_hits)
+    futs, done, rejected = [], {}, {c: 0 for c in FE_CLASSES}
+    t_clock0, t0 = sched.clock.now(), time.perf_counter()
+    for i in range(len(qb)):
+        try:
+            f = sched.submit(qb[i], priority=str(mix[i]))
+        except RejectedError:
+            rejected[str(mix[i])] += 1
+            continue
+        f.add_done_callback(lambda _, i=i: done.__setitem__(
+            i, time.perf_counter()))
+        futs.append((i, time.perf_counter(), f))
+    served, expired = {}, {c: 0 for c in FE_CLASSES}
+    lat = {c: [] for c in FE_CLASSES}
+    for i, t_sub, f in futs:
+        try:
+            served[i] = f.result(timeout=300)
+            lat[str(mix[i])].append(done[i] - t_sub)
+        except DeadlineExceededError:
+            expired[str(mix[i])] += 1
+    wall = time.perf_counter() - t0
+    # a trace is handed to the tracer just after its future resolves
+    traces, t_wait = [], time.perf_counter()
+    while len(traces) < len(futs) and time.perf_counter() - t_wait < 30:
+        traces += engine.tracer.drain()
+        time.sleep(0.001)
+    assert len(traces) == len(futs), "an admitted request left no trace"
+    del engine.search
+    engine.tracer.sample_rate = 0.0
+    assert all(f.done() for _, _, f in futs)
+    assert len(served) + sum(expired.values()) == len(futs)
+    assert len(futs) + sum(rejected.values()) == len(qb)
+    rows = sum(len(qs) for qs, _, _ in calls)
+    # expired and rejected requests never reach the engine
+    assert rows == len(served) == engine.n_queries - n_q, \
+        "the engine saw rows that were not served"
+    assert engine.n_device_queries - n_dev == \
+        len(served) - (engine.cache_hits - n_hit)
+    return {"calls": calls, "served": served, "rejected": rejected,
+            "expired": expired, "lat": lat, "wall": wall,
+            "clock0": t_clock0, "traces": traces}
+
+
+def _check_burst(name, base, gn, engine, sched, qb, burst):
+    """Served answers are the batches' own rows; each batch span carries
+    its level and knobs; each batch equals the plain version at its
+    knobs. Returns max |dd|."""
+    served = sorted(burst["served"])
+    for i, (c, r) in zip(served, _by_request(burst["calls"], qb[served])):
+        (d, ids), (dk, ik) = burst["served"][i], burst["calls"][c][2]
+        assert np.array_equal(d, dk[r]) and np.array_equal(ids, ik[r])
+    ladder = sched.controller.ladder
+    spans = sorted((sp for tr in burst["traces"]
+                    for sp in tr["root"]["children"] if sp["name"] == "batch"),
+                   key=lambda sp: sp["t_start"])
+    assert [(sp["attrs"]["size"], ladder[sp["attrs"]["level"]])
+            for sp in spans] == [(len(qs), kw)
+                                 for qs, kw, _ in burst["calls"]]
+    for sp in spans:
+        knobs = {k[5:]: v for k, v in sp["attrs"].items()
+                 if k.startswith("knob_")}
+        assert knobs == ladder[sp["attrs"]["level"]]
+    return _check_calls(name, base, gn, engine, burst["calls"])
+
+
+def _level_ms(name, base, q64):
+    """Device ms at Nq 64 of the scan kernel, and of the whole index.topk
+    call, at each ladder level's knobs: graph replay (device time) and
+    eager calls between CUDA events (the host's launch cost included), as
+    time_ann times them."""
+    out = {}
+    qp = project_queries(base.L, q64)
+    for lv, kw in enumerate(default_ladder(base, K_TOP)):
+        nprobe = kw.get("nprobe", base.nprobe)
+        if name == "ivf":
+            args = _ivf_args(base, qp, nprobe)
+            kern = lambda: ivf_scan_topk(*args, kk=K_TOP)  # noqa: E731
+        else:
+            rr = min(kw.get("rerank", base.rerank_depth), nprobe * base.cap)
+            args = _pq_args(base, qp, nprobe)
+            kern = lambda: pq_adc_topk(  # noqa: E731
+                *args, kk=max(K_TOP, rr))
+        call = lambda: base.topk(q64, K_TOP, **kw)  # noqa: E731
+        out[lv] = {"knobs": kw, "kernel_ms": _time_graph(kern, 20),
+                   "kernel_eager_ms": _time(kern, 20),
+                   "topk_ms": _time_graph(call, 10),
+                   "topk_eager_ms": _time(call, 10)}
+    return out
+
+
+def phase_frontend(index, queries, serving, built, card):
+    """Phase 8c: a RequestScheduler with default settings in front of an
+    engine over each of phases 6 and 8's indexes; steady traffic held to
+    the MicroBatcher's answers, then an overload burst."""
+    t_phase = time.perf_counter()
+    queries_np = queries.cpu().numpy()
+    rng = np.random.RandomState(4)
+    mix = rng.choice(FE_CLASSES, size=N_REQUESTS, p=FE_MIX)
+    gen = torch.Generator(device=DEV).manual_seed(4)
+    qb = (queries.repeat(FE_BURST // N_REQUESTS, 1) + 0.1 * torch.randn(
+        (FE_BURST, queries.shape[1]), generator=gen, device=DEV))
+    qb = qb.cpu().numpy()
+    mix_b = rng.choice(FE_CLASSES, size=FE_BURST, p=FE_MIX)
+    bases = {"exact": index, "ivf": built["ivf"], "ivfpq": built["ivfpq"]}
+    out = {}
+    for name, base in bases.items():
+        engine = RetrievalEngine(base, k_top=K_TOP, buckets=SERVE_BUCKETS)
+        engine.warmup()
+        mb_calls = _record(engine)
+        mb = _serve(engine, queries_np)[0]
+        del engine.search
+        engine.invalidate_cache()
+        sched = RequestScheduler(engine)
+        try:
+            sched.warmup()
+            ladder = sched.controller.ladder
+            st_calls = _record(engine)
+            steady = _steady(sched, queries_np, mix)
+            del engine.search
+            assert not sched.controller.transitions, \
+                f"{name}: the steady traffic moved the ladder"
+            assert all(kw == {} for _, kw, _ in st_calls), \
+                f"{name}: a steady batch ran below level 0's knobs"
+            (steady["max_abs_err"], steady["tie_ids"], steady["other_ids"],
+             steady["other_segments"]) = _agree(
+                    name, base, engine, queries, index.gn, mb_calls,
+                    st_calls)
+            assert steady["other_segments"] <= FE_OTHER_MAX, \
+                f"{name}: {steady['other_segments']} steady requests " \
+                f"scanned other segments than the MicroBatcher's"
+            steady["plain_max_abs_err"] = _check_calls(
+                name, base, index.gn, engine, st_calls)
+            engine.invalidate_cache()
+            for kern in FE_KERNELS.values():
+                kern.launches = 0               # counts of the burst only
+            burst = _burst(sched, engine, qb, mix_b)
+            launches = {k: kern.launches
+                        for k, kern in FE_KERNELS.items()}
+            assert launches[name] > 0, \
+                f"{name}: the burst launched no kernel"
+            ctrl = sched.controller
+            deepest = max([tr.level_to for tr in ctrl.transitions],
+                          default=0)
+            t_trickle, n_trickle = time.perf_counter(), 0
+            while ctrl.level > 0 and \
+                    time.perf_counter() - t_trickle < FE_TRICKLE_MAX_S:
+                sched.submit(queries_np[n_trickle % N_REQUESTS],
+                             priority="mining").result(timeout=60)
+                n_trickle += 1
+                time.sleep(FE_TRICKLE_GAP_S)
+            levels = _level_times(ctrl.transitions, burst["clock0"],
+                                  sched.clock.now())
+            obs = sched.observability()
+        finally:
+            closed = sched.close()
+        assert closed, "scheduler workers did not stop"
+        if name != "exact":
+            assert deepest >= 1, f"{name}: the burst never stepped down"
+            assert ctrl.level == 0, f"{name}: the ladder did not restore"
+        else:
+            assert ladder == ({},) and not ctrl.transitions
+        for tr in ctrl.transitions:
+            log(f"  {name} ladder {tr.level_from} -> {tr.level_to} at "
+                f"+{tr.t - burst['clock0']:.3f} s (depth {tr.queue_depth}): "
+                f"{tr.reason}")
+        err = _check_burst(name, base, index.gn, engine, sched, qb, burst)
+        by_cls = {}
+        for c in FE_CLASSES:
+            lat = np.array(burst["lat"][c]) * 1e3
+            p50, p99 = (percentile(lat, (50.0, 99.0)) if len(lat)
+                        else (None, None))
+            by_cls[c] = {"served": len(lat), "rejected": burst["rejected"][c],
+                         "expired": burst["expired"][c], "p50_ms": p50,
+                         "p99_ms": p99}
+        n_served = len(burst["served"])
+        out[name] = {
+            "ladder": [dict(kw) for kw in ladder], "microbatcher": mb,
+            "steady": steady, "burst_qps": n_served / burst["wall"],
+            "burst_wall_s": burst["wall"], "by_class": by_cls,
+            "deepest_level": deepest, "s_at_level": levels,
+            "transitions": len(ctrl.transitions), "trickle": n_trickle,
+            "batches": len(burst["calls"]), "launches": launches,
+            "max_abs_err": err, "frontend_rejections": obs["rejections"],
+            "frontend_expired": obs["expired"]}
+        if name != "exact":
+            out[name]["level_ms"] = _level_ms(name, base,
+                                              queries[:MAX_BATCH]
+                                              .contiguous())
+        log(f"frontend {name}: ladder {out[name]['ladder']}; steady "
+            f"{N_REQUESTS} requests: qps {steady['qps']:.1f}, p50 "
+            f"{steady['p50_ms']:.2f} p99 {steady['p99_ms']:.2f} ms; each "
+            f"batch "
+            f"= the plain version (max |dd| "
+            f"{steady['plain_max_abs_err']:.3e}); against the "
+            f"MicroBatcher's answers: {steady['other_ids']} requests with "
+            f"other ids, {steady['other_segments']} of them (at most "
+            f"{FE_OTHER_MAX}) scanned other segments or candidates (the "
+            f"projection's rounding follows the batch's bucket), {steady['tie_ids']} resolved a near-tie "
+            f"otherwise; the rest equal (max |dd| "
+            f"{steady['max_abs_err']:.3e}); MicroBatcher qps "
+            f"{mb['qps']:.1f} [{card}]")
+        cls_txt = {c: {k: (round(v, 2) if isinstance(v, float) else v)
+                       for k, v in b.items()} for c, b in by_cls.items()}
+        log(f"frontend {name}: burst of {FE_BURST}: served {n_served} in "
+            f"{burst['wall']:.3f} s ({out[name]['burst_qps']:.1f} qps), "
+            f"{len(burst['calls'])} batches, launches {launches}; by class "
+            f"{cls_txt}; "
+            f"deepest level {deepest}, seconds at each level {levels} "
+            f"({n_trickle} trickle requests to restore); each batch = the "
+            f"plain version at its knobs (max |dd| {err:.3e}) [{card}]")
+        if name != "exact":
+            keys = ("kernel_ms", "kernel_eager_ms", "topk_ms",
+                    "topk_eager_ms")
+            lv_txt = {lv: (r["knobs"], *(None if r[k] is None
+                                         else round(r[k], 4) for k in keys))
+                      for lv, r in out[name]["level_ms"].items()}
+            log(f"frontend {name}: ms at Nq {MAX_BATCH} by level (knobs: "
+                f"kernel graph / eager, index.topk graph / eager): "
+                f"{lv_txt} [{card}]")
+        del engine, sched, burst
+    log(f"frontend: phase {time.perf_counter() - t_phase:.1f} s [{card}]")
+    return out
+
+
+# -- multi-tenant serving over one shared raw store (phase 8d) ---------------
+
+TEN_ROWS, TEN_BLOCK, TEN_CLUSTERS = 262_144, 16_384, 256
+TEN_EXTEND, TEN_REMOVE, TEN_RANK, TEN_CUT = 16_384, 4_096, 500, 32_768
+TEN_SHADOW_RATE, TEN_DEADLINE_S = 0.25, 10.0
+
+
+def _tenant_specs(L, gen):
+    """(name, L, backend, build kwargs, class) of the four tenants, and
+    the shadow's candidate factor for t1; the factors after phase 6's L
+    are seeded."""
+    d_out, d_in = L.shape
+    draw = lambda rows: torch.randn((rows, d_in), generator=gen,  # noqa
+                                    device=DEV) / d_in ** 0.5
+    L1, L2, L3, L_cand = draw(d_out), draw(d_out), draw(TEN_RANK), draw(d_out)
+    ivf = dict(n_clusters=TEN_CLUSTERS, nprobe=NPROBE, iters=KM_ITERS)
+    pq = dict(ivf, n_subspaces=PQ_SUBSPACES, bits=PQ_BITS,
+              rerank_depth=RERANK)
+    return ([("t0", L, "exact", {}, "interactive"),
+             ("t1", L1, "ivf", ivf, "batch"),
+             ("t2", L2, "ivfpq", pq, "batch"),
+             ("t3", L3, "exact", {}, "mining")], L_cand)
+
+
+def _add_tenants(router, specs):
+    for name, Lt, backend, kw, cls in specs:
+        router.add_tenant(name, Lt, backend=backend, build_kwargs=kw,
+                          priority=cls, deadline_s=TEN_DEADLINE_S)
+
+
+def _tenant_traffic(router, queries_np, names):
+    """The requests to every tenant through router.submit, interleaved;
+    returns ({name: (dists, ids)}, wall s, {name: latencies s}, {name:
+    requests / s until its last answer})."""
+    futs, done = [], {}
+    t0 = time.perf_counter()
+    for i, q in enumerate(queries_np):
+        for name in names:
+            f = router.submit(name, q)
+            key = (name, i)
+            f.add_done_callback(lambda _, key=key: done.__setitem__(
+                key, time.perf_counter()))
+            futs.append((key, time.perf_counter(), f))
+    res = {(key): f.result(timeout=300) for key, _, f in futs}
+    wall = time.perf_counter() - t0
+    lat = {n: [] for n in names}
+    for key, t_sub, _ in futs:
+        lat[key[0]].append(done[key] - t_sub)
+    n = len(queries_np)
+    answers = {t: (np.stack([res[(t, i)][0] for i in range(n)]),
+                   np.stack([res[(t, i)][1] for i in range(n)]))
+               for t in names}
+    qps = {t: n / (max(done[(t, i)] for i in range(n)) - t0) for t in names}
+    return answers, wall, lat, qps
+
+
+def _tenant_snapshot(store, specs, queries_np, card):
+    """save_tenants / load_tenants on a TEN_CUT-row cut of the store:
+    every tenant answers bit for bit after the load; a swapped factor
+    raises TenantFingerprintError. Returns GB, save s, load s."""
+    path = os.path.join(SNAPSHOT_DIR, "tenants")
+    cut = TenantRouter(store[:TEN_CUT], k_top=K_TOP, copy=False)
+    _add_tenants(cut, specs)
+    before = {n: cut.search(n, queries_np[:MAX_BATCH]) for n, *_ in specs}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    save_tenants(cut, path)
+    save_s = time.perf_counter() - t0
+    gb = sum(os.path.getsize(os.path.join(dp, f))
+             for dp, _, fs in os.walk(path) for f in fs) / 1e9
+    t0 = time.perf_counter()
+    back = load_tenants(path)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    for name, *_ in specs:
+        assert back.tenant(name).warm
+        d, i = back.search(name, queries_np[:MAX_BATCH])
+        assert np.array_equal(d, before[name][0]) and \
+            np.array_equal(i, before[name][1]), \
+            f"{name}: the loaded tenant answers differently"
+    del back
+    with np.load(os.path.join(path, "factors.npz")) as z:
+        factors = {k: z[k] for k in z.files}
+    factors["t0"], factors["t1"] = factors["t1"], factors["t0"]
+    np.savez(os.path.join(path, "factors.npz"), **factors)
+    try:
+        load_tenants(path)
+        raise AssertionError("a swapped factor loaded")
+    except TenantFingerprintError:
+        pass
+    log(f"tenants snapshot: {TEN_CUT}-row cut, {gb:.3f} GB, save "
+        f"{save_s:.2f} s, load {load_s:.2f} s, answers bit for bit; a "
+        f"swapped factor raises TenantFingerprintError [{card}]")
+    return {"gb": gb, "save_s": save_s, "load_s": load_s}
+
+
+def phase_tenants(L, queries, serving, card, exp=IMNET_1M):
+    """Phase 8d: four tenants over one TEN_ROWS-row raw store on the card,
+    a scheduler in front, a shadow arm promoted, the store mutated, and a
+    tenant snapshot round trip on a cut."""
+    t_phase = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    d_in = L.shape[1]
+    queries_np = queries.cpu().numpy()
+    gen = torch.Generator(device=DEV).manual_seed(5)
+    lab = torch.randint(0, exp.n_classes, (TEN_ROWS + TEN_EXTEND,),
+                        generator=gen, device=DEV)
+    t0 = time.perf_counter()
+    store = torch.empty((TEN_ROWS, d_in), device=DEV)
+    for s in range(0, TEN_ROWS, TEN_BLOCK):
+        store[s:s + TEN_BLOCK] = class_rows(gen, lab[s:s + TEN_BLOCK],
+                                            serving["classes"])
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    held = torch.cuda.memory_allocated()
+    router = TenantRouter(store, k_top=K_TOP, copy=False)  # shares store
+    assert torch.cuda.memory_allocated() == held, "the store was copied"
+    specs, L_cand = _tenant_specs(L, gen)
+    names = [s[0] for s in specs]
+    _add_tenants(router, specs)
+    build_s = {}
+    for name in names:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        router.warm(name)
+        torch.cuda.synchronize()
+        build_s[name] = time.perf_counter() - t0
+    router.register_shadow("t1", L_cand, sample_rate=TEN_SHADOW_RATE)
+    t0 = time.perf_counter()
+    for i in range(int(1 / TEN_SHADOW_RATE)):   # the last one mirrors
+        router.search("t1", queries_np[i])
+    build_s["t1#shadow"] = time.perf_counter() - t0
+    shadow = router.tenant("t1").shadow.engine
+    for engine in (router.tenant("t1").engine, shadow):
+        engine.invalidate_cache()       # each call below runs its kernel
+    sched = RequestScheduler(router.tenant("t0").engine,
+                             registry=router.registry, degrade=False)
+    router.attach_scheduler(sched)
+    kerns = {"metric_topk": metric_topk_fused,
+             "ivf_scan": ivf_scan_topk_fused, "pq_adc": pq_adc_topk_fused}
+    for kern in kerns.values():
+        kern.launches = 0                       # counts of the traffic only
+    calls = {n: _record(router.tenant(n).engine) for n in names}
+    calls["t1#shadow"] = _record(shadow)
+    try:
+        answers, wall, lat, qps = _tenant_traffic(router, queries_np,
+                                                  names)
+        launches = {k: kern.launches for k, kern in kerns.items()}
+    finally:
+        closed = sched.close()
+        for n in names:
+            del router.tenant(n).engine.search
+        del shadow.search
+    assert closed, "scheduler workers did not stop"
+    assert all(launches.values()), f"a tenant kernel never ran: {launches}"
+    arm = router.tenant("t1").shadow.stats()
+    assert arm["n_mirrored"] >= TEN_SHADOW_RATE * N_REQUESTS
+    assert all(kw == {} for cl in calls.values() for _, kw, _ in cl)
+    # every engine call of the traffic (the shadow's single-query calls
+    # too) = the plain version on its inputs; each answer = router.search
+    # on the same tenant (as _agree holds it: the scheduler's batches and
+    # one 256-row call project the queries at other cuBLAS shapes); t0 =
+    # the plain scan over the store
+    err, other = {}, {}
+    err["t1#shadow_plain"] = _check_calls("ivf", shadow.index, None, shadow,
+                                          calls["t1#shadow"])
+    for name, _, backend, *_ in specs:
+        engine = router.tenant(name).engine
+        v = engine.index
+        err[f"{name}_plain"] = _check_calls(
+            backend, v, v.gn if backend == "exact" else None, engine,
+            calls[name])
+        engine.invalidate_cache()
+        again = _record(engine)
+        router.search(name, queries_np)
+        del engine.search
+        gn = v.gn if backend == "exact" else v.gn_full if \
+            backend == "ivfpq" else torch.zeros(v.size, device=DEV) \
+            .index_put_((v.ids_pad[v.ids_pad >= 0].long(),),
+                        v.gn_pad[v.ids_pad >= 0])
+        err[name], *other[name] = _agree(backend, v, engine, queries, gn,
+                                         calls[name], again)
+        assert other[name][2] <= FE_OTHER_MAX, \
+            f"{name}: {other[name][2]} requests scanned other segments"
+    v0 = router.tenant("t0").engine.index
+    err["t0_plain"] = compare(L, queries, v0.gp, v0.gn, K_TOP,
+                              torch.from_numpy(answers["t0"][0]).to(DEV),
+                              torch.from_numpy(answers["t0"][1]).to(DEV))[0]
+    # promote t1's shadow; a fresh build in a second router over the store
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    router.promote("t1")
+    promote_s = time.perf_counter() - t0
+    fresh = TenantRouter(store, k_top=K_TOP, copy=False)
+    fresh.add_tenant("f", L_cand, backend="ivf", build_kwargs=specs[1][3])
+    t0 = time.perf_counter()
+    fresh.warm("f")
+    torch.cuda.synchronize()
+    fresh_s = time.perf_counter() - t0
+    t1 = router.tenant("t1").engine
+    promoted = _record(t1)
+    d_live, i_live = router.search("t1", queries_np)
+    del t1.search
+    err["t1_promoted_plain"] = _check_calls("ivf", t1.index, None, t1,
+                                            promoted)
+    d_fresh, i_fresh = fresh.search("f", queries_np)
+    assert np.array_equal(i_live, i_fresh) and \
+        np.array_equal(d_live, d_fresh), \
+        "promote is not bit-identical to a fresh build"
+    del fresh
+    # mutate the store; the next query rebuilds each view lazily
+    gen_before = router.generation
+    new_ids = router.extend(class_rows(gen, lab[TEN_ROWS:],
+                                       serving["classes"]))
+    hot = np.unique(answers["t0"][1][:, :2])[:TEN_REMOVE // 2]
+    cold = np.setdiff1d(np.arange(TEN_ROWS), hot)[:TEN_REMOVE - len(hot)]
+    gone = np.concatenate([hot, cold])
+    assert router.remove(gone) == TEN_REMOVE
+    assert router.generation == gen_before + 2
+    rebuild_s, after = {}, {}
+    for name, _, backend, *_ in specs:
+        engine = router.tenant(name).engine
+        rebuilt = _record(engine)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        after[name] = router.search(name, queries_np)
+        torch.cuda.synchronize()
+        rebuild_s[name] = time.perf_counter() - t0
+        del engine.search
+        assert router.tenant(name).built_generation == router.generation
+        assert not np.isin(after[name][1], gone).any(), \
+            f"{name}: a removed row was answered"
+        if backend != "exact":      # exact: _check_live below
+            err[f"{name}_rebuilt_plain"] = _check_calls(
+                backend, engine.index, None, engine, rebuilt)
+    for name in ("t0", "t3"):
+        t = router.tenant(name)
+        v = t.engine.index
+        err[f"{name}_live"] = _check_live(v.L, queries, *after[name], v.gp,
+                                          v.gn, t.ids)
+    new_share = float(np.mean(np.isin(after["t0"][1], new_ids).any(1)))
+    mem = router.memory()
+    store_bytes = (TEN_ROWS + TEN_EXTEND) * d_in * 4
+    assert mem["gallery"] == store_bytes + TEN_ROWS + TEN_EXTEND
+    assert mem["total"] == mem["gallery"] + sum(mem["tenants"].values())
+    independent = sum(mem["gallery"] + v for v in mem["tenants"].values())
+    try:
+        snap = _tenant_snapshot(store, specs, queries_np, card)
+    finally:
+        shutil.rmtree(SNAPSHOT_DIR, ignore_errors=True)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    by_tenant = {}
+    for name in names:
+        ms = np.array(lat[name]) * 1e3
+        p50, p99 = percentile(ms, (50.0, 99.0))
+        by_tenant[name] = {"qps": qps[name], "p50_ms": p50, "p99_ms": p99,
+                           "build_s": build_s[name],
+                           "rebuild_s": rebuild_s[name]}
+    out = {"rows": TEN_ROWS, "gen_s": gen_s, "qps": 4 * N_REQUESTS / wall,
+           "by_tenant": by_tenant, "shadow_build_s": build_s["t1#shadow"],
+           "shadow": arm, "promote_s": promote_s, "fresh_build_s": fresh_s,
+           "launches": launches, "max_abs_err": err, "other": other,
+           "memory_gb": {k: (v / 1e9 if isinstance(v, int) else
+                             {n: b / 1e9 for n, b in v.items()})
+                         for k, v in mem.items()},
+           "independent_gb": independent / 1e9, "new_row_share": new_share,
+           "snapshot": snap, "peak_gb": peak}
+    log(f"tenants: {TEN_ROWS} x {d_in} raw rows on the card "
+        f"({store.nbytes / 1e9:.2f} GB, generated in {gen_s:.1f} s, taken "
+        f"without a copy); view build s "
+        f"{ {n: round(s, 2) for n, s in build_s.items()} }; "
+        f"{4 * N_REQUESTS} requests through router.submit in {wall:.3f} s "
+        f"({out['qps']:.1f} qps); by tenant qps, p50 / p99 ms "
+        f"{ {n: (round(b['qps'], 1), round(b['p50_ms'], 2),
+                 round(b['p99_ms'], 2)) for n, b in by_tenant.items()} }, "
+        f"launches {launches} [{card}]")
+    log(f"tenants: answers = router.search (max |dd| "
+        f"{ {k: float(f'{v:.3e}') for k, v in err.items()} }; requests "
+        f"with ids resolved otherwise at a near-tie, with other ids, with "
+        f"other segments or candidates, by tenant {other}); "
+        f"shadow on t1 "
+        f"mirrored {arm['n_mirrored']}, overlap@{K_TOP} "
+        f"{arm['overlap_at_k']:.4f}, latency ratio "
+        f"{arm['latency_ratio']:.3f}; promote {promote_s:.3f} s, bit-"
+        f"identical to a fresh build ({fresh_s:.2f} s) [{card}]")
+    log(f"tenants: +{TEN_EXTEND} rows / -{TEN_REMOVE} rows -> generation "
+        f"{router.generation}; lazy rebuild s "
+        f"{ {n: round(s, 2) for n, s in rebuild_s.items()} }; exact "
+        f"tenants = the plain scan over the live rows; requests answered "
+        f"with a new row (t0) {new_share:.3f}; memory GB: store "
+        f"{mem['gallery'] / 1e9:.2f} once, views "
+        f"{ {n: round(b / 1e9, 3) for n, b in mem['tenants'].items()} }, "
+        f"total {mem['total'] / 1e9:.2f} against "
+        f"{independent / 1e9:.2f} for independent stacks; peak "
+        f"{peak:.2f} GB; phase {time.perf_counter() - t_phase:.1f} s "
+        f"[{card}]")
+    del router, store
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 def library_pair(L, xs, ys, sim, lam, margin):
     """PyTorch calls for the Eq. 4 forward (yardstick only)."""
     proj = torch.matmul(xs - ys, L.T)
@@ -3098,7 +3901,24 @@ def main():
         if entry["name"] in mutation["kernels"]:
             entry["mutation"] = mutation["kernels"][entry["name"]]
     log(f"mutation done at {time.perf_counter() - t0:.1f}s")
-    del index, queries, serving, built, ann, mutation
+    frontend = phase_frontend(index, queries, serving, built, card)
+    log(f"front end done at {time.perf_counter() - t0:.1f}s")
+    L = index.L
+    del index, built, ann, mutation
+    gc.collect()
+    torch.cuda.empty_cache()
+    tenants = phase_tenants(L, queries, serving, card)
+    for entry in entries:
+        kname = entry["name"]
+        if kname in MUT_KNAMES.values():
+            name = {v: k for k, v in MUT_KNAMES.items()}[kname]
+            entry["frontend"] = {
+                "launches_burst": frontend[name]["launches"][name],
+                "ladder": frontend[name]["ladder"],
+                "level_ms": frontend[name].get("level_ms")}
+            entry["tenants"] = {"launches": tenants["launches"][kname]}
+    log(f"tenants done at {time.perf_counter() - t0:.1f}s")
+    del L, queries, serving, frontend, tenants
     torch.cuda.empty_cache()
     bb = phase_backbone_parity()
     log(f"backbone parity done at {time.perf_counter() - t0:.1f}s")

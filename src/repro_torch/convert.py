@@ -1,6 +1,7 @@
 """Carry the JAX package's weights (the DML factor and the backbone
 models), index arrays (exact, IVF, IVFPQ, and a mutable index's state
-over any of them) and training state across to the port.
+over any of them), a tenant router's state and training state across to
+the port.
 
 Every function takes plain numpy arrays (``np.asarray`` of the
 reference's ``jax.Array``s, e.g. ``jax.tree.map(np.asarray, state)``),
@@ -23,6 +24,7 @@ from repro_torch.serve.index import ExactIndex
 from repro_torch.serve.ivf import IVFIndex
 from repro_torch.serve.mutable import MutableIndex
 from repro_torch.serve.pq import IVFPQIndex, ProductQuantizer
+from repro_torch.serve.tenant import TenantRouter
 from repro_torch.tree import tree_map
 
 _OPT_STATES = {cls.__name__: cls for cls in
@@ -142,6 +144,30 @@ def mutable_index_from_jax(mut_np_state: dict, device=None) -> MutableIndex:
                  dead_delta=st["dead_delta"], raw_delta=st["raw_delta"],
                  next_id=st["next_id"], version=st["version"], counters=st)
     return mut
+
+
+def tenant_router_from_jax(state: dict, device=None) -> TenantRouter:
+    """A port TenantRouter in the state of a reference TenantRouter.
+
+    ``state`` holds the reference's store and registrations as numpy
+    arrays and plain values: ``rows`` (M, d_in), ``dead`` (M,) bool,
+    ``generation``, ``k_top``, and ``tenants``, an ordered mapping of
+    tenant name to its registration (``L``, ``backend``,
+    ``build_kwargs``, ``k_top``, ``cache_size``, ``priority``,
+    ``deadline_s``). The store arrives bit for bit on ``device`` (the
+    card by default); every tenant starts cold, and its view builds on
+    first use."""
+    router = TenantRouter(state["rows"], device=device,
+                          k_top=int(state["k_top"]))
+    router._dead = np.array(state["dead"], dtype=bool, copy=True)
+    router._generation = int(state["generation"])
+    for name, reg in state["tenants"].items():
+        router.add_tenant(name, reg["L"], backend=reg["backend"],
+                          build_kwargs=reg["build_kwargs"],
+                          k_top=reg["k_top"], cache_size=reg["cache_size"],
+                          priority=reg["priority"],
+                          deadline_s=reg["deadline_s"])
+    return router
 
 
 def opt_state_from_jax(state, device=None):

@@ -5,7 +5,11 @@ Run:  PYTHONPATH=src python -m repro_torch.launch.serve_retrieval \
           [--index exact|ivf|ivfpq] [--n-clusters 64] [--nprobe 8] \
           [--n-subspaces 8] [--bits 8] [--rerank-depth 50] \
           [--pq-store device|host] [--scan-impl auto] [--device cpu] \
-          [--mutable] [--churn N] [--snapshot-dir DIR]
+          [--mutable] [--churn N] [--snapshot-dir DIR] [--warmup-ks 5,20] \
+          [--scheduler [--deadline-ms MS] [--no-degrade] \
+           [--high-watermark 32] [--low-watermark 4] \
+           [--degrade-window-ms 50] [--restore-window-ms 500]] \
+          [--tenants N [--shadow]]
 
 Counterpart of ``repro.launch.serve_retrieval`` for the single-device
 index paths: builds a class-structured gallery (data.pairs), learns the
@@ -23,8 +27,28 @@ then upserts N rows and deletes N after the traffic run and reports the
 lifecycle counters. ``--snapshot-dir`` restarts without re-projecting: a
 snapshot there is loaded (its L fingerprint checked against this run's
 metric), else the built index is saved there (and again after churn).
-The reference's scheduler, tenant, mining, tracing and sharding flags
-are not ported.
+``--warmup-ks`` runs extra k values up front.
+
+``--scheduler`` swaps the MicroBatcher front door for the traffic-shaped
+``RequestScheduler``: traffic is submitted under a 70/20/10 interactive /
+batch / mining class mix with per-class deadlines (``--deadline-ms``
+overrides), bounded admission queues, and (unless ``--no-degrade``) the
+adaptive quality ladder derived from the index's own knobs —
+``--high/--low-watermark`` and ``--degrade/--restore-window-ms`` tune the
+load controller's hysteresis. The run prints the ladder, per-class
+outcomes and latency, and each degradation transition with its trigger.
+
+``--tenants N`` then stands up a ``TenantRouter`` serving N metrics over
+one shared raw gallery on the same device (tenant 0 serves this run's
+L, the rest seeded low-rank factors, all on ``--index``) and prints the
+tenant block: per-tenant requests and the shared-gallery memory against
+independent stacks. ``--shadow`` registers this run's L as a shadow arm
+behind tenant 1, mirrors the tenant traffic through it, reports overlap
+and latency deltas, and promotes it live.
+
+The reference's mining, tracing and sharding flags (``--backend``,
+``--data``, ``--mine``, ``--metrics-out``, ``--trace-out``,
+``--trace-sample``) are not ported.
 """
 
 from __future__ import annotations
@@ -41,7 +65,8 @@ from repro_torch.data import pairs as pairdata
 from repro_torch.device import resolve_device
 from repro_torch.obs import percentile
 from repro_torch.serve import (ExactIndex, IVFIndex, IVFPQIndex,
-                               MicroBatcher, MutableIndex, RetrievalEngine,
+                               MicroBatcher, MutableIndex, RequestScheduler,
+                               RetrievalEngine, SchedulerError, TenantRouter,
                                has_snapshot, load_index, save_index)
 from repro_torch.serve import scan
 
@@ -95,12 +120,52 @@ def main(argv=None):
     ap.add_argument("--snapshot-dir", default=None,
                     help="load the index from this snapshot if present, "
                          "else save the built index there")
+    ap.add_argument("--warmup-ks", default=None,
+                    help="comma-separated extra k values to run up front "
+                         "(e.g. 5,20); --k is always included")
+    ap.add_argument("--scheduler", action="store_true",
+                    help="serve through the traffic-shaped "
+                         "RequestScheduler (priority classes, deadlines, "
+                         "adaptive degradation) instead of the plain "
+                         "MicroBatcher")
+    ap.add_argument("--deadline-ms", type=float, default=None,
+                    help="scheduler: per-request deadline override in ms "
+                         "(default: each class's own deadline)")
+    ap.add_argument("--no-degrade", action="store_true",
+                    help="scheduler: disable the adaptive quality ladder "
+                         "(admission control + deadlines only)")
+    ap.add_argument("--high-watermark", type=int, default=32,
+                    help="scheduler: queue depth that starts the "
+                         "degrade window")
+    ap.add_argument("--low-watermark", type=int, default=4,
+                    help="scheduler: queue depth that starts the "
+                         "restore window")
+    ap.add_argument("--degrade-window-ms", type=float, default=50.0,
+                    help="scheduler: sustained pressure before stepping "
+                         "the ladder down")
+    ap.add_argument("--restore-window-ms", type=float, default=500.0,
+                    help="scheduler: sustained drain before stepping "
+                         "back up")
+    ap.add_argument("--tenants", type=int, default=0,
+                    help="after the main run, stand up a TenantRouter "
+                         "serving this many metrics over ONE shared raw "
+                         "gallery (tenant 0 serves this run's L; the "
+                         "rest get seeded low-rank factors) and report "
+                         "per-tenant requests + the shared-gallery memory "
+                         "ratio vs independent stacks")
+    ap.add_argument("--shadow", action="store_true",
+                    help="with --tenants: register this run's L as a "
+                         "shadow arm behind tenant 1, mirror the tenant "
+                         "traffic through it, report overlap/latency "
+                         "deltas, and promote it live")
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda; cpu runs the "
                          "kernel's plain version)")
     args = ap.parse_args(argv)
     if args.churn and not args.mutable:
         ap.error("--churn requires --mutable")
+    if args.shadow and args.tenants < 2:
+        ap.error("--shadow needs --tenants >= 2 (tenant 1 hosts the arm)")
     device = resolve_device(args.device)
 
     # --- data + metric ---------------------------------------------------
@@ -154,7 +219,11 @@ def main(argv=None):
         print(f"snapshot saved to {args.snapshot_dir}")
     engine = RetrievalEngine(index, k_top=args.k,
                              cache_size=args.cache_size)
-    engine.warmup()
+    warm_ks = [args.k]
+    if args.warmup_ks:
+        warm_ks += [int(x) for x in args.warmup_ks.split(",")]
+    warm_ks = sorted(set(warm_ks))
+    engine.warmup(ks=warm_ks)
     verb = "loaded from snapshot" if loaded else "built+projected"
     print(f"index[{type(index).__name__}]: {index.size} x {args.proj_dim} "
           f"on {device} ({engine.backend} path), {verb} in "
@@ -174,21 +243,51 @@ def main(argv=None):
               f"{4 * args.proj_dim + 4} full precision, "
               f"{ann.compression_ratio:.1f}x), rerank depth "
               f"{ann.rerank_depth}, store={ann.store}")
-    front = MicroBatcher(engine, max_batch=args.max_batch,
-                         max_wait_ms=args.max_wait_ms)
+    if args.scheduler:
+        front = RequestScheduler(
+            engine, max_batch=args.max_batch,
+            max_wait_ms=args.max_wait_ms, degrade=not args.no_degrade,
+            high_watermark=args.high_watermark,
+            low_watermark=args.low_watermark,
+            degrade_window_s=args.degrade_window_ms / 1e3,
+            restore_window_s=args.restore_window_ms / 1e3)
+        front.warmup(ks=warm_ks)                # every ladder level
+        if front.controller is not None:
+            print(f"  scheduler ladder: "
+                  f"{[dict(lv) for lv in front.controller.ladder]}")
+    else:
+        front = MicroBatcher(engine, max_batch=args.max_batch,
+                             max_wait_ms=args.max_wait_ms)
 
     # --- traffic ---------------------------------------------------------
     rng = np.random.RandomState(1)
     qids = rng.randint(0, len(feats), args.requests)
     noisy = feats[qids] + 0.1 * rng.randn(args.requests, args.feat_dim) \
         .astype(np.float32)
+    if args.scheduler:
+        mix = rng.choice(["interactive", "batch", "mining"],
+                         size=args.requests, p=[0.7, 0.2, 0.1])
+        deadline = args.deadline_ms / 1e3 if args.deadline_ms else None
     t0 = time.perf_counter()
-    pending = []
+    pending, n_rejected = [], 0
     for i, qid in enumerate(qids):
-        pending.append((qid, time.perf_counter(), front.submit(noisy[i])))
-    lat, purity = [], []
+        t_sub = time.perf_counter()
+        try:
+            if args.scheduler:
+                fut = front.submit(noisy[i], priority=str(mix[i]),
+                                   deadline_s=deadline)
+            else:
+                fut = front.submit(noisy[i])
+            pending.append((qid, t_sub, fut))
+        except SchedulerError:                  # typed backpressure
+            n_rejected += 1
+    lat, purity, n_expired = [], [], 0
     for qid, t_sub, fut in pending:
-        _, nbr = fut.result(timeout=60)
+        try:
+            _, nbr = fut.result(timeout=60)
+        except SchedulerError:                  # deadline expired in queue
+            n_expired += 1
+            continue
         lat.append(time.perf_counter() - t_sub)
         # a loaded post-churn snapshot can serve rows upserted after this
         # run's label table was made; score only known ids
@@ -214,6 +313,23 @@ def main(argv=None):
           f"({st['cache_entries']} entries)")
     print(f"neighbor class purity@{args.k}: {np.mean(purity):.3f} "
           f"(chance {1.0 / args.n_classes:.3f})")
+    if args.scheduler:
+        obs = st["frontend"]
+        for name, c in obs["classes"].items():
+            print(f"  class {name}: admitted {c['admitted']} "
+                  f"completed {c['completed']} expired {c['expired']} "
+                  f"rejected {c['rejected']} queue_depth "
+                  f"{c['queue_depth']} p50={c['p50_ms']:.2f}ms "
+                  f"p99={c['p99_ms']:.2f}ms")
+        print(f"  degradation: level {obs['degradation_level']} "
+              f"knobs {obs['degradation_knobs']} "
+              f"({obs['n_transitions']} transition(s)); "
+              f"{n_rejected} rejected at admission, "
+              f"{n_expired} expired in queue")
+        for tr in (front.controller.transitions if front.controller
+                   else ()):
+            print(f"    level {tr.level_from} -> {tr.level_to}: "
+                  f"{tr.reason}")
 
     # --- mutation lifecycle ----------------------------------------------
     if args.mutable and args.churn > 0:
@@ -235,6 +351,53 @@ def main(argv=None):
         if args.snapshot_dir:
             save_index(index, args.snapshot_dir)
             print(f"post-churn snapshot saved to {args.snapshot_dir}")
+
+    # --- multi-tenant serving over the shared gallery --------------------
+    if args.tenants > 0:
+        # a fresh registry: the main engine's series are unscoped, tenant
+        # engines label everything with tenant=...
+        router = TenantRouter(feats, device=device, k_top=args.k)
+        for i in range(args.tenants):
+            if i == 0:
+                ti_L = L
+            else:       # seeded low-rank factors standing in for other
+                        # surfaces' trained metrics
+                t_rng = np.random.RandomState(100 + i)
+                ti_L = t_rng.randn(max(args.proj_dim // 2, 2),
+                                   args.feat_dim).astype(np.float32) * 0.1
+            router.add_tenant(f"t{i}", ti_L, backend=args.index,
+                              build_kwargs=base_kw)
+        if args.shadow:
+            router.register_shadow("t1", L, sample_rate=0.5)
+        t_qids = rng.randint(0, len(feats), 64)
+        for i, qid in enumerate(t_qids):
+            router.search(f"t{i % args.tenants}",
+                          noisy[qid % args.requests] if args.requests
+                          else feats[qid])
+        tob = router.observability()
+        mem = tob["memory"]
+        # the multi-tenant win: raw rows resident once, not per tenant
+        per_tenant = mem["gallery"] + max(mem["tenants"].values())
+        ratio = mem["total"] / max(per_tenant * args.tenants, 1)
+        print(f"tenants: {args.tenants} metrics over one "
+              f"{tob['gallery_rows']}-row gallery on {device}; resident "
+              f"{mem['total'] / 1e6:.1f} MB vs ~"
+              f"{per_tenant * args.tenants / 1e6:.1f} MB for "
+              f"independent stacks ({ratio:.2f}x)")
+        for name in sorted(tob["tenants"]):
+            tb = tob["tenants"][name]
+            print(f"  {name}: backend={tb['backend']} "
+                  f"l_shape={tb['l_shape']} requests={tb['n_requests']} "
+                  f"warm={tb['warm']}")
+        if args.shadow:
+            st_sh = router.tenant("t1").shadow.stats()
+            print(f"  shadow@t1: mirrored {st_sh['n_mirrored']} "
+                  f"(rate {st_sh['sample_rate']}), overlap@{args.k} "
+                  f"{st_sh['overlap_at_k']:.3f}, latency ratio "
+                  f"{st_sh['latency_ratio']:.2f}")
+            router.promote("t1")
+            print(f"  promoted shadow -> t1 live "
+                  f"(fingerprint {router.tenant('t1').fingerprint})")
 
 
 if __name__ == "__main__":

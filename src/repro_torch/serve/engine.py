@@ -63,6 +63,9 @@ class RetrievalEngine:
         self.buckets = tuple(sorted(buckets))
         self.cache_size = cache_size
         self.clock = clock if clock is not None else SystemClock()
+        # attached traffic front end (serve/scheduler.py RequestScheduler
+        # sets this); stats() merges its observability block when present
+        self.frontend = None
         self.registry = (registry if registry is not None
                          else MetricsRegistry(clock=self.clock))
         self.tracer = (tracer if tracer is not None
@@ -291,7 +294,10 @@ class RetrievalEngine:
         Backend extras appear when the index has them and they are not
         None: delta_rows / tombstones / compactions (MutableIndex),
         code_bytes_per_row / compression_ratio (IVFPQIndex), scan_impl
-        (IVF / IVFPQ)."""
+        (IVF / IVFPQ). With a traffic front end attached
+        (serve/scheduler.py), a ``frontend`` sub-dict adds per-class
+        latency percentiles, queue depths, admission / rejection / expiry
+        counters and the current degradation level."""
         busy = self.busy_s
         qps = self.n_device_queries / busy if busy > 0 else 0.0
         out = {
@@ -318,4 +324,6 @@ class RetrievalEngine:
             value = getattr(self.index, attr, None)
             if value is not None:
                 out[key] = value
+        if self.frontend is not None:
+            out["frontend"] = self.frontend.observability()
         return out

@@ -40,6 +40,7 @@ from repro_torch.kernels.pairwise_dist.ref import pairwise_sqdist_ref
 from repro_torch.serve import scan
 
 _ROW_BLOCK = 131_072        # rows per pass of the row-wise build loops
+_SUM_COLS = 256             # columns per pass of the k-means cluster sums
 
 
 # -- metric-space k-means ----------------------------------------------------
@@ -79,6 +80,21 @@ def _farthest_init(gp, n_clusters: int, start: int):
     return torch.stack(seeds)
 
 
+def _cluster_sums(gp, a, n_clusters: int):
+    """(C, k) sum of each cluster's rows, added in row order.
+
+    A segment sum over the rows sorted (stably) by cluster, _SUM_COLS
+    columns at a time so the sorted copy stays small: deterministic on the
+    card, where ``index_add_`` adds with float atomics in whatever order
+    the threads land (two builds of one index then differ in the last
+    bits), and bit-equal to ``index_add_`` on the CPU."""
+    order = torch.sort(a, stable=True).indices
+    counts = torch.bincount(a, minlength=n_clusters)
+    return torch.cat([torch.segment_reduce(gp[:, c:c + _SUM_COLS][order],
+                                           "sum", lengths=counts, axis=0)
+                      for c in range(0, gp.shape[1], _SUM_COLS)], dim=1)
+
+
 def _lloyd(gp, cent0, iters: int, block_rows: int = 16384):
     """``iters`` Lloyd steps from ``cent0``. Returns (centroids (C, k),
     objective (iters,)): objective[t] is the mean squared distance to the
@@ -91,7 +107,7 @@ def _lloyd(gp, cent0, iters: int, block_rows: int = 16384):
     for _ in range(iters):
         a, md = _assign(gp, cent, block_rows)
         counts = torch.bincount(a, minlength=C).to(torch.float32)
-        sums = torch.zeros_like(cent).index_add_(0, a, gp)
+        sums = _cluster_sums(gp, a, C)
         new = sums / torch.clamp_min(counts, 1.0)[:, None]
         empty = counts == 0.0
         far = torch.sort(-md, stable=True).indices

@@ -563,6 +563,115 @@ def test_ivfpq_reranks_past_the_widest_list(cuda_device):
     assert r512 >= r50 and r512 > 0.9
 
 
+@pytest.mark.cuda
+def test_ivf_build_on_the_card_is_deterministic(cuda_device):
+    """Two IVF builds over the same projected rows on the card give the
+    same centroids and segments bit for bit (the k-means cluster sums
+    must not depend on the order the card adds rows in): what a tenant's
+    promote, bit-identical to a fresh build, rests on."""
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    gp = torch.randn((262_144, 64), generator=g, device=cuda_device)
+    gp += 3.0 * torch.randn((256, 64), generator=g, device=cuda_device)[
+        torch.randint(0, 256, (262_144,), generator=g, device=cuda_device)]
+    gn = torch.sum(gp * gp, dim=1)
+    L = torch.eye(64, device=cuda_device)
+    a, b = (IVFIndex.build_projected(L, gp, gn, n_clusters=256, nprobe=16)
+            for _ in range(2))
+    assert torch.equal(a.centroids, b.centroids)
+    assert torch.equal(a.ids_pad, b.ids_pad)
+    assert torch.equal(a.gp_pad, b.gp_pad)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["ivf", "ivfpq"])
+def test_ladder_knobs_reach_the_segment_scans(cuda_device, kind,
+                                              monkeypatch):
+    """A RequestScheduler over a card index, driven on FakeClock until its
+    ladder steps down: every batch launches the scan kernel once, with the
+    nprobe and kk of the knobs that batch ran with."""
+    import threading
+    from repro_torch.serve import (FakeClock, RequestScheduler,
+                                   RetrievalEngine)
+    from repro_torch.serve import ivf as ivf_mod
+    from repro_torch.serve import pq as pq_mod
+    L, G, q = _clustered(cuda_device)
+    if kind == "ivf":
+        idx = IVFIndex.build(L, G, n_clusters=16, nprobe=8, iters=4)
+        mod, name, kern = ivf_mod, "ivf_scan_topk", ivf_scan_topk_fused
+    else:
+        idx = IVFPQIndex.build(L, G, n_clusters=16, nprobe=8, n_subspaces=4,
+                               bits=6, rerank_depth=40, iters=4)
+        mod, name, kern = pq_mod, "pq_adc_topk", pq_adc_topk_fused
+    scans, real = [], getattr(mod, name)
+
+    def spy(*args, kk, **kw):
+        scans.append((args[1 if kind == "ivf" else 2].shape[1], kk))
+        return real(*args, kk=kk, **kw)
+
+    monkeypatch.setattr(mod, name, spy)
+    gate, entered, knobs = threading.Event(), threading.Event(), []
+
+    class Gated(RetrievalEngine):
+        def search(self, queries, k_top=None, *, span=None, **kw):
+            entered.set()
+            assert gate.wait(timeout=60)
+            knobs.append(kw)
+            return super().search(queries, k_top, span=span, **kw)
+
+    eng = Gated(idx, k_top=10, cache_size=0)
+    sched = RequestScheduler(eng, clock=FakeClock(), max_batch=2,
+                             max_wait_ms=0.0, high_watermark=2,
+                             low_watermark=1, degrade_window_s=0.0)
+    try:
+        before = kern.launches
+        plug = sched.submit(q[0].cpu().numpy(), priority="mining")
+        assert entered.wait(timeout=60)
+        futs = [sched.submit(row) for row in q[1:13].cpu().numpy()]
+        gate.set()
+        for f in [plug] + futs:
+            f.result(timeout=120)
+    finally:
+        assert sched.close()
+    assert kern.launches - before == len(knobs) == len(scans)
+    assert any(knobs), "the ladder never stepped down"
+    for kw, (nprobe, kk) in zip(knobs, scans):
+        assert kw in sched.controller.ladder
+        assert nprobe == kw.get("nprobe", idx.nprobe)
+        assert kk == (10 if kind == "ivf" else
+                      max(10, kw.get("rerank", idx.rerank_depth)))
+
+
+@pytest.mark.cuda
+def test_tenant_promote_on_an_ivf_view_is_bit_identical(cuda_device):
+    """Promote an IVF tenant's shadow arm on the card: its answers equal,
+    bit for bit, a fresh build of the candidate's view in a second router
+    over the same store (the k-means behind both builds must not depend
+    on the order the card adds rows in)."""
+    from repro_torch.serve import TenantRouter
+    g = torch.Generator(device=cuda_device).manual_seed(1)
+    G = torch.randn((262_144, 64), generator=g, device=cuda_device)
+    G += 3.0 * torch.randn((256, 64), generator=g, device=cuda_device)[
+        torch.randint(0, 256, (262_144,), generator=g, device=cuda_device)]
+    L0, L1 = (torch.randn((32, 64), generator=g, device=cuda_device) / 8
+              for _ in range(2))
+    kw = dict(n_clusters=256, nprobe=16)
+    router = TenantRouter(G, copy=False)
+    router.add_tenant("a", L0, backend="ivf", build_kwargs=kw)
+    q = (G[:64] + 0.1).cpu().numpy()
+    router.search("a", q)
+    router.register_shadow("a", L1, sample_rate=1.0)
+    router.search("a", q)                       # mirrored: builds the arm
+    router.promote("a")
+    fresh = TenantRouter(G, copy=False)
+    fresh.add_tenant("f", L1, backend="ivf", build_kwargs=kw)
+    assert fresh._blocks[0].data_ptr() == router._blocks[0].data_ptr()
+    d_live, i_live = router.search("a", q)
+    d_fresh, i_fresh = fresh.search("f", q)
+    np.testing.assert_array_equal(i_live, i_fresh)
+    np.testing.assert_array_equal(d_live, d_fresh)
+    assert router.memory()["gallery"] == G.nbytes + G.shape[0]
+
+
 def _assert_same_neighbours(mut, q, d, i, d_ref, i_ref):
     """A card answer (d, i) against the CPU port's (d_ref, i_ref), external
     ids: distances within atol + rtol * (qn + gn); where the ids differ,

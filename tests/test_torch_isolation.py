@@ -31,7 +31,8 @@ from repro_torch.convert import model_params_from_jax
 from repro_torch.launch import serve_embeddings, serve_retrieval
 from repro_torch.models import Model
 from repro_torch.serve import (ExactIndex, IVFIndex, IVFPQIndex,
-                               MutableIndex, load_index)
+                               MutableIndex, TenantRouter, load_index,
+                               load_tenants)
 from repro_torch.serve.pq import ProductQuantizer
 
 REPO = Path(__file__).resolve().parents[1]
@@ -119,6 +120,13 @@ _ENTRY_POINTS = {
         ["--index", "ivf", "--train-steps", "0", "--gallery-size", "100"]),
     "cli --index ivfpq": lambda x, y, p: serve_retrieval.main(
         ["--index", "ivfpq", "--train-steps", "0", "--gallery-size",
+         "100"]),
+    "TenantRouter": lambda x, y, p: TenantRouter(x),
+    "load_tenants": lambda x, y, p: load_tenants("no-such-snapshot"),
+    "cli --scheduler": lambda x, y, p: serve_retrieval.main(
+        ["--scheduler", "--train-steps", "0", "--gallery-size", "100"]),
+    "cli --tenants": lambda x, y, p: serve_retrieval.main(
+        ["--tenants", "2", "--train-steps", "0", "--gallery-size",
          "100"]),
     "run_async_dml": lambda x, y, p: simulator.run_async_dml(
         simulator.AsyncPSConfig(n_workers=2, steps_per_worker=1), p,
