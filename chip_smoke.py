@@ -213,6 +213,47 @@ exit, and nothing falls back:
                 s, QPS and p50 / p99 by tenant, promote s, the shadow's
                 overlap@10 and latency ratio, rebuild s, memory and peak
                 memory;
+ 8e. closed loop — 262,144 llc_like rows of phase 6's 1000 classes plus
+                N(0, 1.1^2) on every dimension (so classes overlap and
+                hard negatives are mined) made on the card (22.5 GB, 8d's
+                cut) and 4,096 held-out rows; ``ClosedLoopTrainer``
+                (mutable-exact, P = 4 bsp, 1000 pairs a worker a step,
+                sgd(inverse_time(1e-3, 1e-3)), 60 steps, a refresh every
+                15 with 16,384 anchors mined, train_mined's miner and
+                curriculum defaults) from the example's rescaled init,
+                over the same tensor as its feature table, its stream's
+                and a TenantRouter's store (``copy=False``), the router's
+                tenant promoted through its shadow arm at every refresh;
+                a kNN hook every 20 steps (held-out rows against the
+                first 65,536) on pairwise_sqdist. Checks: dml_pair 4
+                launches a step, metric_topk on every sweep, one version
+                bump a refresh, every mined pair's label rule, each
+                promoted view bit for bit a fresh build in a second
+                router, finite losses and the objective on 4,000 pairs of
+                the last pool lower under the final L than under L0; the
+                last sweep's first two engine calls (Nq 512, k 21) held
+                to metric_topk's plain version (compare()), the hook's
+                4,096 x 65,536 distances to pairwise_sqdist's; the last
+                sweep's pool against the same sweep on metric_topk's
+                plain version on the card, and 2,048 anchors mined
+                through a RequestScheduler against the direct path: an
+                anchor may differ only at a distance tie (the metric_topk
+                rule) at a gap the label filter reads (the neighbourhood's
+                edge, the two chosen negatives, the semi-hard band's
+                edges). Cuts: a mutable-ivf loop over 65,536 rows (256
+                clusters, nprobe 16; ivf_scan must launch, its last
+                sweep's calls held to compare_ivf) and a frozen exact loop
+                over 32,768 (rebuilt at each refresh; held to compare()),
+                20 steps each. Then, a finding and not a check,
+                ``benchmarks/mining_convergence.py``'s recipe at its own
+                widths (N 8000, D 64, rank 16, 128 classes): whether each
+                of its pinned claims holds on the card. Prints each
+                refresh's seconds by step (swap_metric's host_to_device /
+                project / rebuild, promote, mine on the host clock and
+                the engine's device time), anchors/s, the mined pairs and
+                yields, ms a step and pairs/s beside phase 4's bsp step,
+                kNN accuracy, the launches, peak memory and the phase's
+                time;
   9. backbone — zamba2-2.7b at full width and depth (54 mamba2 layers,
                 d_model 2560, 80 SSM heads of p = n = 64; the shared
                 attention + GELU MLP block after every 6th layer, 32 heads
@@ -250,7 +291,8 @@ exit, and nothing falls back:
 
 Every launch count is set to 0 just before a main-path phase (4, 5, 5a,
 5c, 6, each index of 8, each serving run of 8b, each burst of 8c, 8d's
-tenant traffic, gemma's embed_pool in 9, and 10) and read just after
+tenant traffic, 8e's main run and each of its cuts, gemma's embed_pool
+in 9, and 10) and read just after
 (5a launches no kernel: its gradient is the reference's plain autograd
 product);
 comparison launches come after the reading (or, for phase 9, before the
@@ -333,6 +375,7 @@ from repro_torch.core.ps.trainer import (  # noqa: E402
     train_dml_distributed, train_dml_single)
 from repro_torch.data import pairs as pairdata  # noqa: E402
 from repro_torch.data.loader import partition_pairs  # noqa: E402
+from repro_torch.device import host_array  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels._dispatch import (  # noqa: E402
     BIG, tf32x3_matmul, topk_by_distance)
@@ -361,6 +404,9 @@ from repro_torch.kernels.ssd_chunk import cases as ssd_cases  # noqa: E402
 from repro_torch.kernels.ssd_chunk.cases import (  # noqa: E402
     BF16_ROUND, SSD_TOL)
 from repro_torch.launch import serve_embeddings  # noqa: E402
+from repro_torch.mining import (ClosedLoopConfig,  # noqa: E402
+                                ClosedLoopTrainer, CurriculumSchedule,
+                                HardPairMiner, MinerConfig)
 from repro_torch.models import Model, attention, common, mamba2  # noqa: E402
 from repro_torch.models.transformer import shared_cfg  # noqa: E402
 from repro_torch.obs import percentile  # noqa: E402
@@ -1469,14 +1515,19 @@ def phase_fig4(exp=MNIST):
 
 # -- exact serving at dml-imnet1m width --------------------------------------
 
-def class_rows(gen, lab, classes, noise=0.3):
+def class_rows(gen, lab, classes, noise=0.3, spread=0.0):
     """Raw llc_like rows of the classes ``lab`` (make_features' recipe:
     |center| magnitudes on the class support mask plus masked |noise|),
-    on the card. ``classes`` is (mags, masks) from ``make_gallery``."""
+    on the card. ``classes`` is (mags, masks) from ``make_gallery``.
+    ``spread`` adds N(0, spread^2) on every dimension, so that classes
+    overlap."""
     mags, masks = classes
-    return mags[lab] + noise * torch.randn(
+    x = mags[lab] + noise * torch.randn(
         (len(lab), mags.shape[1]), generator=gen, device=DEV).abs() \
         * masks[lab]
+    if spread:
+        x += spread * torch.randn(x.shape, generator=gen, device=DEV)
+    return x
 
 
 def make_gallery(gen, n, d_in, n_classes, L, query_rows, block=16384,
@@ -2518,17 +2569,18 @@ def _pq_plain_topk(pq, q, k, **knobs):
         pq_mod.pq_adc_topk = saved
 
 
-def _check_batch(name, base, gn, qs, knobs, dk, ik, bucket):
-    """One engine call at ``knobs`` against the plain version at the same
-    knobs on the same (bucket-padded) queries. ``gn``: the exact index's
-    row norms (unused by IVF and IVFPQ). Returns max |dd|."""
+def _check_batch(name, base, gn, qs, knobs, dk, ik, bucket, k=K_TOP):
+    """One engine call at ``knobs`` and k_top ``k`` against the plain
+    version at the same knobs on the same (bucket-padded) queries.
+    ``gn``: the exact index's row norms (unused by IVF and IVFPQ).
+    Returns max |dd|."""
     n = qs.shape[0]
     q = torch.zeros((bucket, qs.shape[1]), device=DEV)
     q[:n] = torch.from_numpy(qs).to(DEV)
     dk = torch.from_numpy(dk).to(DEV)
     ik = torch.from_numpy(ik).to(DEV)
     if name == "exact":
-        return compare(base.L, q[:n].contiguous(), base.gp, gn, K_TOP, dk,
+        return compare(base.L, q[:n].contiguous(), base.gp, gn, k, dk,
                        ik)[0]
     if name == "ivf":
         qp = project_queries(base.L, q)
@@ -2537,7 +2589,7 @@ def _check_batch(name, base, gn, qs, knobs, dk, ik, bucket):
         err = 0.0
         for s in range(0, n, CHECK_ROWS):
             r = slice(s, min(s + CHECK_ROWS, n))
-            err = max(err, compare_ivf(qp[r], probes[r], *seg, K_TOP, dk[r],
+            err = max(err, compare_ivf(qp[r], probes[r], *seg, k, dk[r],
                                        ik[r])[0])
         return err
     dp, ip = _pq_plain_topk(base, q, K_TOP, **knobs)
@@ -2546,12 +2598,13 @@ def _check_batch(name, base, gn, qs, knobs, dk, ik, bucket):
     return 0.0
 
 
-def _check_calls(name, base, gn, engine, calls):
+def _check_calls(name, base, gn, engine, calls, k=K_TOP):
     """Every recorded engine call (``_record``) against the plain version
-    at its knobs, on ``engine``'s bucket for its size. Returns max |dd|."""
+    at its knobs and k_top ``k``, on ``engine``'s bucket for its size.
+    Returns max |dd|."""
     assert calls, "no engine call was recorded"
     return max(_check_batch(name, base, gn, qs, kw, *ans,
-                            engine._bucket(len(qs)))
+                            engine._bucket(len(qs)), k)
                for qs, kw, ans in calls)
 
 
@@ -2585,16 +2638,18 @@ def _steady(sched, queries_np, mix):
     return {"qps": len(futs) / wall, "p50_ms": p50, "p99_ms": p99}
 
 
-def _record(engine):
-    """Record every engine.search call from here on as (query rows, knobs,
-    (dists, ids)), a single query as one row; ``del engine.search`` stops
-    it. Returns the list."""
+def _record(engine, limit=None):
+    """Record every engine.search call from here on (the first ``limit``
+    of them) as (query rows, knobs, (dists, ids)), a single query as one
+    row, on the host; ``del engine.search`` stops it. Returns the list."""
     calls, real = [], engine.search
 
     def record(qs, k_top=None, *, span=None, **kw):
         out = real(qs, k_top, span=span, **kw)
-        calls.append((np.atleast_2d(np.array(qs, np.float32)), dict(kw),
-                      tuple(np.atleast_2d(a) for a in out)))
+        if limit is None or len(calls) < limit:
+            rows = np.array(host_array(qs), np.float32)
+            calls.append((np.atleast_2d(rows), dict(kw),
+                          tuple(np.atleast_2d(a) for a in out)))
         return out
 
     engine.search = record
@@ -3198,6 +3253,581 @@ def phase_tenants(L, queries, serving, card, exp=IMNET_1M):
     gc.collect()
     torch.cuda.empty_cache()
     return out
+
+
+# -- the closed loop at dml-imnet1m width (phase 8e) -------------------------
+
+# the main run: 8d's cut of the raw rows (1M would be 86 GB), a held-out
+# set for the kNN hook (evaluated against the first LOOP_EVAL_ROWS
+# training rows every LOOP_EVAL_EVERY steps), train_mined's refresh
+# period; the cuts: a mutable IVF loop (rows, clusters, nprobe), a frozen
+# exact loop, their steps / refresh period / anchors, and the anchors
+# mined through a RequestScheduler. LOOP_SPREAD: N(0, 1.1^2) on every
+# dimension makes the classes overlap, so that most anchors' 20 nearest
+# rows under L0 hold another class (hard negatives to mine); the engine
+# calls of each loop's last sweep held to the plain version
+LOOP_ROWS, LOOP_HOLD, LOOP_BLOCK, LOOP_SPREAD = 262_144, 4_096, 16_384, 1.1
+LOOP_CHECK_CALLS = 2
+LOOP_STEPS, LOOP_REFRESH, LOOP_MINE = 60, 15, 16_384
+LOOP_EVAL_EVERY, LOOP_EVAL_ROWS = 20, 65_536
+LOOP_IVF = (65_536, 256, 16)
+LOOP_FROZEN_ROWS = 32_768
+LOOP_CUT_STEPS, LOOP_CUT_REFRESH, LOOP_CUT_MINE = 20, 10, 4_096
+LOOP_FRONT = 2_048
+LOOP_QUERY_BATCH = 512      # the miner's anchors a search (its default)
+
+
+def _loop_cfg(exp, index, steps, refresh, mine, index_kwargs=None):
+    """train_mined's miner and curriculum defaults (k 20, 1 negative, 3
+    positives, warm-up 10, ramp 20, mined share up to 0.7) at
+    dml-imnet1m width: P = 4 bsp, 1000 pairs a worker a step."""
+    return ClosedLoopConfig(
+        train=DMLTrainConfig(dml=exp.dml,
+                             ps=sync.PSConfig(n_workers=N_WORKERS),
+                             batch_size=exp.batch_size, steps=steps,
+                             log_every=1),
+        miner=MinerConfig(k_neighbors=20, max_negatives=1, max_positives=3),
+        schedule=CurriculumSchedule(warmup_steps=10, ramp_steps=20,
+                                    max_mined_frac=0.7),
+        index=index, index_kwargs=index_kwargs, refresh_every=refresh,
+        mine_queries=mine)
+
+
+def _label_rule(pairs, labels):
+    """Every mined pair obeys its label rule: no self-pair, negatives
+    across classes, positives within one."""
+    a, b, sim = pairs["a"], pairs["b"], pairs["sim"]
+    assert len(a) and (a != b).all(), "a self-pair was mined"
+    assert (labels[a[sim == 0]] != labels[b[sim == 0]]).all(), \
+        "a mined negative shares its anchor's class"
+    assert (labels[a[sim == 1]] == labels[b[sim == 1]]).all(), \
+        "a mined positive crosses classes"
+
+
+def _pair_rows(rows, pairs):
+    """(xs, ys, sim) of index pairs over ``rows``, gathered on the card."""
+    return tuple(rows[torch.from_numpy(pairs[k]).to(DEV)]
+                 for k in ("a", "b")) + (
+        torch.from_numpy(pairs["sim"]).to(DEV),)
+
+
+def _by_anchor(pairs):
+    out = {}
+    for a, b, s in zip(pairs["a"].tolist(), pairs["b"].tolist(),
+                       pairs["sim"].tolist()):
+        out.setdefault(a, set()).add((b, s))
+    return out
+
+
+def _pools_differ_at_ties(L, rows, gp, gn, labels, pool, ref, k, margin):
+    """Anchors whose mined pairs differ between two pools over the same
+    L. Each may differ only where its plain distances tie (within
+    compare()'s tolerance) at a gap the label filter reads: the edge of
+    the (k + 1)-row neighbourhood (ranks k + 1 and k + 2), which alone
+    decides the positives; or, where only the negatives differ, the two
+    chosen negatives' distances, or a chosen negative at an edge of the
+    semi-hard band (the farthest positive in the neighbourhood, that
+    plus ``margin``). Returns how many anchors differ."""
+    pa, pr = _by_anchor(pool), _by_anchor(ref)
+    diff = sorted(a for a in set(pa) | set(pr) if pa.get(a) != pr.get(a))
+    if not diff:
+        return 0
+    q = rows[torch.tensor(diff, device=DEV)]
+    d, i = metric_topk_plain(L, q, gp, gn, k + 2)
+    qp = q @ L.T
+    qn = torch.sum(qp * qp, dim=1)
+    edge = ((d[:, k + 1] - d[:, k]) <= ATOL + RTOL * (qn + torch.maximum(
+        gn[i[:, k].long()], gn[i[:, k + 1].long()]))).tolist()
+    d, i = d.cpu().numpy(), i.cpu().numpy()
+
+    def split(pairs, sim):
+        return {b for b, s in pairs if s == sim}
+
+    away = []
+    for r, a in enumerate(diff):
+        if edge[r]:
+            continue
+        mine, plain = pa.get(a, set()), pr.get(a, set())
+        if split(mine, 1) != split(plain, 1) or len(split(mine, 0)) != \
+                len(split(plain, 0)):
+            away.append(a)
+            continue
+        b = torch.tensor(sorted(split(mine, 0) ^ split(plain, 0)),
+                         device=DEV)
+        dn = (qn[r] + gn[b] - 2 * gp[b] @ qp[r]).tolist()
+        tol = ATOL + RTOL * (float(qn[r]) + float(gn[b].max()))
+        nb = i[r, :k + 1]
+        same = (labels[nb] == labels[a]) & (nb != a)
+        edges = ([float(d[r, :k + 1][same].max())] if same.any() else [])
+        edges += [e + margin for e in edges]
+        if not any(abs(x - y) <= tol
+                   for j, x in enumerate(dn)
+                   for y in dn[:j] + dn[j + 1:] + edges):
+            away.append(a)
+    assert not away, \
+        f"{len(away)} anchors mined otherwise away from a tie: {away[:8]}"
+    return len(diff)
+
+
+class _PlainExact:
+    """An exact index whose scan is metric_topk's plain version on the
+    card: the yardstick the loop's mining sweep is held to."""
+
+    def __init__(self, L, gp, gn):
+        self.L, self.gp, self.gn, self.version = L, gp, gn, 0
+
+    size = property(lambda self: self.gp.shape[0])
+    n_shards = 1
+
+    def topk(self, queries, k_top):
+        return metric_topk_plain(self.L, queries, self.gp, self.gn, k_top)
+
+
+def _promoted_is_fresh(router, store, name):
+    """The tenant's live view, promoted through its shadow arm, against a
+    fresh build under the same L in a second router over the same store:
+    bit for bit."""
+    t = router.tenant(name)
+    fresh = TenantRouter(store, k_top=K_TOP, copy=False, device=DEV)
+    fresh.add_tenant("f", t.L)
+    f = fresh.warm("f")
+    v, w = t.engine.index, f.engine.index
+    return (torch.equal(v.gp, w.gp) and torch.equal(v.gn, w.gn)
+            and torch.equal(v.L, w.L) and np.array_equal(t.ids, f.ids))
+
+
+def _record_sweeps(clt):
+    """Record the first LOOP_CHECK_CALLS engine calls of every refresh's
+    sweep, keeping the last sweep's. Returns (that list, the loop's own
+    refresh, to put back)."""
+    calls, refresh = [], clt.refresh
+
+    def recorded(L, step, swap=True):
+        got = _record(clt.engine, LOOP_CHECK_CALLS)
+        try:
+            return refresh(L, step, swap=swap)
+        finally:
+            del clt.engine.search
+            calls[:] = got
+
+    clt.refresh = recorded
+    return calls, refresh
+
+
+def _check_sweep(clt, calls):
+    """The recorded calls of the loop's last sweep against the plain
+    version of its scan (metric_topk or ivf_scan) at the sweep's k,
+    under the L the sweep ran with. Returns max |dd|."""
+    index = clt.engine.index
+    base = getattr(index, "base", index)        # a mutable wraps its base
+    if base is not index:
+        assert np.array_equal(index.base_ids, np.arange(base.size)), \
+            "the mutable's ids are not its base's rows"
+    kind = "ivf" if isinstance(base, IVFIndex) else "exact"
+    return _check_calls(kind, base, getattr(base, "gn", None), clt.engine,
+                        calls, clt.cfg.miner.k_neighbors + 1)
+
+
+def _run_cut(exp, name, rows, labels, L0, index_kwargs, kname, kern):
+    """One cut loop (no router): its steps, one refresh every
+    LOOP_CUT_REFRESH, LOOP_CUT_MINE anchors, its scan kernel ``kern``
+    (named ``kname``) counted; returns its summary."""
+    cfg = _loop_cfg(exp, name, LOOP_CUT_STEPS, LOOP_CUT_REFRESH,
+                    LOOP_CUT_MINE, index_kwargs)
+    t0 = time.perf_counter()
+    clt = ClosedLoopTrainer(cfg, rows, labels, L0=L0,
+                            opt=sgd(schedules.inverse_time(1e-3, 1e-3)),
+                            device=DEV)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    index0 = clt.engine.index
+    v0 = index0.version
+    calls, refresh = _record_sweeps(clt)
+    _reset_counts()
+    t0 = time.perf_counter()
+    _, hist = clt.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"dml_pair": dml_pair_fused.launches, kname: kern.launches}
+    clt.refresh = refresh
+    losses = [h["loss"] for h in hist["steps"]]
+    assert np.isfinite(losses).all(), f"{name}: a loss is not finite"
+    assert all(v > 0 for v in launches.values()), \
+        f"{name}: a kernel never ran: {launches}"
+    assert launches["dml_pair"] == N_WORKERS * LOOP_CUT_STEPS
+    n_swaps = clt.n_refreshes - 1
+    if name.startswith("mutable"):
+        assert clt.engine.index is index0
+        assert clt.engine.index.version == v0 + n_swaps
+    else:                               # a frozen base is rebuilt
+        assert clt.engine.index is not index0
+        assert sum("rebuild" in t for t in clt.timings) == n_swaps
+    _label_rule(clt.source._pool, labels)
+    err = _check_sweep(clt, calls)
+    return {"rows": rows.shape[0], "build_s": build_s, "wall_s": wall,
+            "launches": launches, "refreshes": clt.n_refreshes,
+            "timings": clt.timings, "loss": [losses[0], losses[-1]],
+            "pairs": [r["n_pairs"] for r in hist["refreshes"]],
+            "neg_yield": [r["neg_yield"] for r in hist["refreshes"]],
+            "plain_max_abs_err": err}
+
+
+def _convergence_finding():
+    """benchmarks/mining_convergence.py's recipe (its --smoke rows) on the
+    port, at its own widths: N 8000, D 64, rank 16, 128 classes. Prints
+    whether each of its pinned claims holds on the card; checks
+    nothing."""
+    n, d, kproj, c, lr, batch, steps = 8000, 64, 16, 128, 3e-3, 128, 300
+    t_start = time.perf_counter()
+    x, y = pairdata.make_features(pairdata.PairDatasetConfig(
+        n_samples=n, feat_dim=d, n_classes=c, kind="noisy_subspace",
+        noise=0.3, seed=0))
+    n_tr = int(n * 0.8)
+    ev = [torch.from_numpy(a).to(DEV)
+          for a in (x[:n_tr], y[:n_tr], x[n_tr:], y[n_tr:])]
+
+    def hook(t, L):
+        return knn_accuracy(L, *ev, k=5, device=DEV)
+
+    tcfg = DMLTrainConfig(dml=dml.DMLConfig(feat_dim=d, l_rank=kproj),
+                          ps=sync.PSConfig(n_workers=1, seed=0),
+                          batch_size=batch, steps=steps, lr=lr,
+                          log_every=10)
+    idx = pairdata.sample_pair_indices(y[:n_tr], 20000, 20000, seed=1)
+    uni = {"xs": x[idx["a"]], "ys": x[idx["b"]], "sim": idx["sim"]}
+    _, hist_u = train_dml_distributed(tcfg, uni, step_hook=hook,
+                                      device=DEV)
+    target = float(np.mean([h["hook"] for h in hist_u[-5:]]))
+
+    def mined(dml_cfg):
+        cfg = ClosedLoopConfig(
+            train=DMLTrainConfig(dml=dml_cfg, ps=tcfg.ps, batch_size=batch,
+                                 steps=steps // 2, lr=lr, log_every=10),
+            miner=MinerConfig(k_neighbors=20, max_negatives=1,
+                              max_positives=3),
+            schedule=CurriculumSchedule(warmup_steps=10, ramp_steps=20,
+                                        max_mined_frac=0.7),
+            refresh_every=15, mine_queries=n_tr)
+        _, hist = ClosedLoopTrainer(cfg, ev[0], y[:n_tr],
+                                    device=DEV).run(step_hook=hook)
+        return [(h["step"], h["hook"]) for h in hist["steps"]]
+
+    accs = mined(tcfg.dml)
+    cross = next((s for s, a in accs if a >= target), None)
+    final = float(np.mean([a for _, a in accs[-5:]]))
+    square = float(np.mean([a for _, a in mined(
+        dml.DMLConfig(feat_dim=d, l_rank=d))[-5:]]))
+    claims = {
+        "uniform final >= 0.95": target >= 0.95,
+        "mined crosses the uniform final within half the steps":
+            cross is not None and cross <= steps // 2,
+        "mined final >= uniform final - 0.005": final >= target - 0.005,
+        "rank 16 final within 0.02 of square-L": final >= square - 0.02}
+    out = {"uniform_final": target, "mined_cross_step": cross,
+           "mined_final": final, "square_final": square,
+           "claims": claims, "s": time.perf_counter() - t_start}
+    log(f"closed loop, mining_convergence recipe (N {n}, D {d}, rank "
+        f"{kproj}, {c} classes; a finding, not a check): uniform final "
+        f"{target:.4f} over {steps} steps, mined crosses it at step "
+        f"{cross} of {steps // 2}, mined final {final:.4f}, square-L "
+        f"final {square:.4f}; claims held: "
+        f"{ {k: bool(v) for k, v in claims.items()} } ({out['s']:.1f} s)")
+    return out
+
+
+def phase_closed_loop(classes, bsp_ms, card, exp=IMNET_1M):
+    """Phase 8e: the closed loop at dml-imnet1m width over LOOP_ROWS raw
+    rows on the card, its tenant promoted through the shadow arm at
+    every refresh; then the IVF and frozen cuts, mining through a
+    scheduler, and the mining_convergence recipe."""
+    t_phase = time.perf_counter()
+    cfg = exp.dml
+    d_in = cfg.feat_dim
+    gen = torch.Generator(device=DEV).manual_seed(8)
+    lab = torch.randint(0, exp.n_classes, (LOOP_ROWS + LOOP_HOLD,),
+                        generator=gen, device=DEV)
+    t0 = time.perf_counter()
+    store = torch.empty((LOOP_ROWS, d_in), device=DEV)
+    for s in range(0, LOOP_ROWS, LOOP_BLOCK):
+        store[s:s + LOOP_BLOCK] = class_rows(gen, lab[s:s + LOOP_BLOCK],
+                                             classes, spread=LOOP_SPREAD)
+    hold = class_rows(gen, lab[LOOP_ROWS:], classes, spread=LOOP_SPREAD)
+    labels = lab[:LOOP_ROWS].cpu().numpy()
+    hold_y, ev_y = lab[LOOP_ROWS:], lab[:LOOP_EVAL_ROWS]
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+
+    # the example's scale-aware init (initial ||Lz||^2 ~ 2 * margin) on
+    # a fixed uniform pair set, on which the objective is also read
+    L0 = init_params(cfg, gen, DEV)
+    uniform = pairdata.sample_pair_indices(labels, 2000, 2000, seed=11)
+    d2 = float(torch.mean(dml.mahalanobis_sqdist(
+        L0, *_pair_rows(store, uniform)[:2])))
+    L0 = L0 * float(np.sqrt(2.0 * cfg.margin / max(d2, 1e-9)))
+
+    def objective(L, pairs):
+        return float(dml.objective(L, *_pair_rows(store, pairs), cfg.lam,
+                                   cfg.margin))
+
+    router = TenantRouter(store, k_top=K_TOP, copy=False, device=DEV)
+    router.add_tenant("loop", L0)
+    router.warm("loop")
+    ccfg = _loop_cfg(exp, "mutable-exact", LOOP_STEPS, LOOP_REFRESH,
+                     LOOP_MINE)
+    t0 = time.perf_counter()
+    clt = ClosedLoopTrainer(ccfg, store, labels, L0=L0,
+                            opt=sgd(schedules.inverse_time(1e-3, 1e-3)),
+                            router=router, tenant="loop", device=DEV)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    assert clt.features.data_ptr() == store.data_ptr() == \
+        clt.source.features.data_ptr(), "the feature table was copied"
+    index = clt.engine.index
+    v0 = index.version
+
+    # each refresh: its pool kept, the metric_topk launches of its sweep
+    # and probes, its wall time, and the promoted view held to a fresh
+    # build (outside the refresh's own timings)
+    pools, sweep_launches, refresh_s, fresh_views = [], [], {}, []
+    sweep_calls, _ = _record_sweeps(clt)
+    refresh = clt.refresh
+
+    def counted_refresh(L, step, swap=True):
+        n0, t_r = metric_topk_fused.launches, time.perf_counter()
+        rec = refresh(L, step, swap=swap)
+        torch.cuda.synchronize()
+        refresh_s[step] = time.perf_counter() - t_r
+        sweep_launches.append(metric_topk_fused.launches - n0)
+        pools.append(clt.source._pool)
+        if swap:
+            fresh_views.append(_promoted_is_fresh(router, store, "loop"))
+        return rec
+
+    clt.refresh = counted_refresh
+    enter, leave, accs = {}, {}, {}
+
+    def hook(t, L):
+        enter[t] = time.perf_counter()
+        if t % LOOP_EVAL_EVERY == 0 or t == LOOP_STEPS - 1:
+            accs[t] = knn_accuracy(L, store[:LOOP_EVAL_ROWS], ev_y, hold,
+                                   hold_y, k=KNN_K, device=DEV)
+        leave[t] = time.perf_counter()
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()                         # counts of the main path only
+    t0 = time.perf_counter()
+    L, hist = clt.run(step_hook=hook)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = {"dml_pair": dml_pair_fused.launches,
+                "metric_topk": metric_topk_fused.launches,
+                "pairwise_sqdist": pairwise_sqdist.launches,
+                "ivf_scan": ivf_scan_topk_fused.launches,
+                "pq_adc": pq_adc_topk_fused.launches}
+    peak = torch.cuda.max_memory_allocated() / 1e9
+
+    # -- the checks on the main run
+    recs = hist["refreshes"]
+    n_ref = len(recs)
+    assert n_ref == 1 + (LOOP_STEPS - 1) // LOOP_REFRESH
+    assert launches["dml_pair"] == N_WORKERS * LOOP_STEPS, \
+        f"dml_pair launched {launches['dml_pair']} times in {LOOP_STEPS} " \
+        f"steps at P = {N_WORKERS}"
+    per_sweep = -(-LOOP_MINE // LOOP_QUERY_BATCH)
+    assert all(n >= per_sweep for n in sweep_launches), \
+        f"a mining sweep launched metric_topk {sweep_launches} times"
+    assert launches["pairwise_sqdist"] >= len(accs)
+    assert launches["ivf_scan"] == launches["pq_adc"] == 0
+    assert [r["index_version"] for r in recs] == list(range(v0, v0 + n_ref))
+    assert clt.engine.index is index and index.n_swaps == n_ref - 1
+    assert clt.engine.stats()["n_device_queries"] == n_ref * LOOP_MINE
+    assert all(r["n_queries"] == LOOP_MINE and r["n_dropped"] == 0
+               for r in recs)
+    for pool in pools:
+        _label_rule(pool, labels)
+    assert len(fresh_views) == n_ref - 1 and all(fresh_views), \
+        "a promoted view differs from a fresh build"
+    assert router.tenant("loop").shadow is None
+    assert np.array_equal(router.tenant("loop").L, index.L.cpu().numpy())
+    # the loss on the loop's batches follows their mined share; the
+    # objective on the last pool's constraints (the pairs the loop
+    # trains on) must fall from L0 to the final L
+    losses = [h["loss"] for h in hist["steps"]]
+    assert np.isfinite(losses).all(), "a loss is not finite"
+    mined = {k: v[:4000] for k, v in pools[-1].items()}
+    obj = {"mined": [objective(L0, mined), objective(L, mined)],
+           "uniform": [objective(L0, uniform), objective(L, uniform)]}
+    assert obj["mined"][1] < obj["mined"][0], \
+        f"the objective on the mined pool rose: {obj['mined']}"
+    # step time: hook to hook, leaving out the steps after a refresh
+    gaps = [enter[t] - leave[t - 1] for t in range(1, LOOP_STEPS)
+            if t not in refresh_s]
+    step_ms = 1e3 * float(np.mean(gaps))
+    step_ms_median = 1e3 * float(np.median(gaps))
+    pairs_s = N_WORKERS * exp.batch_size / step_ms * 1e3
+    # the stream's host draws alone (P batches of indices a step): all
+    # uniform (before the warm-up ends), then at the full mined share
+    draw_ms = {}
+    for first in (0, LOOP_STEPS - LOOP_REFRESH):
+        rng = np.random.RandomState(0)
+        t0 = time.perf_counter()
+        for step in range(first, first + 10):
+            for w in range(N_WORKERS):
+                clt.source._draw(rng, w, N_WORKERS, exp.batch_size, step)
+        draw_ms[round(clt.cfg.schedule.mined_frac(first), 2)] = \
+            1e3 * (time.perf_counter() - t0) / 10
+
+    # -- the last sweep's first engine calls, and the kNN hook's distance
+    # matrix under the final L, against their plain versions
+    sweep_err = _check_sweep(clt, sweep_calls)
+    xp, yp = hold @ L.T, store[:LOOP_EVAL_ROWS] @ L.T
+    hook_err, _ = compare_dist(pairwise_sqdist(xp, yp), xp, yp)
+    del xp, yp
+
+    # -- the last sweep against the plain version on the card, same L
+    last = recs[-1]
+    plain_engine = RetrievalEngine(_PlainExact(index.L, index.base.gp,
+                                               index.base.gn),
+                                   k_top=ccfg.miner.k_neighbors + 1)
+    t0 = time.perf_counter()
+    plain = HardPairMiner(plain_engine, store, labels, ccfg.miner,
+                          warmup=False).mine(
+        n_queries=LOOP_MINE, seed=ccfg.train.ps.seed + n_ref - 1)
+    plain_s = time.perf_counter() - t0
+    n_tie = _pools_differ_at_ties(index.L, store, index.base.gp,
+                                  index.base.gn, labels, pools[-1],
+                                  plain.pairs, ccfg.miner.k_neighbors,
+                                  ccfg.miner.margin)
+    # the same sweep through an engine without the hot-query LRU (no
+    # host copies of the anchors' rows, no keys)
+    t0 = time.perf_counter()
+    HardPairMiner(RetrievalEngine(index, k_top=ccfg.miner.k_neighbors + 1,
+                                  cache_size=0), store, labels, ccfg.miner,
+                  warmup=False).mine(n_queries=LOOP_MINE,
+                                     seed=ccfg.train.ps.seed + n_ref - 1)
+    no_lru_s = time.perf_counter() - t0
+    for key in ("n_pairs", "n_hard_neg", "n_hard_pos"):
+        if n_tie == 0:
+            assert plain.stats[key] == last[key], key
+
+    # -- LOOP_FRONT anchors through a RequestScheduler = the direct path
+    anchors = pairdata.distinct_draws(np.random.RandomState(5), LOOP_ROWS,
+                                      LOOP_FRONT)
+    direct = HardPairMiner(clt.engine, store, labels, ccfg.miner,
+                           warmup=False).mine(query_ids=anchors)
+    sched = RequestScheduler(clt.engine, degrade=False)
+    t0 = time.perf_counter()
+    try:
+        routed = HardPairMiner(clt.engine, store, labels, ccfg.miner,
+                               warmup=False, frontend=sched).mine(
+            query_ids=anchors)
+        front_s = time.perf_counter() - t0
+        mining = sched.observability()["classes"]["mining"]
+    finally:
+        closed = sched.close()
+    assert closed, "scheduler workers did not stop"
+    assert routed.stats["n_dropped"] == 0 and \
+        mining["completed"] == LOOP_FRONT
+    n_front_tie = _pools_differ_at_ties(index.L, store, index.base.gp,
+                                        index.base.gn, labels, routed.pairs,
+                                        direct.pairs, ccfg.miner.k_neighbors,
+                                        ccfg.miner.margin)
+    main = {
+        "rows": LOOP_ROWS, "gen_s": gen_s, "build_s": build_s,
+        "run_s": run_s, "launches": launches,
+        "sweep_launches": sweep_launches, "step_ms": step_ms,
+        "step_ms_median": step_ms_median, "pairs_s": pairs_s,
+        "draw_ms": draw_ms, "mine_no_lru_s": no_lru_s,
+        "bsp_step_ms_phase4": bsp_ms,
+        "refresh_s": refresh_s, "timings": clt.timings,
+        "records": [{k: r[k] for k in ("step", "n_pairs", "n_hard_neg",
+                                       "n_semi_hard", "n_fallback_neg",
+                                       "n_hard_pos", "n_starved",
+                                       "neg_yield", "pos_yield",
+                                       "mine_busy_s", "engine_qps",
+                                       "index_version")}
+                    for r in recs],
+        "shadow": [r.get("shadow") for r in recs],
+        "knn": accs, "loss": [losses[0], losses[-1]],
+        "objective": obj, "plain_s": plain_s,
+        "sweep_plain_max_abs_err": sweep_err, "hook_max_abs_err": hook_err,
+        "plain_tie_anchors": n_tie, "front_s": front_s,
+        "front_tie_anchors": n_front_tie, "peak_gb": peak}
+    for i, (r, t) in enumerate(zip(recs, clt.timings)):
+        split = {k: round(v, 3) for k, v in t.items()}
+        log(f"closed loop refresh {i} (step {r['step']}): seconds "
+            f"{split}, whole refresh {refresh_s[r['step']]:.3f}; mined "
+            f"{r['n_pairs']} pairs from {LOOP_MINE} anchors (neg yield "
+            f"{r['neg_yield']:.3f}, pos yield {r['pos_yield']:.3f}, "
+            f"{r['n_semi_hard']} semi-hard, {r['n_fallback_neg']} "
+            f"fallback, {r['n_starved']} starved), "
+            f"{LOOP_MINE / t['mine']:.0f} anchors/s on the host clock, "
+            f"engine busy {r['mine_busy_s']:.3f} s, "
+            f"{r['engine_qps']:.0f} qps on its device time; "
+            f"metric_topk launches {sweep_launches[i]} [{card}]")
+    del clt, plain_engine, direct, routed, router, index
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"closed loop: {LOOP_ROWS} x {d_in} rows on the card "
+        f"({store.nbytes / 1e9:.2f} GB, made in {gen_s:.1f} s, shared by "
+        f"the miner, the stream and the tenant router without a copy; "
+        f"mutable index built in {build_s:.1f} s, raw rows copied to the "
+        f"host); {LOOP_STEPS} steps P = {N_WORKERS} bsp in {run_s:.1f} s "
+        f"with {n_ref} refreshes; {step_ms:.2f} ms a step (median "
+        f"{step_ms_median:.2f}; phase 4's bsp {bsp_ms:.2f}), "
+        f"{pairs_s:.0f} pairs/s, the stream's host draws alone "
+        f"{ {f: round(ms, 2) for f, ms in draw_ms.items()} } ms a step by "
+        f"mined share; loss {losses[0]:.4f} -> {losses[-1]:.4f}, "
+        f"objective L0 -> L on 4000 pairs of the last pool "
+        f"{obj['mined'][0]:.5f} -> {obj['mined'][1]:.5f}, on 4000 fixed "
+        f"uniform pairs {obj['uniform'][0]:.5f} -> "
+        f"{obj['uniform'][1]:.5f}; "
+        f"kNN@{KNN_K} on {LOOP_HOLD} held-out rows "
+        f"{ {t: round(a, 4) for t, a in accs.items()} }; launches "
+        f"{launches}; every promoted view = a fresh build; the last "
+        f"sweep's first {len(sweep_calls)} calls (Nq {LOOP_QUERY_BATCH}, "
+        f"k {ccfg.miner.k_neighbors + 1}) vs metric_topk's plain version "
+        f"max |dd| {sweep_err:.3e}; the hook's {LOOP_HOLD} x "
+        f"{LOOP_EVAL_ROWS} pairwise_sqdist vs plain max |dD| "
+        f"{hook_err:.3e}; last sweep = "
+        f"the plain version's ({plain_s:.1f} s) but {n_tie} anchors at "
+        f"a near-tie; the same sweep without the engine's LRU "
+        f"{no_lru_s:.2f} s; {LOOP_FRONT} anchors through a "
+        f"RequestScheduler in "
+        f"{front_s:.2f} s = the direct path but {n_front_tie} at a "
+        f"near-tie; peak {peak:.2f} GB [{card}]")
+
+    # -- the cuts: a mutable IVF loop, a frozen exact loop
+    rows, clusters, nprobe = LOOP_IVF
+    cuts = {"mutable-ivf": _run_cut(
+                exp, "mutable-ivf", store[:rows], labels[:rows], L0,
+                dict(n_clusters=clusters, nprobe=nprobe), "ivf_scan",
+                ivf_scan_topk_fused),
+            "exact": _run_cut(exp, "exact", store[:LOOP_FROZEN_ROWS],
+                              labels[:LOOP_FROZEN_ROWS], L0, None,
+                              "metric_topk", metric_topk_fused)}
+    for name, cut in cuts.items():
+        split = [{k: round(v, 3) for k, v in t.items()}
+                 for t in cut["timings"]]
+        log(f"closed loop cut {name}: {cut['rows']} rows, built in "
+            f"{cut['build_s']:.1f} s, {LOOP_CUT_STEPS} steps in "
+            f"{cut['wall_s']:.1f} s, {cut['refreshes']} refreshes "
+            f"(seconds {split}), pairs {cut['pairs']}, neg yield "
+            f"{[round(y, 3) for y in cut['neg_yield']]}, loss "
+            f"{cut['loss'][0]:.4f} -> {cut['loss'][1]:.4f}, launches "
+            f"{cut['launches']}; the last sweep's first calls vs the "
+            f"plain version max |dd| {cut['plain_max_abs_err']:.3e} "
+            f"[{card}]")
+    del store, hold
+    gc.collect()
+    torch.cuda.empty_cache()
+    finding = _convergence_finding()
+    log(f"closed loop phase {time.perf_counter() - t_phase:.1f} s [{card}]")
+    return {"main": main, "cuts": cuts, "convergence": finding,
+            "launches": {**{k: v for k, v in launches.items() if v},
+                         "ivf_scan": cuts["mutable-ivf"]["launches"][
+                             "ivf_scan"]}}
 
 
 def library_pair(L, xs, ys, sim, lam, margin):
@@ -3874,6 +4504,7 @@ def main():
     phase_parity_backbone()
     log(f"parity phases done at {time.perf_counter() - t0:.1f}s")
     train = phase_training()
+    bsp_ms = train["step_ms"]["bsp"]
     ev = phase_eval(train["L"], train["feats"], train["labels"])
     entries = [time_dml_pair(train["L"], train["batch"], train["launches"],
                              train["launches_per_step"], train["max_err"]),
@@ -3918,7 +4549,17 @@ def main():
                 "level_ms": frontend[name].get("level_ms")}
             entry["tenants"] = {"launches": tenants["launches"][kname]}
     log(f"tenants done at {time.perf_counter() - t0:.1f}s")
-    del L, queries, serving, frontend, tenants
+    loop = phase_closed_loop(serving["classes"], bsp_ms, card)
+    for entry in entries:
+        if entry["name"] in loop["launches"]:
+            entry["closed_loop"] = {
+                "launches": loop["launches"][entry["name"]],
+                **({"step_ms": loop["main"]["step_ms"],
+                    "pairs_s": loop["main"]["pairs_s"]}
+                   if entry["name"] == "dml_pair" else {})}
+    log(f"closed loop done at {time.perf_counter() - t0:.1f}s")
+    del L, queries, serving, frontend, tenants, loop
+    gc.collect()
     torch.cuda.empty_cache()
     bb = phase_backbone_parity()
     log(f"backbone parity done at {time.perf_counter() - t0:.1f}s")

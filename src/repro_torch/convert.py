@@ -1,7 +1,7 @@
 """Carry the JAX package's weights (the DML factor and the backbone
 models), index arrays (exact, IVF, IVFPQ, and a mutable index's state
-over any of them), a tenant router's state and training state across to
-the port.
+over any of them), a tenant router's state, training state and a closed
+loop's configuration across to the port.
 
 Every function takes plain numpy arrays (``np.asarray`` of the
 reference's ``jax.Array``s, e.g. ``jax.tree.map(np.asarray, state)``),
@@ -11,13 +11,19 @@ matched by their NamedTuple's class name and fields.
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.core.ps.sync import PSState
+from repro_torch.core.dml import DMLConfig
+from repro_torch.core.ps.sync import PSConfig, PSState
+from repro_torch.core.ps.trainer import DMLTrainConfig
 from repro_torch.device import resolve_device
 from repro_torch.kernels._dispatch import check_metric_factor
+from repro_torch.mining import (ClosedLoopConfig, CurriculumSchedule,
+                                MinerConfig)
 from repro_torch.models import Model
 from repro_torch.optim import AdamState, MomentumState, ScaleState
 from repro_torch.serve.index import ExactIndex
@@ -216,3 +222,39 @@ def model_params_from_jax(cfg: ArchConfig, params_np, device=None) -> Model:
         params["shared"] = tree_map(lambda x: _tensor(x, dev),
                                     params_np["shared"])
     return Model(cfg, device=dev, params=params)
+
+
+def _torch_dtype(dt):
+    """A numpy-convertible dtype (``jnp.float32``, ``jnp.bfloat16``, ...)
+    as the torch dtype of the same name; None stays None."""
+    return None if dt is None else getattr(torch, np.dtype(dt).name)
+
+
+def closed_loop_config_from_jax(cfg) -> ClosedLoopConfig:
+    """A reference ``ClosedLoopConfig`` as the port's, field by field:
+    ``DMLConfig`` (its dtypes by name), ``PSConfig`` (without the mesh
+    axis name: the port's workers share one device), ``DMLTrainConfig``,
+    ``MinerConfig`` and ``CurriculumSchedule``. With the reference
+    trainer's L0 (``ClosedLoopTrainer(..., L0=np.asarray(ref.L0))``) it
+    carries a reference loop's starting state across."""
+    d, ps, tr = cfg.train.dml, cfg.train.ps, cfg.train
+    fields = lambda x: {f.name: getattr(x, f.name)  # noqa: E731
+                        for f in dataclasses.fields(x)}
+    train = DMLTrainConfig(
+        dml=DMLConfig(feat_dim=d.feat_dim, proj_dim=d.proj_dim, lam=d.lam,
+                      margin=d.margin, dtype=_torch_dtype(d.dtype),
+                      compute_dtype=_torch_dtype(d.compute_dtype),
+                      l_rank=d.l_rank),
+        ps=PSConfig(n_workers=ps.n_workers, sync=ps.sync, tau=ps.tau,
+                    staleness=ps.staleness, seed=ps.seed),
+        batch_size=tr.batch_size, steps=tr.steps, lr=tr.lr,
+        log_every=tr.log_every)
+    return ClosedLoopConfig(
+        train=train, miner=MinerConfig(**fields(cfg.miner)),
+        schedule=CurriculumSchedule(**fields(cfg.schedule)),
+        index=cfg.index,
+        index_kwargs=(None if cfg.index_kwargs is None
+                      else dict(cfg.index_kwargs)),
+        refresh_every=cfg.refresh_every,
+        plateau_window=cfg.plateau_window, plateau_tol=cfg.plateau_tol,
+        min_refresh_gap=cfg.min_refresh_gap, mine_queries=cfg.mine_queries)

@@ -7,6 +7,7 @@ when the caller asks for it.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -18,3 +19,10 @@ def resolve_device(device=None) -> torch.device:
             "CUDA is not available: the port runs on the GPU by default; "
             "pass device='cpu' to run on the CPU")
     return dev
+
+
+def host_array(x, dtype=None) -> np.ndarray:
+    """``x`` (numpy, list or tensor on any device) as a host numpy array."""
+    if torch.is_tensor(x):
+        x = x.detach().cpu().numpy()
+    return np.asarray(x, dtype)

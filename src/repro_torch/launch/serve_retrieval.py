@@ -9,7 +9,7 @@ Run:  PYTHONPATH=src python -m repro_torch.launch.serve_retrieval \
           [--scheduler [--deadline-ms MS] [--no-degrade] \
            [--high-watermark 32] [--low-watermark 4] \
            [--degrade-window-ms 50] [--restore-window-ms 500]] \
-          [--tenants N [--shadow]]
+          [--tenants N [--shadow]] [--mine N] [--metrics-out FILE]
 
 Counterpart of ``repro.launch.serve_retrieval`` for the single-device
 index paths: builds a class-structured gallery (data.pairs), learns the
@@ -46,9 +46,15 @@ independent stacks. ``--shadow`` registers this run's L as a shadow arm
 behind tenant 1, mirrors the tenant traffic through it, reports overlap
 and latency deltas, and promotes it live.
 
-The reference's mining, tracing and sharding flags (``--backend``,
-``--data``, ``--mine``, ``--metrics-out``, ``--trace-out``,
-``--trace-sample``) are not ported.
+``--mine N`` runs a ``HardPairMiner`` sweep for N anchors against the
+live engine after the traffic run (under ``--scheduler`` through the
+front end's ``mining`` class) and reports its yield and the engine's
+QPS over the mining queries. ``--metrics-out FILE`` writes the run's
+final MetricsRegistry snapshot, which ``launch/metrics_report.py``
+renders.
+
+The reference's tracing and sharding flags (``--backend``, ``--data``,
+``--trace-out``, ``--trace-sample``) are not ported.
 """
 
 from __future__ import annotations
@@ -63,6 +69,7 @@ from repro_torch.core import dml
 from repro_torch.core.ps.trainer import train_dml_single
 from repro_torch.data import pairs as pairdata
 from repro_torch.device import resolve_device
+from repro_torch.mining import HardPairMiner, MinerConfig
 from repro_torch.obs import percentile
 from repro_torch.serve import (ExactIndex, IVFIndex, IVFPQIndex,
                                MicroBatcher, MutableIndex, RequestScheduler,
@@ -158,6 +165,14 @@ def main(argv=None):
                          "shadow arm behind tenant 1, mirror the tenant "
                          "traffic through it, report overlap/latency "
                          "deltas, and promote it live")
+    ap.add_argument("--mine", type=int, default=0,
+                    help="after the traffic run, mine hard pairs for "
+                         "this many anchors against the live serving "
+                         "engine (shares its cache and stats) and "
+                         "report yield + mining QPS")
+    ap.add_argument("--metrics-out", default=None,
+                    help="write the final MetricsRegistry snapshot (JSON) "
+                         "here — launch/metrics_report.py renders it")
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda; cpu runs the "
                          "kernel's plain version)")
@@ -296,6 +311,22 @@ def main(argv=None):
         if len(known):
             purity.append(float(np.mean(labels[known] == labels[qid])))
     wall = time.perf_counter() - t0
+
+    # --- hard-pair mining against the live engine ------------------------
+    # before front.close(): under --scheduler the miner rides the front
+    # end's ``mining`` priority class, so the front door must still be
+    # open. k_neighbors is sized so the mined k equals --k — the
+    # scheduler rejects k above the engine's k_top.
+    mine_stats = None
+    if args.mine > 0:
+        use_front = args.scheduler and args.k >= 3
+        miner = HardPairMiner(
+            engine, feats, labels,
+            MinerConfig(k_neighbors=(args.k - 1 if use_front
+                                     else max(args.k, 5))),
+            frontend=front if use_front else None)
+        mine_stats = miner.mine(n_queries=args.mine, seed=2).stats
+        mine_stats["via_scheduler"] = use_front
     front.close()
 
     lat_ms = np.sort(np.asarray(lat)) * 1e3
@@ -330,6 +361,20 @@ def main(argv=None):
                    else ()):
             print(f"    level {tr.level_from} -> {tr.level_to}: "
                   f"{tr.reason}")
+
+    if mine_stats is not None:
+        ms = mine_stats
+        via = ("scheduler mining class" if ms["via_scheduler"]
+               else "direct engine path")
+        print(f"mining ({via}): {ms['n_pairs']} hard pairs from "
+              f"{ms['n_queries']} anchors (neg yield "
+              f"{ms['neg_yield']:.2f}/q, pos yield "
+              f"{ms['pos_yield']:.2f}/q, {ms['n_semi_hard']} semi-hard, "
+              f"{ms['n_fallback_neg']} fallback, {ms['n_dropped']} shed "
+              f"by the front end) in "
+              f"{ms['mine_busy_s']:.2f}s device time — engine now at "
+              f"{ms['engine_qps']:.0f} qps over "
+              f"{engine.stats()['n_device_queries']} device queries")
 
     # --- mutation lifecycle ----------------------------------------------
     if args.mutable and args.churn > 0:
@@ -398,6 +443,11 @@ def main(argv=None):
             router.promote("t1")
             print(f"  promoted shadow -> t1 live "
                   f"(fingerprint {router.tenant('t1').fingerprint})")
+
+    # --- obs export ------------------------------------------------------
+    if args.metrics_out:
+        engine.registry.write_snapshot(args.metrics_out)
+        print(f"metrics snapshot -> {args.metrics_out}")
 
 
 if __name__ == "__main__":

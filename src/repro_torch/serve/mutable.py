@@ -51,7 +51,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from repro_torch.device import resolve_device
+from repro_torch.device import host_array, resolve_device
 from repro_torch.kernels._dispatch import BIG, sort_by_distance_id
 from repro_torch.kernels.metric_topk import metric_topk, project_gallery
 from repro_torch.serve import scan
@@ -61,13 +61,6 @@ from repro_torch.serve.pq import IVFPQIndex, _t_term
 
 _DELTA_MIN_CAP = 256    # delta buffer floor; grows by doubling, so the
                         # delta scan sees O(log growth) distinct shapes
-
-
-def _host(x, dtype) -> np.ndarray:
-    """``x`` (numpy, list or tensor on any device) as a host numpy array."""
-    if torch.is_tensor(x):
-        x = x.detach().cpu().numpy()
-    return np.asarray(x, dtype)
 
 
 def _delta_cap(n: int) -> int:
@@ -166,7 +159,7 @@ class MutableIndex:
         self.L = torch.as_tensor(L, dtype=torch.float32).to(
             base.device).contiguous()
         self.base_ids = (np.arange(M, dtype=np.int64) if ids is None
-                         else _host(ids, np.int64).copy())
+                         else host_array(ids, np.int64).copy())
         if self.base_ids.shape != (M,):
             raise ValueError(f"ids shape {self.base_ids.shape} != ({M},)")
         if len(np.unique(self.base_ids)) != M:
@@ -174,10 +167,13 @@ class MutableIndex:
         self.raw_base: Optional[np.ndarray] = None
         self.raw_delta: Optional[np.ndarray] = None
         if raw is not None:
-            raw = _host(raw, np.float32)
+            # rows from a device tensor arrive as a fresh host array;
+            # host rows are copied, so the caller's array is never aliased
+            fresh = torch.is_tensor(raw) and raw.device.type != "cpu"
+            raw = host_array(raw, np.float32)
             if raw.shape[0] != M:
                 raise ValueError(f"raw rows {raw.shape[0]} != base size {M}")
-            self.raw_base = raw.copy()
+            self.raw_base = raw if fresh else raw.copy()
             self.raw_delta = np.zeros((0, raw.shape[1]), np.float32)
         self._reset_delta()
         self._next_id = int(self.base_ids.max()) + 1 if M else 0
@@ -218,7 +214,7 @@ class MutableIndex:
             raise ValueError(f"unknown base {base!r} (exact|ivf|ivfpq)")
         b = builders[base](L, gallery, device=dev, **base_kwargs)
         return cls(b, L, ids=ids,
-                   raw=_host(gallery, np.float32) if retain_raw else None,
+                   raw=gallery if retain_raw else None,
                    base_kwargs=base_kwargs,
                    auto_compact_delta=auto_compact_delta,
                    auto_compact_dead=auto_compact_dead)
@@ -389,7 +385,7 @@ class MutableIndex:
         if ids is None:
             ids = np.arange(self._next_id, self._next_id + n,
                             dtype=np.int64)
-        ids = np.atleast_1d(_host(ids, np.int64))
+        ids = np.atleast_1d(host_array(ids, np.int64))
         if ids.shape != (n,):
             raise ValueError(f"ids shape {ids.shape} != ({n},)")
         if (ids < 0).any():
@@ -407,7 +403,7 @@ class MutableIndex:
                                           np.zeros(n, bool)])
         if self.raw_base is not None:
             self.raw_delta = np.concatenate([self.raw_delta,
-                                             _host(rows, np.float32)])
+                                             host_array(rows, np.float32)])
         for j, e in enumerate(ids.tolist()):
             old = self._loc.get(e)
             if old is not None:
@@ -434,7 +430,7 @@ class MutableIndex:
     def delete(self, ids) -> None:
         """Tombstone rows by external id. Unknown ids raise KeyError (and
         the batch is rejected whole); one call = one version bump."""
-        ids = np.atleast_1d(_host(ids, np.int64))
+        ids = np.atleast_1d(host_array(ids, np.int64))
         if len(np.unique(ids)) != len(ids):
             raise ValueError("duplicate ids in delete batch")
         missing = [int(e) for e in ids.tolist() if e not in self._loc]
@@ -568,15 +564,15 @@ class MutableIndex:
         """Set the mutation state (a snapshot's or another package's)
         over the wrapped base: masks, the delta rows, the id map, the
         counters and the version."""
-        self.dead_base = _host(dead_base, bool).copy()
-        self.delta_ids = _host(delta_ids, np.int64).copy()
-        self.dead_delta = _host(dead_delta, bool).copy()
+        self.dead_base = host_array(dead_base, bool).copy()
+        self.delta_ids = host_array(delta_ids, np.int64).copy()
+        self.dead_delta = host_array(dead_delta, bool).copy()
         n = len(self.delta_ids)
         self._grow_delta(n)
-        self._delta_gp[:n] = torch.as_tensor(_host(delta_gp, np.float32))
-        self._delta_gn[:n] = torch.as_tensor(_host(delta_gn, np.float32))
+        self._delta_gp[:n] = torch.as_tensor(host_array(delta_gp, np.float32))
+        self._delta_gn[:n] = torch.as_tensor(host_array(delta_gn, np.float32))
         if raw_delta is not None:
-            self.raw_delta = _host(raw_delta, np.float32).copy()
+            self.raw_delta = host_array(raw_delta, np.float32).copy()
         lb = np.flatnonzero(~self.dead_base)
         ld = np.flatnonzero(~self.dead_delta)
         self._loc = _slot_map("base", self.base_ids[lb], lb)

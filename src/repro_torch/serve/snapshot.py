@@ -32,11 +32,11 @@ import os
 import numpy as np
 import torch
 
-from repro_torch.device import resolve_device
+from repro_torch.device import host_array, resolve_device
 from repro_torch.serve import scan
 from repro_torch.serve.index import ExactIndex
 from repro_torch.serve.ivf import IVFIndex
-from repro_torch.serve.mutable import MutableIndex, _host
+from repro_torch.serve.mutable import MutableIndex
 from repro_torch.serve.pq import IVFPQIndex, ProductQuantizer
 
 FORMAT = 1
@@ -46,7 +46,7 @@ MANIFEST = "manifest.json"
 def l_fingerprint(L) -> str:
     """Stable short id of a metric factor: sha256 of its C-contiguous f32
     bytes (the same digest the reference computes)."""
-    a = np.ascontiguousarray(_host(L, np.float32))
+    a = np.ascontiguousarray(host_array(L, np.float32))
     return hashlib.sha256(a.tobytes()).hexdigest()[:16]
 
 
@@ -224,7 +224,7 @@ def load_index(snapshot_dir: str, *, expect_L=None, registry=None,
         # shape first: a rank-mismatched factor can never fingerprint-
         # match, and the structural diagnosis is the useful one
         saved_shape = manifest.get("l_shape")
-        expect_shape = list(_host(expect_L, np.float32).shape)
+        expect_shape = list(host_array(expect_L, np.float32).shape)
         if saved_shape is not None and saved_shape != expect_shape:
             raise ValueError(
                 f"snapshot metric factor has shape "

@@ -57,14 +57,13 @@ from typing import Dict, Optional, Sequence
 import numpy as np
 import torch
 
-from repro_torch.device import resolve_device
+from repro_torch.device import host_array, resolve_device
 from repro_torch.kernels.metric_topk import project_gallery
 from repro_torch.obs import MetricsRegistry, Tracer, index_memory
 from repro_torch.serve.clock import Clock, SystemClock
 from repro_torch.serve.engine import RetrievalEngine
 from repro_torch.serve.index import ExactIndex
 from repro_torch.serve.ivf import IVFIndex
-from repro_torch.serve.mutable import _host
 from repro_torch.serve.pq import IVFPQIndex
 from repro_torch.serve.snapshot import l_fingerprint, load_index, save_index
 
@@ -98,7 +97,7 @@ class Tenant:
     def __init__(self, name, L, backend, build_kwargs, k_top, cache_size,
                  priority, deadline_s):
         self.name = name
-        self.L = _host(L, np.float32)
+        self.L = host_array(L, np.float32)
         self.fingerprint = l_fingerprint(self.L)
         self.backend = backend
         self.build_kwargs = dict(build_kwargs)
@@ -132,7 +131,7 @@ class ShadowArm:
                  "n_rows", "live_s", "shadow_s")
 
     def __init__(self, L, sample_rate: float):
-        self.L = _host(L, np.float32)
+        self.L = host_array(L, np.float32)
         self.fingerprint = l_fingerprint(self.L)
         self.sample_rate = float(sample_rate)
         self.engine: Optional[RetrievalEngine] = None
@@ -341,7 +340,7 @@ class TenantRouter:
         return t
 
     def _check_factor(self, L) -> np.ndarray:
-        L = _host(L, np.float32)
+        L = host_array(L, np.float32)
         if L.ndim != 2 or L.shape[1] != self.d_in:
             raise TenantError(f"L must be (d_out, {self.d_in}), got "
                               f"shape {L.shape}")

@@ -2,8 +2,11 @@
 metric_topk, dml_pair (forward and gradients), pairwise_sqdist, ivf_scan
 and pq_adc (bit for bit), the IVF / IVFPQ indexes on the card,
 flash_attention and ssd_scan (bf16 and f32), a reduced zamba2 backbone
-through both, a reduced gemma-7b at head dim 256, and the mutable
-gallery (card against the CPU port, and its snapshot round trip). Top-k
+through both, a reduced gemma-7b at head dim 256, the mutable
+gallery (card against the CPU port, and its snapshot round trip) and
+the closed loop (mined pairs on the card equal to the CPU's, the
+stream's gather on the card equal to the host's, a small loop's
+launches). Top-k
 widths past the 256-entry shared lists (the wide path), pq_adc tables
 taken in chunks (S 200, 1000) and pairwise_sqdist past 65535 tiles of yp
 rows are among the shapes; so are ivf_scan's plan (made on the card, against
@@ -1025,3 +1028,98 @@ def test_gemma_on_the_card_launches_flash_at_head_dim_256(cuda_device):
     torch.cuda.synchronize()
     assert flash_attention.launches - before == cfg.n_layers
     torch.testing.assert_close(h, ref, rtol=1e-4, atol=1e-5)
+
+
+def _integer_table(n=2000, d=32, classes=20, seed=0):
+    """Integer rows and factor: every projection, norm and distance is an
+    exact integer in f32 and in the kernel's 3xTF32 products alike (each
+    operand fits a TF32 mantissa), so the card and the CPU rank the rows
+    identically, ties going to the smaller id on both."""
+    rng = np.random.RandomState(seed)
+    x = rng.randint(-3, 4, (n, d)).astype(np.float32)
+    y = rng.randint(0, classes, n).astype(np.int32)
+    L = rng.randint(-2, 3, (8, d)).astype(np.float32)
+    return x, y, L
+
+
+@pytest.mark.cuda
+def test_mined_pairs_on_the_card_equal_the_cpu(cuda_device):
+    """HardPairMiner over an exact index on the card (metric_topk) mines
+    the pairs it mines over the same index on the CPU (its plain
+    version): equal neighborhoods, one host filter."""
+    from repro_torch.mining import HardPairMiner, MinerConfig
+    from repro_torch.serve import ExactIndex, RetrievalEngine
+    x, y, L = _integer_table()
+    cfg = MinerConfig(k_neighbors=20, max_negatives=2, max_positives=3)
+    results = []
+    for dev in ("cpu", cuda_device):
+        table = torch.from_numpy(x).to(dev)
+        engine = RetrievalEngine(ExactIndex.build(L, table, device=dev),
+                                 k_top=21)
+        before = metric_topk_fused.launches
+        miner = HardPairMiner(engine, table, y, cfg, warmup=False)
+        results.append(miner.mine(n_queries=600, seed=0))
+        if dev != "cpu":
+            assert metric_topk_fused.launches > before
+    cpu, card = results
+    assert cpu.n_pairs > 0
+    for key in ("a", "b", "sim"):
+        np.testing.assert_array_equal(card.pairs[key], cpu.pairs[key])
+
+
+@pytest.mark.cuda
+def test_mined_stream_gathers_on_the_card_as_on_the_host(cuda_device):
+    """MinedPairSource with its table on the card gathers each batch
+    there; the batches equal the host gather's bit for bit."""
+    from repro_torch.mining import CurriculumSchedule, MinedPairSource
+    x, y, _ = _integer_table()
+    x = x + np.random.RandomState(1).rand(*x.shape).astype(np.float32)
+    rng = np.random.RandomState(2)
+    pool = {"a": rng.randint(0, len(x), 500), "b": rng.randint(0, len(x),
+                                                               500),
+            "sim": rng.randint(0, 2, 500)}
+    sched = CurriculumSchedule(warmup_steps=1, ramp_steps=2,
+                               max_mined_frac=0.6)
+    streams = []
+    for dev in ("cpu", cuda_device):
+        src = MinedPairSource(x, y, sched, device=dev)
+        src.set_pool(pool)
+        streams.append(src.worker_streams(2, 256, seed=3))
+    for _ in range(5):
+        for host, card in zip(*streams):
+            bh, bc = next(host), next(card)
+            for key in ("xs", "ys", "sim"):
+                assert bc[key].device.type == "cuda"
+                assert torch.equal(bc[key].cpu(), bh[key])
+
+
+@pytest.mark.cuda
+def test_closed_loop_on_the_card_launches_its_kernels(cuda_device):
+    """A small closed loop on the card: the PS steps launch dml_pair (one
+    a worker a step), the mining sweeps metric_topk; one version bump a
+    refresh; finite losses."""
+    from repro_torch.core import dml
+    from repro_torch.core.ps import sync
+    from repro_torch.core.ps.trainer import DMLTrainConfig
+    from repro_torch.mining import (ClosedLoopConfig, ClosedLoopTrainer,
+                                    CurriculumSchedule, MinerConfig)
+    x, y, _ = _integer_table()
+    x = x / 3.0
+    cfg = ClosedLoopConfig(
+        train=DMLTrainConfig(dml=dml.DMLConfig(feat_dim=32, proj_dim=8),
+                             ps=sync.PSConfig(n_workers=2),
+                             batch_size=128, steps=20, lr=1e-2,
+                             log_every=5),
+        miner=MinerConfig(k_neighbors=10),
+        schedule=CurriculumSchedule(warmup_steps=2, ramp_steps=4,
+                                    max_mined_frac=0.5),
+        refresh_every=8, mine_queries=256)
+    clt = ClosedLoopTrainer(cfg, x, y, device=cuda_device)
+    v0 = clt.engine.index.version
+    n_pair, n_topk = dml_pair_fused.launches, metric_topk_fused.launches
+    _, hist = clt.run()
+    torch.cuda.synchronize()
+    assert dml_pair_fused.launches - n_pair == 2 * 20
+    assert metric_topk_fused.launches > n_topk
+    assert clt.engine.index.version - v0 == clt.n_refreshes - 1 == 2
+    assert np.isfinite([h["loss"] for h in hist["steps"]]).all()

@@ -28,7 +28,9 @@ from repro_torch.data import pairs
 from repro_torch.device import resolve_device
 from repro_torch.configs import get_config
 from repro_torch.convert import model_params_from_jax
-from repro_torch.launch import serve_embeddings, serve_retrieval
+from repro_torch.launch import serve_embeddings, serve_retrieval, train_mined
+from repro_torch.mining import (ClosedLoopConfig, ClosedLoopTrainer,
+                                MinedPairSource)
 from repro_torch.models import Model
 from repro_torch.serve import (ExactIndex, IVFIndex, IVFPQIndex,
                                MutableIndex, TenantRouter, load_index,
@@ -138,6 +140,15 @@ _ENTRY_POINTS = {
         itml.ITMLConfig(feat_dim=8, sweeps=1), p["xs"], p["ys"], p["sim"]),
     "kiss.fit": lambda x, y, p: kiss.fit(
         kiss.KISSConfig(feat_dim=8), p["xs"], p["ys"], p["sim"]),
+    "MinedPairSource": lambda x, y, p: MinedPairSource(x, y),
+    "ClosedLoopTrainer": lambda x, y, p: ClosedLoopTrainer(
+        ClosedLoopConfig(train=DMLTrainConfig(
+            dml=_CFG, ps=sync.PSConfig(n_workers=1), steps=1),
+            refresh_every=1, mine_queries=4), x, y),
+    "cli train_mined": lambda x, y, p: train_mined.main(
+        ["--n-samples", "100", "--steps", "1"]),
+    "cli --mine": lambda x, y, p: serve_retrieval.main(
+        ["--mine", "8", "--train-steps", "0", "--gallery-size", "100"]),
 }
 
 
