@@ -285,14 +285,50 @@ exit, and nothing falls back:
                 beside its plain version, its bound and (flash) the library
                 call, then flash_attention at gemma-7b's shape (B 1, T
                 8192, 16 heads of 256, causal, bf16) beside
-                scaled_dot_product_attention, and prints the ``kernels``
-                line (all seven kernels; flash_attention twice);
- 12. the last line: ``{"ok": true, "device": {...}}``.
+                scaled_dot_product_attention, and makes the ``kernels``
+                line's entries (all seven kernels; flash_attention
+                twice; the line itself is printed after phase 15);
+ 12. decode  — zamba2-2.7b at full width and depth on phase 10's weights:
+                ``launch/serve.generate`` (prefill by decode over a
+                16-token prompt, then 32 greedy tokens, B 4) at f32
+                activations, every step's logits held against ``apply``
+                on the same 47 tokens through the kernels (54 ssd_scan
+                and 9 flash_attention launches) and plain, max |a - b| /
+                max |b| within 1e-4; again with the shared block's window
+                cut to 16 (the ring of 16 slots wraps); then the loop at
+                the config's bf16 activations, timed (prefill ms,
+                ms/token, tokens/s, peak memory), and a 7-step loop under
+                the profiler (device busy a step, operations a step).
+                Decode launches none of the port's kernels (checked);
+ 13. gemma    — gemma-7b decode at full width and depth (28 layers, 34 GB
+                of f32 weights; the deepest cut that fits if the card
+                lacks room, listed), B 4, 16 + 32 tokens, f32, held
+                against ``apply`` (28 flash_attention launches) as in 12;
+ 14. training — smollm-135m at full width and depth through
+                ``launch/train.py``'s loop (``train.build``,
+                ``train_loop``; AdamW, bf16 activations, f32 weights, B 8,
+                T 512, 30 steps): on the full-vocabulary stream (the loss
+                logged), then on ``test_system.py``'s stream (ids below
+                512), whose mean loss over the last 5 steps must fall
+                under 0.85x the first 5; a checkpoint at step 15
+                (``build/checkpoints``, deleted after), restored and
+                resumed bit-exact against the run that went on; ms/step,
+                tokens/s, peak memory, one step under the profiler;
+ 15. training — zamba2-2.7b at full width cut to one group (6 mamba2
+                layers and the shared block), f32, remat, B 2, T 512, 10
+                steps on the same stream: the first step's loss within
+                1e-5 of the CE of ``apply`` through the kernels on that
+                batch, every leaf updated and finite, the loss falling;
+                ms/step, peak memory. Prints the decode and training
+                numbers as a JSON line, then the ``kernels`` line, the
+                backbone kernels' entries with their launches in 12-15;
+ 16. the last line: ``{"ok": true, "device": {...}}``.
 
 Every launch count is set to 0 just before a main-path phase (4, 5, 5a,
 5c, 6, each index of 8, each serving run of 8b, each burst of 8c, 8d's
 tenant traffic, 8e's main run and each of its cuts, gemma's embed_pool
-in 9, and 10) and read just after
+in 9, 10, each decode and each apply beside it in 12 and 13, and each
+training run and apply in 14 and 15) and read just after
 (5a launches no kernel: its gradient is the reference's plain autograd
 product);
 comparison launches come after the reading (or, for phase 9, before the
@@ -368,7 +404,10 @@ from repro_torch.configs.dml_paper import IMNET_1M, MNIST  # noqa: E402
 from repro_torch.core import dml, itml, kiss, xing2002  # noqa: E402
 from repro_torch.core.dml import init_params  # noqa: E402
 from repro_torch.core.eval_tasks import knn_accuracy, knn_vote  # noqa: E402
-from repro_torch.core.losses import dml_pair_loss  # noqa: E402
+from repro_torch.checkpoint import (restore_checkpoint,  # noqa: E402
+                                    save_checkpoint)
+from repro_torch.core.losses import (dml_pair_loss,  # noqa: E402
+                                     softmax_cross_entropy)
 from repro_torch.core.ps import simulator, sync  # noqa: E402
 from repro_torch.core.ps.trainer import (  # noqa: E402
     DMLTrainConfig, make_worker_streams, stack_worker_streams,
@@ -403,7 +442,9 @@ from repro_torch.kernels.ssd_chunk import (  # noqa: E402
 from repro_torch.kernels.ssd_chunk import cases as ssd_cases  # noqa: E402
 from repro_torch.kernels.ssd_chunk.cases import (  # noqa: E402
     BF16_ROUND, SSD_TOL)
-from repro_torch.launch import serve_embeddings  # noqa: E402
+from repro_torch.data.tokens import token_stream  # noqa: E402
+from repro_torch.launch import serve, serve_embeddings, train  # noqa: E402
+from repro_torch.launch import steps as steps_lib  # noqa: E402
 from repro_torch.mining import (ClosedLoopConfig,  # noqa: E402
                                 ClosedLoopTrainer, CurriculumSchedule,
                                 HardPairMiner, MinerConfig)
@@ -421,6 +462,7 @@ from repro_torch.serve import (DeadlineExceededError,  # noqa: E402
 from repro_torch.serve import pq as pq_mod  # noqa: E402
 from repro_torch.serve.ivf import probe  # noqa: E402
 from repro_torch.serve.scan import project_queries  # noqa: E402
+from repro_torch.tree import tree_leaves, tree_map  # noqa: E402
 
 RTOL = ATOL = 1e-5
 PEAK_F32_FLOPS = 67e12          # H100 SXM, f32 FFMA outside the tensor cores
@@ -1768,14 +1810,11 @@ def step_profile(fn, step_ms, top=6):
     return {"busy_ms": round(busy, 4), "by_kernel": out}
 
 
-def profiled(fn, what, top=6):
-    """Run ``fn`` once under torch.profiler and log where its time went:
-    the host time of this very call, the device's busy time as the union
-    of its kernel and copy intervals over every stream (kernels on
-    several streams overlap, so their sum can pass the busy time), the
-    device's idle share of the host time, and device ms by kernel (the
-    largest ``top``, summed over streams). Returns (fn's result, host
-    seconds of the call)."""
+def _profile_busy(fn):
+    """(fn's result, host s, device busy ms as the union of kernel and
+    copy intervals over all streams, device operations, the profiler)
+    of one call under torch.profiler; busy None when it records no
+    device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -1792,12 +1831,24 @@ def profiled(fn, what, top=6):
         if b > end:
             busy_us += b - max(a, end)
             end = b
+    return out, host, (busy_us / 1e3 if spans else None), len(spans), prof
+
+
+def profiled(fn, what, top=6):
+    """Run ``fn`` once under torch.profiler and log where its time went:
+    the host time of this very call, the device's busy time as the union
+    of its kernel and copy intervals over every stream (kernels on
+    several streams overlap, so their sum can pass the busy time), the
+    device's idle share of the host time, and device ms by kernel (the
+    largest ``top``, summed over streams). Returns (fn's result, host
+    seconds of the call)."""
+    out, host, busy, _, prof = _profile_busy(fn)
     parts = _by_kernel(prof)
-    if not spans or parts is None:
+    if busy is None or parts is None:
         log(f"{what} on the card: {1e3 * host:.3f} ms (host clock); "
             f"device time not measured")
         return out, host
-    busy, summed = busy_us / 1e3, sum(parts.values())
+    summed = sum(parts.values())
     top_parts = dict(sorted(parts.items(), key=lambda kv: -kv[1])[:top])
     top_parts["other"] = round(summed - sum(top_parts.values()), 4)
     log(f"{what} on the card, profiled: {1e3 * host:.3f} ms (host clock, "
@@ -4490,6 +4541,333 @@ def time_backbone_kernels(model, tokens, launches, errs):
     return entries
 
 
+# -- decode and backbone training (phases 12-15) -----------------------------
+
+# decode: B 4, a 16-token prompt and 32 generated tokens (max_seq 48); the
+# ring cut: the shared block's window at 16 slots, which wrap three times
+# in 48 positions
+DECODE_B, DECODE_PROMPT, DECODE_GEN = 4, 16, 32
+DECODE_RING = 16
+# decode's logits at every teacher-forced position against apply on the
+# same tokens (f32), as max |a - b| / max |b|: decode runs the exact
+# recurrence and the cache's naive scores, apply the SSD in chunks (the
+# kernel's 64 or the plain form's) and streamed or naive attention, so
+# only summation orders differ: the full-depth forward's bound
+DECODE_REL_BOUND = HIDDEN_REL_BOUND
+# gemma-7b decode at full depth (34 GB of f32 weights) if the card has room
+# for it and this much beside it
+GEMMA_HEADROOM_GB = 6.0
+# training: smollm-135m at full width and depth through launch/train.py's
+# loop (train_4k cut in batch and length), a checkpoint at LM_RESUME_AT;
+# zamba2-2.7b at full width cut to one group of 6 mamba2 layers and the
+# shared block, remat on, f32 (its first step's loss held to apply through
+# the kernels within ZTRAIN_LOSS_REL)
+LM_ARCH = "smollm-135m"
+LM_B, LM_T, LM_STEPS, LM_RESUME_AT = 8, 512, 30, 15
+LM_LR = 1e-3
+# test_system.py's stream (its vocabulary of 512 ids) for the loss-fall
+# check: over the full 49,152 ids each id comes up about 2.5 times in 30
+# steps of 4,096 tokens, and the loss stays within a few percent
+LM_DATA_VOCAB = 512
+ZTRAIN_LAYERS, ZTRAIN_B, ZTRAIN_T, ZTRAIN_STEPS = 6, 2, 512, 10
+ZTRAIN_LR = 1e-3
+ZTRAIN_LOSS_REL = 1e-5
+CKPT_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        "checkpoints")
+
+
+def _rel(a, b):
+    return float((a.float() - b.float()).abs().max() / b.float().abs().max())
+
+
+def _hold_decode(model, prompts, what):
+    """``launch/serve.generate`` (prefill by decode, then greedy) in f32,
+    every step's logits held against ``apply`` on the prompt and the
+    generated tokens, through the kernels and with ``plain=True``.
+    Decode launches no kernel of ours; apply's launches are counted."""
+    cfg = model.cfg
+    _reset_counts()
+    out = serve.generate(model, prompts, DECODE_GEN, keep_logits=True)
+    assert ssd_scan.launches == 0 and flash_attention.launches == 0, \
+        "decode launched a backbone kernel"
+    seq = torch.cat([prompts, out["tokens"]], dim=1)[:, :-1]
+    steps = out["step_logits"]
+    assert steps.shape == (prompts.shape[0], seq.shape[1], cfg.vocab_size)
+    assert bool(torch.isfinite(steps).all())
+    with torch.inference_mode():
+        _reset_counts()
+        full_k, _ = model.apply({"tokens": seq})
+        torch.cuda.synchronize()
+        launches = {"ssd_scan": ssd_scan.launches,
+                    "flash_attention": flash_attention.launches}
+        rel_k = _rel(steps, full_k)
+        del full_k
+        full_p, _ = model.apply({"tokens": seq}, plain=True)
+        rel_p = _rel(steps, full_p)
+        del full_p
+    hybrid = cfg.family == "hybrid"
+    expect = {"ssd_scan": cfg.n_layers if hybrid else 0,
+              "flash_attention": (cfg.n_layers // cfg.shared_attn_every
+                                  if hybrid else cfg.n_layers)}
+    assert launches == expect, f"{what}: apply launched {launches}"
+    per_tok = 1e3 * out["decode_s"] / out["decode_steps"]
+    log(f"{what}: decode of B {prompts.shape[0]}, {prompts.shape[1]} + "
+        f"{DECODE_GEN} tokens in f32 ({1e3 * out['prefill_s']:.1f} ms "
+        f"prefill, {per_tok:.2f} ms/token); logits at all {seq.shape[1]} "
+        f"positions against apply, max |a - b| / max |b|: through the "
+        f"kernels {rel_k:.3e} ({launches}), plain {rel_p:.3e} (bound "
+        f"{DECODE_REL_BOUND})")
+    assert rel_k <= DECODE_REL_BOUND and rel_p <= DECODE_REL_BOUND, \
+        f"{what}: decode left apply"
+    return {"rel_err_kernel": rel_k, "rel_err_plain": rel_p,
+            "apply_launches": launches, "f32_prefill_ms":
+            1e3 * out["prefill_s"], "f32_ms_per_token": per_tok}
+
+
+def phase_decode_zamba(model):
+    """Phase 12: zamba2-2.7b decode at full width and depth on the
+    service's weights. f32 activations: B 4, 16 + 32 tokens held against
+    apply (kernels and plain), then with the shared block's window cut to
+    16 (the ring wraps); then ``launch/serve.py``'s loop at the config's
+    bf16 activations, timed, then once under the profiler."""
+    t_phase = time.perf_counter()
+    cfg = model.cfg.replace(dtype="float32", ssm_tile_dtype="float32")
+    params = model.param_tree()
+    prompts = torch.from_numpy(np.random.RandomState(6).randint(
+        0, cfg.vocab_size, (DECODE_B, DECODE_PROMPT))).to(DEV)
+    res = {}
+    for name, c in (("window", cfg),
+                    ("ring", cfg.replace(shared_attn_window=DECODE_RING))):
+        m32 = Model(c, device=DEV, params=params)
+        res[name] = _hold_decode(
+            m32, prompts, f"{BACKBONE} decode, shared window "
+            f"{c.shared_attn_window} (cache of "
+            f"{attention.cache_len(shared_cfg(c), DECODE_PROMPT + DECODE_GEN)}"
+            f" slots)")
+        del m32
+    # the serving loop at bf16 activations: one short warm call, then timed
+    serve.generate(model, prompts[:, :4], 4)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    out = serve.generate(model, prompts, DECODE_GEN)
+    assert ssd_scan.launches == 0 and flash_attention.launches == 0
+    assert bool(torch.isfinite(out["logits"]).all())
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    n_steps = DECODE_PROMPT + DECODE_GEN - 1
+    per_tok = 1e3 * out["decode_s"] / out["decode_steps"]
+    # under the profiler, a short loop (4 + 4 tokens: 7 steps; the
+    # profiler's own processing grows with its events, about 3,800 a step)
+    prof_steps = 7
+    _, host, busy, n_ops, _ = _profile_busy(
+        lambda: serve.generate(model, prompts[:, :4], 4))
+    timing = {"prefill_ms": 1e3 * out["prefill_s"], "ms_per_token":
+              per_tok, "tokens_per_s": DECODE_B * 1e3 / per_tok,
+              "peak_gb": peak, "steps": n_steps,
+              "device_ops_per_step": n_ops / prof_steps,
+              "profiled_host_ms": 1e3 * host, "busy_ms": busy}
+    if busy is None:
+        log("decode loop: device time not measured")
+    else:
+        timing["busy_share_profiled"] = busy / (1e3 * host)
+        timing["busy_ms_per_step"] = busy / prof_steps
+        timing["busy_share"] = busy / prof_steps / per_tok
+        log(f"decode loop under the profiler ({prof_steps} steps): "
+            f"{1e3 * host:.1f} ms host, device busy {busy:.1f} ms "
+            f"({timing['busy_share_profiled']:.1%} of the profiled call; "
+            f"{timing['busy_ms_per_step']:.3f} ms a step = "
+            f"{timing['busy_share']:.1%} of the unprofiled {per_tok:.2f} "
+            f"ms/token); {n_ops / prof_steps:.0f} device operations a "
+            f"step")
+    log(f"{BACKBONE} serving loop ({model.cfg.dtype} activations, f32 "
+        f"weights), B {DECODE_B}: prefill {timing['prefill_ms']:.1f} ms for "
+        f"{DECODE_PROMPT} tokens, {per_tok:.2f} ms/token, "
+        f"{timing['tokens_per_s']:.1f} tokens/s, peak memory {peak:.2f} GB;"
+        f" phase {time.perf_counter() - t_phase:.1f} s")
+    return {**res, "serve_bf16": timing}
+
+
+def phase_decode_gemma():
+    """Phase 13: gemma-7b decode at full width (16 heads of 256, vocab
+    256,000), f32 weights and activations, at full depth where the card
+    has room (else the deepest cut that fits, listed): B 4, 16 + 32
+    tokens held against apply."""
+    t_phase = time.perf_counter()
+    cfg = get_config(GEMMA).replace(dtype="float32")
+    d, f, V = cfg.d_model, cfg.d_ff, cfg.vocab_size
+    hd = cfg.n_heads * cfg.dim_per_head
+    layer_gb = 4 * (2 * d * hd + 2 * d * cfg.kv_heads * cfg.dim_per_head
+                    + 3 * d * f + 2 * d) / 1e9
+    free_gb = torch.cuda.mem_get_info()[0] / 1e9
+    fit = int((free_gb - 4 * V * d / 1e9 - GEMMA_HEADROOM_GB) // layer_gb)
+    layers = max(1, min(cfg.n_layers, fit))
+    if layers < cfg.n_layers:
+        log(f"{GEMMA}: {free_gb:.1f} GB free holds {layers} of "
+            f"{cfg.n_layers} layers: depth cut")
+        cfg = cfg.replace(n_layers=layers)
+    model = Model(cfg, device=DEV, seed=0)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"{GEMMA}: {cfg.n_layers} layers, {n_params / 1e9:.3f}B parameters "
+        f"({4 * n_params / 1e9:.1f} GB f32) from the seeded init in "
+        f"{time.perf_counter() - t_phase:.1f}s")
+    prompts = torch.from_numpy(np.random.RandomState(7).randint(
+        0, V, (DECODE_B, DECODE_PROMPT))).to(DEV)
+    torch.cuda.reset_peak_memory_stats()
+    res = _hold_decode(model, prompts, f"{GEMMA} decode")
+    res.update(layers=cfg.n_layers, peak_gb=torch.cuda.max_memory_allocated()
+               / 1e9)
+    log(f"{GEMMA} decode phase: peak memory {res['peak_gb']:.2f} GB; phase "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def _equal_trees(a, b):
+    return all(torch.equal(x, y) for x, y in zip(tree_leaves(a),
+                                                  tree_leaves(b)))
+
+
+def phase_train_smollm(lr=LM_LR):
+    """Phase 14: smollm-135m at full width and depth through
+    ``launch/train.py``'s loop on ``token_stream``: AdamW, bf16
+    activations, f32 weights, B 8, T 512, 30 steps. First on the stream
+    over the full vocabulary (the loss logged), then on
+    ``test_system.py``'s stream (ids below LM_DATA_VOCAB), where the
+    loss must fall under 0.85x, with a checkpoint at step 15 restored
+    and resumed bit-exact against the run that went on; one step under
+    the profiler."""
+    t_phase = time.perf_counter()
+    model, step, state = train.build(LM_ARCH, LM_STEPS, lr=lr,
+                                          device=DEV)
+    cfg = model.cfg
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    full = train.train_loop(
+        step, state, token_stream(cfg.vocab_size, LM_B, LM_T,
+                                  device=DEV), LM_STEPS, log=None)[1]
+    stream = token_stream(LM_DATA_VOCAB, LM_B, LM_T, device=DEV)
+    batches = [next(stream) for _ in range(LM_STEPS)]
+    k = LM_RESUME_AT
+    mid, h1 = train.train_loop(step, state, iter(batches[:k]), k, log=None)
+    shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    save_checkpoint(CKPT_DIR, k, {"params": mid.params,
+                                  "opt": mid.opt_state})
+    end_a, h2 = train.train_loop(step, mid, iter(batches[k:]),
+                                 LM_STEPS - k, log=None)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    assert ssd_scan.launches == 0 and flash_attention.launches == 0
+    restored, at = restore_checkpoint(
+        CKPT_DIR, tree_map(torch.zeros_like, {"params": mid.params,
+                                              "opt": mid.opt_state}))
+    assert at == k
+    end_b, h3 = train.train_loop(
+        step, steps_lib.TrainState(restored["params"], restored["opt"],
+                                   torch.tensor(k, dtype=torch.int32,
+                                                device=DEV)),
+        iter(batches[k:]), LM_STEPS - k, log=None)
+    shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    _, host, busy, n_ops, _ = _profile_busy(lambda: step(end_a,
+                                                         batches[0]))
+    losses = h1["loss"] + h2["loss"]
+    assert all(np.isfinite(losses + full["loss"]))
+    ratio = lambda ls: float(np.mean(ls[-5:]) / np.mean(ls[:5]))  # noqa
+    bitexact = (_equal_trees(end_a.params, end_b.params)
+                and _equal_trees(end_a.opt_state, end_b.opt_state)
+                and h2["loss"] == h3["loss"])
+    secs = full["step_s"][1:] + h1["step_s"] + h2["step_s"]
+    ms = 1e3 * float(np.median(secs))
+    out = {"losses_full_vocab": full["loss"], "ratio_full_vocab":
+           ratio(full["loss"]), "losses": losses, "ratio": ratio(losses),
+           "ms_per_step": ms, "tokens_per_s": LM_B * LM_T * 1e3 / ms,
+           "first_step_ms": 1e3 * full["step_s"][0], "peak_gb": peak,
+           "resume_bitexact": bitexact, "lr": lr,
+           "profiled_step_ms": 1e3 * host, "busy_ms": busy,
+           "device_ops_per_step": n_ops}
+    busy_txt = ("device time not measured" if busy is None else
+                f"one step under the profiler {1e3 * host:.1f} ms host, "
+                f"device busy {busy:.1f} ms ({busy / ms:.1%} of the "
+                f"unprofiled step), {n_ops} device operations")
+    log(f"{LM_ARCH} training ({cfg.n_layers} layers, d_model {cfg.d_model}, "
+        f"GQA {cfg.n_heads}/{cfg.kv_heads}, {cfg.dtype} activations, f32 "
+        f"weights, AdamW lr {lr}), B {LM_B}, T {LM_T}, {LM_STEPS} "
+        f"steps: full vocabulary loss {full['loss'][0]:.4f} -> "
+        f"{full['loss'][-1]:.4f} (last 5 / first 5 "
+        f"{out['ratio_full_vocab']:.3f}); ids below {LM_DATA_VOCAB}: "
+        f"{losses[0]:.4f} -> {losses[-1]:.4f} (ratio {out['ratio']:.3f}, "
+        f"bound 0.85); {ms:.1f} ms/step (median; first step "
+        f"{out['first_step_ms']:.0f} ms), {out['tokens_per_s']:.0f} "
+        f"tokens/s, peak memory {peak:.2f} GB; {busy_txt}; resumed from "
+        f"step {k}: bit-exact {bitexact}; phase "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    assert out["ratio"] < 0.85, "the loss did not fall by 15%"
+    assert bitexact, "the resumed run left the one that went on"
+    del model, state, mid, end_a, end_b, restored
+    return out
+
+
+def phase_train_zamba(lr=ZTRAIN_LR):
+    """Phase 15: zamba2-2.7b at full width, depth cut to one group (6
+    mamba2 layers and the shared block), f32, remat on, B 2, T 512, 10
+    steps through ``launch/train.py``'s loop on ``test_system.py``'s
+    stream (ids below LM_DATA_VOCAB); the first step's loss held
+    against ``apply`` through the kernels on the same batch."""
+    t_phase = time.perf_counter()
+    cfg = get_config(BACKBONE).replace(n_layers=ZTRAIN_LAYERS,
+                                       dtype="float32",
+                                       ssm_tile_dtype="float32")
+    model, step, state = train.build(BACKBONE, ZTRAIN_STEPS, lr=lr,
+                                          remat=True, device=DEV, cfg=cfg)
+    stream = token_stream(LM_DATA_VOCAB, ZTRAIN_B, ZTRAIN_T, device=DEV)
+    batches = [next(stream) for _ in range(ZTRAIN_STEPS)]
+    with torch.inference_mode():
+        _reset_counts()
+        logits, _ = model.apply({"tokens": batches[0]["tokens"]})
+        torch.cuda.synchronize()
+        launches = {"ssd_scan": ssd_scan.launches,
+                    "flash_attention": flash_attention.launches}
+        ce_k = float(softmax_cross_entropy(logits, batches[0]["labels"]))
+        del logits
+    assert launches == {"ssd_scan": ZTRAIN_LAYERS, "flash_attention": 1}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base_gb = torch.cuda.memory_allocated() / 1e9
+    _reset_counts()
+    end, hist = train.train_loop(step, state, iter(batches), ZTRAIN_STEPS,
+                                 log=None)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    assert ssd_scan.launches == 0 and flash_attention.launches == 0
+    losses = hist["loss"]
+    rel = abs(losses[0] - ce_k) / ce_k
+    finite = all(bool(torch.isfinite(p).all()) for p in
+                 tree_leaves(end.params))
+    moved = sum(float((a - b).abs().max()) > 0 for a, b in
+                zip(tree_leaves(end.params), tree_leaves(state.params)))
+    n_leaves = len(tree_leaves(state.params))
+    ms = 1e3 * float(np.median(hist["step_s"][1:]))
+    out = {"losses": losses, "first_loss_apply": ce_k, "first_loss_rel":
+           rel, "ms_per_step": ms, "tokens_per_s": ZTRAIN_B * ZTRAIN_T * 1e3
+           / ms, "peak_gb": peak, "state_gb": base_gb,
+           "apply_launches": launches, "lr": lr}
+    log(f"{BACKBONE} training cut to {ZTRAIN_LAYERS} mamba2 layers + the "
+        f"shared block (f32, remat, AdamW lr {lr}), B {ZTRAIN_B}, T "
+        f"{ZTRAIN_T}: first loss {losses[0]:.6f} against apply through the "
+        f"kernels {ce_k:.6f} (|d| / loss {rel:.2e}, bound "
+        f"{ZTRAIN_LOSS_REL}); loss {losses[0]:.4f} -> {losses[-1]:.4f}; "
+        f"{moved} of {n_leaves} leaves moved, finite {finite}; {ms:.1f} "
+        f"ms/step, {out['tokens_per_s']:.0f} tokens/s, peak memory "
+        f"{peak:.2f} GB ({base_gb:.2f} GB before the first step); phase "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    assert rel <= ZTRAIN_LOSS_REL, "the training forward left apply"
+    assert finite and moved == n_leaves, "updates not finite or missing"
+    assert np.mean(losses[-3:]) < np.mean(losses[:3]), "the loss did not fall"
+    del model, state, end
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -4573,10 +4951,33 @@ def main():
     bb_entries[0]["service"] = svc
     bb_entries[0]["forward_f32_rel_err"] = bb["f32_rel_err"]
     entries += bb_entries
-    del model
-    torch.cuda.empty_cache()
     entries.append(time_gemma_attention(gemma))
     log(f"backbone kernels timed at {time.perf_counter() - t0:.1f}s")
+    decode = {BACKBONE: phase_decode_zamba(model)}
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"{BACKBONE} decode done at {time.perf_counter() - t0:.1f}s")
+    decode[GEMMA] = phase_decode_gemma()
+    log(f"{GEMMA} decode done at {time.perf_counter() - t0:.1f}s")
+    training = {LM_ARCH: phase_train_smollm()}
+    gc.collect()
+    torch.cuda.empty_cache()
+    training[BACKBONE] = phase_train_zamba()
+    log(f"training done at {time.perf_counter() - t0:.1f}s")
+    # the backbone kernels' launches in phases 12-15: apply through the
+    # kernels beside decode (window, ring; gemma) and beside the first
+    # training step (decode and the training steps launch none)
+    later = {f"{BACKBONE}_decode_{k}": decode[BACKBONE][k]["apply_launches"]
+             for k in ("window", "ring")}
+    later[f"{GEMMA}_decode"] = decode[GEMMA]["apply_launches"]
+    later[f"{BACKBONE}_train_first_step"] = \
+        training[BACKBONE]["apply_launches"]
+    for entry in entries:
+        if entry["name"] in ("ssd_scan", "flash_attention"):
+            entry["decode_and_training_launches"] = {
+                k: v[entry["name"]] for k, v in later.items()}
+    print(json.dumps({"decode": decode, "training": training}), flush=True)
     print(json.dumps({"kernels": entries}), flush=True)
     log(f"total {time.perf_counter() - t0:.1f}s")
     print(json.dumps({"ok": True, "device": {

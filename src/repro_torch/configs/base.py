@@ -1,8 +1,9 @@
-"""Architecture configuration dataclass and the reduction rule used by
-smoke tests (2 layers, d_model <= 512, <= 4 experts).
+"""Architecture / run configuration dataclasses and the reduction rule
+used by smoke tests (2 layers, d_model <= 512, <= 4 experts).
 
-A copy of ``repro/configs/base.py``'s ``ArchConfig`` and ``reduced``:
-the port keeps its own configs and imports nothing of ``repro``."""
+A copy of ``repro/configs/base.py`` (``ArchConfig``, ``reduced``,
+``InputShape``, ``RunConfig``): the port keeps its own configs and
+imports nothing of ``repro``."""
 
 from __future__ import annotations
 
@@ -120,3 +121,35 @@ def reduced(cfg: ArchConfig) -> ArchConfig:
     if cfg.shared_attn_every:
         kw["shared_attn_every"] = 2
     return cfg.replace(**kw)
+
+
+@dataclasses.dataclass(frozen=True)
+class InputShape:
+    """One benchmark input shape (assigned set of 4)."""
+    name: str
+    seq_len: int
+    global_batch: int
+    mode: str                    # train | prefill | decode
+
+
+@dataclasses.dataclass(frozen=True)
+class RunConfig:
+    """Launcher-level knobs: optimization, distribution, logging."""
+    arch: str = "smollm-135m"
+    shape: str = "train_4k"
+    lr: float = 3e-4
+    opt: str = "adamw"
+    weight_decay: float = 0.01
+    grad_clip: float = 1.0
+    warmup: int = 100
+    total_steps: int = 1000
+    seed: int = 0
+    # distribution
+    multi_pod: bool = False
+    sync: str = "bsp"            # PS consistency model for data-parallel sync
+    tau: int = 1
+    # memory / perf
+    remat: bool = True           # activation checkpointing across layers
+    scan_layers: bool = True
+    ckpt_dir: str = "/tmp/repro_ckpt"
+    log_every: int = 10

@@ -1,7 +1,8 @@
 """Carry the JAX package's weights (the DML factor and the backbone
-models), index arrays (exact, IVF, IVFPQ, and a mutable index's state
-over any of them), a tenant router's state, training state and a closed
-loop's configuration across to the port.
+models), a backbone's decode cache and training state, index arrays
+(exact, IVF, IVFPQ, and a mutable index's state over any of them), a
+tenant router's state, training state and a closed loop's configuration
+across to the port.
 
 Every function takes plain numpy arrays (``np.asarray`` of the
 reference's ``jax.Array``s, e.g. ``jax.tree.map(np.asarray, state)``),
@@ -22,9 +23,13 @@ from repro_torch.core.ps.sync import PSConfig, PSState
 from repro_torch.core.ps.trainer import DMLTrainConfig
 from repro_torch.device import resolve_device
 from repro_torch.kernels._dispatch import check_metric_factor
+from repro_torch.launch.steps import TrainState
 from repro_torch.mining import (ClosedLoopConfig, CurriculumSchedule,
                                 MinerConfig)
 from repro_torch.models import Model
+from repro_torch.models.attention import KVCache
+from repro_torch.models.mamba2 import MambaCache
+from repro_torch.models.transformer import unstack_blocks
 from repro_torch.optim import AdamState, MomentumState, ScaleState
 from repro_torch.serve.index import ExactIndex
 from repro_torch.serve.ivf import IVFIndex
@@ -222,6 +227,51 @@ def model_params_from_jax(cfg: ArchConfig, params_np, device=None) -> Model:
         params["shared"] = tree_map(lambda x: _tensor(x, dev),
                                     params_np["shared"])
     return Model(cfg, device=dev, params=params)
+
+
+_CACHES = {cls.__name__: cls for cls in (KVCache, MambaCache)}
+
+
+def _cache_list(stacked, dev) -> list:
+    """A reference cache NamedTuple stacked on a leading layers (or
+    groups) axis as the port's list of one cache a layer."""
+    cls = _CACHES.get(type(stacked).__name__)
+    if cls is None or tuple(stacked._fields) != cls._fields:
+        raise ValueError(f"not a KVCache / MambaCache: "
+                         f"{type(stacked).__name__}")
+    arrays = [np.asarray(a) for a in stacked]
+    return [cls(*(_tensor(a[i], dev) for a in arrays))
+            for i in range(len(arrays[0]))]
+
+
+def decode_cache_from_jax(cfg: ArchConfig, cache_np, device=None) -> dict:
+    """A reference ``Model.init_decode_cache`` / ``decode_step`` cache
+    (numpy leaves) as the port's: the stacked ``blocks`` (and, for the
+    hybrid family, ``shared``) caches become per-layer (per-group)
+    lists, leaves bit for bit on ``device``; a mid-sequence cache
+    carries a decode across."""
+    dev = resolve_device(device)
+    cache = {"blocks": _cache_list(cache_np["blocks"], dev)}
+    if "shared" in cache_np:
+        cache["shared"] = _cache_list(cache_np["shared"], dev)
+    if len(cache["blocks"]) != cfg.n_layers:
+        raise ValueError(f"{len(cache['blocks'])} layers of cache for "
+                         f"{cfg.n_layers} layers")
+    return cache
+
+
+def train_state_from_jax(cfg: ArchConfig, state_np, device=None):
+    """A reference ``steps.TrainState`` (numpy leaves: params, optimizer
+    state, step) as (port ``Model``, port ``TrainState``): the model
+    holds the params bit for bit (``model_params_from_jax``), the state's
+    params are its ``param_tree()`` and the optimizer state's moments
+    are unstacked into per-layer lists (``opt_state_from_jax``)."""
+    dev = resolve_device(device)
+    model = model_params_from_jax(cfg, state_np.params, dev)
+    opt_state = opt_state_from_jax(unstack_blocks(state_np.opt_state), dev)
+    step = torch.tensor(int(np.asarray(state_np.step)), dtype=torch.int32,
+                        device=dev)
+    return model, TrainState(model.param_tree(), opt_state, step)
 
 
 def _torch_dtype(dt):

@@ -9,7 +9,8 @@ Run:  PYTHONPATH=src python -m repro_torch.launch.serve_retrieval \
           [--scheduler [--deadline-ms MS] [--no-degrade] \
            [--high-watermark 32] [--low-watermark 4] \
            [--degrade-window-ms 50] [--restore-window-ms 500]] \
-          [--tenants N [--shadow]] [--mine N] [--metrics-out FILE]
+          [--tenants N [--shadow]] [--mine N] [--metrics-out FILE] \
+          [--backend auto|xla|pallas] [--trace-sample R] [--trace-out FILE]
 
 Counterpart of ``repro.launch.serve_retrieval`` for the single-device
 index paths: builds a class-structured gallery (data.pairs), learns the
@@ -53,8 +54,15 @@ QPS over the mining queries. ``--metrics-out FILE`` writes the run's
 final MetricsRegistry snapshot, which ``launch/metrics_report.py``
 renders.
 
-The reference's tracing and sharding flags (``--backend``, ``--data``,
-``--trace-out``, ``--trace-sample``) are not ported.
+``--backend`` is the reference's exact-scan knob: ``pallas`` is the
+``metric_topk`` kernel and needs the card, ``xla`` the plain path on the
+chosen device (the card included), ``auto`` (the default) the kernel on
+the card and the plain path on the CPU. As in the reference, ``pallas``
+is refused with ``--index ivf|ivfpq``, whose scans follow
+``--scan-impl``. ``--trace-sample R`` samples request traces at rate R
+(deterministic) and ``--trace-out FILE`` exports the sampled span trees
+as JSONL. The reference's ``--data`` (a sharded gallery) waits for the
+multi-GPU slice (ROADMAP.md Queue 1 item 8).
 """
 
 from __future__ import annotations
@@ -173,15 +181,37 @@ def main(argv=None):
     ap.add_argument("--metrics-out", default=None,
                     help="write the final MetricsRegistry snapshot (JSON) "
                          "here — launch/metrics_report.py renders it")
+    ap.add_argument("--backend", choices=["auto", "xla", "pallas"],
+                    default="auto",
+                    help="exact scan: pallas = the metric_topk kernel "
+                         "(needs the card), xla = the plain path on the "
+                         "chosen device, auto = the kernel on the card "
+                         "and the plain path on the CPU")
+    ap.add_argument("--trace-out", default=None,
+                    help="write sampled request traces here as JSONL "
+                         "(one span tree per line)")
+    ap.add_argument("--trace-sample", type=float, default=0.0,
+                    help="trace sampling rate in [0, 1] (deterministic: "
+                         "rate 0.25 samples every 4th request)")
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda; cpu runs the "
                          "kernel's plain version)")
     args = ap.parse_args(argv)
+    if not 0.0 <= args.trace_sample <= 1.0:
+        ap.error(f"--trace-sample must be in [0, 1], got "
+                 f"{args.trace_sample}")
+    if args.index in ("ivf", "ivfpq") and args.backend == "pallas":
+        ap.error(f"--index {args.index} only supports --backend xla (the "
+                 "fused pallas kernel serves the exact full-scan path)")
     if args.churn and not args.mutable:
         ap.error("--churn requires --mutable")
     if args.shadow and args.tenants < 2:
         ap.error("--shadow needs --tenants >= 2 (tenant 1 hosts the arm)")
     device = resolve_device(args.device)
+    if args.backend == "pallas" and device.type != "cuda":
+        ap.error("--backend pallas is the metric_topk kernel, which needs "
+                 "the card; --backend xla (or auto) runs the plain path "
+                 "on the CPU")
 
     # --- data + metric ---------------------------------------------------
     cfg = pairdata.PairDatasetConfig(
@@ -229,11 +259,15 @@ def main(argv=None):
     else:
         index = ExactIndex.build(L, gallery, device=device)
     build_s = time.perf_counter() - t0
+    exact = index.base if isinstance(index, MutableIndex) else index
+    if isinstance(exact, ExactIndex):
+        exact.backend = args.backend
     if args.snapshot_dir and not loaded:
         save_index(index, args.snapshot_dir)
         print(f"snapshot saved to {args.snapshot_dir}")
     engine = RetrievalEngine(index, k_top=args.k,
                              cache_size=args.cache_size)
+    engine.tracer.sample_rate = args.trace_sample
     warm_ks = [args.k]
     if args.warmup_ks:
         warm_ks += [int(x) for x in args.warmup_ks.split(",")]
@@ -243,6 +277,10 @@ def main(argv=None):
     print(f"index[{type(index).__name__}]: {index.size} x {args.proj_dim} "
           f"on {device} ({engine.backend} path), {verb} in "
           f"{build_s:.2f}s")
+    if isinstance(exact, ExactIndex):
+        plain = exact.backend == "xla" or device.type != "cuda"
+        print(f"  exact scan backend={exact.backend} "
+              f"({'plain' if plain else 'kernel'} path)")
     ann = index.base if isinstance(index, MutableIndex) else index
     if isinstance(ann, (IVFIndex, IVFPQIndex)):
         scanned = ann.nprobe * ann.cap
@@ -448,6 +486,10 @@ def main(argv=None):
     if args.metrics_out:
         engine.registry.write_snapshot(args.metrics_out)
         print(f"metrics snapshot -> {args.metrics_out}")
+    if args.trace_out:
+        n_tr = engine.tracer.write_jsonl(args.trace_out, append=False)
+        print(f"traces -> {args.trace_out} ({n_tr} sampled of "
+              f"{engine.tracer.n_minted} minted)")
 
 
 if __name__ == "__main__":

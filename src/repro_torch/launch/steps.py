@@ -1,0 +1,194 @@
+"""Step builders + shape records for train / prefill / decode
+(counterpart of ``repro/launch/steps.py``).
+
+``input_specs`` and ``cache_shape_structs`` describe a step's inputs and
+decode cache as ``meta`` tensors (shape and dtype, no storage); the
+``make_*_step`` functions return plain callables over a ``TrainState``
+(train) or a ``Model`` (prefill, decode). The reference's sharding
+functions (``batch_pspec``, ``input_shardings``, ``param_shardings``,
+``make_state_shardings``, ``cache_logical_axes``, ``cache_shardings``)
+wait for the multi-GPU slice (ROADMAP.md Queue 1 item 8).
+
+The training forward is ``Model.hidden(..., plain=True)``: the
+reference's own training forms (chunked SSD, naive or chunked
+attention); the two backbone kernels are forward-only. Parameters,
+gradients and optimizer states are the reference-shaped trees of
+``Model.param_tree()``, and the optimizer is the port's functional
+``optim``.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, NamedTuple, Optional
+
+import torch
+from torch.utils.checkpoint import checkpoint
+
+from repro_torch.configs.base import ArchConfig, InputShape, RunConfig
+from repro_torch.core import losses
+from repro_torch.models import common
+from repro_torch.models.transformer import Model
+from repro_torch.optim import (Optimizer, adam, adamw, apply_updates,
+                               clip_by_global_norm, momentum, schedules, sgd)
+from repro_torch.tree import value_and_grad
+
+
+class TrainState(NamedTuple):
+    params: Any
+    opt_state: Any
+    step: torch.Tensor
+
+
+def make_optimizer(run: RunConfig) -> Optimizer:
+    lr = schedules.cosine(run.lr, run.total_steps, warmup=run.warmup)
+    if run.opt == "adamw":
+        return adamw(lr, weight_decay=run.weight_decay)
+    if run.opt == "adam":
+        return adam(lr)
+    if run.opt == "sgd":
+        return sgd(lr)
+    if run.opt == "momentum":
+        return momentum(lr)
+    raise ValueError(run.opt)
+
+
+def init_train_state(model: Model, opt: Optimizer) -> TrainState:
+    """The model's weights (``param_tree()``), a fresh optimizer state
+    and step 0, on the model's device."""
+    params = model.param_tree()
+    return TrainState(params, opt.init(params),
+                      torch.zeros((), dtype=torch.int32,
+                                  device=model.device))
+
+
+# ---------------------------------------------------------------------------
+# Effective config per (arch, shape): long-context needs sub-quadratic attn.
+# ---------------------------------------------------------------------------
+
+def effective_config(cfg: ArchConfig, shape: InputShape) -> ArchConfig:
+    """Dense/MoE/VLM archs switch to the sliding-window variant for the
+    524k-token decode shape (DESIGN.md §5); SSM/hybrid run natively."""
+    if (shape.name == "long_500k" and cfg.family not in ("ssm", "hybrid")
+            and cfg.attention == "full"):
+        return cfg.replace(attention="sliding", window=4096)
+    return cfg
+
+
+def skip_reason(cfg: ArchConfig, shape: InputShape) -> Optional[str]:
+    if shape.mode == "decode" and not cfg.has_decode:
+        return "encoder-only architecture: no autoregressive decode step"
+    return None
+
+
+# ---------------------------------------------------------------------------
+# Input specs (meta tensors: shape and dtype, no storage)
+# ---------------------------------------------------------------------------
+
+def _spec(shape, dtype) -> torch.Tensor:
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+def input_specs(cfg: ArchConfig, shape: InputShape) -> Dict[str, Any]:
+    """Model inputs for one step, as meta tensors."""
+    B, T = shape.global_batch, shape.seq_len
+    i32 = torch.int32
+    if shape.mode == "train":
+        if cfg.input_kind == "embeddings":
+            return {"embeddings": _spec((B, T, cfg.d_model),
+                                        getattr(torch, cfg.dtype)),
+                    "labels": _spec((B, T), i32)}
+        return {"tokens": _spec((B, T), i32), "labels": _spec((B, T), i32)}
+    if shape.mode == "prefill":
+        if cfg.input_kind == "embeddings":
+            return {"embeddings": _spec((B, T, cfg.d_model),
+                                        getattr(torch, cfg.dtype))}
+        return {"tokens": _spec((B, T), i32)}
+    if shape.mode == "decode":
+        return {"tokens": _spec((B,), i32), "pos": _spec((), i32)}
+    raise ValueError(shape.mode)
+
+
+# ---------------------------------------------------------------------------
+# Steps
+# ---------------------------------------------------------------------------
+
+def chunked_ce_loss(model: Model, params, h, labels, n_chunks: int = 8):
+    """Cross-entropy with seq-chunked unembedding (bounds live logits to
+    (B, T/n_chunks, V)); each chunk's logits are recomputed in backward
+    (``torch.utils.checkpoint``, the reference's ``jax.checkpoint``)."""
+    cfg = model.cfg
+    B, T, d = h.shape
+    while T % n_chunks != 0:
+        n_chunks -= 1
+    Tc = T // n_chunks
+
+    def chunk_loss(h_k, l_k):
+        logits = common.unembed(params["embedding"], h_k, cfg)
+        return losses.softmax_cross_entropy(logits, l_k)
+
+    total = torch.zeros((), dtype=torch.float32, device=h.device)
+    for c in range(n_chunks):
+        h_k, l_k = h[:, c * Tc:(c + 1) * Tc], labels[:, c * Tc:(c + 1) * Tc]
+        if torch.is_grad_enabled():
+            total = total + checkpoint(chunk_loss, h_k, l_k,
+                                       use_reentrant=False)
+        else:
+            total = total + chunk_loss(h_k, l_k)
+    return total / n_chunks
+
+
+def make_train_step(model: Model, opt: Optimizer, run: RunConfig,
+                    loss_chunks: int = 8):
+    """``train_step(state, batch) -> (state, metrics)``: loss, grads with
+    respect to every leaf of ``state.params``, global-norm clipping,
+    the optimizer's update. Returns new tensors; ``state`` is left as it
+    was. Metrics are 0-d tensors (no host sync in the step)."""
+    cfg = model.cfg
+
+    def loss_fn(params, batch):
+        h, aux = model.hidden(batch, plain=True, remat=run.remat,
+                              params=params)
+        ce = chunked_ce_loss(model, params, h, batch["labels"], loss_chunks)
+        total = ce + cfg.moe_aux_weight * aux["moe_aux"]
+        return total, {"ce": ce, "moe_aux": aux["moe_aux"]}
+
+    def train_step(state: TrainState, batch):
+        (loss, aux), grads = value_and_grad(loss_fn, state.params, batch)
+        if run.grad_clip:
+            grads, gnorm = clip_by_global_norm(grads, run.grad_clip)
+        else:
+            gnorm = torch.zeros((), device=loss.device)
+        with torch.no_grad():
+            updates, opt_state = opt.update(grads, state.opt_state,
+                                            state.params)
+            params = apply_updates(state.params, updates)
+        metrics = {"loss": loss, "grad_norm": gnorm, **aux}
+        return TrainState(params, opt_state, state.step + 1), metrics
+
+    return train_step
+
+
+def make_prefill_step(model: Model, run: RunConfig):
+    def prefill_step(batch):
+        logits, aux = model.apply(batch)
+        return logits
+
+    return prefill_step
+
+
+def make_serve_step(model: Model, run: RunConfig):
+    def serve_step(cache, batch):
+        return model.decode_step(cache, batch["tokens"], batch["pos"])
+
+    return serve_step
+
+
+# ---------------------------------------------------------------------------
+# Cache shapes for decode shapes
+# ---------------------------------------------------------------------------
+
+def cache_shape_structs(model: Model, shape: InputShape):
+    """The decode cache as meta tensors (no allocation): per-layer lists
+    as ``Model.init_decode_cache`` makes them."""
+    return model.init_decode_cache(shape.global_batch, shape.seq_len,
+                                   device="meta")

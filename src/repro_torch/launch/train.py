@@ -1,0 +1,117 @@
+"""Training launcher: ``python -m repro_torch.launch.train --arch <id>
+[--steps 50] [--batch 4] [--seq 128] [--lr 3e-4] [--reduced] [--remat]
+[--ckpt DIR] [--log-every 10] [--device cpu]``.
+
+Counterpart of ``repro.launch.train`` on one device: the seeded model ->
+``token_stream`` batches -> ``steps.make_train_step`` (the plain
+training forward, chunked CE loss, AdamW on a cosine schedule with
+warmup ``min(20, steps // 5)``) -> a checkpoint of the final params in
+the reference's layout and format (``--ckpt``). Runs on the card unless
+``--device cpu`` is given; ``--reduced`` trains the smoke-scale variant
+in f32. The reference's ``--production-mesh`` and ``--multi-pod`` build
+TPU pod meshes: they wait for the multi-GPU slice (ROADMAP.md Queue 1
+item 8), and passing them raises.
+"""
+
+from __future__ import annotations
+
+import argparse
+import time
+
+import torch
+
+from repro_torch.checkpoint import save_checkpoint
+from repro_torch.configs import RunConfig, get_config, reduced as reduce_cfg
+from repro_torch.data.tokens import token_stream
+from repro_torch.device import resolve_device
+from repro_torch.launch import steps as steps_lib
+from repro_torch.models import Model
+from repro_torch.models.transformer import stack_blocks
+
+
+def train_loop(train_step, state, batches, n_steps: int,
+               log_every: int = 10, log=print):
+    """Run ``n_steps`` of ``train_step`` over ``batches`` (an iterator).
+    Returns (state, per-step losses and grad norms as floats, the
+    seconds of each step on the host clock, synchronised)."""
+    dev = state.step.device
+    losses, gnorms, secs = [], [], []
+    t_start = time.perf_counter()
+    for t in range(n_steps):
+        t0 = time.perf_counter()
+        state, metrics = train_step(state, next(batches))
+        loss, gnorm = float(metrics["loss"]), float(metrics["grad_norm"])
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        secs.append(time.perf_counter() - t0)
+        losses.append(loss)
+        gnorms.append(gnorm)
+        if log is not None and (t % log_every == 0 or t == n_steps - 1):
+            log(f"step {t:5d} loss={loss:.4f} gnorm={gnorm:.3f} "
+                f"({(time.perf_counter() - t_start) / (t + 1) * 1e3:.0f} "
+                f"ms/step)")
+    return state, {"loss": losses, "grad_norm": gnorms, "step_s": secs}
+
+
+def build(arch: str, steps: int, lr: float = 3e-4, reduced: bool = False,
+          remat: bool = False, device=None, cfg=None):
+    """(model, train step, initial state) as the launcher makes them;
+    ``cfg`` replaces the registry's config."""
+    if cfg is None:
+        cfg = get_config(arch)
+        if reduced:
+            cfg = reduce_cfg(cfg).replace(dtype="float32")
+    run = RunConfig(arch=arch, lr=lr, total_steps=steps,
+                    warmup=min(20, steps // 5), remat=remat)
+    model = Model(cfg, device=resolve_device(device), seed=run.seed)
+    opt = steps_lib.make_optimizer(run)
+    state = steps_lib.init_train_state(model, opt)
+    train_step = steps_lib.make_train_step(model, opt, run, loss_chunks=2)
+    return model, train_step, state
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", type=str, required=True)
+    ap.add_argument("--steps", type=int, default=50)
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--seq", type=int, default=128)
+    ap.add_argument("--lr", type=float, default=3e-4)
+    ap.add_argument("--reduced", action="store_true",
+                    help="train the smoke-scale variant (f32)")
+    ap.add_argument("--production-mesh", action="store_true",
+                    help="not ported: the multi-GPU slice")
+    ap.add_argument("--multi-pod", action="store_true",
+                    help="not ported: the multi-GPU slice")
+    ap.add_argument("--remat", action="store_true")
+    ap.add_argument("--ckpt", type=str, default="")
+    ap.add_argument("--log-every", type=int, default=10)
+    ap.add_argument("--device", default=None,
+                    help="torch device (default: cuda; cpu runs there)")
+    args = ap.parse_args(argv)
+    if args.production_mesh or args.multi_pod:
+        raise NotImplementedError(
+            "--production-mesh / --multi-pod build the reference's TPU pod "
+            "meshes; multi-GPU training waits for ROADMAP.md Queue 1 item 8")
+
+    device = resolve_device(args.device)
+    model, train_step, state = build(
+        args.arch, args.steps, lr=args.lr, reduced=args.reduced,
+        remat=args.remat, device=device)
+    cfg = model.cfg
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"arch={cfg.name} params={n_params / 1e6:.1f}M device={device}")
+    stream = token_stream(cfg.vocab_size, args.batch, args.seq,
+                          device=device)
+    state, hist = train_loop(train_step, state, stream, args.steps,
+                             args.log_every)
+    print(f"loss {hist['loss'][0]:.4f} -> {hist['loss'][-1]:.4f}")
+    if args.ckpt:
+        path = save_checkpoint(args.ckpt, args.steps,
+                               {"params": stack_blocks(state.params)})
+        print(f"checkpoint: {path}")
+    return state, hist
+
+
+if __name__ == "__main__":
+    main()

@@ -1,5 +1,5 @@
-"""GQA/MQA attention with RoPE, optional QK-norm and sliding window:
-the full-sequence parts of ``repro/models/attention.py``.
+"""GQA/MQA attention with RoPE, optional QK-norm, sliding window and KV
+cache (counterpart of ``repro/models/attention.py``).
 
 Execution paths:
   * ``attend_naive``   — materializes (T, S) scores; short sequences.
@@ -12,12 +12,18 @@ Execution paths:
                          attention kernel on the card
                          (``kernels/flash_attention``), ``attend_plain``
                          on the CPU.
+  * ``decode_attend``  — single-token query against a (ring-buffered)
+                         cache, plain torch on any device.
 
-The decode path (``decode_attend``, KV caches) waits for the decode
-slice (ROADMAP.md Queue 1 item 7).
+Sliding-window caches are ring buffers of ``min(window, max_seq)`` slots,
+so long decodes hold O(window), not O(seq), state per layer. The port
+writes each step's K/V into the cache in place (the reference returns a
+new cache); ``decode_attend`` still returns the cache it wrote.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -26,6 +32,11 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.flash_attention.ref import NEG_INF
 from repro_torch.models import common
+
+
+class KVCache(NamedTuple):
+    k: torch.Tensor       # (B, S_cache, K, Dh)
+    v: torch.Tensor       # (B, S_cache, K, Dh)
 
 
 def init_attention(cfg: ArchConfig, gen) -> dict:
@@ -178,3 +189,77 @@ def attend(q, k, v, cfg: ArchConfig):
     return flash_attention(q, k, v, causal=cfg.causal,
                            window=cfg.window if cfg.attention == "sliding"
                            else 0)
+
+
+# --------------------------------------------------------------------------
+# Decode path
+# --------------------------------------------------------------------------
+
+def cache_len(cfg: ArchConfig, max_seq: int) -> int:
+    return min(cfg.window, max_seq) if cfg.attention == "sliding" else max_seq
+
+
+def init_cache(cfg: ArchConfig, batch: int, max_seq: int,
+               dtype=torch.bfloat16, device=None) -> KVCache:
+    S = cache_len(cfg, max_seq)
+    K, dh = cfg.kv_heads, cfg.dim_per_head
+    return KVCache(k=torch.zeros((batch, S, K, dh), dtype=dtype,
+                                 device=device),
+                   v=torch.zeros((batch, S, K, dh), dtype=dtype,
+                                 device=device))
+
+
+def cache_update(cache: KVCache, k_new, v_new, pos: int,
+                 cfg: ArchConfig) -> KVCache:
+    """Write one step's K/V (B,1,K,Dh) at position ``pos`` (ring-buffered
+    modulo the cache length for sliding windows), in place; returns the
+    cache."""
+    slot = pos % cache.k.shape[1]
+    cache.k[:, slot] = k_new[:, 0].to(cache.k.dtype)
+    cache.v[:, slot] = v_new[:, 0].to(cache.v.dtype)
+    return cache
+
+
+def decode_attend(p, x, cache: KVCache, pos: int, cfg: ArchConfig):
+    """One-token attention. x (B,1,d); ``pos`` a Python int (the position
+    of the new token, so no host sync enters the loop). Returns (out
+    (B,1,d), the cache, written in place). q, k, v and the scores run in
+    x's dtype; the scores go to f32 after the scale, are masked with
+    -1e30 and take an f32 softmax, whose weights are cast back before
+    p v — the reference's order."""
+    B = x.shape[0]
+    dt = x.dtype
+    positions = torch.full((B, 1), pos, dtype=torch.int32, device=x.device)
+    q, k_new, v_new = _heads(x, p["wq"]), _heads(x, p["wk"]), \
+        _heads(x, p["wv"])
+    if cfg.attn_bias:
+        q = q + p["bq"].to(dt)
+        k_new = k_new + p["bk"].to(dt)
+        v_new = v_new + p["bv"].to(dt)
+    if cfg.qk_norm:
+        q = _rms(q, p["q_norm"])
+        k_new = _rms(k_new, p["k_norm"])
+    q = common.apply_rope(q, positions, cfg.rope_theta)
+    k_new = common.apply_rope(k_new, positions, cfg.rope_theta)
+
+    cache = cache_update(cache, k_new, v_new, pos, cfg)
+    S, K = cache.k.shape[1], cache.k.shape[2]
+    H, dh = q.shape[2], q.shape[3]
+
+    # position held by each ring slot: largest p <= pos with p % S == slot
+    # (torch's % takes the divisor's sign, as jnp's does)
+    slot_pos = pos - (pos - torch.arange(S, device=x.device)) % S
+    valid = slot_pos >= 0
+    if cfg.attention == "sliding":
+        valid &= slot_pos > pos - cfg.window
+    valid &= slot_pos <= pos
+
+    qg = q.reshape(B, 1, K, H // K, dh)
+    scale = float(1.0 / np.sqrt(dh))
+    scores = torch.einsum("bqkgd,bskd->bkgqs", qg, cache.k.to(dt)) * scale
+    scores = scores.to(torch.float32)
+    scores = scores.masked_fill(~valid, NEG_INF)
+    w = torch.softmax(scores, dim=-1).to(dt)
+    ctx = torch.einsum("bkgqs,bskd->bqkgd", w, cache.v.to(dt))
+    out = out_proj(p, ctx.reshape(B, 1, H, dh), cfg)
+    return out, cache

@@ -1,5 +1,5 @@
-"""Mamba2 (SSD — state-space duality) block: the full-sequence parts of
-``repro/models/mamba2.py``.
+"""Mamba2 (SSD — state-space duality) block (counterpart of
+``repro/models/mamba2.py``).
 
 Recurrence per head h (head_dim p, state n):
     h_t = exp(dt_t * A) * h_{t-1} + dt_t * x_t B_t^T        (h: (p, n))
@@ -17,11 +17,14 @@ Three forms of the same function:
   * ``apply_mamba2_ref``    — the exact token-by-token recurrence (the
                               tests' oracle).
 
-The decode step and its caches wait for the decode slice (ROADMAP.md
-Queue 1 item 7).
+Decode is the exact single-step recurrence (``decode_step``) over a
+``MambaCache``: the f32 state ``h`` and the causal conv's last W-1
+inputs in the activation dtype.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -31,6 +34,12 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels._dispatch import full_f32
 from repro_torch.kernels.ssd_chunk import ssd_core
 from repro_torch.models import common
+
+
+class MambaCache(NamedTuple):
+    h: torch.Tensor        # (B, H, p, n) SSM state, f32
+    conv: torch.Tensor     # (B, W-1, conv_channels) causal-conv history
+
 
 def _dims(cfg: ArchConfig):
     d_in = cfg.ssm_expand * cfg.d_model
@@ -65,13 +74,16 @@ def init_mamba2(cfg: ArchConfig, gen) -> dict:
     }
 
 
-def _causal_conv(x, w, b):
-    """Depthwise causal conv. x (B,T,C), w (W,C). The shifted sum of the
-    reference, so no convolution library (and no TF32 on the card)
-    touches it."""
+def _causal_conv(x, w, b, history=None):
+    """Depthwise causal conv. x (B,T,C), w (W,C). history (B,W-1,C) or
+    None (zeros). The shifted sum of the reference, so no convolution
+    library (and no TF32 on the card) touches it."""
     W = w.shape[0]
-    pad = torch.zeros((x.shape[0], W - 1, x.shape[2]), dtype=x.dtype,
-                      device=x.device)
+    if history is None:
+        pad = torch.zeros((x.shape[0], W - 1, x.shape[2]), dtype=x.dtype,
+                          device=x.device)
+    else:
+        pad = history.to(x.dtype)
     xp = torch.cat([pad, x], dim=1)                     # (B, T+W-1, C)
     T = x.shape[1]
     out = sum(xp[:, i:i + T] * w[i].to(x.dtype) for i in range(W))
@@ -148,8 +160,11 @@ def apply_mamba2(p, x, cfg: ArchConfig, chunk: int = None):
         # intra-chunk: dt_s exp(W_t - W_s) (C_t . B_s) x_s for s <= t
         G = torch.einsum("bqn,bsn->bqs", C_t, B_t)      # (B,Q,S)
         Wdiff = W[:, :, None, :] - W[:, None, :, :]     # (B,Q,S,H)
-        Ldec = torch.where(tril[None, :, :, None], torch.exp(Wdiff),
-                           torch.zeros_like(Wdiff)).to(tile_dt)
+        # masked before the exp: above the diagonal Wdiff is a sum of
+        # -la > 0 and overflows at strong decays (full width), and a
+        # where() after the exp would send 0 * inf = NaN into backward
+        Ldec = torch.exp(Wdiff.masked_fill(~tril[None, :, :, None],
+                                           float("-inf"))).to(tile_dt)
         att = (G[..., None].to(tile_dt) * Ldec
                * dt_k[:, None].to(tile_dt))             # (B,Q,S,H)
         y_intra = torch.einsum("bqsh,bshp->bqhp", att.to(torch.float32),
@@ -179,6 +194,50 @@ def apply_mamba2_kernel(p, x, cfg: ArchConfig):
     y = y + p["D"][None, None, :, None] * xs.to(torch.float32)
     y = y.reshape(B, T, d_in).to(x.dtype)
     return _post(p, y, z, cfg)
+
+
+def init_cache(cfg: ArchConfig, batch: int, dtype=torch.float32,
+               device=None) -> MambaCache:
+    d_in, H, p, n, conv_ch = _dims(cfg)
+    return MambaCache(
+        h=torch.zeros((batch, H, p, n), dtype=torch.float32, device=device),
+        conv=torch.zeros((batch, cfg.conv_width - 1, conv_ch), dtype=dtype,
+                         device=device))
+
+
+def decode_step(p, x, cache: MambaCache, cfg: ArchConfig):
+    """x (B,1,d) -> (y (B,1,d), new cache). Exact recurrence: the conv
+    is an einsum over the (W, C) history in x's dtype, the state update
+    runs in f32. Returns new tensors; the cache passed in is left as it
+    was."""
+    full_f32()
+    B = x.shape[0]
+    d_in, H, ph, n, conv_ch = _dims(cfg)
+    dtype = x.dtype
+
+    z, xbc, dt_raw = _proj_split(p, x, cfg)
+    conv_hist = torch.cat([cache.conv, xbc.to(cache.conv.dtype)],
+                          dim=1)                        # (B,W,C)
+    xbc_t = torch.einsum("bwc,wc->bc", conv_hist.to(dtype),
+                         p["conv_w"].to(dtype)) + p["conv_b"].to(dtype)
+    xbc_t = F.silu(xbc_t)                               # (B,C)
+    new_conv = conv_hist[:, 1:]
+
+    xs = xbc_t[:, :d_in].reshape(B, H, ph)
+    Bm = xbc_t[:, d_in:d_in + n]                        # (B,n)
+    Cm = xbc_t[:, d_in + n:]                            # (B,n)
+    dt_v = F.softplus(dt_raw[:, 0].to(torch.float32) + p["dt_bias"])
+    A = -torch.exp(p["A_log"])
+    decay = torch.exp(dt_v * A[None, :])                # (B,H)
+
+    h = (decay[:, :, None, None] * cache.h
+         + torch.einsum("bh,bhp,bn->bhpn", dt_v, xs.to(torch.float32),
+                        Bm.to(torch.float32)))
+    y = torch.einsum("bhpn,bn->bhp", h, Cm.to(torch.float32))
+    y = y + p["D"][None, :, None] * xs.to(torch.float32)
+    y = y.reshape(B, 1, d_in).to(dtype)
+    out = _post(p, y, z, cfg)
+    return out, MambaCache(h=h, conv=new_conv)
 
 
 def apply_mamba2_ref(p, x, cfg: ArchConfig):

@@ -1,32 +1,41 @@
-"""Backbone assembly for the dense and hybrid (zamba2) families: the
-full-sequence forward of ``repro/models/transformer.py``.
+"""Backbone assembly for the dense and hybrid (zamba2) families
+(counterpart of ``repro/models/transformer.py``).
 
   dense           -> attention block + MLP, ``n_layers`` times
   hybrid (zamba2) -> groups of ``shared_attn_every`` mamba2 blocks, each
                      group followed by the one *shared* attention + GELU
                      MLP block (sliding window ``shared_attn_window``)
 
-The ssm (rwkv6), moe, vlm and audio families, decode and its caches wait
-for later slices (ROADMAP.md Queue 1 item 7): ``Model`` raises
-``NotImplementedError`` for them.
+The ssm (rwkv6), moe, vlm and audio families wait for later slices
+(ROADMAP.md Queue 1 item 7): ``Model`` raises ``NotImplementedError``
+for them.
 
 Public surface:
     model = Model(cfg, device=None)             # the card unless "cpu"
     h, aux = model.hidden({"tokens": tokens})   # (B,T,d) final-normed
     logits, aux = model.apply({"tokens": tokens})
     emb = model.embed_pool({"tokens": tokens})  # (B, d) f32, for DML
+    cache = model.init_decode_cache(batch, max_seq)
+    logits, cache = model.decode_step(cache, tokens, pos)   # (B, V)
 
 Parameters keep the reference's names: ``model.embedding.tok``,
 ``model.blocks[i].mamba.w_z``, ``model.shared.attn.wq``, ... — the
 reference's stacked ``blocks`` pytree becomes an ``nn.ModuleList`` of
-one ``ParamTree`` per layer. They are inference weights
+one ``ParamTree`` per layer, and its stacked decode caches per-layer
+lists (``stack_blocks`` / ``unstack_blocks`` convert a tree between the
+two layouts). The module's parameters are inference weights
 (``requires_grad=False``): the forward runs mamba blocks through
 ``apply_mamba2_kernel`` and attention through ``attend``, whose kernels
 are forward-only. ``plain=True`` runs the reference's own forms instead
 (``apply_mamba2``, naive / chunked attention), on any device: the
-differentiable path of the training slice, and what the kernel path is
-held against on the card. ``Model.apply`` keeps the reference's name and
-so shadows ``nn.Module.apply``.
+training forms, and what the kernel path is held against on the card.
+Training differentiates ``hidden(batch, plain=True, params=tree)``,
+where ``tree`` is the reference-shaped parameter tree
+(``param_tree()``) of tensors that the optimizer steps, as the
+reference's ``Model.hidden(params, batch)`` takes them. Decode is plain
+torch on every device: the reference computes it without a kernel.
+``Model.apply`` keeps the reference's name and so shadows
+``nn.Module.apply``.
 """
 
 from __future__ import annotations
@@ -35,11 +44,13 @@ from typing import Any, Dict
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
 from repro_torch.kernels._dispatch import full_f32
 from repro_torch.models import attention, common, mamba2, mlp
+from repro_torch.tree import tree_leaves, tree_map
 
 FAMILIES = ("dense", "hybrid")
 
@@ -92,10 +103,34 @@ def _apply_attn_block(p, x, cfg: ArchConfig, positions, plain: bool):
     return x + mlp.apply_mlp(p["mlp"], h2, cfg)
 
 
+def _decode_attn_block(p, x, cache, pos: int, cfg: ArchConfig):
+    h = common.apply_norm(p["norm1"], x, cfg)
+    att_out, cache = attention.decode_attend(p["attn"], h, cache, pos, cfg)
+    if cfg.parallel_block:
+        return x + att_out + mlp.apply_mlp(p["mlp"], h, cfg), cache
+    x = x + att_out
+    h2 = common.apply_norm(p["norm2"], x, cfg)
+    return x + mlp.apply_mlp(p["mlp"], h2, cfg), cache
+
+
 def _apply_mamba_block(p, x, cfg: ArchConfig, plain: bool):
     h = common.apply_norm(p["norm1"], x, cfg)
     forward = mamba2.apply_mamba2 if plain else mamba2.apply_mamba2_kernel
     return x + forward(p["mamba"], h, cfg)
+
+
+def _decode_mamba_block(p, x, cache, cfg: ArchConfig):
+    h = common.apply_norm(p["norm1"], x, cfg)
+    y, cache = mamba2.decode_step(p["mamba"], h, cache, cfg)
+    return x + y, cache
+
+
+def _layer(fn, x, remat: bool):
+    """``fn(x)``, checkpointed (recomputed in backward) under ``remat``
+    when autograd is recording."""
+    if remat and torch.is_grad_enabled():
+        return checkpoint(fn, x, use_reentrant=False)
+    return fn(x)
 
 
 def init_params(cfg: ArchConfig, gen: torch.Generator) -> dict:
@@ -117,6 +152,40 @@ def shared_cfg(cfg: ArchConfig) -> ArchConfig:
     return cfg.replace(block_kind="attn", n_experts=0, attention="sliding",
                        window=cfg.shared_attn_window, mlp_kind="gelu",
                        family="dense")
+
+
+def _map_blocks(tree, fn):
+    """``tree`` with ``fn`` applied to the subtree under every "blocks"
+    key (params, optimizer moments and decode caches all have one)."""
+    if isinstance(tree, dict):
+        return {k: fn(v) if k == "blocks" else _map_blocks(v, fn)
+                for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(_map_blocks(v, fn) for v in tree))
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_map_blocks(v, fn) for v in tree)
+    return tree
+
+
+def stack_blocks(tree):
+    """The reference's layout of a tree: each "blocks" list of per-layer
+    trees becomes one tree of tensors stacked on a leading layers
+    axis."""
+    return _map_blocks(tree, lambda layers: tree_map(
+        lambda *xs: torch.stack(xs), *layers)
+        if isinstance(layers, list) else layers)
+
+
+def unstack_blocks(tree):
+    """Inverse of ``stack_blocks``: each "blocks" tree of stacked leaves
+    (tensors or numpy arrays) becomes a list of per-layer trees (views
+    of the stacked leaves)."""
+    def unstack(stacked):
+        if isinstance(stacked, list):
+            return stacked
+        n = len(tree_leaves(stacked)[0])
+        return [tree_map(lambda a, i=i: a[i], stacked) for i in range(n)]
+    return _map_blocks(tree, unstack)
 
 
 # ---------------------------------------------------------------------------
@@ -153,53 +222,150 @@ class Model(nn.Module):
     def device(self) -> torch.device:
         return self.embedding.tok.device
 
-    # ----- full-sequence forward (prefill / embedding) -----
+    def param_tree(self) -> dict:
+        """The reference's parameter tree (``blocks`` a list of per-layer
+        dicts) of detached tensors sharing the module's storage: what
+        ``hidden(..., params=)`` takes and the optimizer steps."""
+        def tree(m):
+            out = {k: tree(v) for k, v in m.named_children()}
+            out.update((k, v.detach()) for k, v in
+                       m.named_parameters(recurse=False))
+            return out
+        params = {"embedding": tree(self.embedding),
+                  "blocks": [tree(b) for b in self.blocks],
+                  "final_norm": tree(self.final_norm)}
+        if self.cfg.shared_attn_every:
+            params["shared"] = tree(self.shared)
+        return params
 
-    def apply(self, batch: Dict[str, Any], plain: bool = False):
+    # ----- full-sequence forward (train / prefill / embedding) -----
+
+    def apply(self, batch: Dict[str, Any], plain: bool = False,
+              remat: bool = False, params=None):
         """Returns (logits (B,T,V), aux dict)."""
-        h, aux = self.hidden(batch, plain=plain)
-        return common.unembed(self.embedding, h, self.cfg), aux
+        params = self.param_tree() if params is None else params
+        h, aux = self.hidden(batch, plain=plain, remat=remat, params=params)
+        return common.unembed(params["embedding"], h, self.cfg), aux
 
-    def hidden(self, batch: Dict[str, Any], plain: bool = False):
-        """Final normed hidden states (B,T,d) + aux."""
-        h = self._backbone(batch, plain)
+    def hidden(self, batch: Dict[str, Any], plain: bool = False,
+               remat: bool = False, params=None):
+        """Final normed hidden states (B,T,d) + aux — callers that want
+        memory-bounded losses unembed in sequence chunks themselves.
+        ``remat`` checkpoints each layer (and the shared block at each
+        use) when autograd records; ``params`` (a ``param_tree()``-shaped
+        tree) replaces the module's own weights."""
+        h = self._backbone(batch, plain, remat, params)
         return h, {"moe_aux": torch.zeros((), device=h.device)}
 
     def embed_pool(self, batch: Dict[str, Any], plain: bool = False):
         """Mean-pooled final hidden state (B, d_model) f32 — the embedding
         the DML metric head consumes."""
-        h = self._backbone(batch, plain)
+        h = self._backbone(batch, plain, False, None)
         return torch.mean(h.to(torch.float32), dim=1)
 
-    def _backbone(self, batch, plain: bool):
+    def _backbone(self, batch, plain: bool, remat: bool, params):
         full_f32()          # f32 configs: true f32 products, as the reference
         cfg = self.cfg
+        params = self.param_tree() if params is None else params
         dtype = getattr(torch, cfg.dtype)
-        tokens = batch["tokens"].to(self.device)
-        x = common.embed_tokens(self.embedding, tokens, cfg, dtype)
+        emb = params["embedding"]
+        tokens = batch["tokens"].to(emb["tok"].device)
+        x = common.embed_tokens(emb, tokens, cfg, dtype)
         B, T, _ = x.shape
         positions = torch.arange(T, device=x.device)[None, :].expand(B, T)
-        x = self._run_blocks(x, positions, plain)
-        return common.apply_norm(self.final_norm, x, cfg)
+        if cfg.family == "hybrid":
+            x = self._run_hybrid(params, x, positions, plain, remat)
+        else:
+            for p_l in params["blocks"]:
+                x = _layer(lambda x, p_l=p_l: _apply_attn_block(
+                    p_l, x, cfg, positions, plain), x, remat)
+        return common.apply_norm(params["final_norm"], x, cfg)
 
-    def _run_blocks(self, x, positions, plain: bool):
-        if self.cfg.family == "hybrid":
-            return self._run_hybrid(x, positions, plain)
-        for p_l in self.blocks:
-            x = _apply_attn_block(p_l, x, self.cfg, positions, plain)
+    def _run_hybrid(self, params, x, positions, plain: bool, remat: bool):
+        """Zamba2: groups of mamba layers + the shared attention block."""
+        cfg = self.cfg
+        every = self._groups()[1]
+        scfg = shared_cfg(cfg)
+        blocks = params["blocks"]
+        for g in range(self._groups()[0]):
+            for p_l in blocks[g * every:(g + 1) * every]:
+                x = _layer(lambda x, p_l=p_l: _apply_mamba_block(
+                    p_l, x, cfg, plain), x, remat)
+            x = _layer(lambda x: _apply_attn_block(
+                params["shared"], x, scfg, positions, plain), x, remat)
         return x
 
-    def _run_hybrid(self, x, positions, plain: bool):
-        """Zamba2: groups of mamba layers + the shared attention block."""
+    def _groups(self):
+        """(groups, layers a group) of the hybrid family."""
         cfg = self.cfg
         every = cfg.shared_attn_every
         if cfg.n_layers % every:
             raise ValueError(f"n_layers={cfg.n_layers} is not a multiple "
                              f"of shared_attn_every={every}")
-        scfg = shared_cfg(cfg)
-        for g in range(cfg.n_layers // every):
-            for p_l in self.blocks[g * every:(g + 1) * every]:
-                x = _apply_mamba_block(p_l, x, cfg, plain)
-            x = _apply_attn_block(self.shared, x, scfg, positions, plain)
-        return x
+        return cfg.n_layers // every, every
 
+    # ----- decode -----
+
+    def init_decode_cache(self, batch: int, max_seq: int, dtype=None,
+                          device=None) -> dict:
+        """Per-layer caches on ``device`` (the model's by default; "meta"
+        gives shapes without storage): ``{"blocks": [KVCache
+        | MambaCache per layer]}``, and for the hybrid family ``"shared":
+        [KVCache per group]`` (the shared block keeps one cache a use).
+        KV caches and the conv history take ``dtype`` (``cfg.dtype`` by
+        default); the SSM state is f32."""
+        cfg = self.cfg
+        if dtype is None:
+            dtype = getattr(torch, cfg.dtype)
+        if not cfg.has_decode:
+            raise ValueError(f"{cfg.name} is encoder-only: no decode step")
+        dev = self.device if device is None else torch.device(device)
+        if cfg.family == "hybrid":
+            n_groups = self._groups()[0]
+            return {"blocks": [mamba2.init_cache(cfg, batch, dtype, dev)
+                               for _ in range(cfg.n_layers)],
+                    "shared": [attention.init_cache(shared_cfg(cfg), batch,
+                                                    max_seq, dtype, dev)
+                               for _ in range(n_groups)]}
+        return {"blocks": [attention.init_cache(cfg, batch, max_seq, dtype,
+                                                dev)
+                           for _ in range(cfg.n_layers)]}
+
+    def decode_step(self, cache: dict, tokens, pos: int):
+        """tokens (B,) or (B,1) int; ``pos`` a Python int (the current
+        position). Returns (logits (B,V), cache). KV caches are written
+        in place and the SSM states replaced, so the cache passed in is
+        spent: use the one returned."""
+        full_f32()
+        cfg = self.cfg
+        dtype = getattr(torch, cfg.dtype)
+        tokens = tokens.to(self.device)
+        if tokens.ndim == 1:
+            tokens = tokens[:, None]
+        x = common.embed_tokens(self.embedding, tokens, cfg, dtype)
+        if cfg.family == "hybrid":
+            x, new_cache = self._decode_hybrid(cache, x, pos)
+        else:
+            new_blocks = []
+            for p_l, c_l in zip(self.blocks, cache["blocks"]):
+                x, c_l = _decode_attn_block(p_l, x, c_l, pos, cfg)
+                new_blocks.append(c_l)
+            new_cache = {"blocks": new_blocks}
+        h = common.apply_norm(self.final_norm, x, cfg)
+        logits = common.unembed(self.embedding, h, cfg)
+        return logits[:, 0], new_cache
+
+    def _decode_hybrid(self, cache, x, pos: int):
+        cfg = self.cfg
+        n_groups, every = self._groups()
+        scfg = shared_cfg(cfg)
+        blocks, shared = [], []
+        for g in range(n_groups):
+            for i in range(g * every, (g + 1) * every):
+                x, c_l = _decode_mamba_block(self.blocks[i], x,
+                                             cache["blocks"][i], cfg)
+                blocks.append(c_l)
+            x, sc = _decode_attn_block(self.shared, x, cache["shared"][g],
+                                       pos, scfg)
+            shared.append(sc)
+        return x, {"blocks": blocks, "shared": shared}

@@ -5,7 +5,10 @@ build amortizes the learned metric once (``gp = G @ L^T`` plus row norms,
 kernels/metric_topk.project_gallery); every query then costs
 O(d_in*d_out + M*d_out). ``topk`` goes through ``metric_topk``, which on
 the card launches the hand-written kernel and on the CPU runs its plain
-version.
+version. ``ExactIndex.backend`` keeps the reference's engine knob:
+"auto" (that dispatch by device), "pallas" (the kernel; needs the card,
+raises on a CPU index) or "xla" (the plain path, ``metric_topk_plain``,
+on the index's device, the card included).
 """
 
 from __future__ import annotations
@@ -16,7 +19,8 @@ from typing import Protocol, runtime_checkable
 import torch
 
 from repro_torch.device import resolve_device
-from repro_torch.kernels.metric_topk import metric_topk, project_gallery
+from repro_torch.kernels.metric_topk import (metric_topk, metric_topk_plain,
+                                             project_gallery)
 from repro_torch.serve import scan
 
 
@@ -37,6 +41,9 @@ class MetricIndex(Protocol):
         ...
 
 
+BACKENDS = ("auto", "xla", "pallas")
+
+
 @dataclasses.dataclass(eq=False)
 class ExactIndex:
     """Immutable exact retrieval index over a pre-projected gallery.
@@ -50,19 +57,27 @@ class ExactIndex:
     gp: torch.Tensor                # (M, d_out) projected gallery rows
     gn: torch.Tensor                # (M,) row norms of gp
     version: int = 0
+    backend: str = "auto"           # auto | pallas (kernel) | xla (plain)
+
+    def __post_init__(self):
+        if self.backend not in BACKENDS:
+            raise ValueError(f"unknown backend {self.backend!r} "
+                             f"({'|'.join(BACKENDS)})")
 
     @classmethod
-    def build(cls, L, gallery, device=None) -> "ExactIndex":
+    def build(cls, L, gallery, device=None,
+              backend: str = "auto") -> "ExactIndex":
         """Project the (M, d_in) gallery through L once (on ``device``,
         the card by default)."""
         dev = resolve_device(device)
         L = torch.as_tensor(L, dtype=torch.float32).to(dev)
         gallery = torch.as_tensor(gallery).to(dev)
         gp, gn = project_gallery(L, gallery)
-        return cls.from_projected(L, gp, gn, device=dev)
+        return cls.from_projected(L, gp, gn, device=dev, backend=backend)
 
     @classmethod
-    def from_projected(cls, L, gp, gn, device=None) -> "ExactIndex":
+    def from_projected(cls, L, gp, gn, device=None,
+                       backend: str = "auto") -> "ExactIndex":
         """Construct from already-projected rows (gp (M,d_out), gn (M,))."""
         dev = resolve_device(device)
         L = torch.as_tensor(L, dtype=torch.float32).to(dev)
@@ -73,7 +88,7 @@ class ExactIndex:
                 f"projected rows have dim {gp.shape[1]} but L is "
                 f"{tuple(L.shape)}; gp must be sized d_out")
         gn = torch.as_tensor(gn, dtype=torch.float32).to(dev).contiguous()
-        return cls(L=L.contiguous(), gp=gp, gn=gn)
+        return cls(L=L.contiguous(), gp=gp, gn=gn, backend=backend)
 
     @property
     def device(self) -> torch.device:
@@ -97,6 +112,12 @@ class ExactIndex:
         if k_top > self.size:
             raise ValueError(f"k_top={k_top} > gallery size {self.size}")
         q = torch.as_tensor(queries, dtype=torch.float32).to(self.device)
+        if self.backend == "xla":
+            return metric_topk_plain(self.L, q, self.gp, self.gn, k_top)
+        if self.backend == "pallas" and self.device.type != "cuda":
+            raise ValueError("backend 'pallas' is the metric_topk kernel, "
+                             "which needs the card; this index is on "
+                             f"{self.device}")
         return metric_topk(self.L, q, self.gp, self.gn, k_top=k_top)
 
 

@@ -587,7 +587,8 @@ class MutableIndex:
     def _compact_exact(self):
         gp, gn, ids, raw = self._live_state()
         self.base = ExactIndex.from_projected(self.L, gp, gn,
-                                              device=self.device)
+                                              device=self.device,
+                                              backend=self.base.backend)
         self.base_ids = ids
         if raw is not None:
             self.raw_base = raw
@@ -798,7 +799,8 @@ class MutableIndex:
                 nprobe=base.nprobe, scan_impl=base.scan_impl,
                 **self._rebuild_kwargs())
         else:
-            new_base = ExactIndex.from_projected(L_new, gp, gn, device=dev)
+            new_base = ExactIndex.from_projected(L_new, gp, gn, device=dev,
+                                                 backend=base.backend)
         clock.lap("rebuild")
         # the flip: nothing above mutated served state
         self.base = new_base

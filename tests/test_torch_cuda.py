@@ -1123,3 +1123,92 @@ def test_closed_loop_on_the_card_launches_its_kernels(cuda_device):
     assert metric_topk_fused.launches > n_topk
     assert clt.engine.index.version - v0 == clt.n_refreshes - 1 == 2
     assert np.isfinite([h["loss"] for h in hist["steps"]]).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,over", [
+    ("zamba2-2.7b", dict(ssm_tile_dtype="float32")),
+    ("zamba2-2.7b", dict(ssm_tile_dtype="float32", shared_attn_window=8)),
+    ("gemma-7b", dict(head_dim=256))])
+def test_decode_on_the_card_matches_apply_through_the_kernels(
+        cuda_device, name, over):
+    """Reduced models decode 24 teacher-forced tokens on the card; every
+    step's logits against ``apply`` through the kernels (the SSD's
+    chunks against decode's recurrence: rtol 2e-3, atol 2e-4, the
+    reference's bound between those forms; dense: attention streamed
+    against the cache's naive scores, rtol 1e-4, atol 1e-5), with a ring
+    of 8 that wraps for zamba2's shared block."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.ssd_chunk import ssd_scan
+    from repro_torch.launch import serve
+    from repro_torch.models import Model
+    cfg = get_config(name + "-reduced").replace(dtype="float32", **over)
+    model = Model(cfg, device=cuda_device, seed=1)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 8), device=cuda_device)
+    out = serve.generate(model, tokens, 16, keep_logits=True)
+    seq = torch.cat([tokens, out["tokens"]], dim=1)[:, :-1]
+    n_ssd, n_fa = ssd_scan.launches, flash_attention.launches
+    with torch.inference_mode():
+        full, _ = model.apply({"tokens": seq})
+    torch.cuda.synchronize()
+    hybrid = cfg.family == "hybrid"
+    assert flash_attention.launches - n_fa == (
+        cfg.n_layers // cfg.shared_attn_every if hybrid else cfg.n_layers)
+    assert ssd_scan.launches - n_ssd == (cfg.n_layers if hybrid else 0)
+    tol = dict(rtol=2e-3, atol=2e-4) if hybrid else dict(rtol=1e-4,
+                                                         atol=1e-5)
+    torch.testing.assert_close(out["step_logits"], full, **tol)
+
+
+@pytest.mark.cuda
+def test_train_step_on_the_card_matches_the_cpu(cuda_device):
+    """One AdamW step of reduced zamba2 (remat on) on the card and on the
+    CPU from the same weights and batch: loss and grad norm within rtol
+    1e-4 (f32 on both, TF32 off), the params within the bound of the
+    CPU tests against the reference (rtol 1e-4 + atol 1e-4)."""
+    from repro_torch.configs import RunConfig, get_config
+    from repro_torch.data.tokens import token_stream
+    from repro_torch.launch import steps
+    from repro_torch.models import Model
+    cfg = get_config("zamba2-2.7b-reduced").replace(
+        dtype="float32", ssm_tile_dtype="float32")
+    run = RunConfig(lr=1e-3, warmup=0, total_steps=4, remat=True)
+    results = []
+    for dev in ("cpu", cuda_device):
+        model = Model(cfg, device="cpu", seed=3).to(dev)
+        opt = steps.make_optimizer(run)
+        step = steps.make_train_step(model, opt, run, loss_chunks=2)
+        batch = next(token_stream(cfg.vocab_size, 2, 64, device=dev))
+        state, m = step(steps.init_train_state(model, opt), batch)
+        results.append((state, m))
+    (s_cpu, m_cpu), (s_gpu, m_gpu) = results
+    for key in ("loss", "grad_norm"):
+        torch.testing.assert_close(m_gpu[key].cpu(), m_cpu[key], rtol=1e-4,
+                                   atol=0)
+    from repro_torch.tree import tree_leaves
+    for a, b in zip(tree_leaves(s_gpu.params), tree_leaves(s_cpu.params)):
+        assert a.is_cuda and bool(torch.isfinite(a).all())
+        torch.testing.assert_close(a.cpu(), b, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_checkpoint_round_trip_from_the_card(cuda_device, tmp_path):
+    """A train state on the card, saved and restored onto the card: bit
+    for bit, every leaf back on the card in its dtype."""
+    from repro_torch.checkpoint import restore_checkpoint, save_checkpoint
+    from repro_torch.configs import RunConfig, get_config
+    from repro_torch.launch import steps
+    from repro_torch.models import Model
+    from repro_torch.tree import tree_leaves, tree_map
+    cfg = get_config("smollm-135m-reduced").replace(dtype="float32")
+    model = Model(cfg, device=cuda_device)
+    opt = steps.make_optimizer(RunConfig(total_steps=4, warmup=0))
+    state = steps.init_train_state(model, opt)
+    tree = {"params": state.params, "opt": state.opt_state}
+    save_checkpoint(str(tmp_path), 1, tree)
+    got, at = restore_checkpoint(str(tmp_path),
+                                 tree_map(torch.zeros_like, tree))
+    assert at == 1
+    for a, b in zip(tree_leaves(got), tree_leaves(tree)):
+        assert a.is_cuda and a.dtype == b.dtype and torch.equal(a, b)

@@ -1,7 +1,8 @@
 """The port stands alone: no jax, nothing of ``repro``, no quiet CPU.
 
 An AST scan holds every module under ``src/repro_torch`` and
-``chip_smoke.py`` to imports of torch, numpy and the standard library;
+``chip_smoke.py`` to imports of torch, numpy and the standard library
+(no ``msgpack`` either: the card's machine lacks it);
 the default-device entry points must raise when there is no card; and
 ``chip_smoke.py`` must fail without a card and outside the repository.
 """
@@ -27,8 +28,11 @@ from repro_torch.core.ps.trainer import (DMLTrainConfig,
 from repro_torch.data import pairs
 from repro_torch.device import resolve_device
 from repro_torch.configs import get_config
-from repro_torch.convert import model_params_from_jax
-from repro_torch.launch import serve_embeddings, serve_retrieval, train_mined
+from repro_torch.convert import (decode_cache_from_jax, model_params_from_jax,
+                                 train_state_from_jax)
+from repro_torch.data import tokens
+from repro_torch.launch import (serve, serve_embeddings, serve_retrieval,
+                                train, train_mined)
 from repro_torch.mining import (ClosedLoopConfig, ClosedLoopTrainer,
                                 MinedPairSource)
 from repro_torch.models import Model
@@ -53,7 +57,7 @@ def _imported(path: Path):
 
 def _forbidden(name: str) -> bool:
     top = name.split(".")[0]
-    return top in ("jax", "jaxlib", "repro", "flax", "optax")
+    return top in ("jax", "jaxlib", "repro", "flax", "optax", "msgpack")
 
 
 @pytest.mark.parametrize("path", PORT_FILES,
@@ -66,6 +70,7 @@ def test_port_imports_no_jax_and_nothing_of_repro(path):
 def test_scan_sees_the_port():
     assert len(PORT_FILES) > 20
     assert _forbidden("repro.serve") and _forbidden("jax.numpy")
+    assert _forbidden("msgpack")
     assert not _forbidden("repro_torch.serve")
 
 
@@ -167,6 +172,15 @@ _BACKBONE_ENTRY_POINTS = {
         _ZAMBA, {"embedding": {}, "blocks": {}, "final_norm": {}}),
     "serve_embeddings.build": lambda: serve_embeddings.build(reduced=True),
     "cli serve_embeddings": lambda: serve_embeddings.main(["--reduced"]),
+    "cli serve": lambda: serve.main(["--arch", "smollm-135m", "--reduced"]),
+    "cli train": lambda: train.main(["--arch", "smollm-135m", "--reduced",
+                                     "--steps", "1"]),
+    "train.build": lambda: train.build("smollm-135m", 1, reduced=True),
+    "token_stream": lambda: next(tokens.token_stream(64, 2, 8)),
+    "embedding_stream": lambda: next(tokens.embedding_stream(8, 2, 4)),
+    "decode_cache_from_jax": lambda: decode_cache_from_jax(
+        _ZAMBA, {"blocks": None}),
+    "train_state_from_jax": lambda: train_state_from_jax(_ZAMBA, None),
 }
 
 

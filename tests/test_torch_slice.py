@@ -6,10 +6,13 @@ carried across with repro_torch.convert, and the same request stream
 must come back with the same neighbours. The training pipeline
 (``train_eval_split -> train_dml_single -> ExactIndex``) starts from the
 reference's initial factor and must serve the same neighbours as the
-reference's pipeline. The port's CLI trains and serves on the CPU.
+reference's pipeline. The port's CLI trains and serves on the CPU, and
+takes the reference's ``--trace-sample`` / ``--trace-out`` and
+``--backend`` flags with the reference's checks.
 """
 
 import dataclasses
+import json
 
 import numpy as np
 import pytest
@@ -31,6 +34,7 @@ from repro_torch.core import dml
 from repro_torch.core.ps.trainer import train_dml_single
 from repro_torch.data import pairs
 from repro_torch.launch import serve_retrieval
+from repro_torch.obs.trace import span_names
 from repro_torch.serve import ExactIndex, RetrievalEngine
 
 
@@ -189,3 +193,79 @@ def test_trained_pipeline_serves_the_reference_neighbours():
     np.testing.assert_array_equal(i.numpy(), np.asarray(i_ref))
     np.testing.assert_allclose(d.numpy(), np.asarray(d_ref), rtol=1e-4,
                                atol=1e-4)
+
+
+# -- the reference's tracing and backend flags -----------------------------------
+
+def test_cli_trace_sample_and_out(tmp_path, capsys):
+    """``--trace-sample 0.25`` samples every 4th request (the tracer's
+    deterministic accumulator) and ``--trace-out`` writes one span tree
+    a sampled request as JSONL."""
+    path = tmp_path / "traces.jsonl"
+    serve_retrieval.main(["--device", "cpu", "--gallery-size", "1000",
+                          "--train-steps", "0", "--requests", "80",
+                          "--trace-sample", "0.25", "--trace-out",
+                          str(path)])
+    out = capsys.readouterr().out
+    assert f"traces -> {path} (20 sampled of 80 minted)" in out
+    lines = path.read_text().splitlines()
+    assert len(lines) == 20
+    tree = json.loads(lines[0])
+    assert tree["trace_id"]
+    names = span_names(tree)
+    assert names[0] == "request" and "device_topk" in names
+
+
+@pytest.mark.parametrize("rate", ["-0.1", "1.5"])
+def test_cli_trace_sample_out_of_range(rate, capsys):
+    with pytest.raises(SystemExit):
+        serve_retrieval.main(["--device", "cpu", "--trace-sample", rate])
+    assert "--trace-sample must be in [0, 1]" in capsys.readouterr().err
+
+
+def test_cli_backend_xla_is_the_plain_path(capsys):
+    argv = ["--device", "cpu", "--gallery-size", "1200", "--train-steps",
+            "0", "--requests", "40"]
+    purity = {}
+    for backend in ("xla", "auto"):
+        serve_retrieval.main(argv + ["--backend", backend])
+        out = capsys.readouterr().out
+        assert f"exact scan backend={backend} (plain path)" in out
+        purity[backend] = out.split("purity@10: ")[1].split()[0]
+    assert purity["xla"] == purity["auto"]
+
+
+@pytest.mark.parametrize("extra", [[], ["--index", "ivf"],
+                                   ["--index", "ivfpq"]])
+def test_cli_backend_pallas_is_refused_without_the_kernel(extra, capsys):
+    """``pallas`` is the kernel: refused on the CPU, and (as in the
+    reference) with the IVF / IVFPQ indexes, whose scans follow
+    ``--scan-impl``."""
+    with pytest.raises(SystemExit):
+        serve_retrieval.main(["--device", "cpu", "--train-steps", "0",
+                              "--gallery-size", "200", "--backend",
+                              "pallas"] + extra)
+    err = capsys.readouterr().err
+    assert ("only supports --backend xla" in err if extra
+            else "needs the card" in err)
+
+
+def test_exact_index_backend_knob():
+    rng = np.random.RandomState(0)
+    L = rng.randn(8, 16).astype(np.float32)
+    x = rng.randn(300, 16).astype(np.float32)
+    q = torch.from_numpy(rng.randn(5, 16).astype(np.float32))
+    ref = ExactIndex.build(L, x, device="cpu").topk(q, 7)
+    plain = ExactIndex.build(L, x, device="cpu", backend="xla")
+    for a, b in zip(plain.topk(q, 7), ref):
+        assert torch.equal(a, b)
+    with pytest.raises(ValueError, match="needs the card"):
+        ExactIndex.build(L, x, device="cpu", backend="pallas").topk(q, 7)
+    with pytest.raises(ValueError, match="unknown backend"):
+        ExactIndex.build(L, x, device="cpu", backend="cuda")
+    from repro_torch.serve import MutableIndex
+    mut = MutableIndex.build(L, x, device="cpu")
+    mut.base.backend = "xla"
+    mut.delete(np.arange(200))
+    mut.compact()
+    assert mut.base.backend == "xla"
