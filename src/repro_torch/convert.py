@@ -29,6 +29,7 @@ from repro_torch.mining import (ClosedLoopConfig, CurriculumSchedule,
 from repro_torch.models import Model
 from repro_torch.models.attention import KVCache
 from repro_torch.models.mamba2 import MambaCache
+from repro_torch.models.rwkv6 import RWKVCache
 from repro_torch.models.transformer import unstack_blocks
 from repro_torch.optim import AdamState, MomentumState, ScaleState
 from repro_torch.serve.index import ExactIndex
@@ -229,7 +230,7 @@ def model_params_from_jax(cfg: ArchConfig, params_np, device=None) -> Model:
     return Model(cfg, device=dev, params=params)
 
 
-_CACHES = {cls.__name__: cls for cls in (KVCache, MambaCache)}
+_CACHES = {cls.__name__: cls for cls in (KVCache, MambaCache, RWKVCache)}
 
 
 def _cache_list(stacked, dev) -> list:
@@ -237,7 +238,7 @@ def _cache_list(stacked, dev) -> list:
     groups) axis as the port's list of one cache a layer."""
     cls = _CACHES.get(type(stacked).__name__)
     if cls is None or tuple(stacked._fields) != cls._fields:
-        raise ValueError(f"not a KVCache / MambaCache: "
+        raise ValueError(f"not a KVCache / MambaCache / RWKVCache: "
                          f"{type(stacked).__name__}")
     arrays = [np.asarray(a) for a in stacked]
     return [cls(*(_tensor(a[i], dev) for a in arrays))

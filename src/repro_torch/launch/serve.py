@@ -2,12 +2,13 @@
 [--batch 4] [--prompt-len 16] [--gen-len 32] [--reduced] [--device cpu]``.
 
 Counterpart of ``repro.launch.serve``: prefill is a teacher-forced decode
-over the prompt (state-carrying for the hybrid family, cache-filling for
-attention), then a greedy decode loop with the arch's cache (KV ring /
-SSM state / hybrid). Weights come from the port's seeded init. Runs on
-the card unless ``--device cpu`` is given; ``--reduced`` runs the
-smoke-scale variant in f32. Prints prefill ms, ms a token, tokens/s and
-the generated shape.
+over the prompt (state-carrying for the ssm and hybrid families,
+cache-filling for attention), then a greedy decode loop with the arch's
+cache (KV ring / rwkv6's wkv state and token shifts (``RWKVCache``) /
+Mamba2's SSM state and conv history beside the shared block's KV ring).
+Weights come from the port's seeded init. Runs on the card unless
+``--device cpu`` is given; ``--reduced`` runs the smoke-scale variant in
+f32. Prints prefill ms, ms a token, tokens/s and the generated shape.
 """
 
 from __future__ import annotations

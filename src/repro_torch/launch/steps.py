@@ -10,8 +10,8 @@ functions (``batch_pspec``, ``input_shardings``, ``param_shardings``,
 wait for the multi-GPU slice (ROADMAP.md Queue 1 item 8).
 
 The training forward is ``Model.hidden(..., plain=True)``: the
-reference's own training forms (chunked SSD, naive or chunked
-attention); the two backbone kernels are forward-only. Parameters,
+reference's own training forms (chunked SSD, chunked rwkv6, naive or
+chunked attention); the two backbone kernels are forward-only. Parameters,
 gradients and optimizer states are the reference-shaped trees of
 ``Model.param_tree()``, and the optimizer is the port's functional
 ``optim``.

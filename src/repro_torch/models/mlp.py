@@ -1,6 +1,5 @@
-"""MLP variants: SwiGLU / GeGLU / plain GELU (counterpart of
-``repro/models/mlp.py``; the RWKV channel mix waits for the rwkv6
-family).
+"""MLP variants: SwiGLU / GeGLU / plain GELU, and the RWKV channel mix
+(counterpart of ``repro/models/mlp.py``).
 
 ``jax.nn.gelu`` defaults to the tanh approximation, and the reference
 uses that default, so every GELU here is ``approximate="tanh"``
@@ -26,16 +25,21 @@ def init_mlp(cfg: ArchConfig, gen) -> dict:
         zeros = lambda n: torch.zeros((n,), device=gen.device)  # noqa: E731
         return {"w_up": common.he_init(gen, (d, f), d), "b_up": zeros(f),
                 "w_down": common.he_init(gen, (f, d), f), "b_down": zeros(d)}
-    raise NotImplementedError(f"mlp_kind {cfg.mlp_kind!r} is not ported yet "
-                              f"(ROADMAP.md Queue 1 item 7)")
+    if cfg.mlp_kind == "rwkv_channel_mix":
+        half = lambda: 0.5 * torch.ones((d,), device=gen.device)  # noqa: E731
+        return {"mix_k": half(), "w_k": common.he_init(gen, (d, f), d),
+                "w_v": common.he_init(gen, (f, d), f), "mix_r": half(),
+                "w_r": common.he_init(gen, (d, d), d)}
+    raise ValueError(f"unknown mlp_kind {cfg.mlp_kind!r}")
 
 
 def gelu_tanh(x):
     return F.gelu(x, approximate="tanh")
 
 
-def apply_mlp(p, x, cfg: ArchConfig):
-    """x (B,T,d) -> (B,T,d) in x's dtype."""
+def apply_mlp(p, x, cfg: ArchConfig, x_prev=None):
+    """x (B,T,d) -> (B,T,d) in x's dtype. ``x_prev`` is the token-shifted
+    input, which the RWKV channel mix needs."""
     dt = x.dtype
     if cfg.mlp_kind in ("swiglu", "geglu"):
         act = F.silu if cfg.mlp_kind == "swiglu" else gelu_tanh
@@ -45,5 +49,12 @@ def apply_mlp(p, x, cfg: ArchConfig):
     if cfg.mlp_kind == "gelu":
         h = gelu_tanh(x @ p["w_up"].to(dt) + p["b_up"].to(dt))
         return h @ p["w_down"].to(dt) + p["b_down"].to(dt)
-    raise NotImplementedError(f"mlp_kind {cfg.mlp_kind!r} is not ported yet "
-                              f"(ROADMAP.md Queue 1 item 7)")
+    if cfg.mlp_kind == "rwkv_channel_mix":
+        if x_prev is None:
+            raise ValueError("the rwkv channel mix needs x_prev (token shift)")
+        xk = x + (x_prev - x) * p["mix_k"].to(dt)
+        xr = x + (x_prev - x) * p["mix_r"].to(dt)
+        k = torch.square(torch.relu(xk @ p["w_k"].to(dt)))
+        r = torch.sigmoid(xr @ p["w_r"].to(dt))
+        return r * (k @ p["w_v"].to(dt))
+    raise ValueError(f"unknown mlp_kind {cfg.mlp_kind!r}")

@@ -1,14 +1,14 @@
-"""Backbone assembly for the dense and hybrid (zamba2) families
-(counterpart of ``repro/models/transformer.py``).
+"""Backbone assembly for the dense, ssm (rwkv6) and hybrid (zamba2)
+families (counterpart of ``repro/models/transformer.py``).
 
   dense           -> attention block + MLP, ``n_layers`` times
+  ssm (rwkv6)     -> rwkv6 time mix + RWKV channel mix, ``n_layers`` times
   hybrid (zamba2) -> groups of ``shared_attn_every`` mamba2 blocks, each
                      group followed by the one *shared* attention + GELU
                      MLP block (sliding window ``shared_attn_window``)
 
-The ssm (rwkv6), moe, vlm and audio families wait for later slices
-(ROADMAP.md Queue 1 item 7): ``Model`` raises ``NotImplementedError``
-for them.
+The moe, vlm and audio families wait for later slices (ROADMAP.md
+Queue 1 item 7): ``Model`` raises ``NotImplementedError`` for them.
 
 Public surface:
     model = Model(cfg, device=None)             # the card unless "cpu"
@@ -29,6 +29,8 @@ two layouts). The module's parameters are inference weights
 are forward-only. ``plain=True`` runs the reference's own forms instead
 (``apply_mamba2``, naive / chunked attention), on any device: the
 training forms, and what the kernel path is held against on the card.
+The ssm family has no kernel (the reference computes rwkv6 in plain
+JAX), so both settings run its chunked ``apply_rwkv6``.
 Training differentiates ``hidden(batch, plain=True, params=tree)``,
 where ``tree`` is the reference-shaped parameter tree
 (``param_tree()``) of tensors that the optimizer steps, as the
@@ -49,10 +51,10 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
 from repro_torch.kernels._dispatch import full_f32
-from repro_torch.models import attention, common, mamba2, mlp
+from repro_torch.models import attention, common, mamba2, mlp, rwkv6
 from repro_torch.tree import tree_leaves, tree_map
 
-FAMILIES = ("dense", "hybrid")
+FAMILIES = ("dense", "hybrid", "ssm")
 
 
 class ParamTree(nn.Module):
@@ -86,6 +88,14 @@ def _init_attn_block(cfg: ArchConfig, gen) -> dict:
     return p
 
 
+def _init_rwkv_block(cfg: ArchConfig, gen) -> dict:
+    dev = gen.device
+    return {"norm1": common.init_norm(cfg, cfg.d_model, dev),
+            "tmix": rwkv6.init_rwkv6(cfg, gen),
+            "norm2": common.init_norm(cfg, cfg.d_model, dev),
+            "cmix": mlp.init_mlp(cfg, gen)}
+
+
 def _init_mamba_block(cfg: ArchConfig, gen) -> dict:
     return {"norm1": common.init_norm(cfg, cfg.d_model, gen.device),
             "mamba": mamba2.init_mamba2(cfg, gen)}
@@ -113,6 +123,24 @@ def _decode_attn_block(p, x, cache, pos: int, cfg: ArchConfig):
     return x + mlp.apply_mlp(p["mlp"], h2, cfg), cache
 
 
+def _apply_rwkv_block(p, x, cfg: ArchConfig):
+    h = common.apply_norm(p["norm1"], x, cfg)
+    x = x + rwkv6.apply_rwkv6(p["tmix"], h, cfg)
+    h2 = common.apply_norm(p["norm2"], x, cfg)
+    h2_prev = torch.cat([torch.zeros_like(h2[:, :1]), h2[:, :-1]], dim=1)
+    return x + mlp.apply_mlp(p["cmix"], h2, cfg, x_prev=h2_prev)
+
+
+def _decode_rwkv_block(p, x, cache: rwkv6.RWKVCache, cfg: ArchConfig):
+    h = common.apply_norm(p["norm1"], x, cfg)
+    y, cache = rwkv6.decode_step(p["tmix"], h, cache, cfg)
+    x = x + y
+    h2 = common.apply_norm(p["norm2"], x, cfg)
+    x = x + mlp.apply_mlp(p["cmix"], h2, cfg,
+                          x_prev=cache.x_ffn[:, None].to(x.dtype))
+    return x, cache._replace(x_ffn=h2[:, 0])
+
+
 def _apply_mamba_block(p, x, cfg: ArchConfig, plain: bool):
     h = common.apply_norm(p["norm1"], x, cfg)
     forward = mamba2.apply_mamba2 if plain else mamba2.apply_mamba2_kernel
@@ -135,9 +163,10 @@ def _layer(fn, x, remat: bool):
 
 def init_params(cfg: ArchConfig, gen: torch.Generator) -> dict:
     """The reference's parameter tree on ``gen``'s device, with
-    ``blocks`` as a list of per-layer dicts (dense or hybrid ``cfg``)."""
-    block_init = (_init_mamba_block if cfg.family == "hybrid"
-                  else _init_attn_block)
+    ``blocks`` as a list of per-layer dicts (a dense, hybrid or ssm
+    ``cfg``)."""
+    block_init = {"hybrid": _init_mamba_block,
+                  "ssm": _init_rwkv_block}.get(cfg.family, _init_attn_block)
     params = {"embedding": common.init_embedding(cfg, gen),
               "blocks": [block_init(cfg, gen) for _ in range(cfg.n_layers)],
               "final_norm": common.init_norm(cfg, cfg.d_model, gen.device)}
@@ -193,9 +222,9 @@ def unstack_blocks(tree):
 # ---------------------------------------------------------------------------
 
 class Model(nn.Module):
-    """A dense or hybrid backbone. ``device=None`` is the card (raises
-    without one); ``device="cpu"`` runs the plain versions of the
-    kernels. ``params`` (the reference's tree, ``blocks`` a list of
+    """A dense, ssm or hybrid backbone. ``device=None`` is the card
+    (raises without one); ``device="cpu"`` runs the plain versions of
+    the kernels. ``params`` (the reference's tree, ``blocks`` a list of
     per-layer dicts, as ``convert.model_params_from_jax`` gives it)
     replaces the seeded init."""
 
@@ -275,6 +304,10 @@ class Model(nn.Module):
         positions = torch.arange(T, device=x.device)[None, :].expand(B, T)
         if cfg.family == "hybrid":
             x = self._run_hybrid(params, x, positions, plain, remat)
+        elif cfg.family == "ssm":
+            for p_l in params["blocks"]:
+                x = _layer(lambda x, p_l=p_l: _apply_rwkv_block(p_l, x, cfg),
+                           x, remat)
         else:
             for p_l in params["blocks"]:
                 x = _layer(lambda x, p_l=p_l: _apply_attn_block(
@@ -310,10 +343,11 @@ class Model(nn.Module):
                           device=None) -> dict:
         """Per-layer caches on ``device`` (the model's by default; "meta"
         gives shapes without storage): ``{"blocks": [KVCache
-        | MambaCache per layer]}``, and for the hybrid family ``"shared":
-        [KVCache per group]`` (the shared block keeps one cache a use).
-        KV caches and the conv history take ``dtype`` (``cfg.dtype`` by
-        default); the SSM state is f32."""
+        | MambaCache | RWKVCache per layer]}``, and for the hybrid family
+        ``"shared": [KVCache per group]`` (the shared block keeps one
+        cache a use). KV caches, the conv history and the token shifts
+        take ``dtype`` (``cfg.dtype`` by default); the SSM and wkv states
+        are f32."""
         cfg = self.cfg
         if dtype is None:
             dtype = getattr(torch, cfg.dtype)
@@ -327,15 +361,19 @@ class Model(nn.Module):
                     "shared": [attention.init_cache(shared_cfg(cfg), batch,
                                                     max_seq, dtype, dev)
                                for _ in range(n_groups)]}
+        if cfg.family == "ssm":
+            return {"blocks": [rwkv6.init_cache(cfg, batch, dtype, dev)
+                               for _ in range(cfg.n_layers)]}
         return {"blocks": [attention.init_cache(cfg, batch, max_seq, dtype,
                                                 dev)
                            for _ in range(cfg.n_layers)]}
 
     def decode_step(self, cache: dict, tokens, pos: int):
         """tokens (B,) or (B,1) int; ``pos`` a Python int (the current
-        position). Returns (logits (B,V), cache). KV caches are written
-        in place and the SSM states replaced, so the cache passed in is
-        spent: use the one returned."""
+        position; the ssm family does not read it). Returns (logits
+        (B,V), cache). KV caches are written in place and the SSM and
+        wkv states replaced, so the cache passed in is spent: use the one
+        returned."""
         full_f32()
         cfg = self.cfg
         dtype = getattr(torch, cfg.dtype)
@@ -348,7 +386,10 @@ class Model(nn.Module):
         else:
             new_blocks = []
             for p_l, c_l in zip(self.blocks, cache["blocks"]):
-                x, c_l = _decode_attn_block(p_l, x, c_l, pos, cfg)
+                if cfg.family == "ssm":
+                    x, c_l = _decode_rwkv_block(p_l, x, c_l, cfg)
+                else:
+                    x, c_l = _decode_attn_block(p_l, x, c_l, pos, cfg)
                 new_blocks.append(c_l)
             new_cache = {"blocks": new_blocks}
         h = common.apply_norm(self.final_norm, x, cfg)

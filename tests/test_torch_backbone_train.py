@@ -5,8 +5,9 @@ configs, ``launch.steps`` (three AdamW steps from one state:
 ``convert.train_state_from_jax`` carries the reference's params and
 optimizer state across), the reference's own training tests run on the
 port (the loss falls, a resume is bit-exact), checkpoints read across
-packages in both directions, and ``launch.serve`` / ``launch.train`` on
-the CPU in subprocesses. Reduced widths, f32.
+packages in both directions, and ``launch.serve`` / ``launch.train`` /
+``launch.serve_embeddings`` on the CPU in subprocesses (rwkv6 among the
+archs). Reduced widths, f32.
 
 Tolerances for the three steps: both packages run the same forms
 (chunked SSD, naive attention, chunked CE) in f32 and differ in the
@@ -148,11 +149,10 @@ def _ref_setup(name, **over):
     return jcfg, cfg, jmodel, params
 
 
-@pytest.mark.parametrize("name,remat", [("smollm-135m", False),
-                                        ("zamba2-2.7b", False),
-                                        ("zamba2-2.7b", True),
-                                        ("gemma-7b", False)])
-def test_three_train_steps_match_reference(name, remat):
+def _three_steps(name, remat):
+    """Three AdamW steps of both packages from one state on one stream:
+    (reference state, port state, port model, reference params); loss,
+    grad norm and CE held at every step."""
     jcfg, cfg, jmodel, params = _ref_setup(name)
     run = dict(RUN, remat=remat)
     jrun, prun = JaxRunConfig(**run), RunConfig(**run)
@@ -174,8 +174,11 @@ def test_three_train_steps_match_reference(name, remat):
         for key in ("loss", "grad_norm", "ce"):
             _close(m[key], jm[key], **STEP_TOL)
     assert int(state.step) == 3 == int(jstate.step)
+    return jstate, state, model, params
+
+
+def _check_tight_share_and_moments(jstate, state):
     ref = unstack_blocks(jax.tree.map(np.asarray, jstate.params))
-    tree_map(lambda a, b: _close(a, b, **PARAM_TOL), _np(state.params), ref)
     beyond, total = [], []
 
     def count(a, b):
@@ -187,9 +190,72 @@ def test_three_train_steps_match_reference(name, remat):
     ref_m = unstack_blocks(jax.tree.map(np.asarray, jstate.opt_state.m))
     tree_map(lambda a, b: _close(a, b, rtol=0, atol=MOMENT_REL * np.abs(
         b).max()), _np(state.opt_state.m), ref_m)
+
+
+@pytest.mark.parametrize("name,remat", [("smollm-135m", False),
+                                        ("zamba2-2.7b", False),
+                                        ("zamba2-2.7b", True),
+                                        ("gemma-7b", False)])
+def test_three_train_steps_match_reference(name, remat):
+    jstate, state, model, params = _three_steps(name, remat)
+    ref = unstack_blocks(jax.tree.map(np.asarray, jstate.params))
+    tree_map(lambda a, b: _close(a, b, **PARAM_TOL), _np(state.params), ref)
+    _check_tight_share_and_moments(jstate, state)
     # the step returns new tensors: the model's own weights stayed put
     assert torch.equal(model.embedding.tok, torch.from_numpy(
         np.array(params["embedding"]["tok"])))
+
+
+@pytest.mark.parametrize("remat", [False, True])
+def test_three_rwkv6_train_steps_match_reference(remat):
+    """Three AdamW steps of rwkv6, each step taken by both packages from
+    the reference's state before it (``train_state_from_jax``), with the
+    other test's bounds on the loss, grad norm, CE, first moment and the
+    tight share. Step 2's gradient has one embedding entry (token 97,
+    channel 112) under 4e-6 of its row's largest on both sides, below
+    the two packages' f32 gradient difference (about 1e-5 of a leaf's
+    largest), so its sign is not determined and AdamW turns either sign
+    into a full step; carried on, that one weight moves the next step's
+    gradients past the moment bound. So each step starts from the
+    reference's state, and the
+    every-weight bound (PARAM_TOL) holds where the reference's first
+    moment is above the moment check's own bound (MOMENT_REL of the
+    leaf's largest |m|); there a weight may move by up to 2 lr (the
+    sign flip), in at most two weights a step."""
+    jcfg, cfg, jmodel, params = _ref_setup("rwkv6-1.6b")
+    run = dict(RUN, remat=remat)
+    jrun, prun = JaxRunConfig(**run), RunConfig(**run)
+    jopt = jax_steps.make_optimizer(jrun)
+    jstate = jax_steps.TrainState(params, jopt.init(params),
+                                  jnp.zeros((), jnp.int32))
+    jstep = jax.jit(jax_steps.make_train_step(jmodel, jopt, jrun,
+                                              loss_chunks=2))
+    stream = tokens.token_stream(cfg.vocab_size, 2, 32, seed=5, device="cpu")
+    for _ in range(3):
+        model, state = train_state_from_jax(
+            cfg, jax.tree.map(np.asarray, jstate), device="cpu")
+        step = steps.make_train_step(model, steps.make_optimizer(prun), prun,
+                                     loss_chunks=2)
+        batch = next(stream)
+        jstate, jm = jstep(jstate, {k: jnp.asarray(v.numpy())
+                                    for k, v in batch.items()})
+        state, m = step(state, batch)
+        for key in ("loss", "grad_norm", "ce"):
+            _close(m[key], jm[key], **STEP_TOL)
+        ref = unstack_blocks(jax.tree.map(np.asarray, jstate.params))
+        ref_m = unstack_blocks(jax.tree.map(np.asarray, jstate.opt_state.m))
+        flips = []
+
+        def check(a, b, m_b):
+            free = np.abs(m_b) <= MOMENT_REL * np.abs(m_b).max()
+            _close(a[~free], b[~free], **PARAM_TOL)
+            assert np.abs(a - b)[free].max(initial=0.0) <= 2 * RUN["lr"]
+            flips.append(int(np.sum(free & (np.abs(a - b) > PARAM_TOL[
+                "atol"] + PARAM_TOL["rtol"] * np.abs(b)))))
+        tree_map(check, _np(state.params), ref, ref_m)
+        assert sum(flips) <= 2, flips
+        _check_tight_share_and_moments(jstate, state)
+    assert int(state.step) == 3 == int(jstate.step)
 
 
 def test_remat_gives_the_same_step():
@@ -246,7 +312,7 @@ def test_prefill_and_serve_steps():
 # -- the reference's training tests on the port ---------------------------------
 
 @pytest.mark.parametrize("arch", ["smollm-135m", "gemma-7b", "yi-6b",
-                                  "zamba2-2.7b"])
+                                  "zamba2-2.7b", "rwkv6-1.6b"])
 def test_train_step_decreases_loss_and_no_nans(arch):
     """``test_arch_smoke.py``'s loss-falls test: a fixed batch repeated
     five times, lr 5e-3, no warmup."""
@@ -303,10 +369,10 @@ def test_checkpoint_resume_bitexact(tmp_path):
 
 # -- checkpoints across packages -----------------------------------------------
 
-@pytest.fixture(scope="module")
-def trained():
+@pytest.fixture(scope="module", params=["zamba2-2.7b", "rwkv6-1.6b"])
+def trained(request):
     """A reference train state after one step (params, AdamState)."""
-    jcfg, cfg, jmodel, params = _ref_setup("zamba2-2.7b")
+    jcfg, cfg, jmodel, params = _ref_setup(request.param)
     jrun = JaxRunConfig(**RUN)
     jopt = jax_steps.make_optimizer(jrun)
     jstate = jax_steps.TrainState(params, jopt.init(params),
@@ -434,7 +500,8 @@ def _run(*args, timeout=240):
                           capture_output=True, text=True, timeout=timeout)
 
 
-@pytest.mark.parametrize("arch", ["smollm-135m", "zamba2-2.7b"])
+@pytest.mark.parametrize("arch", ["smollm-135m", "zamba2-2.7b",
+                                  "rwkv6-1.6b"])
 def test_serve_cli_on_cpu(arch):
     res = _run("repro_torch.launch.serve", "--arch", arch, "--reduced",
                "--device", "cpu", "--batch", "2", "--prompt-len", "4",
@@ -450,22 +517,32 @@ def test_serve_cli_refuses_encoder_only():
     assert res.returncode != 0 and "encoder-only" in res.stderr
 
 
-def test_train_cli_on_cpu_writes_a_reference_checkpoint(tmp_path):
+@pytest.mark.parametrize("arch", ["zamba2-2.7b", "rwkv6-1.6b"])
+def test_train_cli_on_cpu_writes_a_reference_checkpoint(tmp_path, arch):
     ckpt = tmp_path / "ckpt"
-    res = _run("repro_torch.launch.train", "--arch", "zamba2-2.7b",
+    res = _run("repro_torch.launch.train", "--arch", arch,
                "--reduced", "--device", "cpu", "--steps", "3", "--batch",
                "2", "--seq", "32", "--remat", "--ckpt", str(ckpt))
     assert res.returncode == 0, res.stderr
     assert "loss " in res.stdout and "checkpoint:" in res.stdout
     assert latest_step(str(ckpt)) == 3
-    jcfg = jax_reduced(jax_get_config("zamba2-2.7b")).replace(
-        dtype="float32")
+    jcfg = jax_reduced(jax_get_config(arch)).replace(dtype="float32")
     target = jax_build_model(jcfg).init(jax.random.PRNGKey(1))
     got, at = jax_restore(str(ckpt), {"params": target})
     assert at == 3
     for a, b in zip(jax.tree.leaves(got["params"]), jax.tree.leaves(target)):
         assert np.asarray(a).shape == np.asarray(b).shape
         assert np.isfinite(np.asarray(a)).all()
+
+
+def test_serve_embeddings_cli_on_cpu_takes_rwkv6():
+    res = _run("repro_torch.launch.serve_embeddings", "--arch",
+               "rwkv6-1.6b", "--reduced", "--device", "cpu", "--seq-len",
+               "32", "--corpus", "8", "--batch", "4", "--requests", "2",
+               "--k", "3")
+    assert res.returncode == 0, res.stderr
+    assert "rwkv6-1.6b: corpus (8, 256) embedded" in res.stdout
+    assert "requests/s" in res.stdout and "p99" in res.stdout
 
 
 def test_train_cli_refuses_the_pod_meshes():

@@ -2,7 +2,9 @@
 metric_topk, dml_pair (forward and gradients), pairwise_sqdist, ivf_scan
 and pq_adc (bit for bit), the IVF / IVFPQ indexes on the card,
 flash_attention and ssd_scan (bf16 and f32), a reduced zamba2 backbone
-through both, a reduced gemma-7b at head dim 256, the mutable
+through both, a reduced gemma-7b at head dim 256, rwkv6 at full width
+(the chunked form's gradients at the decay clamp, decode against
+``apply`` at 2 layers; plain torch, no kernel), the mutable
 gallery (card against the CPU port, and its snapshot round trip) and
 the closed loop (mined pairs on the card equal to the CPU's, the
 stream's gather on the card equal to the host's, a small loop's
@@ -1212,3 +1214,57 @@ def test_checkpoint_round_trip_from_the_card(cuda_device, tmp_path):
     assert at == 1
     for a, b in zip(tree_leaves(got), tree_leaves(tree)):
         assert a.is_cuda and a.dtype == b.dtype and torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_rwkv6_gradient_at_the_decay_clamp_at_full_width(cuda_device):
+    """rwkv6-1.6b's time mix at full width (d 2048, 32 heads of 64), B 1,
+    T 256, every w0 at +2 so every decay sits at its clamp of -5: above
+    each chunk's diagonal the chunked form's factors multiply to e^160.
+    The gradients of x and every leaf are finite and within 1e-3 of the
+    leaf's largest |b| of the token-by-token recurrence's (the bound of
+    the CPU test against the reference)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import rwkv6
+    cfg = get_config("rwkv6-1.6b").replace(dtype="float32")
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    p = rwkv6.init_rwkv6(cfg, gen)
+    p["w0"] = torch.full_like(p["w0"], 2.0)
+    x = 0.5 * torch.randn((1, 256, cfg.d_model), generator=gen,
+                          device=cuda_device)
+    gy = torch.randn(x.shape, generator=gen, device=cuda_device)
+    grads = []
+    for fn in (rwkv6.apply_rwkv6, rwkv6.apply_rwkv6_ref):
+        live = {k: v.clone().requires_grad_(True) for k, v in p.items()}
+        xl = x.clone().requires_grad_(True)
+        (fn(live, xl, cfg) * gy).sum().backward()
+        grads.append([xl.grad] + [live[k].grad for k in sorted(live)])
+    for a, b in zip(*grads):
+        assert bool(torch.isfinite(a).all())
+        assert float((a - b).abs().max()) <= 1e-3 * float(b.abs().max())
+
+
+@pytest.mark.cuda
+def test_rwkv6_decode_on_the_card_matches_apply(cuda_device):
+    """rwkv6-1.6b at full width cut to 2 layers, f32: 8 prompt + 16
+    greedy tokens through ``launch/serve.generate``; every step's logits
+    against ``apply`` on the same tokens (rtol 1e-3, atol 1e-4: the
+    chunked wkv against decode's exact recurrence, the reference's bound
+    between those forms). ``apply`` runs a multiple of its chunk of 32,
+    so the 23 tokens are padded to 32: causal, the padding changes no
+    earlier logit."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models import Model
+    cfg = get_config("rwkv6-1.6b").replace(dtype="float32", n_layers=2)
+    model = Model(cfg, device=cuda_device, seed=1)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 8), device=cuda_device)
+    out = serve.generate(model, tokens, 16, keep_logits=True)
+    seq = torch.cat([tokens, out["tokens"]], dim=1)[:, :-1]
+    padded = torch.cat([seq, torch.zeros((2, 32 - seq.shape[1]),
+                                         dtype=seq.dtype,
+                                         device=cuda_device)], dim=1)
+    with torch.inference_mode():
+        full, _ = model.apply({"tokens": padded})
+    torch.testing.assert_close(out["step_logits"], full[:, :seq.shape[1]],
+                               rtol=1e-3, atol=1e-4)

@@ -5,7 +5,7 @@ One numpy seed feeds both packages; the reference's parameters
 ``convert.model_params_from_jax`` and its caches with
 ``convert.decode_cache_from_jax``. Everything runs in f32 at reduced
 width (2 layers, d_model <= 256; zamba2: one group of 2 mamba2 layers
-and the shared block).
+and the shared block; rwkv6: 4 heads of 64).
 
 Tolerances. Step against step (``mamba2.decode_step``,
 ``attention.decode_attend``, ``Model.decode_step``) the two packages run
@@ -15,7 +15,9 @@ order of the products differs: rtol 1e-4, atol 1e-5 (the port's
 own ``apply(plain=True)``: the dense family runs the same naive
 attention (rtol 1e-4, atol 1e-5); the hybrid family's full forward is
 the chunked SSD against decode's exact recurrence (rtol 2e-3, atol 2e-4,
-the reference's bound between those forms). The greedy loop's tokens
+the reference's bound between those forms); the ssm family's is the
+chunked wkv against decode's exact recurrence (rtol 1e-3, atol 1e-4,
+the reference's bound between those forms for rwkv6). The greedy loop's tokens
 must be equal wherever the reference's top-2 logit gap exceeds 1e-3,
 far above the logits' f32 differences, which the step-by-step tests
 bound by atol 1e-5 + rtol 1e-4.
@@ -41,10 +43,12 @@ from repro_torch.launch import serve, steps
 from repro_torch.models import attention, mamba2
 from repro_torch.models.attention import KVCache
 from repro_torch.models.mamba2 import MambaCache
+from repro_torch.models.rwkv6 import RWKVCache
 
 F32 = dict(dtype="float32", ssm_tile_dtype="float32")
 SAME_TOL = dict(rtol=1e-4, atol=1e-5)
 SSD_TOL = dict(rtol=2e-3, atol=2e-4)
+RWKV_TOL = dict(rtol=1e-3, atol=1e-4)
 GAP = 1e-3
 B, T = 2, 20
 
@@ -144,7 +148,7 @@ def test_decode_attend_matches_reference(window):
 
 # dense (smollm GQA 4 / 2, gemma at its head dim of 256, yi), yi with a
 # ring that wraps, hybrid zamba2 with its shared block's window at 64 and
-# at 8 (the ring of 8 wraps in 20 steps)
+# at 8 (the ring of 8 wraps in 20 steps), and the ssm family (rwkv6)
 MODELS = {
     "smollm-135m": ("smollm-135m", {}),
     "gemma-7b": ("gemma-7b", dict(head_dim=256)),
@@ -152,6 +156,7 @@ MODELS = {
     "yi-6b-ring": ("yi-6b", dict(attention="sliding", window=8)),
     "zamba2-2.7b": ("zamba2-2.7b", {}),
     "zamba2-2.7b-ring": ("zamba2-2.7b", dict(shared_attn_window=8)),
+    "rwkv6-1.6b": ("rwkv6-1.6b", {}),
 }
 
 
@@ -193,7 +198,7 @@ def test_decode_matches_own_plain_forward(decoded):
     with torch.inference_mode():
         full, _ = model.apply({"tokens": torch.from_numpy(decoded["tokens"])},
                               plain=True)
-    tol = SSD_TOL if cfg.family == "hybrid" else SAME_TOL
+    tol = {"hybrid": SSD_TOL, "ssm": RWKV_TOL}.get(cfg.family, SAME_TOL)
     _close(decoded["out"], full, **tol)
 
 
@@ -244,6 +249,11 @@ def test_cache_shapes_match_reference(decoded):
         assert isinstance(cache["blocks"][0], MambaCache)
         assert cache["shared"][0].k.shape[1] == min(cfg.shared_attn_window,
                                                     100)
+    elif cfg.family == "ssm":        # a fixed-size state: no max_seq
+        assert isinstance(cache["blocks"][0], RWKVCache)
+        assert cache["blocks"][0].S.shape == (B, cfg.n_heads,
+                                              cfg.dim_per_head,
+                                              cfg.dim_per_head)
     else:
         assert isinstance(cache["blocks"][0], KVCache)
         ring = cfg.attention == "sliding"
@@ -252,8 +262,7 @@ def test_cache_shapes_match_reference(decoded):
     meta = steps.cache_shape_structs(model, shape)
     for c, m in zip(model.init_decode_cache(2, 16)["blocks"],
                     meta["blocks"]):
-        assert m.k.device.type == "meta" if isinstance(m, KVCache) else \
-            m.h.device.type == "meta"
+        assert all(a.device.type == "meta" for a in m)
         assert m[0].shape[0] == shape.global_batch
 
 
@@ -276,13 +285,8 @@ def test_encoder_only_has_no_decode():
         Model(cfg, device="cpu").init_decode_cache(2, 16)
 
 
-def test_ssm_family_is_not_ported():
-    from repro_torch.models import Model
-    with pytest.raises(NotImplementedError, match="rwkv6"):
-        Model(get_config("rwkv6-1.6b-reduced"), device="cpu")
-
-
-@pytest.mark.parametrize("name", ["smollm-135m", "zamba2-2.7b"])
+@pytest.mark.parametrize("name", ["smollm-135m", "zamba2-2.7b",
+                                  "rwkv6-1.6b"])
 def test_greedy_loop_matches_reference(name):
     """A 20-step greedy loop (4 prompt tokens, 16 generated) through
     ``launch.serve.generate`` and the reference's loop on the same
