@@ -337,17 +337,51 @@ exit, and nothing falls back:
                 ``launch/train.py``'s loop as in 15 (f32, remat, B 2, T
                 512, 10 steps) at full depth; (e) the embedding service at
                 phase 10's traffic (one pairwise_sqdist launch a ranked
-                batch and no other kernel). Prints the decode, training and
-                rwkv6 numbers as a JSON line, then the ``kernels`` line,
-                the backbone kernels' entries with their launches in
-                12-15 and pairwise_sqdist's with its launches in 16e;
- 17. the last line: ``{"ok": true, "device": {...}}``.
+                batch and no other kernel);
+ 17. moe      — granite-moe-1b-a400m at full width and depth (24 layers,
+                d_model 1024, GQA 16/8 at Dh 64, 32 experts top 8, expert
+                d_ff 512, vocab 49,155, tied) and qwen3-moe-30b-a3b at
+                full width (d_model 2048, GQA 32/4 at Dh 128, qk_norm, 128
+                experts top 8, expert d_ff 768, vocab 151,936) cut to 16
+                of 48 layers (the deepest cut that fits, printed); f32
+                weights from the port's seeded init; the expert layer is
+                plain torch, attention runs on flash_attention. (a) layer
+                0's MoE on its real input (B 1, T 2048, f32): the grouped
+                ``apply_moe`` against the every-expert
+                ``apply_moe_dense`` at the config's capacity (no pair
+                dropped; y within rtol 1e-3 / atol 1e-4 and aux within
+                1e-4, the reference's own bound), at capacity factor 0.25
+                (pairs dropped, counted) against the dense form with the
+                dropped pairs' weights at 0, the gradients of x and every
+                leaf against the dense form's (within 1e-3 of each leaf's
+                largest |b|), forward and backward run twice
+                bit-identical; (b) the full forward through the kernels
+                against plain=True (hidden within 1e-4, the router loss
+                within 1e-6; one flash_attention launch a layer); (c)
+                decode as in 12 (f32, B 4, 16 + 32 tokens; neither apply
+                nor decode drops a pair, checked first), then the bf16
+                loop timed and profiled; (d) granite-moe training as in
+                15 at full depth (the first loss against apply's CE +
+                0.01 x its router loss; the router loss a step); (e) the
+                granite-moe embedding service: 32 corpus and 32 request
+                sequences of 4,096 tokens (granite-3.0's context) in
+                batches of 8, one batch's device ms by kind (attention,
+                expert GEMMs, dispatch and combine, other GEMMs); (f)
+                qwen3-moe's (a)-(c), one timed service batch of 8 x 4,096
+                tokens at bf16, and 3 training steps cut to 2 layers.
+                Prints the decode, training, rwkv6 and moe numbers as a
+                JSON line, then the ``kernels`` line, the backbone
+                kernels' entries with their launches in 12-15 (and
+                flash_attention's in 17), pairwise_sqdist's with its
+                launches in 16e and 17e;
+ 18. the last line: ``{"ok": true, "device": {...}}``.
 
 Every launch count is set to 0 just before a main-path phase (4, 5, 5a,
 5c, 6, each index of 8, each serving run of 8b, each burst of 8c, 8d's
 tenant traffic, 8e's main run and each of its cuts, gemma's embed_pool
 in 9, 10, each decode and each apply beside it in 12, 13 and 16c, each
-training run and apply in 14, 15 and 16d, and 16e) and read just after
+training run and apply in 14, 15 and 16d, 16e, and each forward, decode,
+apply, training run and service batch of 17) and read just after
 (5a launches no kernel: its gradient is the reference's plain autograd
 product);
 comparison launches come after the reading (or, for phase 9, before the
@@ -401,6 +435,7 @@ distances are apart by more than that.
 
 from __future__ import annotations
 
+import contextlib
 import gc
 import json
 import os
@@ -468,7 +503,7 @@ from repro_torch.mining import (ClosedLoopConfig,  # noqa: E402
                                 ClosedLoopTrainer, CurriculumSchedule,
                                 HardPairMiner, MinerConfig)
 from repro_torch.models import (Model, attention, common,  # noqa: E402
-                                mamba2, rwkv6)
+                                mamba2, moe, rwkv6)
 from repro_torch.models import transformer  # noqa: E402
 from repro_torch.models.transformer import shared_cfg  # noqa: E402
 from repro_torch.obs import percentile  # noqa: E402
@@ -4373,13 +4408,16 @@ def _category(name):
 def _service_launches(cfg, n_fwd, n_ranked):
     """The launches one service run must make: one pairwise_sqdist a
     ranked batch, and for the hybrid family each forward batch's
-    ssd_scan and flash_attention (the ssm family has no kernel)."""
+    ssd_scan and flash_attention, for the dense and moe families one
+    flash_attention a layer (the ssm family has no kernel)."""
     expect = dict.fromkeys(KERNEL_WRAPPERS, 0)
     expect["pairwise_sqdist"] = n_ranked
     if cfg.family == "hybrid":
         expect["ssd_scan"] = cfg.n_layers * n_fwd
         expect["flash_attention"] = cfg.n_layers // cfg.shared_attn_every \
             * n_fwd
+    elif cfg.family in ("dense", "moe"):
+        expect["flash_attention"] = cfg.n_layers * n_fwd
     return expect
 
 
@@ -4412,19 +4450,23 @@ def _check_ranking(out, L):
     return err
 
 
-def phase_embedding_service(arch=BACKBONE):
-    """The embedding service at full width and depth: 16 x 8192-token
-    corpus sequences embedded in batches of 4, then 4 request batches of
-    4 x 8192 tokens ranked under a seeded L (d_model -> 64), k = 5."""
+def phase_embedding_service(arch=BACKBONE, seq=SEQ, batch=EMB_BATCH,
+                            corpus_seqs=CORPUS_SEQS,
+                            request_batches=REQUEST_BATCHES):
+    """The embedding service at full width and depth: ``corpus_seqs``
+    sequences of ``seq`` tokens (16 x 8192 by default) embedded in
+    batches of ``batch`` (4), then ``request_batches`` (4) request
+    batches of ``batch`` x ``seq`` tokens ranked under a seeded L
+    (d_model -> 64), k = 5."""
     t0 = time.perf_counter()
     model, L = serve_embeddings.build(arch, device=DEV, proj_dim=EMB_PROJ,
                                       seed=0)
     cfg = model.cfg
     rng = np.random.RandomState(1)
-    corpus = serve_embeddings.token_batches(cfg.vocab_size, CORPUS_SEQS, SEQ,
-                                            EMB_BATCH, rng)
+    corpus = serve_embeddings.token_batches(cfg.vocab_size, corpus_seqs, seq,
+                                            batch, rng)
     requests = serve_embeddings.token_batches(
-        cfg.vocab_size, REQUEST_BATCHES * EMB_BATCH, SEQ, EMB_BATCH, rng)
+        cfg.vocab_size, request_batches * batch, seq, batch, rng)
     torch.cuda.synchronize()
     log(f"embedding service: {arch} ({cfg.dtype} activations, f32 "
         f"weights) and L {tuple(L.shape)} built in "
@@ -4437,10 +4479,10 @@ def phase_embedding_service(arch=BACKBONE):
     n_fwd = len(corpus) + len(requests)
     expect = _service_launches(cfg, n_fwd, len(requests))
     assert counts == expect, f"launch counts {counts}, expected {expect}"
-    log(f"corpus {CORPUS_SEQS} x {SEQ} tokens embedded in "
-        f"{out['corpus_s']:.2f}s ({CORPUS_SEQS * SEQ / out['corpus_s']:.0f} "
-        f"tokens/s); {REQUEST_BATCHES} request batches of {EMB_BATCH} x "
-        f"{SEQ}: requests/s {out['requests_per_s']:.3f}, tokens/s "
+    log(f"corpus {corpus_seqs} x {seq} tokens embedded in "
+        f"{out['corpus_s']:.2f}s ({corpus_seqs * seq / out['corpus_s']:.0f} "
+        f"tokens/s); {request_batches} request batches of {batch} x "
+        f"{seq}: requests/s {out['requests_per_s']:.3f}, tokens/s "
         f"{out['tokens_per_s']:.0f}, batch ms p50 {out['p50_ms']:.1f} p99 "
         f"{out['p99_ms']:.1f} ({[round(x, 1) for x in out['batch_ms']]}); "
         f"peak memory {peak:.2f} GB; launches "
@@ -4662,8 +4704,10 @@ def _hold_decode(model, prompts, what, bound=DECODE_REL_BOUND):
     holding it (rwkv6: ``_rwkv_decode_by_layer`` holds decode instead)."""
     cfg = model.cfg
     _reset_counts()
-    out = serve.generate(model, prompts, DECODE_GEN, keep_logits=True)
+    with _moe_routes() as routes:
+        out = serve.generate(model, prompts, DECODE_GEN, keep_logits=True)
     assert not any(_counts().values()), "decode launched a kernel"
+    decode_dropped = _dropped(routes)
     seq = torch.cat([prompts, out["tokens"]], dim=1)[:, :-1]
     steps = out["step_logits"]
     assert steps.shape == (prompts.shape[0], seq.shape[1], cfg.vocab_size)
@@ -4673,15 +4717,34 @@ def _hold_decode(model, prompts, what, bound=DECODE_REL_BOUND):
         full_in = torch.cat([seq, seq.new_zeros(
             (seq.shape[0], -seq.shape[1] % RWKV_CHUNK))], dim=1)
     T = seq.shape[1]
+    held, config_dropped = model, 0
+    if cfg.family == "moe":
+        # apply routes all B x T tokens under one capacity, decode B a step
+        # under one no queue can pass: the two agree only where apply drops
+        # nothing. The pairs the config's capacity drops are counted; apply
+        # is held at factor E / k, a capacity of B x T + 8
+        with torch.inference_mode(), _moe_routes() as routes:
+            model.apply({"tokens": full_in})
+        config_dropped = _dropped(routes)
+        held = Model(cfg.replace(moe_capacity_factor=cfg.n_experts
+                                 / cfg.top_k), device=DEV,
+                     params=model.param_tree())
     with torch.inference_mode():
         _reset_counts()
-        full_k, _ = model.apply({"tokens": full_in})
+        with _moe_routes() as routes:
+            full_k, _ = held.apply({"tokens": full_in})
         torch.cuda.synchronize()
         launches = {k: _counts()[k] for k in ("ssd_scan", "flash_attention")}
         assert not any(v for k, v in _counts().items() if k not in launches)
+        # apply routes all B x T tokens under one capacity, decode B a
+        # step: the two agree only where apply drops no pair
+        apply_dropped = _dropped(routes)
+        assert apply_dropped == 0 and decode_dropped == 0, \
+            f"{what}: MoE pairs dropped: apply {apply_dropped}, decode " \
+            f"{decode_dropped}"
         rel_k = _rel(steps, full_k[:, :T])
         del full_k
-        full_p, _ = model.apply({"tokens": full_in}, plain=True)
+        full_p, _ = held.apply({"tokens": full_in}, plain=True)
         rel_p = _rel(steps, full_p[:, :T])
         del full_p
     hybrid = cfg.family == "hybrid"
@@ -4691,16 +4754,20 @@ def _hold_decode(model, prompts, what, bound=DECODE_REL_BOUND):
                                   else cfg.n_layers)}
     assert launches == expect, f"{what}: apply launched {launches}"
     per_tok = 1e3 * out["decode_s"] / out["decode_steps"]
+    drops = (f"; MoE pairs dropped: at the config's capacity "
+             f"{config_dropped} of apply's {routes['pairs']}, at factor "
+             f"E / k 0, in decode 0" if cfg.family == "moe" else "")
     log(f"{what}: decode of B {prompts.shape[0]}, {prompts.shape[1]} + "
         f"{DECODE_GEN} tokens in f32 ({1e3 * out['prefill_s']:.1f} ms "
         f"prefill, {per_tok:.2f} ms/token); logits at all {seq.shape[1]} "
         f"positions against apply, max |a - b| / max |b|: through the "
         f"kernels {rel_k:.3e} ({launches}), plain {rel_p:.3e} (bound "
-        f"{bound})")
+        f"{bound}){drops}")
     assert bound is None or (rel_k <= bound and rel_p <= bound), \
         f"{what}: decode left apply"
     return {"rel_err_kernel": rel_k, "rel_err_plain": rel_p,
-            "apply_launches": launches, "f32_prefill_ms":
+            "apply_launches": launches, "moe_config_dropped": config_dropped,
+            "f32_prefill_ms":
             1e3 * out["prefill_s"], "f32_ms_per_token": per_tok}
 
 
@@ -4910,24 +4977,28 @@ def phase_train_zamba(lr=ZTRAIN_LR):
         f"shared block")
 
 
-def _train_checked(arch, cfg, expect, lr, what):
+def _train_checked(arch, cfg, expect, lr, what, steps=ZTRAIN_STEPS):
     """``cfg`` (f32) trained with remat, B ZTRAIN_B, T ZTRAIN_T,
-    ZTRAIN_STEPS steps through ``launch/train.py``'s loop on
+    ``steps`` steps through ``launch/train.py``'s loop on
     ``test_system.py``'s stream (ids below LM_DATA_VOCAB); the first
     step's loss held against ``apply`` through the kernels on the same
-    batch (``expect``: its launches by kernel), every leaf updated and
-    finite, the loss falling."""
+    batch (its CE, plus ``moe_aux_weight`` times its router loss for the
+    moe family; ``expect``: its launches by kernel), every leaf updated
+    and finite, the loss falling (the mean of the last third of the
+    steps below the first third's, a step at least)."""
     t_phase = time.perf_counter()
-    model, step, state = train.build(arch, ZTRAIN_STEPS, lr=lr, remat=True,
+    model, step, state = train.build(arch, steps, lr=lr, remat=True,
                                      device=DEV, cfg=cfg)
     stream = token_stream(LM_DATA_VOCAB, ZTRAIN_B, ZTRAIN_T, device=DEV)
-    batches = [next(stream) for _ in range(ZTRAIN_STEPS)]
+    batches = [next(stream) for _ in range(steps)]
     with torch.inference_mode():
         _reset_counts()
-        logits, _ = model.apply({"tokens": batches[0]["tokens"]})
+        logits, aux = model.apply({"tokens": batches[0]["tokens"]})
         torch.cuda.synchronize()
         launches = {k: v for k, v in _counts().items() if v}
-        ce_k = float(softmax_cross_entropy(logits, batches[0]["labels"]))
+        aux_k = float(aux["moe_aux"])
+        ce_k = float(softmax_cross_entropy(logits, batches[0]["labels"])) \
+            + cfg.moe_aux_weight * aux_k
         del logits
     assert launches == expect, f"{what}: apply launched {launches}"
     torch.cuda.synchronize()
@@ -4939,7 +5010,7 @@ def _train_checked(arch, cfg, expect, lr, what):
     init_params, first = state.params, [state]
     del state
     end, hist = train.train_loop(step, first.pop(), iter(batches),
-                                 ZTRAIN_STEPS, log=None)
+                                 steps, log=None)
     peak = torch.cuda.max_memory_allocated() / 1e9
     assert not any(_counts().values()), "training launched a kernel"
     losses = hist["loss"]
@@ -4954,17 +5025,26 @@ def _train_checked(arch, cfg, expect, lr, what):
            ce_k, "first_loss_rel": rel, "ms_per_step": ms, "tokens_per_s":
            ZTRAIN_B * ZTRAIN_T * 1e3 / ms, "peak_gb": peak,
            "state_gb": base_gb, "apply_launches": launches, "lr": lr}
+    aux_txt = ""
+    if cfg.family == "moe":
+        out.update(moe_aux=hist["moe_aux"], first_aux_apply=aux_k)
+        aux_txt = (f" (CE + {cfg.moe_aux_weight} x router loss "
+                   f"{aux_k:.6f})")
+        log(f"{what}: the router loss a step "
+            f"{[round(a, 5) for a in hist['moe_aux']]}")
     log(f"{what} (f32, remat, AdamW lr {lr}), B {ZTRAIN_B}, T "
-        f"{ZTRAIN_T}: first loss {losses[0]:.6f} against apply through the "
-        f"kernels {ce_k:.6f} (|d| / loss {rel:.2e}, bound "
-        f"{ZTRAIN_LOSS_REL}); loss {losses[0]:.4f} -> {losses[-1]:.4f}; "
+        f"{ZTRAIN_T}, {steps} steps: first loss {losses[0]:.6f} against "
+        f"apply through the kernels {ce_k:.6f}{aux_txt} (|d| / loss "
+        f"{rel:.2e}, bound {ZTRAIN_LOSS_REL}); loss {losses[0]:.4f} -> "
+        f"{losses[-1]:.4f}; "
         f"{moved} of {n_leaves} leaves moved, finite {finite}; {ms:.1f} "
         f"ms/step, {out['tokens_per_s']:.0f} tokens/s, peak memory "
         f"{peak:.2f} GB ({base_gb:.2f} GB before the first step); phase "
         f"{time.perf_counter() - t_phase:.1f} s")
     assert rel <= ZTRAIN_LOSS_REL, "the training forward left apply"
     assert finite and moved == n_leaves, "updates not finite or missing"
-    assert np.mean(losses[-3:]) < np.mean(losses[:3]), "the loss did not fall"
+    w = max(1, steps // 3)
+    assert np.mean(losses[-w:]) < np.mean(losses[:w]), "the loss did not fall"
     del model, init_params, end
     return out
 
@@ -5127,6 +5207,473 @@ def phase_rwkv6():
     return out
 
 
+# -- the moe family: granite-moe-1b and qwen3-moe-30b (17) ---------------------
+
+# phase 17: granite-moe-1b-a400m at full width and depth; qwen3-moe-30b-a3b
+# at full width cut to MOE_QWEN_LAYERS of its 48 layers (about 120 GB of
+# f32 weights at full depth), or the deepest cut that leaves
+# MOE_QWEN_HEADROOM_GB free. (a) and (b) at B 1, T MOE_T, f32: (a) the
+# grouped layer against the dense oracle within the reference's own bound
+# (tests/test_model_internals.py TestMoE), again at capacity factor
+# MOE_LOW_FACTOR, where queues overflow, and its gradients within
+# MOE_GRAD_REL of each leaf's largest |b|; (b) the full forward through the
+# kernels against plain=True within HIDDEN_REL_BOUND, the router loss
+# within MOE_AUX_KERNEL_REL. (e) granite-3.0's context of 4,096 tokens a
+# sequence: phase 10's token count in batches of 8; flash_attention held
+# to attention_ref on layer 0's q, k, v of a service batch (both configs)
+MOE = "granite-moe-1b-a400m"
+MOE_QWEN = "qwen3-moe-30b-a3b"
+MOE_T = 2048
+MOE_LOW_FACTOR = 0.25
+MOE_TOL = dict(rtol=1e-3, atol=1e-4)
+MOE_AUX_REL = 1e-4
+MOE_GRAD_REL = 1e-3
+MOE_AUX_KERNEL_REL = 1e-6
+MOE_SEQ, MOE_BATCH, MOE_CORPUS, MOE_REQUESTS = 4096, 8, 32, 4
+MOE_QWEN_LAYERS, MOE_QWEN_HEADROOM_GB = 16, 16.0
+MOE_QWEN_TRAIN_LAYERS, MOE_QWEN_TRAIN_STEPS = 2, 3
+
+
+@contextlib.contextmanager
+def _moe_routes():
+    """Records every MoE layer's routing while open: ``topi`` and the
+    dropped pairs (device tensors, no sync) a call, and the pairs routed
+    (``moe._queue_slots`` wrapped)."""
+    rec = {"topi": [], "dropped": [], "pairs": 0}
+    queue_slots = moe._queue_slots
+
+    def recording(topi, *args):
+        keep, dest = queue_slots(topi, *args)
+        rec["topi"].append(topi)
+        rec["dropped"].append(torch.sum(~keep))
+        rec["pairs"] += topi.numel()
+        return keep, dest
+
+    moe._queue_slots = recording
+    try:
+        yield rec
+    finally:
+        moe._queue_slots = queue_slots
+
+
+def _dropped(rec):
+    return int(sum(rec["dropped"])) if rec["dropped"] else 0
+
+
+def _moe_h2(model, tokens):
+    """Layer 0's real MoE input (B, T, d) in f32: the embeddings through
+    layer 0's attention (plain form) and its second norm."""
+    cfg = model.cfg
+    p0 = model.blocks[0]
+    B, T = tokens.shape
+    with torch.no_grad():
+        x = common.embed_tokens(model.embedding, tokens, cfg, torch.float32)
+        h = common.apply_norm(p0["norm1"], x, cfg)
+        positions = torch.arange(T, device=DEV)[None, :].expand(B, T)
+        q, k, v = attention.qkv_proj(p0["attn"], h, positions, cfg)
+        x = x + attention.out_proj(
+            p0["attn"], attention.attend_plain(q, k, v, cfg), cfg)
+        return common.apply_norm(p0["norm2"], x, cfg)
+
+
+def _keep_token_major(topi, n_experts, capacity):
+    """The pairs that queues of ``capacity`` keep, found apart from
+    ``moe._queue_slots``: a stable sort of the flattened (token, slot)
+    expert ids leaves each expert's pairs in token-major order, so a
+    pair's place in its queue is its rank among its expert's pairs."""
+    flat = topi.reshape(-1)
+    order = torch.sort(flat, stable=True).indices
+    counts = torch.bincount(flat, minlength=n_experts)
+    starts = torch.cumsum(counts, 0) - counts
+    rank = torch.empty_like(flat)
+    rank[order] = torch.arange(flat.numel(), device=flat.device) \
+        - starts[flat[order]]
+    return rank < capacity
+
+
+def _moe_dense_kept(p, x, cfg, keep):
+    """The every-expert oracle with the dropped pairs' combine weights at
+    0, in plain torch: what the grouped form computes where queues
+    overflow."""
+    B, T, d = x.shape
+    E, N = cfg.n_experts, B * T
+    xf = x.reshape(N, d)
+    topv, topi, _ = moe._route(p["router"], xf, cfg)
+    w = topv * keep.reshape(N, cfg.top_k)
+    combine = torch.sum(torch.nn.functional.one_hot(topi, E).to(
+        torch.float32) * w[..., None], dim=1)
+    ye = moe._expert_ffn(p, xf[None].expand(E, N, d), cfg)
+    return torch.einsum("end,ne->nd", ye.to(torch.float32),
+                        combine).to(x.dtype).reshape(B, T, d)
+
+
+def _moe_layer_checks(model, name):
+    """17 (a): layer 0's MoE on its real input (B 1, T MOE_T, f32). At the
+    config's capacity the pairs dropped are counted and the grouped
+    ``apply_moe`` is held against the every-expert oracle with their
+    combine weights at 0 (``_moe_dense_kept``; the pairs kept found by
+    ``_keep_token_major`` and required equal to ``moe._queue_slots``'
+    at every factor); at factor E / k (a
+    capacity of T + 8, which no queue can pass) nothing drops and it is
+    held against ``apply_moe_dense`` itself; at MOE_LOW_FACTOR pairs
+    must drop. At the config's capacity the gradients of x and every leaf
+    are held against the oracle's, and forward and backward run twice
+    must be bit-identical."""
+    cfg = model.cfg
+    tokens = torch.from_numpy(np.random.RandomState(16).randint(
+        0, cfg.vocab_size, (1, MOE_T))).to(DEV)
+    x = _moe_h2(model, tokens)
+    p = model.param_tree()["blocks"][0]["moe"]
+    factors = {"config": cfg.moe_capacity_factor,
+               "ample": cfg.n_experts / cfg.top_k, "low": MOE_LOW_FACTOR}
+    out = {"pairs": MOE_T * cfg.top_k}
+    with torch.no_grad():
+        y_d, aux_d = moe.apply_moe_dense(p, x, cfg)
+        for case, factor in factors.items():
+            c = cfg.replace(moe_capacity_factor=factor)
+            cap = moe._capacity(MOE_T, c, cfg.n_experts)
+            with _moe_routes() as rec:
+                y, aux = moe.apply_moe(p, x, c)
+            keep = _keep_token_major(rec["topi"][0], cfg.n_experts, cap)
+            assert torch.equal(keep, moe._queue_slots(
+                rec["topi"][0], 0, cfg.n_experts, cap)[0]), \
+                f"{name}: the queues keep other pairs at factor {factor}"
+            ref = y_d if case == "ample" else _moe_dense_kept(p, x, cfg, keep)
+            out[case] = {"factor": factor, "capacity": cap,
+                         "dropped": _dropped(rec), "y_rel_err": _rel(y, ref)}
+            torch.testing.assert_close(y, ref, **MOE_TOL)
+            del y, ref
+        load = torch.bincount(rec["topi"][0].reshape(-1),
+                              minlength=cfg.n_experts)
+    torch.cuda.synchronize()
+    out.update(max_load=int(load.max()), mean_load=float(load.float().mean()),
+               aux=float(aux), aux_rel_err=abs(float(aux) - float(aux_d))
+               / float(aux_d))
+    log(f"{name} layer 0 MoE ({cfg.n_experts} experts, top {cfg.top_k}), "
+        f"B 1, T {MOE_T}, f32: expert load max {out['max_load']} (mean "
+        f"{out['mean_load']:.1f}); by capacity factor, pairs dropped of "
+        f"{out['pairs']} and the grouped form against the dense oracle "
+        f"(with the dropped pairs' weights at 0) max |a - b| / max |b|: "
+        + "; ".join(f"{k} {v['factor']:g} (capacity {v['capacity']}): "
+                    f"{v['dropped']} dropped, {v['y_rel_err']:.3e}"
+                    for k, v in out.items() if isinstance(v, dict))
+        + f"; aux {out['aux']:.6f} against the oracle's (rel "
+        f"{out['aux_rel_err']:.2e})")
+    assert out["ample"]["dropped"] == 0, "a pair dropped at capacity T + 8"
+    assert out["low"]["dropped"] > 0, "no queue overflowed at the low factor"
+    assert out["aux_rel_err"] <= MOE_AUX_REL, out
+    gy = torch.randn(x.shape, device=DEV,
+                     generator=torch.Generator(device=DEV).manual_seed(17))
+    cap = out["config"]["capacity"]
+
+    def run(fn):
+        live = {k: v.clone().requires_grad_(True) for k, v in p.items()}
+        xl = x.clone().requires_grad_(True)
+        y, aux = fn(live, xl)
+        (torch.sum(y * gy) + aux).backward()
+        return [y.detach(), aux.detach(), xl.grad] + \
+            [live[k].grad for k in sorted(live)]
+
+    def dense(live, xl):
+        with torch.no_grad():
+            _, topi, _ = moe._route(live["router"], xl[0], cfg)
+            keep = _keep_token_major(topi, cfg.n_experts, cap)
+        return _moe_dense_kept(live, xl, cfg, keep), \
+            moe._route(live["router"], xl[0], cfg)[2]
+
+    grouped = lambda live, xl: moe.apply_moe(live, xl, cfg)  # noqa: E731
+    first, again = run(grouped), run(grouped)
+    bitwise = all(torch.equal(a, b) for a, b in zip(first, again))
+    del again
+    oracle = run(dense)
+    worst, finite = {}, True
+    for key, a, b in zip(["x"] + sorted(p), first[2:], oracle[2:]):
+        finite = finite and bool(torch.isfinite(a).all())
+        worst[key] = float((a - b).abs().max()) / float(b.abs().max())
+    del first, oracle
+    log(f"{name} layer 0 MoE at the config's capacity, gradients of x and "
+        f"{len(p)} leaves, grouped against the oracle: finite {finite}; max "
+        f"|a - b| / max |b| "
+        f"{ {k: float(f'{v:.3e}') for k, v in worst.items()} } (bound "
+        f"{MOE_GRAD_REL}); forward and backward twice bit-identical "
+        f"{bitwise}")
+    assert finite and max(worst.values()) <= MOE_GRAD_REL, worst
+    assert bitwise, "the grouped layer's forward or backward is not stable"
+    out.update(grad_rel_err=worst, bitwise=bitwise)
+    return out
+
+
+def _moe_kernel_path(model, name):
+    """17 (b): the full forward (B 1, T MOE_T, f32) through the kernels
+    against ``plain=True``: the final hidden state within
+    HIDDEN_REL_BOUND, the router loss within MOE_AUX_KERNEL_REL; one
+    flash_attention launch a layer, counted; the routes of the two forms
+    compared layer by layer and the pairs each drops counted."""
+    cfg = model.cfg
+    tokens = torch.from_numpy(np.random.RandomState(18).randint(
+        0, cfg.vocab_size, (1, MOE_T))).to(DEV)
+    with torch.inference_mode():
+        with _moe_routes() as rk:
+            _reset_counts()
+            h_k, aux_k = model.hidden({"tokens": tokens})
+            torch.cuda.synchronize()
+            counts = _counts()
+        with _moe_routes() as rp:
+            h_p, aux_p = model.hidden({"tokens": tokens}, plain=True)
+    moved = sum(int((a != b).any(-1).sum()) for a, b in zip(rk["topi"],
+                                                           rp["topi"]))
+    rel = _rel(h_k, h_p)
+    aux_k, aux_p = float(aux_k["moe_aux"]), float(aux_p["moe_aux"])
+    aux_rel = abs(aux_k - aux_p) / aux_p
+    expect = dict.fromkeys(KERNEL_WRAPPERS, 0)
+    expect["flash_attention"] = cfg.n_layers
+    drops = (_dropped(rk), _dropped(rp))
+    log(f"{name} forward at {cfg.n_layers} layers, B 1, T {MOE_T}, f32: "
+        f"hidden through the kernels against plain max |a - b| / max |b| "
+        f"{rel:.3e} (bound {HIDDEN_REL_BOUND}); router loss {aux_k:.6f} "
+        f"against {aux_p:.6f} (rel {aux_rel:.2e}, bound "
+        f"{MOE_AUX_KERNEL_REL}); tokens routed apart {moved} of "
+        f"{MOE_T * cfg.n_layers} token-layers; pairs dropped {drops}; "
+        f"launches { {k: v for k, v in counts.items() if v} }")
+    assert counts == expect, f"{name}: launches {counts}, expected {expect}"
+    assert rel <= HIDDEN_REL_BOUND and aux_rel <= MOE_AUX_KERNEL_REL, \
+        f"{name}: the kernel path left the plain forward"
+    return {"rel_err": rel, "aux": aux_k, "aux_rel_err": aux_rel,
+            "routed_apart": moved, "dropped": list(drops),
+            "launches": counts["flash_attention"]}
+
+
+def _moe_kinds(fn):
+    """Device ms of one call of ``fn`` by kind, for the moe family, from
+    the kernels each aten operation launched: attention
+    (flash_attention's kernels), expert GEMMs (``aten::bmm``, which only
+    the expert layer calls), other GEMMs (``aten::mm``: projections,
+    router), dispatch and combine (``aten::index_put_``, ``aten::index``;
+    the embedding lookup is one ``aten::index`` too), the queue places'
+    scan (``aten::cumsum``), the router's sort (``aten::sort``), the rest,
+    and the busy total. None when the profiler records no device
+    time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    busy = attention_ms = 0.0
+    for ev in prof.events():
+        if ev.device_type == DeviceType.CUDA:
+            ms = (ev.time_range.end - ev.time_range.start) / 1e3
+            busy += ms
+            if _category(ev.name) == "flash_attention":
+                attention_ms += ms
+    if not busy:
+        return None
+    kinds = {"expert_gemm": ("aten::bmm",), "other_gemm": ("aten::mm",),
+             "dispatch_combine": ("aten::index_put_", "aten::index"),
+             "queue_scan": ("aten::cumsum",), "route_sort": ("aten::sort",)}
+    split = dict.fromkeys(kinds, 0.0)
+    for ev in prof.key_averages():
+        for kind, ops in kinds.items():
+            if ev.key in ops:
+                split[kind] += (getattr(ev, "device_time_total", 0)
+                                or 0) / 1e3
+    split["attention"] = attention_ms
+    split["other"] = busy - sum(split.values())
+    split["busy"] = busy
+    return {k: round(v, 3) for k, v in split.items()}
+
+
+def _moe_flash_parity(model, tokens):
+    """flash_attention on layer 0's real q, k, v of a service batch at
+    the model's activations (B MOE_BATCH, T MOE_SEQ, causal) against
+    attention_ref, as phase 9's gemma check: granite-moe's GQA 16/8 at
+    Dh 64, qwen3-moe's GQA 32/4 at Dh 128."""
+    cfg = model.cfg
+    with torch.inference_mode():
+        x = common.embed_tokens(model.embedding, tokens, cfg,
+                                getattr(torch, cfg.dtype))
+        h = common.apply_norm(model.blocks[0]["norm1"], x, cfg)
+        positions = torch.arange(tokens.shape[1], device=DEV)[None].expand(
+            tokens.shape[0], -1)
+        q, k, v = attention.qkv_proj(model.blocks[0]["attn"], h, positions,
+                                     cfg)
+        del x, h
+        err, top, worst = check_flash(q, k, v, True, 0)
+    log(f"{cfg.name} parity flash_attention {str(q.dtype)[6:]} on layer "
+        f"0's q, k, v of a service batch, q {tuple(q.shape)}, k "
+        f"{tuple(k.shape)}: max |d| {err:.3e} (max |ref| {top:.4f}), "
+        f"{worst:.3f} of the bound")
+    return {"shape": list(q.shape) + [k.shape[2]], "max_abs_err": err,
+            "of_bound": worst}
+
+
+def _moe_service_batch(model):
+    """17 (f): one service batch of MOE_BATCH x MOE_SEQ tokens through
+    ``serve_embeddings.embed`` at the model's activations, timed after a
+    warm call (host clock, synchronised): one flash_attention launch a
+    layer, finite embeddings; first, flash_attention on the batch's
+    layer-0 q, k, v against attention_ref."""
+    cfg = model.cfg
+    toks = serve_embeddings.token_batches(
+        cfg.vocab_size, MOE_BATCH, MOE_SEQ, MOE_BATCH,
+        np.random.RandomState(19))[0]
+    parity = _moe_flash_parity(model, torch.from_numpy(toks).to(DEV))
+    torch.cuda.empty_cache()
+    serve_embeddings.embed(model, toks)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    t0 = time.perf_counter()
+    emb = serve_embeddings.embed(model, toks)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = {k: v for k, v in _counts().items() if v}
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    out = {"batch_ms": 1e3 * secs, "tokens_per_s": toks.size / secs,
+           "peak_gb": peak, "launches": counts, "flash_parity": parity}
+    log(f"{cfg.name} service batch of {MOE_BATCH} x {MOE_SEQ} tokens "
+        f"({cfg.dtype} activations, {cfg.n_layers} layers): "
+        f"{out['batch_ms']:.1f} ms, {out['tokens_per_s']:.0f} tokens/s, "
+        f"peak memory {peak:.2f} GB; launches {counts}")
+    assert counts == {"flash_attention": cfg.n_layers}, counts
+    assert emb.shape == (MOE_BATCH, cfg.d_model)
+    assert bool(torch.isfinite(emb).all())
+    return out
+
+
+def _moe_qwen():
+    """17 (f): qwen3-moe-30b-a3b at full width, cut to MOE_QWEN_LAYERS
+    layers (or the deepest cut that fits): (a)-(c) as for granite-moe,
+    one timed service batch at bf16, and three training steps cut to
+    MOE_QWEN_TRAIN_LAYERS layers (the first loss against apply's, every
+    leaf finite and moved)."""
+    t0 = time.perf_counter()
+    full = get_config(MOE_QWEN)
+    d, E, f, V = full.d_model, full.n_experts, full.d_ff, full.vocab_size
+    hd, kvd = full.n_heads * full.dim_per_head, \
+        full.kv_heads * full.dim_per_head
+    layer_gb = 4 * (2 * d * hd + 2 * d * kvd + 3 * E * d * f + d * E) / 1e9
+    emb_gb = 4 * 2 * V * d / 1e9
+    free_gb = torch.cuda.mem_get_info()[0] / 1e9
+    fit = int((free_gb - emb_gb - MOE_QWEN_HEADROOM_GB) // layer_gb)
+    layers = max(1, min(MOE_QWEN_LAYERS, fit))
+    cfg = full.replace(n_layers=layers, dtype="float32")
+    model = Model(cfg, device=DEV, seed=0)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"{MOE_QWEN}: full width cut to {layers} of {full.n_layers} layers "
+        f"({free_gb:.1f} GB free, {layer_gb:.2f} GB a layer), "
+        f"{n_params / 1e9:.3f}B parameters ({4 * n_params / 1e9:.1f} GB "
+        f"f32) from the seeded init in {time.perf_counter() - t0:.1f}s")
+    out = {"layers": layers, "params": n_params,
+           "layer0": _moe_layer_checks(model, MOE_QWEN),
+           "forward": _moe_kernel_path(model, MOE_QWEN)}
+    prompts = torch.from_numpy(np.random.RandomState(20).randint(
+        0, V, (DECODE_B, DECODE_PROMPT))).to(DEV)
+    torch.cuda.reset_peak_memory_stats()
+    out["decode"] = _hold_decode(model, prompts,
+                                 f"{MOE_QWEN} decode ({layers} layers)")
+    out["decode"]["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    served = Model(full.replace(n_layers=layers), device=DEV,
+                   params=model.param_tree())
+    out["service_batch"] = _moe_service_batch(served)
+    del model, served
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["training"] = _train_checked(
+        MOE_QWEN, full.replace(n_layers=MOE_QWEN_TRAIN_LAYERS,
+                               dtype="float32"),
+        {"flash_attention": MOE_QWEN_TRAIN_LAYERS}, ZTRAIN_LR,
+        f"{MOE_QWEN} training cut to {MOE_QWEN_TRAIN_LAYERS} layers",
+        steps=MOE_QWEN_TRAIN_STEPS)
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["phase_s"] = time.perf_counter() - t0
+    return out
+
+
+def phase_moe():
+    """Phase 17: the moe family from the port's seeded init, f32
+    weights. granite-moe-1b-a400m at full width and depth (24 layers,
+    d_model 1024, GQA 16/8 at Dh 64, 32 experts top 8, expert d_ff 512,
+    vocab 49,155, tied): (a) layer 0's MoE, (b) the kernel path against
+    the plain forward, (c) decode held against ``apply`` in f32, then the
+    bf16 loop timed and profiled, (d) training at full depth, (e) the
+    embedding service at 4,096 tokens a sequence, its flash_attention
+    held to attention_ref on a batch's layer-0 q, k, v; then (f)
+    qwen3-moe-30b cut in depth. The expert layer is plain torch;
+    attention runs on flash_attention and the ranking on
+    pairwise_sqdist."""
+    t_phase = time.perf_counter()
+    cfg = get_config(MOE).replace(dtype="float32")
+    model = Model(cfg, device=DEV, seed=0)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"{MOE}: {cfg.n_layers} layers, {n_params / 1e9:.3f}B parameters "
+        f"({4 * n_params / 1e9:.1f} GB f32) from the seeded init in "
+        f"{time.perf_counter() - t_phase:.1f}s")
+    g = {"params": n_params, "layer0": _moe_layer_checks(model, MOE),
+         "forward": _moe_kernel_path(model, MOE)}
+    prompts = torch.from_numpy(np.random.RandomState(21).randint(
+        0, cfg.vocab_size, (DECODE_B, DECODE_PROMPT))).to(DEV)
+    g["decode"] = _hold_decode(model, prompts, f"{MOE} decode")
+    served = Model(get_config(MOE), device=DEV, params=model.param_tree())
+    timing = _time_decode(served, prompts)
+    log(f"{MOE} serving loop ({served.cfg.dtype} activations, f32 weights),"
+        f" B {DECODE_B}: prefill {timing['prefill_ms']:.1f} ms for "
+        f"{DECODE_PROMPT} tokens, {timing['ms_per_token']:.2f} ms/token, "
+        f"{timing['tokens_per_s']:.1f} tokens/s, peak memory "
+        f"{timing['peak_gb']:.2f} GB")
+    g["decode"]["serve_bf16"] = timing
+    del model, served
+    gc.collect()
+    torch.cuda.empty_cache()
+    g["training"] = _train_checked(MOE, cfg,
+                                   {"flash_attention": cfg.n_layers},
+                                   ZTRAIN_LR, f"{MOE} training at full depth")
+    gc.collect()
+    torch.cuda.empty_cache()
+    svc_model, requests, g["service"] = phase_embedding_service(
+        MOE, seq=MOE_SEQ, batch=MOE_BATCH, corpus_seqs=MOE_CORPUS,
+        request_batches=MOE_REQUESTS)
+    split = _moe_kinds(lambda: serve_embeddings.embed(svc_model,
+                                                      requests[0]))
+    log(f"{MOE} one request batch's forward on the card, device ms by "
+        f"kind: " + ("not measured" if split is None else
+                     f"{split} (batch p50 {g['service']['p50_ms']:.1f} ms "
+                     f"host clock)"))
+    g["service"]["device_ms_by_kind"] = split
+    g["service"]["flash_parity"] = _moe_flash_parity(
+        svc_model, torch.from_numpy(requests[0]).to(DEV))
+    del svc_model, requests
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"{MOE} done at {time.perf_counter() - t_phase:.1f} s of phase 17")
+    out = {MOE: g, MOE_QWEN: _moe_qwen()}
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"moe phase {out['phase_s']:.1f} s")
+    return out
+
+
+def _moe_launches(moe_out):
+    """flash_attention's launches in phase 17, by run."""
+    out = {}
+    for name in (MOE, MOE_QWEN):
+        res = moe_out[name]
+        out[f"{name}_forward"] = res["forward"]["launches"]
+        out[f"{name}_decode_apply"] = \
+            res["decode"]["apply_launches"]["flash_attention"]
+        out[f"{name}_train_first_step"] = \
+            res["training"]["apply_launches"]["flash_attention"]
+    out[f"{MOE}_service"] = \
+        moe_out[MOE]["service"]["launches"]["flash_attention"]
+    out[f"{MOE_QWEN}_service_batch"] = \
+        moe_out[MOE_QWEN]["service_batch"]["launches"]["flash_attention"]
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -5228,6 +5775,10 @@ def main():
     torch.cuda.empty_cache()
     rwkv = phase_rwkv6()
     log(f"{RWKV} done at {time.perf_counter() - t0:.1f}s")
+    gc.collect()
+    torch.cuda.empty_cache()
+    moe_out = phase_moe()
+    log(f"moe done at {time.perf_counter() - t0:.1f}s")
     # the backbone kernels' launches in phases 12-15: apply through the
     # kernels beside decode (window, ring; gemma) and beside the first
     # training step (decode and the training steps launch none)
@@ -5243,8 +5794,12 @@ def main():
         if entry["name"] == "pairwise_sqdist":
             entry[f"{RWKV}_service_launches"] = \
                 rwkv["service"]["launches"]["pairwise_sqdist"]
-    print(json.dumps({"decode": decode, "training": training, RWKV: rwkv}),
-          flush=True)
+            entry[f"{MOE}_service_launches"] = \
+                moe_out[MOE]["service"]["launches"]["pairwise_sqdist"]
+        if entry["name"] == "flash_attention":
+            entry["moe_launches"] = _moe_launches(moe_out)
+    print(json.dumps({"decode": decode, "training": training, RWKV: rwkv,
+                      "moe": moe_out}), flush=True)
     print(json.dumps({"kernels": entries}), flush=True)
     log(f"total {time.perf_counter() - t0:.1f}s")
     print(json.dumps({"ok": True, "device": {

@@ -4,8 +4,10 @@
 Counterpart of ``repro.launch.serve``: prefill is a teacher-forced decode
 over the prompt (state-carrying for the ssm and hybrid families,
 cache-filling for attention), then a greedy decode loop with the arch's
-cache (KV ring / rwkv6's wkv state and token shifts (``RWKVCache``) /
-Mamba2's SSM state and conv history beside the shared block's KV ring).
+cache (KV ring, for the dense and moe families / rwkv6's wkv state and
+token shifts (``RWKVCache``) / Mamba2's SSM state and conv history beside
+the shared block's KV ring). The moe family routes the batch's B tokens
+a step under their own capacity.
 Weights come from the port's seeded init. Runs on the card unless
 ``--device cpu`` is given; ``--reduced`` runs the smoke-scale variant in
 f32. Prints prefill ms, ms a token, tokens/s and the generated shape.

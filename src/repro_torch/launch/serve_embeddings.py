@@ -12,11 +12,14 @@ the corpus under L (``metric_sqdist_matrix``: the projection, then the
 ``pairwise_sqdist`` kernel), top-k in the (distance, id) order of
 ``kernels/_dispatch.topk_by_distance``. Weights come from the port's
 seeded init (no checkpoint), L from ``core.dml.init_params``, token ids
-from a seeded ``numpy.random.RandomState``. On the card the backbone runs
-Mamba2's SSD core on the ``ssd_scan`` kernel and attention on the
-``flash_attention`` kernel; rwkv6 (``--arch rwkv6-1.6b``) has no kernel
-of its own and runs its chunked form in plain torch. Runs on the card
-unless ``--device cpu`` is given. Prints requests/s, tokens/s and p50 /
+from a seeded ``numpy.random.RandomState``. It takes the dense, moe,
+ssm and hybrid families. On the card the backbone runs Mamba2's SSD core
+on the ``ssd_scan`` kernel and attention on the ``flash_attention``
+kernel; the moe family (``--arch granite-moe-1b-a400m``,
+``qwen3-moe-30b-a3b``) runs its expert layer in plain torch beside it;
+rwkv6 (``--arch rwkv6-1.6b``) has no kernel of its own and runs its
+chunked form in plain torch. Runs on the card unless ``--device cpu`` is
+given. Prints requests/s, tokens/s and p50 /
 p99 ms per request batch.
 """
 
@@ -118,8 +121,9 @@ def serve(model: Model, L: torch.Tensor, corpus_batches, request_batches,
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="zamba2-2.7b",
-                    help="a dense, ssm (rwkv6-1.6b) or hybrid config of "
-                         "repro_torch.configs")
+                    help="a dense (smollm-135m), moe (granite-moe-1b-a400m,"
+                         " qwen3-moe-30b-a3b), ssm (rwkv6-1.6b) or hybrid "
+                         "(zamba2-2.7b) config of repro_torch.configs")
     ap.add_argument("--reduced", action="store_true",
                     help="the smoke-test reduction of --arch")
     ap.add_argument("--seq-len", type=int, default=32)

@@ -32,10 +32,11 @@ from repro_torch.models.transformer import stack_blocks
 def train_loop(train_step, state, batches, n_steps: int,
                log_every: int = 10, log=print):
     """Run ``n_steps`` of ``train_step`` over ``batches`` (an iterator).
-    Returns (state, per-step losses and grad norms as floats, the
-    seconds of each step on the host clock, synchronised)."""
+    Returns (state, per-step losses, grad norms and moe aux losses (0
+    outside the moe family) as floats, the seconds of each step on the
+    host clock, synchronised)."""
     dev = state.step.device
-    losses, gnorms, secs = [], [], []
+    losses, gnorms, auxs, secs = [], [], [], []
     t_start = time.perf_counter()
     for t in range(n_steps):
         t0 = time.perf_counter()
@@ -46,11 +47,13 @@ def train_loop(train_step, state, batches, n_steps: int,
         secs.append(time.perf_counter() - t0)
         losses.append(loss)
         gnorms.append(gnorm)
+        auxs.append(float(metrics["moe_aux"]))
         if log is not None and (t % log_every == 0 or t == n_steps - 1):
             log(f"step {t:5d} loss={loss:.4f} gnorm={gnorm:.3f} "
                 f"({(time.perf_counter() - t_start) / (t + 1) * 1e3:.0f} "
                 f"ms/step)")
-    return state, {"loss": losses, "grad_norm": gnorms, "step_s": secs}
+    return state, {"loss": losses, "grad_norm": gnorms, "moe_aux": auxs,
+                   "step_s": secs}
 
 
 def build(arch: str, steps: int, lr: float = 3e-4, reduced: bool = False,

@@ -1,0 +1,169 @@
+"""Mixture-of-Experts FFN: top-k router and grouped expert execution on
+one device (counterpart of ``repro/models/moe.py``).
+
+``apply_moe`` routes every token of the batch, gives each (token, slot)
+pair its place in its expert's queue in token-major order, drops the
+pairs past ``capacity``, scatters the kept tokens into a capacity-bounded
+(E, C, d) group buffer, runs the expert FFNs as batched products and
+gathers the weighted outputs back, slot by slot. No (B, T, E, C)
+dispatch tensor and no (N * k, d) gather is ever made.
+
+``apply_moe_dense`` is the reference's oracle: every expert computes
+every token, combined by the router's weights. Exact, E / k times the
+products: what the tests and the card hold the grouped form against.
+
+The reference's expert-parallel path (``apply_moe(mesh=...)`` inside
+``shard_map``, one ``psum`` over the expert axis) and ``logical_axes``
+wait for the multi-GPU slice (ROADMAP.md Queue 1 item 8). No kernel: the
+reference computes the layer with plain einsums, and so does the port.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.kernels._dispatch import full_f32
+from repro_torch.models import common
+
+
+def init_moe(cfg: ArchConfig, gen) -> dict:
+    d, f, E = cfg.d_model, cfg.d_ff, cfg.n_experts
+    return {
+        "router": common.normal_init(gen, (d, E), 0.02),
+        "w_gate": common.he_init(gen, (E, d, f), d),
+        "w_up": common.he_init(gen, (E, d, f), d),
+        "w_down": common.he_init(gen, (E, f, d), f),
+    }
+
+
+def _route(router_w, x, cfg: ArchConfig):
+    """x (N,d) -> (topv (N,k) f32 renormalized, topi (N,k) int64, aux
+    scalar f32)."""
+    logits = (x @ router_w.to(x.dtype)).to(torch.float32)
+    probs = torch.softmax(logits, dim=-1)
+    # jax.lax.top_k breaks ties toward the lower expert index and
+    # torch.topk does not. Ties are common: bf16 logits, a zero router.
+    # A stable descending sort keeps the reference's order, and it is
+    # deterministic, so a remat recomputation routes as the forward did.
+    topv, topi = torch.sort(probs, dim=-1, descending=True, stable=True)
+    topv, topi = topv[:, :cfg.top_k], topi[:, :cfg.top_k]
+    topv = topv / torch.sum(topv, dim=-1, keepdim=True)
+    # Switch-style load-balance loss over the local token set
+    frac_tokens = torch.mean(
+        F.one_hot(topi, cfg.n_experts).to(torch.float32), dim=(0, 1))
+    frac_probs = torch.mean(probs, dim=0)
+    aux = cfg.n_experts * torch.sum(frac_tokens * frac_probs)
+    return topv, topi, aux
+
+
+def _expert_ffn(p, xe, cfg: ArchConfig):
+    """xe (E, C, d) against expert weight stacks (E, d, f); the stacks
+    cast to the activation dtype at every call, as the reference does."""
+    dt = xe.dtype
+    g = torch.bmm(xe, p["w_gate"].to(dt))
+    u = torch.bmm(xe, p["w_up"].to(dt))
+    return torch.bmm(F.silu(g) * u, p["w_down"].to(dt))
+
+
+def _capacity(n_tokens: int, cfg: ArchConfig, n_local_experts: int,
+              factor: float = None) -> int:
+    factor = factor if factor is not None else cfg.moe_capacity_factor
+    expect = n_tokens * cfg.top_k / cfg.n_experts
+    c = int(factor * expect) + 8
+    return max(8, (c + 7) // 8 * 8)
+
+
+def _queue_slots(topi, e_offset: int, n_local_experts: int, capacity: int):
+    """(keep (N*k,) bool, dest (N*k,) int64): each (token, slot) pair's
+    row in the (n_local_experts * capacity + 1) group buffer. A pair's
+    place in its expert's queue is a cumsum over the one-hot in the
+    flattened token-major order, so the pairs past ``capacity`` (and the
+    ones routed to experts of other shards) are the reference's, bit for
+    bit; they go to the last row, the overflow bin."""
+    local_e = topi - e_offset                                   # (N,k)
+    is_local = (local_e >= 0) & (local_e < n_local_experts)
+    flat_e = torch.where(is_local, local_e,
+                         torch.full_like(local_e, n_local_experts)
+                         ).reshape(-1)                          # (N*k,)
+    # the one-hot laid out expert-major, (E_loc + 1, N*k), so the cumsum
+    # runs along the innermost dim (a scan along the outer dim of an
+    # (N*k, E_loc + 1) one-hot runs one thread a column on the card)
+    experts = torch.arange(n_local_experts + 1, device=topi.device)
+    onehot = (flat_e[None, :] == experts[:, None]).to(torch.int32)
+    pos_in_e = torch.cumsum(onehot, dim=1, dtype=torch.int32)  # inclusive
+    slot = torch.gather(pos_in_e, 0, flat_e[None, :])[0] - 1    # (N*k,)
+    keep = (slot < capacity) & (flat_e < n_local_experts)
+    dest = torch.where(keep, flat_e * capacity + slot,
+                       torch.full_like(flat_e, n_local_experts * capacity))
+    return keep, dest
+
+
+def _moe_local(p_local, x, cfg: ArchConfig, e_offset: int,
+               n_local_experts: int, capacity: int):
+    """Grouped dispatch over the device-local token set and expert shard.
+
+    p_local: expert weights already sliced to the local shard (E_loc, ...).
+    x: (N, d) local tokens. e_offset: global id of first local expert.
+    Returns (y_partial (N, d) — contributions of LOCAL experts only, aux).
+    """
+    N, d = x.shape
+    k = cfg.top_k
+    dt = x.dtype
+    topv, topi, aux = _route(p_local["router"], x, cfg)
+    keep, dest = _queue_slots(topi, e_offset, n_local_experts, capacity)
+
+    # Dispatch and combine unrolled over the k routing slots, as the
+    # reference: a single fused gather would make an (N*k, d) tensor.
+    # Dispatch sets rows (kept pairs have rows of their own; dropped ones
+    # all land in the overflow row, which is cut off); no float atomic.
+    dest2 = dest.reshape(N, k)
+    buf = x.new_zeros((n_local_experts * capacity + 1, d))
+    for j in range(k):
+        buf.index_put_((dest2[:, j],), x)
+    xe = buf[:-1].reshape(n_local_experts, capacity, d)
+
+    ye = _expert_ffn(p_local, xe, cfg)                          # (E_loc,C,d)
+
+    # Combine gathers in slot order in the activation dtype. A dropped
+    # pair reads the clamped last row with weight exactly 0, so in the
+    # backward (an accumulating scatter) only exact zeros collide.
+    yf = ye.reshape(n_local_experts * capacity, d)
+    w2 = (topv * keep.reshape(N, k)).to(dt)                     # (N,k)
+    src2 = torch.clamp(dest2, max=n_local_experts * capacity - 1)
+    y = x.new_zeros((N, d))
+    for j in range(k):
+        y = y + yf[src2[:, j]] * w2[:, j, None]
+    return y, aux
+
+
+def apply_moe(p, x, cfg: ArchConfig, mesh=None):
+    """x (B,T,d) -> (y (B,T,d), aux): single-device grouped dispatch.
+    The expert-parallel form (a ``mesh``) is not ported."""
+    if mesh is not None:
+        raise NotImplementedError(
+            "expert-parallel apply_moe(mesh=...) waits for the multi-GPU "
+            "slice (ROADMAP.md Queue 1 item 8)")
+    full_f32()          # f32 configs: true f32 products, as the reference
+    B, T, d = x.shape
+    cap = _capacity(B * T, cfg, cfg.n_experts)
+    y, aux = _moe_local(p, x.reshape(B * T, d), cfg, 0, cfg.n_experts, cap)
+    return y.reshape(B, T, d), aux
+
+
+def apply_moe_dense(p, x, cfg: ArchConfig):
+    """Oracle: every expert computes every token; combine by router
+    weights in f32."""
+    full_f32()
+    B, T, d = x.shape
+    E = cfg.n_experts
+    dt = x.dtype
+    topv, topi, aux = _route(p["router"], x.reshape(B * T, d), cfg)
+    combine = torch.sum(F.one_hot(topi, E).to(torch.float32)
+                        * topv[..., None], dim=1)               # (N,E)
+    xf = x.reshape(1, B * T, d).expand(E, B * T, d)
+    ye = _expert_ffn(p, xf, cfg)                                # (E,N,d)
+    y = torch.einsum("end,ne->nd", ye.to(torch.float32),
+                     combine).to(dt)
+    return y.reshape(B, T, d), aux

@@ -1,14 +1,17 @@
-"""Backbone assembly for the dense, ssm (rwkv6) and hybrid (zamba2)
+"""Backbone assembly for the dense, moe, ssm (rwkv6) and hybrid (zamba2)
 families (counterpart of ``repro/models/transformer.py``).
 
   dense           -> attention block + MLP, ``n_layers`` times
+  moe             -> attention block + MoE FFN (``models/moe.py``, one
+                     device), ``n_layers`` times; each layer's router
+                     aux loss is summed into ``moe_aux``
   ssm (rwkv6)     -> rwkv6 time mix + RWKV channel mix, ``n_layers`` times
   hybrid (zamba2) -> groups of ``shared_attn_every`` mamba2 blocks, each
                      group followed by the one *shared* attention + GELU
                      MLP block (sliding window ``shared_attn_window``)
 
-The moe, vlm and audio families wait for later slices (ROADMAP.md
-Queue 1 item 7): ``Model`` raises ``NotImplementedError`` for them.
+The vlm and audio families wait for a later slice (ROADMAP.md Queue 1
+item 7): ``Model`` raises ``NotImplementedError`` for them.
 
 Public surface:
     model = Model(cfg, device=None)             # the card unless "cpu"
@@ -51,10 +54,10 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
 from repro_torch.kernels._dispatch import full_f32
-from repro_torch.models import attention, common, mamba2, mlp, rwkv6
+from repro_torch.models import attention, common, mamba2, mlp, moe, rwkv6
 from repro_torch.tree import tree_leaves, tree_map
 
-FAMILIES = ("dense", "hybrid", "ssm")
+FAMILIES = ("dense", "hybrid", "ssm", "moe")
 
 
 class ParamTree(nn.Module):
@@ -84,8 +87,17 @@ def _init_attn_block(cfg: ArchConfig, gen) -> dict:
          "attn": attention.init_attention(cfg, gen)}
     if not cfg.parallel_block:
         p["norm2"] = common.init_norm(cfg, cfg.d_model, dev)
-    p["mlp"] = mlp.init_mlp(cfg, gen)
+    if _is_moe(cfg):
+        p["moe"] = moe.init_moe(cfg, gen)
+    else:
+        p["mlp"] = mlp.init_mlp(cfg, gen)
     return p
+
+
+def _is_moe(cfg: ArchConfig) -> bool:
+    """Whether an attention block's FFN is the MoE (the reference's
+    ``"moe" in p``)."""
+    return bool(cfg.n_experts) and cfg.family == "moe"
 
 
 def _init_rwkv_block(cfg: ArchConfig, gen) -> dict:
@@ -101,26 +113,39 @@ def _init_mamba_block(cfg: ArchConfig, gen) -> dict:
             "mamba": mamba2.init_mamba2(cfg, gen)}
 
 
+def _ffn(p, h2, cfg: ArchConfig):
+    """(the block's FFN of h2, the router's aux loss or None without a
+    MoE)."""
+    if _is_moe(cfg):
+        return moe.apply_moe(p["moe"], h2, cfg)
+    return mlp.apply_mlp(p["mlp"], h2, cfg), None
+
+
 def _apply_attn_block(p, x, cfg: ArchConfig, positions, plain: bool):
+    """Full-sequence attention block. Returns (x, aux); aux is None
+    unless the FFN is a MoE."""
     h = common.apply_norm(p["norm1"], x, cfg)
     q, k, v = attention.qkv_proj(p["attn"], h, positions, cfg)
     attend = attention.attend_plain if plain else attention.attend
     att_out = attention.out_proj(p["attn"], attend(q, k, v, cfg), cfg)
     if cfg.parallel_block:
-        return x + att_out + mlp.apply_mlp(p["mlp"], h, cfg)
+        return x + att_out + mlp.apply_mlp(p["mlp"], h, cfg), None
     x = x + att_out
     h2 = common.apply_norm(p["norm2"], x, cfg)
-    return x + mlp.apply_mlp(p["mlp"], h2, cfg)
+    y, aux = _ffn(p, h2, cfg)
+    return x + y, aux
 
 
 def _decode_attn_block(p, x, cache, pos: int, cfg: ArchConfig):
+    """One decode step of the attention block: (x, cache); the MoE's aux
+    is dropped, as the reference's ``decode_step`` drops it."""
     h = common.apply_norm(p["norm1"], x, cfg)
     att_out, cache = attention.decode_attend(p["attn"], h, cache, pos, cfg)
     if cfg.parallel_block:
         return x + att_out + mlp.apply_mlp(p["mlp"], h, cfg), cache
     x = x + att_out
     h2 = common.apply_norm(p["norm2"], x, cfg)
-    return x + mlp.apply_mlp(p["mlp"], h2, cfg), cache
+    return x + _ffn(p, h2, cfg)[0], cache
 
 
 def _apply_rwkv_block(p, x, cfg: ArchConfig):
@@ -154,8 +179,9 @@ def _decode_mamba_block(p, x, cache, cfg: ArchConfig):
 
 
 def _layer(fn, x, remat: bool):
-    """``fn(x)``, checkpointed (recomputed in backward) under ``remat``
-    when autograd is recording."""
+    """``fn(x)`` (a tensor, or a tuple such as (x, aux)), checkpointed
+    (recomputed in backward) under ``remat`` when autograd is
+    recording."""
     if remat and torch.is_grad_enabled():
         return checkpoint(fn, x, use_reentrant=False)
     return fn(x)
@@ -163,7 +189,7 @@ def _layer(fn, x, remat: bool):
 
 def init_params(cfg: ArchConfig, gen: torch.Generator) -> dict:
     """The reference's parameter tree on ``gen``'s device, with
-    ``blocks`` as a list of per-layer dicts (a dense, hybrid or ssm
+    ``blocks`` as a list of per-layer dicts (a dense, moe, hybrid or ssm
     ``cfg``)."""
     block_init = {"hybrid": _init_mamba_block,
                   "ssm": _init_rwkv_block}.get(cfg.family, _init_attn_block)
@@ -222,11 +248,13 @@ def unstack_blocks(tree):
 # ---------------------------------------------------------------------------
 
 class Model(nn.Module):
-    """A dense, ssm or hybrid backbone. ``device=None`` is the card
+    """A dense, moe, ssm or hybrid backbone. ``device=None`` is the card
     (raises without one); ``device="cpu"`` runs the plain versions of
     the kernels. ``params`` (the reference's tree, ``blocks`` a list of
     per-layer dicts, as ``convert.model_params_from_jax`` gives it)
-    replaces the seeded init."""
+    replaces the seeded init. The moe family's expert layer is plain
+    torch on every device (the reference computes it with einsums);
+    its attention runs on the kernel like the dense family's."""
 
     def __init__(self, cfg: ArchConfig, device=None, params=None,
                  seed: int = 0):
@@ -282,14 +310,15 @@ class Model(nn.Module):
         memory-bounded losses unembed in sequence chunks themselves.
         ``remat`` checkpoints each layer (and the shared block at each
         use) when autograd records; ``params`` (a ``param_tree()``-shaped
-        tree) replaces the module's own weights."""
-        h = self._backbone(batch, plain, remat, params)
-        return h, {"moe_aux": torch.zeros((), device=h.device)}
+        tree) replaces the module's own weights. ``moe_aux`` is the
+        moe family's router loss summed over layers (0 for the others)."""
+        h, aux = self._backbone(batch, plain, remat, params)
+        return h, {"moe_aux": aux}
 
     def embed_pool(self, batch: Dict[str, Any], plain: bool = False):
         """Mean-pooled final hidden state (B, d_model) f32 — the embedding
         the DML metric head consumes."""
-        h = self._backbone(batch, plain, False, None)
+        h, _ = self._backbone(batch, plain, False, None)
         return torch.mean(h.to(torch.float32), dim=1)
 
     def _backbone(self, batch, plain: bool, remat: bool, params):
@@ -302,6 +331,7 @@ class Model(nn.Module):
         x = common.embed_tokens(emb, tokens, cfg, dtype)
         B, T, _ = x.shape
         positions = torch.arange(T, device=x.device)[None, :].expand(B, T)
+        auxs = []
         if cfg.family == "hybrid":
             x = self._run_hybrid(params, x, positions, plain, remat)
         elif cfg.family == "ssm":
@@ -310,9 +340,14 @@ class Model(nn.Module):
                            x, remat)
         else:
             for p_l in params["blocks"]:
-                x = _layer(lambda x, p_l=p_l: _apply_attn_block(
+                x, aux = _layer(lambda x, p_l=p_l: _apply_attn_block(
                     p_l, x, cfg, positions, plain), x, remat)
-        return common.apply_norm(params["final_norm"], x, cfg)
+                if aux is not None:
+                    auxs.append(aux)
+        # the reference sums the scan's stacked per-layer losses
+        aux = torch.sum(torch.stack(auxs)) if auxs else \
+            torch.zeros((), device=x.device)
+        return common.apply_norm(params["final_norm"], x, cfg), aux
 
     def _run_hybrid(self, params, x, positions, plain: bool, remat: bool):
         """Zamba2: groups of mamba layers + the shared attention block."""
@@ -325,7 +360,7 @@ class Model(nn.Module):
                 x = _layer(lambda x, p_l=p_l: _apply_mamba_block(
                     p_l, x, cfg, plain), x, remat)
             x = _layer(lambda x: _apply_attn_block(
-                params["shared"], x, scfg, positions, plain), x, remat)
+                params["shared"], x, scfg, positions, plain)[0], x, remat)
         return x
 
     def _groups(self):

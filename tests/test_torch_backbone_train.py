@@ -115,7 +115,8 @@ def test_shapes_and_run_config_equal_reference():
 
 
 ARCHS = ["smollm-135m", "gemma-7b", "yi-6b", "zamba2-2.7b", "hubert-xlarge",
-         "rwkv6-1.6b", "pixtral-12b"]
+         "rwkv6-1.6b", "pixtral-12b", "granite-moe-1b-a400m",
+         "qwen3-moe-30b-a3b"]
 
 
 @pytest.mark.parametrize("arch", ARCHS)
@@ -195,7 +196,9 @@ def _check_tight_share_and_moments(jstate, state):
 @pytest.mark.parametrize("name,remat", [("smollm-135m", False),
                                         ("zamba2-2.7b", False),
                                         ("zamba2-2.7b", True),
-                                        ("gemma-7b", False)])
+                                        ("gemma-7b", False),
+                                        ("granite-moe-1b-a400m", False),
+                                        ("granite-moe-1b-a400m", True)])
 def test_three_train_steps_match_reference(name, remat):
     jstate, state, model, params = _three_steps(name, remat)
     ref = unstack_blocks(jax.tree.map(np.asarray, jstate.params))
@@ -312,7 +315,8 @@ def test_prefill_and_serve_steps():
 # -- the reference's training tests on the port ---------------------------------
 
 @pytest.mark.parametrize("arch", ["smollm-135m", "gemma-7b", "yi-6b",
-                                  "zamba2-2.7b", "rwkv6-1.6b"])
+                                  "zamba2-2.7b", "rwkv6-1.6b",
+                                  "granite-moe-1b-a400m"])
 def test_train_step_decreases_loss_and_no_nans(arch):
     """``test_arch_smoke.py``'s loss-falls test: a fixed batch repeated
     five times, lr 5e-3, no warmup."""
@@ -369,7 +373,8 @@ def test_checkpoint_resume_bitexact(tmp_path):
 
 # -- checkpoints across packages -----------------------------------------------
 
-@pytest.fixture(scope="module", params=["zamba2-2.7b", "rwkv6-1.6b"])
+@pytest.fixture(scope="module", params=["zamba2-2.7b", "rwkv6-1.6b",
+                                        "granite-moe-1b-a400m"])
 def trained(request):
     """A reference train state after one step (params, AdamState)."""
     jcfg, cfg, jmodel, params = _ref_setup(request.param)
@@ -501,7 +506,7 @@ def _run(*args, timeout=240):
 
 
 @pytest.mark.parametrize("arch", ["smollm-135m", "zamba2-2.7b",
-                                  "rwkv6-1.6b"])
+                                  "rwkv6-1.6b", "granite-moe-1b-a400m"])
 def test_serve_cli_on_cpu(arch):
     res = _run("repro_torch.launch.serve", "--arch", arch, "--reduced",
                "--device", "cpu", "--batch", "2", "--prompt-len", "4",
@@ -517,7 +522,8 @@ def test_serve_cli_refuses_encoder_only():
     assert res.returncode != 0 and "encoder-only" in res.stderr
 
 
-@pytest.mark.parametrize("arch", ["zamba2-2.7b", "rwkv6-1.6b"])
+@pytest.mark.parametrize("arch", ["zamba2-2.7b", "rwkv6-1.6b",
+                                  "granite-moe-1b-a400m"])
 def test_train_cli_on_cpu_writes_a_reference_checkpoint(tmp_path, arch):
     ckpt = tmp_path / "ckpt"
     res = _run("repro_torch.launch.train", "--arch", arch,
@@ -542,6 +548,16 @@ def test_serve_embeddings_cli_on_cpu_takes_rwkv6():
                "--k", "3")
     assert res.returncode == 0, res.stderr
     assert "rwkv6-1.6b: corpus (8, 256) embedded" in res.stdout
+    assert "requests/s" in res.stdout and "p99" in res.stdout
+
+
+def test_serve_embeddings_cli_on_cpu_takes_moe():
+    res = _run("repro_torch.launch.serve_embeddings", "--arch",
+               "granite-moe-1b-a400m", "--reduced", "--device", "cpu",
+               "--seq-len", "32", "--corpus", "8", "--batch", "4",
+               "--requests", "2", "--k", "3")
+    assert res.returncode == 0, res.stderr
+    assert "granite-moe-1b-a400m: corpus (8, 256) embedded" in res.stdout
     assert "requests/s" in res.stdout and "p99" in res.stdout
 
 

@@ -8,7 +8,9 @@ through both, a reduced gemma-7b at head dim 256, rwkv6 at full width
 gallery (card against the CPU port, and its snapshot round trip) and
 the closed loop (mined pairs on the card equal to the CPU's, the
 stream's gather on the card equal to the host's, a small loop's
-launches). Top-k
+launches), granite-moe's MoE layer at full width (grouped against the
+dense oracle, forward and backward bit-stable, remat's recomputation
+routing as the forward did at bf16). Top-k
 widths past the 256-entry shared lists (the wide path), pq_adc tables
 taken in chunks (S 200, 1000) and pairwise_sqdist past 65535 tiles of yp
 rows are among the shapes; so are ivf_scan's plan (made on the card, against
@@ -1268,3 +1270,96 @@ def test_rwkv6_decode_on_the_card_matches_apply(cuda_device):
         full, _ = model.apply({"tokens": padded})
     torch.testing.assert_close(out["step_logits"], full[:, :seq.shape[1]],
                                rtol=1e-3, atol=1e-4)
+
+
+def _moe_layer(cuda_device, T=512, seed=0):
+    """granite-moe-1b-a400m's MoE layer at full width (32 experts, top 8,
+    d 1024, expert d_ff 512), f32, and an input of B 1, T tokens."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe
+    cfg = get_config("granite-moe-1b-a400m").replace(dtype="float32")
+    gen = torch.Generator(device=cuda_device).manual_seed(seed)
+    p = moe.init_moe(cfg, gen)
+    x = torch.randn((1, T, cfg.d_model), generator=gen, device=cuda_device)
+    return cfg, p, x
+
+
+@pytest.mark.cuda
+def test_moe_grouped_equals_dense_at_full_width(cuda_device):
+    """The grouped layer against the every-expert oracle at the config's
+    capacity, where no queue overflows (checked): y within rtol 1e-3,
+    atol 1e-4 and aux within 1e-4 relative (the reference's own bound,
+    ``TestMoE``)."""
+    from repro_torch.models import moe
+    cfg, p, x = _moe_layer(cuda_device)
+    _, topi, _ = moe._route(p["router"], x[0], cfg)
+    keep, _ = moe._queue_slots(topi, 0, cfg.n_experts,
+                               moe._capacity(x.shape[1], cfg, cfg.n_experts))
+    assert bool(keep.all())
+    y_g, aux_g = moe.apply_moe(p, x, cfg)
+    y_d, aux_d = moe.apply_moe_dense(p, x, cfg)
+    torch.testing.assert_close(y_g, y_d, rtol=1e-3, atol=1e-4)
+    torch.testing.assert_close(aux_g, aux_d, rtol=1e-4, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("factor", [2.0, 0.25])
+def test_moe_forward_and_backward_are_bit_stable(cuda_device, factor):
+    """The grouped layer's forward and backward run twice give equal
+    bits, at the config's capacity and at 0.25 (queues overflow): the
+    dispatch sets rows, and in the combine's backward only dropped pairs
+    collide, each adding an exact 0."""
+    from repro_torch.models import moe
+    cfg, p, x = _moe_layer(cuda_device, seed=1)
+    cfg = cfg.replace(moe_capacity_factor=factor)
+    gy = torch.randn(x.shape, device=cuda_device,
+                     generator=torch.Generator(device=cuda_device)
+                     .manual_seed(2))
+    runs = []
+    for _ in range(2):
+        live = {k: v.clone().requires_grad_(True) for k, v in p.items()}
+        xl = x.clone().requires_grad_(True)
+        y, aux = moe.apply_moe(live, xl, cfg)
+        (torch.sum(y * gy) + aux).backward()
+        runs.append([y.detach(), aux.detach(), xl.grad]
+                    + [live[k].grad for k in sorted(live)])
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_moe_remat_recomputation_routes_as_the_forward(cuda_device,
+                                                       monkeypatch):
+    """granite-moe at full width cut to 2 layers, bf16 activations, the
+    training forward under remat: every layer's routing in the backward's
+    recomputation equals the forward's (ties in bf16 logits are common;
+    the stable top-k breaks them the same way every time)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model, moe
+    cfg = get_config("granite-moe-1b-a400m").replace(n_layers=2)
+    model = Model(cfg, device=cuda_device, seed=3)
+    seen = []
+    route = moe._route
+
+    def recording(router_w, x, cfg_):
+        out = route(router_w, x, cfg_)
+        seen.append(out[1].clone())
+        return out
+
+    monkeypatch.setattr(moe, "_route", recording)
+    params = model.param_tree()
+    live = {k: v.clone().requires_grad_(True) for k, v in
+            params["blocks"][0]["moe"].items()}
+    params["blocks"] = [dict(params["blocks"][0], moe=live)] + \
+        params["blocks"][1:]
+    tokens = torch.randint(0, cfg.vocab_size, (2, 256), device=cuda_device)
+    h, aux = model.hidden({"tokens": tokens}, plain=True, remat=True,
+                          params=params)
+    assert len(seen) == cfg.n_layers
+    (h.float().square().mean() + aux["moe_aux"]).backward()
+    assert len(seen) == 2 * cfg.n_layers
+    # the backward recomputes the last layer first
+    for a, b in zip(seen[:cfg.n_layers], reversed(seen[cfg.n_layers:])):
+        assert torch.equal(a, b)
+    assert all(bool(torch.isfinite(g).all()) for g in
+               (v.grad for v in live.values()))

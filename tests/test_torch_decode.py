@@ -157,6 +157,8 @@ MODELS = {
     "zamba2-2.7b": ("zamba2-2.7b", {}),
     "zamba2-2.7b-ring": ("zamba2-2.7b", dict(shared_attn_window=8)),
     "rwkv6-1.6b": ("rwkv6-1.6b", {}),
+    "granite-moe-1b-a400m": ("granite-moe-1b-a400m", {}),
+    "qwen3-moe-30b-a3b": ("qwen3-moe-30b-a3b", {}),
 }
 
 
@@ -286,7 +288,7 @@ def test_encoder_only_has_no_decode():
 
 
 @pytest.mark.parametrize("name", ["smollm-135m", "zamba2-2.7b",
-                                  "rwkv6-1.6b"])
+                                  "rwkv6-1.6b", "granite-moe-1b-a400m"])
 def test_greedy_loop_matches_reference(name):
     """A 20-step greedy loop (4 prompt tokens, 16 generated) through
     ``launch.serve.generate`` and the reference's loop on the same

@@ -128,8 +128,7 @@ def test_seeded_init_is_deterministic():
             jax.random.PRNGKey(0))))
 
 
-@pytest.mark.parametrize("name", ["granite-moe-1b-a400m", "pixtral-12b",
-                                  "hubert-xlarge"])
+@pytest.mark.parametrize("name", ["pixtral-12b", "hubert-xlarge"])
 def test_families_not_ported_raise(name):
     with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
         Model(get_config(name + "-reduced"), device="cpu")
