@@ -373,15 +373,50 @@ exit, and nothing falls back:
                 JSON line, then the ``kernels`` line, the backbone
                 kernels' entries with their launches in 12-15 (and
                 flash_attention's in 17), pairwise_sqdist's with its
-                launches in 16e and 17e;
- 18. the last line: ``{"ok": true, "device": {...}}``.
+                launches in 16e, 17e and 18;
+ 18. vlm, audio — pixtral-12b at full width and depth (40 layers,
+                d_model 5120, GQA 32/8 at Dh 128, d_ff 14336, vocab
+                131,072, RoPE at 1e9; 49.1 GB of f32 weights) and
+                hubert-xlarge at full width and depth (48 layers, d_model
+                1280, 16 heads of 80, non-causal, layernorm, gelu,
+                attention biases); seeded f32 weights with every constant
+                leaf (biases, norm scales) given N(0, 0.1^2) noise; both
+                take frame / patch embeddings through ``frontend_proj``.
+                (a) pixtral's forward on patch embeddings (B 1, T 2048,
+                f32) through the kernels against plain=True (hidden
+                within 1e-4, embed_pool within 1e-5); (b) decode on
+                tokens as in 12, then the bf16 loop timed and profiled;
+                (d) the service on patch batches of 2 x 4,096 (bf16):
+                ``serve_embeddings.serve`` on ``{"embeddings": ...}``
+                batches of ``embedding_stream`` (``Model.embed_pool``,
+                ranked by pairwise_sqdist), a corpus of 4 batches and 8
+                request batches timed, one batch's device ms by kind; (e) flash_attention on a service
+                batch's layer-0 q, k, v against attention_ref; (c)
+                training cut to 2 layers on ``launch/train.py``'s patch
+                batches (the reference launcher's: labels uniform over
+                the vocabulary), B 1, T 512, 5 steps, the first loss
+                within 1e-6 of apply's CE, the loss falling; then hubert:
+                (f) the forward on frames (B 4, T 1500) against plain, and
+                bidirectional (frames 750+ moved move the positions
+                before 750); (g) ``init_decode_cache`` raises; (i) the
+                service on frame batches of 8 x 4,096 (a corpus of 2
+                batches, 8 request batches timed) and one forward of
+                B 1 x T 32,768, with flash_attention's share; (j) as (e),
+                non-causal MHA; (h) training at full depth with remat
+                (B 4, T 1500, 5 steps; the first loss within 1e-6, the
+                loss falling at lr 3e-4, launch/train.py's default, for
+                the reason AUDIO_LR's comment gives); then flash_attention alone at both
+                services' shapes against SDPA and its plain version (two
+                more ``kernels`` entries);
+ 19. the last line: ``{"ok": true, "device": {...}}``.
 
 Every launch count is set to 0 just before a main-path phase (4, 5, 5a,
 5c, 6, each index of 8, each serving run of 8b, each burst of 8c, 8d's
 tenant traffic, 8e's main run and each of its cuts, gemma's embed_pool
 in 9, 10, each decode and each apply beside it in 12, 13 and 16c, each
-training run and apply in 14, 15 and 16d, 16e, and each forward, decode,
-apply, training run and service batch of 17) and read just after
+training run and apply in 14, 15 and 16d, 16e, each forward, decode,
+apply, training run and service batch of 17, and each forward, apply,
+service run and training run of 18) and read just after
 (5a launches no kernel: its gradient is the reference's plain autograd
 product);
 comparison launches come after the reading (or, for phase 9, before the
@@ -496,7 +531,8 @@ from repro_torch.kernels.ssd_chunk import (  # noqa: E402
 from repro_torch.kernels.ssd_chunk import cases as ssd_cases  # noqa: E402
 from repro_torch.kernels.ssd_chunk.cases import (  # noqa: E402
     BF16_ROUND, SSD_TOL)
-from repro_torch.data.tokens import token_stream  # noqa: E402
+from repro_torch.data.tokens import (embedding_stream,  # noqa: E402
+                                     token_stream)
 from repro_torch.launch import serve, serve_embeddings, train  # noqa: E402
 from repro_torch.launch import steps as steps_lib  # noqa: E402
 from repro_torch.mining import (ClosedLoopConfig,  # noqa: E402
@@ -4025,7 +4061,7 @@ def time_pairwise(xp, yp, launches, max_err):
             "breakdown_ms": parts, "shape": {"N": n, "M": m, "k": k}}
 
 
-# -- the zamba2-2.7b backbone: ssd_scan and flash_attention --------------------
+# -- the zamba2-2.7b backbone: ssd_scan and flash_attention -------------------
 
 BACKBONE = "zamba2-2.7b"
 SEQ = 8192                  # tokens a sequence: the 4096 window bites
@@ -4408,15 +4444,16 @@ def _category(name):
 def _service_launches(cfg, n_fwd, n_ranked):
     """The launches one service run must make: one pairwise_sqdist a
     ranked batch, and for the hybrid family each forward batch's
-    ssd_scan and flash_attention, for the dense and moe families one
-    flash_attention a layer (the ssm family has no kernel)."""
+    ssd_scan and flash_attention, for the dense, moe, vlm and audio
+    families one flash_attention a layer (the ssm family has no
+    kernel)."""
     expect = dict.fromkeys(KERNEL_WRAPPERS, 0)
     expect["pairwise_sqdist"] = n_ranked
     if cfg.family == "hybrid":
         expect["ssd_scan"] = cfg.n_layers * n_fwd
         expect["flash_attention"] = cfg.n_layers // cfg.shared_attn_every \
             * n_fwd
-    elif cfg.family in ("dense", "moe"):
+    elif cfg.family != "ssm":
         expect["flash_attention"] = cfg.n_layers * n_fwd
     return expect
 
@@ -4450,6 +4487,59 @@ def _check_ranking(out, L):
     return err
 
 
+def _serve_checked(model, L, corpus, requests, what):
+    """``serve_embeddings.serve`` on ``corpus`` and ``requests`` (token
+    arrays or batch dicts), k = EMB_K, with the launch counts set to 0
+    just before and held to ``_service_launches`` just after; the ranking
+    held to the plain distances; one request batch's device ms by kind."""
+    B, T = serve_embeddings._rows_and_len(requests[0])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()                         # counts of the main path only
+    out = serve_embeddings.serve(model, L, corpus, requests, EMB_K)
+    counts = _counts()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    n_fwd = len(corpus) + len(requests)
+    expect = _service_launches(model.cfg, n_fwd, len(requests))
+    assert counts == expect, f"launch counts {counts}, expected {expect}"
+    n_corpus = sum(serve_embeddings._rows_and_len(b)[0] for b in corpus)
+    res = {"requests_per_s": out["requests_per_s"],
+           "tokens_per_s": out["tokens_per_s"], "p50_ms": out["p50_ms"],
+           "p99_ms": out["p99_ms"], "batch_ms": out["batch_ms"],
+           "corpus_s": out["corpus_s"],
+           "corpus_tokens_per_s": n_corpus * T / out["corpus_s"],
+           "peak_gb": peak, "launches": counts}
+    log(f"{what}: corpus {n_corpus} x {T} embedded in "
+        f"{out['corpus_s']:.2f}s ({res['corpus_tokens_per_s']:.0f} "
+        f"tokens/s); {len(requests)} request batches of {B} x {T}: "
+        f"requests/s {out['requests_per_s']:.3f}, tokens/s "
+        f"{out['tokens_per_s']:.0f}, batch ms p50 {out['p50_ms']:.1f} p99 "
+        f"{out['p99_ms']:.1f} ({[round(x, 1) for x in out['batch_ms']]}); "
+        f"peak memory {peak:.2f} GB; launches "
+        f"{ {k: v for k, v in counts.items() if v} } over {n_fwd} forward "
+        f"batches and {len(requests)} ranked ones (the others 0)")
+    res["rank_max_abs_err"] = _check_ranking(out, L)
+    parts = device_breakdown(lambda: serve_embeddings.embed(model,
+                                                            requests[0]))
+    split = None
+    if parts:
+        split = {}
+        for name, ms in parts.items():
+            split[_category(name)] = round(split.get(_category(name), 0.0)
+                                           + ms, 3)
+        busy = sum(parts.values())
+        res["flash_share"] = split.get("flash_attention", 0.0) / busy
+        top = dict(sorted(parts.items(), key=lambda kv: -kv[1])[:6])
+        log(f"one request batch's forward on the card: device busy "
+            f"{busy:.1f} ms (batch p50 {out['p50_ms']:.1f} ms host clock); "
+            f"by kind {split} (flash_attention {res['flash_share']:.1%}); "
+            f"largest kernels {top}")
+    else:
+        log("one request batch's forward: device time not measured")
+    res["device_ms_by_kind"] = split
+    return res
+
+
 def phase_embedding_service(arch=BACKBONE, seq=SEQ, batch=EMB_BATCH,
                             corpus_seqs=CORPUS_SEQS,
                             request_batches=REQUEST_BATCHES):
@@ -4471,45 +4561,8 @@ def phase_embedding_service(arch=BACKBONE, seq=SEQ, batch=EMB_BATCH,
     log(f"embedding service: {arch} ({cfg.dtype} activations, f32 "
         f"weights) and L {tuple(L.shape)} built in "
         f"{time.perf_counter() - t0:.1f}s")
-    torch.cuda.reset_peak_memory_stats()
-    _reset_counts()                         # counts of the main path only
-    out = serve_embeddings.serve(model, L, corpus, requests, EMB_K)
-    counts = _counts()
-    peak = torch.cuda.max_memory_allocated() / 1e9
-    n_fwd = len(corpus) + len(requests)
-    expect = _service_launches(cfg, n_fwd, len(requests))
-    assert counts == expect, f"launch counts {counts}, expected {expect}"
-    log(f"corpus {corpus_seqs} x {seq} tokens embedded in "
-        f"{out['corpus_s']:.2f}s ({corpus_seqs * seq / out['corpus_s']:.0f} "
-        f"tokens/s); {request_batches} request batches of {batch} x "
-        f"{seq}: requests/s {out['requests_per_s']:.3f}, tokens/s "
-        f"{out['tokens_per_s']:.0f}, batch ms p50 {out['p50_ms']:.1f} p99 "
-        f"{out['p99_ms']:.1f} ({[round(x, 1) for x in out['batch_ms']]}); "
-        f"peak memory {peak:.2f} GB; launches "
-        f"{ {k: v for k, v in counts.items() if v} } over {n_fwd} forward "
-        f"batches and {len(requests)} ranked ones (the others 0)")
-    _check_ranking(out, L)
-    parts = device_breakdown(lambda: serve_embeddings.embed(model,
-                                                            requests[0]))
-    split = None
-    if parts:
-        split = {}
-        for name, ms in parts.items():
-            split[_category(name)] = round(split.get(_category(name), 0.0)
-                                           + ms, 3)
-        busy = sum(parts.values())
-        top = dict(sorted(parts.items(), key=lambda kv: -kv[1])[:6])
-        log(f"one request batch's forward on the card: device busy "
-            f"{busy:.1f} ms (batch p50 {out['p50_ms']:.1f} ms host clock); "
-            f"by kind {split}; largest kernels {top}")
-    else:
-        log("one request batch's forward: device time not measured")
-    return model, requests, {
-        "requests_per_s": out["requests_per_s"],
-        "tokens_per_s": out["tokens_per_s"], "p50_ms": out["p50_ms"],
-        "p99_ms": out["p99_ms"], "batch_ms": out["batch_ms"],
-        "corpus_s": out["corpus_s"], "peak_gb": peak, "launches": counts,
-        "device_ms_by_kind": split}
+    return model, requests, _serve_checked(model, L, corpus, requests,
+                                           f"{arch} service")
 
 
 def library_attention(q, k, v, window):
@@ -4977,23 +5030,37 @@ def phase_train_zamba(lr=ZTRAIN_LR):
         f"shared block")
 
 
-def _train_checked(arch, cfg, expect, lr, what, steps=ZTRAIN_STEPS):
-    """``cfg`` (f32) trained with remat, B ZTRAIN_B, T ZTRAIN_T,
-    ``steps`` steps through ``launch/train.py``'s loop on
-    ``test_system.py``'s stream (ids below LM_DATA_VOCAB); the first
+def _train_checked(arch, cfg, expect, lr, what, steps=ZTRAIN_STEPS,
+                   shape=(ZTRAIN_B, ZTRAIN_T), loss_rel=ZTRAIN_LOSS_REL,
+                   perturb_seed=None):
+    """``cfg`` (f32) trained with remat, B x T ``shape``, ``steps`` steps
+    through ``launch/train.py``'s loop on ``test_system.py``'s stream
+    (ids below LM_DATA_VOCAB), or for ``input_kind="embeddings"`` on the
+    launcher's own frame / patch batches (``train.embedding_batches``:
+    the reference launcher's, labels over the vocabulary); the first
     step's loss held against ``apply`` through the kernels on the same
-    batch (its CE, plus ``moe_aux_weight`` times its router loss for the
-    moe family; ``expect``: its launches by kernel), every leaf updated
-    and finite, the loss falling (the mean of the last third of the
-    steps below the first third's, a step at least)."""
+    batch within ``loss_rel`` (its CE, plus ``moe_aux_weight`` times its
+    router loss for the moe family; ``expect``: its launches by kernel),
+    every leaf updated and finite (a leaf the batches do not reach, the
+    token embedding under frames, by AdamW's decay alone), the loss
+    falling (the mean of the last third of the steps below the first
+    third's, a step at least). ``perturb_seed``: the model's constant
+    leaves are given seeded noise first (``_perturb_constant``; the
+    state's params share their storage)."""
     t_phase = time.perf_counter()
+    B, T = shape
     model, step, state = train.build(arch, steps, lr=lr, remat=True,
                                      device=DEV, cfg=cfg)
-    stream = token_stream(LM_DATA_VOCAB, ZTRAIN_B, ZTRAIN_T, device=DEV)
+    if perturb_seed is not None:
+        _perturb_constant(model, perturb_seed)
+    stream = (train.embedding_batches(cfg, B, T, device=DEV)
+              if cfg.input_kind == "embeddings" else
+              token_stream(LM_DATA_VOCAB, B, T, device=DEV))
     batches = [next(stream) for _ in range(steps)]
     with torch.inference_mode():
         _reset_counts()
-        logits, aux = model.apply({"tokens": batches[0]["tokens"]})
+        logits, aux = model.apply({k: v for k, v in batches[0].items()
+                                   if k != "labels"})
         torch.cuda.synchronize()
         launches = {k: v for k, v in _counts().items() if v}
         aux_k = float(aux["moe_aux"])
@@ -5023,7 +5090,7 @@ def _train_checked(arch, cfg, expect, lr, what, steps=ZTRAIN_STEPS):
     ms = 1e3 * float(np.median(hist["step_s"][1:]))
     out = {"layers": cfg.n_layers, "losses": losses, "first_loss_apply":
            ce_k, "first_loss_rel": rel, "ms_per_step": ms, "tokens_per_s":
-           ZTRAIN_B * ZTRAIN_T * 1e3 / ms, "peak_gb": peak,
+           B * T * 1e3 / ms, "peak_gb": peak,
            "state_gb": base_gb, "apply_launches": launches, "lr": lr}
     aux_txt = ""
     if cfg.family == "moe":
@@ -5032,16 +5099,16 @@ def _train_checked(arch, cfg, expect, lr, what, steps=ZTRAIN_STEPS):
                    f"{aux_k:.6f})")
         log(f"{what}: the router loss a step "
             f"{[round(a, 5) for a in hist['moe_aux']]}")
-    log(f"{what} (f32, remat, AdamW lr {lr}), B {ZTRAIN_B}, T "
-        f"{ZTRAIN_T}, {steps} steps: first loss {losses[0]:.6f} against "
+    log(f"{what} (f32, remat, AdamW lr {lr}), B {B}, T {T}, {steps} "
+        f"steps: first loss {losses[0]:.6f} against "
         f"apply through the kernels {ce_k:.6f}{aux_txt} (|d| / loss "
-        f"{rel:.2e}, bound {ZTRAIN_LOSS_REL}); loss {losses[0]:.4f} -> "
+        f"{rel:.2e}, bound {loss_rel}); loss {losses[0]:.4f} -> "
         f"{losses[-1]:.4f}; "
         f"{moved} of {n_leaves} leaves moved, finite {finite}; {ms:.1f} "
         f"ms/step, {out['tokens_per_s']:.0f} tokens/s, peak memory "
         f"{peak:.2f} GB ({base_gb:.2f} GB before the first step); phase "
         f"{time.perf_counter() - t_phase:.1f} s")
-    assert rel <= ZTRAIN_LOSS_REL, "the training forward left apply"
+    assert rel <= loss_rel, "the training forward left apply"
     assert finite and moved == n_leaves, "updates not finite or missing"
     w = max(1, steps // 3)
     assert np.mean(losses[-w:]) < np.mean(losses[:w]), "the loss did not fall"
@@ -5207,7 +5274,7 @@ def phase_rwkv6():
     return out
 
 
-# -- the moe family: granite-moe-1b and qwen3-moe-30b (17) ---------------------
+# -- the moe family: granite-moe-1b and qwen3-moe-30b (17) --------------------
 
 # phase 17: granite-moe-1b-a400m at full width and depth; qwen3-moe-30b-a3b
 # at full width cut to MOE_QWEN_LAYERS of its 48 layers (about 120 GB of
@@ -5485,26 +5552,28 @@ def _moe_kinds(fn):
     return {k: round(v, 3) for k, v in split.items()}
 
 
-def _moe_flash_parity(model, tokens):
-    """flash_attention on layer 0's real q, k, v of a service batch at
-    the model's activations (B MOE_BATCH, T MOE_SEQ, causal) against
-    attention_ref, as phase 9's gemma check: granite-moe's GQA 16/8 at
-    Dh 64, qwen3-moe's GQA 32/4 at Dh 128."""
+def _layer0_flash_parity(model, batch):
+    """flash_attention on layer 0's real q, k, v of a service batch
+    (tokens, or frame / patch embeddings, through ``Model._embed_inputs``
+    and the first norm, at the model's activations, causal as the config)
+    against attention_ref, as phase 9's gemma check: granite-moe's GQA
+    16/8 at Dh 64, qwen3-moe's GQA 32/4 at Dh 128, pixtral's GQA 32/8 at
+    Dh 128 (causal), hubert's MHA 16/16 at Dh 80 (non-causal)."""
     cfg = model.cfg
     with torch.inference_mode():
-        x = common.embed_tokens(model.embedding, tokens, cfg,
+        x = model._embed_inputs({"embedding": model.embedding}, batch,
                                 getattr(torch, cfg.dtype))
         h = common.apply_norm(model.blocks[0]["norm1"], x, cfg)
-        positions = torch.arange(tokens.shape[1], device=DEV)[None].expand(
-            tokens.shape[0], -1)
+        positions = torch.arange(x.shape[1], device=DEV)[None].expand(
+            x.shape[0], -1)
         q, k, v = attention.qkv_proj(model.blocks[0]["attn"], h, positions,
                                      cfg)
         del x, h
-        err, top, worst = check_flash(q, k, v, True, 0)
+        err, top, worst = check_flash(q, k, v, cfg.causal, 0)
     log(f"{cfg.name} parity flash_attention {str(q.dtype)[6:]} on layer "
         f"0's q, k, v of a service batch, q {tuple(q.shape)}, k "
-        f"{tuple(k.shape)}: max |d| {err:.3e} (max |ref| {top:.4f}), "
-        f"{worst:.3f} of the bound")
+        f"{tuple(k.shape)}, causal {cfg.causal}: max |d| {err:.3e} (max "
+        f"|ref| {top:.4f}), {worst:.3f} of the bound")
     return {"shape": list(q.shape) + [k.shape[2]], "max_abs_err": err,
             "of_bound": worst}
 
@@ -5519,7 +5588,8 @@ def _moe_service_batch(model):
     toks = serve_embeddings.token_batches(
         cfg.vocab_size, MOE_BATCH, MOE_SEQ, MOE_BATCH,
         np.random.RandomState(19))[0]
-    parity = _moe_flash_parity(model, torch.from_numpy(toks).to(DEV))
+    parity = _layer0_flash_parity(
+        model, {"tokens": torch.from_numpy(toks).to(DEV)})
     torch.cuda.empty_cache()
     serve_embeddings.embed(model, toks)
     torch.cuda.synchronize()
@@ -5645,8 +5715,8 @@ def phase_moe():
                      f"{split} (batch p50 {g['service']['p50_ms']:.1f} ms "
                      f"host clock)"))
     g["service"]["device_ms_by_kind"] = split
-    g["service"]["flash_parity"] = _moe_flash_parity(
-        svc_model, torch.from_numpy(requests[0]).to(DEV))
+    g["service"]["flash_parity"] = _layer0_flash_parity(
+        svc_model, {"tokens": torch.from_numpy(requests[0]).to(DEV)})
     del svc_model, requests
     gc.collect()
     torch.cuda.empty_cache()
@@ -5672,6 +5742,351 @@ def _moe_launches(moe_out):
     out[f"{MOE_QWEN}_service_batch"] = \
         moe_out[MOE_QWEN]["service_batch"]["launches"]["flash_attention"]
     return out
+
+
+# -- the vlm and audio families: pixtral-12b and hubert-xlarge (18) -----------
+
+# phase 18: pixtral-12b at full width and depth (f32, 49.1 GB), its training
+# cut to VLM_TRAIN_LAYERS of 40 layers (f32 params, grads and two moments
+# at full depth would be 196 GB); hubert-xlarge at full width and depth.
+# Every leaf the init leaves constant (biases at 0, norm scales at 1) is
+# given seeded N(0, 0.1^2) noise first, so no bias is held at zero. The
+# forwards through the kernels against plain=True within HIDDEN_REL_BOUND
+# / EMBED_REL_BOUND; the first training loss against apply within
+# VLM_LOSS_REL; the services on embedding_stream's frame / patch batches
+# (pixtral VLM_BATCH x VLM_SEQ, hubert AUDIO_BATCH x AUDIO_SEQ, bf16
+# activations), one hubert forward at AUDIO_LONG_T (prefill_32k's T, its
+# batch cut from 32 to 1); flash_attention alone at both services' shapes.
+# The launcher's frame / patch batches draw labels uniformly over the
+# vocabulary, independent of the inputs, so training can only take the
+# logits from the init's spread toward uniform: pixtral's init starts
+# about 1 nat above ln V (logits of std 0.02 sqrt(5120)), hubert's about
+# 0.26 nat (0.02 sqrt(1280)). AdamW's first step moves every weight by
+# about lr, which at hubert's 48 layers and ZTRAIN_LR lifts the loss
+# more than the 0.26 nat four more steps recover (6.478 -> 6.540 on the
+# card); hubert trains at AUDIO_LR, launch/train.py's default --lr
+VLM, AUDIO = "pixtral-12b", "hubert-xlarge"
+VLM_T = 2048
+VLM_TRAIN_LAYERS, VLM_TRAIN_SHAPE, VLM_TRAIN_STEPS = 2, (1, 512), 5
+VLM_SEQ, VLM_BATCH, VLM_CORPUS, VLM_REQUESTS = 4096, 2, 8, 8
+VLM_LOSS_REL = 1e-6
+AUDIO_SHAPE, AUDIO_TRAIN_STEPS, AUDIO_LR = (4, 1500), 5, 3e-4
+AUDIO_SEQ, AUDIO_BATCH, AUDIO_CORPUS, AUDIO_REQUESTS = 4096, 8, 16, 8
+AUDIO_LONG_T = 32768
+# the bidirectional check: the frames from AUDIO_CUT on moved, the
+# positions before it must move by more than this share of max |h|
+AUDIO_CUT, AUDIO_MOVED_REL = 750, 1e-3
+
+
+def _perturb_constant(model, seed):
+    """Seeded N(0, 0.1^2) noise on every parameter the init leaves
+    constant (biases at 0, norm scales at 1), in place; returns how many
+    leaves it moved."""
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+    moved = 0
+    with torch.no_grad():
+        for p in model.parameters():
+            if p.numel() > 1 and bool((p == p.reshape(-1)[0]).all()):
+                p.add_(0.1 * torch.randn(p.shape, generator=gen, device=DEV))
+                moved += 1
+    return moved
+
+
+def _frames(cfg, batch, seq, n_batches, seed):
+    """``n_batches`` frame / patch embedding batches (batch, seq,
+    d_model) f32 from ``data/tokens.embedding_stream`` on the card."""
+    stream = embedding_stream(cfg.d_model, batch, seq, seed=seed, device=DEV)
+    return [next(stream)["embeddings"] for _ in range(n_batches)]
+
+
+def _frame_forward(model, frames, what):
+    """(a), (f): the f32 forward on frame / patch embeddings through the
+    kernels (one flash_attention launch a layer, counted) against
+    plain=True: the final hidden state within HIDDEN_REL_BOUND and
+    embed_pool within EMBED_REL_BOUND, as max |a - b| / max |b|."""
+    cfg = model.cfg
+    batch = {"embeddings": frames}
+    with torch.inference_mode():
+        _reset_counts()
+        t0 = time.perf_counter()
+        h_k, _ = model.hidden(batch)
+        torch.cuda.synchronize()
+        t_k = time.perf_counter() - t0
+        counts = {k: v for k, v in _counts().items() if v}
+        t0 = time.perf_counter()
+        h_p, _ = model.hidden(batch, plain=True)
+        torch.cuda.synchronize()
+        t_p = time.perf_counter() - t0
+        assert bool(torch.isfinite(h_k).all())
+        rel = {"hidden": _rel(h_k, h_p)}
+        del h_k, h_p
+        rel["embed_pool"] = _rel(model.embed_pool(batch),
+                                 model.embed_pool(batch, plain=True))
+    B, T, _ = frames.shape
+    log(f"{what}: f32 forward on frame / patch embeddings, {cfg.n_layers} "
+        f"layers, B {B}, T {T}: through the kernels {t_k:.2f} s, plain "
+        f"{t_p:.2f} s (host clock); max |a - b| / max |b|: final hidden "
+        f"state {rel['hidden']:.3e} (bound {HIDDEN_REL_BOUND}), embed_pool "
+        f"{rel['embed_pool']:.3e} (bound {EMBED_REL_BOUND}); launches {counts}")
+    assert counts == {"flash_attention": cfg.n_layers}, counts
+    assert rel["hidden"] <= HIDDEN_REL_BOUND and \
+        rel["embed_pool"] <= EMBED_REL_BOUND, f"{what}: kernels left plain"
+    return {**rel, "kernel_s": t_k, "plain_s": t_p,
+            "launches": counts["flash_attention"]}
+
+
+def _bidirectional(model, frames):
+    """(f): hubert's encoder sees both ways: with the frames from
+    AUDIO_CUT on moved, the positions before it move too (through the
+    kernels); the moved share printed."""
+    rng = torch.Generator(device=DEV).manual_seed(23)
+    moved = frames.clone()
+    moved[:, AUDIO_CUT:] += torch.randn(moved[:, AUDIO_CUT:].shape,
+                                        generator=rng, device=DEV)
+    with torch.inference_mode():
+        h1, _ = model.hidden({"embeddings": frames})
+        h2, _ = model.hidden({"embeddings": moved})
+    early = float((h1[:, :AUDIO_CUT] - h2[:, :AUDIO_CUT]).abs().max()
+                  / h1.abs().max())
+    late = float((h1[:, AUDIO_CUT:] - h2[:, AUDIO_CUT:]).abs().max()
+                 / h1.abs().max())
+    log(f"{AUDIO} bidirectional: frames {AUDIO_CUT}+ moved; positions "
+        f"before {AUDIO_CUT} move by {early:.3e} of max |h| (must pass "
+        f"{AUDIO_MOVED_REL}), those after by {late:.3e}")
+    assert early > AUDIO_MOVED_REL, "the encoder did not see ahead"
+    return {"early_rel": early, "late_rel": late}
+
+
+def _service_model(model, seed=0):
+    """The config's bf16 activations over ``model``'s f32 weights (shared,
+    not copied) and a seeded (EMB_PROJ, d_model) L, as
+    ``serve_embeddings.build`` makes it."""
+    cfg = get_config(model.cfg.name)
+    served = Model(cfg, device=DEV, params=model.param_tree())
+    L = dml.init_params(dml.DMLConfig(feat_dim=cfg.d_model,
+                                      proj_dim=EMB_PROJ),
+                        torch.Generator(device=DEV).manual_seed(seed + 7),
+                        DEV)
+    return served, L
+
+
+def _phase_vlm():
+    """18 (a)-(e): pixtral-12b."""
+    t0 = time.perf_counter()
+    cfg = get_config(VLM).replace(dtype="float32")
+    model = Model(cfg, device=DEV, seed=0)
+    moved = _perturb_constant(model, 24)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"{VLM}: {cfg.n_layers} layers, d_model {cfg.d_model}, GQA "
+        f"{cfg.n_heads}/{cfg.kv_heads} at Dh {cfg.dim_per_head}, d_ff "
+        f"{cfg.d_ff}, vocab {cfg.vocab_size}: {n_params / 1e9:.3f}B "
+        f"parameters ({4 * n_params / 1e9:.1f} GB f32) from the seeded init "
+        f"({moved} constant leaves given noise) in "
+        f"{time.perf_counter() - t0:.1f}s")
+    out = {"params": n_params, "forward": _frame_forward(
+        model, _frames(cfg, 1, VLM_T, 1, 25)[0], f"{VLM} (a)")}
+    prompts = torch.from_numpy(np.random.RandomState(26).randint(
+        0, cfg.vocab_size, (DECODE_B, DECODE_PROMPT))).to(DEV)
+    torch.cuda.reset_peak_memory_stats()
+    out["decode"] = _hold_decode(model, prompts, f"{VLM} (b) decode on "
+                                                 f"tokens")
+    served, L = _service_model(model)
+    timing = _time_decode(served, prompts)
+    log(f"{VLM} serving loop ({served.cfg.dtype} activations, f32 weights),"
+        f" B {DECODE_B}: prefill {timing['prefill_ms']:.1f} ms for "
+        f"{DECODE_PROMPT} tokens, {timing['ms_per_token']:.2f} ms/token, "
+        f"{timing['tokens_per_s']:.1f} tokens/s, peak memory "
+        f"{timing['peak_gb']:.2f} GB")
+    out["decode"]["serve_bf16"] = timing
+    frames = _frames(served.cfg, VLM_BATCH, VLM_SEQ,
+                     VLM_CORPUS // VLM_BATCH + VLM_REQUESTS, 27)
+    out["flash_parity"] = _layer0_flash_parity(served,
+                                               {"embeddings": frames[-1]})
+    batches = [{"embeddings": e} for e in frames]
+    out["service"] = _serve_checked(
+        served, L, batches[:-VLM_REQUESTS], batches[-VLM_REQUESTS:],
+        f"{VLM} (d) service on patch batches (bf16 activations)")
+    del model, served, frames, batches, L
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["training"] = _train_checked(
+        VLM, cfg.replace(n_layers=VLM_TRAIN_LAYERS),
+        {"flash_attention": VLM_TRAIN_LAYERS}, ZTRAIN_LR,
+        f"{VLM} (c) training cut to {VLM_TRAIN_LAYERS} layers on patch "
+        f"embeddings", steps=VLM_TRAIN_STEPS, shape=VLM_TRAIN_SHAPE,
+        loss_rel=VLM_LOSS_REL, perturb_seed=33)
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["phase_s"] = time.perf_counter() - t0
+    return out
+
+
+def _phase_audio():
+    """18 (f)-(j): hubert-xlarge."""
+    t0 = time.perf_counter()
+    cfg = get_config(AUDIO).replace(dtype="float32")
+    model = Model(cfg, device=DEV, seed=0)
+    moved = _perturb_constant(model, 28)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"{AUDIO}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+        f"{cfg.n_heads} heads of {cfg.dim_per_head}, non-causal, "
+        f"{cfg.norm_kind}, {cfg.mlp_kind}, attention biases: "
+        f"{n_params / 1e9:.3f}B parameters ({4 * n_params / 1e9:.2f} GB "
+        f"f32) from the seeded init ({moved} constant leaves given noise) "
+        f"in {time.perf_counter() - t0:.1f}s")
+    frames = _frames(cfg, *AUDIO_SHAPE, 1, 29)[0]
+    out = {"params": n_params,
+           "forward": _frame_forward(model, frames, f"{AUDIO} (f)"),
+           "bidirectional": _bidirectional(model, frames)}
+    try:
+        model.init_decode_cache(DECODE_B, 16)
+    except ValueError as e:                 # (g) encoder-only
+        out["decode"] = str(e)
+    assert "encoder-only" in out.get("decode", ""), \
+        f"{AUDIO}: init_decode_cache did not refuse"
+    log(f"{AUDIO} (g): init_decode_cache raises: {out['decode']}")
+    served, L = _service_model(model)
+    frames = _frames(served.cfg, AUDIO_BATCH, AUDIO_SEQ,
+                     AUDIO_CORPUS // AUDIO_BATCH + AUDIO_REQUESTS, 30)
+    out["flash_parity"] = _layer0_flash_parity(served,
+                                               {"embeddings": frames[-1]})
+    batches = [{"embeddings": e} for e in frames]
+    out["service"] = _serve_checked(
+        served, L, batches[:-AUDIO_REQUESTS], batches[-AUDIO_REQUESTS:],
+        f"{AUDIO} (i) service on frame batches (bf16 activations)")
+    del frames, batches
+    long = _frames(served.cfg, 1, AUDIO_LONG_T, 1, 31)[0]
+    with torch.inference_mode():
+        served.embed_pool({"embeddings": long[:, :AUDIO_SEQ]})
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _reset_counts()
+        t1 = time.perf_counter()
+        emb = served.embed_pool({"embeddings": long})
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t1
+    counts = {k: v for k, v in _counts().items() if v}
+    assert counts == {"flash_attention": cfg.n_layers}, counts
+    assert emb.shape == (1, cfg.d_model) and bool(torch.isfinite(emb).all())
+    parts = device_breakdown(lambda: served.embed_pool({"embeddings": long}))
+    flash_share = None
+    if parts:
+        flash_share = sum(ms for name, ms in parts.items()
+                          if _category(name) == "flash_attention") \
+            / sum(parts.values())
+    out["long"] = {"T": AUDIO_LONG_T, "ms": 1e3 * secs,
+                   "tokens_per_s": AUDIO_LONG_T / secs,
+                   "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+                   "launches": counts["flash_attention"],
+                   "flash_share": flash_share}
+    log(f"{AUDIO} (i) one forward of B 1 x T {AUDIO_LONG_T} (bf16): "
+        f"{1e3 * secs:.1f} ms, {AUDIO_LONG_T / secs:.0f} tokens/s, peak "
+        f"memory {out['long']['peak_gb']:.2f} GB, launches {counts}; "
+        f"flash_attention's share of device time "
+        + ("not measured" if flash_share is None else f"{flash_share:.1%}"))
+    del model, served, long, L
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["training"] = _train_checked(
+        AUDIO, cfg, {"flash_attention": cfg.n_layers}, AUDIO_LR,
+        f"{AUDIO} (h) training at full depth on frame embeddings",
+        steps=AUDIO_TRAIN_STEPS, shape=AUDIO_SHAPE, loss_rel=VLM_LOSS_REL,
+        perturb_seed=34)
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["phase_s"] = time.perf_counter() - t0
+    return out
+
+
+def time_frame_attention(vlm, audio):
+    """flash_attention alone at both services' shapes on seeded random q,
+    k, v (bf16): hubert's (B AUDIO_BATCH, T AUDIO_SEQ, 16 heads of 80,
+    non-causal) and pixtral's (B VLM_BATCH, T VLM_SEQ, GQA 32/8 at Dh
+    128, causal); kernel, plain version and one
+    ``scaled_dot_product_attention`` call by CUDA-graph replay; the
+    kernels-line entries, with each model's launches in phase 18."""
+    entries = []
+    for res, name, B, T in ((audio, AUDIO, AUDIO_BATCH, AUDIO_SEQ),
+                            (vlm, VLM, VLM_BATCH, VLM_SEQ)):
+        cfg = get_config(name)
+        H, K, dh, causal = cfg.n_heads, cfg.kv_heads, cfg.dim_per_head, \
+            cfg.causal
+        gen = torch.Generator(device=DEV).manual_seed(32)
+        q = torch.randn((B, T, H, dh), generator=gen, device=DEV).to(
+            torch.bfloat16)
+        k, v = (torch.randn((B, T, K, dh), generator=gen, device=DEV).to(
+            torch.bfloat16) for _ in range(2))
+        fn = lambda: flash_attention(q, k, v, causal=causal)  # noqa: E731
+        plain = lambda: attention_ref(q, k, v, causal=causal)  # noqa: E731
+        lib = lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            is_causal=causal, enable_gqa=K != H)
+        with torch.inference_mode():
+            eager, graphed, best = _device_times(fn, plain, lib, (10, 2, 10))
+        pairs = T * (T + 1) // 2 if causal else T * T
+        b_ms, b_by = roofline(4.0 * dh * pairs * B * H,
+                              2.0 * (2 * q.numel() + 2 * k.numel()),
+                              PEAK_BF16_FLOPS)
+        fmt = lambda x: "-" if x is None else f"{x:.3f}"  # noqa: E731
+        log(f"flash_attention {name} service shape B={B} T={T} H={H} K={K} "
+            f"Dh={dh} causal {causal} (bf16): device ms by graph replay: "
+            f"kernel {fmt(graphed['ms'])}, plain {fmt(graphed['plain_ms'])},"
+            f" library {fmt(graphed['library_ms'])}; eager: kernel "
+            f"{fmt(eager['ms'])}, plain {fmt(eager['plain_ms'])}, library "
+            f"{fmt(eager['library_ms'])}; bound {b_ms:.3f} ms ({b_by}), "
+            f"{b_ms / best['ms']:.1%} of bound")
+        launches = {"forward": res["forward"]["launches"],
+                    "service": res["service"]["launches"]["flash_attention"],
+                    "train_first_step": res["training"]["apply_launches"][
+                        "flash_attention"]}
+        if name == VLM:
+            launches["decode_apply"] = \
+                res["decode"]["apply_launches"]["flash_attention"]
+        else:
+            launches["long"] = res["long"]["launches"]
+        entries.append({
+            "name": "flash_attention", "route": "cuda",
+            "source": "src/repro_torch/kernels/flash_attention/csrc/"
+                      "flash_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention/kernel.py:80",
+            "launches": sum(launches.values()),
+            "max_abs_err": res["flash_parity"]["max_abs_err"], **best,
+            "bound_ms": b_ms, "bound_by": b_by, "eager_ms": eager,
+            "graph_ms": graphed, "launches_by_run": launches,
+            "shape": {"B": B, "T": T, "H": H, "K": K, "Dh": dh,
+                      "causal": causal, "window": 0, "config": name,
+                      "pairs_per_head": pairs}})
+        del q, k, v
+        torch.cuda.empty_cache()
+    return entries
+
+
+def phase_vlm_audio():
+    """Phase 18: the vlm and audio families from the port's seeded init,
+    f32 weights, constant leaves given noise. pixtral-12b at full width
+    and depth (40 layers, d_model 5120, GQA 32/8 at Dh 128, d_ff 14336,
+    vocab 131,072, RoPE at 1e9): (a) the forward on patch embeddings
+    against plain, (b) decode on tokens against apply, then the bf16 loop
+    timed and profiled, (d) and (e) the service on patch batches and
+    flash_attention on its layer-0 q, k, v, (c) training cut to 2 layers
+    on the launcher's patch batches; hubert-xlarge at full width and
+    depth (48 layers, d_model 1280, 16 heads of 80, non-causal, attention
+    biases): (f) the forward on frame embeddings against plain and the
+    bidirectional check, (g) no decode, (i) and (j) the service on frame
+    batches, one forward at T 32,768 and flash_attention on a batch's
+    layer-0 q, k, v, (h) training at full depth; then flash_attention
+    alone at both services' shapes."""
+    t0 = time.perf_counter()
+    out = {VLM: _phase_vlm()}
+    log(f"{VLM} done at {time.perf_counter() - t0:.1f} s of phase 18")
+    out[AUDIO] = _phase_audio()
+    log(f"{AUDIO} done at {time.perf_counter() - t0:.1f} s of phase 18")
+    entries = time_frame_attention(out[VLM], out[AUDIO])
+    out["phase_s"] = time.perf_counter() - t0
+    log(f"vlm and audio phase {out['phase_s']:.1f} s")
+    return out, entries
 
 
 def main():
@@ -5779,6 +6194,10 @@ def main():
     torch.cuda.empty_cache()
     moe_out = phase_moe()
     log(f"moe done at {time.perf_counter() - t0:.1f}s")
+    gc.collect()
+    torch.cuda.empty_cache()
+    vlm_audio, frame_entries = phase_vlm_audio()
+    log(f"vlm and audio done at {time.perf_counter() - t0:.1f}s")
     # the backbone kernels' launches in phases 12-15: apply through the
     # kernels beside decode (window, ring; gemma) and beside the first
     # training step (decode and the training steps launch none)
@@ -5796,10 +6215,14 @@ def main():
                 rwkv["service"]["launches"]["pairwise_sqdist"]
             entry[f"{MOE}_service_launches"] = \
                 moe_out[MOE]["service"]["launches"]["pairwise_sqdist"]
+            for name in (VLM, AUDIO):
+                entry[f"{name}_service_launches"] = \
+                    vlm_audio[name]["service"]["launches"]["pairwise_sqdist"]
         if entry["name"] == "flash_attention":
             entry["moe_launches"] = _moe_launches(moe_out)
+    entries += frame_entries        # flash_attention at phase 18's shapes
     print(json.dumps({"decode": decode, "training": training, RWKV: rwkv,
-                      "moe": moe_out}), flush=True)
+                      "moe": moe_out, "vlm_audio": vlm_audio}), flush=True)
     print(json.dumps({"kernels": entries}), flush=True)
     log(f"total {time.perf_counter() - t0:.1f}s")
     print(json.dumps({"ok": True, "device": {

@@ -8,9 +8,13 @@ The CPU tests' shapes; ragged T and S; GQA 2 and 3; Dh 16, 32, 48, 64 and
 window, ragged T and S. Then the bf16 kernel's tile edges (128-row q
 tiles; kv tiles of 128 keys at Dh 80, 80 keys at Dh 256): T = S of 127,
 129 and 255 (and 161 at Dh 256), window 1 and a window of one kv tile,
-GQA 4 at Dh 256, non-causal S < T. Last, the moe services' batches of
+GQA 4 at Dh 256, non-causal S < T. Then the moe services' batches of
 8 x 4,096 tokens: GQA 16/8 at Dh 64 (granite-moe-1b-a400m) and GQA 32/4
 at Dh 128 (qwen3-moe-30b-a3b), 32 q tiles against 32 kv tiles each.
+Last, the vlm and audio families: hubert-xlarge's non-causal MHA 16/16
+at Dh 80, at T = S = 1500 (30 s of audio at 50 frames a second; every kv
+tile of every q tile visited, the last one an edge tile of 92 keys) and
+at the service's 4,096, and pixtral-12b's causal GQA 32/8 at Dh 128.
 """
 
 PARITY = [(2, 128, 128, 4, 4, 64, True, 0), (2, 128, 128, 8, 2, 64, True, 0),
@@ -34,4 +38,8 @@ PARITY = [(2, 128, 128, 4, 4, 64, True, 0), (2, 128, 128, 8, 2, 64, True, 0),
           (1, 300, 300, 4, 2, 256, True, 80),
           # the moe services' batches
           (8, 4096, 4096, 16, 8, 64, True, 0),
-          (8, 4096, 4096, 32, 4, 128, True, 0)]
+          (8, 4096, 4096, 32, 4, 128, True, 0),
+          # the vlm and audio families
+          (2, 1500, 1500, 16, 16, 80, False, 0),
+          (1, 4096, 4096, 16, 16, 80, False, 0),
+          (1, 4096, 4096, 32, 8, 128, True, 0)]

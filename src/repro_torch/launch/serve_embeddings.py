@@ -12,8 +12,12 @@ the corpus under L (``metric_sqdist_matrix``: the projection, then the
 ``pairwise_sqdist`` kernel), top-k in the (distance, id) order of
 ``kernels/_dispatch.topk_by_distance``. Weights come from the port's
 seeded init (no checkpoint), L from ``core.dml.init_params``, token ids
-from a seeded ``numpy.random.RandomState``. It takes the dense, moe,
-ssm and hybrid families. On the card the backbone runs Mamba2's SSD core
+from a seeded ``numpy.random.RandomState``. It takes every family; the
+vlm and audio configs (``--arch pixtral-12b``, ``hubert-xlarge``) embed
+token batches here too, as the reference's ``embed_pool`` allows. From
+Python, ``embed`` and ``serve`` also take ``Model.embed_pool`` batch
+dicts, such as those families' ``{"embeddings": (B, T, d_model)}`` frame
+/ patch batches. On the card the backbone runs Mamba2's SSD core
 on the ``ssd_scan`` kernel and attention on the ``flash_attention``
 kernel; the moe family (``--arch granite-moe-1b-a400m``,
 ``qwen3-moe-30b-a3b``) runs its expert layer in plain torch beside it;
@@ -66,10 +70,19 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
-def embed(model: Model, tokens: np.ndarray) -> torch.Tensor:
-    """(B, d_model) f32 embeddings of a (B, T) token batch."""
+def embed(model: Model, batch) -> torch.Tensor:
+    """(B, d_model) f32 embeddings of a (B, T) token array, or of a
+    ``Model.embed_pool`` batch dict."""
+    if not isinstance(batch, dict):
+        batch = {"tokens": torch.from_numpy(batch)}
     with torch.inference_mode():
-        return model.embed_pool({"tokens": torch.from_numpy(tokens)})
+        return model.embed_pool(batch)
+
+
+def _rows_and_len(batch) -> tuple[int, int]:
+    """(B, T) of a token array or a batch dict."""
+    x = next(iter(batch.values())) if isinstance(batch, dict) else batch
+    return x.shape[0], x.shape[1]
 
 
 def rank(L: torch.Tensor, req_emb: torch.Tensor, corpus_emb: torch.Tensor,
@@ -84,11 +97,12 @@ def rank(L: torch.Tensor, req_emb: torch.Tensor, corpus_emb: torch.Tensor,
 
 def serve(model: Model, L: torch.Tensor, corpus_batches, request_batches,
           k: int) -> dict:
-    """Embed the corpus batch by batch, then answer each request batch;
-    host clock, every batch ends in a synchronize. Returns the corpus
-    embeddings, the answers and the timings."""
+    """Embed the corpus batch by batch, then answer each request batch
+    (each batch as ``embed`` takes it); host clock, every batch ends in a
+    synchronize. Returns the corpus embeddings, the answers and the
+    timings."""
     dev = model.device
-    n_corpus = sum(len(b) for b in corpus_batches)
+    n_corpus = sum(_rows_and_len(b)[0] for b in corpus_batches)
     if not 1 <= k <= n_corpus:
         raise ValueError(f"k={k} must be in [1, {n_corpus}]")
     _sync(dev)
@@ -106,8 +120,9 @@ def serve(model: Model, L: torch.Tensor, corpus_batches, request_batches,
         ids.append(i.cpu())
         lat.append(time.perf_counter() - t1)
     wall = time.perf_counter() - t0
-    n_req = sum(len(b) for b in request_batches)
-    n_tok = sum(b.size for b in request_batches)
+    dims = [_rows_and_len(b) for b in request_batches]
+    n_req = sum(B for B, _ in dims)
+    n_tok = sum(B * T for B, T in dims)
     lat_ms = np.sort(np.asarray(lat)) * 1e3
     p50, p99 = percentile(lat_ms, (50.0, 99.0))
     return {"corpus_emb": corpus_emb, "request_emb": torch.cat(embs),
@@ -122,8 +137,9 @@ def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="zamba2-2.7b",
                     help="a dense (smollm-135m), moe (granite-moe-1b-a400m,"
-                         " qwen3-moe-30b-a3b), ssm (rwkv6-1.6b) or hybrid "
-                         "(zamba2-2.7b) config of repro_torch.configs")
+                         " qwen3-moe-30b-a3b), ssm (rwkv6-1.6b), hybrid "
+                         "(zamba2-2.7b), vlm (pixtral-12b) or audio "
+                         "(hubert-xlarge) config of repro_torch.configs")
     ap.add_argument("--reduced", action="store_true",
                     help="the smoke-test reduction of --arch")
     ap.add_argument("--seq-len", type=int, default=32)

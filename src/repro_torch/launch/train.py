@@ -3,7 +3,10 @@
 [--ckpt DIR] [--log-every 10] [--device cpu]``.
 
 Counterpart of ``repro.launch.train`` on one device: the seeded model ->
-``token_stream`` batches -> ``steps.make_train_step`` (the plain
+``token_stream`` batches (for ``input_kind="embeddings"`` configs,
+pixtral-12b and hubert-xlarge, the reference's frame / patch embedding
+batches with per-token labels: ``embedding_batches``) ->
+``steps.make_train_step`` (the plain
 training forward, chunked CE loss, AdamW on a cosine schedule with
 warmup ``min(20, steps // 5)``) -> a checkpoint of the final params in
 the reference's layout and format (``--ckpt``). Runs on the card unless
@@ -17,16 +20,36 @@ from __future__ import annotations
 
 import argparse
 import time
+from typing import Iterator
 
+import numpy as np
 import torch
 
 from repro_torch.checkpoint import save_checkpoint
 from repro_torch.configs import RunConfig, get_config, reduced as reduce_cfg
+from repro_torch.configs.base import ArchConfig
 from repro_torch.data.tokens import token_stream
 from repro_torch.device import resolve_device
 from repro_torch.launch import steps as steps_lib
 from repro_torch.models import Model
 from repro_torch.models.transformer import stack_blocks
+
+
+def embedding_batches(cfg: ArchConfig, batch_size: int, seq_len: int,
+                      device=None) -> Iterator[dict]:
+    """The reference launcher's batches for ``input_kind="embeddings"``,
+    forever: {embeddings (B, T, d_model) f32 ~ N(0, 1), labels (B, T)
+    int32 uniform over the vocabulary}, drawn from
+    ``RandomState(0)`` in the reference's order (bit-equal), then moved
+    to ``device``."""
+    dev = resolve_device(device)
+    rng = np.random.RandomState(0)
+    while True:
+        emb = rng.randn(batch_size, seq_len, cfg.d_model).astype(np.float32)
+        labels = rng.randint(0, cfg.vocab_size,
+                             (batch_size, seq_len)).astype(np.int32)
+        yield {"embeddings": torch.from_numpy(emb).to(dev),
+               "labels": torch.from_numpy(labels).to(dev)}
 
 
 def train_loop(train_step, state, batches, n_steps: int,
@@ -104,8 +127,11 @@ def main(argv=None):
     cfg = model.cfg
     n_params = sum(p.numel() for p in model.parameters())
     print(f"arch={cfg.name} params={n_params / 1e6:.1f}M device={device}")
-    stream = token_stream(cfg.vocab_size, args.batch, args.seq,
-                          device=device)
+    if cfg.input_kind == "embeddings":
+        stream = embedding_batches(cfg, args.batch, args.seq, device=device)
+    else:
+        stream = token_stream(cfg.vocab_size, args.batch, args.seq,
+                              device=device)
     state, hist = train_loop(train_step, state, stream, args.steps,
                              args.log_every)
     print(f"loss {hist['loss'][0]:.4f} -> {hist['loss'][-1]:.4f}")

@@ -81,6 +81,10 @@ def init_embedding(cfg: ArchConfig, gen) -> dict:
     p = {"tok": normal_init(gen, (cfg.vocab_size, cfg.d_model), 0.02)}
     if not cfg.tie_embeddings:
         p["unembed"] = normal_init(gen, (cfg.d_model, cfg.vocab_size), 0.02)
+    if cfg.input_kind == "embeddings":
+        # projector from the (stubbed) modality frontend's embedding space
+        p["frontend_proj"] = he_init(gen, (cfg.d_model, cfg.d_model),
+                                     cfg.d_model)
     return p
 
 
@@ -89,6 +93,12 @@ def embed_tokens(p, tokens, cfg: ArchConfig, dtype):
     if cfg.embed_scale:
         x = x * torch.tensor(np.sqrt(cfg.d_model), dtype=dtype)
     return x
+
+
+def embed_frontend(p, embeddings, cfg: ArchConfig, dtype):
+    """Modality carve-out: precomputed frame / patch embeddings (B, T,
+    d_model) -> d_model, in ``dtype``."""
+    return embeddings.to(dtype) @ p["frontend_proj"].to(dtype)
 
 
 def unembed(p, x, cfg: ArchConfig):

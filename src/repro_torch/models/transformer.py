@@ -1,21 +1,29 @@
-"""Backbone assembly for the dense, moe, ssm (rwkv6) and hybrid (zamba2)
-families (counterpart of ``repro/models/transformer.py``).
+"""Backbone assembly for every family of the configs (counterpart of
+``repro/models/transformer.py``).
 
-  dense           -> attention block + MLP, ``n_layers`` times
-  moe             -> attention block + MoE FFN (``models/moe.py``, one
-                     device), ``n_layers`` times; each layer's router
-                     aux loss is summed into ``moe_aux``
-  ssm (rwkv6)     -> rwkv6 time mix + RWKV channel mix, ``n_layers`` times
-  hybrid (zamba2) -> groups of ``shared_attn_every`` mamba2 blocks, each
-                     group followed by the one *shared* attention + GELU
-                     MLP block (sliding window ``shared_attn_window``)
+  dense, vlm, audio -> attention block + MLP, ``n_layers`` times
+  moe               -> attention block + MoE FFN (``models/moe.py``, one
+                       device), ``n_layers`` times; each layer's router
+                       aux loss is summed into ``moe_aux``
+  ssm (rwkv6)       -> rwkv6 time mix + RWKV channel mix, ``n_layers``
+                       times
+  hybrid (zamba2)   -> groups of ``shared_attn_every`` mamba2 blocks, each
+                       group followed by the one *shared* attention +
+                       GELU MLP block (sliding window
+                       ``shared_attn_window``)
 
-The vlm and audio families wait for a later slice (ROADMAP.md Queue 1
-item 7): ``Model`` raises ``NotImplementedError`` for them.
+The vlm (pixtral-12b) and audio (hubert-xlarge: ``causal=False``,
+encoder-only, no decode) configs have ``input_kind="embeddings"``: a
+batch with ``"embeddings"`` (B, T, d_model), the stubbed frontend's
+frame / patch embeddings, enters through ``common.embed_frontend``
+(``frontend_proj``); a batch of ``"tokens"`` through the token
+embedding, as for the other families (the reference's
+``_embed_inputs``), so pixtral also decodes on tokens.
 
 Public surface:
     model = Model(cfg, device=None)             # the card unless "cpu"
     h, aux = model.hidden({"tokens": tokens})   # (B,T,d) final-normed
+    h, aux = model.hidden({"embeddings": e})    # vlm / audio; e (B,T,d)
     logits, aux = model.apply({"tokens": tokens})
     emb = model.embed_pool({"tokens": tokens})  # (B, d) f32, for DML
     cache = model.init_decode_cache(batch, max_seq)
@@ -57,7 +65,7 @@ from repro_torch.kernels._dispatch import full_f32
 from repro_torch.models import attention, common, mamba2, mlp, moe, rwkv6
 from repro_torch.tree import tree_leaves, tree_map
 
-FAMILIES = ("dense", "hybrid", "ssm", "moe")
+FAMILIES = ("dense", "hybrid", "ssm", "moe", "vlm", "audio")
 
 
 class ParamTree(nn.Module):
@@ -189,8 +197,8 @@ def _layer(fn, x, remat: bool):
 
 def init_params(cfg: ArchConfig, gen: torch.Generator) -> dict:
     """The reference's parameter tree on ``gen``'s device, with
-    ``blocks`` as a list of per-layer dicts (a dense, moe, hybrid or ssm
-    ``cfg``)."""
+    ``blocks`` as a list of per-layer dicts (any family of
+    ``FAMILIES``)."""
     block_init = {"hybrid": _init_mamba_block,
                   "ssm": _init_rwkv_block}.get(cfg.family, _init_attn_block)
     params = {"embedding": common.init_embedding(cfg, gen),
@@ -248,8 +256,8 @@ def unstack_blocks(tree):
 # ---------------------------------------------------------------------------
 
 class Model(nn.Module):
-    """A dense, moe, ssm or hybrid backbone. ``device=None`` is the card
-    (raises without one); ``device="cpu"`` runs the plain versions of
+    """A backbone of any family of ``FAMILIES``. ``device=None`` is the
+    card (raises without one); ``device="cpu"`` runs the plain versions of
     the kernels. ``params`` (the reference's tree, ``blocks`` a list of
     per-layer dicts, as ``convert.model_params_from_jax`` gives it)
     replaces the seeded init. The moe family's expert layer is plain
@@ -260,9 +268,8 @@ class Model(nn.Module):
                  seed: int = 0):
         super().__init__()
         if cfg.family not in FAMILIES:
-            raise NotImplementedError(
-                f"family {cfg.family!r} ({cfg.name}) is not ported yet: the "
-                f"port builds {FAMILIES} (ROADMAP.md Queue 1 item 7)")
+            raise ValueError(f"unknown family {cfg.family!r} ({cfg.name}): "
+                             f"the port builds {FAMILIES}")
         self.cfg = cfg
         dev = resolve_device(device)
         if params is None:
@@ -325,10 +332,7 @@ class Model(nn.Module):
         full_f32()          # f32 configs: true f32 products, as the reference
         cfg = self.cfg
         params = self.param_tree() if params is None else params
-        dtype = getattr(torch, cfg.dtype)
-        emb = params["embedding"]
-        tokens = batch["tokens"].to(emb["tok"].device)
-        x = common.embed_tokens(emb, tokens, cfg, dtype)
+        x = self._embed_inputs(params, batch, getattr(torch, cfg.dtype))
         B, T, _ = x.shape
         positions = torch.arange(T, device=x.device)[None, :].expand(B, T)
         auxs = []
@@ -348,6 +352,18 @@ class Model(nn.Module):
         aux = torch.sum(torch.stack(auxs)) if auxs else \
             torch.zeros((), device=x.device)
         return common.apply_norm(params["final_norm"], x, cfg), aux
+
+    def _embed_inputs(self, params, batch, dtype):
+        """The batch's frame / patch embeddings through ``frontend_proj``
+        where the config takes them and the batch has them, else its
+        tokens through the token embedding (the reference's rule)."""
+        emb = params["embedding"]
+        dev = emb["tok"].device
+        if self.cfg.input_kind == "embeddings" and "embeddings" in batch:
+            return common.embed_frontend(emb, batch["embeddings"].to(dev),
+                                         self.cfg, dtype)
+        return common.embed_tokens(emb, batch["tokens"].to(dev), self.cfg,
+                                   dtype)
 
     def _run_hybrid(self, params, x, positions, plain: bool, remat: bool):
         """Zamba2: groups of mamba layers + the shared attention block."""

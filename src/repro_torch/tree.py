@@ -38,13 +38,16 @@ def tree_leaves(tree) -> List[Any]:
 def value_and_grad(fn: Callable, params, *args):
     """``((value, aux), grads)`` of ``fn(params, *args) -> (scalar, aux)``
     with respect to every leaf of ``params`` (``jax.value_and_grad`` with
-    ``has_aux=True``). The value, aux and grads come back detached."""
+    ``has_aux=True``). The value, aux and grads come back detached; a
+    leaf that ``fn`` does not reach gets a zero gradient, as under
+    ``jax.grad`` (the token embedding on a batch of frame embeddings)."""
     leaves = tree_leaves(params)
     live = [p.detach().requires_grad_(True) for p in leaves]
     it = iter(live)
     with torch.enable_grad():
         value, aux = fn(tree_map(lambda _: next(it), params), *args)
-        grads = torch.autograd.grad(value, live)
-    it = iter(grads)
+        grads = torch.autograd.grad(value, live, allow_unused=True)
+    it = iter(torch.zeros_like(p) if g is None else g
+              for p, g in zip(live, grads))
     return ((value.detach(), tree_map(torch.Tensor.detach, aux)),
             tree_map(lambda _: next(it), params))

@@ -6,8 +6,8 @@ configs, ``launch.steps`` (three AdamW steps from one state:
 optimizer state across), the reference's own training tests run on the
 port (the loss falls, a resume is bit-exact), checkpoints read across
 packages in both directions, and ``launch.serve`` / ``launch.train`` /
-``launch.serve_embeddings`` on the CPU in subprocesses (rwkv6 among the
-archs). Reduced widths, f32.
+``launch.serve_embeddings`` on the CPU in subprocesses (rwkv6, the moe,
+vlm and audio configs among the archs). Reduced widths, f32.
 
 Tolerances for the three steps: both packages run the same forms
 (chunked SSD, naive attention, chunked CE) in f32 and differ in the
@@ -506,7 +506,8 @@ def _run(*args, timeout=240):
 
 
 @pytest.mark.parametrize("arch", ["smollm-135m", "zamba2-2.7b",
-                                  "rwkv6-1.6b", "granite-moe-1b-a400m"])
+                                  "rwkv6-1.6b", "granite-moe-1b-a400m",
+                                  "pixtral-12b"])
 def test_serve_cli_on_cpu(arch):
     res = _run("repro_torch.launch.serve", "--arch", arch, "--reduced",
                "--device", "cpu", "--batch", "2", "--prompt-len", "4",
@@ -523,7 +524,8 @@ def test_serve_cli_refuses_encoder_only():
 
 
 @pytest.mark.parametrize("arch", ["zamba2-2.7b", "rwkv6-1.6b",
-                                  "granite-moe-1b-a400m"])
+                                  "granite-moe-1b-a400m", "hubert-xlarge",
+                                  "pixtral-12b"])
 def test_train_cli_on_cpu_writes_a_reference_checkpoint(tmp_path, arch):
     ckpt = tmp_path / "ckpt"
     res = _run("repro_torch.launch.train", "--arch", arch,
@@ -558,6 +560,19 @@ def test_serve_embeddings_cli_on_cpu_takes_moe():
                "--requests", "2", "--k", "3")
     assert res.returncode == 0, res.stderr
     assert "granite-moe-1b-a400m: corpus (8, 256) embedded" in res.stdout
+    assert "requests/s" in res.stdout and "p99" in res.stdout
+
+
+@pytest.mark.parametrize("arch", ["pixtral-12b", "hubert-xlarge"])
+def test_serve_embeddings_cli_on_cpu_takes_vlm_and_audio(arch):
+    """The vlm and audio configs serve token batches, as the reference's
+    ``embed_pool`` allows (their frames go in through the library)."""
+    res = _run("repro_torch.launch.serve_embeddings", "--arch", arch,
+               "--reduced", "--device", "cpu", "--seq-len", "32",
+               "--corpus", "8", "--batch", "4", "--requests", "2", "--k",
+               "3")
+    assert res.returncode == 0, res.stderr
+    assert f"{arch}: corpus (8, 256) embedded" in res.stdout
     assert "requests/s" in res.stdout and "p99" in res.stdout
 
 

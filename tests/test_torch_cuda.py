@@ -2,7 +2,9 @@
 metric_topk, dml_pair (forward and gradients), pairwise_sqdist, ivf_scan
 and pq_adc (bit for bit), the IVF / IVFPQ indexes on the card,
 flash_attention and ssd_scan (bf16 and f32), a reduced zamba2 backbone
-through both, a reduced gemma-7b at head dim 256, rwkv6 at full width
+through both, a reduced gemma-7b at head dim 256, hubert-xlarge
+(non-causal) and pixtral-12b at full width cut to 2 layers on frame /
+patch embeddings and tokens, rwkv6 at full width
 (the chunked form's gradients at the decay clamp, decode against
 ``apply`` at 2 layers; plain torch, no kernel), the mutable
 gallery (card against the CPU port, and its snapshot round trip) and
@@ -1127,6 +1129,56 @@ def test_closed_loop_on_the_card_launches_its_kernels(cuda_device):
     assert metric_topk_fused.launches > n_topk
     assert clt.engine.index.version - v0 == clt.n_refreshes - 1 == 2
     assert np.isfinite([h["loss"] for h in hist["steps"]]).all()
+
+
+def _perturb_constant(model, seed):
+    """Seeded N(0, 0.1^2) noise on every parameter the init leaves
+    constant (biases at 0, norm scales at 1), in place."""
+    gen = torch.Generator(device=model.device).manual_seed(seed)
+    with torch.no_grad():
+        for p in model.parameters():
+            if p.numel() > 1 and bool((p == p.reshape(-1)[0]).all()):
+                p.add_(0.1 * torch.randn(p.shape, generator=gen,
+                                         device=p.device))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,kind,B,T", [
+    ("hubert-xlarge", "embeddings", 2, 1500),
+    ("pixtral-12b", "embeddings", 1, 1024),
+    ("pixtral-12b", "tokens", 1, 1024)])
+def test_vlm_audio_forward_on_the_card_matches_plain(cuda_device, name,
+                                                     kind, B, T):
+    """hubert-xlarge (non-causal MHA 16 heads of 80, attention biases) and
+    pixtral-12b (causal GQA 32/8 at Dh 128) at full width cut to 2
+    layers, f32, biases and norms made non-zero: the final hidden state
+    through flash_attention (one launch a layer) against the plain
+    forward (naive attention), max |a - b| / max |b| within 1e-4 (f32 on
+    both sides, only the summation order differs), and embed_pool."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.models import Model
+    cfg = get_config(name).replace(n_layers=2, dtype="float32")
+    model = Model(cfg, device=cuda_device, seed=2)
+    _perturb_constant(model, 3)
+    gen = torch.Generator(device=cuda_device).manual_seed(4)
+    if kind == "embeddings":
+        batch = {kind: torch.randn((B, T, cfg.d_model), generator=gen,
+                                   device=cuda_device)}
+    else:
+        batch = {kind: torch.randint(0, cfg.vocab_size, (B, T), generator=gen,
+                                     device=cuda_device)}
+    before = flash_attention.launches
+    with torch.inference_mode():
+        h, _ = model.hidden(batch)
+        launches = flash_attention.launches - before
+        ref, _ = model.hidden(batch, plain=True)
+        emb = model.embed_pool(batch)
+    torch.cuda.synchronize()
+    assert launches == cfg.n_layers
+    assert h.shape == (B, T, cfg.d_model) and bool(torch.isfinite(h).all())
+    assert float((h - ref).abs().max() / ref.abs().max()) <= 1e-4
+    torch.testing.assert_close(emb, ref.mean(1), rtol=1e-4, atol=1e-5)
 
 
 @pytest.mark.cuda

@@ -11,8 +11,9 @@ its chunked ``apply_mamba2`` (chunk 32 here), so zamba2 gets the
 reference's own bound between those forms (rtol 2e-3, atol 2e-4); the
 plain path and the dense model take the same forms as the reference
 (rtol 1e-4, atol 1e-5). Also: every config equals the reference's,
-the GELU is the tanh form and RoPE rotates halves, the families not
-ported raise, and the embedding service runs on the CPU.
+the GELU is the tanh form and RoPE rotates halves, every config of the
+registry builds a model with the reference's parameter count, and the
+embedding service runs on the CPU.
 """
 
 import dataclasses
@@ -37,6 +38,7 @@ from repro_torch.convert import model_params_from_jax
 from repro_torch.kernels._dispatch import topk_by_distance
 from repro_torch.launch import serve_embeddings
 from repro_torch.models import Model, common, mlp
+from repro_torch.models.transformer import FAMILIES
 
 F32 = dict(dtype="float32", ssm_tile_dtype="float32", ssm_chunk=32)
 SSD_TOL = dict(rtol=2e-3, atol=2e-4)
@@ -128,10 +130,19 @@ def test_seeded_init_is_deterministic():
             jax.random.PRNGKey(0))))
 
 
-@pytest.mark.parametrize("name", ["pixtral-12b", "hubert-xlarge"])
-def test_families_not_ported_raise(name):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        Model(get_config(name + "-reduced"), device="cpu")
+@pytest.mark.parametrize("name", jax_list_configs())
+def test_every_config_builds_a_model(name):
+    """Every config of the registry, each of the six families, builds a
+    ``Model`` on the CPU at its reduction, with the reference's
+    parameter count."""
+    cfg = get_config(name + "-reduced")
+    model = Model(cfg, device="cpu")
+    assert cfg.family in FAMILIES and model.device.type == "cpu"
+    assert len(model.blocks) == cfg.n_layers
+    n = sum(p.numel() for p in model.parameters())
+    shapes = jax.eval_shape(jax_build_model(jax_reduced(jax_get_config(
+        name))).init, jax.random.PRNGKey(0))
+    assert n == sum(int(np.prod(x.shape)) for x in jax.tree.leaves(shapes))
 
 
 # -- building blocks ----------------------------------------------------------
