@@ -408,7 +408,24 @@ exit, and nothing falls back:
                 the reason AUDIO_LR's comment gives); then flash_attention alone at both
                 services' shapes against SDPA and its plain version (two
                 more ``kernels`` entries);
- 19. the last line: ``{"ok": true, "device": {...}}``.
+ 19. account  — the dry-run account (``launch/dryrun.py``, counted over
+                meta tensors at the card's figures from
+                ``launch/mesh.py``): (a) the records of a subset of the
+                registry's (arch x shape) pairs holding every family and
+                every mode, and of the paper's three DML configs, a line
+                each, traced in a pool of processes; (b) the account of
+                three steps held against the card: smollm-135m training
+                (B 8, T 512, phase 14's step), hubert-xlarge training (B
+                4, T 1500, f32, remat, 18h's) and phase 4's bsp PS step
+                (P 4 x 1000 pairs, d 21504 -> k 1000); each step's time
+                must be at least the account's compute_s; its peak
+                memory, less what was allocated before its state and
+                batch, at least the account's arguments, and the
+                account's peak within PEAK_RATIO_BAND of it; printed
+                beside: memory_s / the step, the mfu (model FLOPs,
+                ``benchmarks/roofline.py``'s 6ND, over the step at its
+                dtype's rate) and the step's GEMM kernels by name;
+ 20. the last line: ``{"ok": true, "device": {...}}``.
 
 Every launch count is set to 0 just before a main-path phase (4, 5, 5a,
 5c, 6, each index of 8, each serving run of 8b, each burst of 8c, 8d's
@@ -489,6 +506,7 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 "src"))
 
 from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.configs.base import InputShape  # noqa: E402
 from repro_torch.configs.dml_paper import IMNET_1M, MNIST  # noqa: E402
 from repro_torch.core import dml, itml, kiss, xing2002  # noqa: E402
 from repro_torch.core.dml import init_params  # noqa: E402
@@ -535,6 +553,8 @@ from repro_torch.data.tokens import (embedding_stream,  # noqa: E402
                                      token_stream)
 from repro_torch.launch import serve, serve_embeddings, train  # noqa: E402
 from repro_torch.launch import steps as steps_lib  # noqa: E402
+from repro_torch.launch import dryrun  # noqa: E402
+from repro_torch.launch import mesh as card_figures  # noqa: E402
 from repro_torch.mining import (ClosedLoopConfig,  # noqa: E402
                                 ClosedLoopTrainer, CurriculumSchedule,
                                 HardPairMiner, MinerConfig)
@@ -557,11 +577,12 @@ from repro_torch.serve.scan import project_queries  # noqa: E402
 from repro_torch.tree import tree_leaves, tree_map  # noqa: E402
 
 RTOL = ATOL = 1e-5
-PEAK_F32_FLOPS = 67e12          # H100 SXM, f32 FFMA outside the tensor cores
-PEAK_TF32_FLOPS = 495e12        # H100 SXM, dense TF32 on the tensor cores
+# the card's figures come from launch/mesh.py, as the dry-run account's do
+PEAK_F32_FLOPS = card_figures.PEAK_FLOPS_F32    # f32 FFMA
+PEAK_TF32_FLOPS = card_figures.PEAK_FLOPS_TF32  # dense TF32, tensor cores
 # an f32-accurate product on the tensor cores: 3xTF32, three TF32 passes
 PEAK_3XTF32_FLOPS = PEAK_TF32_FLOPS / 3
-PEAK_BYTES = 3.35e12            # H100 SXM HBM3
+PEAK_BYTES = card_figures.HBM_BW                # HBM3
 # shared memory: 128 bytes a clock an SM, 132 SMs, 1.98 GHz boost clock
 PEAK_SMEM_BYTES = 128 * 132 * 1.98e9
 PARITY_SHAPES = [(64, 1024, 128, 64, 10), (16, 300, 40, 12, 5),
@@ -4066,7 +4087,7 @@ def time_pairwise(xp, yp, launches, max_err):
 BACKBONE = "zamba2-2.7b"
 SEQ = 8192                  # tokens a sequence: the 4096 window bites
 EMB_BATCH, CORPUS_SEQS, REQUEST_BATCHES, EMB_K, EMB_PROJ = 4, 16, 4, 5, 64
-PEAK_BF16_FLOPS = 989e12    # H100 SXM, dense bf16 on the tensor cores
+PEAK_BF16_FLOPS = card_figures.PEAK_FLOPS_BF16  # dense bf16, tensor cores
 # kernel against plain, f32 on both sides (only the summation order
 # differs): flash rtol 1e-4 / atol 2e-5, the reference's bound for its
 # kernel against its oracle (SSD_TOL: kernels/ssd_chunk/cases.py). bf16
@@ -4089,7 +4110,7 @@ EMBED_REL_BOUND = 1e-5
 # chunked algorithm at Q = 64, fixed here so that a change of the kernel's
 # own chunk does not move the yardstick
 SSD_BOUND_CHUNK = 64
-PEAK_2XTF32_FLOPS = 495e12 / 2      # two TF32 passes, for comparison
+PEAK_2XTF32_FLOPS = PEAK_TF32_FLOPS / 2     # two TF32 passes, for comparison
 
 
 def within(out, ref, allowed, what):
@@ -6088,6 +6109,226 @@ def phase_vlm_audio():
     log(f"vlm and audio phase {out['phase_s']:.1f} s")
     return out, entries
 
+# phase 19: the dry-run account (launch/dryrun.py). (a) The records of a
+# subset of the registry's arch x shape pairs that holds every family and
+# every mode, and of the paper's three DML configs, traced on meta tensors
+# in a pool of ACCOUNT_JOBS processes (the --all sweep takes tens of
+# minutes of host time: ``python -m repro_torch.launch.dryrun --all
+# --jobs 8``). The prefill pair takes attention chunks of 8192
+# (ACCOUNT_CHUNKS), which leaves its FLOPs as they are (the full T x S
+# product either way) and cuts its tiles 64-fold. (b) The account of
+# three steps the card runs, at shapes earlier phases run, held against
+# the card: the step's
+# host time (median of ACCOUNT_STEPS calls from the same state, each
+# ended by a sync) must be at least the account's compute_s; the step's
+# peak on the card (max_memory_allocated over those calls less what was
+# allocated before its state and batch were built) at least its
+# argument_size, and the account's peak within PEAK_RATIO_BAND of it
+# (0.971-0.989 at the three steps run alone, NVIDIA H100 80GB HBM3).
+ACCOUNT_CHUNKS = {"attn_q_chunk": 8192, "attn_kv_chunk": 8192}
+ACCOUNT_SUBSET = [("smollm-135m", "train_4k", None),
+                  ("granite-moe-1b-a400m", "train_4k", None),
+                  ("smollm-135m", "prefill_32k", ACCOUNT_CHUNKS),
+                  ("yi-6b", "decode_32k", None),
+                  ("zamba2-2.7b", "decode_32k", None),
+                  ("rwkv6-1.6b", "long_500k", None),
+                  ("pixtral-12b", "decode_32k", None),
+                  ("hubert-xlarge", "train_4k", None),
+                  ("hubert-xlarge", "long_500k", None)]
+ACCOUNT_JOBS = 6
+ACCOUNT_STEPS = 3
+PEAK_RATIO_BAND = (0.9, 1.02)
+
+
+def _account_subset():
+    """19 (a): the subset's records and the DML configs', a line each."""
+    t0 = time.perf_counter()
+    jobs = [dryrun.Job(a, s, ov) for a, s, ov in ACCOUNT_SUBSET]
+    records = {}
+    for key, rec in dryrun.sweep(jobs, procs=ACCOUNT_JOBS):
+        assert rec["status"] in ("ok", "skipped"), f"{key}: {rec}"
+        log(dryrun.summary_line(key, rec))
+        records[key] = rec
+    for name, rec in dryrun.dryrun_dml().items():
+        records[f"{name}|paper_batch"] = rec
+        log(dryrun.summary_line(f"{name}|paper_batch", rec))
+    secs = time.perf_counter() - t0
+    families = {get_config(a).family for a, s, _ in ACCOUNT_SUBSET}
+    modes = {rec["mode"] for rec in records.values() if "mode" in rec}
+    assert families == set(transformer.FAMILIES), families
+    assert modes == {"train", "prefill", "decode"}, modes
+    log(f"19 (a) account of {len(records)} records in {secs:.1f} s "
+        f"({ACCOUNT_JOBS} processes; card figures: {card_figures.CARD})")
+    return {"records": records, "sweep_s": secs}
+
+
+def _meta_like(tree):
+    return tree_map(lambda t: torch.empty(t.shape, dtype=t.dtype,
+                                          device="meta"), tree)
+
+
+def _gemm_kernels(prof, top=4):
+    """The largest device kernels of a profiled step that ``_category``
+    reads as matrix products (cuBLAS / CUTLASS), ms each."""
+    parts = _by_kernel(prof) or {}
+    gemm = {k: v for k, v in parts.items() if _category(k) == "gemm"}
+    return dict(sorted(gemm.items(), key=lambda kv: -kv[1])[:top])
+
+
+def _allocated_before():
+    """The bytes allocated on the card before a held step's state and
+    batch are built (what earlier phases still hold)."""
+    gc.collect()
+    torch.cuda.synchronize()
+    return torch.cuda.memory_allocated()
+
+
+def _held(what, step, state, batch, acct, model_flops, dtype, before):
+    """19 (b): time ``step(state, batch)`` and its peak memory on the
+    card (less ``before``, ``_allocated_before``'s reading), hold them to
+    the account ``acct`` of the same step, and print the ratios and the
+    step's GEMM kernels."""
+    step(state, batch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    secs = []
+    for _ in range(ACCOUNT_STEPS):
+        t0 = time.perf_counter()
+        out = step(state, batch)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        del out
+    card_peak = torch.cuda.max_memory_allocated()
+    peak = card_peak - before
+    ms = 1e3 * float(np.median(secs))
+    _, _, busy, n_ops, prof = _profile_busy(lambda: step(state, batch))
+    terms = acct["roofline"]
+    rate = card_figures.PEAK_FLOPS_BY_DTYPE[dtype]
+    res = {"ms": ms, "peak_bytes": peak, "allocated_before": before,
+           "compute_s": terms["compute_s"],
+           "memory_s": terms["memory_s"], "dominant": terms["dominant"],
+           "flops": acct["flops_per_chip"],
+           "flops_by_dtype": acct["flops_by_dtype"],
+           "hbm_bytes": acct["hbm_bytes_per_chip"],
+           "account_ops": acct["ops"], "device_ops": n_ops,
+           "busy_ms": busy, "argument_size": acct["memory"]["argument_size"],
+           "account_peak": acct["peak_bytes"],
+           "peak_ratio": acct["peak_bytes"] / peak,
+           "peak_ratio_whole_card": acct["peak_bytes"] / card_peak,
+           "memory_s_ratio": 1e3 * terms["memory_s"] / ms,
+           "compute_s_ratio": 1e3 * terms["compute_s"] / ms,
+           "model_flops": model_flops, "rate": rate,
+           "mfu": model_flops / (ms / 1e3 * rate),
+           "gemm_kernels": _gemm_kernels(prof),
+           "trace_s": acct["trace_s"]}
+    log(f"{what}: {ms:.2f} ms a step (median of {ACCOUNT_STEPS}, host "
+        f"clock), device busy "
+        + ("not measured" if busy is None else f"{busy:.2f} ms")
+        + f", {n_ops} device operations (account {acct['ops']} ops); "
+        f"account {acct['flops_per_chip']:.4g} FLOP "
+        f"{acct['flops_by_dtype']}, compute_s {1e3 * terms['compute_s']:.3f}"
+        f" ms ({res['compute_s_ratio']:.3f} of the step), memory_s "
+        f"{1e3 * terms['memory_s']:.3f} ms ({res['memory_s_ratio']:.3f} of "
+        f"the step), {terms['dominant']}; peak: account "
+        f"{acct['peak_bytes'] / 1e9:.3f} GB, card {peak / 1e9:.3f} GB "
+        f"above the {before / 1e9:.3f} GB allocated before (ratio "
+        f"{res['peak_ratio']:.3f}; {res['peak_ratio_whole_card']:.3f} of "
+        f"max_memory_allocated), argument "
+        f"{acct['memory']['argument_size'] / 1e9:.3f} GB; mfu "
+        f"{res['mfu']:.4f} ({model_flops:.4g} model FLOP at {dtype}'s "
+        f"{rate / 1e12:.0f} TFLOP/s); GEMM kernels {res['gemm_kernels']}; "
+        f"traced in {acct['trace_s']:.1f} s")
+    assert ms / 1e3 >= terms["compute_s"], \
+        f"{what}: the card beat the account's compute bound"
+    assert peak >= acct["memory"]["argument_size"], \
+        f"{what}: the card held less than the step's arguments"
+    lo, hi = PEAK_RATIO_BAND
+    assert lo <= res["peak_ratio"] <= hi, \
+        f"{what}: the account's peak is {res['peak_ratio']:.3f} of the card's"
+    return res
+
+
+def _lm_train_held(arch, cfg, lr, remat, shape, what, **batch_kw):
+    """The training step ``launch/train.py`` builds, on the card and on
+    meta (the account), at B x T ``shape``."""
+    B, T = shape
+    before = _allocated_before()
+    model, step, state = train.build(arch, 2, lr=lr, remat=remat,
+                                     device=DEV, cfg=cfg)
+    batch = next(train.embedding_batches(cfg, B, T, device=DEV)
+                 if cfg.input_kind == "embeddings" else
+                 token_stream(cfg.vocab_size, B, T, device=DEV))
+    _, mstep, mstate = train.build(arch, 2, lr=lr, remat=remat,
+                                   device="meta", cfg=cfg)
+    acct = dryrun.account(mstep, mstate, _meta_like(batch))
+    mflops = dryrun.model_flops(cfg, InputShape("held", T, B, "train"))
+    res = _held(what, step, state, batch, acct, mflops, cfg.dtype, before)
+    del model, step, state, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def _bsp_held(exp=IMNET_1M):
+    """Phase 4's bsp PS step (P 4 x 1000 pairs, d 21504 -> k 1000): the
+    dml_pair kernel's forward and the closed-form backward on the card;
+    the account traces the plain forward (the same products)."""
+    cfg = exp.dml
+    opt = sgd(schedules.inverse_time(1e-3, 1e-3))
+    ps = sync.PSConfig(n_workers=N_WORKERS, sync="bsp")
+
+    def build(device, gen=None):
+        L = init_params(cfg, gen, device) if gen is not None else \
+            torch.empty((cfg.proj_dim, cfg.feat_dim), device=device)
+        step = sync.make_train_step(
+            lambda p, b: dml_pair_loss(p, b, lam=cfg.lam,
+                                       margin=cfg.margin), opt, ps)
+        return step, sync.init_state(opt, L, ps)
+
+    before = _allocated_before()
+    gen = torch.Generator(device=DEV).manual_seed(19)
+    step, state = build(DEV, gen)
+    P, B, d = N_WORKERS, exp.batch_size, cfg.feat_dim
+    batch = {"xs": torch.randn(P, B, d, device=DEV, generator=gen),
+             "ys": torch.randn(P, B, d, device=DEV, generator=gen),
+             "sim": (torch.rand(P, B, device=DEV, generator=gen) < 0.5)
+             .to(torch.int32)}
+    mstep, mstate = build("meta")
+    acct = dryrun.account(mstep, mstate, _meta_like(batch))
+    # the model's work: the projection of each pair's difference and the
+    # gradient of L, 2 P B d k each (no input gradient)
+    mflops = 4.0 * P * B * d * cfg.proj_dim
+    _reset_counts()
+    res = _held(f"19 (b) {exp.name} bsp PS step (P {P} x {B} pairs, d {d} "
+                f"-> k {cfg.proj_dim}, f32)", step, state, batch, acct,
+                mflops, "float32", before)
+    res["dml_pair_launches"] = dml_pair_fused.launches
+    assert res["dml_pair_launches"] >= P * (ACCOUNT_STEPS + 2)
+    del step, state, batch
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_account():
+    """Phase 19: the dry-run account, (a) on meta, (b) held against the
+    card."""
+    t0 = time.perf_counter()
+    out = _account_subset()
+    out["held"] = {
+        LM_ARCH: _lm_train_held(
+            LM_ARCH, get_config(LM_ARCH), LM_LR, False, (LM_B, LM_T),
+            f"19 (b) {LM_ARCH} training (B {LM_B}, T {LM_T}, bf16 "
+            f"activations, launch/train.py's step)"),
+        AUDIO: _lm_train_held(
+            AUDIO, get_config(AUDIO).replace(dtype="float32"), AUDIO_LR,
+            True, AUDIO_SHAPE,
+            f"19 (b) {AUDIO} training (B {AUDIO_SHAPE[0]}, T "
+            f"{AUDIO_SHAPE[1]}, f32, remat)"),
+        IMNET_1M.name: _bsp_held()}
+    out["phase_s"] = time.perf_counter() - t0
+    log(f"account phase {out['phase_s']:.1f} s")
+    return out
+
 
 def main():
     if not torch.cuda.is_available():
@@ -6198,6 +6439,10 @@ def main():
     torch.cuda.empty_cache()
     vlm_audio, frame_entries = phase_vlm_audio()
     log(f"vlm and audio done at {time.perf_counter() - t0:.1f}s")
+    gc.collect()
+    torch.cuda.empty_cache()
+    account = phase_account()
+    log(f"account done at {time.perf_counter() - t0:.1f}s")
     # the backbone kernels' launches in phases 12-15: apply through the
     # kernels beside decode (window, ring; gemma) and beside the first
     # training step (decode and the training steps launch none)
@@ -6222,7 +6467,8 @@ def main():
             entry["moe_launches"] = _moe_launches(moe_out)
     entries += frame_entries        # flash_attention at phase 18's shapes
     print(json.dumps({"decode": decode, "training": training, RWKV: rwkv,
-                      "moe": moe_out, "vlm_audio": vlm_audio}), flush=True)
+                      "moe": moe_out, "vlm_audio": vlm_audio,
+                      "account": account}), flush=True)
     print(json.dumps({"kernels": entries}), flush=True)
     log(f"total {time.perf_counter() - t0:.1f}s")
     print(json.dumps({"ok": True, "device": {

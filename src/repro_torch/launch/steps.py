@@ -4,10 +4,12 @@
 ``input_specs`` and ``cache_shape_structs`` describe a step's inputs and
 decode cache as ``meta`` tensors (shape and dtype, no storage); the
 ``make_*_step`` functions return plain callables over a ``TrainState``
-(train) or a ``Model`` (prefill, decode). The reference's sharding
-functions (``batch_pspec``, ``input_shardings``, ``param_shardings``,
+(train) or a ``Model`` (prefill, decode). The sharding functions
+(``batch_pspec``, ``input_shardings``, ``param_shardings``,
 ``make_state_shardings``, ``cache_logical_axes``, ``cache_shardings``)
-wait for the multi-GPU slice (ROADMAP.md Queue 1 item 8).
+return the reference's plans as specs (``sharding/partition.py``);
+placing tensors by them waits for the multi-GPU slice (ROADMAP.md Queue
+1 item 8).
 
 The training forward is ``Model.hidden(..., plain=True)``: the
 reference's own training forms (chunked SSD, chunked rwkv6, naive or
@@ -26,10 +28,13 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig, InputShape, RunConfig
 from repro_torch.core import losses
+from repro_torch.launch.mesh import Mesh
 from repro_torch.models import common
 from repro_torch.models.transformer import Model
 from repro_torch.optim import (Optimizer, adam, adamw, apply_updates,
                                clip_by_global_norm, momentum, schedules, sgd)
+from repro_torch.sharding.partition import (Spec, logical_to_physical,
+                                            make_param_shardings)
 from repro_torch.tree import value_and_grad
 
 
@@ -106,6 +111,86 @@ def input_specs(cfg: ArchConfig, shape: InputShape) -> Dict[str, Any]:
     if shape.mode == "decode":
         return {"tokens": _spec((B,), i32), "pos": _spec((), i32)}
     raise ValueError(shape.mode)
+
+
+def batch_pspec(name: str, mesh: Mesh, spec_tensor) -> Spec:
+    """Spec for one input leaf: batch dim over (pod, data)."""
+    logical = {
+        "tokens": ("batch",) if len(spec_tensor.shape) == 1
+        else ("batch", "seq"),
+        "labels": ("batch", "seq"),
+        "embeddings": ("batch", "seq", None),
+        "pos": (),
+    }[name]
+    return logical_to_physical(logical, mesh, shape=tuple(spec_tensor.shape))
+
+
+def input_shardings(specs, mesh: Mesh):
+    return {k: batch_pspec(k, mesh, v) for k, v in specs.items()}
+
+
+# ---------------------------------------------------------------------------
+# Parameter / state shardings
+# ---------------------------------------------------------------------------
+
+def param_shardings(model: Model, params, mesh: Mesh):
+    """Specs for the param tree (``model.param_tree()``'s layout: blocks
+    a list of per-layer trees) from the model's logical axes."""
+    return make_param_shardings(model.logical_axes(), mesh, params)
+
+
+def _stacked(tree, specs, out, layers=0):
+    """(shape, spec) of ``tree``'s leaves in the reference's layout and
+    leaf order: dict keys sorted, and each "blocks" list one tree whose
+    leaves carry a leading layers axis (replicated)."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            if k == "blocks" and isinstance(tree[k], list):
+                _stacked(tree[k][0], specs[k][0], out, len(tree[k]))
+            else:
+                _stacked(tree[k], specs[k], out, layers)
+    elif isinstance(tree, (list, tuple)):
+        for t, s in zip(tree, specs):
+            _stacked(t, s, out, layers)
+    else:
+        lead = (layers,) if layers else ()
+        out.append((lead + tuple(tree.shape),
+                    ((None,) if layers else ()) + tuple(specs)))
+    return out
+
+
+def make_state_shardings(state: "TrainState", params, pshard,
+                         mesh: Mesh) -> "TrainState":
+    """Shard TrainState: params as given; opt moment buffers mirror params
+    by shape; scalars replicated. The match by shape runs as the
+    reference's does, on its stacked layout and leaf order, so each
+    moment takes the reference's spec (a moment of a block leaf matches
+    the first parameter of its stacked shape, which need not be the
+    leaf it mirrors)."""
+    index = _stacked(params, pshard, [])
+
+    def match(leaf, layers):
+        if leaf.ndim == 0:
+            return ()
+        shape = ((layers,) if layers else ()) + tuple(leaf.shape)
+        for shp, spec in index:
+            if shp == shape:
+                return spec[1:] if layers else spec
+        return ()
+
+    def walk(tree, layers=0):
+        if isinstance(tree, dict):
+            return {k: [walk(v, len(tree[k])) for v in tree[k]]
+                    if k == "blocks" and isinstance(tree[k], list)
+                    else walk(tree[k], layers) for k in tree}
+        if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+            return type(tree)(*(walk(t, layers) for t in tree))
+        if isinstance(tree, (list, tuple)):
+            return type(tree)(walk(t, layers) for t in tree)
+        return match(tree, layers)
+
+    return TrainState(params=pshard, opt_state=walk(state.opt_state),
+                      step=())
 
 
 # ---------------------------------------------------------------------------
@@ -192,3 +277,61 @@ def cache_shape_structs(model: Model, shape: InputShape):
     as ``Model.init_decode_cache`` makes them."""
     return model.init_decode_cache(shape.global_batch, shape.seq_len,
                                    device="meta")
+
+
+def cache_logical_axes(cfg: ArchConfig, mesh: Mesh):
+    """Logical axes for cache leaves, chosen per divisibility:
+    KV caches (B, S, K, Dh): shard K over model if divisible, else shard S
+    (flash-decoding); SSM states shard heads over model."""
+
+    def kv_axes(leaf_shape):
+        B, S, K, dh = leaf_shape
+        if K % mesh.shape["model"] == 0:
+            return ("batch", None, "kv_heads", None)
+        return ("batch", "cache_seq", None, None)
+
+    return kv_axes
+
+
+def stacked_cache_shapes(cache: dict) -> dict:
+    """The reference's layout of a decode cache (``Model.init_decode_cache``'s
+    per-layer lists): each list one cache whose leaves carry a leading
+    axis of the list's length, as shape tuples."""
+    return {k: type(layers[0])(*(
+        (len(layers),) + tuple(leaf.shape) for leaf in layers[0]))
+        for k, layers in cache.items()}
+
+
+def cache_shardings(model: Model, cfg: ArchConfig, shape: InputShape,
+                    mesh: Mesh) -> dict:
+    """Specs of the decode cache in the reference's stacked layout
+    (``stacked_cache_shapes``; ``transformer.stack_blocks`` stacks a
+    cache so). The per-layer lists have no layers axis for a rule to
+    shard, and the reference's rule shards it for some leaves: the
+    4-dim stacked conv history takes the SSM state's axes and the
+    3-dim stacked token shifts the batch's, so their layers axis goes
+    over ``pod`` where it divides."""
+    kv_axes = cache_logical_axes(cfg, mesh)
+
+    def leaf_spec(shp):
+        if len(shp) == 4 and shp[1] > 1 and shp[3] == cfg.dim_per_head:
+            lg = kv_axes(shp)
+        elif len(shp) == 5:
+            # stacked (L, B, S, K, Dh) KV caches / (L,B,H,p,n) ssm states
+            if shp[4] == cfg.dim_per_head and shp[2] > 8:
+                lg = (None,) + kv_axes(shp[1:])
+            else:
+                lg = (None, "batch", "heads", None, None)
+        elif len(shp) == 4:
+            lg = ("batch", "heads", None, None)      # ssm state (B,H,p,n)
+        elif len(shp) == 3:
+            lg = ("batch", None, None)               # conv history (B,W,C)
+        elif len(shp) == 2:
+            lg = ("batch", None)                     # rwkv x_prev (B,d)
+        else:
+            lg = tuple(None for _ in shp)
+        return logical_to_physical(lg, mesh, shape=shp)
+
+    stacked = stacked_cache_shapes(cache_shape_structs(model, shape))
+    return {k: type(c)(*(leaf_spec(s) for s in c))
+            for k, c in stacked.items()}

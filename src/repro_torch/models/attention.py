@@ -57,6 +57,21 @@ def init_attention(cfg: ArchConfig, gen) -> dict:
     return p
 
 
+def logical_axes(cfg: ArchConfig) -> dict:
+    lg = {
+        "wq": ("embed", "heads", "head_dim"),
+        "wk": ("embed", "kv_heads", "head_dim"),
+        "wv": ("embed", "kv_heads", "head_dim"),
+        "wo": ("heads", "head_dim", "embed"),
+    }
+    if cfg.attn_bias:
+        lg.update({"bq": ("heads", "head_dim"), "bk": ("kv_heads", "head_dim"),
+                   "bv": ("kv_heads", "head_dim"), "bo": ("embed",)})
+    if cfg.qk_norm:
+        lg.update({"q_norm": (None,), "k_norm": (None,)})
+    return lg
+
+
 def _rms(x, scale, eps=1e-6):
     xf = x.to(torch.float32)
     var = torch.mean(torch.square(xf), dim=-1, keepdim=True)

@@ -2,9 +2,9 @@
 (counterpart of ``repro/models/common.py``).
 
 Parameters are nested dicts of tensors (``init_*`` builds them from a
-``torch.Generator`` on the generator's device); the ``apply``-style
-functions take any mapping with the reference's keys, such as the
-model's ``ParamTree`` modules.
+``torch.Generator`` on the generator's device, or shapes without values
+from ``META``); the ``apply``-style functions take any mapping with the
+reference's keys, such as the model's ``ParamTree`` modules.
 """
 
 from __future__ import annotations
@@ -15,13 +15,37 @@ import torch
 from repro_torch.configs.base import ArchConfig
 
 
+class MetaGenerator:
+    """Stands in for a ``torch.Generator`` where parameters are built on
+    ``meta`` (shapes and dtypes, no storage, no values): ``torch`` has no
+    generator on that device."""
+
+    device = torch.device("meta")
+
+
+META = MetaGenerator()
+
+
+def randn(gen, shape) -> torch.Tensor:
+    """Standard normal draws from ``gen`` on its device."""
+    if gen.device.type == "meta":
+        return torch.empty(shape, device="meta")
+    return torch.randn(shape, generator=gen, device=gen.device)
+
+
+def rand(gen, shape) -> torch.Tensor:
+    """Uniform [0, 1) draws from ``gen`` on its device."""
+    if gen.device.type == "meta":
+        return torch.empty(shape, device="meta")
+    return torch.rand(shape, generator=gen, device=gen.device)
+
+
 def normal_init(gen, shape, stddev):
-    return stddev * torch.randn(shape, generator=gen, device=gen.device)
+    return stddev * randn(gen, shape)
 
 
 def he_init(gen, shape, fan_in):
-    return torch.randn(shape, generator=gen, device=gen.device) / \
-        float(np.sqrt(fan_in))
+    return randn(gen, shape) / float(np.sqrt(fan_in))
 
 
 # --------------------------------------------------------------------------
@@ -86,6 +110,15 @@ def init_embedding(cfg: ArchConfig, gen) -> dict:
         p["frontend_proj"] = he_init(gen, (cfg.d_model, cfg.d_model),
                                      cfg.d_model)
     return p
+
+
+def logical_axes_embedding(cfg: ArchConfig) -> dict:
+    lg = {"tok": ("vocab", "embed")}
+    if not cfg.tie_embeddings:
+        lg["unembed"] = ("embed", "vocab")
+    if cfg.input_kind == "embeddings":
+        lg["frontend_proj"] = ("embed", "embed2")
+    return lg
 
 
 def embed_tokens(p, tokens, cfg: ArchConfig, dtype):

@@ -57,10 +57,9 @@ def init_mamba2(cfg: ArchConfig, gen) -> dict:
     w_z = common.he_init(gen, (d, d_in), d)
     w_xbc = common.he_init(gen, (d, conv_ch), d)
     w_dt = common.he_init(gen, (d, H), d)
-    conv_w = 0.1 * torch.randn((cfg.conv_width, conv_ch), generator=gen,
-                               device=dev)
+    conv_w = 0.1 * common.randn(gen, (cfg.conv_width, conv_ch))
     w_out = common.he_init(gen, (d_in, d), d_in)
-    u = torch.rand((H,), generator=gen, device=dev)
+    u = common.rand(gen, (H,))
     dt = torch.exp(np.log(1e-3) + u * (np.log(1e-1) - np.log(1e-3)))
     return {
         "w_z": w_z, "w_xbc": w_xbc, "w_dt": w_dt, "conv_w": conv_w,
@@ -71,6 +70,15 @@ def init_mamba2(cfg: ArchConfig, gen) -> dict:
         "D": torch.ones((H,), device=dev),
         "norm_scale": torch.ones((d_in,), device=dev),
         "w_out": w_out,
+    }
+
+
+def logical_axes(cfg: ArchConfig) -> dict:
+    return {
+        "w_z": ("embed", "ffn"), "w_xbc": ("embed", "ffn"),
+        "w_dt": ("embed", None), "conv_w": ("conv", None),
+        "conv_b": (None,), "dt_bias": (None,), "A_log": (None,),
+        "D": (None,), "norm_scale": (None,), "w_out": ("ffn", "embed"),
     }
 
 

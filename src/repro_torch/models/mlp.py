@@ -33,6 +33,17 @@ def init_mlp(cfg: ArchConfig, gen) -> dict:
     raise ValueError(f"unknown mlp_kind {cfg.mlp_kind!r}")
 
 
+def logical_axes(cfg: ArchConfig) -> dict:
+    if cfg.mlp_kind in ("swiglu", "geglu"):
+        return {"w_gate": ("embed", "ffn"), "w_up": ("embed", "ffn"),
+                "w_down": ("ffn", "embed")}
+    if cfg.mlp_kind == "gelu":
+        return {"w_up": ("embed", "ffn"), "b_up": ("ffn",),
+                "w_down": ("ffn", "embed"), "b_down": ("embed",)}
+    return {"mix_k": (None,), "w_k": ("embed", "ffn"), "w_v": ("ffn", "embed"),
+            "mix_r": (None,), "w_r": ("embed", "embed2")}
+
+
 def gelu_tanh(x):
     return F.gelu(x, approximate="tanh")
 

@@ -13,8 +13,9 @@ every token, combined by the router's weights. Exact, E / k times the
 products: what the tests and the card hold the grouped form against.
 
 The reference's expert-parallel path (``apply_moe(mesh=...)`` inside
-``shard_map``, one ``psum`` over the expert axis) and ``logical_axes``
-wait for the multi-GPU slice (ROADMAP.md Queue 1 item 8). No kernel: the
+``shard_map``, one ``psum`` over the expert axis) waits for the
+multi-GPU slice (ROADMAP.md Queue 1 item 8); ``logical_axes`` is its
+plan. No kernel: the
 reference computes the layer with plain einsums, and so does the port.
 """
 
@@ -35,6 +36,15 @@ def init_moe(cfg: ArchConfig, gen) -> dict:
         "w_gate": common.he_init(gen, (E, d, f), d),
         "w_up": common.he_init(gen, (E, d, f), d),
         "w_down": common.he_init(gen, (E, f, d), f),
+    }
+
+
+def logical_axes(cfg: ArchConfig) -> dict:
+    return {
+        "router": ("embed", None),
+        "w_gate": ("experts", "embed", "expert_ffn"),
+        "w_up": ("experts", "embed", "expert_ffn"),
+        "w_down": ("experts", "expert_ffn", "embed"),
     }
 
 

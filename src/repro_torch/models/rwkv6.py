@@ -70,6 +70,17 @@ def init_rwkv6(cfg: ArchConfig, gen) -> dict:
     }
 
 
+def logical_axes(cfg: ArchConfig) -> dict:
+    return {
+        "mix_r": (None,), "mix_k": (None,), "mix_v": (None,), "mix_w": (None,),
+        "mix_g": (None,),
+        "w_r": ("embed", "heads_flat"), "w_k": ("embed", "heads_flat"),
+        "w_v": ("embed", "heads_flat"), "w_g": ("embed", "heads_flat"),
+        "w0": (None,), "w_lora_a": ("embed", None), "w_lora_b": (None, None),
+        "u": ("heads", None), "ln_scale": (None,), "w_o": ("heads_flat", "embed"),
+    }
+
+
 def _shift(x, x_prev):
     """Token shift: x_{t-1} with x_prev filling t=0. x (B,T,d), x_prev
     (B,d)."""

@@ -195,10 +195,16 @@ def _layer(fn, x, remat: bool):
     return fn(x)
 
 
+def _norm_axes(cfg: ArchConfig) -> dict:
+    if cfg.norm_kind == "rmsnorm":
+        return {"scale": (None,)}
+    return {"scale": (None,), "bias": (None,)}
+
+
 def init_params(cfg: ArchConfig, gen: torch.Generator) -> dict:
     """The reference's parameter tree on ``gen``'s device, with
     ``blocks`` as a list of per-layer dicts (any family of
-    ``FAMILIES``)."""
+    ``FAMILIES``); ``common.META`` gives it on ``meta``."""
     block_init = {"hybrid": _init_mamba_block,
                   "ssm": _init_rwkv_block}.get(cfg.family, _init_attn_block)
     params = {"embedding": common.init_embedding(cfg, gen),
@@ -258,7 +264,8 @@ def unstack_blocks(tree):
 class Model(nn.Module):
     """A backbone of any family of ``FAMILIES``. ``device=None`` is the
     card (raises without one); ``device="cpu"`` runs the plain versions of
-    the kernels. ``params`` (the reference's tree, ``blocks`` a list of
+    the kernels; ``device="meta"`` builds shapes without storage (what the
+    dry-run account traces). ``params`` (the reference's tree, ``blocks`` a list of
     per-layer dicts, as ``convert.model_params_from_jax`` gives it)
     replaces the seeded init. The moe family's expert layer is plain
     torch on every device (the reference computes it with einsums);
@@ -273,7 +280,8 @@ class Model(nn.Module):
         self.cfg = cfg
         dev = resolve_device(device)
         if params is None:
-            gen = torch.Generator(device=dev).manual_seed(seed)
+            gen = common.META if dev.type == "meta" else \
+                torch.Generator(device=dev).manual_seed(seed)
             params = init_params(cfg, gen)
         self.embedding = ParamTree(params["embedding"])
         self.blocks = nn.ModuleList(ParamTree(b) for b in params["blocks"])
@@ -301,6 +309,41 @@ class Model(nn.Module):
         if self.cfg.shared_attn_every:
             params["shared"] = tree(self.shared)
         return params
+
+    def logical_axes(self) -> dict:
+        """A tree matching ``param_tree()`` with a tuple of logical axis
+        names at each leaf (``sharding/partition.py`` maps them to a
+        mesh). ``blocks`` is a list with one tree a layer; the
+        reference's stacked block leaves carry a leading ``"layers"``
+        axis instead."""
+        cfg = self.cfg
+
+        def block_axes(shared: bool):
+            bcfg = shared_cfg(cfg) if shared else cfg
+            if not shared and cfg.family == "ssm":
+                return {"norm1": _norm_axes(cfg),
+                        "tmix": rwkv6.logical_axes(cfg),
+                        "norm2": _norm_axes(cfg),
+                        "cmix": mlp.logical_axes(cfg)}
+            if not shared and cfg.family == "hybrid":
+                return {"norm1": _norm_axes(cfg),
+                        "mamba": mamba2.logical_axes(cfg)}
+            ax = {"norm1": _norm_axes(bcfg),
+                  "attn": attention.logical_axes(bcfg)}
+            if not bcfg.parallel_block:
+                ax["norm2"] = _norm_axes(bcfg)
+            if _is_moe(bcfg):
+                ax["moe"] = moe.logical_axes(bcfg)
+            else:
+                ax["mlp"] = mlp.logical_axes(bcfg)
+            return ax
+
+        axes = {"embedding": common.logical_axes_embedding(cfg),
+                "blocks": [block_axes(False) for _ in range(cfg.n_layers)],
+                "final_norm": _norm_axes(cfg)}
+        if cfg.shared_attn_every:
+            axes["shared"] = block_axes(True)
+        return axes
 
     # ----- full-sequence forward (train / prefill / embedding) -----
 
