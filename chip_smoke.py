@@ -425,7 +425,41 @@ exit, and nothing falls back:
                 beside: memory_s / the step, the mfu (model FLOPs,
                 ``benchmarks/roofline.py``'s 6ND, over the step at its
                 dtype's rate) and the step's GEMM kernels by name;
- 20. the last line: ``{"ok": true, "device": {...}}``.
+ 20. multi-rank — after what earlier phases hold is freed: four ranks
+                (``launch/mesh.spawn``, processes sharing the one card, so
+                gloo, which stages every collective through the host)
+                run (a) the PS of phase 4 with one worker a rank
+                (``train_dml_distributed(mesh=)``, 1000 pairs a worker a
+                step, bsp, local tau 4, ssp staleness 2, 4 steps each,
+                on phase 4's rows, rescaled L0 and one SSP delay table),
+                a timed step loop a mode, the bsp copies gathered and
+                compared exactly, one ``make_train_chunk`` call (tau 4);
+                merged L held within MR_L_RTOL x max |L| of the one-process
+                port on the same batches and delays, losses within rtol
+                1e-5; (b) phase 6's 1M-row gallery, every rank making and
+                projecting all the seeded blocks as phase 6 does (the
+                IVF layout takes a rank's clusters' rows from all of
+                them), a sharded ``ExactIndex`` keeping the rank's
+                quarter of the rows (1 GB) and a sharded ``IVFIndex``
+                its clusters (phase 8's 1024 clusters, nprobe 16; the
+                k-means on rank 0, broadcast); phase 6's first 64
+                requests as one batch at k 10, at k 300 (past the
+                256-entry lists) and through the IVF index, timed, then
+                through a ``RetrievalEngine`` on rank 0 with the other
+                ranks following (``scan.lead`` / ``scan.follow``); the
+                answers held to the plain version (``compare()`` /
+                ``compare_ivf``'s rules) and counted against the
+                one-process indexes on the card. A one-rank mesh over
+                NCCL takes one bsp step, bit-identical to the same step
+                without a mesh. Every rank's dml_pair, metric_topk and
+                ivf_scan launches must rise. Prints ms a step and a batch
+                beside the one-process figures, the backend, build
+                seconds, memory a rank and peak memory, each beside the
+                card's name and power limit and the note that the ranks
+                share one card. Alone: ``python -c "import chip_smoke as
+                c; card = c.phase_device(); c.phase_build();
+                c.phase_multirank(card)"``;
+ 21. the last line: ``{"ok": true, "device": {...}}``.
 
 Every launch count is set to 0 just before a main-path phase (4, 5, 5a,
 5c, 6, each index of 8, each serving run of 8b, each burst of 8c, 8d's
@@ -433,7 +467,8 @@ tenant traffic, 8e's main run and each of its cuts, gemma's embed_pool
 in 9, 10, each decode and each apply beside it in 12, 13 and 16c, each
 training run and apply in 14, 15 and 16d, 16e, each forward, decode,
 apply, training run and service batch of 17, and each forward, apply,
-service run and training run of 18) and read just after
+service run and training run of 18, and each rank's PS work and
+sharded serving in 20) and read just after
 (5a launches no kernel: its gradient is the reference's plain autograd
 product);
 comparison launches come after the reading (or, for phase 9, before the
@@ -501,6 +536,7 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 "src"))
@@ -555,6 +591,7 @@ from repro_torch.launch import serve, serve_embeddings, train  # noqa: E402
 from repro_torch.launch import steps as steps_lib  # noqa: E402
 from repro_torch.launch import dryrun  # noqa: E402
 from repro_torch.launch import mesh as card_figures  # noqa: E402
+from repro_torch.launch.mesh import spawn  # noqa: E402
 from repro_torch.mining import (ClosedLoopConfig,  # noqa: E402
                                 ClosedLoopTrainer, CurriculumSchedule,
                                 HardPairMiner, MinerConfig)
@@ -572,8 +609,10 @@ from repro_torch.serve import (DeadlineExceededError,  # noqa: E402
                                default_ladder, load_index, load_tenants,
                                recall_at_k, save_index, save_tenants)
 from repro_torch.serve import pq as pq_mod  # noqa: E402
+from repro_torch.serve import scan  # noqa: E402
 from repro_torch.serve.ivf import probe  # noqa: E402
 from repro_torch.serve.scan import project_queries  # noqa: E402
+from repro_torch.sharding import partition  # noqa: E402
 from repro_torch.tree import tree_leaves, tree_map  # noqa: E402
 
 RTOL = ATOL = 1e-5
@@ -6330,6 +6369,483 @@ def phase_account():
     return out
 
 
+# -- phase 20: multi-rank, several ranks sharing the card --------------------
+
+MR_RANKS = 4                 # ranks of the PS and the sharded gallery
+MR_STEPS = 4                 # train_dml_distributed steps a mode
+MR_TIMED = 3                 # timed PS steps a mode, after one warm step
+MR_BATCHES = 4               # timed sharded query batches, after one warm
+MR_QUERIES = MAX_BATCH       # phase 6's first 64 requests, one batch
+MR_WIDE_K = 300              # a k_top past metric_topk's 256-entry lists
+MR_CHUNK_SEED = 5
+MR_TIMEOUT = 300.0           # each collective; the whole spawn twice that
+# merged L over the ranks against the one-process port: the all-reduce
+# sums the workers in another order than torch.mean, so they part by f32
+# rounding; held within this share of max |L|
+MR_L_RTOL = 1e-5
+MR_MODES = {"bsp": {}, "local": {"tau": 4}, "ssp": {"staleness": 2}}
+
+
+def _mr_cfg(mode, steps=MR_STEPS):
+    return DMLTrainConfig(
+        dml=IMNET_1M.dml, ps=sync.PSConfig(n_workers=MR_RANKS, sync=mode,
+                                           **MR_MODES[mode]),
+        batch_size=IMNET_1M.batch_size, steps=steps, log_every=1)
+
+
+def _mr_opt():
+    return sgd(schedules.inverse_time(1e-3, 1e-3))
+
+
+def _mr_loss(L, batch):
+    cfg = IMNET_1M.dml
+    return dml_pair_loss(L, batch, lam=cfg.lam, margin=cfg.margin)
+
+
+def _mr_chunk_batch(stream, tau):
+    steps = [next(stream) for _ in range(tau)]
+    return {k: torch.stack([b[k] for b in steps]) for k in steps[0]}
+
+
+def _mr_ps(inp, mesh):
+    """A rank's PS work over the worker mesh: train_dml_distributed under
+    each mode, a timed step loop a mode (draws included, as phase 4's),
+    the bsp copies gathered, one make_train_chunk call."""
+    rank = mesh.rank
+    source = IndexPairs(torch.from_numpy(inp["train_x"]).to(DEV),
+                        inp["train_idx"])
+    L0 = torch.from_numpy(inp["L0"]).to(DEV)
+    delays = inp["delays"]
+    out = {"modes": {}}
+    torch.cuda.synchronize()
+    dml_pair_fused.launches = 0             # the rank's main path only
+    for mode in MR_MODES:
+        L, hist = train_dml_distributed(
+            _mr_cfg(mode), source, opt=_mr_opt(), L0=L0,
+            delays=lambda t: delays[t], mesh=mesh)
+        res = {"loss": [h["loss"] for h in hist],
+               "L_sum": float(L.double().sum())}
+        ps = _mr_cfg(mode).ps
+        state = sync.shard_state(sync.init_state(_mr_opt(), L0, ps), ps,
+                                 mesh)
+        step = sync.make_train_step(_mr_loss, _mr_opt(), ps,
+                                    delays=lambda t: delays[t % MR_STEPS],
+                                    mesh=mesh)
+        stream = source.worker_streams(MR_RANKS, IMNET_1M.batch_size,
+                                       seed=MR_CHUNK_SEED + 1)[rank]
+        draw = lambda: {k: v[None] for k, v in  # noqa: E731
+                        next(stream).items()}
+        state, _ = step(state, draw())
+        dist.barrier()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(MR_TIMED):
+            state, _ = step(state, draw())
+        torch.cuda.synchronize()
+        res["step_ms"] = 1e3 * (time.perf_counter() - t0) / MR_TIMED
+        if mode == "bsp":                   # every copy, on every rank
+            copies = partition.all_gather(state.params[0], ps.axis, mesh)
+            res["copies_equal"] = all(torch.equal(copies[0], copies[w])
+                                      for w in range(1, MR_RANKS))
+            del copies
+        if rank == 0:
+            res["L"] = L
+        out["modes"][mode] = res
+    ps = sync.PSConfig(n_workers=MR_RANKS, sync="local", tau=4)
+    state = sync.shard_state(sync.init_state(_mr_opt(), L0, ps), ps, mesh)
+    batch = _mr_chunk_batch(source.worker_streams(
+        MR_RANKS, IMNET_1M.batch_size, seed=MR_CHUNK_SEED)[rank], ps.tau)
+    state, m = sync.make_train_chunk(_mr_loss, _mr_opt(), ps, mesh=mesh)(
+        state, {k: v[None] for k, v in batch.items()})
+    torch.cuda.synchronize()
+    out["launches"] = dml_pair_fused.launches
+    out["chunk"] = {"loss": float(m["loss"]),
+                    **({"L": state.params[0]} if rank == 0 else {})}
+    return out
+
+
+def _mr_timed(call):
+    """(the last answer, ms a call over MR_BATCHES after a warm one); a
+    collective call: every rank times the same calls."""
+    call()
+    dist.barrier()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(MR_BATCHES):
+        ans = call()
+    torch.cuda.synchronize()
+    return ans, 1e3 * (time.perf_counter() - t0) / MR_BATCHES
+
+
+def _mr_serve(inp, mesh):
+    """A rank's share of phase 6's gallery: the seeded blocks made and
+    projected as phase 6 makes them (the whole gallery on every rank: the
+    IVF layout takes a rank's clusters' rows from all of it), the exact
+    index keeping this rank's quarter of the rows, the IVF build its
+    clusters (k-means on rank 0); timed sharded batches, then an engine
+    on rank 0, the rest following."""
+    exp, cfg, rank = IMNET_1M, IMNET_1M.dml, mesh.rank
+    gen = torch.Generator(device=DEV).manual_seed(0)
+    L = init_params(cfg, gen, DEV)
+    t0 = time.perf_counter()
+    gp, gn, _, _, _ = make_gallery(gen, exp.n_samples, cfg.feat_dim,
+                                   exp.n_classes, L, inp["qids"])
+    exact = ExactIndex.from_projected(L, gp, gn, mesh=mesh)
+    torch.cuda.synchronize()
+    out = {"gallery_s": time.perf_counter() - t0, "timings": {}}
+    t0 = time.perf_counter()
+    ivf = IVFIndex.build_projected(
+        L, gp, gn, n_clusters=N_CLUSTERS, nprobe=NPROBE,
+        cap_factor=CAP_FACTOR, iters=KM_ITERS, seed=0, mesh=mesh,
+        timings=out["timings"])
+    out["ivf_build_s"] = time.perf_counter() - t0
+    del gp, gn
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["exact_gb"] = (exact.gp.numel() + exact.gn.numel()) * 4 / 1e9
+    out["ivf_gb"] = (ivf.gp_pad.numel() + 2 * ivf.gn_pad.numel()) * 4 / 1e9
+    out["n_shards"] = (exact.n_shards, ivf.n_shards)
+    q = torch.from_numpy(inp["queries"]).to(DEV)
+    torch.cuda.synchronize()
+    metric_topk_fused.launches = ivf_scan_topk_fused.launches = 0
+    answers, ms = {}, {}
+    for name, call in (("exact", lambda: exact.topk(q, K_TOP)),
+                       ("exact_wide", lambda: exact.topk(q, MR_WIDE_K)),
+                       ("ivf", lambda: ivf.topk(q, K_TOP))):
+        answers[name], ms[name] = _mr_timed(call)
+    for name, index in (("exact", exact), ("ivf", ivf)):
+        if rank == 0:
+            with scan.lead(index) as served:
+                engine = RetrievalEngine(served, k_top=K_TOP,
+                                         buckets=(MR_QUERIES,), cache_size=0)
+                engine.warmup()
+                d, i = engine.search(inp["queries"])
+                answers[f"{name}_engine"] = (d, i)
+                out[f"{name}_engine_shards"] = engine.stats()["n_shards"]
+        else:
+            out[f"{name}_followed"] = scan.follow(index)
+    torch.cuda.synchronize()
+    out["launches"] = {"metric_topk": metric_topk_fused.launches,
+                       "ivf_scan": ivf_scan_topk_fused.launches}
+    out["ms"] = ms
+    if rank == 0:
+        out["answers"] = answers
+    return out
+
+
+def _mr_collective_ms(mesh):
+    """ms of one pmean of an L-sized tensor (86 MB, what a PS step
+    reduces) and of one all_gather of a batch's (64, 10) candidates, on
+    the worker axis; the mean of three after a warm one."""
+    out = {}
+    for name, fn, x in (
+            ("pmean_L", partition.pmean, torch.ones(
+                (IMNET_1M.dml.proj_dim, IMNET_1M.dml.feat_dim), device=DEV)),
+            ("gather_candidates", partition.all_gather,
+             torch.ones((MR_QUERIES, K_TOP), device=DEV))):
+        fn(x, "workers", mesh)
+        dist.barrier()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(3):
+            fn(x, "workers", mesh)
+        torch.cuda.synchronize()
+        out[name] = 1e3 * (time.perf_counter() - t0) / 3
+    return out
+
+
+def _mr_rank(inp):
+    """One rank of phase 20 (a spawned process on the shared card)."""
+    walls = {"start": time.time() - inp["t_spawn"]}
+    t0 = time.perf_counter()
+    mesh = sync.make_worker_mesh(MR_RANKS)
+    out = {"rank": mesh.rank, "backend": mesh.backend,
+           "device": str(mesh.device), "ps": _mr_ps(inp, mesh)}
+    walls["ps"] = time.perf_counter() - t0
+    out["collective_ms"] = _mr_collective_ms(mesh)
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["ps_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out["serve"] = _mr_serve(inp, card_figures.make_local_mesh())
+    walls["serve"] = time.perf_counter() - t0
+    out["serve_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    out["walls_s"] = walls
+    return out
+
+
+def _host_state():
+    """The host's free memory and load as this process sees them (read
+    from /proc), and this process's resident set."""
+    fields = {}
+    for path, keys in (("/proc/meminfo", ("MemAvailable",)),
+                       ("/proc/self/status", ("VmRSS",))):
+        with open(path) as f:
+            for line in f:
+                key = line.split(":")[0]
+                if key in keys:
+                    fields[key] = round(int(line.split()[1]) / 1e6, 2)
+    return {"mem_available_gb": fields.get("MemAvailable"),
+            "rss_gb": fields.get("VmRSS"), "load": os.getloadavg()}
+
+
+def _mr_nccl():
+    """A one-rank NCCL mesh: one bsp step at full width, against the same
+    step without a mesh (a mean over one worker: bit-identical)."""
+    mesh = sync.make_worker_mesh(1)
+    cfg = IMNET_1M.dml
+    gen = torch.Generator(device=DEV).manual_seed(3)
+    L0 = init_params(cfg, gen, DEV)
+    B = IMNET_1M.batch_size
+    batch = {"xs": torch.randn((1, B, cfg.feat_dim), generator=gen,
+                               device=DEV),
+             "ys": torch.randn((1, B, cfg.feat_dim), generator=gen,
+                               device=DEV),
+             "sim": (torch.rand((1, B), generator=gen, device=DEV) < 0.5)
+             .to(torch.int32)}
+    ps = sync.PSConfig(n_workers=1, sync="bsp")
+    dml_pair_fused.launches = 0
+    ranked, m = sync.make_train_step(_mr_loss, _mr_opt(), ps, mesh=mesh)(
+        sync.shard_state(sync.init_state(_mr_opt(), L0, ps), ps, mesh),
+        batch)
+    torch.cuda.synchronize()
+    launches = dml_pair_fused.launches
+    alone, _ = sync.make_train_step(_mr_loss, _mr_opt(), ps)(
+        sync.init_state(_mr_opt(), L0, ps), batch)
+    return {"backend": mesh.backend, "launches": launches,
+            "loss": float(m["loss"]),
+            "equal": torch.equal(ranked.params, alone.params)}
+
+
+def _mr_agree(a, b):
+    """Ids at which two answers (dists, ids) differ, and their largest
+    distance gap there (a tie-resolved difference has none)."""
+    da, ia = (torch.as_tensor(x).to(DEV) for x in a)
+    db, ib = (torch.as_tensor(x).to(DEV) for x in b)
+    diff = ia != ib
+    gap = float((da - db).abs().max())
+    return int(diff.sum()), gap
+
+
+def phase_multirank(card, data=None, bsp_ms=None):
+    """Phase 20: the PS with one worker a rank and the exact and IVF
+    galleries sharded over ranks, four processes sharing the one card
+    over gloo; a one-rank NCCL mesh. ``data`` is phase 4's (host rows,
+    labels, rescaled L0), made again when not given."""
+    t_phase = time.perf_counter()
+    exp, cfg = IMNET_1M, IMNET_1M.dml
+    if data is None:
+        feats_np, labels = pairdata.make_features(pairdata.PairDatasetConfig(
+            n_samples=TRAIN_SAMPLES, feat_dim=cfg.feat_dim,
+            n_classes=TRAIN_CLASSES, kind="noisy_subspace", noise=0.8,
+            seed=0))
+        L0 = None
+    else:
+        feats_np, labels, L0 = data
+    train_x_np = np.ascontiguousarray(feats_np[:-N_HOLD])
+    del feats_np
+    train_idx = pairdata.sample_pair_indices(labels[:-N_HOLD], 50_000,
+                                             50_000, seed=1)
+    train_x = torch.from_numpy(train_x_np).to(DEV)
+    if L0 is None:                          # phase 4's init rescale
+        L0 = init_params(cfg, torch.Generator(device=DEV).manual_seed(0), DEV)
+        probe_b = next(pairdata.pair_batches_from_indices(
+            train_x, train_idx, 256, seed=99, device=DEV))
+        d2 = float(torch.mean(dml.mahalanobis_sqdist(L0, probe_b["xs"],
+                                                     probe_b["ys"])))
+        L0 = L0 * float(np.sqrt(2.0 * cfg.margin / max(d2, 1e-9)))
+    L0 = torch.as_tensor(L0).to(DEV)
+    delays = np.stack([sync.default_delays(_mr_cfg("ssp").ps)(t).numpy()
+                       for t in range(MR_STEPS)])
+    # the one-process port on the same batches and delays
+    source = IndexPairs(train_x, train_idx)
+    one, one_ms = {}, {}
+    for mode in MR_MODES:
+        L, hist = train_dml_distributed(
+            _mr_cfg(mode), source, opt=_mr_opt(), L0=L0,
+            delays=lambda t: delays[t], device=DEV,
+            step_hook=lambda t, _L: time.perf_counter())
+        one[mode] = (L, [h["loss"] for h in hist])
+        stamps = [h["hook"] for h in hist]
+        one_ms[mode] = 1e3 * (stamps[-1] - stamps[0]) / (len(stamps) - 1)
+    ps = sync.PSConfig(n_workers=MR_RANKS, sync="local", tau=4)
+    per_worker = [_mr_chunk_batch(s, ps.tau) for s in source.worker_streams(
+        MR_RANKS, exp.batch_size, seed=MR_CHUNK_SEED)]
+    batch = {k: torch.stack([b[k] for b in per_worker]) for k in per_worker[0]}
+    del per_worker
+    chunk_one, _ = sync.make_train_chunk(_mr_loss, _mr_opt(), ps)(
+        sync.init_state(_mr_opt(), L0, ps), batch)
+    chunk_one = chunk_one.params[0]
+    del batch, source, train_x
+    torch.cuda.synchronize()
+    log(f"20 one-process references: ms/step (host clock, draws included) "
+        f"{ {k: round(v, 3) for k, v in one_ms.items()} }"
+        + (f"; phase 4's bsp {bsp_ms:.3f}" if bsp_ms else ""))
+
+    # the single-process serving references on phase 6's gallery
+    gen = torch.Generator(device=DEV).manual_seed(0)
+    L = init_params(cfg, gen, DEV)
+    qids = np.random.RandomState(1).randint(0, exp.n_samples, N_REQUESTS)
+    gp, gn, _, raw_q, _ = make_gallery(gen, exp.n_samples, cfg.feat_dim,
+                                       exp.n_classes, L, qids)
+    queries = (raw_q + 0.1 * torch.randn(raw_q.shape, generator=gen,
+                                         device=DEV))[:MR_QUERIES]
+    single = ExactIndex.from_projected(L, gp, gn, device=DEV)
+    t0 = time.perf_counter()
+    ivf1 = IVFIndex.build_projected(L, gp, gn, n_clusters=N_CLUSTERS,
+                                    nprobe=NPROBE, cap_factor=CAP_FACTOR,
+                                    iters=KM_ITERS, seed=0, device=DEV)
+    torch.cuda.synchronize()
+    ivf1_s = time.perf_counter() - t0
+    ref, ref_ms = {}, {}
+    for name, call in (("exact", lambda: single.topk(queries, K_TOP)),
+                       ("exact_wide", lambda: single.topk(queries,
+                                                          MR_WIDE_K)),
+                       ("ivf", lambda: ivf1.topk(queries, K_TOP))):
+        call()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(MR_BATCHES):
+            ref[name] = call()
+        torch.cuda.synchronize()
+        ref_ms[name] = 1e3 * (time.perf_counter() - t0) / MR_BATCHES
+    torch.cuda.synchronize()
+    log(f"20 single-process references: IVF build {ivf1_s:.1f} s; ms a "
+        f"batch of {MR_QUERIES} (host clock, synchronised) "
+        f"{ {k: round(v, 3) for k, v in ref_ms.items()} }")
+
+    host = _host_state()
+    inp = {"train_x": train_x_np, "train_idx": train_idx,
+           "L0": L0.cpu().numpy(), "delays": delays, "qids": qids,
+           "queries": queries.cpu().numpy(), "t_spawn": time.time()}
+    # the one-rank NCCL group starts beside the four (its one step is
+    # done while they still load their rows)
+    nccl_box = []
+    nccl_thread = threading.Thread(target=lambda: nccl_box.append(
+        spawn(_mr_nccl, 1, timeout=MR_TIMEOUT)))
+    t0 = time.perf_counter()
+    nccl_thread.start()
+    try:
+        ranks = spawn(_mr_rank, MR_RANKS, args=(inp,), timeout=MR_TIMEOUT)
+    finally:
+        nccl_thread.join()
+    spawn_s = time.perf_counter() - t0
+    del inp, train_x_np
+    assert nccl_box, "the one-rank NCCL group failed (its traceback above)"
+    (nccl,) = nccl_box[0]
+
+    # -- checks --------------------------------------------------------------
+    assert {r["backend"] for r in ranks} == {"gloo"}, ranks[0]["backend"]
+    assert [r["rank"] for r in ranks] == list(range(MR_RANKS))
+    n_main = len(MR_MODES) * (MR_STEPS + 1 + MR_TIMED) + 4
+    for r in ranks:
+        assert r["ps"]["launches"] >= n_main, \
+            f"rank {r['rank']}: dml_pair launched {r['ps']['launches']}"
+        for mode, res in r["ps"]["modes"].items():
+            assert np.isfinite(res["loss"]).all(), (r["rank"], mode)
+        assert np.isfinite(r["ps"]["chunk"]["loss"])
+        for k in ("metric_topk", "ivf_scan"):
+            assert r["serve"]["launches"][k] > 0, \
+                f"rank {r['rank']}: {k} never launched"
+        assert r["serve"]["n_shards"] == (MR_RANKS, MR_RANKS)
+    assert ranks[0]["ps"]["modes"]["bsp"]["copies_equal"], \
+        "bsp copies differ across ranks"
+    worst = {}
+    for mode in MR_MODES:
+        sums = {r["ps"]["modes"][mode]["L_sum"] for r in ranks}
+        assert len(sums) == 1, f"{mode}: ranks return different L"
+        L_r, L_1 = ranks[0]["ps"]["modes"][mode]["L"].to(DEV), one[mode][0]
+        scale = float(L_1.abs().max())
+        worst[mode] = float((L_r - L_1).abs().max()) / scale
+        assert worst[mode] <= MR_L_RTOL, (mode, worst[mode])
+        np.testing.assert_allclose(ranks[0]["ps"]["modes"][mode]["loss"],
+                                   one[mode][1], rtol=1e-5)
+    c_r = ranks[0]["ps"]["chunk"]["L"].to(DEV)
+    worst["chunk"] = float((c_r - chunk_one).abs().max()) / \
+        float(chunk_one.abs().max())
+    assert worst["chunk"] <= MR_L_RTOL, worst["chunk"]
+    assert nccl["backend"] == "nccl" and nccl["launches"] >= 1
+    assert nccl["equal"], "the one-rank NCCL step differs from one process"
+    assert np.isfinite(nccl["loss"])
+    ans = ranks[0]["serve"]["answers"]
+    err = {}
+    for name, k in (("exact", K_TOP), ("exact_wide", MR_WIDE_K)):
+        d, i = (x.to(DEV) for x in ans[name])
+        err[name] = compare(L, queries, gp, gn, k, d, i)
+    qp = project_queries(L, queries)
+    d, i = (x.to(DEV) for x in ans["ivf"])
+    err["ivf"] = compare_ivf(*_ivf_args(ivf1, qp, ivf1.nprobe), K_TOP, d, i)
+    vs_single = {name: _mr_agree(ans[name], ref[name]) for name in ref}
+    for name in ("exact", "ivf"):
+        e = ans[f"{name}_engine"]
+        assert torch.equal(torch.as_tensor(e[1]), ans[name][1].cpu()), \
+            f"{name}: the engine's answers differ from the direct call"
+        assert ranks[0]["serve"][f"{name}_engine_shards"] == MR_RANKS
+        assert all(r["serve"][f"{name}_followed"] == 2 for r in ranks[1:])
+
+    # -- report -------------------------------------------------------------
+    r0 = ranks[0]
+    note = (f"the {MR_RANKS} ranks share one card, and gloo stages every "
+            f"collective through the host; {card}")
+    log(f"20 mesh: {MR_RANKS} ranks over {r0['backend']} on "
+        f"{r0['device']} (spawn and work {spawn_s:.1f} s); a one-rank mesh "
+        f"over {nccl['backend']} beside them, its bsp step bit-identical "
+        f"to one process's")
+    for mode in MR_MODES:
+        res = r0["ps"]["modes"][mode]
+        log(f"20 PS {mode}: {res['step_ms']:.3f} ms/step over {MR_RANKS} "
+            f"ranks (rank 0's host clock, draws included) against "
+            f"{one_ms[mode]:.3f} one process; loss "
+            f"{res['loss'][0]:.4f} -> {res['loss'][-1]:.4f}; merged L "
+            f"within {worst[mode]:.2e} x max |L| of one process "
+            f"(held {MR_L_RTOL:g}); {note}")
+    log(f"20 where a rank's time went: started {r0['walls_s']['start']:.1f} "
+        f"s after the spawn, PS {r0['walls_s']['ps']:.1f} s, serving "
+        f"{r0['walls_s']['serve']:.1f} s; one pmean of L (86 MB) "
+        f"{r0['collective_ms']['pmean_L']:.2f} ms, one all_gather of a "
+        f"batch's candidates {r0['collective_ms']['gather_candidates']:.2f}"
+        f" ms; the host before the spawn: {host}; {note}")
+    log(f"20 PS chunk (tau 4): loss {r0['ps']['chunk']['loss']:.4f}, "
+        f"within {worst['chunk']:.2e} x max |L| of one process; bsp "
+        f"copies bit-identical; dml_pair launches by rank "
+        f"{[r['ps']['launches'] for r in ranks]}")
+    for name in ref:
+        log(f"20 sharded {name}: {r0['serve']['ms'][name]:.3f} ms a batch "
+            f"of {MR_QUERIES} over {MR_RANKS} ranks (rank 0's host clock) "
+            f"against {ref_ms[name]:.3f} one process; vs the plain version "
+            f"max |dd| {err[name][0]:.3e}, {err[name][1]} tie-resolved id "
+            f"differences; vs the one-process index {vs_single[name][0]} "
+            f"ids differ, max |dd| {vs_single[name][1]:.3e}; {note}")
+    log(f"20 ranks: gallery made and projected in "
+        f"{[round(r['serve']['gallery_s'], 1) for r in ranks]} s, IVF built "
+        f"in {[round(r['serve']['ivf_build_s'], 1) for r in ranks]} s "
+        f"(rank 0's k-means {r0['serve']['timings']}), exact "
+        f"{r0['serve']['exact_gb']:.2f} GB and IVF {r0['serve']['ivf_gb']:.2f}"
+        f" GB a rank; launches by rank "
+        f"{[r['serve']['launches'] for r in ranks]}; peak GB a rank PS "
+        f"{[round(r['ps_peak_gb'], 2) for r in ranks]}, serving "
+        f"{[round(r['serve_peak_gb'], 2) for r in ranks]}; {note}")
+    out = {"ranks": MR_RANKS, "backend": r0["backend"],
+           "nccl_backend": nccl["backend"], "card": card,
+           "ps_step_ms": {m: r0["ps"]["modes"][m]["step_ms"]
+                          for m in MR_MODES},
+           "one_process_step_ms": one_ms, "l_rel_err": worst,
+           "batch_ms": r0["serve"]["ms"], "one_process_batch_ms": ref_ms,
+           "launches": {"dml_pair": [r["ps"]["launches"] for r in ranks],
+                        **{k: [r["serve"]["launches"][k] for r in ranks]
+                           for k in ("metric_topk", "ivf_scan")}},
+           "peak_gb": {"ps": [r["ps_peak_gb"] for r in ranks],
+                       "serve": [r["serve_peak_gb"] for r in ranks]},
+           "ivf_build_s": [r["serve"]["ivf_build_s"] for r in ranks],
+           "collective_ms": r0["collective_ms"], "walls_s": r0["walls_s"],
+           "host": host,
+           "one_process_ivf_build_s": ivf1_s,
+           "phase_s": time.perf_counter() - t_phase}
+    log(f"multi-rank phase {out['phase_s']:.1f} s")
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -6355,6 +6871,9 @@ def main():
     log(f"training and eval done at {time.perf_counter() - t0:.1f}s")
     phase_async_ps(train)
     log(f"async PS and Fig. 3 done at {time.perf_counter() - t0:.1f}s")
+    # phase 20 trains on phase 4's rows again: keep them on the host
+    mr_data = (train["feats"].cpu().numpy(), train["labels"],
+               train["L_init"].cpu().numpy())
     del train, ev
     torch.cuda.empty_cache()
     entries[0]["fig4_launches"] = phase_fig4()
@@ -6443,6 +6962,11 @@ def main():
     torch.cuda.empty_cache()
     account = phase_account()
     log(f"account done at {time.perf_counter() - t0:.1f}s")
+    gc.collect()
+    torch.cuda.empty_cache()
+    multirank = phase_multirank(card, mr_data, bsp_ms)
+    del mr_data
+    log(f"multi-rank done at {time.perf_counter() - t0:.1f}s")
     # the backbone kernels' launches in phases 12-15: apply through the
     # kernels beside decode (window, ring; gemma) and beside the first
     # training step (decode and the training steps launch none)
@@ -6465,10 +6989,14 @@ def main():
                     vlm_audio[name]["service"]["launches"]["pairwise_sqdist"]
         if entry["name"] == "flash_attention":
             entry["moe_launches"] = _moe_launches(moe_out)
+        if entry["name"] in multirank["launches"]:
+            entry["multirank_launches_by_rank"] = \
+                multirank["launches"][entry["name"]]
     entries += frame_entries        # flash_attention at phase 18's shapes
     print(json.dumps({"decode": decode, "training": training, RWKV: rwkv,
                       "moe": moe_out, "vlm_audio": vlm_audio,
-                      "account": account}), flush=True)
+                      "account": account, "multirank": multirank}),
+          flush=True)
     print(json.dumps({"kernels": entries}), flush=True)
     log(f"total {time.perf_counter() - t0:.1f}s")
     print(json.dumps({"ok": True, "device": {

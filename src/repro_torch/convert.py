@@ -283,8 +283,8 @@ def _torch_dtype(dt):
 
 def closed_loop_config_from_jax(cfg) -> ClosedLoopConfig:
     """A reference ``ClosedLoopConfig`` as the port's, field by field:
-    ``DMLConfig`` (its dtypes by name), ``PSConfig`` (without the mesh
-    axis name: the port's workers share one device), ``DMLTrainConfig``,
+    ``DMLConfig`` (its dtypes by name), ``PSConfig`` (with its worker
+    axis name), ``DMLTrainConfig``,
     ``MinerConfig`` and ``CurriculumSchedule``. With the reference
     trainer's L0 (``ClosedLoopTrainer(..., L0=np.asarray(ref.L0))``) it
     carries a reference loop's starting state across."""
@@ -297,7 +297,7 @@ def closed_loop_config_from_jax(cfg) -> ClosedLoopConfig:
                       compute_dtype=_torch_dtype(d.compute_dtype),
                       l_rank=d.l_rank),
         ps=PSConfig(n_workers=ps.n_workers, sync=ps.sync, tau=ps.tau,
-                    staleness=ps.staleness, seed=ps.seed),
+                    staleness=ps.staleness, seed=ps.seed, axis=ps.axis),
         batch_size=tr.batch_size, steps=tr.steps, lr=tr.lr,
         log_every=tr.log_every)
     return ClosedLoopConfig(

@@ -1,12 +1,17 @@
-"""Parameter-server synchronization strategies on one device.
+"""Parameter-server synchronization strategies, on one device or one
+worker a rank.
 
 Counterpart of ``repro/core/ps/sync.py``. The paper's system (§4): P
 workers each hold a local copy ``L_p`` of the metric; a central server
 aggregates gradient pushes and broadcasts fresh parameters. The reference
 expresses the consistency models as SPMD programs over a ``workers`` mesh
-axis; here the P workers are the leading axis of one tensor on one card,
-each step runs the workers' losses one after another, and the reference's
-``pmean`` over the axis is a mean over that leading dimension:
+axis, and so does the port over a live mesh (``make_worker_mesh``, one
+process a worker): each rank holds its ``(1, ...)`` block of the
+worker-stacked state and runs its own worker, and the server is the
+axis collectives of ``sharding/partition.py``. Without a mesh the P
+workers are the leading axis of one tensor on one card, each step runs
+the workers' losses one after another, and the reference's ``pmean``
+over the axis is a mean over that leading dimension:
 
   * ``bsp``   — Bulk-Synchronous Parallel: gradients are averaged every
                 step; all ``L_p`` stay bit-identical.
@@ -22,7 +27,9 @@ each step runs the workers' losses one after another, and the reference's
 The SSP delays are an input, ``delays(step) -> (P,) ints``: by default a
 ``torch.Generator`` seeded from (``PSConfig.seed``, step), so a run is
 reproducible; tests feed the reference's ``jax.random`` draws instead.
-Placing the workers on several cards waits for the multi-GPU slice.
+Over a mesh every rank draws the same table and takes its own entry.
+The async PS (``core/ps/simulator.py``) stays one process: its workers
+are threads with a CUDA stream each.
 """
 
 from __future__ import annotations
@@ -32,7 +39,9 @@ from typing import Any, Callable, NamedTuple, Optional
 
 import torch
 
+from repro_torch.launch.mesh import LiveMesh
 from repro_torch.optim import Optimizer, apply_updates
+from repro_torch.sharding import partition
 from repro_torch.tree import tree_map, value_and_grad
 
 
@@ -43,6 +52,7 @@ class PSConfig:
     tau: int = 1             # local-SGD sync period (sync="local")
     staleness: int = 0       # SSP bound s (sync="ssp")
     seed: int = 0
+    axis: str = "workers"    # mesh axis name that indexes workers
 
     def __post_init__(self):
         if self.sync not in ("bsp", "local", "ssp"):
@@ -60,14 +70,24 @@ class PSState(NamedTuple):
     grad_ring: Any     # (P, s, ...) delayed-gradient ring buffer (ssp) or None
 
 
+def make_worker_mesh(n_workers: int, axis: str = "workers") -> LiveMesh:
+    """1-D live mesh over the ranks of the process group, one worker a
+    rank (the group must have ``n_workers`` ranks)."""
+    return LiveMesh((axis,), (n_workers,))
+
+
 def replicate_for_workers(params, n_workers: int):
     """Stack identical copies along a new leading worker axis."""
     return tree_map(lambda p: p[None].repeat((n_workers,) + (1,) * p.dim()),
                     params)
 
 
-def worker_mean(params_stacked):
-    """Collapse worker copies to their mean (the final model)."""
+def worker_mean(params_stacked, mesh: Optional[LiveMesh] = None,
+                axis: str = "workers"):
+    """Collapse worker copies to their mean (the final model); over a
+    mesh, the pmean of this rank's copy (every rank gets the mean)."""
+    if mesh is not None:
+        return partition.pmean(_worker(params_stacked, 0), axis, mesh)
     return tree_map(lambda p: torch.mean(p, dim=0), params_stacked)
 
 
@@ -82,6 +102,34 @@ def init_state(opt: Optimizer, params, cfg: PSConfig) -> PSState:
     else:
         ring = None
     return PSState(params=pstack, opt_state=ostack, step=0, grad_ring=ring)
+
+
+def state_sharding(mesh, cfg: PSConfig, state: PSState) -> PSState:
+    """Specs of a PSState (the reference's ``state_sharding``): the
+    worker-stacked leaves on the worker axis, the rest replicated."""
+    ax = (cfg.axis,)
+    return PSState(
+        params=tree_map(lambda x: ax, state.params),
+        opt_state=tree_map(lambda x: ax if x.dim() >= 1 and
+                           x.shape[0] == cfg.n_workers else (),
+                           state.opt_state),
+        step=(),
+        grad_ring=None if state.grad_ring is None
+        else tree_map(lambda x: ax, state.grad_ring))
+
+
+def shard_state(state: PSState, cfg: PSConfig, mesh: LiveMesh) -> PSState:
+    """This rank's ``(1, ...)`` block of a worker-stacked PSState, on the
+    mesh's device."""
+    specs = state_sharding(mesh, cfg, state)
+    own = lambda x, spec: partition.block(  # noqa: E731
+        x, spec, mesh).to(mesh.device)
+    return PSState(
+        params=tree_map(own, state.params, specs.params),
+        opt_state=tree_map(own, state.opt_state, specs.opt_state),
+        step=state.step,
+        grad_ring=None if state.grad_ring is None
+        else tree_map(own, state.grad_ring, specs.grad_ring))
 
 
 def default_delays(cfg: PSConfig) -> Callable[[int], torch.Tensor]:
@@ -106,9 +154,23 @@ def _mean(trees):
     return tree_map(lambda *xs: torch.mean(torch.stack(xs), dim=0), *trees)
 
 
+def _workers(cfg: PSConfig, mesh: Optional[LiveMesh]):
+    """(this process's workers, the first one's index, the server merge
+    of a list of their trees): all P and their mean on one device; over
+    a mesh this rank's worker and the pmean across the worker axis."""
+    if mesh is None:
+        return cfg.n_workers, 0, _mean
+    if mesh.axis_size(cfg.axis) != cfg.n_workers:
+        raise ValueError(f"{cfg.n_workers} workers on a mesh whose "
+                         f"{cfg.axis!r} axis has "
+                         f"{mesh.axis_size(cfg.axis)} ranks")
+    return 1, mesh.axis_index(cfg.axis), \
+        lambda trees: partition.pmean(trees[0], cfg.axis, mesh)
+
+
 def make_train_step(loss_fn: Callable, opt: Optimizer, cfg: PSConfig,
-                    delays: Optional[Callable[[int], Any]] = None
-                    ) -> Callable:
+                    delays: Optional[Callable[[int], Any]] = None,
+                    mesh: Optional[LiveMesh] = None) -> Callable:
     """The PS step: ``(state, batch) -> (state, metrics)``.
 
     ``batch`` has a leading (P, local_batch, ...) worker axis;
@@ -116,8 +178,15 @@ def make_train_step(loss_fn: Callable, opt: Optimizer, cfg: PSConfig,
     gives the P raw delay draws of a step, before the warm-up guard
     ``min(delay, step)``. The ssp ring buffer is updated in place (it is
     the state's largest tensor, P * s copies of the parameters).
+
+    Over a worker ``mesh`` every rank calls the step with its ``(1,
+    ...)`` blocks of the state (``shard_state``) and of the batch, and
+    the server is the reference's collectives: bsp the pmean of the
+    gradients every step, local and ssp the pmean of the parameters on
+    sync steps, ssp the pmean of the gradients into the ring (each rank
+    reads entry ``axis_index`` of ``delays(step)``), the metrics pmeaned.
     """
-    P = cfg.n_workers
+    P, first, merge = _workers(cfg, mesh)
     if cfg.sync == "ssp" and delays is None:
         delays = default_delays(cfg)
 
@@ -125,29 +194,29 @@ def make_train_step(loss_fn: Callable, opt: Optimizer, cfg: PSConfig,
         step = state.step
         params = [_worker(state.params, p) for p in range(P)]
         opt_states = [_worker(state.opt_state, p) for p in range(P)]
-        losses, auxes, grads = [], [], []
+        metrics, grads = [], []
         for p in range(P):
             (loss, aux), g = value_and_grad(loss_fn, params[p],
                                             _worker(batch, p))
-            losses.append(loss)
-            auxes.append(aux)
+            metrics.append({"loss": loss, **aux})
             grads.append(g)
 
         ring = state.grad_ring
         with torch.no_grad():
             if cfg.sync == "bsp":
                 # server aggregates every step: synchronous data-parallel
-                gbar = _mean(grads)
+                gbar = merge(grads)
                 applied = [gbar] * P
             elif cfg.sync == "local":
                 applied = grads
             else:  # ssp — bounded-staleness delayed global gradients
                 s = cfg.staleness
-                gbar = _mean(grads)
+                gbar = merge(grads)
                 slot = step % s
                 tree_map(lambda r, g: r[:, slot].copy_(g), ring, gbar)
                 dl = torch.as_tensor(delays(step)).tolist()
-                reads = [(step - min(int(d), step)) % s for d in dl]
+                reads = [(step - min(int(d), step)) % s
+                         for d in dl[first:first + P]]
                 applied = [tree_map(lambda r, p=p, i=i: r[p, i], ring)
                            for p, i in enumerate(reads)]
             for p in range(P):
@@ -157,23 +226,22 @@ def make_train_step(loss_fn: Callable, opt: Optimizer, cfg: PSConfig,
             if cfg.sync != "bsp":
                 period = cfg.tau if cfg.sync == "local" else cfg.staleness
                 if (step + 1) % period == 0:        # server merge
-                    params = [_mean(params)] * P
+                    params = [merge(params)] * P
+            metrics = merge(metrics)
 
-        metrics = {"loss": torch.mean(torch.stack(losses)),
-                   **{k: torch.mean(torch.stack([a[k] for a in auxes]))
-                      for k in auxes[0]}}
         return PSState(params=_stack(params), opt_state=_stack(opt_states),
                        step=step + 1, grad_ring=ring), metrics
 
     return step_fn
 
 
-def make_train_chunk(loss_fn: Callable, opt: Optimizer,
-                     cfg: PSConfig) -> Callable:
+def make_train_chunk(loss_fn: Callable, opt: Optimizer, cfg: PSConfig,
+                     mesh: Optional[LiveMesh] = None) -> Callable:
     """Communication-efficient local SGD: one call = ``tau`` local steps
     per worker and a single parameter average. ``batch`` is shaped
-    (P, tau, local_batch, ...)."""
-    P = cfg.n_workers
+    (P, tau, local_batch, ...); over a worker ``mesh``, this rank's
+    ``(1, tau, ...)`` block, and the average is one pmean."""
+    P, _, merge = _workers(cfg, mesh)
 
     def chunk_fn(state: PSState, batch):
         params, opt_states, means = [], [], []
@@ -189,10 +257,10 @@ def make_train_chunk(loss_fn: Callable, opt: Optimizer,
                 losses.append(loss)
             params.append(prm)
             opt_states.append(ost)
-            means.append(torch.mean(torch.stack(losses)))
+            means.append({"loss": torch.mean(torch.stack(losses))})
         with torch.no_grad():
-            merged = _mean(params)          # the single "server" merge
-        metrics = {"loss": torch.mean(torch.stack(means))}
+            merged = merge(params)          # the single "server" merge
+            metrics = merge(means)
         return PSState(params=_stack([merged] * P),
                        opt_state=_stack(opt_states),
                        step=state.step + cfg.tau, grad_ring=None), metrics

@@ -5,7 +5,9 @@
 a pair dataset or a pluggable pair source, partitions it over workers
 (paper §4.1), builds the PS step for the requested consistency model and
 runs it, returning the merged metric plus the objective trace.
-``train_dml_single`` is the single-worker reference loop.
+``train_dml_single`` is the single-worker reference loop. Over a worker
+mesh (``sync.make_worker_mesh``) every rank runs ``train_dml_distributed``
+as its own worker, drawing only its own stream.
 
 Both run on the card unless ``device="cpu"`` is given; there the loss is
 the fused ``dml_pair`` kernel with its closed-form backward
@@ -77,7 +79,8 @@ def _initial_factor(cfg: dml.DMLConfig, L0, seed: int, dev) -> torch.Tensor:
 
 def train_dml_distributed(cfg: DMLTrainConfig, pairs,
                           opt: Optional[Optimizer] = None, L0=None,
-                          delays=None, step_hook=None, device=None):
+                          delays=None, step_hook=None, device=None,
+                          mesh=None):
     """Distributed DML training (paper §4) under a chosen sync model.
 
     ``pairs`` is either a pair dict (the uniform path) or a pluggable
@@ -87,10 +90,16 @@ def train_dml_distributed(cfg: DMLTrainConfig, pairs,
     return value (when not None) lands in that history record under
     ``"hook"``.
 
+    With a worker ``mesh`` every rank of it calls this with the same
+    arguments: rank p holds worker p's block of the state on the mesh's
+    device (``device`` is ignored) and draws only worker p's stream,
+    ``pair_batches(shard_p, batch, seed=seed + p)``, the batches the
+    one-process path stacks at index p.
+
     Returns (L_merged, history) — history is a list of per-step metric
-    dicts of floats.
+    dicts of floats; over a mesh every rank returns the merged L.
     """
-    dev = resolve_device(device)
+    dev = resolve_device(device) if mesh is None else mesh.device
     opt = opt or sgd(cfg.lr)
     L0 = _initial_factor(cfg.dml, L0, cfg.ps.seed, dev)
     state = sync.init_state(opt, L0, cfg.ps)
@@ -100,9 +109,19 @@ def train_dml_distributed(cfg: DMLTrainConfig, pairs,
                                     margin=cfg.dml.margin,
                                     compute_dtype=cfg.dml.compute_dtype)
 
-    step_fn = sync.make_train_step(loss_fn, opt, cfg.ps, delays=delays)
-    batches = stack_worker_streams(make_worker_streams(
-        pairs, cfg.ps.n_workers, cfg.batch_size, cfg.ps.seed, device=dev))
+    step_fn = sync.make_train_step(loss_fn, opt, cfg.ps, delays=delays,
+                                   mesh=mesh)
+    streams = make_worker_streams(pairs, cfg.ps.n_workers, cfg.batch_size,
+                                  cfg.ps.seed, device=dev)
+    if mesh is None:
+        batches = stack_worker_streams(streams)
+    else:
+        state = sync.shard_state(state, cfg.ps, mesh)
+        batches = stack_worker_streams(
+            [streams[mesh.axis_index(cfg.ps.axis)]])
+
+    def merged():
+        return sync.worker_mean(state.params, mesh, cfg.ps.axis)
 
     history = []
     for t in range(cfg.steps):
@@ -110,11 +129,11 @@ def train_dml_distributed(cfg: DMLTrainConfig, pairs,
         if t % cfg.log_every == 0 or t == cfg.steps - 1:
             rec = {"step": t, **{k: float(v) for k, v in metrics.items()}}
             if step_hook is not None:
-                out = step_hook(t, sync.worker_mean(state.params))
+                out = step_hook(t, merged())
                 if out is not None:
                     rec["hook"] = out
             history.append(rec)
-    return sync.worker_mean(state.params), history
+    return merged(), history
 
 
 def train_dml_single(dml_cfg: dml.DMLConfig, pairs: dict, steps: int = 200,

@@ -1,8 +1,8 @@
 """Batch pipeline helpers (counterpart of ``repro/data/loader.py``):
 per-worker partitioning of the pair sets (paper §4.1: "we partition the
-similar pairs and dissimilar pairs onto different machines"), a
-background prefetcher and ``take``. The reference's ``shard_batch``
-places a batch over a device mesh and waits for the multi-GPU slice.
+similar pairs and dissimilar pairs onto different machines"),
+``shard_batch`` (this rank's block of a host batch over a live mesh, on
+its device), a background prefetcher and ``take``.
 """
 
 from __future__ import annotations
@@ -13,6 +13,9 @@ import threading
 from typing import Iterator
 
 import numpy as np
+import torch
+
+from repro_torch.sharding import partition
 
 
 def partition_pairs(pairs: dict, n_workers: int):
@@ -20,6 +23,14 @@ def partition_pairs(pairs: dict, n_workers: int):
     n = pairs["sim"].shape[0]
     shards = np.array_split(np.arange(n), n_workers)
     return [{k: v[s] for k, v in pairs.items()} for s in shards]
+
+
+def shard_batch(batch: dict, spec, mesh) -> dict:
+    """This rank's block of every leaf of a host batch placed by ``spec``
+    over a live ``mesh`` (e.g. ``("workers",)`` for a (P, B, ...) worker
+    batch), moved to the rank's device; only the block leaves the host."""
+    return {k: partition.block(torch.as_tensor(v), spec, mesh)
+            .to(mesh.device) for k, v in batch.items()}
 
 
 class Prefetcher:

@@ -61,13 +61,26 @@ the card and the plain path on the CPU. As in the reference, ``pallas``
 is refused with ``--index ivf|ivfpq``, whose scans follow
 ``--scan-impl``. ``--trace-sample R`` samples request traces at rate R
 (deterministic) and ``--trace-out FILE`` exports the sampled span trees
-as JSONL. The reference's ``--data`` (a sharded gallery) waits for the
-multi-GPU slice (ROADMAP.md Queue 1 item 8).
+as JSONL.
+
+``--data N`` shards the gallery over N ranks (the exact and IVF
+indexes): the launcher spawns N processes through
+``launch/mesh.spawn`` (on the card they share it over gloo; ``--device
+cpu`` runs them on the CPU), or, under ``torchrun``, joins its group of
+N. Every rank builds the same data and holds its share of the rows;
+rank 0 trains L and broadcasts it, then runs the engine, the front door
+and the report, and the other ranks follow its calls
+(``serve/scan.py``). As in the reference, ``--data > 1`` refuses
+``--tenants``, ``--mutable`` / ``--snapshot-dir``, ``--index ivfpq``
+and ``--scan-impl pallas``. ``main`` returns rank 0's neighbours by
+request.
 """
 
 from __future__ import annotations
 
 import argparse
+import os
+import sys
 import time
 
 import numpy as np
@@ -77,6 +90,7 @@ from repro_torch.core import dml
 from repro_torch.core.ps.trainer import train_dml_single
 from repro_torch.data import pairs as pairdata
 from repro_torch.device import resolve_device
+from repro_torch.launch import mesh as mesh_lib
 from repro_torch.mining import HardPairMiner, MinerConfig
 from repro_torch.obs import percentile
 from repro_torch.serve import (ExactIndex, IVFIndex, IVFPQIndex,
@@ -196,6 +210,10 @@ def main(argv=None):
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda; cpu runs the "
                          "kernel's plain version)")
+    ap.add_argument("--data", type=int, default=1,
+                    help=">1 shards the gallery over that many ranks "
+                         "(spawned, or torchrun's group)")
+    argv = sys.argv[1:] if argv is None else list(argv)
     args = ap.parse_args(argv)
     if not 0.0 <= args.trace_sample <= 1.0:
         ap.error(f"--trace-sample must be in [0, 1], got "
@@ -207,11 +225,32 @@ def main(argv=None):
         ap.error("--churn requires --mutable")
     if args.shadow and args.tenants < 2:
         ap.error("--shadow needs --tenants >= 2 (tenant 1 hosts the arm)")
+    if args.tenants and args.data > 1:
+        ap.error("--tenants is single-shard (incompatible with "
+                 "--data > 1)")
+    if args.data > 1 and (args.mutable or args.snapshot_dir):
+        ap.error("--mutable / --snapshot-dir are single-shard "
+                 "(incompatible with --data > 1)")
+    if args.data > 1 and args.index == "ivfpq":
+        ap.error("--index ivfpq is single-shard (incompatible with "
+                 "--data > 1)")
+    if args.data > 1 and args.scan_impl == "pallas":
+        ap.error("--scan-impl pallas is single-shard (incompatible with "
+                 "--data > 1)")
     device = resolve_device(args.device)
     if args.backend == "pallas" and device.type != "cuda":
         ap.error("--backend pallas is the metric_topk kernel, which needs "
                  "the card; --backend xla (or auto) runs the plain path "
                  "on the CPU")
+    mesh = None
+    if args.data > 1:
+        if not torch.distributed.is_initialized():
+            if "WORLD_SIZE" not in os.environ:
+                return mesh_lib.spawn(main, args.data, device=device,
+                                      args=(argv,), timeout=3600.0)[0]
+            mesh_lib.join(device)
+        mesh = mesh_lib.make_local_mesh(data=args.data)
+        device = mesh.device
 
     # --- data + metric ---------------------------------------------------
     cfg = pairdata.PairDatasetConfig(
@@ -221,7 +260,9 @@ def main(argv=None):
     if args.l_rank is not None:         # low-rank knob wins over proj-dim
         args.proj_dim = args.l_rank
     dcfg = dml.DMLConfig(feat_dim=args.feat_dim, l_rank=args.proj_dim)
-    if args.train_steps > 0:
+    if mesh is not None and mesh.rank != 0:     # rank 0's L, below
+        L = torch.empty((args.proj_dim, args.feat_dim), device=device)
+    elif args.train_steps > 0:
         train_pairs, _ = pairdata.train_eval_split(
             cfg, n_train_sim=4000, n_train_dis=4000,
             n_eval_sim=100, n_eval_dis=100)
@@ -233,6 +274,8 @@ def main(argv=None):
     else:
         gen = torch.Generator(device=device).manual_seed(0)
         L = dml.init_params(dcfg, gen, device)
+    if mesh is not None:
+        L = mesh.broadcast(L.contiguous())
 
     # --- serving stack ---------------------------------------------------
     ivf_kw = dict(n_clusters=args.n_clusters, nprobe=args.nprobe,
@@ -255,9 +298,10 @@ def main(argv=None):
     elif args.index == "ivfpq":
         index = IVFPQIndex.build(L, gallery, device=device, **ivfpq_kw)
     elif args.index == "ivf":
-        index = IVFIndex.build(L, gallery, device=device, **ivf_kw)
+        index = IVFIndex.build(L, gallery, device=device, mesh=mesh,
+                               **ivf_kw)
     else:
-        index = ExactIndex.build(L, gallery, device=device)
+        index = ExactIndex.build(L, gallery, device=device, mesh=mesh)
     build_s = time.perf_counter() - t0
     exact = index.base if isinstance(index, MutableIndex) else index
     if isinstance(exact, ExactIndex):
@@ -265,7 +309,21 @@ def main(argv=None):
     if args.snapshot_dir and not loaded:
         save_index(index, args.snapshot_dir)
         print(f"snapshot saved to {args.snapshot_dir}")
-    engine = RetrievalEngine(index, k_top=args.k,
+    if mesh is not None and mesh.rank != 0:
+        scan.follow(index)
+        return None
+    with scan.lead(index) as served:
+        return _front(args, index, served, exact, device, feats, labels, L,
+                      base_kw, "loaded from snapshot" if loaded
+                      else "built+projected", build_s)
+
+
+def _front(args, index, served, exact, device, feats, labels, L, base_kw,
+           verb, build_s):
+    """The engine (over ``served``, what ``scan.lead(index)`` yields), the
+    front door, the traffic and the report, on rank 0 (or the one
+    process). Returns the neighbours by request."""
+    engine = RetrievalEngine(served, k_top=args.k,
                              cache_size=args.cache_size)
     engine.tracer.sample_rate = args.trace_sample
     warm_ks = [args.k]
@@ -273,9 +331,10 @@ def main(argv=None):
         warm_ks += [int(x) for x in args.warmup_ks.split(",")]
     warm_ks = sorted(set(warm_ks))
     engine.warmup(ks=warm_ks)
-    verb = "loaded from snapshot" if loaded else "built+projected"
+    shards = f", {index.n_shards} shards over {args.data} ranks" \
+        if args.data > 1 else ""
     print(f"index[{type(index).__name__}]: {index.size} x {args.proj_dim} "
-          f"on {device} ({engine.backend} path), {verb} in "
+          f"on {device} ({engine.backend} path{shards}), {verb} in "
           f"{build_s:.2f}s")
     if isinstance(exact, ExactIndex):
         plain = exact.backend == "xla" or device.type != "cuda"
@@ -334,14 +393,15 @@ def main(argv=None):
             pending.append((qid, t_sub, fut))
         except SchedulerError:                  # typed backpressure
             n_rejected += 1
-    lat, purity, n_expired = [], [], 0
-    for qid, t_sub, fut in pending:
+    lat, purity, n_expired, served = [], [], 0, {}
+    for i, (qid, t_sub, fut) in enumerate(pending):
         try:
             _, nbr = fut.result(timeout=60)
         except SchedulerError:                  # deadline expired in queue
             n_expired += 1
             continue
         lat.append(time.perf_counter() - t_sub)
+        served[i] = np.asarray(nbr)
         # a loaded post-churn snapshot can serve rows upserted after this
         # run's label table was made; score only known ids
         nbr = np.asarray(nbr)
@@ -490,6 +550,7 @@ def main(argv=None):
         n_tr = engine.tracer.write_jsonl(args.trace_out, append=False)
         print(f"traces -> {args.trace_out} ({n_tr} sampled of "
               f"{engine.tracer.n_minted} minted)")
+    return served
 
 
 if __name__ == "__main__":

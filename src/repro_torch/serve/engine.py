@@ -17,6 +17,13 @@ concerns the index should not know about:
 
 The device path ends in ``torch.cuda.synchronize()`` (the reference's
 ``block_until_ready``), so the latency histogram measures finished work.
+
+Over an index sharded across ranks the engine runs on rank 0 only,
+over what ``scan.lead(index)`` yields, while the other ranks
+``scan.follow`` it (serve/scan.py): its batches depend on wall time, so
+engines on every rank would call the collective ``topk`` in different
+orders.
+``stats()["n_shards"]`` is the index's.
 """
 
 from __future__ import annotations

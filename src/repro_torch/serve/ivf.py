@@ -19,7 +19,17 @@ The k-means, the balanced assignment and the cluster-major layout are
 plain torch on the index's device (the reference computes them outside
 any kernel too). The layout is built there, without a host copy of the
 projected rows: a stable sort by cluster, then row order, gives the
-reference's slots. The sharded build is not ported: a ``mesh`` raises.
+reference's slots.
+
+Over a live mesh (``mesh=``) the index keeps whole clusters a shard, as
+the reference does: the cluster count rounds up to a multiple of the
+shards, rank 0 runs the k-means and the balanced assignment on the
+whole gallery (every rank passes it) and broadcasts the centroids and
+the assignment, and each rank lays out its own clusters' segments plus
+one all-sentinel segment (``BIG`` norms, id -1). A query's probes that
+other shards own point at that segment, so each rank's ``ivf_scan``
+launch takes the one-device probe shape; ``topk`` is collective
+(serve/scan.py) and the gathered candidates merge exactly.
 """
 
 from __future__ import annotations
@@ -38,6 +48,7 @@ from repro_torch.kernels.metric_topk import (metric_sqdist_factored,
                                              project_gallery)
 from repro_torch.kernels.pairwise_dist.ref import pairwise_sqdist_ref
 from repro_torch.serve import scan
+from repro_torch.sharding import partition
 
 _ROW_BLOCK = 131_072        # rows per pass of the row-wise build loops
 _SUM_COLS = 256             # columns per pass of the k-means cluster sums
@@ -250,12 +261,9 @@ class StepClock:
         self.t = t
 
 
-def cluster_segments(L, gp, n_clusters: int, *, iters: int, seed: int,
-                     cap_factor: float, clock: StepClock):
-    """The build steps IVF and IVFPQ share: check the rows against L,
-    k-means, the segment capacity, the balanced assignment and the
-    cluster-major slots. Returns (centroids, assign, cap, order, slots);
-    laps "kmeans" on ``clock``."""
+def _check_rows(L, gp, n_clusters: int) -> None:
+    """The build's argument checks: the rows against L, the cluster
+    count against the rows."""
     scan.check_metric_factor(L)
     M, k = gp.shape
     if k != L.shape[0]:
@@ -264,13 +272,51 @@ def cluster_segments(L, gp, n_clusters: int, *, iters: int, seed: int,
             f"must be sized d_out")
     if n_clusters > M:
         raise ValueError(f"n_clusters={n_clusters} > gallery size {M}")
+
+
+def _clusters(gp, n_clusters: int, *, iters: int, seed: int,
+              cap_factor: float, clock: StepClock):
+    """k-means, the segment capacity and the balanced assignment:
+    (centroids, assign, cap); laps "kmeans" on ``clock``."""
     centroids, assign, _ = kmeans_projected(gp, n_clusters, iters=iters,
                                             seed=seed)
     clock.lap("kmeans")
-    cap = capacity(M, n_clusters, cap_factor)
-    assign = _balance_assign(gp, centroids, assign, cap)
+    cap = capacity(gp.shape[0], n_clusters, cap_factor)
+    return centroids, _balance_assign(gp, centroids, assign, cap), cap
+
+
+def cluster_segments(L, gp, n_clusters: int, *, iters: int, seed: int,
+                     cap_factor: float, clock: StepClock):
+    """The build steps IVF and IVFPQ share: check the rows against L,
+    k-means, the segment capacity, the balanced assignment and the
+    cluster-major slots. Returns (centroids, assign, cap, order, slots);
+    laps "kmeans" on ``clock``."""
+    _check_rows(L, gp, n_clusters)
+    centroids, assign, cap = _clusters(gp, n_clusters, iters=iters,
+                                       seed=seed, cap_factor=cap_factor,
+                                       clock=clock)
     order, slots = segment_layout(assign, n_clusters, cap)
     return centroids, assign, cap, order, slots
+
+
+def _shared_clusters(L, gp, n_clusters: int, mesh, *, iters: int, seed: int,
+                     cap_factor: float, clock: StepClock):
+    """``_clusters`` computed on rank 0 and broadcast, so that every rank
+    lays out the same segments. Every rank checks the arguments first,
+    so that a bad one raises on all of them before any collective."""
+    _check_rows(L, gp, n_clusters)
+    M, k = gp.shape
+    if mesh.rank == 0:
+        centroids, assign, cap = _clusters(
+            gp, n_clusters, iters=iters, seed=seed, cap_factor=cap_factor,
+            clock=clock)
+    else:
+        centroids = gp.new_empty((n_clusters, k))
+        assign = torch.empty((M,), dtype=torch.int64, device=gp.device)
+        cap = capacity(M, n_clusters, cap_factor)
+    mesh.broadcast(centroids)
+    mesh.broadcast(assign)
+    return centroids, assign, cap
 
 
 # -- the index ---------------------------------------------------------------
@@ -301,14 +347,19 @@ class IVFIndex:
     # scan.resolve_scan_impl
     scan_impl: str = "auto"
     version: int = 0
+    mesh: Optional[object] = None   # a LiveMesh the clusters shard over
+    axes: tuple = ()                # its gallery axes (the pads: this
+    # rank's clusters, then the all-sentinel segment)
 
     @classmethod
     def build(cls, L, gallery, n_clusters: int = 64, nprobe: int = 8, *,
               iters: int = 10, seed: int = 0, cap_factor: float = 1.25,
               scan_impl: str = "auto", mesh=None, device=None) -> "IVFIndex":
         """Project the (M, d_in) gallery through L once (on ``device``, the
-        card by default), cluster it, lay out padded segments."""
-        dev = resolve_device(device)
+        card by default; on a mesh's device), cluster it, lay out padded
+        segments."""
+        dev = resolve_device(device) if mesh is None else \
+            partition.require_live(mesh, "a sharded IVF index").device
         L = torch.as_tensor(L, dtype=torch.float32).to(dev)
         gp, gn = project_gallery(L, torch.as_tensor(gallery).to(dev))
         return cls.build_projected(L, gp, gn, n_clusters=n_clusters,
@@ -332,30 +383,45 @@ class IVFIndex:
         ("kmeans", "balance_layout"), each ended by a device
         synchronisation.
         """
-        if mesh is not None:
-            raise NotImplementedError(
-                "the sharded IVF index is not ported (one device only)")
-        dev = resolve_device(device)
+        dev = resolve_device(device) if mesh is None else \
+            partition.require_live(mesh, "a sharded IVF index").device
         scan.resolve_scan_impl(scan_impl, device=dev)
         L = torch.as_tensor(L, dtype=torch.float32).to(dev)
         gp = torch.as_tensor(gp, dtype=torch.float32).to(dev)
         gn = torch.as_tensor(gn, dtype=torch.float32).to(dev)
         clock = StepClock(dev, timings)
-        centroids, _, cap, order, slots = cluster_segments(
-            L, gp, n_clusters, iters=iters, seed=seed, cap_factor=cap_factor,
-            clock=clock)
+        axes = () if mesh is None else scan.gallery_axes(mesh)
+        shards = scan.n_shards(mesh, axes)
+        if shards == 1:
+            centroids, _, cap, order, slots = cluster_segments(
+                L, gp, n_clusters, iters=iters, seed=seed,
+                cap_factor=cap_factor, clock=clock)
+        else:   # whole clusters a shard; one k-means, on rank 0
+            n_clusters = -(-n_clusters // shards) * shards
+            centroids, assign, cap = _shared_clusters(
+                L, gp, n_clusters, mesh, iters=iters, seed=seed,
+                cap_factor=cap_factor, clock=clock)
+            order, slots = segment_layout(assign, n_clusters, cap)
         (M, k), C = gp.shape, n_clusters
-        gp_pad = torch.zeros((C * cap, k), dtype=torch.float32, device=dev)
-        for s in range(0, M, _ROW_BLOCK):
+        # this shard's clusters, then (sharded) the all-sentinel segment
+        C_loc = C // shards
+        first = scan.shard_index(mesh, axes) * C_loc * cap if axes else 0
+        if shards > 1:
+            own = (slots >= first) & (slots < first + C_loc * cap)
+            order, slots = order[own], slots[own] - first
+        n_pad = (C_loc + (shards > 1)) * cap
+        gp_pad = torch.zeros((n_pad, k), dtype=torch.float32, device=dev)
+        for s in range(0, len(order), _ROW_BLOCK):
             gp_pad[slots[s:s + _ROW_BLOCK]] = gp[order[s:s + _ROW_BLOCK]]
-        gn_pad = torch.full((C * cap,), BIG, dtype=torch.float32, device=dev)
+        gn_pad = torch.full((n_pad,), BIG, dtype=torch.float32, device=dev)
         gn_pad[slots] = gn[order]
-        ids_pad = torch.full((C * cap,), -1, dtype=torch.int32, device=dev)
+        ids_pad = torch.full((n_pad,), -1, dtype=torch.int32, device=dev)
         ids_pad[slots] = order.to(torch.int32)
         clock.lap("balance_layout")
         return cls(L=L.contiguous(), centroids=centroids, gp_pad=gp_pad,
                    gn_pad=gn_pad, ids_pad=ids_pad, cap=cap, n_clusters=C,
-                   nprobe=min(nprobe, C), n_rows=M, scan_impl=scan_impl)
+                   nprobe=min(nprobe, C), n_rows=M, scan_impl=scan_impl,
+                   mesh=mesh, axes=axes)
 
     @property
     def device(self) -> torch.device:
@@ -368,7 +434,8 @@ class IVFIndex:
 
     @property
     def n_shards(self) -> int:
-        return 1
+        """Mesh shards the clusters live on (1 when unsharded)."""
+        return scan.n_shards(self.mesh, self.axes)
 
     def topk(self, queries, k_top: int, nprobe: Optional[int] = None,
              scan_impl: Optional[str] = None):
@@ -378,7 +445,8 @@ class IVFIndex:
         everything); ``scan_impl`` is checked against the index's device
         (scan.resolve_scan_impl). Returns (dists (Nq, k_top) f32
         ascending, row ids (Nq, k_top) int32); -1 ids mark under-filled
-        probes (raise nprobe if callers see them).
+        probes (raise nprobe if callers see them). Collective on a
+        sharded index: every rank calls it with the same queries.
         """
         if k_top > self.size:
             raise ValueError(f"k_top={k_top} > gallery size {self.size}")
@@ -395,11 +463,26 @@ class IVFIndex:
         q = torch.as_tensor(queries, dtype=torch.float32).to(self.device)
         qp = scan.project_queries(self.L, q)
         probes, _ = probe(qp, self.centroids, np_)
-        C, cap, k = self.n_clusters, self.cap, self.centroids.shape[1]
-        return ivf_scan_topk(qp, probes, self.gp_pad.view(C, cap, k),
-                             self.gn_pad.view(C, cap),
-                             self.ids_pad.view(C, cap), kk=k_top,
-                             block_q=self.block_q)
+        cap, k = self.cap, self.centroids.shape[1]
+        segs = len(self.gn_pad) // cap
+        g, gn, ids = (self.gp_pad.view(segs, cap, k),
+                      self.gn_pad.view(segs, cap),
+                      self.ids_pad.view(segs, cap))
+        if self.n_shards == 1:
+            return ivf_scan_topk(qp, probes, g, gn, ids, kk=k_top,
+                                 block_q=self.block_q)
+        C_loc = segs - 1
+
+        def local_candidates(shard, qp, probes):
+            slot = probes - shard * C_loc           # owned elsewhere: the
+            slot = torch.where((slot >= 0) & (slot < C_loc), slot,
+                               C_loc).to(torch.int32)   # sentinel segment
+            return ivf_scan_topk(qp, slot.contiguous(), g, gn, ids,
+                                 kk=min(k_top, np_ * cap),
+                                 block_q=self.block_q)
+
+        return scan.build_sharded_topk(self.mesh, self.axes,
+                                       local_candidates, k_top)(qp, probes)
 
 
 def probe(qp, centroids, nprobe: int):

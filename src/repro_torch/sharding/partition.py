@@ -11,16 +11,27 @@ axis of 16 are replicated), so every config has a plan on every mesh.
 A spec is a tuple with one entry a tensor dimension: ``None``
 (replicated), a mesh axis name, or a tuple of axis names, equal entry
 for entry to the reference's ``PartitionSpec``. ``local_shape`` gives
-one rank's shard. Placing tensors by a plan (``constrain``,
-``shard_map``) needs a process group and comes with the multi-GPU slice
-(ROADMAP.md Queue 1 item 8).
+one rank's shard.
+
+Over a live mesh (``launch/mesh.LiveMesh``, one process a rank) a global
+tensor is the same on every rank and a sharded one is held as this
+rank's block: ``block`` / ``constrain`` take this rank's block of a
+global tensor, ``shard_map`` runs a function on this rank's blocks, and
+the axis collectives ``psum``, ``pmean``, ``all_gather`` and
+``axis_index`` are the counterparts of ``jax.lax``'s inside a
+``shard_map`` body. On a named shape (``Mesh``) there is no group, and
+``constrain`` / ``shard_map`` raise.
 """
 
 from __future__ import annotations
 
 from typing import Dict, Optional, Sequence, Tuple, Union
 
-from repro_torch.launch.mesh import Mesh
+import torch
+import torch.distributed as dist
+
+from repro_torch.launch.mesh import LiveMesh, Mesh
+from repro_torch.tree import tree_leaves, tree_map
 
 Spec = Tuple[Union[None, str, Tuple[str, ...]], ...]
 
@@ -156,12 +167,128 @@ def local_shape(shape: Sequence[int], spec: Spec,
     return tuple(out)
 
 
+def require_live(mesh, what: str) -> LiveMesh:
+    if not isinstance(mesh, LiveMesh):
+        raise NotImplementedError(f"{what} {_MULTI_GPU}: a live mesh "
+                                  f"(launch/mesh.LiveMesh), not {mesh!r}")
+    return mesh
+
+
+def block(x: torch.Tensor, spec: Spec, mesh: LiveMesh) -> torch.Tensor:
+    """This rank's block of the global tensor ``x`` placed by ``spec`` (a
+    view). A sharded dimension must divide its ranks."""
+    mesh = require_live(mesh, "block")
+    for i, axes in enumerate(spec):
+        if axes is None:
+            continue
+        n = mesh.axis_size(axes)
+        if x.shape[i] % n:
+            raise ValueError(f"dimension {i} of {tuple(x.shape)} does not "
+                             f"divide the {n} ranks of {axes}")
+        step = x.shape[i] // n
+        x = x.narrow(i, mesh.axis_index(axes) * step, step)
+    return x
+
+
+def _is_spec(s) -> bool:
+    return type(s) is tuple and all(
+        e is None or isinstance(e, str)
+        or (type(e) is tuple and all(isinstance(a, str) for a in e))
+        for e in s)
+
+
+def _blocks(spec, tree, mesh):
+    """``block`` over a tree of tensors: ``spec`` mirrors the tree's
+    dicts, NamedTuples and lists (a list for a plain tuple too), and a
+    spec (a plain tuple; None for ``()``) covers the subtree under it."""
+    if tree is None:
+        return None
+    if spec is None or _is_spec(spec):
+        return tree_map(lambda x: block(x, spec or (), mesh), tree)
+    if isinstance(tree, dict):
+        return {k: _blocks(spec[k], v, mesh) for k, v in tree.items()}
+    out = [_blocks(s, t, mesh) for s, t in zip(spec, tree, strict=True)]
+    return type(tree)(*out) if hasattr(tree, "_fields") else type(tree)(out)
+
+
 def constrain(x, logical: Sequence[Optional[str]], mesh: Optional[Mesh] = None,
               rules: Optional[dict] = None):
-    """Placement by logical names: not on one process."""
-    raise NotImplementedError(f"constrain {_MULTI_GPU}")
+    """This rank's block of the global tensor ``x`` by logical names (the
+    spec ``logical_to_physical`` gives for its shape)."""
+    mesh = require_live(mesh, "constrain")
+    x = torch.as_tensor(x)
+    return block(x, logical_to_physical(logical, mesh, rules,
+                                        shape=tuple(x.shape)), mesh)
 
 
 def shard_map(f, mesh: Mesh, in_specs, out_specs, check_vma: bool = True):
-    """A per-rank program over a mesh: not on one process."""
-    raise NotImplementedError(f"shard_map {_MULTI_GPU}")
+    """A per-rank program over a live mesh: ``run(*args)`` calls ``f`` on
+    this rank's blocks of the global ``args`` (``in_specs``: one spec
+    tree an argument). Every rank calls ``run``; ``f``'s outputs come
+    back as they are: this rank's block under an out spec that names an
+    axis, the value every rank holds under ``()``. ``check_vma`` is the
+    reference's flag, kept for its callers."""
+    mesh = require_live(mesh, "shard_map")
+    del out_specs, check_vma
+
+    def run(*args):
+        return f(*(_blocks(s, a, mesh)
+                   for s, a in zip(in_specs, args, strict=True)))
+
+    return run
+
+
+# -- axis collectives (jax.lax.psum / pmean / all_gather / axis_index) -------
+
+def axis_index(axis, mesh: LiveMesh) -> int:
+    """This rank's index along ``axis`` (a name or a tuple of names)."""
+    return require_live(mesh, "axis_index").axis_index(axis)
+
+
+def _flat(tree):
+    leaves = tree_leaves(tree)
+    flat = torch.cat([torch.as_tensor(x).reshape(-1) for x in leaves]) \
+        if len(leaves) > 1 else torch.as_tensor(leaves[0]).reshape(-1)
+    return leaves, flat
+
+
+def _unflat(tree, leaves, flat):
+    parts = iter(torch.split(flat, [torch.as_tensor(x).numel()
+                                    for x in leaves]))
+    return tree_map(lambda x: next(parts).reshape(torch.as_tensor(x).shape),
+                    tree)
+
+
+def psum(tree, axis, mesh: LiveMesh):
+    """The sum over the ranks along ``axis`` of every leaf of ``tree``
+    (one all-reduce for the whole tree; leaves of one dtype)."""
+    group = require_live(mesh, "psum").group(axis)
+    if group is None:
+        return tree
+    leaves, flat = _flat(tree)
+    flat = flat.clone()
+    dist.all_reduce(flat, dist.ReduceOp.SUM, group=group)
+    return _unflat(tree, leaves, flat)
+
+
+def pmean(tree, axis, mesh: LiveMesh):
+    """The mean over the ranks along ``axis``: ``psum`` over their count."""
+    n = require_live(mesh, "pmean").axis_size(axis)
+    return tree_map(lambda x: x / n, psum(tree, axis, mesh))
+
+
+def all_gather(x: torch.Tensor, axis, mesh: LiveMesh) -> torch.Tensor:
+    """Every rank's ``x`` along ``axis``, stacked on a new leading
+    dimension in axis-index order (``jax.lax.all_gather``).
+
+    Built as an all-reduce of a zero buffer in which each rank writes its
+    own slot, since gloo takes CUDA tensors for all-reduce: exact, as x +
+    0 is x (the BIG sentinels too) and integers add exactly."""
+    mesh = require_live(mesh, "all_gather")
+    group = mesh.group(axis)
+    if group is None:
+        return x[None]
+    buf = x.new_zeros((mesh.axis_size(axis),) + tuple(x.shape))
+    buf[mesh.axis_index(axis)] = x
+    dist.all_reduce(buf, dist.ReduceOp.SUM, group=group)
+    return buf

@@ -1415,3 +1415,42 @@ def test_moe_remat_recomputation_routes_as_the_forward(cuda_device,
         assert torch.equal(a, b)
     assert all(bool(torch.isfinite(g).all()) for g in
                (v.grad for v in live.values()))
+
+
+# -- several ranks sharing the card (launch/mesh.spawn over gloo) -------------
+
+@pytest.mark.cuda
+def test_sharded_exact_index_on_the_card(cuda_device):
+    import _multirank_ranks as ranks
+    from repro_torch.launch.mesh import spawn
+    L, q, G = _data(16, 4096, 96, 48, 11, cuda_device)
+    gp, gn = project_gallery(L, G)
+    inp = {"L": L.cpu().numpy(), "gp": gp.cpu().numpy(),
+           "gn": gn.cpu().numpy(), "q": q.cpu().numpy(), "ks": (10, 300)}
+    out = spawn(ranks.card_exact, 2, args=(inp,), timeout=300.0)
+    qn = torch.sum((q @ L.T) ** 2, dim=1)
+    inf = torch.full((q.shape[0], 1), float("inf"), device=cuda_device)
+    for r in out:
+        assert (r["n_shards"], r["backend"]) == (2, "gloo")
+        assert r["device"] == "cuda:0" and r["launches"] >= 2
+        assert torch.equal(r["answers"][10][1], out[0]["answers"][10][1])
+        for k in inp["ks"]:          # the file's rule, against plain
+            dk, ik = (x.to(cuda_device) for x in r["answers"][k])
+            dp, ip = metric_topk_plain(L, q, gp, gn, k + 1)
+            tol = ATOL + RTOL * (qn[:, None] + gn[ip.long()])
+            assert bool(((dk - dp[:, :k]).abs() <= tol[:, :k]).all())
+            apart = ((dp[:, :k] - torch.cat([-inf, dp[:, :k - 1]], 1))
+                     > tol[:, :k]) & ((dp[:, 1:] - dp[:, :k]) > tol[:, :k])
+            assert bool((ik == ip[:, :k])[apart].all())
+
+
+@pytest.mark.cuda
+def test_bsp_copies_bit_identical_across_ranks_on_the_card(cuda_device):
+    import _multirank_ranks as ranks
+    from repro_torch.launch.mesh import spawn
+    d, k = 2048, 256
+    L0 = (0.05 * np.random.RandomState(0).randn(k, d)).astype(np.float32)
+    out = spawn(ranks.card_bsp, 2, args=(
+        {"d": d, "k": k, "B": 256, "steps": 3, "L0": L0},), timeout=300.0)
+    for r in out:
+        assert r["equal"] and r["moved"] > 0 and r["launches"] == 3
