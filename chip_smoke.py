@@ -459,7 +459,41 @@ exit, and nothing falls back:
                 share one card. Alone: ``python -c "import chip_smoke as
                 c; card = c.phase_device(); c.phase_build();
                 c.phase_multirank(card)"``;
- 21. the last line: ``{"ok": true, "device": {...}}``.
+ 21. multi-rank moe and loop — four ranks sharing the card over gloo
+                again: (a) granite-moe-1b-a400m at full width and depth
+                (f32, seeded, the same on every rank) expert-parallel,
+                ``Model.hidden(mesh=)`` on a batch of 4 x 1,024 on (data
+                1, model 4), against the one-process model, and on (data
+                2, model 2), where FSDP gathers the expert stacks, against
+                the one-process model with each moe layer computed as the
+                ranks do (``_moe_as_on_2x2``: a batch half apart, the sum
+                of the two expert shards' partials): the hidden state
+                within HIDDEN_REL_BOUND, its mean pool within
+                EMBED_REL_BOUND, moe_aux within MOE_AUX_KERNEL_REL, every
+                rank's flash_attention launches one a layer and its
+                hidden state's bits equal; 8 decode steps at B 1 on (1, 4)
+                against one process's within DECODE_REL_BOUND; (b)
+                ``steps.make_train_step(mesh=)`` on (2, 2) cut to
+                MRM_TRAIN_LAYERS (the reckoning beside the constants),
+                B 2 x T 512, three AdamW steps on one batch: the loss
+                falls, the first loss and gradient norm within
+                MRM_TRAIN_RTOL of the one-process oracle's, the
+                parameters' bits equal across ranks; (c) phase 8e's
+                closed loop (mutable-exact, P = 4 bsp, 16,384 anchors) on
+                a 65,536-row cut of its store over a worker mesh, 24
+                steps, a refresh every 10, against the one-process loop:
+                the first pool equal, the later pools' overlap at least
+                MRM_POOL_OVERLAP, L within MR_L_RTOL x max |L|, the
+                ranks' pools and records equal, the serving stack on rank
+                0 alone; (d) ms a forward batch, a token and a step, the
+                loop's ms a step and refresh s over ranks beside one
+                process's, each rank's peak memory, every figure beside
+                the card's name and power limit. A failed check fails
+                the phase after every figure is printed. Alone:
+                ``python -c "import chip_smoke as c; card =
+                c.phase_device(); c.phase_build();
+                c.phase_multirank_moe(card)"``;
+ 22. the last line: ``{"ok": true, "device": {...}}``.
 
 Every launch count is set to 0 just before a main-path phase (4, 5, 5a,
 5c, 6, each index of 8, each serving run of 8b, each burst of 8c, 8d's
@@ -467,8 +501,9 @@ tenant traffic, 8e's main run and each of its cuts, gemma's embed_pool
 in 9, 10, each decode and each apply beside it in 12, 13 and 16c, each
 training run and apply in 14, 15 and 16d, 16e, each forward, decode,
 apply, training run and service batch of 17, and each forward, apply,
-service run and training run of 18, and each rank's PS work and
-sharded serving in 20) and read just after
+service run and training run of 18, each rank's PS work and sharded
+serving in 20, and each rank's forwards and loop in 21) and read just
+after
 (5a launches no kernel: its gradient is the reference's plain autograd
 product);
 comparison launches come after the reading (or, for phase 9, before the
@@ -541,7 +576,7 @@ import torch.distributed as dist
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 "src"))
 
-from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.configs import RunConfig, get_config  # noqa: E402
 from repro_torch.configs.base import InputShape  # noqa: E402
 from repro_torch.configs.dml_paper import IMNET_1M, MNIST  # noqa: E402
 from repro_torch.core import dml, itml, kiss, xing2002  # noqa: E402
@@ -613,7 +648,8 @@ from repro_torch.serve import scan  # noqa: E402
 from repro_torch.serve.ivf import probe  # noqa: E402
 from repro_torch.serve.scan import project_queries  # noqa: E402
 from repro_torch.sharding import partition  # noqa: E402
-from repro_torch.tree import tree_leaves, tree_map  # noqa: E402
+from repro_torch.tree import (tree_leaves, tree_map,  # noqa: E402
+                              value_and_grad)
 
 RTOL = ATOL = 1e-5
 # the card's figures come from launch/mesh.py, as the dry-run account's do
@@ -6846,6 +6882,507 @@ def phase_multirank(card, data=None, bsp_ms=None):
     return out
 
 
+# -- phase 21: expert-parallel moe, training and the closed loop over ranks --
+# granite-moe-1b at full width and depth (f32) on (data 1, model 4) and
+# (data 2, model 2): the forward batch and the decode; the training cut in
+# depth to MRM_TRAIN_LAYERS, where four replicas with their AdamW state
+# fit in 80 GB: the first step's update holds 36 bytes a parameter a rank
+# (the module's weights, the gradients and their clipped copy, the two
+# moments and their successors, the updates and the new parameters; the
+# first card call OOMed at 12 layers with 18.75 GB a rank allocated
+# before its peak), so 6 layers (0.37 B parameters) take 13.4 GB a rank,
+# 54 GB for four, with room for activations, FSDP gathers and five CUDA
+# contexts; the closed loop at phase 8e's recipe on a store cut to
+# MRM_LOOP_ROWS rows, since each of the four ranks holds the feature
+# table (262,144 rows would be 90 GB)
+MRM_RANKS = MR_RANKS
+MRM_B, MRM_T = 4, 1024
+MRM_DECODE = 8
+MRM_TRAIN_LAYERS, MRM_TRAIN_B, MRM_TRAIN_T = 6, 2, 512
+MRM_TRAIN_STEPS, MRM_TRAIN_LR = 3, 1e-3
+# the first step's loss and gradient norm against the one-process oracle:
+# the same f32 model, the expert partials summed in another order (and
+# GEMMs at another batch size), so they part by rounding that can move a
+# near-tied route; held within the full forward's bound
+MRM_TRAIN_RTOL = HIDDEN_REL_BOUND
+MRM_LOOP_ROWS, MRM_LOOP_SEED = 65_536, 21
+MRM_LOOP_STEPS, MRM_LOOP_REFRESH = 24, 10
+MRM_POOL_OVERLAP = 0.99
+MRM_TIMEOUT = 600.0
+
+
+def _mrm_cfg(layers=None):
+    cfg = get_config(MOE).replace(dtype="float32")
+    return cfg if layers is None else cfg.replace(n_layers=layers)
+
+
+def _mrm_batches():
+    """The forward batch (B MRM_B x T MRM_T), the decode prompt (B 1) and
+    the training batch (B MRM_TRAIN_B x T MRM_TRAIN_T), seeded."""
+    vocab = _mrm_cfg().vocab_size
+    rng = np.random.RandomState(21)
+    return {"tokens": rng.randint(0, vocab, (MRM_B, MRM_T)),
+            "decode": rng.randint(0, vocab, (1, MRM_DECODE)),
+            "train_tokens": rng.randint(0, vocab, (MRM_TRAIN_B, MRM_TRAIN_T)),
+            "train_labels": rng.randint(0, vocab,
+                                        (MRM_TRAIN_B, MRM_TRAIN_T))}
+
+
+def _mrm_store():
+    """Phase 8e's store, cut to MRM_LOOP_ROWS rows: classes, labels and
+    rows from one seeded generator on the card, the same in every
+    process."""
+    exp, cfg = IMNET_1M, IMNET_1M.dml
+    gen = torch.Generator(device=DEV).manual_seed(MRM_LOOP_SEED)
+    centers = torch.randn((exp.n_classes, cfg.feat_dim), generator=gen,
+                          device=DEV)
+    masks = torch.rand((exp.n_classes, cfg.feat_dim), generator=gen,
+                       device=DEV) < 0.1
+    classes = (centers.abs() * masks, masks)
+    lab = torch.randint(0, exp.n_classes, (MRM_LOOP_ROWS,), generator=gen,
+                        device=DEV)
+    store = torch.empty((MRM_LOOP_ROWS, cfg.feat_dim), device=DEV)
+    for s in range(0, MRM_LOOP_ROWS, LOOP_BLOCK):
+        store[s:s + LOOP_BLOCK] = class_rows(gen, lab[s:s + LOOP_BLOCK],
+                                             classes, spread=LOOP_SPREAD)
+    return store, lab.cpu().numpy()
+
+
+def _mrm_loop(store, labels, L0, mesh=None):
+    """Phase 8e's loop (mutable-exact, P = 4 bsp) for MRM_LOOP_STEPS steps,
+    a refresh every MRM_LOOP_REFRESH: (L, history, the pool after each
+    refresh, run s, refresh s, ms a step)."""
+    ccfg = _loop_cfg(IMNET_1M, "mutable-exact", MRM_LOOP_STEPS,
+                     MRM_LOOP_REFRESH, LOOP_MINE)
+    clt = ClosedLoopTrainer(ccfg, store, labels, L0=L0,
+                            opt=sgd(schedules.inverse_time(1e-3, 1e-3)),
+                            device=DEV, mesh=mesh)
+    pools, refresh_s = [], []
+    refresh = clt.refresh
+
+    def timed_refresh(L, step, swap=True):
+        t0 = time.perf_counter()
+        rec = refresh(L, step, swap=swap)
+        torch.cuda.synchronize()
+        refresh_s.append(time.perf_counter() - t0)
+        pools.append(dict(clt.source._pool))
+        return rec
+
+    clt.refresh = timed_refresh
+    torch.cuda.synchronize()
+    if mesh is not None:
+        dist.barrier()
+    t0 = time.perf_counter()
+    L, hist = clt.run()
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    return {"L": L, "hist": hist, "pools": pools, "run_s": run_s,
+            "refresh_s": refresh_s, "lead": clt.engine is not None,
+            "step_ms": 1e3 * (run_s - sum(refresh_s)) / MRM_LOOP_STEPS}
+
+
+def _mrm_checksum(tree):
+    """Each leaf's bits summed as int32 words: equal trees give equal
+    lists, and any flipped bit changes its leaf's entry."""
+    return [int(x.contiguous().view(torch.int32).to(torch.int64).sum())
+            for x in tree_leaves(tree)]
+
+
+def _time_once(fn, barrier=False):
+    """(fn(), s) on the host clock, synchronised; under ``barrier`` every
+    rank of the group starts it together."""
+    torch.cuda.synchronize()
+    if barrier:
+        dist.barrier()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def _mrm_forward(inp, meshes):
+    """A rank's (a): the full-depth forward on each mesh (a warm call,
+    then the checked and timed one) and 8 decode steps on (1, 4)."""
+    model = Model(_mrm_cfg(), device=DEV, seed=0)
+    tokens = torch.from_numpy(inp["tokens"]).to(DEV)
+    out = {"forward": {}}
+    with torch.inference_mode():
+        model.hidden({"tokens": tokens}, mesh=meshes["1x4"])
+        for name, mesh in meshes.items():
+            torch.cuda.synchronize()
+            flash_attention.launches = 0    # this rank's main path only
+            (h, aux), s = _time_once(lambda: model.hidden(
+                {"tokens": tokens}, mesh=mesh), barrier=True)
+            out["forward"][name] = {
+                "ms": 1e3 * s, "launches": flash_attention.launches,
+                "aux": float(aux["moe_aux"]), "checksum": _mrm_checksum([h]),
+                **({"h": h} if mesh.rank == 0 else {})}
+        cache = model.init_decode_cache(1, MRM_DECODE)
+        prompt = torch.from_numpy(inp["decode"]).to(DEV)
+        logits, stamps = [], []
+        torch.cuda.synchronize()
+        dist.barrier()
+        for t in range(MRM_DECODE):
+            stamps.append(time.perf_counter())
+            lg, cache = model.decode_step(cache, prompt[:, t], t,
+                                          mesh=meshes["1x4"])
+            logits.append(lg)
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+    out["decode"] = {"ms_token": 1e3 * (stamps[-1] - stamps[1])
+                     / (MRM_DECODE - 1),
+                     "checksum": _mrm_checksum(logits),
+                     **({"logits": torch.stack(logits)}
+                        if meshes["1x4"].rank == 0 else {})}
+    del model, cache
+    return out
+
+
+def _mrm_train(inp, mesh):
+    """A rank's (b): MRM_TRAIN_STEPS AdamW steps of make_train_step(mesh=)
+    on (2, 2) over one batch; the losses, gradient norms, ms a step and
+    the parameters' checksum after the steps."""
+    run = RunConfig(arch=MOE, lr=MRM_TRAIN_LR,
+                    total_steps=MRM_TRAIN_STEPS, warmup=0)
+    model = Model(_mrm_cfg(MRM_TRAIN_LAYERS), device=DEV, seed=0)
+    opt = steps_lib.make_optimizer(run)
+    state = steps_lib.init_train_state(model, opt)
+    step = steps_lib.make_train_step(model, opt, run, mesh=mesh,
+                                     loss_chunks=2)
+    batch = {"tokens": torch.from_numpy(inp["train_tokens"]).to(DEV),
+             "labels": torch.from_numpy(inp["train_labels"]).to(DEV)}
+    losses, gnorms, secs = [], [], []
+    for _ in range(MRM_TRAIN_STEPS):
+        (state, m), s = _time_once(lambda: step(state, batch),
+                                   barrier=True)
+        losses.append(float(m["loss"]))
+        gnorms.append(float(m["grad_norm"]))
+        secs.append(s)
+    out = {"loss": losses, "grad_norm": gnorms,
+           "step_ms": [1e3 * s for s in secs],
+           "checksum": _mrm_checksum(state.params)}
+    del model, state
+    return out
+
+
+def _mrm_rank(inp):
+    """One rank of phase 21 (a spawned process on the shared card)."""
+    meshes = {"1x4": card_figures.make_local_mesh(model=4),
+              "2x2": card_figures.make_local_mesh(model=2)}
+    worker = sync.make_worker_mesh(MRM_RANKS)
+    out = {"rank": worker.rank, "backend": worker.backend,
+           "start_s": time.time() - inp["t_spawn"], "peak_gb": {}}
+    torch.cuda.reset_peak_memory_stats()
+    out.update(_mrm_forward(inp, meshes))
+    out["peak_gb"]["forward"] = torch.cuda.max_memory_allocated() / 1e9
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    out["train"] = _mrm_train(inp, meshes["2x2"])
+    out["peak_gb"]["train"] = torch.cuda.max_memory_allocated() / 1e9
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    store, labels = _mrm_store()
+    L0 = torch.from_numpy(inp["loop_L0"]).to(DEV)
+    torch.cuda.synchronize()
+    _reset_counts()                         # the loop's main path only
+    loop = _mrm_loop(store, labels, L0, mesh=worker)
+    torch.cuda.synchronize()
+    loop["launches"] = {k: v for k, v in _counts().items() if v}
+    loop["pool_checksums"] = [
+        [int(np.asarray(p[k], np.int64).sum()) for k in ("a", "b", "sim")]
+        for p in loop["pools"]]
+    if worker.rank != 0:
+        loop.pop("pools")
+    out["loop"] = loop
+    out["peak_gb"]["loop"] = torch.cuda.max_memory_allocated() / 1e9
+    return out
+
+
+@contextlib.contextmanager
+def _moe_as_on_2x2():
+    """While open, every moe layer of a one-process model computes what
+    the ranks of (data 2, model 2) compute: on each half of the batch
+    apart (capacity and aux a half, aux the halves' mean), the sum of
+    its two expert shards' partials (``moe._moe_local`` on experts 0-15,
+    then 16-31), the rest of the model on the whole batch: the
+    one-process oracle there. Two terms sum the same in any order, so
+    the ranks' answers should be these bit for bit. The one-device layer
+    is no oracle at this size: its single combine sums the slots in
+    another order, about one near-tied route in 4,096 tokens x 24 layers
+    moves under that rounding, and the seeded router's skew lets a moved
+    route reorder its expert's capacity queue (the second and third card
+    calls of phase 21 parted by 3.5e-2 and 2.5e-2 of max so, whole half
+    batches and the one-device layer by halves; (1, 4) matched the
+    one-device layer within 1.6e-6)."""
+    apply = moe.apply_moe
+
+    def as_ranks(p, x, cfg, mesh=None, expert_axis="model"):
+        e_loc = cfg.n_experts // 2
+        ys, auxs = [], []
+        for xb in x.chunk(2):
+            Bl, Tl, d = xb.shape
+            cap = moe._capacity(Bl * Tl, cfg, e_loc)
+            parts = [moe._moe_local(
+                {k: p[k] if k == "router" else p[k][m * e_loc:(m + 1) * e_loc]
+                 for k in ("router", "w_gate", "w_up", "w_down")},
+                xb.reshape(Bl * Tl, d), cfg, m * e_loc, e_loc, cap)
+                for m in (0, 1)]
+            ys.append((parts[0][0] + parts[1][0]).reshape(Bl, Tl, d))
+            auxs.append(parts[0][1])
+        return torch.cat(ys), (auxs[0] + auxs[1]) / 2
+
+    moe.apply_moe = as_ranks
+    try:
+        yield
+    finally:
+        moe.apply_moe = apply
+
+
+def _pool_overlap(a, b):
+    """Share of b's (a, b, sim) pairs that a holds."""
+    pa = set(zip(*(np.asarray(a[k]).tolist() for k in ("a", "b", "sim"))))
+    pb = set(zip(*(np.asarray(b[k]).tolist() for k in ("a", "b", "sim"))))
+    return len(pa & pb) / max(len(pb), 1)
+
+
+def phase_multirank_moe(card):
+    """Phase 21: granite-moe-1b expert-parallel over four ranks sharing the
+    card over gloo (the forward on (1, 4) and (2, 2), decode on (1, 4),
+    AdamW steps on (2, 2)) and the closed loop over a worker mesh, each
+    held against one-process answers computed here first."""
+    t_phase = time.perf_counter()
+    inp = _mrm_batches()
+    cfg = _mrm_cfg()
+
+    # -- (a) the one-process answers: the batch, as on (2, 2)
+    # (_moe_as_on_2x2), decode
+    model = Model(cfg, device=DEV, seed=0)
+    tokens = torch.from_numpy(inp["tokens"]).to(DEV)
+    with torch.inference_mode():
+        model.hidden({"tokens": tokens})
+        (h1, aux1), s1 = _time_once(lambda: model.hidden({"tokens": tokens}))
+        with _moe_as_on_2x2():
+            h_halves, aux_halves = model.hidden({"tokens": tokens})
+        cache = model.init_decode_cache(1, MRM_DECODE)
+        prompt = torch.from_numpy(inp["decode"]).to(DEV)
+        logits1, stamps = [], []
+        for t in range(MRM_DECODE):
+            stamps.append(time.perf_counter())
+            lg, cache = model.decode_step(cache, prompt[:, t], t)
+            logits1.append(lg)
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+    one = {"forward_ms": 1e3 * s1, "h": h1.cpu(),
+           "aux": float(aux1["moe_aux"]), "h_halves": h_halves.cpu(),
+           "aux_halves": float(aux_halves["moe_aux"]),
+           "decode": torch.stack(logits1).cpu(),
+           "ms_token": 1e3 * (stamps[-1] - stamps[1]) / (MRM_DECODE - 1)}
+    del model, cache, h1, h_halves
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- (b) the one-device oracle of the first step, and one process's steps
+    run = RunConfig(arch=MOE, lr=MRM_TRAIN_LR, total_steps=MRM_TRAIN_STEPS,
+                    warmup=0)
+    model = Model(_mrm_cfg(MRM_TRAIN_LAYERS), device=DEV, seed=0)
+    batch = {"tokens": torch.from_numpy(inp["train_tokens"]).to(DEV),
+             "labels": torch.from_numpy(inp["train_labels"]).to(DEV)}
+
+    def oracle_loss(params, _):
+        h, aux = model.hidden(batch, plain=True, params=params)
+        ce = steps_lib.chunked_ce_loss(model, params, h, batch["labels"], 2)
+        return ce + model.cfg.moe_aux_weight * aux["moe_aux"], {}
+
+    with _moe_as_on_2x2():
+        (o_loss, _), grads = value_and_grad(oracle_loss, model.param_tree(),
+                                            None)
+    o_gnorm = float(torch.sqrt(sum(torch.sum(g * g)
+                                   for g in tree_leaves(grads))))
+    del grads
+    opt = steps_lib.make_optimizer(run)
+    state = steps_lib.init_train_state(model, opt)
+    step = steps_lib.make_train_step(model, opt, run, loss_chunks=2)
+    one_steps = []
+    for _ in range(MRM_TRAIN_STEPS):
+        (state, m), s = _time_once(lambda: step(state, batch))
+        one_steps.append(1e3 * s)
+    one.update(train_loss=float(o_loss), train_gnorm=o_gnorm,
+               train_step_ms=one_steps)
+    del model, state, step, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- (c) the one-process loop on the same store and L0
+    store, labels = _mrm_store()
+    cfg_dml = IMNET_1M.dml
+    gen = torch.Generator(device=DEV).manual_seed(MRM_LOOP_SEED + 1)
+    L0 = init_params(cfg_dml, gen, DEV)
+    uniform = pairdata.sample_pair_indices(labels, 2000, 2000, seed=11)
+    d2 = float(torch.mean(dml.mahalanobis_sqdist(
+        L0, *_pair_rows(store, uniform)[:2])))
+    L0 = L0 * float(np.sqrt(2.0 * cfg_dml.margin / max(d2, 1e-9)))
+    loop1 = _mrm_loop(store, labels, L0)
+    inp["loop_L0"] = L0.cpu().numpy()
+    loop1["L"] = loop1["L"].cpu()
+    del store, L0
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"21 one-process answers: forward {one['forward_ms']:.1f} ms a "
+        f"batch of {MRM_B} x {MRM_T}, decode {one['ms_token']:.2f} "
+        f"ms/token, training ({MRM_TRAIN_LAYERS} layers) "
+        f"{[round(x, 1) for x in one_steps]} ms/step, the loop "
+        f"{loop1['step_ms']:.2f} ms a step; {card}")
+
+    # -- the ranks
+    inp["t_spawn"] = time.time()
+    t0 = time.perf_counter()
+    ranks = spawn(_mrm_rank, MRM_RANKS, args=(inp,), timeout=MRM_TIMEOUT)
+    spawn_s = time.perf_counter() - t0
+    r0 = ranks[0]
+
+    # -- checks: every figure is read and reported before any fails the run
+    failed = []
+
+    def need(ok, what):
+        if not ok:
+            failed.append(what)
+
+    need({r["backend"] for r in ranks} == {"gloo"}, "backend")
+    need([r["rank"] for r in ranks] == list(range(MRM_RANKS)), "ranks")
+    err = {}
+    for name, h_ref, aux_ref in (("1x4", one["h"], one["aux"]),
+                                 ("2x2", one["h_halves"],
+                                  one["aux_halves"])):
+        fw = [r["forward"][name] for r in ranks]
+        need(all(f["launches"] == cfg.n_layers for f in fw),
+             f"{name}: flash_attention launches "
+             f"{[f['launches'] for f in fw]}")
+        need(all(f["checksum"] == fw[0]["checksum"] for f in fw),
+             f"{name}: the ranks' hidden states differ")
+        h = fw[0]["h"]
+        need(bool(torch.isfinite(h).all()), f"{name}: hidden not finite")
+        err[name] = {"hidden": _rel(h, h_ref),
+                     "embed_pool": _rel(h.mean(dim=1), h_ref.mean(dim=1)),
+                     "aux": abs(fw[0]["aux"] - aux_ref) / aux_ref}
+        need(err[name]["hidden"] <= HIDDEN_REL_BOUND
+             and err[name]["embed_pool"] <= EMBED_REL_BOUND
+             and err[name]["aux"] <= MOE_AUX_KERNEL_REL,
+             f"{name}: {err[name]}")
+    need(all(r["decode"]["checksum"] == r0["decode"]["checksum"]
+             for r in ranks), "the ranks' decode logits differ")
+    err["decode"] = max(_rel(a, b) for a, b in zip(r0["decode"]["logits"],
+                                                   one["decode"]))
+    need(err["decode"] <= DECODE_REL_BOUND, f"decode {err['decode']}")
+    tr = [r["train"] for r in ranks]
+    need(all(t["checksum"] == tr[0]["checksum"] for t in tr),
+         "parameters differ across ranks after the steps")
+    need(all(t["loss"] == tr[0]["loss"] for t in tr),
+         "the ranks' losses differ")
+    need(bool(np.isfinite(tr[0]["loss"]).all())
+         and tr[0]["loss"][-1] < tr[0]["loss"][0],
+         f"the loss did not fall: {tr[0]['loss']}")
+    err["train_loss"] = abs(tr[0]["loss"][0] - one["train_loss"]) \
+        / one["train_loss"]
+    err["train_gnorm"] = abs(tr[0]["grad_norm"][0] - one["train_gnorm"]) \
+        / one["train_gnorm"]
+    need(err["train_loss"] <= MRM_TRAIN_RTOL
+         and err["train_gnorm"] <= MRM_TRAIN_RTOL,
+         f"the first step against the oracle: {err['train_loss']}, "
+         f"{err['train_gnorm']}")
+    lp = [r["loop"] for r in ranks]
+    need(lp[0]["lead"] and not any(x["lead"] for x in lp[1:]),
+         "the serving stack is not on rank 0 alone")
+    n_ref = 1 + (MRM_LOOP_STEPS - 1) // MRM_LOOP_REFRESH
+    need(len(lp[0]["hist"]["refreshes"]) == n_ref
+         == len(loop1["hist"]["refreshes"]), "refresh counts")
+    need(all(x["pool_checksums"] == lp[0]["pool_checksums"] for x in lp)
+         and all(x["hist"]["refreshes"] == lp[0]["hist"]["refreshes"]
+                 for x in lp), "the ranks' pools or records differ")
+    need(all(np.array_equal(lp[0]["pools"][0][k], loop1["pools"][0][k])
+             for k in ("a", "b", "sim")),
+         "the first pool (under L0) differs from one process's")
+    overlap = [_pool_overlap(a, b) for a, b in zip(lp[0]["pools"][1:],
+                                                     loop1["pools"][1:])]
+    need(min(overlap) >= MRM_POOL_OVERLAP, f"pool overlap {overlap}")
+    err["loop_L"] = _rel(lp[0]["L"], loop1["L"])
+    need(err["loop_L"] <= MR_L_RTOL, f"loop L {err['loop_L']}")
+    for r in ranks:
+        n = r["loop"]["launches"]
+        need(n.get("dml_pair", 0) >= MRM_LOOP_STEPS,
+             f"rank {r['rank']}: dml_pair launches {n}")
+    need(lp[0]["launches"].get("metric_topk", 0) > 0,
+         f"rank 0: metric_topk launches {lp[0]['launches']}")
+
+    # -- report
+    note = (f"the {MRM_RANKS} ranks share one card, and gloo stages every "
+            f"collective through the host: the runtime's overhead, not "
+            f"scaling; {card}")
+    for name in ("1x4", "2x2"):
+        log(f"21 {MOE} forward on {name} (f32, B {MRM_B} x T {MRM_T}, "
+            f"{cfg.n_layers} layers): {r0['forward'][name]['ms']:.1f} ms a "
+            f"batch over {MRM_RANKS} ranks against {one['forward_ms']:.1f} "
+            f"one process; hidden max |a - b| / max |b| "
+            f"{err[name]['hidden']:.3e} (bound {HIDDEN_REL_BOUND}), "
+            f"embed_pool {err[name]['embed_pool']:.3e} (bound "
+            f"{EMBED_REL_BOUND}), moe_aux rel {err[name]['aux']:.2e} (bound "
+            f"{MOE_AUX_KERNEL_REL}); flash_attention launches by rank "
+            f"{[r['forward'][name]['launches'] for r in ranks]}; {note}")
+    log(f"21 decode on 1x4 (B 1, {MRM_DECODE} tokens): "
+        f"{r0['decode']['ms_token']:.2f} ms/token over ranks against "
+        f"{one['ms_token']:.2f} one process; logits within "
+        f"{err['decode']:.3e} (bound {DECODE_REL_BOUND}); {note}")
+    log(f"21 training on 2x2 ({MRM_TRAIN_LAYERS} of {cfg.n_layers} layers, "
+        f"B {MRM_TRAIN_B} x T {MRM_TRAIN_T}, AdamW lr {MRM_TRAIN_LR}): "
+        f"loss {[round(x, 4) for x in tr[0]['loss']]}, ms/step "
+        f"{[round(x, 1) for x in tr[0]['step_ms']]} over ranks against "
+        f"{[round(x, 1) for x in one['train_step_ms']]} one process; first "
+        f"loss rel {err['train_loss']:.2e}, grad norm rel "
+        f"{err['train_gnorm']:.2e} of the oracle (bound {MRM_TRAIN_RTOL}); "
+        f"parameters bit-identical across ranks; {note}")
+    log(f"21 closed loop over {MRM_RANKS} worker ranks ({MRM_LOOP_ROWS} "
+        f"rows, {MRM_LOOP_STEPS} steps, a refresh every "
+        f"{MRM_LOOP_REFRESH}): {lp[0]['step_ms']:.1f} ms a step against "
+        f"{loop1['step_ms']:.1f} one process; refresh s "
+        f"{[round(x, 2) for x in lp[0]['refresh_s']]} against "
+        f"{[round(x, 2) for x in loop1['refresh_s']]}; first pool equal, "
+        f"later pools' overlap {[round(x, 4) for x in overlap]} (held "
+        f">= {MRM_POOL_OVERLAP}); L within {err['loop_L']:.2e} x max |L| "
+        f"(held {MR_L_RTOL}); launches by rank "
+        f"{[r['loop']['launches'] for r in ranks]}; {note}")
+    peaks = {k: [round(r["peak_gb"][k], 2) for r in ranks]
+             for k in r0["peak_gb"]}
+    log(f"21 ranks: started {[round(r['start_s'], 1) for r in ranks]} s "
+        f"after the spawn; peak GB a rank {peaks}; spawn and work "
+        f"{spawn_s:.1f} s; {note}")
+    out = {"ranks": MRM_RANKS, "card": card, "err": err,
+           "forward_ms": {n: r0["forward"][n]["ms"] for n in ("1x4", "2x2")},
+           "one_process_forward_ms": one["forward_ms"],
+           "decode_ms_token": r0["decode"]["ms_token"],
+           "one_process_decode_ms_token": one["ms_token"],
+           "train_step_ms": tr[0]["step_ms"],
+           "one_process_train_step_ms": one["train_step_ms"],
+           "train_loss": tr[0]["loss"],
+           "loop_step_ms": lp[0]["step_ms"],
+           "one_process_loop_step_ms": loop1["step_ms"],
+           "loop_refresh_s": lp[0]["refresh_s"],
+           "one_process_loop_refresh_s": loop1["refresh_s"],
+           "pool_overlap": overlap,
+           "launches": {
+               "flash_attention": [r["forward"]["1x4"]["launches"]
+                                   + r["forward"]["2x2"]["launches"]
+                                   for r in ranks],
+               **{k: [r["loop"]["launches"].get(k, 0) for r in ranks]
+                  for k in ("dml_pair", "metric_topk")}},
+           "peak_gb": [r["peak_gb"] for r in ranks],
+           "start_s": [r["start_s"] for r in ranks],
+           "phase_s": time.perf_counter() - t_phase}
+    log(f"multi-rank moe phase {out['phase_s']:.1f} s")
+    assert not failed, f"phase 21 failed: {failed}"
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -6967,6 +7504,10 @@ def main():
     multirank = phase_multirank(card, mr_data, bsp_ms)
     del mr_data
     log(f"multi-rank done at {time.perf_counter() - t0:.1f}s")
+    gc.collect()
+    torch.cuda.empty_cache()
+    multirank_moe = phase_multirank_moe(card)
+    log(f"multi-rank moe done at {time.perf_counter() - t0:.1f}s")
     # the backbone kernels' launches in phases 12-15: apply through the
     # kernels beside decode (window, ring; gemma) and beside the first
     # training step (decode and the training steps launch none)
@@ -6992,10 +7533,14 @@ def main():
         if entry["name"] in multirank["launches"]:
             entry["multirank_launches_by_rank"] = \
                 multirank["launches"][entry["name"]]
+        if entry["name"] in multirank_moe["launches"]:
+            entry["multirank_moe_launches_by_rank"] = \
+                multirank_moe["launches"][entry["name"]]
     entries += frame_entries        # flash_attention at phase 18's shapes
     print(json.dumps({"decode": decode, "training": training, RWKV: rwkv,
                       "moe": moe_out, "vlm_audio": vlm_audio,
-                      "account": account, "multirank": multirank}),
+                      "account": account, "multirank": multirank,
+                      "multirank_moe": multirank_moe}),
           flush=True)
     print(json.dumps({"kernels": entries}), flush=True)
     log(f"total {time.perf_counter() - t0:.1f}s")

@@ -11,8 +11,10 @@ in the reference's layout (``models.transformer.stack_blocks``) gives
 the reference's files bit for bit, and a reference checkpoint restores
 into such a tree. ``keep`` keeps the newest checkpoints and deletes the
 older ones. Tensors are copied to the host to be written; a restore
-places each array on its target leaf's device in the target's dtype. The reference's ``shardings`` placement waits for the
-multi-GPU slice (ROADMAP.md Queue 1 item 8).
+places each array on its target leaf's device in the target's dtype, or,
+where ``shardings`` gives the leaf a ``sharding.partition.NamedSharding``
+on a live mesh, as this rank's block on the mesh's device (the
+reference places such a leaf with ``jax.device_put``).
 """
 
 from __future__ import annotations
@@ -112,11 +114,14 @@ def latest_step(ckpt_dir: str) -> Optional[int]:
 
 
 def restore_checkpoint(ckpt_dir: str, target: Any,
-                       step: Optional[int] = None):
+                       step: Optional[int] = None, shardings: Any = None):
     """Restore into the structure of ``target``; returns (tree, step).
     A tensor leaf comes back as a tensor in the target's dtype on the
     target's device, a numpy leaf as numpy in its dtype, a scalar leaf
-    from the manifest."""
+    from the manifest. ``shardings`` (optional) is a tree matching
+    ``target`` of ``NamedSharding`` (or None) leaves: a leaf with one
+    comes back as this rank's block of it, a tensor on the mesh's
+    device (``NamedSharding.place``)."""
     if step is None:
         step = latest_step(ckpt_dir)
         if step is None:
@@ -140,4 +145,11 @@ def restore_checkpoint(ckpt_dir: str, target: Any,
                     else arr
         else:
             raise KeyError(f"checkpoint {path} missing leaf {k}")
+    if shardings is not None:
+        for k, sharding in _flatten_with_paths(shardings):
+            if k not in restored:
+                raise KeyError(f"a sharding for {k}, which the target "
+                               f"does not have")
+            if not isinstance(restored[k], _SCALARS):
+                restored[k] = sharding.place(restored[k])
     return _unflatten(target, restored), step

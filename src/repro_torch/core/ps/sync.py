@@ -106,9 +106,10 @@ def init_state(opt: Optimizer, params, cfg: PSConfig) -> PSState:
 
 def state_sharding(mesh, cfg: PSConfig, state: PSState) -> PSState:
     """Specs of a PSState (the reference's ``state_sharding``): the
-    worker-stacked leaves on the worker axis, the rest replicated."""
+    worker-stacked leaves on the worker axis, the rest replicated; on a
+    live mesh as ``partition.NamedSharding`` pairs on it."""
     ax = (cfg.axis,)
-    return PSState(
+    specs = PSState(
         params=tree_map(lambda x: ax, state.params),
         opt_state=tree_map(lambda x: ax if x.dim() >= 1 and
                            x.shape[0] == cfg.n_workers else (),
@@ -116,20 +117,22 @@ def state_sharding(mesh, cfg: PSConfig, state: PSState) -> PSState:
         step=(),
         grad_ring=None if state.grad_ring is None
         else tree_map(lambda x: ax, state.grad_ring))
+    if isinstance(mesh, LiveMesh):
+        return partition.named(mesh, specs)
+    return specs
 
 
 def shard_state(state: PSState, cfg: PSConfig, mesh: LiveMesh) -> PSState:
     """This rank's ``(1, ...)`` block of a worker-stacked PSState, on the
     mesh's device."""
-    specs = state_sharding(mesh, cfg, state)
-    own = lambda x, spec: partition.block(  # noqa: E731
-        x, spec, mesh).to(mesh.device)
+    shardings = state_sharding(mesh, cfg, state)
+    own = lambda x, sharding: sharding.place(x)  # noqa: E731
     return PSState(
-        params=tree_map(own, state.params, specs.params),
-        opt_state=tree_map(own, state.opt_state, specs.opt_state),
+        params=tree_map(own, state.params, shardings.params),
+        opt_state=tree_map(own, state.opt_state, shardings.opt_state),
         step=state.step,
         grad_ring=None if state.grad_ring is None
-        else tree_map(own, state.grad_ring, specs.grad_ring))
+        else tree_map(own, state.grad_ring, shardings.grad_ring))
 
 
 def default_delays(cfg: PSConfig) -> Callable[[int], torch.Tensor]:
@@ -154,16 +157,21 @@ def _mean(trees):
     return tree_map(lambda *xs: torch.mean(torch.stack(xs), dim=0), *trees)
 
 
+def check_worker_mesh(cfg: PSConfig, mesh: LiveMesh) -> None:
+    """Raise unless ``mesh``'s worker axis has one rank a worker."""
+    if mesh.axis_size(cfg.axis) != cfg.n_workers:
+        raise ValueError(f"{cfg.n_workers} workers on a mesh whose "
+                         f"{cfg.axis!r} axis has "
+                         f"{mesh.axis_size(cfg.axis)} ranks")
+
+
 def _workers(cfg: PSConfig, mesh: Optional[LiveMesh]):
     """(this process's workers, the first one's index, the server merge
     of a list of their trees): all P and their mean on one device; over
     a mesh this rank's worker and the pmean across the worker axis."""
     if mesh is None:
         return cfg.n_workers, 0, _mean
-    if mesh.axis_size(cfg.axis) != cfg.n_workers:
-        raise ValueError(f"{cfg.n_workers} workers on a mesh whose "
-                         f"{cfg.axis!r} axis has "
-                         f"{mesh.axis_size(cfg.axis)} ranks")
+    check_worker_mesh(cfg, mesh)
     return 1, mesh.axis_index(cfg.axis), \
         lambda trees: partition.pmean(trees[0], cfg.axis, mesh)
 

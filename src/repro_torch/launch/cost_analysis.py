@@ -9,7 +9,7 @@ layer and every chunk through the dispatcher, and ``CostMode`` (a
 ``TorchDispatchMode``) sees each one. Run over ``meta`` tensors it
 counts a step at full size with no storage and nothing launched.
 Per-rank collective bytes come with the multi-GPU slice (ROADMAP.md
-Queue 1 item 8), from ``torch.distributed.tensor.debug.CommDebugMode``
+Queue 1 item 8e), from ``torch.distributed.tensor.debug.CommDebugMode``
 over the per-rank program; on one card they are 0.
 
 Counting rules, per aten op (after autograd and composite ops are

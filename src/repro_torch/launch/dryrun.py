@@ -20,7 +20,7 @@ On a production mesh (``--mesh 16x16``; ``--multi-pod``, which is
 ``argument_size`` (parameter, AdamW-state and input or cache shards,
 ``sharding.partition.local_shape``), status ``"plan"``; the per-rank
 program (FLOPs, temp bytes, collectives) waits for the multi-GPU slice
-(ROADMAP.md Queue 1 item 8).
+(ROADMAP.md Queue 1 item 8e).
 
 The counts follow ``cost_analysis``'s rules; two matter when a record is
 read against the card. The plain attention computes the full T x S

@@ -18,9 +18,8 @@ that ``torchrun`` started. The backend is a rule: NCCL when every rank
 has a card of its own, gloo when ranks share a card (tensors stay on the
 card; gloo stages them through the host) or run on the CPU.
 
-What is left of multi-GPU (ROADMAP.md Queue 1 item 8): placing a model's
-parameters by the plan (``checkpoint`` shardings, ``--production-mesh``),
-the expert-parallel moe layer and the dry run's per-rank program.
+What is left of multi-GPU (ROADMAP.md Queue 1 item 8e): the dry run's
+per-rank program on a named production mesh.
 
 This module is the one source of the H100's figures: the dry-run's
 roofline terms and ``chip_smoke.py``'s per-kernel bounds read them from

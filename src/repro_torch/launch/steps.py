@@ -8,8 +8,16 @@ decode cache as ``meta`` tensors (shape and dtype, no storage); the
 (``batch_pspec``, ``input_shardings``, ``param_shardings``,
 ``make_state_shardings``, ``cache_logical_axes``, ``cache_shardings``)
 return the reference's plans as specs (``sharding/partition.py``);
-placing tensors by them waits for the multi-GPU slice (ROADMAP.md Queue
-1 item 8).
+``make_state_shardings`` on a live mesh returns them as
+``partition.NamedSharding`` pairs, which ``checkpoint.restore_checkpoint``
+places leaves by.
+
+The step builders take the reference's ``mesh=``, passed to the model:
+on a live mesh the moe layers run expert-parallel and the rest of the
+model replicated, so every rank computes the same loss and gradients
+and takes the same optimizer step, and holds the whole model and its
+state (sharded storage is the per-rank program of ROADMAP.md Queue 1
+item 8e).
 
 The training forward is ``Model.hidden(..., plain=True)``: the
 reference's own training forms (chunked SSD, chunked rwkv6, naive or
@@ -28,13 +36,13 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig, InputShape, RunConfig
 from repro_torch.core import losses
-from repro_torch.launch.mesh import Mesh
+from repro_torch.launch.mesh import LiveMesh, Mesh
 from repro_torch.models import common
 from repro_torch.models.transformer import Model
 from repro_torch.optim import (Optimizer, adam, adamw, apply_updates,
                                clip_by_global_norm, momentum, schedules, sgd)
 from repro_torch.sharding.partition import (Spec, logical_to_physical,
-                                            make_param_shardings)
+                                            make_param_shardings, named)
 from repro_torch.tree import value_and_grad
 
 
@@ -166,7 +174,8 @@ def make_state_shardings(state: "TrainState", params, pshard,
     reference's does, on its stacked layout and leaf order, so each
     moment takes the reference's spec (a moment of a block leaf matches
     the first parameter of its stacked shape, which need not be the
-    leaf it mirrors)."""
+    leaf it mirrors). On a live mesh the specs come back as
+    ``NamedSharding`` pairs on it."""
     index = _stacked(params, pshard, [])
 
     def match(leaf, layers):
@@ -189,8 +198,9 @@ def make_state_shardings(state: "TrainState", params, pshard,
             return type(tree)(walk(t, layers) for t in tree)
         return match(tree, layers)
 
-    return TrainState(params=pshard, opt_state=walk(state.opt_state),
-                      step=())
+    specs = TrainState(params=pshard, opt_state=walk(state.opt_state),
+                       step=())
+    return named(mesh, specs) if isinstance(mesh, LiveMesh) else specs
 
 
 # ---------------------------------------------------------------------------
@@ -223,16 +233,17 @@ def chunked_ce_loss(model: Model, params, h, labels, n_chunks: int = 8):
 
 
 def make_train_step(model: Model, opt: Optimizer, run: RunConfig,
-                    loss_chunks: int = 8):
+                    mesh=None, loss_chunks: int = 8):
     """``train_step(state, batch) -> (state, metrics)``: loss, grads with
     respect to every leaf of ``state.params``, global-norm clipping,
     the optimizer's update. Returns new tensors; ``state`` is left as it
-    was. Metrics are 0-d tensors (no host sync in the step)."""
+    was. Metrics are 0-d tensors (no host sync in the step). Over a live
+    ``mesh`` every rank calls it with the same state and global batch."""
     cfg = model.cfg
 
     def loss_fn(params, batch):
         h, aux = model.hidden(batch, plain=True, remat=run.remat,
-                              params=params)
+                              params=params, mesh=mesh)
         ce = chunked_ce_loss(model, params, h, batch["labels"], loss_chunks)
         total = ce + cfg.moe_aux_weight * aux["moe_aux"]
         return total, {"ce": ce, "moe_aux": aux["moe_aux"]}
@@ -253,17 +264,18 @@ def make_train_step(model: Model, opt: Optimizer, run: RunConfig,
     return train_step
 
 
-def make_prefill_step(model: Model, run: RunConfig):
+def make_prefill_step(model: Model, run: RunConfig, mesh=None):
     def prefill_step(batch):
-        logits, aux = model.apply(batch)
+        logits, aux = model.apply(batch, mesh=mesh)
         return logits
 
     return prefill_step
 
 
-def make_serve_step(model: Model, run: RunConfig):
+def make_serve_step(model: Model, run: RunConfig, mesh=None):
     def serve_step(cache, batch):
-        return model.decode_step(cache, batch["tokens"], batch["pos"])
+        return model.decode_step(cache, batch["tokens"], batch["pos"],
+                                 mesh=mesh)
 
     return serve_step
 

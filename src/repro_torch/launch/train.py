@@ -11,19 +11,26 @@ training forward, chunked CE loss, AdamW on a cosine schedule with
 warmup ``min(20, steps // 5)``) -> a checkpoint of the final params in
 the reference's layout and format (``--ckpt``). Runs on the card unless
 ``--device cpu`` is given; ``--reduced`` trains the smoke-scale variant
-in f32. The reference's ``--production-mesh`` and ``--multi-pod`` build
-TPU pod meshes: they wait for the multi-GPU slice (ROADMAP.md Queue 1
-item 8), and passing them raises.
+in f32. ``--production-mesh`` builds the reference's pod mesh over the
+process group, (data 16, model 16) on 256 ranks, or with ``--multi-pod``
+(pod 2, data 16, model 16) on 512 (``--multi-pod`` alone asks for the
+latter), prints it, and trains with ``mesh=None`` as the reference
+does: every rank trains the whole model, and rank 0 writes the
+checkpoint. Under ``torchrun`` the launcher joins the group
+(``launch/mesh.join``); a group of another size, or none, raises, as
+``jax.make_mesh`` does on fewer devices (``production_mesh``).
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 import time
 from typing import Iterator
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.checkpoint import save_checkpoint
 from repro_torch.configs import RunConfig, get_config, reduced as reduce_cfg
@@ -31,6 +38,8 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.data.tokens import token_stream
 from repro_torch.device import resolve_device
 from repro_torch.launch import steps as steps_lib
+from repro_torch.launch.mesh import (LiveMesh, Mesh, join,
+                                     make_production_mesh)
 from repro_torch.models import Model
 from repro_torch.models.transformer import stack_blocks
 
@@ -96,6 +105,19 @@ def build(arch: str, steps: int, lr: float = 3e-4, reduced: bool = False,
     return model, train_step, state
 
 
+def production_mesh(world_size: int, multi_pod: bool = False) -> Mesh:
+    """The pod mesh's shape for a group of ``world_size`` ranks: (data
+    16, model 16) at 256, (pod 2, data 16, model 16) at 512 under
+    ``multi_pod``; any other size raises."""
+    mesh = make_production_mesh(multi_pod=multi_pod)
+    if world_size != mesh.size:
+        raise ValueError(
+            f"the {'multi-pod' if multi_pod else 'production'} mesh "
+            f"{mesh.shape} needs a group of {mesh.size} ranks, and this "
+            f"one has {world_size} (start the ranks with torchrun)")
+    return mesh
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", type=str, required=True)
@@ -106,27 +128,33 @@ def main(argv=None):
     ap.add_argument("--reduced", action="store_true",
                     help="train the smoke-scale variant (f32)")
     ap.add_argument("--production-mesh", action="store_true",
-                    help="not ported: the multi-GPU slice")
+                    help="build the (data=16, model=16) pod mesh over a "
+                         "group of 256 ranks")
     ap.add_argument("--multi-pod", action="store_true",
-                    help="not ported: the multi-GPU slice")
+                    help="build the (pod=2, data=16, model=16) mesh over "
+                         "a group of 512 ranks")
     ap.add_argument("--remat", action="store_true")
     ap.add_argument("--ckpt", type=str, default="")
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda; cpu runs there)")
     args = ap.parse_args(argv)
+    mesh = None
     if args.production_mesh or args.multi_pod:
-        raise NotImplementedError(
-            "--production-mesh / --multi-pod build the reference's TPU pod "
-            "meshes; multi-GPU training waits for ROADMAP.md Queue 1 item 8")
+        if not dist.is_initialized() and "WORLD_SIZE" in os.environ:
+            join(args.device)
+        world = dist.get_world_size() if dist.is_initialized() else 1
+        shape = production_mesh(world, args.multi_pod)
+        mesh = LiveMesh(shape.axis_names, shape.axis_sizes)
 
-    device = resolve_device(args.device)
+    device = resolve_device(args.device) if mesh is None else mesh.device
     model, train_step, state = build(
         args.arch, args.steps, lr=args.lr, reduced=args.reduced,
         remat=args.remat, device=device)
     cfg = model.cfg
     n_params = sum(p.numel() for p in model.parameters())
-    print(f"arch={cfg.name} params={n_params / 1e6:.1f}M device={device}")
+    print(f"arch={cfg.name} params={n_params / 1e6:.1f}M device={device}"
+          + (f" mesh={mesh.shape}" if mesh is not None else ""))
     if cfg.input_kind == "embeddings":
         stream = embedding_batches(cfg, args.batch, args.seq, device=device)
     else:
@@ -135,7 +163,7 @@ def main(argv=None):
     state, hist = train_loop(train_step, state, stream, args.steps,
                              args.log_every)
     print(f"loss {hist['loss'][0]:.4f} -> {hist['loss'][-1]:.4f}")
-    if args.ckpt:
+    if args.ckpt and (mesh is None or mesh.rank == 0):
         path = save_checkpoint(args.ckpt, args.steps,
                                {"params": stack_blocks(state.params)})
         print(f"checkpoint: {path}")

@@ -17,13 +17,27 @@ improvement of the recent loss window below ``plateau_tol``). The history
 records how stale each training step's pairs were (``staleness`` = steps
 since the pool's metric was current).
 
-Where the reference differs: there is no mesh (the PS step runs the P
-workers on one device, ``core/ps/sync.py``); the initial factor is an
-input (``L0``; without it ``init_params`` draws it from a
-``torch.Generator`` seeded with the PS seed), since the reference's
-``jax.random`` draw cannot be reproduced; and L stays on the device from
-the PS state through ``swap_metric``, the rebuild and the hook. Each
-refresh's seconds by step land in ``timings``.
+The PS runs as ``train_dml_distributed`` does. Without a ``mesh`` the P
+workers run on one device (``core/ps/sync.py``). With a worker mesh
+(``sync.make_worker_mesh``, one process a worker) every rank builds the
+trainer and calls ``run`` with the same arguments; each runs its own
+worker's PS step on its block of the state and draws only its own
+worker's stream, and the merged L of a refresh is ``worker_mean`` over
+the ranks. The serving stack (index, engine, miner and the router, if
+given) lives on rank 0 alone, which refreshes the index and mines; the
+other ranks wait in the broadcast that carries rank 0's refresh record
+and pool to every rank's ``MinedPairSource.set_pool``, as the followers
+of ``serve/scan.py``'s ``lead`` wait for rank 0's calls. Every rank
+takes the same refresh decisions: they read the step's loss, which the
+PS step pmeans over the ranks (bit-identical on every rank), so the
+ranks pair the same collectives.
+
+Where the reference differs: the initial factor is an input (``L0``;
+without it ``init_params`` draws it from a ``torch.Generator`` seeded
+with the PS seed), since the reference's ``jax.random`` draw cannot be
+reproduced; and L stays on the device from the PS state through
+``swap_metric``, the rebuild and the hook. Each refresh's seconds by
+step land in ``timings``.
 """
 
 from __future__ import annotations
@@ -34,6 +48,7 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.core import losses
 from repro_torch.core.ps import sync
@@ -98,13 +113,17 @@ class ClosedLoopTrainer:
                  opt: Optional[Optimizer] = None, L0=None,
                  engine: Optional[RetrievalEngine] = None,
                  router=None, tenant: Optional[str] = None,
-                 shadow_probe: int = 8, device=None):
+                 shadow_probe: int = 8, device=None, mesh=None):
         """Build the serving stack and the mined source (no training yet).
 
-        ``features`` is placed on ``device`` (the card by default) once and
-        shared by the index build, the miner and the source (an f32
-        tensor already there is used without a copy). ``L0`` is the
-        initial factor (see the module docstring).
+        ``features`` is placed on ``device`` (the card by default; the
+        mesh's device with a ``mesh``) once and shared by the index
+        build, the miner and the source (an f32 tensor already there is
+        used without a copy). ``L0`` is the initial factor (see the
+        module docstring). ``mesh``: a worker mesh whose worker axis has
+        ``cfg.train.ps.n_workers`` ranks; the serving stack is then
+        built on rank 0 only, and the other ranks leave ``engine``,
+        ``router`` and ``tenant`` unused.
 
         ``engine`` lets a caller share an existing serving engine (its
         index must be over ``features`` with row ids 0..n-1); by default
@@ -121,10 +140,16 @@ class ClosedLoopTrainer:
         if (router is None) != (tenant is None):
             raise ValueError("pass router and tenant together (or "
                              "neither)")
+        self.mesh = mesh
+        self.lead = mesh is None or mesh.rank == 0
+        if mesh is not None:
+            sync.check_worker_mesh(cfg.train.ps, mesh)
+        if not self.lead:
+            router, tenant, engine = None, None, None
         self.router = router
         self.tenant = tenant
         self.shadow_probe = shadow_probe
-        self.device = resolve_device(device)
+        self.device = resolve_device(device) if mesh is None else mesh.device
         self.features = torch.as_tensor(features, dtype=torch.float32).to(
             self.device)
         if router is not None:
@@ -137,12 +162,12 @@ class ClosedLoopTrainer:
         self.opt = opt or sgd(cfg.train.lr)
         self.L0 = _initial_factor(cfg.train.dml, L0, cfg.train.ps.seed,
                                   self.device)
-        if engine is None:
+        if engine is None and self.lead:
             engine = RetrievalEngine(self._build_index(self.L0),
                                      k_top=cfg.miner.k_neighbors + 1)
         self.engine = engine
         self.miner = HardPairMiner(engine, self.features, self.labels,
-                                   cfg.miner)
+                                   cfg.miner) if self.lead else None
         self.source = MinedPairSource(self.features, self.labels,
                                       cfg.schedule, device=self.device)
         self.n_refreshes = 0
@@ -194,7 +219,14 @@ class ClosedLoopTrainer:
         metric the index was just built with). The refresh's seconds by
         step (``swap_metric``'s host_to_device / project / rebuild, or
         the frozen base's rebuild; promote; mine) are appended to
-        ``timings``."""
+        ``timings``. Over a mesh every rank calls it: rank 0 refreshes
+        and mines, and its record and pool reach every rank (the seconds
+        of that broadcast under "broadcast")."""
+        if not self.lead:
+            t0 = time.perf_counter()
+            rec, pool = self._broadcast(None)
+            return self._adopt(rec, pool, {"broadcast":
+                                           time.perf_counter() - t0})
         trace = (self.tracer.start_trace("refresh", force=True)
                  if self.tracer is not None else None)
         if trace is not None:
@@ -258,8 +290,17 @@ class ClosedLoopTrainer:
             m_sp.set_attrs(n_queries=self.cfg.mine_queries,
                            n_pairs=result.stats["n_pairs"],
                            neg_yield=result.stats["neg_yield"]).end()
-        self.source.set_pool(result)
-        self.n_refreshes += 1
+        rec = {"step": step, "refresh": self.n_refreshes + 1,
+               **result.stats}
+        if shadow_stats is not None:
+            rec["shadow"] = shadow_stats
+            rec["promoted_tenant"] = self.tenant
+        if self.mesh is not None:
+            t0 = time.perf_counter()
+            self._broadcast((rec, {k: host_array(v)
+                                   for k, v in result.pairs.items()}))
+            times["broadcast"] = time.perf_counter() - t0
+        self._adopt(rec, result.pairs, times)
         if self.registry is not None:
             self._c_refresh.inc()
             self._g_pool.set(self.source.pool_size)
@@ -271,10 +312,19 @@ class ClosedLoopTrainer:
                                 index_version=result.stats["index_version"])
         if trace is not None:
             self.tracer.finish(trace)
-        rec = {"step": step, "refresh": self.n_refreshes, **result.stats}
-        if shadow_stats is not None:
-            rec["shadow"] = shadow_stats
-            rec["promoted_tenant"] = self.tenant
+        return rec
+
+    def _broadcast(self, obj):
+        """Rank 0's ``obj`` on every rank of the mesh."""
+        box = [obj]
+        dist.broadcast_object_list(box, src=0)
+        return box[0]
+
+    def _adopt(self, rec: dict, pool, times: dict) -> dict:
+        """A refresh's record and pool, on this rank's source and
+        history."""
+        self.source.set_pool(pool)
+        self.n_refreshes += 1
         self.refreshes.append(rec)
         self.timings.append(times)
         return rec
@@ -301,9 +351,12 @@ class ClosedLoopTrainer:
         history["summary"] has the run-level roll-up (refresh count, mean
         staleness at use, total mined pairs). ``step_hook(step, L)``
         behaves as in ``train_dml_distributed``; L is the merged factor on
-        the device.
+        the device. Over a mesh every rank calls ``run`` (and the hook)
+        and returns the same L and history, rank 0's engine stats in the
+        summary.
         """
         tcfg = self.cfg.train
+        mesh, axis = self.mesh, tcfg.ps.axis
         state = sync.init_state(self.opt, self.L0, tcfg.ps)
 
         def loss_fn(L, batch):
@@ -311,21 +364,31 @@ class ClosedLoopTrainer:
                                         margin=tcfg.dml.margin,
                                         compute_dtype=tcfg.dml.compute_dtype)
 
-        step_fn = sync.make_train_step(loss_fn, self.opt, tcfg.ps)
-        batches = stack_worker_streams(self.source.worker_streams(
-            tcfg.ps.n_workers, tcfg.batch_size, tcfg.ps.seed))
+        step_fn = sync.make_train_step(loss_fn, self.opt, tcfg.ps,
+                                       mesh=mesh)
+        if mesh is None:
+            batches = stack_worker_streams(self.source.worker_streams(
+                tcfg.ps.n_workers, tcfg.batch_size, tcfg.ps.seed))
+        else:
+            state = sync.shard_state(state, tcfg.ps, mesh)
+            batches = stack_worker_streams([self.source.worker_stream(
+                mesh.axis_index(axis), tcfg.ps.n_workers, tcfg.batch_size,
+                tcfg.ps.seed)])
+
+        def merged():
+            return sync.worker_mean(state.params, mesh, axis)
 
         # initial pool under L0: the curriculum starts uniform, but the
         # pool must exist before the ramp's first mined batch (no metric
         # swap — the index was just built with L0)
-        self.refresh(sync.worker_mean(state.params), step=0, swap=False)
+        self.refresh(merged(), step=0, swap=False)
         last_refresh = 0
         staleness_sum = 0
         trace = []
         history = []
         for t in range(tcfg.steps):
             if t > 0 and self._due(t, last_refresh, trace):
-                self.refresh(sync.worker_mean(state.params), step=t)
+                self.refresh(merged(), step=t)
                 last_refresh = t
                 trace = []           # plateau window restarts post-refresh
             state, metrics = step_fn(state, next(batches))
@@ -343,11 +406,14 @@ class ClosedLoopTrainer:
                        "mined_frac": self.cfg.schedule.mined_frac(t),
                        "pool_size": self.source.pool_size}
                 if step_hook is not None:
-                    out = step_hook(t, sync.worker_mean(state.params))
+                    out = step_hook(t, merged())
                     if out is not None:
                         rec["hook"] = out
                 history.append(rec)
-        L = sync.worker_mean(state.params)
+        L = merged()
+        engine_stats = self.engine.stats() if self.lead else None
+        if mesh is not None:
+            engine_stats = self._broadcast(engine_stats)
         summary = {
             "n_refreshes": self.n_refreshes,
             "mean_staleness": staleness_sum / max(tcfg.steps, 1),
@@ -357,7 +423,7 @@ class ClosedLoopTrainer:
                                         for r in self.refreshes])),
             "pos_yield": float(np.mean([r["pos_yield"]
                                         for r in self.refreshes])),
-            "engine": self.engine.stats(),
+            "engine": engine_stats,
         }
         return L, {"steps": history, "refreshes": self.refreshes,
                    "summary": summary}

@@ -128,8 +128,14 @@ class MinedPairSource:
     def worker_streams(self, n_workers: int, batch_size: int,
                        seed: int = 0) -> List[Iterator[dict]]:
         """One infinite batch iterator per worker (disjoint shards)."""
-        return [self._stream(w, n_workers, batch_size, seed + w)
+        return [self.worker_stream(w, n_workers, batch_size, seed)
                 for w in range(n_workers)]
+
+    def worker_stream(self, worker: int, n_workers: int, batch_size: int,
+                      seed: int = 0) -> Iterator[dict]:
+        """Worker ``worker``'s stream of ``worker_streams``: what a rank
+        of a worker mesh draws (``mining/loop.py``)."""
+        return self._stream(worker, n_workers, batch_size, seed + worker)
 
     def _draw(self, rng, worker: int, n_workers: int, batch_size: int,
               step: int):

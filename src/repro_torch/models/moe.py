@@ -1,5 +1,6 @@
-"""Mixture-of-Experts FFN: top-k router and grouped expert execution on
-one device (counterpart of ``repro/models/moe.py``).
+"""Mixture-of-Experts FFN: top-k router, grouped expert execution, and
+the expert-parallel form over a live mesh (counterpart of
+``repro/models/moe.py``).
 
 ``apply_moe`` routes every token of the batch, gives each (token, slot)
 pair its place in its expert's queue in token-major order, drops the
@@ -12,11 +13,23 @@ dispatch tensor and no (N * k, d) gather is ever made.
 every token, combined by the router's weights. Exact, E / k times the
 products: what the tests and the card hold the grouped form against.
 
-The reference's expert-parallel path (``apply_moe(mesh=...)`` inside
-``shard_map``, one ``psum`` over the expert axis) waits for the
-multi-GPU slice (ROADMAP.md Queue 1 item 8); ``logical_axes`` is its
-plan. No kernel: the
-reference computes the layer with plain einsums, and so does the port.
+``apply_moe(mesh=...)`` on a ``launch/mesh.LiveMesh`` with the expert
+axis is the reference's expert-parallel path, one process a rank: the
+layer runs inside ``sharding/partition.shard_map``, the experts sharded
+over ``model`` (``E / n`` a rank, ``axis_index`` giving the first), the
+batch over whichever of ``pod`` / ``data`` divide B, the capacity taken
+per batch shard, the expert stacks all-gathered over ``data`` inside the
+body when ``d_model`` divides it (FSDP), one ``psum`` of the partial
+outputs over ``model`` and ``aux`` pmeaned over ``model`` and the batch
+axes. The map returns global values (its exit gathers ``y`` over the
+batch axes), so the layer drops into a model that runs replicated on
+every rank, and its gradients reach the global weights and activations
+summed over the ranks (``partition.shard_map``'s docstring). Every
+rank's router sorts its tokens the same way (the stable top-k below),
+so the ranks agree on every pair's expert. A named ``Mesh`` has no
+group: that per-rank program is ROADMAP.md Queue 1 item 8e, and it
+raises. No kernel: the reference computes the layer with plain einsums,
+and so does the port.
 """
 
 from __future__ import annotations
@@ -27,6 +40,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels._dispatch import full_f32
 from repro_torch.models import common
+from repro_torch.sharding import partition
 
 
 def init_moe(cfg: ArchConfig, gen) -> dict:
@@ -148,18 +162,72 @@ def _moe_local(p_local, x, cfg: ArchConfig, e_offset: int,
     return y, aux
 
 
-def apply_moe(p, x, cfg: ArchConfig, mesh=None):
-    """x (B,T,d) -> (y (B,T,d), aux): single-device grouped dispatch.
-    The expert-parallel form (a ``mesh``) is not ported."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "expert-parallel apply_moe(mesh=...) waits for the multi-GPU "
-            "slice (ROADMAP.md Queue 1 item 8)")
+def apply_moe(p, x, cfg: ArchConfig, mesh=None, expert_axis: str = "model"):
+    """x (B,T,d) -> (y (B,T,d), aux). Expert-parallel on a live mesh
+    with the expert axis (every rank calls it with the same global p and
+    x, and gets the global y and aux); single-device grouped dispatch
+    without one."""
     full_f32()          # f32 configs: true f32 products, as the reference
     B, T, d = x.shape
-    cap = _capacity(B * T, cfg, cfg.n_experts)
-    y, aux = _moe_local(p, x.reshape(B * T, d), cfg, 0, cfg.n_experts, cap)
-    return y.reshape(B, T, d), aux
+
+    if mesh is None or expert_axis not in mesh.shape:
+        cap = _capacity(B * T, cfg, cfg.n_experts)
+        y, aux = _moe_local(p, x.reshape(B * T, d), cfg, 0, cfg.n_experts,
+                            cap)
+        return y.reshape(B, T, d), aux
+
+    mesh = partition.require_live(mesh, "expert-parallel apply_moe")
+    n_shards = mesh.shape[expert_axis]
+    if cfg.n_experts % n_shards:
+        raise ValueError(f"{cfg.n_experts} experts do not divide the "
+                         f"{n_shards} ranks of {expert_axis!r}")
+    e_loc = cfg.n_experts // n_shards
+    # shard the batch over whichever data-like axes divide it (B=1 decode
+    # shapes leave the data axes idle)
+    batch_axes = []
+    prod = 1
+    for a in ("pod", "data"):
+        if a in mesh.shape and B % (prod * mesh.shape[a]) == 0:
+            batch_axes.append(a)
+            prod *= mesh.shape[a]
+    batch_axes = tuple(batch_axes)
+    # FSDP: the expert stacks come in sharded over `data` on their embed
+    # dims and are all-gathered inside the body, as the reference does
+    fsdp = "data" in mesh.shape and d % mesh.shape["data"] == 0
+
+    def shard_fn(p_sh, x_sh):
+        # x_sh: (B_loc, T, d), the same on every rank of the expert axis
+        if fsdp:
+            p_sh = dict(
+                p_sh,
+                w_gate=partition.all_gather(p_sh["w_gate"], "data", mesh,
+                                            axis=1, tiled=True),
+                w_up=partition.all_gather(p_sh["w_up"], "data", mesh,
+                                          axis=1, tiled=True),
+                w_down=partition.all_gather(p_sh["w_down"], "data", mesh,
+                                            axis=2, tiled=True))
+        Bl, Tl, dl = x_sh.shape
+        eid = partition.axis_index(expert_axis, mesh)
+        cap = _capacity(Bl * Tl, cfg, e_loc)
+        y, aux = _moe_local(p_sh, x_sh.reshape(Bl * Tl, dl), cfg,
+                            eid * e_loc, e_loc, cap)
+        y = partition.psum(y, expert_axis, mesh)   # combine expert partials
+        aux = partition.pmean(aux, expert_axis, mesh)
+        if batch_axes:
+            aux = partition.pmean(aux, batch_axes, mesh)
+        return y.reshape(Bl, Tl, dl), aux
+
+    if fsdp:
+        wspec = {"w_gate": (expert_axis, "data", None),
+                 "w_up": (expert_axis, "data", None),
+                 "w_down": (expert_axis, None, "data")}
+    else:
+        wspec = {k: (expert_axis,) for k in ("w_gate", "w_up", "w_down")}
+    pspec = {"router": (), **wspec}
+    xspec = (batch_axes if batch_axes else None,)
+    fn = partition.shard_map(shard_fn, mesh=mesh, in_specs=(pspec, xspec),
+                             out_specs=(xspec, ()), check_vma=False)
+    return fn({k: p[k] for k in pspec}, x)
 
 
 def apply_moe_dense(p, x, cfg: ArchConfig):

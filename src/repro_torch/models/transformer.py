@@ -2,9 +2,10 @@
 ``repro/models/transformer.py``).
 
   dense, vlm, audio -> attention block + MLP, ``n_layers`` times
-  moe               -> attention block + MoE FFN (``models/moe.py``, one
-                       device), ``n_layers`` times; each layer's router
-                       aux loss is summed into ``moe_aux``
+  moe               -> attention block + MoE FFN (``models/moe.py``;
+                       expert-parallel over a live ``mesh``), ``n_layers``
+                       times; each layer's router aux loss is summed
+                       into ``moe_aux``
   ssm (rwkv6)       -> rwkv6 time mix + RWKV channel mix, ``n_layers``
                        times
   hybrid (zamba2)   -> groups of ``shared_attn_every`` mamba2 blocks, each
@@ -28,6 +29,14 @@ Public surface:
     emb = model.embed_pool({"tokens": tokens})  # (B, d) f32, for DML
     cache = model.init_decode_cache(batch, max_seq)
     logits, cache = model.decode_step(cache, tokens, pos)   # (B, V)
+
+``apply`` / ``hidden`` / ``embed_pool`` / ``decode_step`` take the
+reference's ``mesh=``: on a live mesh (``launch/mesh.LiveMesh``) with the
+``model`` axis, each moe layer runs expert-parallel
+(``moe.apply_moe(mesh=)``) and everything else runs replicated on every
+rank, so every rank holds the whole model and gets the same outputs;
+the other families, and a mesh without the expert axis, compute as
+without one.
 
 Parameters keep the reference's names: ``model.embedding.tok``,
 ``model.blocks[i].mamba.w_z``, ``model.shared.attn.wq``, ... — the
@@ -121,15 +130,16 @@ def _init_mamba_block(cfg: ArchConfig, gen) -> dict:
             "mamba": mamba2.init_mamba2(cfg, gen)}
 
 
-def _ffn(p, h2, cfg: ArchConfig):
+def _ffn(p, h2, cfg: ArchConfig, mesh=None):
     """(the block's FFN of h2, the router's aux loss or None without a
     MoE)."""
     if _is_moe(cfg):
-        return moe.apply_moe(p["moe"], h2, cfg)
+        return moe.apply_moe(p["moe"], h2, cfg, mesh=mesh)
     return mlp.apply_mlp(p["mlp"], h2, cfg), None
 
 
-def _apply_attn_block(p, x, cfg: ArchConfig, positions, plain: bool):
+def _apply_attn_block(p, x, cfg: ArchConfig, positions, plain: bool,
+                      mesh=None):
     """Full-sequence attention block. Returns (x, aux); aux is None
     unless the FFN is a MoE."""
     h = common.apply_norm(p["norm1"], x, cfg)
@@ -140,11 +150,11 @@ def _apply_attn_block(p, x, cfg: ArchConfig, positions, plain: bool):
         return x + att_out + mlp.apply_mlp(p["mlp"], h, cfg), None
     x = x + att_out
     h2 = common.apply_norm(p["norm2"], x, cfg)
-    y, aux = _ffn(p, h2, cfg)
+    y, aux = _ffn(p, h2, cfg, mesh)
     return x + y, aux
 
 
-def _decode_attn_block(p, x, cache, pos: int, cfg: ArchConfig):
+def _decode_attn_block(p, x, cache, pos: int, cfg: ArchConfig, mesh=None):
     """One decode step of the attention block: (x, cache); the MoE's aux
     is dropped, as the reference's ``decode_step`` drops it."""
     h = common.apply_norm(p["norm1"], x, cfg)
@@ -153,7 +163,7 @@ def _decode_attn_block(p, x, cache, pos: int, cfg: ArchConfig):
         return x + att_out + mlp.apply_mlp(p["mlp"], h, cfg), cache
     x = x + att_out
     h2 = common.apply_norm(p["norm2"], x, cfg)
-    return x + _ffn(p, h2, cfg)[0], cache
+    return x + _ffn(p, h2, cfg, mesh)[0], cache
 
 
 def _apply_rwkv_block(p, x, cfg: ArchConfig):
@@ -348,30 +358,33 @@ class Model(nn.Module):
     # ----- full-sequence forward (train / prefill / embedding) -----
 
     def apply(self, batch: Dict[str, Any], plain: bool = False,
-              remat: bool = False, params=None):
+              remat: bool = False, params=None, mesh=None):
         """Returns (logits (B,T,V), aux dict)."""
         params = self.param_tree() if params is None else params
-        h, aux = self.hidden(batch, plain=plain, remat=remat, params=params)
+        h, aux = self.hidden(batch, plain=plain, remat=remat, params=params,
+                             mesh=mesh)
         return common.unembed(params["embedding"], h, self.cfg), aux
 
     def hidden(self, batch: Dict[str, Any], plain: bool = False,
-               remat: bool = False, params=None):
+               remat: bool = False, params=None, mesh=None):
         """Final normed hidden states (B,T,d) + aux — callers that want
         memory-bounded losses unembed in sequence chunks themselves.
         ``remat`` checkpoints each layer (and the shared block at each
         use) when autograd records; ``params`` (a ``param_tree()``-shaped
         tree) replaces the module's own weights. ``moe_aux`` is the
-        moe family's router loss summed over layers (0 for the others)."""
-        h, aux = self._backbone(batch, plain, remat, params)
+        moe family's router loss summed over layers (0 for the others);
+        ``mesh`` as in the module docstring."""
+        h, aux = self._backbone(batch, plain, remat, params, mesh)
         return h, {"moe_aux": aux}
 
-    def embed_pool(self, batch: Dict[str, Any], plain: bool = False):
+    def embed_pool(self, batch: Dict[str, Any], plain: bool = False,
+                   mesh=None):
         """Mean-pooled final hidden state (B, d_model) f32 — the embedding
         the DML metric head consumes."""
-        h, _ = self._backbone(batch, plain, False, None)
+        h, _ = self._backbone(batch, plain, False, None, mesh)
         return torch.mean(h.to(torch.float32), dim=1)
 
-    def _backbone(self, batch, plain: bool, remat: bool, params):
+    def _backbone(self, batch, plain: bool, remat: bool, params, mesh):
         full_f32()          # f32 configs: true f32 products, as the reference
         cfg = self.cfg
         params = self.param_tree() if params is None else params
@@ -380,7 +393,7 @@ class Model(nn.Module):
         positions = torch.arange(T, device=x.device)[None, :].expand(B, T)
         auxs = []
         if cfg.family == "hybrid":
-            x = self._run_hybrid(params, x, positions, plain, remat)
+            x = self._run_hybrid(params, x, positions, plain, remat, mesh)
         elif cfg.family == "ssm":
             for p_l in params["blocks"]:
                 x = _layer(lambda x, p_l=p_l: _apply_rwkv_block(p_l, x, cfg),
@@ -388,7 +401,7 @@ class Model(nn.Module):
         else:
             for p_l in params["blocks"]:
                 x, aux = _layer(lambda x, p_l=p_l: _apply_attn_block(
-                    p_l, x, cfg, positions, plain), x, remat)
+                    p_l, x, cfg, positions, plain, mesh), x, remat)
                 if aux is not None:
                     auxs.append(aux)
         # the reference sums the scan's stacked per-layer losses
@@ -408,7 +421,8 @@ class Model(nn.Module):
         return common.embed_tokens(emb, batch["tokens"].to(dev), self.cfg,
                                    dtype)
 
-    def _run_hybrid(self, params, x, positions, plain: bool, remat: bool):
+    def _run_hybrid(self, params, x, positions, plain: bool, remat: bool,
+                    mesh):
         """Zamba2: groups of mamba layers + the shared attention block."""
         cfg = self.cfg
         every = self._groups()[1]
@@ -419,7 +433,8 @@ class Model(nn.Module):
                 x = _layer(lambda x, p_l=p_l: _apply_mamba_block(
                     p_l, x, cfg, plain), x, remat)
             x = _layer(lambda x: _apply_attn_block(
-                params["shared"], x, scfg, positions, plain)[0], x, remat)
+                params["shared"], x, scfg, positions, plain, mesh)[0], x,
+                remat)
         return x
 
     def _groups(self):
@@ -462,12 +477,12 @@ class Model(nn.Module):
                                                 dev)
                            for _ in range(cfg.n_layers)]}
 
-    def decode_step(self, cache: dict, tokens, pos: int):
+    def decode_step(self, cache: dict, tokens, pos: int, mesh=None):
         """tokens (B,) or (B,1) int; ``pos`` a Python int (the current
-        position; the ssm family does not read it). Returns (logits
-        (B,V), cache). KV caches are written in place and the SSM and
-        wkv states replaced, so the cache passed in is spent: use the one
-        returned."""
+        position, the same on every rank of a ``mesh``; the ssm family
+        does not read it). Returns (logits (B,V), cache). KV caches are
+        written in place and the SSM and wkv states replaced, so the
+        cache passed in is spent: use the one returned."""
         full_f32()
         cfg = self.cfg
         dtype = getattr(torch, cfg.dtype)
@@ -476,21 +491,22 @@ class Model(nn.Module):
             tokens = tokens[:, None]
         x = common.embed_tokens(self.embedding, tokens, cfg, dtype)
         if cfg.family == "hybrid":
-            x, new_cache = self._decode_hybrid(cache, x, pos)
+            x, new_cache = self._decode_hybrid(cache, x, pos, mesh)
         else:
             new_blocks = []
             for p_l, c_l in zip(self.blocks, cache["blocks"]):
                 if cfg.family == "ssm":
                     x, c_l = _decode_rwkv_block(p_l, x, c_l, cfg)
                 else:
-                    x, c_l = _decode_attn_block(p_l, x, c_l, pos, cfg)
+                    x, c_l = _decode_attn_block(p_l, x, c_l, pos, cfg,
+                                                mesh)
                 new_blocks.append(c_l)
             new_cache = {"blocks": new_blocks}
         h = common.apply_norm(self.final_norm, x, cfg)
         logits = common.unembed(self.embedding, h, cfg)
         return logits[:, 0], new_cache
 
-    def _decode_hybrid(self, cache, x, pos: int):
+    def _decode_hybrid(self, cache, x, pos: int, mesh):
         cfg = self.cfg
         n_groups, every = self._groups()
         scfg = shared_cfg(cfg)
@@ -501,6 +517,6 @@ class Model(nn.Module):
                                              cache["blocks"][i], cfg)
                 blocks.append(c_l)
             x, sc = _decode_attn_block(self.shared, x, cache["shared"][g],
-                                       pos, scfg)
+                                       pos, scfg, mesh)
             shared.append(sc)
         return x, {"blocks": blocks, "shared": shared}

@@ -27,8 +27,9 @@ before making it, while the other ranks ``follow(index)``, making the
 same call, until rank 0 leaves ``lead``. A call that raises on rank 0
 once announced ends the group, so that the followers fail at once
 instead of pairing with the wrong collective.
-Snapshots and ``MutableIndex`` over shards are not ported (ROADMAP.md
-Queue 1 item 8).
+Snapshots and ``MutableIndex`` take single-shard indexes only, as the
+reference's do (its ``serve/mutable.py`` and ``serve/snapshot.py``
+refuse sharded bases).
 """
 
 from __future__ import annotations

@@ -11,20 +11,50 @@ axis of 16 are replicated), so every config has a plan on every mesh.
 A spec is a tuple with one entry a tensor dimension: ``None``
 (replicated), a mesh axis name, or a tuple of axis names, equal entry
 for entry to the reference's ``PartitionSpec``. ``local_shape`` gives
-one rank's shard.
+one rank's shard; ``NamedSharding(mesh, spec)`` is the reference's pair
+of the two, which ``checkpoint.restore_checkpoint`` places leaves by.
 
 Over a live mesh (``launch/mesh.LiveMesh``, one process a rank) a global
 tensor is the same on every rank and a sharded one is held as this
 rank's block: ``block`` / ``constrain`` take this rank's block of a
-global tensor, ``shard_map`` runs a function on this rank's blocks, and
-the axis collectives ``psum``, ``pmean``, ``all_gather`` and
-``axis_index`` are the counterparts of ``jax.lax``'s inside a
-``shard_map`` body. On a named shape (``Mesh``) there is no group, and
-``constrain`` / ``shard_map`` raise.
+global tensor, and the axis collectives ``psum``, ``pmean``,
+``all_gather`` and ``axis_index`` are the counterparts of ``jax.lax``'s
+inside a ``shard_map`` body. On a named shape (``Mesh``) there is no
+group, and ``constrain`` / ``shard_map`` raise.
+
+``shard_map`` follows ``jax.shard_map``: its ``run`` takes and returns
+global values. The body sees this rank's blocks; each output comes back
+gathered over the axes its out spec names, and under ``()`` as the
+value this rank holds (the body must make it the same on every rank).
+Gradients flow as the reference's do when the program outside the map
+runs replicated on every rank, so that a cotangent arriving at the map
+is the same on every rank:
+
+  * ``psum``'s backward passes that replicated cotangent to each rank's
+    partial unchanged (``pmean``'s divides it by the count). It is not
+    ``torch.distributed.nn.functional.all_reduce``, whose backward
+    all-reduces the cotangent and so counts a replicated one n times;
+  * ``all_gather``'s backward is a reduce-scatter: the cotangent of a
+    gathered value inside the body is a partial (a weight gathered for
+    FSDP is used on each rank's own batch), so it is summed over the
+    axis before this rank takes its slot;
+  * the exit's gather takes this rank's slot of the replicated
+    cotangent without a sum;
+  * the entry sums each global input's gradient over the ranks: a
+    rank's block holds its own share, and an input replicated over an
+    axis holds each rank's partial. One all-reduce over the mesh a
+    backward, of every input's zero-padded gradient.
+
+So ``models/moe.apply_moe(mesh=)`` drops into a model that runs
+replicated on every rank, and that model's gradients equal one
+device's. Over gloo, half-precision tensors are summed in f32 and
+rounded once (a departure: the reference sums in their own dtype; gloo's
+support for half-precision CUDA tensors is not relied on).
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Dict, Optional, Sequence, Tuple, Union
 
 import torch
@@ -70,8 +100,8 @@ DEFAULT_RULES: Dict[str, Union[str, Tuple[str, ...], None]] = {
     "layers": None,         # scan-over-layers leading axis
 }
 
-_MULTI_GPU = ("needs a process group: multi-GPU is ROADMAP.md Queue 1 "
-              "item 8")
+_MULTI_GPU = ("needs a process group: the per-rank program on a named "
+              "mesh is ROADMAP.md Queue 1 item 8e")
 
 
 def _mesh_axis_size(mesh: Mesh, axis: Union[str, Tuple[str, ...]]) -> int:
@@ -197,18 +227,78 @@ def _is_spec(s) -> bool:
         for e in s)
 
 
-def _blocks(spec, tree, mesh):
-    """``block`` over a tree of tensors: ``spec`` mirrors the tree's
-    dicts, NamedTuples and lists (a list for a plain tuple too), and a
-    spec (a plain tuple; None for ``()``) covers the subtree under it."""
+def map_specs(fn, specs):
+    """``fn`` at each spec of a tree of specs (dicts, lists, NamedTuples
+    and tuples of specs); ``None`` stays ``None``."""
+    if specs is None:
+        return None
+    if _is_spec(specs):
+        return fn(specs)
+    if isinstance(specs, dict):
+        return {k: map_specs(fn, v) for k, v in specs.items()}
+    out = [map_specs(fn, s) for s in specs]
+    return type(specs)(*out) if hasattr(specs, "_fields") else \
+        type(specs)(out)
+
+
+@dataclasses.dataclass(frozen=True)
+class NamedSharding:
+    """A spec on a mesh (``jax.sharding.NamedSharding``'s pair)."""
+
+    mesh: Union[Mesh, LiveMesh]
+    spec: Spec
+
+    def place(self, x) -> torch.Tensor:
+        """This rank's block of the global ``x`` on the mesh's device, a
+        tensor of its own (not a view holding ``x``'s storage)."""
+        mesh = require_live(self.mesh, "placing a tensor")
+        return block(torch.as_tensor(x), self.spec, mesh).to(
+            mesh.device, copy=True)
+
+
+def named(mesh, specs):
+    """A tree of specs as the same tree of ``NamedSharding`` on
+    ``mesh``."""
+    return map_specs(lambda s: NamedSharding(mesh, s), specs)
+
+
+def _per_spec(fn, spec, tree):
+    """``fn(leaf, spec)`` over a tree of tensors: ``spec`` mirrors the
+    tree's dicts, NamedTuples and lists (a list for a plain tuple too),
+    and a spec (a plain tuple; None for ``()``) covers the subtree under
+    it."""
     if tree is None:
         return None
     if spec is None or _is_spec(spec):
-        return tree_map(lambda x: block(x, spec or (), mesh), tree)
+        return tree_map(lambda x: fn(x, spec or ()), tree)
     if isinstance(tree, dict):
-        return {k: _blocks(spec[k], v, mesh) for k, v in tree.items()}
-    out = [_blocks(s, t, mesh) for s, t in zip(spec, tree, strict=True)]
+        return {k: _per_spec(fn, spec[k], v) for k, v in tree.items()}
+    out = [_per_spec(fn, s, t) for s, t in zip(spec, tree, strict=True)]
     return type(tree)(*out) if hasattr(tree, "_fields") else type(tree)(out)
+
+
+def _exit(x, spec, mesh):
+    """A body's output as a global value: gathered along each dimension
+    over the axes its spec entry names."""
+    for dim, axes in enumerate(spec):
+        if axes is not None and mesh.axis_size(axes) > 1:
+            x = _Gather.apply(x, axes, mesh, dim, True, False)
+    return x
+
+
+def _enter(args, mesh):
+    """The global inputs of a map, each tensor that records a gradient
+    passed through ``_Enter`` once (a tensor given twice is one input)."""
+    if not torch.is_grad_enabled():
+        return args
+    live = {}
+    for x in tree_leaves(args):
+        if torch.is_tensor(x) and x.requires_grad:
+            live.setdefault(id(x), x)
+    if not live:
+        return args
+    entered = dict(zip(live, _Enter.apply(mesh, *live.values())))
+    return tree_map(lambda x: entered.get(id(x), x), args)
 
 
 def constrain(x, logical: Sequence[Optional[str]], mesh: Optional[Mesh] = None,
@@ -222,18 +312,32 @@ def constrain(x, logical: Sequence[Optional[str]], mesh: Optional[Mesh] = None,
 
 
 def shard_map(f, mesh: Mesh, in_specs, out_specs, check_vma: bool = True):
-    """A per-rank program over a live mesh: ``run(*args)`` calls ``f`` on
-    this rank's blocks of the global ``args`` (``in_specs``: one spec
-    tree an argument). Every rank calls ``run``; ``f``'s outputs come
-    back as they are: this rank's block under an out spec that names an
-    axis, the value every rank holds under ``()``. ``check_vma`` is the
-    reference's flag, kept for its callers."""
+    """A per-rank program over a live mesh (``jax.shard_map``): every
+    rank calls ``run(*args)`` with the same global ``args``; ``f`` runs on
+    this rank's blocks of them (``in_specs``: one spec tree an
+    argument), and its outputs come back as global values, gathered over
+    the axes their ``out_specs`` name (under ``()`` the value this rank
+    holds; a tuple of outputs takes a tuple of spec trees, one an
+    output, since a plain tuple of specs can read as one spec).
+    Gradients flow back to the global inputs as the module docstring
+    says. ``check_vma`` is the reference's flag, kept for its callers."""
     mesh = require_live(mesh, "shard_map")
-    del out_specs, check_vma
+    del check_vma
+
+    def enter(x, spec):
+        return block(x, spec, mesh)
+
+    def leave(x, spec):
+        return _exit(x, spec, mesh)
 
     def run(*args):
-        return f(*(_blocks(s, a, mesh)
-                   for s, a in zip(in_specs, args, strict=True)))
+        args = _enter(args, mesh)
+        out = f(*(_per_spec(enter, s, a)
+                  for s, a in zip(in_specs, args, strict=True)))
+        if type(out) is tuple:      # one spec tree an output
+            return tuple(_per_spec(leave, s, o)
+                         for s, o in zip(out_specs, out, strict=True))
+        return _per_spec(leave, out_specs, out)
 
     return run
 
@@ -243,6 +347,99 @@ def shard_map(f, mesh: Mesh, in_specs, out_specs, check_vma: bool = True):
 def axis_index(axis, mesh: LiveMesh) -> int:
     """This rank's index along ``axis`` (a name or a tuple of names)."""
     return require_live(mesh, "axis_index").axis_index(axis)
+
+
+def _all_reduce(x: torch.Tensor, group, mesh: LiveMesh) -> torch.Tensor:
+    """Sum the contiguous ``x`` over ``group`` in place; over gloo a
+    half-precision tensor is summed in f32 and rounded once."""
+    if mesh.backend == "gloo" and x.dtype in (torch.float16, torch.bfloat16):
+        wide = x.float()
+        dist.all_reduce(wide, dist.ReduceOp.SUM, group=group)
+        return x.copy_(wide)
+    dist.all_reduce(x, dist.ReduceOp.SUM, group=group)
+    return x
+
+
+class _Psum(torch.autograd.Function):
+    """psum's all-reduce. Backward: the cotangent, the same on every
+    rank, goes to this rank's partial unchanged."""
+
+    @staticmethod
+    def forward(ctx, x, group, mesh):
+        return _all_reduce(x.clone(memory_format=torch.contiguous_format),
+                           group, mesh)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+class _Gather(torch.autograd.Function):
+    """Every rank's x along ``axes``, as an all-reduce of a zero buffer in
+    which each rank writes its own slot (gloo takes CUDA tensors for
+    all-reduce; exact, as x + 0 is x, the BIG sentinels too, and
+    integers add exactly): stacked on a new dimension ``dim``, or
+    concatenated along it when ``tiled``. Backward: this rank's slot of
+    the cotangent, summed over the axis first when ``reduce`` (a
+    reduce-scatter)."""
+
+    @staticmethod
+    def forward(ctx, x, axes, mesh, dim, tiled, reduce):
+        ctx.args = (axes, mesh, dim, tiled, reduce)
+        n, i = mesh.axis_size(axes), mesh.axis_index(axes)
+        if tiled:
+            shape = list(x.shape)
+            step = shape[dim]
+            shape[dim] *= n
+            buf = x.new_zeros(shape)
+            buf.narrow(dim, i * step, step).copy_(x)
+        else:
+            buf = x.new_zeros(tuple(x.shape[:dim]) + (n,)
+                              + tuple(x.shape[dim:]))
+            buf.select(dim, i).copy_(x)
+        return _all_reduce(buf, mesh.group(axes), mesh)
+
+    @staticmethod
+    def backward(ctx, g):
+        axes, mesh, dim, tiled, reduce = ctx.args
+        if reduce:
+            g = _all_reduce(g.clone(memory_format=torch.contiguous_format),
+                            mesh.group(axes), mesh)
+        i = mesh.axis_index(axes)
+        if tiled:
+            step = g.shape[dim] // mesh.axis_size(axes)
+            g = g.narrow(dim, i * step, step)
+        else:
+            g = g.select(dim, i)
+        return g, None, None, None, None, None
+
+
+class _Enter(torch.autograd.Function):
+    """The identity on a map's global inputs. Backward: each gradient
+    (zero outside this rank's block; a partial over the axes the input
+    is replicated on) summed over every rank of the mesh, in one
+    all-reduce a dtype."""
+
+    @staticmethod
+    def forward(ctx, mesh, *xs):
+        ctx.mesh = mesh
+        return tuple(x.view_as(x) for x in xs)
+
+    @staticmethod
+    def backward(ctx, *gs):
+        mesh = ctx.mesh
+        group = mesh.group(mesh.axis_names)
+        out = list(gs)
+        by_dtype: Dict[torch.dtype, list] = {}
+        for j, g in enumerate(gs):
+            by_dtype.setdefault(g.dtype, []).append(j)
+        for idx in by_dtype.values():
+            flat = _all_reduce(torch.cat([gs[j].reshape(-1) for j in idx]),
+                               group, mesh)
+            parts = torch.split(flat, [gs[j].numel() for j in idx])
+            for j, part in zip(idx, parts):
+                out[j] = part.view(gs[j].shape)
+        return (None, *out)
 
 
 def _flat(tree):
@@ -261,14 +458,13 @@ def _unflat(tree, leaves, flat):
 
 def psum(tree, axis, mesh: LiveMesh):
     """The sum over the ranks along ``axis`` of every leaf of ``tree``
-    (one all-reduce for the whole tree; leaves of one dtype)."""
+    (one all-reduce for the whole tree; leaves of one dtype). Backward:
+    as the module docstring says."""
     group = require_live(mesh, "psum").group(axis)
     if group is None:
         return tree
     leaves, flat = _flat(tree)
-    flat = flat.clone()
-    dist.all_reduce(flat, dist.ReduceOp.SUM, group=group)
-    return _unflat(tree, leaves, flat)
+    return _unflat(tree, leaves, _Psum.apply(flat, group, mesh))
 
 
 def pmean(tree, axis, mesh: LiveMesh):
@@ -277,18 +473,13 @@ def pmean(tree, axis, mesh: LiveMesh):
     return tree_map(lambda x: x / n, psum(tree, axis, mesh))
 
 
-def all_gather(x: torch.Tensor, axis, mesh: LiveMesh) -> torch.Tensor:
-    """Every rank's ``x`` along ``axis``, stacked on a new leading
-    dimension in axis-index order (``jax.lax.all_gather``).
-
-    Built as an all-reduce of a zero buffer in which each rank writes its
-    own slot, since gloo takes CUDA tensors for all-reduce: exact, as x +
-    0 is x (the BIG sentinels too) and integers add exactly."""
+def all_gather(x: torch.Tensor, axis_name, mesh: LiveMesh, *,
+               axis: int = 0, tiled: bool = False) -> torch.Tensor:
+    """Every rank's ``x`` along the mesh axes ``axis_name``, in
+    axis-index order (``jax.lax.all_gather``): stacked on a new
+    dimension at ``axis``, or concatenated along ``axis`` when
+    ``tiled``. Exact; its backward is a reduce-scatter (``_Gather``)."""
     mesh = require_live(mesh, "all_gather")
-    group = mesh.group(axis)
-    if group is None:
-        return x[None]
-    buf = x.new_zeros((mesh.axis_size(axis),) + tuple(x.shape))
-    buf[mesh.axis_index(axis)] = x
-    dist.all_reduce(buf, dist.ReduceOp.SUM, group=group)
-    return buf
+    if mesh.group(axis_name) is None:
+        return x if tiled else x.unsqueeze(axis)
+    return _Gather.apply(x, axis_name, mesh, axis, tiled, True)

@@ -85,7 +85,8 @@ def _placement(mesh):
     batch = {"xs": g.numpy(), "sim": np.arange(4 * 6).reshape(4, 6)}
     summed = partition.shard_map(
         lambda a, b: (a * 2.0, b.sum()), mesh,
-        in_specs=(("data", "model"), None), out_specs=(("data",), ()))(g, g)
+        in_specs=(("data", "model"), None),
+        out_specs=(("data", "model"), ()))(g, g)
     return {
         "constrain": partition.constrain(g, ("batch", "ffn", None), mesh),
         "shard_map": summed,

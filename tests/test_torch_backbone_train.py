@@ -577,11 +577,14 @@ def test_serve_embeddings_cli_on_cpu_takes_vlm_and_audio(arch):
 
 
 def test_train_cli_refuses_the_pod_meshes():
+    """Without a group of 256 (512) ranks the pod meshes are refused, as
+    the reference's ``jax.make_mesh((16, 16))`` fails on fewer devices."""
     from repro_torch.launch import train
-    for flag in ("--production-mesh", "--multi-pod"):
-        with pytest.raises(NotImplementedError, match="item 8"):
+    for flags, size in ((["--production-mesh"], 256), (["--multi-pod"], 512),
+                        (["--production-mesh", "--multi-pod"], 512)):
+        with pytest.raises(ValueError, match=f"{size} ranks.*has 1"):
             train.main(["--arch", "smollm-135m", "--reduced", "--device",
-                        "cpu", flag])
+                        "cpu", *flags])
 
 
 def test_chunked_mamba2_gradient_is_finite_at_strong_decays():

@@ -36,6 +36,7 @@ from repro.models import moe as jax_moe
 
 from repro_torch.configs import get_config
 from repro_torch.convert import model_params_from_jax
+from repro_torch.launch.mesh import make_local_mesh, make_production_mesh
 from repro_torch.models import Model, moe
 
 SAME_TOL = dict(rtol=1e-4, atol=1e-5)
@@ -256,12 +257,16 @@ def test_apply_moe_gradients_match_reference(grouped):
         _close(a, b, rtol=0, atol=GRAD_REL * np.abs(b).max())
 
 
-def test_mesh_is_not_ported():
+def test_named_mesh_still_refuses():
+    """A named shape has no process group: its per-rank program is the
+    dry run's (Queue 1 item 8e). A live mesh runs the layer expert-parallel
+    (tests/test_torch_multirank_moe.py)."""
     jcfg, cfg = _cfgs("granite-moe-1b-a400m")
     _, p = _layer(jcfg)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        moe.apply_moe(p, torch.zeros((1, 4, cfg.d_model)), cfg,
-                      mesh=object())
+    for mesh in (make_local_mesh(), make_production_mesh()):
+        with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
+            moe.apply_moe(p, torch.zeros((1, 4, cfg.d_model)), cfg,
+                          mesh=mesh)
 
 
 # -- the dense oracle -------------------------------------------------------------
