@@ -493,7 +493,44 @@ exit, and nothing falls back:
                 ``python -c "import chip_smoke as c; card =
                 c.phase_device(); c.phase_build();
                 c.phase_multirank_moe(card)"``;
- 22. the last line: ``{"ok": true, "device": {...}}``.
+ 22. per-rank program — the dry run's per-rank program (ROADMAP.md Queue
+                1 item 8e, first part): (a) rank 0's records (each traced
+                on meta in a fake world of 256 or 512 ranks,
+                ``launch/mesh.fake_world``, in a pool of RK_JOBS
+                processes) of smollm-135m, yi-6b, gemma-7b and
+                command-r-35b at train_4k and decode_32k and of the three
+                DML configs on 16x16 and pod2x16x16, a line each: FLOPs,
+                bytes, arguments (equal to the plan's) and temp, the
+                collectives by kind, the roofline with its collective
+                term; (b) four ranks sharing the card over gloo (data 2 x
+                model 2) run yi-6b at full width cut to 2 layers per rank:
+                the prefill at B 2 x T 4,096 in f32 and bf16 through
+                ``Model.apply(mesh=)`` (flash_attention on a rank's 16 q
+                and 2 kv heads of 128, two launches a rank a forward), the
+                gathered logits held to one process's forward (f32 within
+                DECODE_REL_BOUND, phase 13's bound; bf16 within one
+                process's own bf16-to-f32 distance); one AdamW step at B 4
+                x T 512 (bf16 activations, f32 weights, remat) on the
+                rank's own blocks through the step's per-rank map, its
+                loss, first moments and gathered parameters held to one
+                process's bf16 step (the loss and each moment leaf within
+                one process's bf16-to-f32 distance, the parameters within
+                2 lr: AdamW's first step moves each by about lr); decode
+                at B 2, 8 tokens, f32, within DECODE_REL_BOUND; the
+                per-rank Eq. 4 step of dml-imnet63k at its paper width
+                (L's 10,000 rows over model, 100 pairs a data rank,
+                dml_pair on each rank), dL within 1e-4 x max |dL| of one
+                process's; (c) the account of (b)'s step in a fake world
+                of the same (2, 2): its collectives by kind (count and
+                bytes) equal to what rank 0 issued (the same
+                ``CostMode``), its arguments equal to rank 0's blocks and
+                its peak within PEAK_RATIO_BAND of rank 0's (its
+                max_memory_allocated over the step above what it held
+                besides the blocks). Device ms (CUDA events on rank 0)
+                beside one process's on each line. Alone: ``python -c
+                "import chip_smoke as c; card = c.phase_device();
+                c.phase_build(); c.phase_ranks(card)"``;
+ 23. the last line: ``{"ok": true, "device": {...}}``.
 
 Every launch count is set to 0 just before a main-path phase (4, 5, 5a,
 5c, 6, each index of 8, each serving run of 8b, each burst of 8c, 8d's
@@ -502,8 +539,8 @@ in 9, 10, each decode and each apply beside it in 12, 13 and 16c, each
 training run and apply in 14, 15 and 16d, 16e, each forward, decode,
 apply, training run and service batch of 17, and each forward, apply,
 service run and training run of 18, each rank's PS work and sharded
-serving in 20, and each rank's forwards and loop in 21) and read just
-after
+serving in 20, each rank's forwards and loop in 21, and each rank's
+prefill and Eq. 4 step in 22) and read just after
 (5a launches no kernel: its gradient is the reference's plain autograd
 product);
 comparison launches come after the reading (or, for phase 9, before the
@@ -560,6 +597,7 @@ from __future__ import annotations
 import contextlib
 import gc
 import json
+import multiprocessing
 import os
 import queue
 import re
@@ -578,7 +616,8 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
 
 from repro_torch.configs import RunConfig, get_config  # noqa: E402
 from repro_torch.configs.base import InputShape  # noqa: E402
-from repro_torch.configs.dml_paper import IMNET_1M, MNIST  # noqa: E402
+from repro_torch.configs.dml_paper import (IMNET_1M, IMNET_63K,  # noqa: E402
+                                           MNIST)
 from repro_torch.core import dml, itml, kiss, xing2002  # noqa: E402
 from repro_torch.core.dml import init_params  # noqa: E402
 from repro_torch.core.eval_tasks import knn_accuracy, knn_vote  # noqa: E402
@@ -7383,6 +7422,437 @@ def phase_multirank_moe(card):
     return out
 
 
+# -- phase 22: the dry run's per-rank program, on meta and on the card -------
+
+RK_ARCH = "yi-6b"
+RK_LAYERS = 2                # yi-6b at full width cut to 2 layers
+RK_MESH = (2, 2)             # (data, model): 16 q heads and 2 kv heads a rank
+RK_PREFILL = (2, 4096)       # B x T
+RK_TRAIN = (4, 512)
+RK_DECODE_B, RK_DECODE_STEPS = 2, 4
+RK_LR = 1e-3
+RK_DML = IMNET_63K           # L 10,000 x 21,504: its rows over model
+RK_SWEEP = [(a, s) for a in ("smollm-135m", "yi-6b", "gemma-7b",
+                             "command-r-35b")
+            for s in ("train_4k", "decode_32k")]
+RK_SWEEP_MESHES = ("16x16", "pod2x16x16")
+RK_JOBS = 4                  # the sweep's processes, beside phases 12-21
+RK_SWEEP_TARGET_S = 120.0
+RK_TIMEOUT = 600.0
+# bf16 forms against one process: the ranks' partial sums round to bf16
+# apart (each rank's share of a row-parallel product, then their sum), so
+# the ranks' bf16 answer and one process's each carry bf16's error, and
+# by the triangle inequality they part by at most twice one process's
+# bf16-to-f32 distance (leaf by leaf for the gradients)
+RK_BF16_SLACK = 2.0
+
+
+def _rk_cfg(dtype):
+    return get_config(RK_ARCH).replace(n_layers=RK_LAYERS, dtype=dtype)
+
+
+def _rk_inputs():
+    """The seeded batches of (b): prefill tokens, training tokens and
+    labels, the decode prompt, and the DML step's L and pairs."""
+    V = _rk_cfg("float32").vocab_size
+    rng = np.random.RandomState(22)
+    B, T = RK_PREFILL
+    Bt, Tt = RK_TRAIN
+    dcfg = RK_DML.dml
+    n = RK_DML.batch_size * RK_MESH[0]          # the paper's batch a rank
+    return {"prefill": rng.randint(0, V, (B, T)).astype(np.int32),
+            "tokens": rng.randint(0, V, (Bt, Tt)).astype(np.int32),
+            "labels": rng.randint(0, V, (Bt, Tt)).astype(np.int32),
+            "decode": rng.randint(0, V, (RK_DECODE_B, RK_DECODE_STEPS))
+            .astype(np.int32),
+            "dml_xs": rng.randn(n, dcfg.feat_dim).astype(np.float32),
+            "dml_ys": rng.randn(n, dcfg.feat_dim).astype(np.float32),
+            "dml_sim": (rng.rand(n) < 0.5).astype(np.int32)}
+
+
+def rk_sweep_start():
+    """22 (a), started: rank 0's records of the dense archs at train_4k
+    and decode_32k and of the DML configs on both production meshes,
+    each in a fake world of its own, in a pool of RK_JOBS processes that
+    run on the host's idle cores beside the card's phases (meta tensors:
+    no card, nothing allocated)."""
+    ctx = multiprocessing.get_context("spawn")
+    pool = ctx.Pool(RK_JOBS)
+    jobs = [(m, pool.apply_async(dryrun._record, (dryrun.Job(a, s), m)))
+            for m in RK_SWEEP_MESHES for a, s in RK_SWEEP]
+    dml = [(m, pool.apply_async(dryrun.dryrun_dml, (m,)))
+           for m in RK_SWEEP_MESHES]
+    pool.close()
+    return {"pool": pool, "jobs": jobs, "dml": dml,
+            "t0": time.perf_counter()}
+
+
+def _rk_sweep(started):
+    """22 (a), collected: a line a record; each "ok", its arguments the
+    plan's, collectives issued."""
+    records = {}
+    for m, job in started["jobs"]:
+        key, rec = job.get(timeout=RK_TIMEOUT)
+        records[f"{key}|{m}"] = rec
+    for m, job in started["dml"]:
+        for name, rec in job.get(timeout=RK_TIMEOUT).items():
+            records[f"{name}|paper_batch|{m}"] = rec
+    started["pool"].join()
+    secs = time.perf_counter() - started["t0"]
+    cpu_s = sum(rec["trace_s"] for rec in records.values())
+    for key, rec in records.items():
+        log("22 (a) " + dryrun.summary_line(key, rec))
+        assert rec["status"] == "ok", f"{key}: {rec}"
+        assert rec["memory"]["argument_size"] == \
+            rec["plan"]["argument_size"]
+        assert rec["collectives"]["total_bytes"] > 0
+    log(f"22 (a) {len(records)} per-rank records, {cpu_s:.1f} s of tracing "
+        f"on {RK_JOBS} processes, collected {secs:.1f} s after their start "
+        f"(they ran beside phases 12-21; target {RK_SWEEP_TARGET_S:.0f} s "
+        f"alone)")
+    return {"records": records, "sweep_s": secs, "trace_s": cpu_s}
+
+
+def _rk_events(fn, barrier=True):
+    """(fn(), ms between CUDA events around it on this rank's stream);
+    under ``barrier`` every rank of the group starts it together."""
+    torch.cuda.synchronize()
+    if barrier:
+        dist.barrier()
+    a, b = torch.cuda.Event(enable_timing=True), \
+        torch.cuda.Event(enable_timing=True)
+    a.record()
+    out = fn()
+    b.record()
+    torch.cuda.synchronize()
+    return out, a.elapsed_time(b)
+
+
+def _rk_prefill(inp, mesh, models):
+    """(b) the per-rank prefill in bf16 and f32 (flash_attention on the
+    rank's 16 q and 2 kv heads); rank 0 holds the gathered logits to one
+    process's forward."""
+    tokens = torch.from_numpy(inp["prefill"]).to(DEV)
+    out = {}
+    with torch.inference_mode():
+        for dtype, model in models.items():
+            _reset_counts()
+            logits, ms = _rk_events(lambda: model.apply(
+                {"tokens": tokens}, mesh=mesh)[0])
+            out[dtype] = {"ms": ms, "launches": _counts()["flash_attention"],
+                          "checksum": _mrm_checksum([logits])}
+            if mesh.rank == 0:
+                _reset_counts()
+                one, one_ms = _rk_events(lambda: model.apply(
+                    {"tokens": tokens})[0], barrier=False)
+                out[dtype].update(one_ms=one_ms, one=one.float().cpu(),
+                                  err=_rel(logits, one))
+            del logits
+    if mesh.rank == 0:
+        ref32 = out["float32"].pop("one")
+        out["bfloat16"]["bf16_err"] = _rel(out["bfloat16"].pop("one"),
+                                           ref32)
+    return out
+
+
+def _rk_leaf_errs(a, b):
+    return [float((x.float() - y.float()).abs().max())
+            for x, y in zip(tree_leaves(a), tree_leaves(b))]
+
+
+def _rk_train(inp, mesh, model, acct_mode):
+    """(b) and (c): one AdamW step on the rank's own blocks (the step's
+    per-rank map), counted by ``CostMode`` and its peak read; rank 0
+    holds the loss, the first moments and the gathered parameters to one
+    process's bf16 step (and the bf16 step to the f32 one)."""
+    run = RunConfig(arch=RK_ARCH, lr=RK_LR, total_steps=10, warmup=0)
+    opt = steps_lib.make_optimizer(run)
+    batch = {"tokens": torch.from_numpy(inp["tokens"]).to(DEV),
+             "labels": torch.from_numpy(inp["labels"]).to(DEV)}
+    out = {}
+    if mesh.rank == 0:
+        m32 = Model(_rk_cfg("float32"), device=DEV,
+                    params=model.param_tree())
+        st = steps_lib.init_train_state(m32, opt)
+        one32, met32 = steps_lib.make_train_step(m32, opt, run)(st, batch)
+        mom32 = one32.opt_state.m
+        del one32, st
+        st = steps_lib.init_train_state(model, opt)
+        one_step = steps_lib.make_train_step(model, opt, run)
+        (one, met), out["one_ms"] = _rk_events(lambda: one_step(st, batch),
+                                               barrier=False)
+        out["one_loss"] = float(met["loss"])
+        out["one_gnorm"] = float(met["grad_norm"])
+        out["loss32"] = float(met32["loss"])
+        out["bf16_m_err"] = _rk_leaf_errs(one.opt_state.m, mom32)
+        one_params, one_m = one.params, one.opt_state.m
+        del one, st, mom32, m32
+        gc.collect()
+        torch.cuda.empty_cache()
+    rmap = steps_lib.rank_train_map(model, opt, run, mesh, batch)
+    pblocks, bblocks = partition.rank_blocks(
+        (model.param_tree(), batch),
+        (rmap.in_specs[0].params, rmap.in_specs[1]), mesh)
+    state = steps_lib.TrainState(pblocks, opt.init(pblocks),
+                                 torch.zeros((), dtype=torch.int32,
+                                             device=DEV))
+    args = (state, bblocks)
+    gc.collect()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    argument = sum(t.untyped_storage().nbytes() for t in
+                   {id(t): t for t in tree_leaves(args)}.values())
+    torch.cuda.reset_peak_memory_stats()
+    mode = acct_mode()
+    with mode:
+        (new, met), ms = _rk_events(lambda: rmap.body(*args))
+    peak = torch.cuda.max_memory_allocated() - base + argument
+    out.update(ms=ms, loss=float(met["loss"]), gnorm=float(met["grad_norm"]),
+               collectives=mode.collectives(), peak=peak, argument=argument)
+    # the parameters and first moments gathered leaf by leaf (every rank
+    # takes part), held on rank 0
+    pspecs = rmap.in_specs[0].params
+    out["errs"] = {"params": [], "m": []}
+    for name, blocks in (("params", new.params), ("m", new.opt_state.m)):
+        refs = tree_leaves(one_params if name == "params" else one_m) \
+            if mesh.rank == 0 else None
+        with torch.no_grad():
+            for i, (x, spec) in enumerate(partition.spec_leaves(blocks,
+                                                                pspecs)):
+                full = partition.unblock(x, spec, mesh)
+                if mesh.rank == 0:
+                    out["errs"][name].append(float(
+                        (full.float() - refs[i].float()).abs().max()))
+                del full
+    del new, state, args
+    return out
+
+
+def _rk_decode(inp, mesh, model):
+    """(b) decode at B 2, f32, on the rank's heads (the cache over kv
+    heads: 4 on a model axis of 2); rank 0 holds its logits to one
+    process's decode."""
+    prompt = torch.from_numpy(inp["decode"]).to(DEV)
+    out = {}
+    with torch.inference_mode():
+        for name, m in (("ranks", mesh), ("one", None)):
+            if name == "one" and mesh.rank != 0:
+                continue
+            cache = model.init_decode_cache(RK_DECODE_B, RK_DECODE_STEPS)
+            logits = []
+            marks = [torch.cuda.Event(enable_timing=True)
+                     for _ in range(RK_DECODE_STEPS + 1)]
+            torch.cuda.synchronize()
+            for t in range(RK_DECODE_STEPS):
+                marks[t].record()
+                lg, cache = model.decode_step(cache, prompt[:, t], t, mesh=m)
+                logits.append(lg)
+            marks[-1].record()
+            torch.cuda.synchronize()
+            # the first token's step left out (first calls)
+            out[name] = {"logits": torch.stack(logits),
+                         "ms_token": marks[1].elapsed_time(marks[-1])
+                         / (RK_DECODE_STEPS - 1)}
+            del cache
+    if mesh.rank == 0:
+        out["err"] = _rel(out["ranks"]["logits"], out["one"]["logits"])
+    out["checksum"] = _mrm_checksum([out["ranks"].pop("logits")])
+    out.get("one", {}).pop("logits", None)
+    return out
+
+
+def _rk_dml(inp, mesh):
+    """(b) the per-rank Eq. 4 step of imnet63k at its paper width: L's
+    10,000 rows over model, the pairs over data, dml_pair on each rank;
+    rank 0 holds the gathered L to one process's step."""
+    dcfg = RK_DML.dml
+    gen = torch.Generator(device=DEV).manual_seed(22)
+    L = init_params(dcfg, gen, DEV)
+    batch = {"xs": torch.from_numpy(inp["dml_xs"]).to(DEV),
+             "ys": torch.from_numpy(inp["dml_ys"]).to(DEV),
+             "sim": torch.from_numpy(inp["dml_sim"]).to(DEV)}
+    _, specs = dryrun.dml_specs(dcfg, batch["xs"].shape[0], mesh)
+    assert specs[0][0] == "model", specs
+    blocks = partition.rank_blocks((L, batch), specs, mesh)
+    step = dryrun._dml_step(dcfg, mesh, rows_split=True)
+    _reset_counts()
+    (new, loss), ms = _rk_events(lambda: step(*blocks))
+    out = {"ms": ms, "launches": _counts()["dml_pair"], "loss": float(loss)}
+    full = partition.all_gather(new, "model", mesh, tiled=True)
+    if mesh.rank == 0:
+        one_step = dryrun._dml_step(dcfg)
+        (one, one_loss), one_ms = _rk_events(lambda: one_step(L, batch),
+                                             barrier=False)
+        d2 = dml.mahalanobis_sqdist(L, batch["xs"], batch["ys"])
+        out.update(one_ms=one_ms, one_loss=float(one_loss),
+                   near_margin=int(((d2 - dcfg.margin).abs() < 1e-3).sum()),
+                   dL_err=float(((L - full) - (L - one)).abs().max()
+                                / (L - one).abs().max()))
+    return out
+
+
+def _rk_rank(inp):
+    """One rank of phase 22 (b) and (c), a spawned process on the shared
+    card."""
+    from repro_torch.launch.cost_analysis import CostMode
+    mesh = card_figures.make_local_mesh(data=RK_MESH[0], model=RK_MESH[1])
+    out = {"rank": mesh.rank, "backend": mesh.backend}
+    model = Model(_rk_cfg("float32"), device=DEV, seed=0)
+    models = {"bfloat16": Model(_rk_cfg("bfloat16"), device=DEV,
+                                params=model.param_tree()),
+              "float32": model}
+    out["prefill"] = _rk_prefill(inp, mesh, models)
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["train"] = _rk_train(inp, mesh, models["bfloat16"], CostMode)
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["decode"] = _rk_decode(inp, mesh, model)
+    del model, models
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["dml"] = _rk_dml(inp, mesh)
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    return out
+
+
+def phase_ranks(card, sweep=None):
+    """Phase 22: the dry run's per-rank program: (a) rank 0's records on
+    the production meshes, traced on meta (``sweep``, from
+    ``rk_sweep_start``; started here if None); (b) the same program on
+    four ranks sharing the card over gloo, held to one process; (c) the
+    account of (b)'s training step in a fake world of the same (2, 2),
+    held to what rank 0 issued and allocated."""
+    t_phase = time.perf_counter()
+    sweep = _rk_sweep(sweep or rk_sweep_start())
+    inp = _rk_inputs()
+    shape = InputShape("held", RK_TRAIN[1], RK_TRAIN[0], "train")
+    with card_figures.fake_world(card_figures.Mesh(("data", "model"),
+                                                   RK_MESH)) as live:
+        acct = dryrun.rank_account(_rk_cfg("bfloat16"), shape, live)
+    t0 = time.perf_counter()
+    ranks = spawn(_rk_rank, RK_MESH[0] * RK_MESH[1], args=(inp,),
+                  timeout=RK_TIMEOUT)
+    spawn_s = time.perf_counter() - t0
+    r0 = ranks[0]
+    note = (f"{card}; {len(ranks)} ranks share one card over "
+            f"{r0['backend']}, which stages every collective through the "
+            f"host")
+    failed = []
+
+    def hold(ok, what):
+        if not ok:
+            failed.append(what)
+
+    # (b) prefill
+    for dtype in ("float32", "bfloat16"):
+        p = r0["prefill"][dtype]
+        bound = DECODE_REL_BOUND if dtype == "float32" else \
+            RK_BF16_SLACK * p["bf16_err"]
+        hold(p["err"] <= bound, f"prefill {dtype}")
+        hold(all(r["prefill"][dtype]["checksum"] == p["checksum"]
+                 for r in ranks), f"prefill {dtype} ranks differ")
+        hold(all(r["prefill"][dtype]["launches"] == RK_LAYERS
+                 for r in ranks), f"prefill {dtype} launches")
+        log(f"22 (b) {RK_ARCH} prefill ({RK_LAYERS} layers at full width, "
+            f"B {RK_PREFILL[0]} x T {RK_PREFILL[1]}, {dtype}; a rank's 16 q "
+            f"and 2 kv heads of 128 on flash_attention): "
+            f"{p['ms']:.2f} ms over ranks against {p['one_ms']:.2f} ms one "
+            f"process (device ms, CUDA events on rank 0); logits within "
+            f"{p['err']:.3e} x max of one process's (bound {bound:.3e}"
+            + ("" if dtype == "float32" else ", its bf16 forward's own "
+               "distance from f32") + f"); flash_attention launches by "
+            f"rank {[r['prefill'][dtype]['launches'] for r in ranks]}; "
+            f"{note}")
+    # (b) training, (c) its account
+    tr = r0["train"]
+    loss_rel = abs(tr["loss"] - tr["one_loss"]) / abs(tr["one_loss"])
+    loss_bound = RK_BF16_SLACK * abs(tr["one_loss"] - tr["loss32"]) \
+        / abs(tr["loss32"])
+    hold(loss_rel <= loss_bound, "train loss")
+    by_leaf = [round(e / (b + 1e-30), 2) for e, b in
+               zip(tr["errs"]["m"], tr["bf16_m_err"])]
+    m_share = max(e / (RK_BF16_SLACK * b + 1e-12) for e, b in
+                  zip(tr["errs"]["m"], tr["bf16_m_err"]))
+    hold(m_share <= 1.0, "train first moments")
+    hold(max(tr["errs"]["params"]) <= 2 * RK_LR + 1e-6, "train params")
+    log(f"22 (b) {RK_ARCH} training ({RK_LAYERS} layers, B {RK_TRAIN[0]} x "
+        f"T {RK_TRAIN[1]}, bf16 activations, f32 weights, AdamW lr {RK_LR}, "
+        f"remat): {tr['ms']:.1f} ms a step over ranks against "
+        f"{tr['one_ms']:.1f} ms one process (device ms); loss "
+        f"{tr['loss']:.5f} against {tr['one_loss']:.5f} one process (rel "
+        f"{loss_rel:.2e}, bound {loss_bound:.2e}: bf16's own distance from "
+        f"f32); first moments within {max(tr['errs']['m']):.3e}, the worst "
+        f"leaf at {m_share:.3f} of its bound ({RK_BF16_SLACK:g} x its bf16-"
+        f"to-f32 distance; by leaf {by_leaf}); parameters within "
+        f"{max(tr['errs']['params']):.3e} (bound 2 lr); {note}")
+    live_c, acct_c = tr["collectives"], acct["collectives"]
+    same = live_c["counts"] == acct_c["counts"] and \
+        live_c["bytes"] == acct_c["bytes"]
+    hold(same, "account collectives")
+    ratio = acct["peak_bytes"] / tr["peak"]
+    lo, hi = PEAK_RATIO_BAND
+    hold(lo <= ratio <= hi, "account peak")
+    hold(acct["memory"]["argument_size"] == tr["argument"],
+         "account arguments")
+    log(f"22 (c) account of the step in a fake world of (2, 2): collectives "
+        f"{acct_c['counts']} ({acct_c['total_bytes'] / 1e9:.4f} GB), rank "
+        f"0 issued {live_c['counts']} ({live_c['total_bytes'] / 1e9:.4f} "
+        f"GB): equal {same}; peak {acct['peak_bytes'] / 1e9:.3f} GB against "
+        f"rank 0's {tr['peak'] / 1e9:.3f} GB (ratio {ratio:.3f}, band "
+        f"{PEAK_RATIO_BAND}); arguments {acct['memory']['argument_size']} "
+        f"B, rank 0's {tr['argument']} B; {note}")
+    # (b) decode and DML
+    dc = r0["decode"]
+    hold(dc["err"] <= DECODE_REL_BOUND, "decode")
+    hold(all(r["decode"]["checksum"] == dc["checksum"] for r in ranks),
+         "decode ranks differ")
+    log(f"22 (b) {RK_ARCH} decode (B {RK_DECODE_B}, {RK_DECODE_STEPS} "
+        f"tokens, f32, the cache over kv heads): "
+        f"{dc['ranks']['ms_token']:.2f} ms/token over ranks against "
+        f"{dc['one']['ms_token']:.2f} one process (device ms, CUDA events "
+        f"on rank 0); logits "
+        f"within {dc['err']:.3e} (bound {DECODE_REL_BOUND}); {note}")
+    dm = r0["dml"]
+    hold(dm["near_margin"] == 0, "dml hinge")
+    hold(dm["dL_err"] <= 1e-4, "dml step")
+    hold(abs(dm["loss"] - dm["one_loss"]) <= 1e-5 * abs(dm["one_loss"]),
+         "dml loss")
+    hold(all(r["dml"]["launches"] == 1 for r in ranks), "dml launches")
+    log(f"22 (b) {RK_DML.name} per-rank Eq. 4 step (L "
+        f"{RK_DML.dml.proj_dim} x {RK_DML.dml.feat_dim}, its rows over "
+        f"model, {RK_DML.batch_size} pairs a data rank): {dm['ms']:.2f} ms "
+        f"over ranks against {dm['one_ms']:.2f} ms one process (device ms); "
+        f"dL within {dm['dL_err']:.3e} x max |dL| (bound 1e-4); loss "
+        f"{dm['loss']:.6f} against {dm['one_loss']:.6f}; dml_pair launches "
+        f"by rank {[r['dml']['launches'] for r in ranks]}; {note}")
+    log(f"22 ranks: peak GB {[round(r['peak_gb'], 2) for r in ranks]}; "
+        f"spawn and work {spawn_s:.1f} s; {note}")
+    out = {"card": card, "sweep_s": sweep["sweep_s"],
+           "sweep_trace_s": sweep["trace_s"],
+           "records": {k: {f: v.get(f) for f in (
+               "flops_per_chip", "hbm_bytes_per_chip", "memory",
+               "collectives", "roofline", "trace_s")}
+               for k, v in sweep["records"].items()},
+           "prefill": r0["prefill"], "train": {
+               k: tr[k] for k in ("ms", "one_ms", "loss", "one_loss",
+                                  "loss32", "gnorm", "one_gnorm", "peak",
+                                  "argument", "collectives")},
+           "account": {"collectives": acct_c, "peak": acct["peak_bytes"],
+                       "ratio": ratio},
+           "decode": dc, "dml": dm, "spawn_s": spawn_s,
+           "launches": {
+               "flash_attention": [
+                   sum(r["prefill"][d]["launches"]
+                       for d in ("float32", "bfloat16")) for r in ranks],
+               "dml_pair": [r["dml"]["launches"] for r in ranks]},
+           "peak_gb": [r["peak_gb"] for r in ranks],
+           "phase_s": time.perf_counter() - t_phase}
+    log(f"per-rank phase {out['phase_s']:.1f} s")
+    assert not failed, f"phase 22 failed: {failed}"
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -7459,6 +7929,7 @@ def main():
     torch.cuda.empty_cache()
     bb = phase_backbone_parity()
     log(f"backbone parity done at {time.perf_counter() - t0:.1f}s")
+    sweep = rk_sweep_start()        # phase 22 (a), on the host's idle cores
     gemma = phase_gemma()
     log(f"gemma forward done at {time.perf_counter() - t0:.1f}s")
     model, requests, svc = phase_embedding_service()
@@ -7508,6 +7979,10 @@ def main():
     torch.cuda.empty_cache()
     multirank_moe = phase_multirank_moe(card)
     log(f"multi-rank moe done at {time.perf_counter() - t0:.1f}s")
+    gc.collect()
+    torch.cuda.empty_cache()
+    ranks = phase_ranks(card, sweep)
+    log(f"per-rank program done at {time.perf_counter() - t0:.1f}s")
     # the backbone kernels' launches in phases 12-15: apply through the
     # kernels beside decode (window, ring; gemma) and beside the first
     # training step (decode and the training steps launch none)
@@ -7536,11 +8011,14 @@ def main():
         if entry["name"] in multirank_moe["launches"]:
             entry["multirank_moe_launches_by_rank"] = \
                 multirank_moe["launches"][entry["name"]]
+        if entry["name"] in ranks["launches"]:
+            entry["per_rank_launches_by_rank"] = \
+                ranks["launches"][entry["name"]]
     entries += frame_entries        # flash_attention at phase 18's shapes
     print(json.dumps({"decode": decode, "training": training, RWKV: rwkv,
                       "moe": moe_out, "vlm_audio": vlm_audio,
                       "account": account, "multirank": multirank,
-                      "multirank_moe": multirank_moe}),
+                      "multirank_moe": multirank_moe, "ranks": ranks}),
           flush=True)
     print(json.dumps({"kernels": entries}), flush=True)
     log(f"total {time.perf_counter() - t0:.1f}s")

@@ -12,7 +12,10 @@ from typing import Callable, Dict, Tuple
 import torch
 
 from repro_torch.core import dml
+from repro_torch.kernels._dispatch import full_f32
 from repro_torch.kernels.dml_pair import dml_pair_loss_and_d2
+from repro_torch.kernels.dml_pair.ops import dml_pair_forward
+from repro_torch.sharding import partition
 
 LossFn = Callable[..., Tuple[torch.Tensor, Dict[str, torch.Tensor]]]
 _REGISTRY: Dict[str, LossFn] = {}
@@ -60,6 +63,36 @@ def dml_pair_loss(L, batch, *, lam: float = 1.0, margin: float = 1.0,
         "hinge_active_frac": torch.mean((d2 < margin) * (1 - simf)),
     }
     return loss, aux
+
+
+def dml_pair_value_and_grad_rank(L, batch, mesh, *, rows_split: bool,
+                                 lam: float = 1.0, margin: float = 1.0):
+    """One rank's Eq. 4 value and gradient on a live ``mesh``: ``batch``
+    this rank's pairs (sharded over the batch axes ``pod`` / ``data``),
+    ``L`` its rows (over ``model`` when ``rows_split``, else all of
+    them). The ``dml_pair`` forward (the kernel on CUDA tensors) gives
+    the rank's d2 and projection; with the rows split its d2 is a partial,
+    summed over ``model`` before the hinge (the kernel's own loss, taken
+    on the partial, is not used). The closed-form gradient of the rank's
+    rows (``kernels/dml_pair/ops.py``'s backward) and the mean loss are
+    summed over the batch axes. Returns (loss, dL), the loss the same on
+    every rank."""
+    full_f32()
+    xs, ys, sim = batch["xs"], batch["ys"], batch["sim"]
+    axes = tuple(a for a in ("pod", "data") if a in mesh.shape)
+    n_pairs = xs.shape[0] * (mesh.axis_size(axes) if axes else 1)
+    _, d2, proj = dml_pair_forward(L, xs, ys, sim, lam, margin)
+    if rows_split:
+        d2 = partition.psum(d2, "model", mesh)
+    simf = sim.to(torch.float32)
+    losses = simf * d2 + (1.0 - simf) * lam * torch.clamp_min(margin - d2,
+                                                              0.0)
+    w = simf - lam * (1.0 - simf) * (d2 < margin).to(torch.float32)
+    z = (xs - ys).to(torch.float32)
+    dL = ((2.0 / n_pairs) * (proj * w[:, None]).T) @ z
+    loss, dL = partition.psum((torch.sum(losses)[None] / n_pairs, dL),
+                              axes, mesh)
+    return loss[0], dL.to(L.dtype)
 
 
 @register("dml_triplet")

@@ -15,6 +15,8 @@ Last, the vlm and audio families: hubert-xlarge's non-causal MHA 16/16
 at Dh 80, at T = S = 1500 (30 s of audio at 50 frames a second; every kv
 tile of every q tile visited, the last one an edge tile of 92 keys) and
 at the service's 4,096, and pixtral-12b's causal GQA 32/8 at Dh 128.
+Then the per-rank program: yi-6b's heads on one rank of a model axis of
+2, causal GQA 16/2 at Dh 128, at B 2 x T 4,096.
 """
 
 PARITY = [(2, 128, 128, 4, 4, 64, True, 0), (2, 128, 128, 8, 2, 64, True, 0),
@@ -42,4 +44,6 @@ PARITY = [(2, 128, 128, 4, 4, 64, True, 0), (2, 128, 128, 8, 2, 64, True, 0),
           # the vlm and audio families
           (2, 1500, 1500, 16, 16, 80, False, 0),
           (1, 4096, 4096, 16, 16, 80, False, 0),
-          (1, 4096, 4096, 32, 8, 128, True, 0)]
+          (1, 4096, 4096, 32, 8, 128, True, 0),
+          # one rank of yi-6b on a model axis of 2
+          (2, 4096, 4096, 16, 2, 128, True, 0)]

@@ -7,10 +7,9 @@ because ``cost_analysis()`` has no collective traffic and counts a
 parse and no loop to correct: eager PyTorch runs every op of every
 layer and every chunk through the dispatcher, and ``CostMode`` (a
 ``TorchDispatchMode``) sees each one. Run over ``meta`` tensors it
-counts a step at full size with no storage and nothing launched.
-Per-rank collective bytes come with the multi-GPU slice (ROADMAP.md
-Queue 1 item 8e), from ``torch.distributed.tensor.debug.CommDebugMode``
-over the per-rank program; on one card they are 0.
+counts a step at full size with no storage and nothing launched; in
+``launch/mesh.fake_world`` it counts one rank's program on a production
+mesh, collectives included (on one card there are none).
 
 Counting rules, per aten op (after autograd and composite ops are
 decomposed, as the card would run them eagerly):
@@ -41,6 +40,14 @@ decomposed, as the card would run them eagerly):
   host scalars) are left out of bytes and memory.
 * **Ops**: ops that are not pure aliases (what an eager run launches,
   before fusion).
+* **Collectives**: every ``c10d`` and ``_c10d_functional`` op, by the
+  reference's kinds (``COLLECTIVE_KINDS``): its count and its output
+  bytes on this rank (the reference's convention: an all-gather's
+  gathered tensor, a reduce-scatter's slot, an all-reduce's tensor),
+  which are also its only HBM bytes; no FLOPs. Each is also filed under
+  its link (``launch/mesh.link``: ``nvlink`` when the group's ranks lie
+  in one node, ``ib`` when they span nodes) for the roofline's
+  ``collective_s``.
 """
 
 from __future__ import annotations
@@ -51,9 +58,35 @@ from collections import defaultdict
 from typing import Dict
 
 import torch
+import torch.distributed as dist
 from torch.utils._python_dispatch import TorchDispatchMode
 
+from repro_torch.launch import mesh as mesh_lib
+
 aten = torch.ops.aten
+
+# the reference's kinds (repro/launch/hlo_analysis.py)
+COLLECTIVE_KINDS = ("all-gather", "all-reduce", "reduce-scatter",
+                    "all-to-all", "collective-permute")
+# c10d / _c10d_functional op name -> kind
+_COLLECTIVES = {
+    "allreduce_": "all-reduce", "allreduce_coalesced_": "all-reduce",
+    "all_reduce": "all-reduce", "all_reduce_coalesced": "all-reduce",
+    "_allgather_base_": "all-gather", "allgather_": "all-gather",
+    "allgather_coalesced_": "all-gather",
+    "allgather_into_tensor_coalesced_": "all-gather",
+    "all_gather_into_tensor": "all-gather",
+    "all_gather_into_tensor_coalesced": "all-gather",
+    "_reduce_scatter_base_": "reduce-scatter",
+    "reduce_scatter_": "reduce-scatter",
+    "reduce_scatter_tensor_coalesced_": "reduce-scatter",
+    "reduce_scatter_tensor": "reduce-scatter",
+    "reduce_scatter_tensor_coalesced": "reduce-scatter",
+    "alltoall_": "all-to-all", "alltoall_base_": "all-to-all",
+    "all_to_all_single": "all-to-all",
+    "send": "collective-permute", "recv_": "collective-permute",
+}
+_COMM_NAMESPACES = ("c10d", "_c10d_functional")
 
 
 def roofline_terms(flops: float, hbm_bytes: float, collective_bytes: float,
@@ -118,17 +151,18 @@ def _nbytes(t: torch.Tensor) -> int:
     return t.numel() * t.element_size()
 
 
-def _tensors(items, out):
-    """The tensors off the CPU among ``items``: tensors, and lists,
-    tuples (NamedTuples among them) and dicts of them."""
+def _tensors(items, out, host: bool = False):
+    """The tensors off the CPU among ``items`` (on it too when ``host``):
+    tensors, and lists, tuples (NamedTuples among them) and dicts of
+    them."""
     for x in items:
         if isinstance(x, torch.Tensor):
-            if x.device.type != "cpu":
+            if host or x.device.type != "cpu":
                 out.append(x)
         elif isinstance(x, (list, tuple)):
-            _tensors(x, out)
+            _tensors(x, out, host)
         elif isinstance(x, dict):
-            _tensors(x.values(), out)
+            _tensors(x.values(), out, host)
     return out
 
 
@@ -146,6 +180,9 @@ class CostMode(TorchDispatchMode):
         self.peak = 0
         self._live: Dict[int, int] = {}      # storage id -> bytes
         self._args: Dict[int, int] = {}
+        self.coll_bytes: Dict[str, float] = defaultdict(float)
+        self.coll_counts: Dict[str, int] = defaultdict(int)
+        self.link_bytes: Dict[str, float] = defaultdict(float)
 
     def add_arguments(self, tree) -> int:
         """Register the storages of ``tree``'s tensors as the step's
@@ -183,9 +220,29 @@ class CostMode(TorchDispatchMode):
         self.peak = max(self.peak, self.live)
         weakref.finalize(st, self._free, key)
 
+    def _collective(self, func, args, kwargs, out) -> None:
+        """File a c10d op under its kind and link (module docstring)."""
+        name = func._overloadpacket.__name__
+        kind = _COLLECTIVES.get(name)
+        if kind is None:                     # wait_tensor, barrier, ...
+            return
+        outs = _tensors((out,), [], host=True)
+        if not outs:                         # c10d ops mutate their inputs
+            outs = _tensors((args[0],), [], host=True)
+        nbytes = sum(_nbytes(t) for t in outs)
+        link = mesh_lib.link(_group_ranks(func, args, kwargs))
+        self.coll_bytes[kind] += nbytes
+        self.coll_counts[kind] += 1
+        self.link_bytes[link] += nbytes
+        self.bytes += sum(_nbytes(t) for t in outs if t.device.type != "cpu")
+        self.ops += 1
+
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
         out = func(*args, **kwargs)
+        if func.namespace in _COMM_NAMESPACES:
+            self._collective(func, args, kwargs, out)
+            return out
         ins = _tensors((args, kwargs), [])
         outs = _tensors((out,), [])
         in_st = {t.untyped_storage()._cdata for t in ins}
@@ -232,11 +289,39 @@ class CostMode(TorchDispatchMode):
             if self._gc:
                 gc.enable()
 
+    def collectives(self) -> dict:
+        """The reference's record of the collectives: bytes and counts by
+        kind, their total; and the bytes by link."""
+        return {"bytes": dict(self.coll_bytes),
+                "counts": dict(self.coll_counts),
+                "total_bytes": float(sum(self.coll_bytes.values())),
+                "by_link": dict(self.link_bytes)}
+
     def summary(self) -> dict:
         return {"flops": float(sum(self.flops.values())),
                 "flops_by_dtype": dict(self.flops),
                 "hbm_bytes": float(self.bytes), "peak_bytes": self.peak,
-                "ops": self.ops}
+                "ops": self.ops, "collectives": self.collectives()}
+
+
+def _group_ranks(func, args, kwargs):
+    """The global ranks of a collective's group: the ``process_group``
+    argument of a c10d op, the ``group_name`` of a functional one (the
+    world when neither is given)."""
+    for i, a in enumerate(func._schema.arguments):
+        v = kwargs.get(a.name, args[i] if i < len(args) else None)
+        if a.name == "process_group" and isinstance(v, torch.ScriptObject):
+            return dist.get_process_group_ranks(dist.ProcessGroup.unbox(v))
+        if a.name == "group_name" and isinstance(v, str):
+            from torch.distributed.distributed_c10d import \
+                _resolve_process_group
+            return dist.get_process_group_ranks(_resolve_process_group(v))
+    return range(dist.get_world_size())
+
+
+def collective_seconds(by_link: Dict[str, float]) -> float:
+    """The collectives' bytes at their links' rates, summed."""
+    return sum(b / mesh_lib.LINK_BW[link] for link, b in by_link.items())
 
 
 def compute_seconds(flops_by_dtype: Dict[str, float], rates) -> float:

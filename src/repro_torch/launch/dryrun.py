@@ -16,11 +16,20 @@ For each combination this module:
   4. appends the record to ``build/dryrun/dryrun_h100.json``.
 
 On a production mesh (``--mesh 16x16``; ``--multi-pod``, which is
-``--mesh pod2x16x16``) the record is the sharding plan's per-rank
-``argument_size`` (parameter, AdamW-state and input or cache shards,
-``sharding.partition.local_shape``), status ``"plan"``; the per-rank
-program (FLOPs, temp bytes, collectives) waits for the multi-GPU slice
-(ROADMAP.md Queue 1 item 8e).
+``--mesh pod2x16x16``) the record is one rank's program: the step's
+per-rank map (``launch/steps.py``, ``Model.rank_map`` /
+``rank_decode_map``; the DML step ``core/losses``'
+``dml_pair_value_and_grad_rank``) traced on that rank's blocks as meta
+tensors inside ``launch/mesh.fake_world`` (a world of 256 or 512 ranks
+over torch's fake backend, entered as rank 0, which holds the largest
+block where a dimension does not divide), under the same ``CostMode``:
+FLOPs, HBM bytes, memory, and the collectives it issues by the
+reference's kinds, with the roofline's ``collective_s`` at each group's
+link (``launch/mesh.link``). Its ``argument_size`` must equal the
+sharding plan's (``plan_arguments``: parameter, AdamW-state and input or
+cache shards). The dense family and the paper's DML configs have it;
+the other families' records are the plan alone, status ``"plan"``
+(their per-rank programs are ROADMAP.md Queue 1 item 8f).
 
 The counts follow ``cost_analysis``'s rules; two matter when a record is
 read against the card. The plain attention computes the full T x S
@@ -55,6 +64,7 @@ from repro_torch.configs import SHAPES, get_config, get_shape, list_configs
 from repro_torch.configs.base import ArchConfig, InputShape, RunConfig
 from repro_torch.launch import cost_analysis, mesh as mesh_lib, steps
 from repro_torch.models.transformer import Model
+from repro_torch.sharding import partition
 from repro_torch.sharding.partition import local_shape, logical_to_physical
 
 ARTIFACT_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
@@ -144,11 +154,13 @@ def model_flops(cfg: ArchConfig, shape: InputShape) -> float:
 
 def account(step, *args) -> dict:
     """Run ``step(*args)`` (meta tensors) under ``CostMode``: FLOPs by
-    dtype, HBM bytes, ops, the memory record and the roofline terms at
-    the H100's rates (each dtype's FLOPs at its rate,
-    ``mesh.PEAK_FLOPS_BY_DTYPE``). ``memory.temp_size`` is the peak of
-    the bytes the step allocated and still held (its outputs among them
-    while they are live); ``peak_bytes`` adds the arguments."""
+    dtype, HBM bytes, ops, the memory record, the collectives and the
+    roofline terms at the H100's rates (each dtype's FLOPs at its rate,
+    ``mesh.PEAK_FLOPS_BY_DTYPE``; each collective's bytes at its link's,
+    ``cost_analysis.collective_seconds``). ``memory.temp_size`` is the
+    peak of the bytes the step allocated and still held (its outputs
+    among them while they are live); ``peak_bytes`` adds the
+    arguments."""
     mode = cost_analysis.CostMode()
     argument = mode.add_arguments(args)
     t0 = time.perf_counter()
@@ -162,11 +174,15 @@ def account(step, *args) -> dict:
     compute_s = cost_analysis.compute_seconds(counts["flops_by_dtype"],
                                               rates)
     flops = counts["flops"]
-    # one rate for roofline_terms: the FLOPs over the dtype-weighted time
+    # one rate for roofline_terms: the FLOPs over the dtype-weighted time,
+    # and the collective bytes over their links' time
     peak_flops = flops / compute_s if compute_s else mesh_lib.PEAK_FLOPS_F32
+    coll = counts["collectives"]
+    coll_s = cost_analysis.collective_seconds(coll["by_link"])
+    link = coll["total_bytes"] / coll_s if coll_s else mesh_lib.NVLINK_BW
     terms = cost_analysis.roofline_terms(
-        flops, counts["hbm_bytes"], 0.0, 1, peak_flops, mesh_lib.HBM_BW,
-        mesh_lib.NVLINK_BW)
+        flops, counts["hbm_bytes"], coll["total_bytes"], 1, peak_flops,
+        mesh_lib.HBM_BW, link)
     peak = argument + counts["peak_bytes"]
     return {
         "trace_s": trace_s,
@@ -179,6 +195,7 @@ def account(step, *args) -> dict:
         "flops_by_dtype": counts["flops_by_dtype"],
         "hbm_bytes_per_chip": counts["hbm_bytes"],
         "peak_flops": peak_flops,
+        "collectives": coll,
         "roofline": terms,
     }
 
@@ -193,26 +210,57 @@ def _build(arch: str, shape_name: str, overrides: Optional[dict]):
     return shape, cfg, skip
 
 
-def dryrun_one(arch: str, shape_name: str, mesh: str = "h100",
-               loss_chunks: int = 8, overrides: dict = None) -> dict:
-    """The record of one combination on ``mesh``, a name of
-    ``mesh.MESHES``: the account on one H100 (``"h100"``), or the
-    sharding plan's per-rank arguments on a production mesh
-    (``"16x16"``, ``"pod2x16x16"``).
-
-    ``overrides``: ArchConfig.replace(**overrides) knobs (chunk sizes,
-    dtypes, ...)."""
-    plan = mesh != "h100"
-    mesh = mesh_lib.MESHES[mesh]
+def _head(arch, shape_name, mesh_name, overrides):
+    """(shape, cfg, the record's head, or a "skipped" record)."""
+    mesh = mesh_lib.MESHES[mesh_name]
     shape, cfg, skip = _build(arch, shape_name, overrides)
     head = {"arch": arch, "shape": shape_name, "mesh": mesh.shape}
     if skip:
-        return {"status": "skipped", "reason": skip, **head}
+        return shape, cfg, {"status": "skipped", "reason": skip, **head}
     head.update(mode=shape.mode, n_chips=mesh.size,
                 attn_variant=cfg.attention)
-    if plan:
-        return {"status": "plan", **head,
-                "memory": plan_arguments(cfg, shape, mesh)}
+    return shape, cfg, head
+
+
+def plan_record(arch: str, shape_name: str, mesh: str,
+                overrides: dict = None) -> dict:
+    """The sharding plan's record of one combination on a production mesh
+    (a name of ``mesh.MESHES``): its per-rank arguments
+    (``plan_arguments``), status ``"plan"``, traced nothing."""
+    shape, cfg, head = _head(arch, shape_name, mesh, overrides)
+    if head.get("status") == "skipped":
+        return head
+    return {"status": "plan", **head,
+            "memory": plan_arguments(cfg, shape, mesh_lib.MESHES[mesh])}
+
+
+def dryrun_one(arch: str, shape_name: str, mesh: str = "h100",
+               loss_chunks: int = 8, overrides: dict = None) -> dict:
+    """The record of one combination on ``mesh``, a name of
+    ``mesh.MESHES``: the account on one H100 (``"h100"``), or one rank's
+    program on a production mesh (``"16x16"``, ``"pod2x16x16"``; the
+    plan's per-rank arguments alone, ``plan_record``, for the families
+    whose program is ROADMAP.md Queue 1 item 8f).
+
+    ``overrides``: ArchConfig.replace(**overrides) knobs (chunk sizes,
+    dtypes, ...)."""
+    shape, cfg, head = _head(arch, shape_name, mesh, overrides)
+    if head.get("status") == "skipped":
+        return head
+    if mesh != "h100":
+        rec = plan_record(arch, shape_name, mesh, overrides)
+        if cfg.family != "dense":
+            return {**rec, "pending": PENDING}
+        plan = rec["memory"]
+        with mesh_lib.fake_world(mesh) as live:
+            acct = rank_account(cfg, shape, live, loss_chunks)
+        if acct["memory"]["argument_size"] != plan["argument_size"]:
+            raise AssertionError(f"{arch}|{shape_name} on {mesh}: the "
+                                 f"rank's arguments {acct['memory']} are "
+                                 f"not the plan's {plan}")
+        return {"status": "ok", **head, "card": mesh_lib.CARD, "rank": 0,
+                "plan": plan, "model_flops": model_flops(cfg, shape),
+                **acct}
     model = Model(cfg, device="meta")
     run = RunConfig(arch=arch, shape=shape_name)
     specs = steps.input_specs(cfg, shape)
@@ -233,6 +281,46 @@ def dryrun_one(arch: str, shape_name: str, mesh: str = "h100",
                       steps.cache_shape_structs(model, shape), batch)
     return {"status": "ok", **head, "card": mesh_lib.CARD,
             "model_flops": model_flops(cfg, shape), **rec}
+
+
+# the families whose per-rank program is still to come
+PENDING = "per-rank program: ROADMAP.md Queue 1 item 8f"
+
+
+def rank_map(cfg: ArchConfig, shape: InputShape, live,
+             loss_chunks: int = 8):
+    """(per-rank map, its global arguments as meta tensors) of the step
+    of ``cfg`` x ``shape`` on the live mesh ``live``: what
+    ``rank_account`` traces, and what ranks run for real."""
+    model = Model(cfg, device="meta")
+    run = RunConfig(arch=cfg.name, shape=shape.name)
+    specs = steps.input_specs(cfg, shape)
+    if shape.mode == "train":
+        opt = steps.make_optimizer(run)
+        state = steps.init_train_state(model, opt)
+        return steps.rank_train_map(model, opt, run, live, specs,
+                                    loss_chunks), (state, specs)
+    if shape.mode == "prefill":
+        return model.rank_map(live, specs["tokens"].shape, "logits",
+                              plain=False), (model.param_tree(), specs)
+    cache = steps.cache_shape_structs(model, shape)
+    return model.rank_decode_map(live, cache, specs["tokens"].shape,
+                                 shape.seq_len - 1), \
+        (model.param_tree(), cache, specs["tokens"])
+
+
+def rank_account(cfg: ArchConfig, shape: InputShape, live,
+                 loss_chunks: int = 8) -> dict:
+    """The account of rank 0's program (``rank_map``) on its blocks of
+    the arguments, meta tensors of ``partition.local_shape``; decode's
+    position is an argument too, as in the reference (the port's program
+    takes it as a Python int)."""
+    rmap, args = rank_map(cfg, shape, live, loss_chunks)
+    blocks = partition.local_blocks(args, rmap.in_specs, live)
+    if shape.mode != "decode":
+        return account(rmap.body, *blocks)
+    pos = torch.empty((), dtype=torch.int32, device="meta")
+    return account(lambda p, c, t, _pos: rmap.body(p, c, t), *blocks, pos)
 
 
 # ---------------------------------------------------------------------------
@@ -307,10 +395,19 @@ def plan_arguments(cfg: ArchConfig, shape: InputShape, mesh) -> dict:
 # The paper's DML configs
 # ---------------------------------------------------------------------------
 
-def _dml_step(dcfg):
-    """The reference's step: the Eq. 4 loss's gradient, L - 0.01 g."""
+def _dml_step(dcfg, mesh=None, rows_split: bool = False):
+    """The reference's step: the Eq. 4 loss's gradient, L - 0.01 g; on a
+    live ``mesh`` one rank's (``losses.dml_pair_value_and_grad_rank``)."""
     from repro_torch.core import losses as losses_mod
     from repro_torch.tree import value_and_grad
+
+    if mesh is not None:
+        def rank_step(L, b):
+            loss, g = losses_mod.dml_pair_value_and_grad_rank(
+                L, b, mesh, rows_split=rows_split, lam=dcfg.lam,
+                margin=dcfg.margin)
+            return L - 0.01 * g, loss
+        return rank_step
 
     def train_step(L, b):
         (loss, aux), g = value_and_grad(
@@ -321,40 +418,57 @@ def _dml_step(dcfg):
     return train_step
 
 
+def dml_specs(dcfg, B: int, mesh):
+    """(L, batch) of a DML step as meta tensors, and their specs on
+    ``mesh``: L's rows over ``model`` where they divide it, the pairs
+    over the batch axes."""
+    L = torch.empty((dcfg.proj_dim, dcfg.feat_dim), device="meta")
+    batch = {"xs": torch.empty((B, dcfg.feat_dim), device="meta"),
+             "ys": torch.empty((B, dcfg.feat_dim), device="meta"),
+             "sim": torch.empty((B,), dtype=torch.int32, device="meta")}
+    Lspec = logical_to_physical(("proj", "feat"), mesh, shape=tuple(L.shape))
+    bspec = {k: logical_to_physical(("pairs",) + (None,) * (v.ndim - 1),
+                                    mesh, shape=tuple(v.shape))
+             for k, v in batch.items()}
+    return (L, batch), (Lspec, bspec)
+
+
 def dryrun_dml(mesh: str = "h100") -> dict:
     """The paper's own DML configs (a train step over a pair batch) on
-    ``mesh`` (a name of ``mesh.MESHES``): the account on one H100, or the
-    plan on a production mesh, where the pairs a step are the paper's
-    minibatch on each data rank."""
+    ``mesh`` (a name of ``mesh.MESHES``): the account on one H100, or
+    rank 0's program on a production mesh, where the pairs a step are
+    the paper's minibatch on each data rank and L's rows go over
+    ``model`` where they divide it."""
     from repro_torch.configs import dml_paper
 
-    plan = mesh != "h100"
-    mesh = mesh_lib.MESHES[mesh]
+    name = mesh
+    mesh = mesh_lib.MESHES[name]
     shp = mesh.shape
     out = {}
-    for name, exp in dml_paper.EXPERIMENTS.items():
+    for exp_name, exp in dml_paper.EXPERIMENTS.items():
         dcfg = exp.dml
         B = exp.batch_size * shp["data"] * shp.get("pod", 1)
-        L = torch.empty((dcfg.proj_dim, dcfg.feat_dim), device="meta")
-        batch = {"xs": torch.empty((B, dcfg.feat_dim), device="meta"),
-                 "ys": torch.empty((B, dcfg.feat_dim), device="meta"),
-                 "sim": torch.empty((B,), dtype=torch.int32, device="meta")}
-        rec = {"arch": name, "shape": "paper_batch", "mesh": shp,
+        args, specs = dml_specs(dcfg, B, mesh)
+        rec = {"arch": exp_name, "shape": "paper_batch", "mesh": shp,
                "n_chips": mesh.size, "global_pair_batch": B}
-        if plan:
-            Lspec = logical_to_physical(("proj", "feat"), mesh,
-                                        shape=tuple(L.shape))
-            bspec = {k: logical_to_physical(
-                ("pairs",) + (None,) * (v.ndim - 1), mesh,
-                shape=tuple(v.shape)) for k, v in batch.items()}
-            arg = _shard_bytes([L], [Lspec], mesh) + \
-                _bytes_of(batch, bspec, mesh)
-            out[name] = {"status": "plan", **rec,
-                         "memory": {"argument_size": arg}}
+        if name == "h100":
+            out[exp_name] = {"status": "ok", **rec, "card": mesh_lib.CARD,
+                             **account(_dml_step(dcfg), *args)}
         else:
-            out[name] = {"status": "ok", **rec, "card": mesh_lib.CARD,
-                         **account(_dml_step(dcfg), L, batch)}
-        print(f"[dml dryrun] {name}: {out[name]['status']}", flush=True)
+            plan = _shard_bytes([args[0]], [specs[0]], mesh) + \
+                _bytes_of(args[1], specs[1], mesh)
+            split = specs[0][0] is not None
+            with mesh_lib.fake_world(name) as live:
+                blocks = partition.local_blocks(args, specs, live)
+                acct = account(_dml_step(dcfg, live, split), *blocks)
+            if acct["memory"]["argument_size"] != plan:
+                raise AssertionError(f"{exp_name} on {name}: the rank's "
+                                     f"arguments are not the plan's {plan}")
+            out[exp_name] = {"status": "ok", **rec, "card": mesh_lib.CARD,
+                             "rank": 0, "rows_split": split,
+                             "plan": {"argument_size": plan}, **acct}
+        print(f"[dml dryrun] {exp_name}: {out[exp_name]['status']}",
+              flush=True)
     return out
 
 
@@ -365,18 +479,24 @@ def summary_line(key: str, rec: dict) -> str:
         return f"[dryrun] {key}: SKIPPED ({rec['reason']})"
     if rec["status"] == "plan":
         return (f"[dryrun] {key}: plan argument "
-                f"{rec['memory']['argument_size'] / 1e9:.3f} GB a rank")
+                f"{rec['memory']['argument_size'] / 1e9:.3f} GB a rank "
+                f"({rec['pending']})")
     if rec["status"] != "ok":
         return f"[dryrun] {key}: ERROR {rec['error']}"
     t, m = rec["roofline"], rec["memory"]
     by = ", ".join(f"{d} {f:.4g}" for d, f in
                    sorted(rec["flops_by_dtype"].items()))
+    c = rec["collectives"]
+    kinds = ", ".join(f"{k} {c['counts'][k]} x {b / 1e9:.3g} GB"
+                      for k, b in sorted(c["bytes"].items()))
     return (f"[dryrun] {key}: {rec['flops_per_chip']:.4g} FLOP ({by}), "
             f"{rec['hbm_bytes_per_chip']:.4g} B, argument "
             f"{m['argument_size'] / 1e9:.2f} GB, temp "
             f"{m['temp_size'] / 1e9:.2f} GB, fits "
-            f"{rec['fits_80gb']}, compute {t['compute_s'] * 1e3:.2f} ms, "
-            f"memory {t['memory_s'] * 1e3:.2f} ms, {t['dominant']}, "
+            f"{rec['fits_80gb']}, collectives [{kinds or 'none'}], compute "
+            f"{t['compute_s'] * 1e3:.2f} ms, memory "
+            f"{t['memory_s'] * 1e3:.2f} ms, collective "
+            f"{t['collective_s'] * 1e3:.2f} ms, {t['dominant']}, "
             f"{rec['ops']} ops, traced in {rec['trace_s']:.1f} s")
 
 
@@ -421,7 +541,7 @@ def main(argv=None):
     ap.add_argument("--dml", action="store_true")
     ap.add_argument("--mesh", choices=sorted(mesh_lib.MESHES),
                     default="h100",
-                    help="the account on one H100, or the plan on "
+                    help="the account on one H100, or rank 0's program on "
                          "(data 16, model 16) or (pod 2, data 16, model 16)")
     ap.add_argument("--multi-pod", dest="mesh", action="store_const",
                     const="pod2x16x16", help="--mesh pod2x16x16")

@@ -10,6 +10,13 @@ sub-group per set of axes, which the axis collectives of
 ``sharding/partition.py`` run over. Ranks are laid out row-major over the
 axes, as ``jax.make_mesh`` lays out devices.
 
+``fake_world(name)`` enters a world of ``MESHES[name].size`` ranks with
+no process behind any but this one (torch's ``"fake"`` backend: every
+collective returns at once and moves nothing), as rank 0, with ``meta``
+as the rank device, and yields the ``LiveMesh`` over it: what the dry
+run traces a production mesh's per-rank program in (``launch/dryrun.py``;
+rank 0 holds the largest block where a dimension does not divide).
+
 ``spawn(fn, n_ranks)`` runs ``fn`` on that many processes (the ``spawn``
 start method; rendezvous through a file in a temporary directory) and
 returns each rank's result; a rank that raises fails the call with its
@@ -18,16 +25,18 @@ that ``torchrun`` started. The backend is a rule: NCCL when every rank
 has a card of its own, gloo when ranks share a card (tensors stay on the
 card; gloo stages them through the host) or run on the CPU.
 
-What is left of multi-GPU (ROADMAP.md Queue 1 item 8e): the dry run's
-per-rank program on a named production mesh.
-
 This module is the one source of the H100's figures: the dry-run's
 roofline terms and ``chip_smoke.py``'s per-kernel bounds read them from
-here.
+here. The reference divides a step's collective bytes by one ICI rate;
+an H100 mesh has two links, NVLink inside a node of ``NODE_RANKS`` and
+InfiniBand between nodes, so ``link`` names a group's by whether its
+ranks (row-major over the mesh axes) span nodes, and ``LINK_BW`` gives
+its rate: the card's counterpart of the TPU figure, not a new feature.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import datetime
 import itertools
@@ -57,6 +66,10 @@ PEAK_FLOPS_F32 = 67e12          # f32 FFMA, outside the tensor cores
 HBM_BW = 3.35e12                # bytes/s, HBM3
 HBM_BYTES = 80e9
 NVLINK_BW = 450e9               # bytes/s per direction
+# between nodes: one 400 Gb/s NDR InfiniBand port a GPU (a DGX H100 has
+# eight ConnectX-7 ports for its eight GPUs; NVIDIA's DGX H100 user guide)
+IB_BW = 50e9                    # bytes/s per direction
+NODE_RANKS = 8                  # GPUs a node joins by NVLink (DGX / HGX H100)
 
 # The rate each dtype's products run at on the port's plain paths. f32
 # products are full f32 (``kernels/_dispatch.full_f32`` turns TF32 off),
@@ -116,9 +129,20 @@ def make_local_mesh(model: int = 1,
     return LiveMesh(("data", "model"), (data, model))
 
 
+LINK_BW = {"nvlink": NVLINK_BW, "ib": IB_BW}
+
+
+def link(ranks: Sequence[int]) -> str:
+    """The link a collective over the global ``ranks`` runs on:
+    ``"nvlink"`` when they lie in one node of ``NODE_RANKS``, ``"ib"``
+    when they span nodes (``LINK_BW`` its rate)."""
+    return "nvlink" if len({int(r) // NODE_RANKS for r in ranks}) <= 1 \
+        else "ib"
+
+
 # The meshes the dry-run account names: the one card, and the two
 # production meshes its sharding plan reads
-MESHES = {"h100": make_local_mesh(),
+MESHES = {"h100": Mesh(("data", "model"), (1, 1)),
           "16x16": make_production_mesh(),
           "pod2x16x16": make_production_mesh(multi_pod=True)}
 
@@ -237,6 +261,24 @@ class LiveMesh:
             i = i * self.shape[a] + self.coords[a]
         return i
 
+    def slot_order(self, axes) -> Optional[list]:
+        """The ``axis_index`` along ``axes`` (in the order given) of each
+        member of their group, in the group's rank order (row-major over
+        the mesh's own axis order); None when the two orders agree."""
+        axes = self._axes(axes)
+        mine = sorted(axes, key=self.axis_names.index)
+        if list(axes) == mine:
+            return None
+        order = []
+        for coords in itertools.product(*(range(self.shape[a])
+                                          for a in mine)):
+            at = dict(zip(mine, coords))
+            i = 0
+            for a in axes:
+                i = i * self.shape[a] + at[a]
+            order.append(i)
+        return order
+
     def group(self, axes):
         """The process group along ``axes``: None when it holds this rank
         alone, the default group when it holds every rank."""
@@ -292,6 +334,31 @@ def _rank_main(fn, rank, n_ranks, init_method, device_type, backend,
         results.put((rank, True, out))
     except BaseException:                   # reported, then this rank ends
         results.put((rank, False, traceback.format_exc()))
+
+
+@contextlib.contextmanager
+def fake_world(mesh: Union[str, Mesh]):
+    """A world of ``mesh``'s ranks (a name of ``MESHES`` or a ``Mesh``)
+    over torch's ``"fake"`` backend, entered as rank 0 with ``meta`` as
+    the rank device; yields the ``LiveMesh`` over it and destroys the
+    group on exit. Refuses to start while a group is live."""
+    if _initialized():
+        raise RuntimeError("a process group is live: fake_world starts a "
+                           "world of its own")
+    shape = MESHES[mesh] if isinstance(mesh, str) else mesh
+    # torch's fake store and backend live in its testing package, so they
+    # are imported here only: every module imports on a plain torch
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    global _rank_device
+    before = _rank_device
+    dist.init_process_group("fake", rank=0, world_size=shape.size,
+                            store=FakeStore())
+    _rank_device = torch.device("meta")
+    try:
+        yield LiveMesh(shape.axis_names, shape.axis_sizes)
+    finally:
+        _rank_device = before
+        dist.destroy_process_group()
 
 
 class RankError(RuntimeError):

@@ -12,12 +12,22 @@ return the reference's plans as specs (``sharding/partition.py``);
 ``partition.NamedSharding`` pairs, which ``checkpoint.restore_checkpoint``
 places leaves by.
 
-The step builders take the reference's ``mesh=``, passed to the model:
-on a live mesh the moe layers run expert-parallel and the rest of the
-model replicated, so every rank computes the same loss and gradients
-and takes the same optimizer step, and holds the whole model and its
-state (sharded storage is the per-rank program of ROADMAP.md Queue 1
-item 8e).
+The step builders take the reference's ``mesh=``. On a live mesh the
+dense family runs the whole step per rank, in one ``partition.shard_map``
+over the plan's specs (``param_shardings``, ``make_state_shardings``,
+``input_shardings``, ``cache_shardings``): the model's per-rank program
+(``Model.rank_hidden``), the cross-entropy over vocab-sharded logits
+(``chunked_ce_loss_rank``: the max and the sum of exp over ``model``),
+the gradients of FSDP leaves reduce-scattered over ``data`` by their
+gathers' backward and every leaf's partials psummed over the axes it is
+replicated on, ``clip_by_global_norm`` on psummed squared norms and
+AdamW on the shards. The step takes and returns global values;
+``rank_train_map`` gives the map, whose ``body`` the dry run traces on
+one rank's blocks. The moe family runs its moe layers expert-parallel and
+the rest of the model replicated, so every rank computes the same loss
+and gradients and takes the same optimizer step, and holds the whole
+model and its state; the other families compute as without a mesh
+(ROADMAP.md Queue 1 item 8f).
 
 The training forward is ``Model.hidden(..., plain=True)``: the
 reference's own training forms (chunked SSD, chunked rwkv6, naive or
@@ -37,13 +47,14 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ArchConfig, InputShape, RunConfig
 from repro_torch.core import losses
 from repro_torch.launch.mesh import LiveMesh, Mesh
-from repro_torch.models import common
+from repro_torch.models import attention, common
 from repro_torch.models.transformer import Model
 from repro_torch.optim import (Optimizer, adam, adamw, apply_updates,
                                clip_by_global_norm, momentum, schedules, sgd)
+from repro_torch.sharding import partition
 from repro_torch.sharding.partition import (Spec, logical_to_physical,
                                             make_param_shardings, named)
-from repro_torch.tree import value_and_grad
+from repro_torch.tree import tree_leaves, tree_map, value_and_grad
 
 
 class TrainState(NamedTuple):
@@ -232,6 +243,147 @@ def chunked_ce_loss(model: Model, params, h, labels, n_chunks: int = 8):
     return total / n_chunks
 
 
+def chunked_ce_loss_rank(model: Model, params, specs, h, labels, ranks,
+                         sp: bool, n_chunks: int = 8):
+    """``chunked_ce_loss`` on one rank: ``h`` its final hidden states
+    (its sequence-parallel rows when ``sp``), ``labels`` (B, T) its
+    batch's; the logits of each chunk over this rank's vocab block, the
+    max and the sum of exp taken over ``model`` (the label's logit from
+    the rank whose block holds it). The mean over this rank's tokens,
+    the same on every ``model`` rank."""
+    cfg, mesh = model.cfg, ranks.mesh
+    hf = ranks.seq_gather(h, sp)
+    T = hf.shape[1]
+    while T % n_chunks != 0:
+        n_chunks -= 1
+    Tc = T // n_chunks
+    w = common.unembed_weight(params["embedding"], specs["embedding"], cfg,
+                              ranks)
+    v0, V_l = common.vocab_block(cfg, specs["embedding"], ranks)
+
+    def chunk_loss(h_k, l_k, w):
+        logits = (h_k @ w.to(h_k.dtype)).to(torch.float32)
+        if V_l == cfg.vocab_size:
+            return losses.softmax_cross_entropy(logits, l_k)
+        m = partition.pmax(torch.amax(logits, dim=-1), "model", mesh)
+        local = l_k.long() - v0
+        inside = (local >= 0) & (local < V_l)
+        ll = torch.gather(logits, -1, local.clamp(0, V_l - 1)[..., None])
+        ll = torch.where(inside, ll[..., 0], torch.zeros_like(m))
+        se = torch.sum(torch.exp(logits - m[..., None]), dim=-1)
+        se, ll = partition.psum((se, ll), "model", mesh)
+        return torch.mean(torch.log(se) + m - ll)
+
+    total = torch.zeros((), dtype=torch.float32, device=h.device)
+    for c in range(n_chunks):
+        h_k, l_k = hf[:, c * Tc:(c + 1) * Tc], labels[:, c * Tc:(c + 1) * Tc]
+        if torch.is_grad_enabled():
+            total = total + checkpoint(chunk_loss, h_k, l_k, w,
+                                       use_reentrant=False)
+        else:
+            total = total + chunk_loss(h_k, l_k, w)
+    return total / n_chunks
+
+
+def _replicated_on(spec, mesh):
+    """The mesh axes a leaf of ``spec`` is replicated on."""
+    named = {a for e in spec if e is not None
+             for a in ((e,) if isinstance(e, str) else e)}
+    return tuple(a for a in mesh.axis_names if a not in named)
+
+
+def sum_partials(grads, specs, mesh):
+    """Each gradient leaf summed over the mesh axes its spec replicates
+    it on (one psum for the leaves of each set of axes): every rank's
+    partial of a replicated leaf, the batch axes' of an FSDP leaf (whose
+    gather's backward already reduce-scattered it over ``data``)."""
+    pairs = partition.spec_leaves(grads, specs)
+    leaves = [g for g, _ in pairs]
+    axes = [_replicated_on(s, mesh) for _, s in pairs]
+    out = list(leaves)
+    for group in dict.fromkeys(axes):
+        idx = [i for i, a in enumerate(axes) if a == group]
+        if not group or mesh.axis_size(group) == 1:
+            continue
+        summed = partition.psum([leaves[i] for i in idx], group, mesh)
+        for i, g in zip(idx, summed):
+            out[i] = g
+    it = iter(out)
+    return tree_map(lambda _: next(it), grads)
+
+
+def clip_by_global_norm_rank(grads, specs, mesh, max_norm: float):
+    """``clip_by_global_norm`` over sharded gradients: each leaf's
+    squared norm over its replicas' count, psummed over the mesh (one
+    scalar all-reduce)."""
+    sq = sum(torch.sum(torch.square(g.to(torch.float32)))
+             / mesh.axis_size(_replicated_on(s, mesh))
+             for g, s in partition.spec_leaves(grads, specs))
+    gn = torch.sqrt(partition.psum(sq, mesh.axis_names, mesh))
+    scale = torch.clamp_max(max_norm / (gn + 1e-12), 1.0)
+    return tree_map(lambda g: g * scale, grads), gn
+
+
+def _meta(tree):
+    return tree_map(lambda t: torch.empty(t.shape, dtype=t.dtype,
+                                          device="meta"), tree)
+
+
+def rank_train_map(model: Model, opt: Optimizer, run: RunConfig, mesh,
+                   batch, loss_chunks: int = 8):
+    """The dense family's train step for batches shaped as ``batch`` as
+    one per-rank ``partition.shard_map`` over (state, batch) (the module
+    docstring); its ``body`` takes this rank's blocks."""
+    ranks = common.Ranks(mesh)
+    specs = model.param_specs(mesh)
+    n_batch = mesh.axis_size(ranks.batch) if ranks.batch else 1
+    meta = _meta(model.param_tree())
+    sshard = make_state_shardings(
+        TrainState(meta, opt.init(meta), torch.zeros((), device="meta")),
+        meta, specs, Mesh(mesh.axis_names, mesh.axis_sizes))
+
+    def loss_fn(params, batch):
+        h, sp = model.rank_hidden(params, specs, batch, ranks, plain=True,
+                                  remat=run.remat)
+        ce = chunked_ce_loss_rank(model, params, specs, h, batch["labels"],
+                                  ranks, sp, loss_chunks)
+        loss = partition.psum(ce / n_batch, ranks.batch, mesh)
+        return loss, {"ce": loss, "moe_aux": torch.zeros_like(loss)}
+
+    def body(state: TrainState, batch):
+        (loss, aux), grads = value_and_grad(loss_fn, state.params, batch)
+        grads = sum_partials(grads, specs, mesh)
+        if run.grad_clip:
+            grads, gnorm = clip_by_global_norm_rank(grads, specs, mesh,
+                                                    run.grad_clip)
+        else:
+            gnorm = torch.zeros((), device=loss.device)
+        with torch.no_grad():
+            updates, opt_state = opt.update(grads, state.opt_state,
+                                            state.params)
+            params = apply_updates(state.params, updates)
+        metrics = {"loss": loss, "grad_norm": gnorm, **aux}
+        return TrainState(params, opt_state, state.step + 1), metrics
+
+    return partition.shard_map(
+        body, mesh, in_specs=(sshard, input_shardings(batch, mesh)),
+        out_specs=(sshard, ()))
+
+
+def _by_shapes(build):
+    """A step that builds its per-rank map for each set of input shapes
+    once (``build(*args)``), and runs it on the arguments."""
+    maps = {}
+
+    def step(*args):
+        key = tuple(tuple(t.shape) for t in tree_leaves(args[-1]))
+        if key not in maps:
+            maps[key] = build(*args)
+        return maps[key](*args)
+
+    return step
+
+
 def make_train_step(model: Model, opt: Optimizer, run: RunConfig,
                     mesh=None, loss_chunks: int = 8):
     """``train_step(state, batch) -> (state, metrics)``: loss, grads with
@@ -240,6 +392,9 @@ def make_train_step(model: Model, opt: Optimizer, run: RunConfig,
     was. Metrics are 0-d tensors (no host sync in the step). Over a live
     ``mesh`` every rank calls it with the same state and global batch."""
     cfg = model.cfg
+    if model.per_rank(mesh):
+        return _by_shapes(lambda state, batch: rank_train_map(
+            model, opt, run, mesh, batch, loss_chunks))
 
     def loss_fn(params, batch):
         h, aux = model.hidden(batch, plain=True, remat=run.remat,
@@ -265,6 +420,8 @@ def make_train_step(model: Model, opt: Optimizer, run: RunConfig,
 
 
 def make_prefill_step(model: Model, run: RunConfig, mesh=None):
+    """``prefill_step(batch) -> logits`` on the model's weights (per rank
+    on a live mesh for the dense family: ``Model.rank_map``)."""
     def prefill_step(batch):
         logits, aux = model.apply(batch, mesh=mesh)
         return logits
@@ -297,10 +454,7 @@ def cache_logical_axes(cfg: ArchConfig, mesh: Mesh):
     (flash-decoding); SSM states shard heads over model."""
 
     def kv_axes(leaf_shape):
-        B, S, K, dh = leaf_shape
-        if K % mesh.shape["model"] == 0:
-            return ("batch", None, "kv_heads", None)
-        return ("batch", "cache_seq", None, None)
+        return attention.cache_axes(leaf_shape[2], mesh)
 
     return kv_axes
 

@@ -4,6 +4,11 @@
 ``jax.nn.gelu`` defaults to the tanh approximation, and the reference
 uses that default, so every GELU here is ``approximate="tanh"``
 (PyTorch's own default is the erf form).
+
+``apply_mlp_rank`` is one rank's MLP on a live mesh (``common.Ranks``):
+column-parallel then row-parallel over ``"ffn"`` on ``model`` (the
+reference's ``constrain`` of the hidden layer), its weights all-gathered
+over ``data`` (FSDP).
 """
 
 from __future__ import annotations
@@ -69,3 +74,22 @@ def apply_mlp(p, x, cfg: ArchConfig, x_prev=None):
         r = torch.sigmoid(xr @ p["w_r"].to(dt))
         return r * (k @ p["w_v"].to(dt))
     raise ValueError(f"unknown mlp_kind {cfg.mlp_kind!r}")
+
+
+def apply_mlp_rank(p, s, x, cfg: ArchConfig, ranks):
+    """One rank's MLP of the whole-sequence ``x`` (B,T,d), its weights
+    this rank's blocks of the specs ``s``: (y, kind) for
+    ``Ranks.reduce``, ``"partial"`` when the hidden layer is split over
+    ``model`` (its down projection's sum is over the ranks)."""
+    if cfg.mlp_kind not in ("swiglu", "geglu", "gelu"):
+        raise NotImplementedError(f"no per-rank {cfg.mlp_kind} "
+                                  f"(ROADMAP.md Queue 1 item 8f)")
+    dt = x.dtype
+    w = {n: ranks.gather(p[n], s[n]) for n in p}
+    kind = "partial" if ranks.on_model(s["w_down"], 0) else "full"
+    if cfg.mlp_kind == "gelu":
+        h = gelu_tanh(x @ w["w_up"].to(dt) + w["b_up"].to(dt))
+        return ranks.bias(h @ w["w_down"].to(dt), w["b_down"], kind), kind
+    act = F.silu if cfg.mlp_kind == "swiglu" else gelu_tanh
+    h = act(x @ w["w_gate"].to(dt)) * (x @ w["w_up"].to(dt))
+    return h @ w["w_down"].to(dt), kind

@@ -27,8 +27,9 @@ every rank, and its gradients reach the global weights and activations
 summed over the ranks (``partition.shard_map``'s docstring). Every
 rank's router sorts its tokens the same way (the stable top-k below),
 so the ranks agree on every pair's expert. A named ``Mesh`` has no
-group: that per-rank program is ROADMAP.md Queue 1 item 8e, and it
-raises. No kernel: the reference computes the layer with plain einsums,
+group, and it raises: a named mesh's per-rank program runs in
+``launch/mesh.fake_world`` (the moe family's is ROADMAP.md Queue 1 item
+8f). No kernel: the reference computes the layer with plain einsums,
 and so does the port.
 """
 

@@ -31,12 +31,19 @@ Public surface:
     logits, cache = model.decode_step(cache, tokens, pos)   # (B, V)
 
 ``apply`` / ``hidden`` / ``embed_pool`` / ``decode_step`` take the
-reference's ``mesh=``: on a live mesh (``launch/mesh.LiveMesh``) with the
-``model`` axis, each moe layer runs expert-parallel
-(``moe.apply_moe(mesh=)``) and everything else runs replicated on every
-rank, so every rank holds the whole model and gets the same outputs;
-the other families, and a mesh without the expert axis, compute as
-without one.
+reference's ``mesh=``. On a live mesh (``launch/mesh.LiveMesh``) the
+dense family runs its per-rank program (``rank_map`` / ``rank_decode_map``,
+one ``partition.shard_map`` over the sharding plan's specs): FSDP
+gathers over ``data``, heads and ffn over ``model`` (column- then
+row-parallel, the partials reduce-scattered into the sequence-parallel
+residual ``seq_sp`` between blocks), the vocab-parallel embedding and
+logits, context parallelism where the heads do not divide ``model`` and
+a decode cache over ``cache_seq`` where the kv heads do not; global
+values in, global values out. For the moe family each moe layer runs
+expert-parallel (``moe.apply_moe(mesh=)``) and everything else
+replicated on every rank, so every rank holds the whole model and gets
+the same outputs; the other families compute as without a mesh (their
+per-rank programs are ROADMAP.md Queue 1 item 8f).
 
 Parameters keep the reference's names: ``model.embedding.tok``,
 ``model.blocks[i].mamba.w_z``, ``model.shared.attn.wq``, ... — the
@@ -71,7 +78,9 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
 from repro_torch.kernels._dispatch import full_f32
+from repro_torch.launch.mesh import LiveMesh
 from repro_torch.models import attention, common, mamba2, mlp, moe, rwkv6
+from repro_torch.sharding import partition
 from repro_torch.tree import tree_leaves, tree_map
 
 FAMILIES = ("dense", "hybrid", "ssm", "moe", "vlm", "audio")
@@ -164,6 +173,43 @@ def _decode_attn_block(p, x, cache, pos: int, cfg: ArchConfig, mesh=None):
     x = x + att_out
     h2 = common.apply_norm(p["norm2"], x, cfg)
     return x + _ffn(p, h2, cfg, mesh)[0], cache
+
+
+def _attn_block_rank(p, s, x, cfg: ArchConfig, positions, ranks,
+                     plain: bool, sp: bool):
+    """One rank's attention block: x this rank's residual rows (B, T/M,
+    d) when ``sp``, else the whole sequence; each sublayer on the whole
+    sequence, its output reduced back into the residual."""
+    hf = ranks.seq_gather(common.apply_norm(p["norm1"], x, cfg), sp)
+    a, ak = attention.apply_rank(p["attn"], s["attn"], hf, positions, cfg,
+                                 ranks, plain)
+    return _block_rest_rank(p, s, x, hf, a, ak, cfg, ranks, sp)
+
+
+def _decode_block_rank(p, s, cs, x, cache, pos: int, cfg: ArchConfig,
+                       ranks):
+    """One rank's decode step of the attention block: (x, cache)."""
+    h = common.apply_norm(p["norm1"], x, cfg)
+    a, ak, cache = attention.decode_attend_rank(p["attn"], s["attn"], cs, h,
+                                                cache, pos, cfg, ranks)
+    return _block_rest_rank(p, s, x, h, a, ak, cfg, ranks, False), cache
+
+
+def _block_rest_rank(p, s, x, hf, a, ak: str, cfg: ArchConfig, ranks,
+                     sp: bool):
+    """The block past its attention ``a`` (of kind ``ak``): the MLP
+    beside it on ``hf`` (parallel blocks) or after it, each reduced into
+    the residual ``x``."""
+    if cfg.parallel_block:
+        f, fk = mlp.apply_mlp_rank(p["mlp"], s["mlp"], hf, cfg, ranks)
+        if ak == fk == "partial":           # one reduce-scatter for both
+            return x + ranks.reduce(a + f, "partial", sp)
+        return x + ranks.reduce(a, ak, sp) + ranks.reduce(f, fk, sp)
+    x = x + ranks.reduce(a, ak, sp)
+    h2 = common.apply_norm(p["norm2"], x, cfg)
+    f, fk = mlp.apply_mlp_rank(p["mlp"], s["mlp"], ranks.seq_gather(h2, sp),
+                               cfg, ranks)
+    return x + ranks.reduce(f, fk, sp)
 
 
 def _apply_rwkv_block(p, x, cfg: ArchConfig):
@@ -361,6 +407,11 @@ class Model(nn.Module):
               remat: bool = False, params=None, mesh=None):
         """Returns (logits (B,T,V), aux dict)."""
         params = self.param_tree() if params is None else params
+        if self.per_rank(mesh):
+            run = self.rank_map(mesh, batch["tokens"].shape, "logits",
+                                plain, remat)
+            return run(params, {"tokens": batch["tokens"]}), \
+                {"moe_aux": torch.zeros((), device=self.device)}
         h, aux = self.hidden(batch, plain=plain, remat=remat, params=params,
                              mesh=mesh)
         return common.unembed(params["embedding"], h, self.cfg), aux
@@ -374,6 +425,12 @@ class Model(nn.Module):
         tree) replaces the module's own weights. ``moe_aux`` is the
         moe family's router loss summed over layers (0 for the others);
         ``mesh`` as in the module docstring."""
+        if self.per_rank(mesh):
+            params = self.param_tree() if params is None else params
+            run = self.rank_map(mesh, batch["tokens"].shape, "hidden",
+                                plain, remat)
+            return run(params, {"tokens": batch["tokens"]}), \
+                {"moe_aux": torch.zeros((), device=self.device)}
         h, aux = self._backbone(batch, plain, remat, params, mesh)
         return h, {"moe_aux": aux}
 
@@ -381,7 +438,7 @@ class Model(nn.Module):
                    mesh=None):
         """Mean-pooled final hidden state (B, d_model) f32 — the embedding
         the DML metric head consumes."""
-        h, _ = self._backbone(batch, plain, False, None, mesh)
+        h, _ = self.hidden(batch, plain=plain, mesh=mesh)
         return torch.mean(h.to(torch.float32), dim=1)
 
     def _backbone(self, batch, plain: bool, remat: bool, params, mesh):
@@ -487,6 +544,10 @@ class Model(nn.Module):
         cfg = self.cfg
         dtype = getattr(torch, cfg.dtype)
         tokens = tokens.to(self.device)
+        if self.per_rank(mesh):
+            run = self.rank_decode_map(mesh, cache, tokens.reshape(-1).shape,
+                                       pos)
+            return run(self.param_tree(), cache, tokens.reshape(-1))
         if tokens.ndim == 1:
             tokens = tokens[:, None]
         x = common.embed_tokens(self.embedding, tokens, cfg, dtype)
@@ -520,3 +581,122 @@ class Model(nn.Module):
                                        pos, scfg, mesh)
             shared.append(sc)
         return x, {"blocks": blocks, "shared": shared}
+
+    # ----- the per-rank program (the dense family on a live mesh) -----
+
+    def per_rank(self, mesh) -> bool:
+        """Whether ``mesh`` runs this model's per-rank program: the dense
+        family on a live mesh."""
+        return self.cfg.family == "dense" and isinstance(mesh, LiveMesh)
+
+    def param_specs(self, mesh):
+        """The sharding plan's specs of ``param_tree()`` on ``mesh``
+        (``launch/steps.param_shardings``)."""
+        return partition.make_param_shardings(self.logical_axes(), mesh,
+                                              self.param_tree())
+
+    def cache_specs(self, cache, mesh):
+        """Specs of a decode cache (``init_decode_cache``'s per-layer
+        list) on ``mesh``: the kv heads over ``model`` where they divide
+        it, else the cache's sequence (``cache_seq``); the layers of
+        ``launch/steps.cache_shardings``' stacked specs."""
+        def spec(c):
+            sp = partition.logical_to_physical(
+                attention.cache_axes(c.k.shape[2], mesh), mesh,
+                shape=tuple(c.k.shape))
+            return type(c)(sp, sp)
+        return {"blocks": [spec(c) for c in cache["blocks"]]}
+
+    def _vocab_spec(self, specs, ranks):
+        return "model" if common.vocab_block(
+            self.cfg, specs["embedding"], ranks)[1] < self.cfg.vocab_size \
+            else None
+
+    def rank_hidden(self, params, specs, batch, ranks, plain: bool = True,
+                    remat: bool = False):
+        """This rank's final-normed hidden states and whether they are
+        its sequence-parallel rows (B, T/M, d) (else the whole sequence),
+        from its blocks of ``params`` (the specs ``specs``) and of the
+        batch's tokens (B, T)."""
+        full_f32()
+        cfg = self.cfg
+        tokens = batch["tokens"]
+        B, T = tokens.shape
+        sp = ranks.sp(T)
+        x = common.embed_tokens_rank(params["embedding"],
+                                     specs["embedding"], tokens, cfg,
+                                     getattr(torch, cfg.dtype), ranks, sp)
+        positions = torch.arange(T, device=x.device)[None, :].expand(B, T)
+        for p_l, s_l in zip(params["blocks"], specs["blocks"]):
+            x = _layer(lambda x, p_l=p_l, s_l=s_l: _attn_block_rank(
+                p_l, s_l, x, cfg, positions, ranks, plain, sp), x, remat)
+        return common.apply_norm(params["final_norm"], x, cfg), sp
+
+    def rank_logits(self, params, specs, h, ranks, sp: bool):
+        """This rank's logits (B, T, V / M) of its hidden states ``h``."""
+        return common.unembed_rank(params["embedding"], specs["embedding"],
+                                   ranks.seq_gather(h, sp), self.cfg, ranks)
+
+    def rank_map(self, mesh, tokens_shape, what: str = "logits",
+                 plain: bool = True, remat: bool = False):
+        """The per-rank forward as a ``partition.shard_map`` over
+        (params, {"tokens"}): the logits, or with ``what="hidden"`` the
+        final-normed hidden states, as global values (``run.body`` is the
+        per-rank program on blocks)."""
+        ranks = common.Ranks(mesh)
+        specs = self.param_specs(mesh)
+        bspec = partition.logical_to_physical(("batch", "seq"), mesh,
+                                              shape=tuple(tokens_shape))
+
+        def body(params, batch):
+            h, sp = self.rank_hidden(params, specs, batch, ranks, plain,
+                                     remat)
+            if what == "hidden":
+                return h
+            return self.rank_logits(params, specs, h, ranks, sp)
+
+        if what == "hidden":
+            out = (bspec[0], "model" if ranks.sp(tokens_shape[1]) else None,
+                   None)
+        else:
+            out = (bspec[0], None, self._vocab_spec(specs, ranks))
+        return partition.shard_map(body, mesh, in_specs=(
+            specs, {"tokens": bspec}), out_specs=out)
+
+    def rank_decode(self, params, specs, cspecs, cache, tokens, pos: int,
+                    ranks):
+        """This rank's decode step: (logits (B, V / M), cache) from its
+        blocks of ``params``, of the cache (the specs ``cspecs``, written
+        in place) and of ``tokens`` (B,)."""
+        full_f32()
+        cfg = self.cfg
+        x = common.embed_tokens_rank(params["embedding"],
+                                     specs["embedding"], tokens[:, None],
+                                     cfg, getattr(torch, cfg.dtype), ranks,
+                                     False)
+        blocks = []
+        for p_l, s_l, c_l, cs_l in zip(params["blocks"], specs["blocks"],
+                                       cache["blocks"], cspecs["blocks"]):
+            x, c_l = _decode_block_rank(p_l, s_l, cs_l, x, c_l, pos, cfg,
+                                        ranks)
+            blocks.append(c_l)
+        h = common.apply_norm(params["final_norm"], x, cfg)
+        return self.rank_logits(params, specs, h, ranks, False)[:, 0], \
+            {"blocks": blocks}
+
+    def rank_decode_map(self, mesh, cache, tokens_shape, pos: int):
+        """The per-rank decode step at ``pos`` as a ``partition.shard_map``
+        over (params, cache, tokens): (logits, cache) as global values."""
+        ranks = common.Ranks(mesh)
+        specs = self.param_specs(mesh)
+        cspecs = self.cache_specs(cache, mesh)
+        tspec = partition.logical_to_physical(("batch",), mesh,
+                                              shape=tuple(tokens_shape))
+
+        def body(params, cache, tokens):
+            return self.rank_decode(params, specs, cspecs, cache, tokens,
+                                    pos, ranks)
+
+        return partition.shard_map(
+            body, mesh, in_specs=(specs, cspecs, tspec),
+            out_specs=((tspec[0], self._vocab_spec(specs, ranks)), cspecs))

@@ -17,18 +17,24 @@ of the two, which ``checkpoint.restore_checkpoint`` places leaves by.
 Over a live mesh (``launch/mesh.LiveMesh``, one process a rank) a global
 tensor is the same on every rank and a sharded one is held as this
 rank's block: ``block`` / ``constrain`` take this rank's block of a
-global tensor, and the axis collectives ``psum``, ``pmean``,
-``all_gather`` and ``axis_index`` are the counterparts of ``jax.lax``'s
-inside a ``shard_map`` body. On a named shape (``Mesh``) there is no
-group, and ``constrain`` / ``shard_map`` raise.
+global tensor, and the axis collectives ``psum``, ``pmean``, ``pmax``,
+``all_gather``, ``psum_scatter`` and ``axis_index`` are the counterparts
+of ``jax.lax``'s inside a ``shard_map`` body, each issued as the
+collective of its kind (all-reduce, all-gather, reduce-scatter), so that
+the dry-run account (``launch/cost_analysis.py``) counts what production
+issues. On a named shape (``Mesh``) there is no group, and ``constrain``
+/ ``shard_map`` raise: a named mesh's per-rank program runs inside
+``launch/mesh.fake_world``.
 
 ``shard_map`` follows ``jax.shard_map``: its ``run`` takes and returns
 global values. The body sees this rank's blocks; each output comes back
 gathered over the axes its out spec names, and under ``()`` as the
 value this rank holds (the body must make it the same on every rank).
-Gradients flow as the reference's do when the program outside the map
-runs replicated on every rank, so that a cotangent arriving at the map
-is the same on every rank:
+``run.body`` is the body itself, on blocks in and blocks out (with
+``run.in_specs`` / ``run.out_specs``): the per-rank program the dry run
+traces. Gradients flow as the reference's do when the program outside
+the map runs replicated on every rank, so that a cotangent arriving at
+the map is the same on every rank:
 
   * ``psum``'s backward passes that replicated cotangent to each rank's
     partial unchanged (``pmean``'s divides it by the count). It is not
@@ -37,7 +43,8 @@ is the same on every rank:
   * ``all_gather``'s backward is a reduce-scatter: the cotangent of a
     gathered value inside the body is a partial (a weight gathered for
     FSDP is used on each rank's own batch), so it is summed over the
-    axis before this rank takes its slot;
+    axis before this rank takes its slot; ``psum_scatter``'s backward is
+    the all-gather of the cotangent of this rank's slot;
   * the exit's gather takes this rank's slot of the replicated
     cotangent without a sum;
   * the entry sums each global input's gradient over the ranks: a
@@ -47,9 +54,12 @@ is the same on every rank:
 
 So ``models/moe.apply_moe(mesh=)`` drops into a model that runs
 replicated on every rank, and that model's gradients equal one
-device's. Over gloo, half-precision tensors are summed in f32 and
-rounded once (a departure: the reference sums in their own dtype; gloo's
-support for half-precision CUDA tensors is not relied on).
+device's; a whole step run per rank (``launch/steps.py``) differentiates
+inside the body, where the same rules give each rank its partial
+gradients. Over gloo, an all-reduce of half-precision tensors is summed
+in f32 and rounded once (a departure: the reference sums in their own
+dtype; gloo's support for half-precision CUDA all-reduce is not relied
+on); its all-gather and reduce-scatter take them as they are.
 """
 
 from __future__ import annotations
@@ -100,8 +110,16 @@ DEFAULT_RULES: Dict[str, Union[str, Tuple[str, ...], None]] = {
     "layers": None,         # scan-over-layers leading axis
 }
 
-_MULTI_GPU = ("needs a process group: the per-rank program on a named "
-              "mesh is ROADMAP.md Queue 1 item 8e")
+_MULTI_GPU = ("needs a process group: enter launch/mesh.fake_world for a "
+              "named mesh's per-rank program, or start ranks with "
+              "launch/mesh.spawn")
+
+# the two tensor collectives, by the names torch 2.13 gives them where it
+# has them (the card's torch has the older ones only)
+_all_gather_into = getattr(dist, "all_gather_single",
+                           dist.all_gather_into_tensor)
+_reduce_scatter_into = getattr(dist, "reduce_scatter_single",
+                               dist.reduce_scatter_tensor)
 
 
 def _mesh_axis_size(mesh: Mesh, axis: Union[str, Tuple[str, ...]]) -> int:
@@ -277,6 +295,48 @@ def _per_spec(fn, spec, tree):
     return type(tree)(*out) if hasattr(tree, "_fields") else type(tree)(out)
 
 
+def spec_leaves(tree, specs):
+    """(leaf, spec) of each tensor of ``tree`` in ``tree_leaves`` order,
+    ``specs`` matched to it by key (their dicts' orders may differ)."""
+    pairs = []
+    _per_spec(lambda x, spec: pairs.append((x, spec)), specs, tree)
+    return pairs
+
+
+def _over_args(fn, tree, specs):
+    """``_per_spec`` over ``tree``, or over each argument of a tuple of
+    arguments with its own spec tree."""
+    if type(tree) is tuple and type(specs) is tuple and not _is_spec(specs):
+        return tuple(_per_spec(fn, s, t)
+                     for s, t in zip(specs, tree, strict=True))
+    return _per_spec(fn, specs, tree)
+
+
+def local_blocks(tree, specs, mesh):
+    """The blocks of ``tree``'s tensors one rank holds under ``specs``
+    (a spec tree an argument when ``tree`` is a tuple of arguments), as
+    new meta tensors of ``local_shape``: a rank's arguments for the dry
+    run, with no storage."""
+    return _over_args(lambda x, spec: torch.empty(
+        local_shape(tuple(x.shape), spec, mesh), dtype=x.dtype,
+        device="meta"), tree, specs)
+
+
+def rank_blocks(tree, specs, mesh: LiveMesh):
+    """This rank's blocks of the global ``tree`` under ``specs`` (as
+    ``local_blocks``), each a contiguous tensor of its own on the mesh's
+    device: what a rank of a sharded deployment holds."""
+    return _over_args(lambda x, spec: NamedSharding(mesh, spec).place(x),
+                      tree, specs)
+
+
+def unblock(x, spec, mesh: LiveMesh):
+    """The global tensor of this rank's block ``x`` under ``spec`` (the
+    inverse of ``block``): gathered along each dimension over the axes
+    its spec entry names; every rank gets it. A map's exit."""
+    return _exit(x, spec, require_live(mesh, "unblock"))
+
+
 def _exit(x, spec, mesh):
     """A body's output as a global value: gathered along each dimension
     over the axes its spec entry names."""
@@ -339,6 +399,7 @@ def shard_map(f, mesh: Mesh, in_specs, out_specs, check_vma: bool = True):
                          for s, o in zip(out_specs, out, strict=True))
         return _per_spec(leave, out_specs, out)
 
+    run.body, run.in_specs, run.out_specs = f, in_specs, out_specs
     return run
 
 
@@ -374,37 +435,67 @@ class _Psum(torch.autograd.Function):
         return g, None, None
 
 
+def _gather_dim0(x: torch.Tensor, group, n: int) -> torch.Tensor:
+    """Every rank's contiguous ``x`` stacked on a new leading dimension
+    of ``n`` (one all-gather)."""
+    out = x.new_empty(n * x.numel())
+    _all_gather_into(out, x.reshape(-1), group=group)
+    return out.view((n,) + tuple(x.shape))
+
+
+def _scatter_dim0(x: torch.Tensor, group, n: int) -> torch.Tensor:
+    """This rank's slot of the sum over ``group`` of the contiguous ``x``,
+    whose leading dimension holds the ``n`` slots (one reduce-scatter)."""
+    out = x.new_empty(x.numel() // n)
+    _reduce_scatter_into(out, x.reshape(-1), group=group)
+    return out.view(tuple(x.shape[1:]))
+
+
+def _gathered(x, axes, mesh, dim, tiled):
+    """``x`` from every rank along ``axes``, in ``axis_index`` order of
+    the axes as given: stacked on a new dimension ``dim``, or
+    concatenated along it when ``tiled``."""
+    n = mesh.axis_size(axes)
+    out = _gather_dim0(x.contiguous(), mesh.group(axes), n)
+    order = mesh.slot_order(axes)
+    if order is not None:                   # group rank -> axis index
+        out = out[torch.tensor(order, device=out.device).argsort()]
+    out = out.movedim(0, dim)
+    if tiled:
+        out = out.flatten(dim, dim + 1)
+    return out
+
+
+def _scattered(g, axes, mesh, dim, tiled):
+    """This rank's slot along ``dim`` of the sum of ``g`` over ``axes``
+    (the adjoint of ``_gathered``)."""
+    n = mesh.axis_size(axes)
+    if tiled:
+        g = g.unflatten(dim, (n, g.shape[dim] // n))
+    g = g.movedim(dim, 0)
+    order = mesh.slot_order(axes)
+    if order is not None:                   # each member's slot, by group rank
+        g = g[torch.tensor(order, device=g.device)]
+    return _scatter_dim0(g.contiguous(), mesh.group(axes), n)
+
+
 class _Gather(torch.autograd.Function):
-    """Every rank's x along ``axes``, as an all-reduce of a zero buffer in
-    which each rank writes its own slot (gloo takes CUDA tensors for
-    all-reduce; exact, as x + 0 is x, the BIG sentinels too, and
-    integers add exactly): stacked on a new dimension ``dim``, or
-    concatenated along it when ``tiled``. Backward: this rank's slot of
-    the cotangent, summed over the axis first when ``reduce`` (a
-    reduce-scatter)."""
+    """Every rank's x along ``axes`` in one all-gather: stacked on a new
+    dimension ``dim``, or concatenated along it when ``tiled``. Backward:
+    this rank's slot of the cotangent, summed over the axis first when
+    ``reduce`` (one reduce-scatter)."""
 
     @staticmethod
     def forward(ctx, x, axes, mesh, dim, tiled, reduce):
         ctx.args = (axes, mesh, dim, tiled, reduce)
-        n, i = mesh.axis_size(axes), mesh.axis_index(axes)
-        if tiled:
-            shape = list(x.shape)
-            step = shape[dim]
-            shape[dim] *= n
-            buf = x.new_zeros(shape)
-            buf.narrow(dim, i * step, step).copy_(x)
-        else:
-            buf = x.new_zeros(tuple(x.shape[:dim]) + (n,)
-                              + tuple(x.shape[dim:]))
-            buf.select(dim, i).copy_(x)
-        return _all_reduce(buf, mesh.group(axes), mesh)
+        return _gathered(x, axes, mesh, dim, tiled)
 
     @staticmethod
     def backward(ctx, g):
         axes, mesh, dim, tiled, reduce = ctx.args
         if reduce:
-            g = _all_reduce(g.clone(memory_format=torch.contiguous_format),
-                            mesh.group(axes), mesh)
+            return (_scattered(g, axes, mesh, dim, tiled), None, None, None,
+                    None, None)
         i = mesh.axis_index(axes)
         if tiled:
             step = g.shape[dim] // mesh.axis_size(axes)
@@ -412,6 +503,22 @@ class _Gather(torch.autograd.Function):
         else:
             g = g.select(dim, i)
         return g, None, None, None, None, None
+
+
+class _Scatter(torch.autograd.Function):
+    """The sum of x over ``axes``, this rank's slot along ``dim`` (a
+    block of it when ``tiled``, an index of it when not), in one
+    reduce-scatter. Backward: the all-gather of the cotangent."""
+
+    @staticmethod
+    def forward(ctx, x, axes, mesh, dim, tiled):
+        ctx.args = (axes, mesh, dim, tiled)
+        return _scattered(x, axes, mesh, dim, tiled)
+
+    @staticmethod
+    def backward(ctx, g):
+        axes, mesh, dim, tiled = ctx.args
+        return _gathered(g, axes, mesh, dim, tiled), None, None, None, None
 
 
 class _Enter(torch.autograd.Function):
@@ -473,13 +580,44 @@ def pmean(tree, axis, mesh: LiveMesh):
     return tree_map(lambda x: x / n, psum(tree, axis, mesh))
 
 
+def pmax(x: torch.Tensor, axis, mesh: LiveMesh) -> torch.Tensor:
+    """The elementwise maximum over the ranks along ``axis`` (one
+    all-reduce), detached: a stabilizer that no gradient flows
+    through."""
+    group = require_live(mesh, "pmax").group(axis)
+    out = x.detach().clone(memory_format=torch.contiguous_format)
+    if group is not None:
+        dist.all_reduce(out, dist.ReduceOp.MAX, group=group)
+    return out
+
+
 def all_gather(x: torch.Tensor, axis_name, mesh: LiveMesh, *,
                axis: int = 0, tiled: bool = False) -> torch.Tensor:
     """Every rank's ``x`` along the mesh axes ``axis_name``, in
     axis-index order (``jax.lax.all_gather``): stacked on a new
     dimension at ``axis``, or concatenated along ``axis`` when
-    ``tiled``. Exact; its backward is a reduce-scatter (``_Gather``)."""
+    ``tiled``. One all-gather, exact; its backward is a reduce-scatter
+    (``_Gather``)."""
     mesh = require_live(mesh, "all_gather")
     if mesh.group(axis_name) is None:
         return x if tiled else x.unsqueeze(axis)
     return _Gather.apply(x, axis_name, mesh, axis, tiled, True)
+
+
+def psum_scatter(x: torch.Tensor, axis_name, mesh: LiveMesh, *,
+                 scatter_dimension: int = 0,
+                 tiled: bool = False) -> torch.Tensor:
+    """The sum of ``x`` over the ranks along ``axis_name``, this rank's
+    slot of it along ``scatter_dimension`` (``jax.lax.psum_scatter``):
+    the dimension's ``axis_index``-th entry (it must equal the rank
+    count), or its block when ``tiled``. One reduce-scatter; its
+    backward is an all-gather."""
+    mesh = require_live(mesh, "psum_scatter")
+    if mesh.group(axis_name) is None:
+        return x if tiled else x.squeeze(scatter_dimension)
+    n = mesh.axis_size(axis_name)
+    size = x.shape[scatter_dimension]
+    if (size % n) if tiled else (size != n):
+        raise ValueError(f"dimension {scatter_dimension} of "
+                         f"{tuple(x.shape)} does not scatter over {n} ranks")
+    return _Scatter.apply(x, axis_name, mesh, scatter_dimension, tiled)

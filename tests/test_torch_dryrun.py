@@ -325,12 +325,14 @@ def test_dryrun_dml_records():
         B, d, k = exp
         assert rec["global_pair_batch"] == B
         assert rec["flops_by_dtype"] == {"float32": 4.0 * B * d * k}
-    plans = dryrun.dryrun_dml("pod2x16x16")
-    # the pairs over pod x data, 1000 a rank
-    assert plans["dml-imnet1m"]["memory"]["argument_size"] == \
+    ranks = dryrun.dryrun_dml("pod2x16x16")
+    # rank 0's program: the pairs over pod x data, 1000 a rank
+    assert ranks["dml-imnet1m"]["status"] == "ok"
+    assert ranks["dml-imnet1m"]["memory"]["argument_size"] == \
         4 * 1000 * 21504 + 2 * 4 * 1000 * 21504 + 4 * 1000
     # (1000 rows do not divide the model axis of 16: L is replicated)
-    assert plans["dml-imnet1m"]["global_pair_batch"] == 32_000
+    assert not ranks["dml-imnet1m"]["rows_split"]
+    assert ranks["dml-imnet1m"]["global_pair_batch"] == 32_000
 
 
 def test_cli_writes_under_build(tmp_path, monkeypatch):
@@ -339,11 +341,16 @@ def test_cli_writes_under_build(tmp_path, monkeypatch):
     dryrun.main(["--arch", "hubert-xlarge", "--shape", "long_500k"])
     dryrun.main(["--arch", "smollm-135m", "--shape", "decode_32k",
                  "--multi-pod"])
+    dryrun.main(["--arch", "rwkv6-1.6b", "--shape", "decode_32k",
+                 "--multi-pod"])
     recs = json.loads((tmp_path / "dryrun_h100.json").read_text())
     assert recs["smollm-135m|decode_32k"]["status"] == "ok"
     assert recs["hubert-xlarge|long_500k"]["status"] == "skipped"
-    plan = json.loads((tmp_path / "dryrun_pod2x16x16.json").read_text())
-    assert plan["smollm-135m|decode_32k"]["status"] == "plan"
+    pod = json.loads((tmp_path / "dryrun_pod2x16x16.json").read_text())
+    # the dense family's rank program; the ssm family's plan alone (8f)
+    assert pod["smollm-135m|decode_32k"]["status"] == "ok"
+    assert pod["smollm-135m|decode_32k"]["n_chips"] == 512
+    assert pod["rwkv6-1.6b|decode_32k"]["status"] == "plan"
     assert dryrun._artifact_path("h100").startswith(str(tmp_path))
 
 
@@ -351,16 +358,23 @@ def test_sweep_in_processes_equals_in_process():
     """``sweep`` (the CLI's ``--jobs`` and chip_smoke.py's phase 19): the
     same records in a pool of spawned processes as in this one, and a
     job that raises becomes an "error" record."""
-    jobs = [dryrun.Job("smollm-135m", "train_4k"),
+    jobs = [dryrun.Job("smollm-135m", "train_4k", {"n_layers": 2}),
             dryrun.Job("yi-6b", "decode_32k", {"n_layers": 4}),
+            dryrun.Job("granite-moe-1b-a400m", "decode_32k"),
             dryrun.Job("no-such-arch", "train_4k")]
     here = dict(dryrun.sweep(jobs, "16x16"))
     pooled = dict(dryrun.sweep(jobs, "16x16", procs=2))
+    for rec in list(here.values()) + list(pooled.values()):
+        rec.pop("trace_s", None)            # a host clock's reading
     assert here == pooled
-    assert here["smollm-135m|train_4k"]["status"] == "plan"
+    # each job in a fake world of its own, in this process or a spawned one
+    assert here["smollm-135m|train_4k"]["status"] == "ok"
+    assert here["granite-moe-1b-a400m|decode_32k"]["status"] == "plan"
     assert here["no-such-arch|train_4k"]["status"] == "error"
-    cut = here["yi-6b|decode_32k"]["memory"]
-    full = dryrun.dryrun_one("yi-6b", "decode_32k", "16x16")["memory"]
+    cut = here["yi-6b|decode_32k"]["plan"]
+    full = dryrun.plan_arguments(
+        get_config("yi-6b"), get_shape("decode_32k"),
+        mesh_lib.MESHES["16x16"])
     assert cut["cache"] * 8 == full["cache"]        # 4 of 32 layers
 
 

@@ -258,13 +258,14 @@ def test_apply_moe_gradients_match_reference(grouped):
 
 
 def test_named_mesh_still_refuses():
-    """A named shape has no process group: its per-rank program is the
-    dry run's (Queue 1 item 8e). A live mesh runs the layer expert-parallel
+    """A named shape has no process group: its per-rank program runs in
+    a fake world (``launch/mesh.fake_world``), which the error names. A
+    live mesh runs the layer expert-parallel
     (tests/test_torch_multirank_moe.py)."""
     jcfg, cfg = _cfgs("granite-moe-1b-a400m")
     _, p = _layer(jcfg)
     for mesh in (make_local_mesh(), make_production_mesh()):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
+        with pytest.raises(NotImplementedError, match="fake_world"):
             moe.apply_moe(p, torch.zeros((1, 4, cfg.d_model)), cfg,
                           mesh=mesh)
 

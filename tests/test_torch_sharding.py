@@ -94,9 +94,9 @@ def test_local_shape_divides_each_sharded_dim():
 
 def test_placement_raises_citing_item_8():
     _, mesh = _meshes("16x16")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
+    with pytest.raises(NotImplementedError, match="fake_world"):
         partition.constrain(np.zeros(3), ("batch",), mesh)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
+    with pytest.raises(NotImplementedError, match="fake_world"):
         partition.shard_map(lambda x: x, mesh, None, None)
 
 
@@ -253,7 +253,9 @@ def _ref_argument_bytes(arch, shape_name, ref_mesh):
 @pytest.mark.parametrize("mesh_name", PRODUCTION)
 @pytest.mark.parametrize("arch,shape_name", _COMBOS)
 def test_plan_argument_bytes_equal_reference(arch, shape_name, mesh_name):
-    rec = dryrun.dryrun_one(arch, shape_name, PORT_MESHES[mesh_name])
+    # the plan's record, traced nothing (a dense arch's dryrun_one record
+    # traces rank 0's program and holds its arguments to this one)
+    rec = dryrun.plan_record(arch, shape_name, PORT_MESHES[mesh_name])
     if not get_config(arch).has_decode and \
             get_shape(shape_name).mode == "decode":
         assert rec["status"] == "skipped"
