@@ -162,8 +162,11 @@ exit, and nothing falls back:
                 interactive 100 ms / 256, batch 1 s / 1024, mining 10 s /
                 4096) in front of an engine over each of phases 6 and 8's
                 indexes, its ladder run up front (``warmup``). Steady:
-                the 256 requests in a 70/20/10 class mix, 8 every 8 ms;
-                the ladder must not move, every batch must run at level
+                the 256 requests in a 70/20/10 class mix, 8 every 8 ms,
+                after a full collection of the garbage collector (one
+                over this process's objects pauses it 0.2-0.36 s), the
+                collections inside the window timed; every request
+                served, the ladder must not move, every batch must run at level
                 0's knobs and equal the plain version there, and each
                 answer the MicroBatcher's for the same request
                 (``_agree``: compare()'s rule where both scanned the same
@@ -461,13 +464,24 @@ exit, and nothing falls back:
                 c.phase_multirank(card)"``;
  21. multi-rank moe and loop — four ranks sharing the card over gloo
                 again: (a) granite-moe-1b-a400m at full width and depth
-                (f32, seeded, the same on every rank) expert-parallel,
+                (f32, seeded, the same on every rank) through its
+                per-rank program (the experts, heads and
+                ffn over model, FSDP over data, the moe nested),
                 ``Model.hidden(mesh=)`` on a batch of 4 x 1,024 on (data
                 1, model 4), against the one-process model, and on (data
                 2, model 2), where FSDP gathers the expert stacks, against
                 the one-process model with each moe layer computed as the
                 ranks do (``_moe_as_on_2x2``: a batch half apart, the sum
-                of the two expert shards' partials): the hidden state
+                of the two expert shards' partials) following the
+                ranks' routes where they moved a near-tie
+                (``_moe_as_on_2x2(follow=)``: each half's top-k ids from
+                its model rank 0; the seeded router's near-tied routes
+                move under the ranks' other rounding, and one moved
+                route reorders its expert's capacity queue): at most
+                MOVED_ROUTES_MAX moved, each within ROUTE_TIE_REL of
+                the oracle's own k-th probability, and the oracle that
+                routes itself within HIDDEN_REL_BOUND on every token no
+                moved routing reaches (``_unmoved``); the hidden state
                 within HIDDEN_REL_BOUND, its mean pool within
                 EMBED_REL_BOUND, moe_aux within MOE_AUX_KERNEL_REL, every
                 rank's flash_attention launches one a layer and its
@@ -503,10 +517,11 @@ exit, and nothing falls back:
                 bytes, arguments (equal to the plan's) and temp, the
                 collectives by kind, the roofline with its collective
                 term; (b) four ranks sharing the card over gloo (data 2 x
-                model 2) run yi-6b at full width cut to 2 layers per rank:
-                the prefill at B 2 x T 4,096 in f32 and bf16 through
+                model 2) run yi-6b at full width cut to RK_LAYERS (one
+                layer, so that the script with phase 23 stays near 1,050
+                s): the prefill at B 2 x T 4,096 in f32 and bf16 through
                 ``Model.apply(mesh=)`` (flash_attention on a rank's 16 q
-                and 2 kv heads of 128, two launches a rank a forward), the
+                and 2 kv heads of 128, a launch a layer a rank), the
                 gathered logits held to one process's forward (f32 within
                 DECODE_REL_BOUND, phase 13's bound; bf16 within one
                 process's own bf16-to-f32 distance); one AdamW step at B 4
@@ -516,7 +531,7 @@ exit, and nothing falls back:
                 process's bf16 step (the loss and each moment leaf within
                 one process's bf16-to-f32 distance, the parameters within
                 2 lr: AdamW's first step moves each by about lr); decode
-                at B 2, 8 tokens, f32, within DECODE_REL_BOUND; the
+                at B 2, 4 tokens, f32, within DECODE_REL_BOUND; the
                 per-rank Eq. 4 step of dml-imnet63k at its paper width
                 (L's 10,000 rows over model, 100 pairs a data rank,
                 dml_pair on each rank), dL within 1e-4 x max |dL| of one
@@ -530,7 +545,46 @@ exit, and nothing falls back:
                 beside one process's on each line. Alone: ``python -c
                 "import chip_smoke as c; card = c.phase_device();
                 c.phase_build(); c.phase_ranks(card)"``;
- 23. the last line: ``{"ok": true, "device": {...}}``.
+ 23. per-rank families — the per-rank program of the moe, vlm and audio
+                families (ROADMAP.md Queue 1 item 8f, first part): (a) rank
+                0's records of granite-moe-1b, qwen3-moe-30b and
+                pixtral-12b at train_4k and decode_32k and of
+                hubert-xlarge at train_4k and prefill_32k (at
+                ACCOUNT_CHUNKS' attention chunks, for the trace's time)
+                on 16x16 and pod2x16x16, traced on meta in a pool of
+                RF_JOBS processes started beside phase 22's, a line each,
+                each "ok" with the plan's arguments; (b) four ranks
+                sharing the card over gloo (data 2 x model 2), each model
+                at full width cut to RF_LAYERS: granite-moe-1b's prefill
+                at B 2 x T 4,096 in f32 and bf16 (its 32 experts 16 a
+                rank, nested in the program) held to one process routing
+                each batch half apart (_moe_as_on_2x2; in f32 following
+                the ranks' near-ties, as in phase 21), with moe_aux (f32
+                within MOE_AUX_KERNEL_REL), one AdamW step at B 4 x T 512
+                and decode at B 2, 4 tokens; pixtral-12b's bf16 prefill
+                from patch embeddings and its decode on tokens;
+                hubert-xlarge's bf16 prefill from frame embeddings
+                (non-causal, biases) and one step at B 4 x T 512;
+                smollm-135m's bf16 prefill, 9 heads on a model axis of
+                2: context parallelism, one flash_attention launch a q
+                chunk a layer a rank at its q_offset; phase 22's bounds
+                (f32 within DECODE_REL_BOUND, bf16 within RK_BF16_SLACK
+                times one process's bf16-to-f32 distance, the bf16
+                steps' moments and parameters as 22's, their loss
+                within RK_BF16_SLACK times one process's bf16-to-f32
+                distance plus RF_LOSS_SE standard errors of its
+                per-token distance: a scalar's distance alone can fall
+                below the ranks' bf16 noise, as hubert's did at
+                5.4e-6), each rank's flash_attention
+                launches read; (c) the account of the granite-moe step in
+                a fake world of (2, 2): collectives equal to rank 0's,
+                arguments equal, peak within PEAK_RATIO_BAND; then
+                smollm's last context-parallel slice timed alone for the
+                kernels line (kernel, plain version, SDPA with the
+                offset's explicit mask). Alone: ``python -c "import
+                chip_smoke as c; card = c.phase_device();
+                c.phase_build(); c.phase_ranks_families(card)"``;
+ 24. the last line: ``{"ok": true, "device": {...}}``.
 
 Every launch count is set to 0 just before a main-path phase (4, 5, 5a,
 5c, 6, each index of 8, each serving run of 8b, each burst of 8c, 8d's
@@ -539,8 +593,9 @@ in 9, 10, each decode and each apply beside it in 12, 13 and 16c, each
 training run and apply in 14, 15 and 16d, 16e, each forward, decode,
 apply, training run and service batch of 17, and each forward, apply,
 service run and training run of 18, each rank's PS work and sharded
-serving in 20, each rank's forwards and loop in 21, and each rank's
-prefill and Eq. 4 step in 22) and read just after
+serving in 20, each rank's forwards and loop in 21, each rank's
+prefill and Eq. 4 step in 22, and each rank's prefill of each model in
+23) and read just after
 (5a launches no kernel: its gradient is the reference's plain autograd
 product);
 comparison launches come after the reading (or, for phase 9, before the
@@ -2908,24 +2963,63 @@ def _level_times(transitions, t0, t1):
     return {lv: round(s, 4) for lv, s in sorted(out.items())}
 
 
+def _gc_pauses():
+    """Time every collection of the garbage collector from here on, as
+    (generation, ms); ``gc.callbacks.remove(cb)`` stops it. Returns
+    (cb, the list)."""
+    pauses, started = [], []
+
+    def cb(phase, info):
+        if phase == "start":
+            started.append(time.perf_counter())
+        elif started:
+            pauses.append((info["generation"],
+                           (time.perf_counter() - started.pop()) * 1e3))
+
+    gc.callbacks.append(cb)
+    return cb, pauses
+
+
 def _steady(sched, queries_np, mix):
     """The requests at FE_STEADY_GROUP every FE_STEADY_GAP_S (below the
-    high watermark): every one must be served. Returns qps, p50, p99."""
+    high watermark): every one must be served. A full collection of the
+    garbage collector comes first: this process holds the earlier phases'
+    objects, and the bursts leave cyclic garbage (failed futures, their
+    tracebacks), so one collection of the oldest generation stops every
+    thread for 0.2-0.36 s on the card's host, past the interactive
+    class's 0.1 s deadline, and one fell into this window by chance
+    once (``tools/frontend_gc.py``). Returns qps, p50, p99, that
+    collection's ms and the collections inside the window."""
+    t_gc = time.perf_counter()
+    gc.collect()
+    gc_ms = (time.perf_counter() - t_gc) * 1e3
+    cb, pauses = _gc_pauses()
     futs, done = [], {}
-    t0 = time.perf_counter()
-    for i, q in enumerate(queries_np):
-        f = sched.submit(q, priority=str(mix[i]))
-        f.add_done_callback(lambda _, i=i: done.__setitem__(
-            i, time.perf_counter()))
-        futs.append((time.perf_counter(), f))
-        if (i + 1) % FE_STEADY_GROUP == 0:
-            time.sleep(FE_STEADY_GAP_S)
-    for _, f in futs:
-        f.result(timeout=120)
-    wall = time.perf_counter() - t0
+    try:
+        t0 = time.perf_counter()
+        for i, q in enumerate(queries_np):
+            f = sched.submit(q, priority=str(mix[i]))
+            f.add_done_callback(lambda _, i=i: done.__setitem__(
+                i, time.perf_counter()))
+            futs.append((time.perf_counter(), f))
+            if (i + 1) % FE_STEADY_GROUP == 0:
+                time.sleep(FE_STEADY_GAP_S)
+        for _, f in futs:
+            f.result(timeout=120)
+        wall = time.perf_counter() - t0
+    finally:
+        gc.callbacks.remove(cb)
     lat = np.array([done[i] - t for i, (t, _) in enumerate(futs)]) * 1e3
     p50, p99 = percentile(lat, (50.0, 99.0))
-    return {"qps": len(futs) / wall, "p50_ms": p50, "p99_ms": p99}
+    return {"qps": len(futs) / wall, "p50_ms": p50, "p99_ms": p99,
+            "gc": {"before_ms": gc_ms, **_gc_summary(pauses)}}
+
+
+def _gc_summary(pauses):
+    """Collections by generation and the longest pause in ms."""
+    return {"by_generation": [sum(g == n for g, _ in pauses)
+                              for n in range(3)],
+            "longest_ms": max((ms for _, ms in pauses), default=0.0)}
 
 
 def _record(engine, limit=None):
@@ -3208,8 +3302,11 @@ def phase_frontend(index, queries, serving, built, card):
                                               .contiguous())
         log(f"frontend {name}: ladder {out[name]['ladder']}; steady "
             f"{N_REQUESTS} requests: qps {steady['qps']:.1f}, p50 "
-            f"{steady['p50_ms']:.2f} p99 {steady['p99_ms']:.2f} ms; each "
-            f"batch "
+            f"{steady['p50_ms']:.2f} p99 {steady['p99_ms']:.2f} ms; "
+            f"a full collection before it {steady['gc']['before_ms']:.1f} "
+            f"ms, collections inside it by generation "
+            f"{steady['gc']['by_generation']}, longest "
+            f"{steady['gc']['longest_ms']:.1f} ms; each batch "
             f"= the plain version (max |dd| "
             f"{steady['plain_max_abs_err']:.3e}); against the "
             f"MicroBatcher's answers: {steady['other_ids']} requests with "
@@ -4236,16 +4333,19 @@ def within(out, ref, allowed, what):
     return float(d.max()), float(ref.abs().max()), worst
 
 
-def check_flash(q, k, v, causal, window):
+def check_flash(q, k, v, causal, window, q_offset=0):
     """flash_attention against attention_ref in f32 on the same values;
     returns (max |out - ref|, max |ref|, worst |d| / bound)."""
-    out = flash_attention(q, k, v, causal=causal, window=window)
+    out = flash_attention(q, k, v, causal=causal, window=window,
+                          q_offset=q_offset)
     qf, kf, vf = q.float(), k.float(), v.float()
-    ref = attention_ref(qf, kf, vf, causal=causal, window=window)
+    ref = attention_ref(qf, kf, vf, causal=causal, window=window,
+                        q_offset=q_offset)
     allowed = FA_TOL["atol"] + FA_TOL["rtol"] * ref.abs()
     if q.dtype == torch.bfloat16:
         allowed += BF16_ROUND * (ref.abs() + attention_ref(
-            qf, kf, vf.abs(), causal=causal, window=window))
+            qf, kf, vf.abs(), causal=causal, window=window,
+            q_offset=q_offset))
     torch.cuda.synchronize()
     assert out.dtype == q.dtype and out.shape == q.shape
     return within(out, ref, allowed, "flash_attention")
@@ -4330,17 +4430,17 @@ def parity_ssd(dtype):
 
 def phase_parity_backbone():
     for dtype in (torch.float32, torch.bfloat16):
-        for B, T, S, H, K, dh, causal, window in FA_PARITY:
+        for B, T, S, H, K, dh, causal, window, off in FA_PARITY:
             rng = np.random.RandomState(T + H + dh)
             q, k, v = (torch.tensor(rng.randn(*shape), dtype=torch.float32,
                                     device=DEV).to(dtype)
                        for shape in ((B, T, H, dh), (B, S, K, dh),
                                      (B, S, K, dh)))
-            err, top, worst = check_flash(q, k, v, causal, window)
+            err, top, worst = check_flash(q, k, v, causal, window, off)
             log(f"parity flash_attention {str(dtype)[6:]} (B, T, S, H, K, Dh)"
-                f" {(B, T, S, H, K, dh)} causal={causal} window={window}: "
-                f"max |d| {err:.3e} (max |ref| {top:.3f}), {worst:.3f} of "
-                f"the bound")
+                f" {(B, T, S, H, K, dh)} causal={causal} window={window} "
+                f"q_offset={off}: max |d| {err:.3e} (max |ref| {top:.3f}), "
+                f"{worst:.3f} of the bound")
         parity_ssd(dtype)
     # strided views into one fused (B, T, 3, H, Dh) projection, bf16 at Dh
     # 80 (the tensor maps' strides) and f32
@@ -4877,8 +4977,17 @@ RWKV_GRAD_REL = 1e-3
 RWKV_PROBE = 1e-6
 
 
-def _rel(a, b):
-    return float((a.float() - b.float()).abs().max() / b.float().abs().max())
+def _rel(a, b, chunk=1 << 26):
+    """max |a - b| / max |b|, over slices of ``chunk`` elements (a full
+    pass at f32 would hold three f32 copies of a 1G-element logit
+    tensor)."""
+    a, b = a.reshape(-1), b.reshape(-1)
+    d = m = 0.0
+    for i in range(0, b.numel(), chunk):
+        x, y = a[i:i + chunk].float(), b[i:i + chunk].float()
+        d = max(d, float((x - y.to(x.device)).abs().max()))
+        m = max(m, float(y.abs().max()))
+    return d / m
 
 
 def _hold_decode(model, prompts, what, bound=DECODE_REL_BOUND):
@@ -6929,15 +7038,17 @@ def phase_multirank(card, data=None, bsp_ms=None):
 # (the module's weights, the gradients and their clipped copy, the two
 # moments and their successors, the updates and the new parameters; the
 # first card call OOMed at 12 layers with 18.75 GB a rank allocated
-# before its peak), so 6 layers (0.37 B parameters) take 13.4 GB a rank,
-# 54 GB for four, with room for activations, FSDP gathers and five CUDA
-# contexts; the closed loop at phase 8e's recipe on a store cut to
+# before its peak), and 6 layers (0.37 B parameters) took 13.4 GB a rank;
+# the step now runs the per-rank program, whose FSDP gathers and
+# reduce-scatters gloo stages through the host (15-24 s a step at 6
+# layers on the card, 4.6-13 s before), so 3 layers keep the script
+# inside its time; the closed loop at phase 8e's recipe on a store cut to
 # MRM_LOOP_ROWS rows, since each of the four ranks holds the feature
 # table (262,144 rows would be 90 GB)
 MRM_RANKS = MR_RANKS
 MRM_B, MRM_T = 4, 1024
 MRM_DECODE = 8
-MRM_TRAIN_LAYERS, MRM_TRAIN_B, MRM_TRAIN_T = 6, 2, 512
+MRM_TRAIN_LAYERS, MRM_TRAIN_B, MRM_TRAIN_T = 3, 2, 512
 MRM_TRAIN_STEPS, MRM_TRAIN_LR = 3, 1e-3
 # the first step's loss and gradient norm against the one-process oracle:
 # the same f32 model, the expert partials summed in another order (and
@@ -7021,10 +7132,17 @@ def _mrm_loop(store, labels, L0, mesh=None):
 
 
 def _mrm_checksum(tree):
-    """Each leaf's bits summed as int32 words: equal trees give equal
-    lists, and any flipped bit changes its leaf's entry."""
-    return [int(x.contiguous().view(torch.int32).to(torch.int64).sum())
-            for x in tree_leaves(tree)]
+    """Each leaf's bits summed as integers of its element's width: equal
+    trees give equal lists, and any flipped bit changes its leaf's
+    entry."""
+    ints = {1: torch.int8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
+
+    def total(x, chunk=1 << 26):        # in slices: no int64 copy of x
+        w = x.contiguous().view(ints[x.element_size()]).reshape(-1)
+        return sum(int(w[i:i + chunk].to(torch.int64).sum())
+                   for i in range(0, w.numel(), chunk))
+
+    return [total(x) for x in tree_leaves(tree)]
 
 
 def _time_once(fn, barrier=False):
@@ -7050,12 +7168,16 @@ def _mrm_forward(inp, meshes):
         for name, mesh in meshes.items():
             torch.cuda.synchronize()
             flash_attention.launches = 0    # this rank's main path only
-            (h, aux), s = _time_once(lambda: model.hidden(
-                {"tokens": tokens}, mesh=mesh), barrier=True)
+            with _moe_routes() as rec:
+                (h, aux), s = _time_once(lambda: model.hidden(
+                    {"tokens": tokens}, mesh=mesh), barrier=True)
             out["forward"][name] = {
                 "ms": 1e3 * s, "launches": flash_attention.launches,
                 "aux": float(aux["moe_aux"]), "checksum": _mrm_checksum([h]),
-                **({"h": h} if mesh.rank == 0 else {})}
+                **({"h": h} if mesh.rank == 0 else {}),
+                # each batch half's routes, from its model rank 0
+                **({"routes": rec["topi"]} if name == "2x2"
+                   and mesh.axis_index("model") == 0 else {})}
         cache = model.init_decode_cache(1, MRM_DECODE)
         prompt = torch.from_numpy(inp["decode"]).to(DEV)
         logits, stamps = [], []
@@ -7140,7 +7262,7 @@ def _mrm_rank(inp):
 
 
 @contextlib.contextmanager
-def _moe_as_on_2x2():
+def _moe_as_on_2x2(follow=None):
     """While open, every moe layer of a one-process model computes what
     the ranks of (data 2, model 2) compute: on each half of the batch
     apart (capacity and aux a half, aux the halves' mean), the sum of
@@ -7154,29 +7276,129 @@ def _moe_as_on_2x2():
     route reorder its expert's capacity queue (the second and third card
     calls of phase 21 parted by 3.5e-2 and 2.5e-2 of max so, whole half
     batches and the one-device layer by halves; (1, 4) matched the
-    one-device layer within 1.6e-6)."""
-    apply = moe.apply_moe
+    one-device layer within 1.6e-6).
+
+    ``follow`` ([batch half][layer] -> (N, k) top-k ids, as the ranks
+    routed that half's N tokens) routes each token whose own top-k set
+    differs from the ranks' to the ranks' experts, weighted by its own
+    probabilities there (``moe._routed``), and yields a list that gets
+    one (half, layer, token, gap) a moved routing: ``gap`` how far the
+    weakest expert the ranks chose and it did not falls below its own
+    k-th probability, as a share of that probability (``_route_gap``).
+    A near-tie moved by the ranks' rounding has a gap at rounding
+    level."""
+    apply, route = moe.apply_moe, moe._route
+    moved, calls = [], [0]
 
     def as_ranks(p, x, cfg, mesh=None, expert_axis="model"):
         e_loc = cfg.n_experts // 2
+        layer = calls[0]
+        calls[0] += 1
         ys, auxs = [], []
-        for xb in x.chunk(2):
+        for half, xb in enumerate(x.chunk(2)):
             Bl, Tl, d = xb.shape
+            xf = xb.reshape(Bl * Tl, d)
             cap = moe._capacity(Bl * Tl, cfg, e_loc)
-            parts = [moe._moe_local(
-                {k: p[k] if k == "router" else p[k][m * e_loc:(m + 1) * e_loc]
-                 for k in ("router", "w_gate", "w_up", "w_down")},
-                xb.reshape(Bl * Tl, d), cfg, m * e_loc, e_loc, cap)
-                for m in (0, 1)]
+            routed = route(p["router"], xf, cfg)
+            if follow is not None:
+                ids = follow[half][layer].to(xf.device)
+                apart = (routed[1].sort(dim=-1)[0] != ids.sort(dim=-1)[0]
+                         ).any(dim=-1).nonzero()[:, 0]
+                if len(apart):
+                    probs = moe._router_probs(p["router"], xf)
+                    gaps = _route_gap(probs[apart], ids[apart], cfg.top_k)
+                    moved.extend((half, layer, int(t), float(g))
+                                 for t, g in zip(apart, gaps))
+                    routed = moe._routed(probs, ids, cfg)
+            # both expert shards route this half as the ranks' do
+            moe._route = lambda *_, routed=routed: routed
+            try:
+                parts = [moe._moe_local(
+                    {k: p[k] if k == "router" else
+                     p[k][m * e_loc:(m + 1) * e_loc]
+                     for k in ("router", "w_gate", "w_up", "w_down")},
+                    xf, cfg, m * e_loc, e_loc, cap) for m in (0, 1)]
+            finally:
+                moe._route = route
             ys.append((parts[0][0] + parts[1][0]).reshape(Bl, Tl, d))
             auxs.append(parts[0][1])
         return torch.cat(ys), (auxs[0] + auxs[1]) / 2
 
     moe.apply_moe = as_ranks
     try:
-        yield
+        yield moved
     finally:
         moe.apply_moe = apply
+
+
+def _route_gap(probs, ids, k):
+    """A token's gap (probs (n, E) one process's router probabilities,
+    ids (n, k) the experts the ranks chose): how far the weakest chosen
+    expert it does not rank in its own top k falls below its own k-th
+    probability, as a share of that probability."""
+    kth = torch.sort(probs, dim=-1, descending=True)[0][:, k - 1]
+    chosen = torch.gather(probs, 1, ids).min(dim=-1)[0]
+    return ((kth - chosen).clamp(min=0) / kth).tolist()
+
+
+# One process's (2, 2) oracle follows the ranks' routes (_moe_as_on_2x2's
+# ``follow``) only where they moved a near-tie under the ranks' rounding:
+# each moved routing's gap at most ROUTE_TIE_REL (the share the hidden
+# states are held to), at most MOVED_ROUTES_MAX of them a forward
+# (readings: 1 of 98,304 in phase 21's (2, 2) forward on three card
+# calls, 0 of 16,384 in phase 23's f32 prefill), and the oracle that
+# routes itself still held to the ranks on every token that no moved
+# routing reaches (_unmoved).
+ROUTE_TIE_REL = HIDDEN_REL_BOUND
+MOVED_ROUTES_MAX = 4
+
+
+def _unmoved(moved, B, T):
+    """(B, T) bool: the tokens no moved routing reaches. A half's tokens
+    run in token-major order, and a token reads only earlier tokens of
+    its own sequence (causal attention) and earlier places in its
+    experts' queues, so the tokens of a half before its first moved one
+    are the oracle's own, layer after layer."""
+    first = [T * B // 2] * 2
+    for half, _, t, _ in moved:
+        first[half] = min(first[half], t)
+    keep = torch.zeros(B * T, dtype=torch.bool)
+    for half in (0, 1):
+        keep[half * B * T // 2:half * B * T // 2 + first[half]] = True
+    return keep.reshape(B, T)
+
+
+def _followed(moved, routings, got, free):
+    """The figures of a forward of ``routings`` (token, layer) routings
+    whose oracle followed the ranks' routes (``moved`` from
+    ``_moe_as_on_2x2``): the moved routings, the largest gap, and the
+    ranks' ``got`` (B, T, ...) against the oracle that routes itself
+    (``free``) on the tokens no moved routing reaches (``_unmoved``) and
+    on all of them; ``ok`` with every check held (that error within
+    HIDDEN_REL_BOUND)."""
+    B, T = got.shape[:2]
+    keep = _unmoved(moved, B, T)
+    gap = max((g for *_, g in moved), default=0.0)
+    kept = int(keep.sum())
+    err = _rel(got[keep.to(got.device)], free[keep.to(free.device)]) \
+        if kept else float("inf")
+    ok = len(moved) <= MOVED_ROUTES_MAX and gap <= ROUTE_TIE_REL and \
+        err <= HIDDEN_REL_BOUND
+    return {"moved": len(moved), "gap": gap, "routings": routings,
+            "unmoved": kept, "tokens": B * T, "free_err": err,
+            "free_err_all": _rel(got, free), "ok": ok}
+
+
+def _followed_line(f):
+    """The words of a followed forward's figures (``_followed``)."""
+    return (f"one process routed as the ranks where they moved a near-tie: "
+            f"{f['moved']} of {f['routings']} (token, layer) routings "
+            f"moved (held <= {MOVED_ROUTES_MAX}), largest gap "
+            f"{f['gap']:.2e} of the k-th probability (held <= "
+            f"{ROUTE_TIE_REL:g}); one process routing itself: within "
+            f"{f['free_err']:.3e} on the {f['unmoved']} of {f['tokens']} "
+            f"tokens no moved routing reaches (bound {HIDDEN_REL_BOUND}), "
+            f"{f['free_err_all']:.3e} on all")
 
 
 def _pool_overlap(a, b):
@@ -7290,10 +7512,28 @@ def phase_multirank_moe(card):
 
     need({r["backend"] for r in ranks} == {"gloo"}, "backend")
     need([r["rank"] for r in ranks] == list(range(MRM_RANKS)), "ranks")
+    # the (2, 2) oracle following the ranks' near-tied routes: rank 0
+    # holds batch half 0's routes, rank 2 half 1's
+    model = Model(cfg, device=DEV, seed=0)
+    with torch.inference_mode(), _moe_as_on_2x2(follow=[
+            ranks[0]["forward"]["2x2"]["routes"],
+            ranks[2]["forward"]["2x2"]["routes"]]) as moved:
+        h_routed, aux_routed = model.hidden({"tokens": torch.from_numpy(
+            inp["tokens"]).to(DEV)})
+    del model
+    one.update(h_routed=h_routed.cpu(),
+               aux_routed=float(aux_routed["moe_aux"]),
+               followed=_followed(moved, MRM_B * MRM_T * cfg.n_layers,
+                                  ranks[0]["forward"]["2x2"]["h"],
+                                  one["h_halves"]))
+    del h_routed
+    gc.collect()
+    torch.cuda.empty_cache()
+    need(one["followed"]["ok"], f"2x2 routes: {one['followed']}")
     err = {}
     for name, h_ref, aux_ref in (("1x4", one["h"], one["aux"]),
-                                 ("2x2", one["h_halves"],
-                                  one["aux_halves"])):
+                                 ("2x2", one["h_routed"],
+                                  one["aux_routed"])):
         fw = [r["forward"][name] for r in ranks]
         need(all(f["launches"] == cfg.n_layers for f in fw),
              f"{name}: flash_attention launches "
@@ -7359,6 +7599,8 @@ def phase_multirank_moe(card):
             f"collective through the host: the runtime's overhead, not "
             f"scaling; {card}")
     for name in ("1x4", "2x2"):
+        routed = "" if name == "1x4" else \
+            f" ({_followed_line(one['followed'])})"
         log(f"21 {MOE} forward on {name} (f32, B {MRM_B} x T {MRM_T}, "
             f"{cfg.n_layers} layers): {r0['forward'][name]['ms']:.1f} ms a "
             f"batch over {MRM_RANKS} ranks against {one['forward_ms']:.1f} "
@@ -7366,8 +7608,9 @@ def phase_multirank_moe(card):
             f"{err[name]['hidden']:.3e} (bound {HIDDEN_REL_BOUND}), "
             f"embed_pool {err[name]['embed_pool']:.3e} (bound "
             f"{EMBED_REL_BOUND}), moe_aux rel {err[name]['aux']:.2e} (bound "
-            f"{MOE_AUX_KERNEL_REL}); flash_attention launches by rank "
-            f"{[r['forward'][name]['launches'] for r in ranks]}; {note}")
+            f"{MOE_AUX_KERNEL_REL}){routed}; flash_attention launches by "
+            f"rank {[r['forward'][name]['launches'] for r in ranks]}; "
+            f"{note}")
     log(f"21 decode on 1x4 (B 1, {MRM_DECODE} tokens): "
         f"{r0['decode']['ms_token']:.2f} ms/token over ranks against "
         f"{one['ms_token']:.2f} one process; logits within "
@@ -7407,7 +7650,7 @@ def phase_multirank_moe(card):
            "one_process_loop_step_ms": loop1["step_ms"],
            "loop_refresh_s": lp[0]["refresh_s"],
            "one_process_loop_refresh_s": loop1["refresh_s"],
-           "pool_overlap": overlap,
+           "pool_overlap": overlap, "followed": one["followed"],
            "launches": {
                "flash_attention": [r["forward"]["1x4"]["launches"]
                                    + r["forward"]["2x2"]["launches"]
@@ -7425,7 +7668,9 @@ def phase_multirank_moe(card):
 # -- phase 22: the dry run's per-rank program, on meta and on the card -------
 
 RK_ARCH = "yi-6b"
-RK_LAYERS = 2                # yi-6b at full width cut to 2 layers
+# yi-6b at full width cut to one layer (two until the attention families'
+# phase 23 joined the script: the cut keeps the whole near 1,050 s)
+RK_LAYERS = 1
 RK_MESH = (2, 2)             # (data, model): 16 q heads and 2 kv heads a rank
 RK_PREFILL = (2, 4096)       # B x T
 RK_TRAIN = (4, 512)
@@ -7528,30 +7773,62 @@ def _rk_events(fn, barrier=True):
     return out, a.elapsed_time(b)
 
 
-def _rk_prefill(inp, mesh, models):
-    """(b) the per-rank prefill in bf16 and f32 (flash_attention on the
-    rank's 16 q and 2 kv heads); rank 0 holds the gathered logits to one
-    process's forward."""
-    tokens = torch.from_numpy(inp["prefill"]).to(DEV)
-    out = {}
+def _rk_prefill(inp, mesh, models, batch=None, ranks_dtypes=None,
+                oracle=contextlib.nullcontext, follow_routes=()):
+    """(b) the per-rank prefill through ``Model.apply(mesh=)`` in each
+    dtype of ``ranks_dtypes`` (every one of ``models`` by default) on
+    ``batch`` (phase 22's tokens by default); rank 0 holds the gathered
+    logits and moe_aux to one process's forward (under ``oracle``; in
+    the dtypes of ``follow_routes`` following the ranks' near-tied
+    routes, each batch half's gathered over ``data``, beside the oracle
+    routing itself: ``_followed``) and reads one process's bf16-to-f32
+    distance (``bf16_err``, its aux's ``bf16_aux_err``). Every model's
+    one-process forward runs, so a bf16-only prefill still has its f32
+    yardstick."""
+    if batch is None:
+        batch = {"tokens": torch.from_numpy(inp["prefill"]).to(DEV)}
+    out, ones = {}, {}
     with torch.inference_mode():
         for dtype, model in models.items():
-            _reset_counts()
-            logits, ms = _rk_events(lambda: model.apply(
-                {"tokens": tokens}, mesh=mesh)[0])
-            out[dtype] = {"ms": ms, "launches": _counts()["flash_attention"],
-                          "checksum": _mrm_checksum([logits])}
+            logits, routes = None, None
+            follow = dtype in follow_routes
+            if ranks_dtypes is None or dtype in ranks_dtypes:
+                _reset_counts()
+                with _moe_routes() as rec:
+                    (logits, aux), ms = _rk_events(lambda: model.apply(
+                        batch, mesh=mesh))
+                out[dtype] = {"ms": ms,
+                              "launches": _counts()["flash_attention"],
+                              "checksum": _mrm_checksum([logits]),
+                              "aux": float(aux["moe_aux"])}
+                if follow:              # (halves, layers, tokens, k)
+                    routes = partition.all_gather(torch.stack(rec["topi"]),
+                                                  "data", mesh)
+                del rec
             if mesh.rank == 0:
                 _reset_counts()
-                one, one_ms = _rk_events(lambda: model.apply(
-                    {"tokens": tokens})[0], barrier=False)
-                out[dtype].update(one_ms=one_ms, one=one.float().cpu(),
-                                  err=_rel(logits, one))
-            del logits
+                with oracle(**({"follow": routes} if follow else {})) \
+                        as moved:
+                    (one, one_aux), one_ms = _rk_events(
+                        lambda: model.apply(batch), barrier=False)
+                ones[dtype] = (one, float(one_aux["moe_aux"]))
+                if logits is not None:
+                    out[dtype].update(one_ms=one_ms, err=_rel(logits, one),
+                                      one_aux=ones[dtype][1])
+                if follow:
+                    with oracle():
+                        free = model.apply(batch)[0]
+                    out[dtype]["followed"] = _followed(
+                        moved, routes[..., 0].numel(), logits, free)
+                    del free
+                del one             # kept in ones until the last dtype
+            del logits, routes
     if mesh.rank == 0:
-        ref32 = out["float32"].pop("one")
-        out["bfloat16"]["bf16_err"] = _rel(out["bfloat16"].pop("one"),
-                                           ref32)
+        ref32, aux32 = ones.pop("float32")
+        one16, aux16 = ones.pop("bfloat16")
+        out["bfloat16"]["bf16_err"] = _rel(one16, ref32)
+        out["bfloat16"]["bf16_aux_err"] = abs(aux16 - aux32) / max(
+            abs(aux32), 1e-30)
     return out
 
 
@@ -7560,40 +7837,78 @@ def _rk_leaf_errs(a, b):
             for x, y in zip(tree_leaves(a), tree_leaves(b))]
 
 
-def _rk_train(inp, mesh, model, acct_mode):
+def _token_ce(model, batch):
+    """One process's cross-entropy a token, f32 (B * T,), of the model's
+    plain forward (the training step's) on ``batch``."""
+    with torch.no_grad():
+        logits = model.apply(batch, plain=True)[0]
+        return torch.nn.functional.cross_entropy(
+            logits.float().flatten(0, 1), batch["labels"].flatten().long(),
+            reduction="none")
+
+
+def _rk_train(inp, mesh, model, acct_mode, batch=None,
+              oracle=contextlib.nullcontext, spread=False):
     """(b) and (c): one AdamW step on the rank's own blocks (the step's
-    per-rank map), counted by ``CostMode`` and its peak read; rank 0
+    per-rank map; phase 22's batch unless ``batch``), counted by
+    ``acct_mode`` (a ``CostMode``, or None) and its peak read; rank 0
     holds the loss, the first moments and the gathered parameters to one
-    process's bf16 step (and the bf16 step to the f32 one)."""
-    run = RunConfig(arch=RK_ARCH, lr=RK_LR, total_steps=10, warmup=0)
+    process's step in the model's dtype (and a bf16 step to the f32 one),
+    both under ``oracle``. With ``spread`` a bf16 model's per-token
+    cross-entropy is read against the f32 model's, d = ce16 - ce32 over
+    the N tokens: ``tok_se``, std(d) / sqrt(N), the spread that bf16
+    rounding gives a mean over N tokens."""
+    run = RunConfig(arch=model.cfg.name, lr=RK_LR, total_steps=10,
+                    warmup=0)
     opt = steps_lib.make_optimizer(run)
-    batch = {"tokens": torch.from_numpy(inp["tokens"]).to(DEV),
-             "labels": torch.from_numpy(inp["labels"]).to(DEV)}
+    if batch is None:
+        batch = {"tokens": torch.from_numpy(inp["tokens"]).to(DEV),
+                 "labels": torch.from_numpy(inp["labels"]).to(DEV)}
     out = {}
     if mesh.rank == 0:
-        m32 = Model(_rk_cfg("float32"), device=DEV,
-                    params=model.param_tree())
-        st = steps_lib.init_train_state(m32, opt)
-        one32, met32 = steps_lib.make_train_step(m32, opt, run)(st, batch)
-        mom32 = one32.opt_state.m
-        del one32, st
+        one32 = met32 = None
+        if model.cfg.dtype != "float32":
+            m32 = Model(model.cfg.replace(dtype="float32"), device=DEV,
+                        params=model.param_tree())
+            st = steps_lib.init_train_state(m32, opt)
+            with oracle():
+                one32, met32 = steps_lib.make_train_step(m32, opt, run)(
+                    st, batch)
+                ce32 = _token_ce(m32, batch) if spread else None
+            del st, m32
         st = steps_lib.init_train_state(model, opt)
         one_step = steps_lib.make_train_step(model, opt, run)
-        (one, met), out["one_ms"] = _rk_events(lambda: one_step(st, batch),
-                                               barrier=False)
+        with oracle():
+            (one, met), out["one_ms"] = _rk_events(
+                lambda: one_step(st, batch), barrier=False)
         out["one_loss"] = float(met["loss"])
         out["one_gnorm"] = float(met["grad_norm"])
-        out["loss32"] = float(met32["loss"])
-        out["bf16_m_err"] = _rk_leaf_errs(one.opt_state.m, mom32)
+        if spread and one32 is not None:
+            with oracle():
+                d = _token_ce(model, batch) - ce32
+            out["tok_se"] = float(d.std() / d.numel() ** 0.5)
+            out["tok_rms"] = float(d.square().mean().sqrt())
+            del d, ce32
+        if one32 is not None:
+            out["loss32"] = float(met32["loss"])
+            out["bf16_m_err"] = _rk_leaf_errs(one.opt_state.m,
+                                              one32.opt_state.m)
+        out["m_max"] = max(float(x.abs().max())
+                           for x in tree_leaves(one.opt_state.m))
         one_params, one_m = one.params, one.opt_state.m
-        del one, st, mom32, m32
+        del one, st, one32
         gc.collect()
         torch.cuda.empty_cache()
     rmap = steps_lib.rank_train_map(model, opt, run, mesh, batch)
     pblocks, bblocks = partition.rank_blocks(
         (model.param_tree(), batch),
         (rmap.in_specs[0].params, rmap.in_specs[1]), mesh)
-    state = steps_lib.TrainState(pblocks, opt.init(pblocks),
+    # fresh moments as the plan places them (hubert's norm moments are
+    # sharded over data where the leaves are not): zeros of the blocks
+    # of the parameters under the moments' specs
+    mshapes = partition.rank_blocks(model.param_tree(),
+                                    rmap.in_specs[0].opt_state.m, mesh)
+    state = steps_lib.TrainState(pblocks, opt.init(mshapes),
                                  torch.zeros((), dtype=torch.int32,
                                              device=DEV))
     args = (state, bblocks)
@@ -7603,22 +7918,24 @@ def _rk_train(inp, mesh, model, acct_mode):
     argument = sum(t.untyped_storage().nbytes() for t in
                    {id(t): t for t in tree_leaves(args)}.values())
     torch.cuda.reset_peak_memory_stats()
-    mode = acct_mode()
-    with mode:
+    mode = acct_mode() if acct_mode else None
+    with mode or contextlib.nullcontext():
         (new, met), ms = _rk_events(lambda: rmap.body(*args))
     peak = torch.cuda.max_memory_allocated() - base + argument
     out.update(ms=ms, loss=float(met["loss"]), gnorm=float(met["grad_norm"]),
-               collectives=mode.collectives(), peak=peak, argument=argument)
+               collectives=mode.collectives() if mode else None, peak=peak,
+               argument=argument)
     # the parameters and first moments gathered leaf by leaf (every rank
     # takes part), held on rank 0
-    pspecs = rmap.in_specs[0].params
+    sspecs = rmap.in_specs[0]
     out["errs"] = {"params": [], "m": []}
-    for name, blocks in (("params", new.params), ("m", new.opt_state.m)):
+    for name, blocks, specs in (("params", new.params, sspecs.params),
+                                ("m", new.opt_state.m, sspecs.opt_state.m)):
         refs = tree_leaves(one_params if name == "params" else one_m) \
             if mesh.rank == 0 else None
         with torch.no_grad():
             for i, (x, spec) in enumerate(partition.spec_leaves(blocks,
-                                                                pspecs)):
+                                                                specs)):
                 full = partition.unblock(x, spec, mesh)
                 if mesh.rank == 0:
                     out["errs"][name].append(float(
@@ -7628,22 +7945,24 @@ def _rk_train(inp, mesh, model, acct_mode):
     return out
 
 
-def _rk_decode(inp, mesh, model):
-    """(b) decode at B 2, f32, on the rank's heads (the cache over kv
-    heads: 4 on a model axis of 2); rank 0 holds its logits to one
-    process's decode."""
-    prompt = torch.from_numpy(inp["decode"]).to(DEV)
+def _rk_decode(inp, mesh, model, prompt=None):
+    """(b) decode (phase 22's prompt unless ``prompt``: B 2, f32) on the
+    rank's heads (the cache over kv heads: 4 on a model axis of 2); rank
+    0 holds its logits to one process's decode."""
+    if prompt is None:
+        prompt = torch.from_numpy(inp["decode"]).to(DEV)
+    B, n = prompt.shape
     out = {}
     with torch.inference_mode():
         for name, m in (("ranks", mesh), ("one", None)):
             if name == "one" and mesh.rank != 0:
                 continue
-            cache = model.init_decode_cache(RK_DECODE_B, RK_DECODE_STEPS)
+            cache = model.init_decode_cache(B, n)
             logits = []
             marks = [torch.cuda.Event(enable_timing=True)
-                     for _ in range(RK_DECODE_STEPS + 1)]
+                     for _ in range(n + 1)]
             torch.cuda.synchronize()
-            for t in range(RK_DECODE_STEPS):
+            for t in range(n):
                 marks[t].record()
                 lg, cache = model.decode_step(cache, prompt[:, t], t, mesh=m)
                 logits.append(lg)
@@ -7652,7 +7971,7 @@ def _rk_decode(inp, mesh, model):
             # the first token's step left out (first calls)
             out[name] = {"logits": torch.stack(logits),
                          "ms_token": marks[1].elapsed_time(marks[-1])
-                         / (RK_DECODE_STEPS - 1)}
+                         / (n - 1)}
             del cache
     if mesh.rank == 0:
         out["err"] = _rel(out["ranks"]["logits"], out["one"]["logits"])
@@ -7853,6 +8172,426 @@ def phase_ranks(card, sweep=None):
     return out
 
 
+# -- phase 23: the per-rank program of the attention families ---------------
+
+# (a): rank 0's records of the moe, vlm and audio families at full depth;
+# hubert's 32k prefill is traced at phase 19's 8,192-token attention
+# chunks (ACCOUNT_CHUNKS: 16 tiles a layer, not 1,024, for the trace's
+# time; the plain path computes every tile's product either way)
+RF_SWEEP = ([(a, s) for a in (MOE, MOE_QWEN, VLM)
+             for s in ("train_4k", "decode_32k")]
+            + [(AUDIO, "train_4k"), (AUDIO, "prefill_32k")])
+RF_OVERRIDES = {(AUDIO, "prefill_32k"): ACCOUNT_CHUNKS}
+RF_JOBS = 1                  # beside phase 22's RK_JOBS, phases 12-22
+RF_SWEEP_TARGET_S = 90.0
+# (b): full width, cut in depth; four ranks on (data 2, model 2); the
+# whole script took 1,080.9 s with granite-moe at 4 layers and yi-6b (22)
+# at 2, so both were cut by half; then 959.1-1,098.5 s on the same code,
+# so the decode was cut to phase 22's 4 tokens (pixtral's step gathers
+# its 131,072 x 5,120 embedding over data through gloo: 4.6 s a token)
+RF_LAYERS = {MOE: 2, VLM: 2, AUDIO: 4, LM_ARCH: 4}
+RF_PREFILL = (2, 4096)       # B x T
+RF_TRAIN = (4, 512)
+RF_DECODE = (2, 4)           # B, tokens
+RF_TARGET_S = 150.0
+# the bf16 steps' loss yardstick: one process's bf16-to-f32 distance
+# plus this many standard errors of its per-token distance (_rk_train's
+# ``tok_se``)
+RF_LOSS_SE = 4.0
+
+
+def _rf_cfg(arch, dtype):
+    return get_config(arch).replace(n_layers=RF_LAYERS[arch], dtype=dtype)
+
+
+def _rf_cp_split():
+    """smollm-135m's context-parallel split on RK_MESH's model axis:
+    (q chunk, chunks, rows a rank of each), the offsets of the last
+    rank's slices."""
+    cfg = _rf_cfg(LM_ARCH, "bfloat16")
+    M = RK_MESH[1]
+    cp = attention._cp_rows(RF_PREFILL[1], cfg, M)
+    return cp, attention.cp_offsets(cp, M - 1)
+
+
+def rf_sweep_start():
+    """23 (a), started: rank 0's records of RF_SWEEP on both production
+    meshes, each in a fake world of its own, in a pool of RF_JOBS
+    processes beside the card's phases (meta tensors: no card)."""
+    ctx = multiprocessing.get_context("spawn")
+    pool = ctx.Pool(RF_JOBS)
+    jobs = [(m, pool.apply_async(dryrun._record, (
+        dryrun.Job(a, s, RF_OVERRIDES.get((a, s))), m)))
+        for m in RK_SWEEP_MESHES for a, s in RF_SWEEP]
+    pool.close()
+    return {"pool": pool, "jobs": jobs, "t0": time.perf_counter()}
+
+
+def _rf_sweep(started):
+    """23 (a), collected: a line a record; each "ok", its arguments the
+    plan's, collectives issued."""
+    t_wait = time.perf_counter()
+    records = {}
+    for m, job in started["jobs"]:
+        key, rec = job.get(timeout=RK_TIMEOUT)
+        records[f"{key}|{m}"] = rec
+    started["pool"].join()
+    wait_s = time.perf_counter() - t_wait
+    secs = time.perf_counter() - started["t0"]
+    cpu_s = sum(rec.get("trace_s", 0.0) for rec in records.values())
+    bad = []
+    for key, rec in records.items():
+        log("23 (a) " + dryrun.summary_line(key, rec))
+        if rec["status"] != "ok" or \
+                rec["memory"]["argument_size"] != \
+                rec["plan"]["argument_size"] or \
+                rec["collectives"]["total_bytes"] <= 0:
+            bad.append(key)
+    log(f"23 (a) {len(records)} per-rank records of the moe, vlm and audio "
+        f"families (full depth; hubert's prefill_32k at "
+        f"{ACCOUNT_CHUNKS['attn_q_chunk']}-token attention chunks), "
+        f"{cpu_s:.1f} s of tracing on {RF_JOBS} processes beside phases "
+        f"12-22, collected {secs:.1f} s after their start; the phase waited "
+        f"{wait_s:.1f} s for them (target {RF_SWEEP_TARGET_S:.0f} s)")
+    return {"records": records, "sweep_s": secs, "trace_s": cpu_s,
+            "wait_s": wait_s, "bad": bad}
+
+
+def _rf_inputs():
+    """The seeded batches of (b): granite-moe's prefill tokens, training
+    tokens and labels and decode prompt; pixtral's patch embeddings and
+    decode prompt; hubert's frame embeddings and training frames and
+    labels; smollm's prefill tokens."""
+    rng = np.random.RandomState(23)
+    B, T = RF_PREFILL
+    Bt, Tt = RF_TRAIN
+    V = {a: get_config(a).vocab_size for a in (MOE, VLM, AUDIO, LM_ARCH)}
+    d = {a: get_config(a).d_model for a in (VLM, AUDIO)}
+    def ids(arch, shape):               # int32, as the plan's inputs
+        return rng.randint(0, V[arch], shape).astype(np.int32)
+
+    return {MOE: {"prefill": ids(MOE, (B, T)), "tokens": ids(MOE, (Bt, Tt)),
+                  "labels": ids(MOE, (Bt, Tt)),
+                  "decode": ids(MOE, RF_DECODE)},
+            VLM: {"prefill": rng.randn(B, T, d[VLM]).astype(np.float32),
+                  "decode": ids(VLM, RF_DECODE)},
+            AUDIO: {"prefill": rng.randn(B, T, d[AUDIO]).astype(np.float32),
+                    "embeddings": rng.randn(Bt, Tt, d[AUDIO]).astype(
+                        np.float32),
+                    "labels": ids(AUDIO, (Bt, Tt))},
+            LM_ARCH: {"prefill": ids(LM_ARCH, (B, T))}}
+
+
+def _rf_on(x):
+    return torch.from_numpy(np.asarray(x)).to(DEV)
+
+
+def _rf_models(arch):
+    """(f32 model, {"bfloat16": ..., "float32": ...}) sharing one seeded
+    f32 weight set (bf16 activations, f32 weights)."""
+    model = Model(_rf_cfg(arch, "float32"), device=DEV, seed=0)
+    return model, {"bfloat16": Model(_rf_cfg(arch, "bfloat16"), device=DEV,
+                                     params=model.param_tree()),
+                   "float32": model}
+
+
+def _rf_free():
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _rf_rank(inp):
+    """One rank of phase 23 (b) and (c), a spawned process on the shared
+    card: the four models one after another."""
+    from repro_torch.launch.cost_analysis import CostMode
+    mesh = card_figures.make_local_mesh(data=RK_MESH[0], model=RK_MESH[1])
+    out = {"rank": mesh.rank, "backend": mesh.backend, "t": {}}
+    t0 = time.perf_counter()
+    # granite-moe-1b: the moe nested in the program (one process's oracle
+    # routes each batch half apart, as the ranks of (2, 2) do)
+    x = inp[MOE]
+    model, models = _rf_models(MOE)
+    out[MOE] = {"prefill": _rk_prefill(
+        inp, mesh, models, batch={"tokens": _rf_on(x["prefill"])},
+        oracle=_moe_as_on_2x2, follow_routes=("float32",))}
+    _rf_free()
+    out[MOE]["train"] = _rk_train(
+        inp, mesh, models["bfloat16"], CostMode,
+        batch={"tokens": _rf_on(x["tokens"]), "labels": _rf_on(x["labels"])},
+        oracle=_moe_as_on_2x2, spread=True)
+    _rf_free()
+    out[MOE]["decode"] = _rk_decode(inp, mesh, model,
+                                    prompt=_rf_on(x["decode"]))
+    del model, models
+    _rf_free()
+    out["t"][MOE] = time.perf_counter() - t0
+    # pixtral-12b: patch embeddings in (bf16), decode on tokens (f32)
+    t0 = time.perf_counter()
+    x = inp[VLM]
+    model, models = _rf_models(VLM)
+    out[VLM] = {"prefill": _rk_prefill(
+        inp, mesh, models, batch={"embeddings": _rf_on(x["prefill"])},
+        ranks_dtypes=("bfloat16",))}
+    _rf_free()
+    out[VLM]["decode"] = _rk_decode(inp, mesh, model,
+                                    prompt=_rf_on(x["decode"]))
+    del model, models
+    _rf_free()
+    out["t"][VLM] = time.perf_counter() - t0
+    # hubert-xlarge: frame embeddings in, non-causal, biases
+    t0 = time.perf_counter()
+    x = inp[AUDIO]
+    model, models = _rf_models(AUDIO)
+    out[AUDIO] = {"prefill": _rk_prefill(
+        inp, mesh, models, batch={"embeddings": _rf_on(x["prefill"])},
+        ranks_dtypes=("bfloat16",))}
+    _rf_free()
+    out[AUDIO]["train"] = _rk_train(
+        inp, mesh, models["bfloat16"], None,
+        batch={"embeddings": _rf_on(x["embeddings"]),
+               "labels": _rf_on(x["labels"])}, spread=True)
+    del model, models
+    _rf_free()
+    out["t"][AUDIO] = time.perf_counter() - t0
+    # smollm-135m: 9 heads on a model axis of 2, context parallelism
+    t0 = time.perf_counter()
+    model, models = _rf_models(LM_ARCH)
+    out[LM_ARCH] = {"prefill": _rk_prefill(
+        inp, mesh, models, batch={"tokens": _rf_on(inp[LM_ARCH]["prefill"])},
+        ranks_dtypes=("bfloat16",))}
+    del model, models
+    _rf_free()
+    out["t"][LM_ARCH] = time.perf_counter() - t0
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    return out
+
+
+def _rf_cp_entry(launches, card):
+    """The kernels-line entry of smollm's context-parallel slice: the
+    last rank's last slice (512 rows at q_offset 3,584 of a causal 4,096,
+    9 heads on 3 kv heads of 64, B 2, bf16) against every key, on seeded
+    q, k, v: kernel, plain version (``attention_ref`` at the offset) and
+    ``scaled_dot_product_attention`` with the offset's causal mask as an
+    explicit ``attn_mask``; its parity against the plain version."""
+    cfg = get_config(LM_ARCH)
+    (qc, nq, rows), offs = _rf_cp_split()
+    off = offs[-1]
+    B, S = RF_PREFILL
+    H, K, dh = cfg.n_heads, cfg.kv_heads, cfg.dim_per_head
+    gen = torch.Generator(device=DEV).manual_seed(33)
+    q = torch.randn((B, rows, H, dh), generator=gen, device=DEV).to(
+        torch.bfloat16)
+    k, v = (torch.randn((B, S, K, dh), generator=gen, device=DEV).to(
+        torch.bfloat16) for _ in range(2))
+    err, top, worst = check_flash(q, k, v, True, 0, off)
+    pos = off + torch.arange(rows, device=DEV)
+    mask = torch.arange(S, device=DEV)[None, :] <= pos[:, None]
+    fn = lambda: flash_attention(q, k, v, causal=True,  # noqa: E731
+                                 q_offset=off)
+    plain = lambda: attention_ref(q, k, v, causal=True,  # noqa: E731
+                                  q_offset=off)
+    lib = lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+        attn_mask=mask, enable_gqa=True)
+    with torch.inference_mode():
+        eager, graphed, best = _device_times(fn, plain, lib, (20, 3, 20))
+    pairs = rows * off + rows * (rows + 1) // 2
+    b_ms, b_by = roofline(4.0 * dh * pairs * B * H,
+                          2.0 * (2 * q.numel() + 2 * k.numel()),
+                          PEAK_BF16_FLOPS)
+    log(f"flash_attention {LM_ARCH} context-parallel slice B={B} rows="
+        f"{rows} at q_offset {off} of T={S}, H={H} K={K} Dh={dh} causal "
+        f"(bf16): device ms by graph replay: kernel {best['ms']:.4f}, plain "
+        f"{best['plain_ms']:.4f}, library {best['library_ms']:.4f} (SDPA, "
+        f"explicit mask); eager kernel {eager['ms']:.4f}; bound {b_ms:.4f} "
+        f"ms ({b_by}), {b_ms / best['ms']:.1%} of bound; parity max |d| "
+        f"{err:.3e} (max |ref| {top:.3f}), {worst:.3f} of the bound; "
+        f"launches in 23 (b) by rank {launches}; {card}")
+    del q, k, v
+    torch.cuda.empty_cache()
+    return {"name": "flash_attention", "route": "cuda",
+            "source": "src/repro_torch/kernels/flash_attention/csrc/"
+                      "flash_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention/kernel.py:80",
+            "launches": sum(launches), "launches_by_rank": launches,
+            "max_abs_err": err, **best, "bound_ms": b_ms, "bound_by": b_by,
+            "eager_ms": eager, "graph_ms": graphed,
+            "shape": {"B": B, "T": rows, "S": S, "H": H, "K": K, "Dh": dh,
+                      "causal": True, "window": 0, "q_offset": off,
+                      "config": LM_ARCH, "pairs_per_head": pairs}}
+
+
+def phase_ranks_families(card, sweep=None):
+    """Phase 23: the per-rank program of the attention families: (a)
+    rank 0's records of the moe, vlm and audio families on the
+    production meshes, traced on meta (``sweep``, from
+    ``rf_sweep_start``; started here if None); (b) granite-moe-1b,
+    pixtral-12b, hubert-xlarge and smollm-135m (context parallelism) on
+    four ranks sharing the card over gloo, held to one process; (c) the
+    account of (b)'s granite-moe step in a fake world of the same (2, 2),
+    held to what rank 0 issued and allocated; smollm's context-parallel
+    slice timed for the kernels line."""
+    t_phase = time.perf_counter()
+    sweep = _rf_sweep(sweep or rf_sweep_start())
+    inp = _rf_inputs()
+    shape = InputShape("held", RF_TRAIN[1], RF_TRAIN[0], "train")
+    with card_figures.fake_world(card_figures.Mesh(("data", "model"),
+                                                   RK_MESH)) as live:
+        acct = dryrun.rank_account(_rf_cfg(MOE, "bfloat16"), shape, live)
+    t0 = time.perf_counter()
+    ranks = spawn(_rf_rank, RK_MESH[0] * RK_MESH[1], args=(inp,),
+                  timeout=RK_TIMEOUT)
+    spawn_s = time.perf_counter() - t0
+    r0 = ranks[0]
+    note = (f"{card}; {len(ranks)} ranks share one card over "
+            f"{r0['backend']}, which stages every collective through the "
+            f"host")
+    failed = [f"23 (a) {k}" for k in sweep["bad"]]
+
+    def hold(ok, what):
+        if not ok:
+            failed.append(what)
+
+    (qc, nq, rows), offs = _rf_cp_split()
+    # the flash_attention launches a rank a prefill: one a layer on the
+    # rank's heads, smollm's one a q chunk a layer at its offsets
+    want = {MOE: RF_LAYERS[MOE], VLM: RF_LAYERS[VLM],
+            AUDIO: RF_LAYERS[AUDIO], LM_ARCH: RF_LAYERS[LM_ARCH] * nq}
+    what = {MOE: "tokens; 8 of 16 q and 4 of 8 kv heads of 64 and 16 of 32 "
+                 "experts a rank",
+            VLM: "patch embeddings; GQA 32/8 at Dh 128, 16 q and 4 kv heads "
+                 "a rank",
+            AUDIO: "frame embeddings; non-causal, biases, 8 heads of 80 a "
+                   "rank",
+            LM_ARCH: f"tokens; 9 heads on a model axis of 2: context "
+                     f"parallelism, {nq} q chunks of {qc}, {rows} rows a "
+                     f"rank of each at q_offset c x {qc} + m x {rows}"}
+    for arch in (MOE, VLM, AUDIO, LM_ARCH):
+        for dtype, p in r0[arch]["prefill"].items():
+            bound = DECODE_REL_BOUND if dtype == "float32" else \
+                RK_BF16_SLACK * r0[arch]["prefill"]["bfloat16"]["bf16_err"]
+            hold(p["err"] <= bound, f"{arch} prefill {dtype}")
+            hold(all(r[arch]["prefill"][dtype]["checksum"] == p["checksum"]
+                     for r in ranks), f"{arch} prefill {dtype} ranks differ")
+            launches = [r[arch]["prefill"][dtype]["launches"] for r in ranks]
+            hold(all(n == want[arch] for n in launches),
+                 f"{arch} prefill {dtype} launches {launches}")
+            aux = ""
+            if "followed" in p:
+                hold(p["followed"]["ok"],
+                     f"{arch} prefill {dtype} routes: {p['followed']}")
+                aux = f"; {_followed_line(p['followed'])}"
+            if arch == MOE:
+                aux_rel = abs(p["aux"] - p["one_aux"]) / p["one_aux"]
+                aux_bound = MOE_AUX_KERNEL_REL if dtype == "float32" else \
+                    RK_BF16_SLACK * r0[MOE]["prefill"]["bfloat16"][
+                        "bf16_aux_err"]
+                hold(aux_rel <= aux_bound, f"{arch} moe_aux {dtype}")
+                aux += (f"; moe_aux {p['aux']:.6f} against "
+                        f"{p['one_aux']:.6f} (rel {aux_rel:.2e}, bound "
+                        f"{aux_bound:.2e})")
+            log(f"23 (b) {arch} prefill ({RF_LAYERS[arch]} layers at full "
+                f"width, B {RF_PREFILL[0]} x T {RF_PREFILL[1]}, {dtype}, "
+                f"{what[arch]}): {p['ms']:.2f} ms over ranks against "
+                f"{p['one_ms']:.2f} ms one process (device ms, CUDA events on "
+                f"rank 0); logits within {p['err']:.3e} x max of one "
+                f"process's (bound {bound:.3e}"
+                + ("" if dtype == "float32" else ", twice its bf16 forward's "
+                   "own distance from f32") + f"){aux}; flash_attention "
+                f"launches by rank {launches} (want {want[arch]}); {note}")
+    for arch in (MOE, AUDIO):
+        # bf16 activations, f32 weights: phase 22's bounds, the loss's
+        # yardstick (one process's bf16-to-f32 distance) plus RF_LOSS_SE
+        # standard errors of the per-token distance (``tok_se``): alone, a
+        # scalar's distance can fall below the ranks' bf16 noise by chance
+        # (hubert's did, at 5.4e-6 against the ranks' 2.87e-5)
+        tr = r0[arch]["train"]
+        loss_rel = abs(tr["loss"] - tr["one_loss"]) / abs(tr["one_loss"])
+        shift = abs(tr["one_loss"] - tr["loss32"])
+        loss_bound = RK_BF16_SLACK * (shift + RF_LOSS_SE * tr["tok_se"]) \
+            / abs(tr["loss32"])
+        m_share = max(e / (RK_BF16_SLACK * b + 1e-12) for e, b in
+                      zip(tr["errs"]["m"], tr["bf16_m_err"]))
+        held = (f"loss bound {loss_bound:.2e}: twice bf16's own distance "
+                f"from f32, {shift:.3e}, plus {RF_LOSS_SE:g} x its "
+                f"per-token standard error {tr['tok_se']:.3e} (per-token "
+                f"rms {tr['tok_rms']:.3e}); moments: the worst leaf at "
+                f"{m_share:.3f} of twice its bf16-to-f32 distance")
+        dtypes = "bf16 activations, f32 weights"
+        hold(loss_rel <= loss_bound, f"{arch} train loss")
+        hold(m_share <= 1.0, f"{arch} train first moments")
+        hold(max(tr["errs"]["params"]) <= 2 * RK_LR + 1e-6,
+             f"{arch} train params")
+        log(f"23 (b) {arch} training ({RF_LAYERS[arch]} layers, B "
+            f"{RF_TRAIN[0]} x T {RF_TRAIN[1]}, {dtypes}, AdamW lr {RK_LR}, "
+            f"remat): {tr['ms']:.1f} ms a step over ranks against "
+            f"{tr['one_ms']:.1f} ms one process (device ms); loss "
+            f"{tr['loss']:.5f} against {tr['one_loss']:.5f} one process "
+            f"(rel {loss_rel:.2e}; {held}); first moments within "
+            f"{max(tr['errs']['m']):.3e}; parameters within "
+            f"{max(tr['errs']['params']):.3e} (bound 2 lr); {note}")
+    tr = r0[MOE]["train"]
+    live_c, acct_c = tr["collectives"], acct["collectives"]
+    same = live_c["counts"] == acct_c["counts"] and \
+        live_c["bytes"] == acct_c["bytes"]
+    hold(same, "account collectives")
+    ratio = acct["peak_bytes"] / tr["peak"]
+    lo, hi = PEAK_RATIO_BAND
+    hold(lo <= ratio <= hi, "account peak")
+    hold(acct["memory"]["argument_size"] == tr["argument"],
+         "account arguments")
+    log(f"23 (c) account of the {MOE} step in a fake world of (2, 2): "
+        f"collectives {acct_c['counts']} ({acct_c['total_bytes'] / 1e9:.4f} "
+        f"GB), rank 0 issued {live_c['counts']} "
+        f"({live_c['total_bytes'] / 1e9:.4f} GB): equal {same}; peak "
+        f"{acct['peak_bytes'] / 1e9:.3f} GB against rank 0's "
+        f"{tr['peak'] / 1e9:.3f} GB (ratio {ratio:.3f}, band "
+        f"{PEAK_RATIO_BAND}); arguments {acct['memory']['argument_size']} "
+        f"B, rank 0's {tr['argument']} B; {note}")
+    for arch in (MOE, VLM):
+        dc = r0[arch]["decode"]
+        hold(dc["err"] <= DECODE_REL_BOUND, f"{arch} decode")
+        hold(all(r[arch]["decode"]["checksum"] == dc["checksum"]
+                 for r in ranks), f"{arch} decode ranks differ")
+        log(f"23 (b) {arch} decode (B {RF_DECODE[0]}, {RF_DECODE[1]} tokens, "
+            f"f32, {RF_LAYERS[arch]} layers, the cache over kv heads): "
+            f"{dc['ranks']['ms_token']:.2f} ms/token over ranks against "
+            f"{dc['one']['ms_token']:.2f} one process (device ms, CUDA "
+            f"events on rank 0); logits within {dc['err']:.3e} (bound "
+            f"{DECODE_REL_BOUND}); {note}")
+    log(f"23 ranks: peak GB {[round(r['peak_gb'], 2) for r in ranks]}; s by "
+        f"model on rank 0 {dict((k, round(v, 1)) for k, v in r0['t'].items())}"
+        f"; spawn and work {spawn_s:.1f} s (target {RF_TARGET_S:.0f} s); "
+        f"{note}")
+    cp_launches = [r[LM_ARCH]["prefill"]["bfloat16"]["launches"]
+                   for r in ranks]
+    entry = _rf_cp_entry(cp_launches, card)
+    launches = [sum(r[a]["prefill"][d]["launches"]
+                    for a in (MOE, VLM, AUDIO, LM_ARCH)
+                    for d in r[a]["prefill"]) for r in ranks]
+    out = {"card": card, "sweep_s": sweep["sweep_s"],
+           "sweep_trace_s": sweep["trace_s"], "sweep_wait_s": sweep["wait_s"],
+           "records": {k: {f: v.get(f) for f in (
+               "status", "flops_per_chip", "hbm_bytes_per_chip", "memory",
+               "collectives", "roofline", "trace_s")}
+               for k, v in sweep["records"].items()},
+           "prefill": {a: r0[a]["prefill"] for a in (MOE, VLM, AUDIO,
+                                                      LM_ARCH)},
+           "train": {a: {k: r0[a]["train"].get(k) for k in (
+               "ms", "one_ms", "loss", "one_loss", "loss32", "gnorm",
+               "one_gnorm", "peak", "argument")} for a in (MOE, AUDIO)},
+           "decode": {a: r0[a]["decode"] for a in (MOE, VLM)},
+           "account": {"collectives": acct_c, "peak": acct["peak_bytes"],
+                       "ratio": ratio},
+           "spawn_s": spawn_s, "cp_entry": entry,
+           "launches": {"flash_attention": launches},
+           "peak_gb": [r["peak_gb"] for r in ranks],
+           "phase_s": time.perf_counter() - t_phase}
+    log(f"per-rank families phase {out['phase_s']:.1f} s")
+    assert not failed, f"phase 23 failed: {failed}"
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -7930,6 +8669,7 @@ def main():
     bb = phase_backbone_parity()
     log(f"backbone parity done at {time.perf_counter() - t0:.1f}s")
     sweep = rk_sweep_start()        # phase 22 (a), on the host's idle cores
+    rf_sweep = rf_sweep_start()     # phase 23 (a), beside it
     gemma = phase_gemma()
     log(f"gemma forward done at {time.perf_counter() - t0:.1f}s")
     model, requests, svc = phase_embedding_service()
@@ -7983,6 +8723,10 @@ def main():
     torch.cuda.empty_cache()
     ranks = phase_ranks(card, sweep)
     log(f"per-rank program done at {time.perf_counter() - t0:.1f}s")
+    gc.collect()
+    torch.cuda.empty_cache()
+    families = phase_ranks_families(card, rf_sweep)
+    log(f"per-rank families done at {time.perf_counter() - t0:.1f}s")
     # the backbone kernels' launches in phases 12-15: apply through the
     # kernels beside decode (window, ring; gemma) and beside the first
     # training step (decode and the training steps launch none)
@@ -8014,11 +8758,16 @@ def main():
         if entry["name"] in ranks["launches"]:
             entry["per_rank_launches_by_rank"] = \
                 ranks["launches"][entry["name"]]
+        if entry["name"] in families["launches"]:
+            entry["per_rank_families_launches_by_rank"] = \
+                families["launches"][entry["name"]]
     entries += frame_entries        # flash_attention at phase 18's shapes
+    entries.append(families.pop("cp_entry"))    # a context-parallel slice
     print(json.dumps({"decode": decode, "training": training, RWKV: rwkv,
                       "moe": moe_out, "vlm_audio": vlm_audio,
                       "account": account, "multirank": multirank,
-                      "multirank_moe": multirank_moe, "ranks": ranks}),
+                      "multirank_moe": multirank_moe, "ranks": ranks,
+                      "ranks_families": families}),
           flush=True)
     print(json.dumps({"kernels": entries}), flush=True)
     log(f"total {time.perf_counter() - t0:.1f}s")

@@ -8,9 +8,11 @@
 //
 //   out[b, t, h] = sum_s softmax_s(q[b,t,h] . k[b,s,hk] / sqrt(Dh)) v[b,s,hk]
 //
-// over the keys s that row t may see: s <= t when causal, s > t - window
-// when window > 0. Scores, softmax and the accumulator are f32; the
-// output is in q's dtype.
+// over the keys s that row t may see, row t standing at position
+// t + q_offset: s <= t + q_offset when causal, s > t + q_offset - window
+// when window > 0 (q_offset > 0 is one rank's slice of a longer query
+// sequence under context parallelism). Scores, softmax and the
+// accumulator are f32; the output is in q's dtype.
 //
 // What bounds it. At the zamba2-2.7b embedding service's shapes (B 4,
 // T = S = 8192, 32 heads of Dh 80, window 4096, bf16) a call has 25.2M
@@ -108,11 +110,14 @@ struct Params {
     long long o_b, o_t, o_h;
     int causal, window;
     float scale;                    // 1 / sqrt(Dh)
+    int q_offset;                   // the position of row 0
 };
 
+// row t (of q) against key s
 __device__ __forceinline__ bool allowed(const Params& p, int t, int s) {
-    return s < p.S && (!p.causal || s <= t) &&
-           (p.window == 0 || s > t - p.window);
+    const int pos = t + p.q_offset;
+    return s < p.S && (!p.causal || s <= pos) &&
+           (p.window == 0 || s > pos - p.window);
 }
 
 // ---- bf16: TMA + wgmma ----------------------------------------------------
@@ -137,16 +142,17 @@ struct Cfg {
     static_assert(STAGES >= 2, "two slots of k and v must fit");
 };
 
-// The kv tiles [j0, j1) of BK keys that a q tile [q0, q0 + BQ) visits:
-// every tile outside holds no allowed pair. Host code too, for
-// flash_attention_tile_plan.
+// The kv tiles [j0, j1) of BK keys that a q tile of rows [q0, q0 + BQ)
+// visits: every tile outside holds no allowed pair. The tile's positions
+// start at q0 + q_offset. Host code too, for flash_attention_tile_plan.
 __host__ __device__ __forceinline__ void kv_tiles(const Params& p, int q0,
                                                   int bq, int bk, int& j0,
                                                   int& j1) {
-    const int t_end = q0 + bq < p.T ? q0 + bq : p.T;
-    const int lo = p.window > 0 && q0 - p.window + 1 > 0
-                       ? q0 - p.window + 1 : 0;
-    const int hi = p.causal && t_end < p.S ? t_end : p.S;
+    const int p0 = q0 + p.q_offset;
+    const int p_end = (q0 + bq < p.T ? q0 + bq : p.T) + p.q_offset;
+    const int lo = p.window > 0 && p0 - p.window + 1 > 0
+                       ? p0 - p.window + 1 : 0;
+    const int hi = p.causal && p_end < p.S ? p_end : p.S;
     j0 = lo / bk;
     j1 = hi > lo ? (hi + bk - 1) / bk : j0;
 }
@@ -155,10 +161,11 @@ __host__ __device__ __forceinline__ void kv_tiles(const Params& p, int q0,
 // [s0, s0 + bk) is allowed: the tile runs no mask
 __host__ __device__ __forceinline__ bool full_tile(const Params& p, int q0,
                                                    int bq, int s0, int bk) {
-    const int t_last = (q0 + bq < p.T ? q0 + bq : p.T) - 1;
+    const int p0 = q0 + p.q_offset;
+    const int p_last = (q0 + bq < p.T ? q0 + bq : p.T) - 1 + p.q_offset;
     const int s_last = s0 + bk - 1;
-    return s_last < p.S && (!p.causal || s_last <= q0) &&
-           (p.window == 0 || s0 > t_last - p.window);
+    return s_last < p.S && (!p.causal || s_last <= p0) &&
+           (p.window == 0 || s0 > p_last - p.window);
 }
 
 // 2^x in one MUFU.EX2 (exp2f adds a denormal fix-up around it); its error,
@@ -470,10 +477,11 @@ constexpr int BK = 64;              // keys of its kv tile
 // first (tile-aligned) and one-past-last key a query tile can see
 __device__ __forceinline__ void kv_range(const Params& p, int q0,
                                          int& k_begin, int& k_end) {
-    const int q_last = min(q0 + BQ, p.T) - 1;
-    k_begin = p.window > 0 ? max(0, q0 - p.window + 1) : 0;
+    const int p0 = q0 + p.q_offset;
+    const int p_last = min(q0 + BQ, p.T) - 1 + p.q_offset;
+    k_begin = p.window > 0 ? max(0, p0 - p.window + 1) : 0;
     k_begin -= k_begin % BK;
-    k_end = p.causal ? min(p.S, q_last + 1) : p.S;
+    k_end = p.causal ? min(p.S, p_last + 1) : p.S;
 }
 
 // thread (ty, tx) = (tid / 16, tid % 16) owns query rows 4 ty .. 4 ty + 3,
@@ -626,20 +634,21 @@ int launch_dh(const void* q, const void* k, const void* v, void* out,
 
 extern "C" {
 
-// The bf16 kernel's plan of a (T, S, causal, window) call at head dim dh,
-// computed on the host by the kernel's own kv_tiles and full_tile: plan
+// The bf16 kernel's plan of a (T, S, causal, window, q_offset) call at head
+// dim dh, computed on the host by the kernel's own kv_tiles and full_tile: plan
 // (nq, nk) row-major gets, for q tile qt and kv tile j, 0 when the kernel
 // never visits the tile, 2 when it runs no mask there and 1 when it masks
 // score by score. Returns cudaErrorInvalidValue, writing nothing, when dh
 // is not built or (nq, nk) is not the kernel's tiling of T and S.
-int flash_attention_tile_plan(int T, int S, int causal, int window, int dh,
-                              int nq, int nk, signed char* plan) {
+int flash_attention_tile_plan(int T, int S, int causal, int window,
+                              int q_offset, int dh, int nq, int nk,
+                              signed char* plan) {
     const int dims[] = {16, 32, 48, 64, 80, 96, 112, 128, 256};
     bool built = false;
     for (int d : dims) built |= d == dh;
     const int bq = Cfg<64>::BQ;
     const int bk = dh > 128 ? Cfg<256>::BK : Cfg<128>::BK;
-    if (!built || T < 1 || S < 1 || window < 0 ||
+    if (!built || T < 1 || S < 1 || window < 0 || q_offset < 0 ||
         nq != (T + bq - 1) / bq || nk != (S + bk - 1) / bk)
         return (int)cudaErrorInvalidValue;
     Params p{};
@@ -647,6 +656,7 @@ int flash_attention_tile_plan(int T, int S, int causal, int window, int dh,
     p.S = S;
     p.causal = causal != 0;
     p.window = window;
+    p.q_offset = q_offset;
     for (int qt = 0; qt < nq; ++qt) {
         int j0, j1;
         kv_tiles(p, qt * bq, bq, bk, j0, j1);
@@ -658,9 +668,9 @@ int flash_attention_tile_plan(int T, int S, int causal, int window, int dh,
     return 0;
 }
 
-// out (B, T, H, dh) = attention of q (B, T, H, dh) over k, v (B, S, K, dh),
-// element strides given for the batch, position and head axes (the last
-// axis is contiguous), on `stream`. bf16 != 0: all four tensors are bf16
+// out (B, T, H, dh) = attention of q (B, T, H, dh) at positions q_offset ..
+// q_offset + T - 1 over k, v (B, S, K, dh), element strides given for the
+// batch, position and head axes (the last axis is contiguous), on `stream`. bf16 != 0: all four tensors are bf16
 // (strides multiples of 8, 16-byte aligned), else f32. Returns the first
 // non-zero cudaError_t, else 0.
 int flash_attention_launch(const void* q, const void* k, const void* v,
@@ -669,13 +679,14 @@ int flash_attention_launch(const void* q, const void* k, const void* v,
                            long long q_h, long long k_b, long long k_s,
                            long long k_h, long long v_b, long long v_s,
                            long long v_h, long long o_b, long long o_t,
-                           long long o_h, int causal, int window, float scale,
-                           int bf16, void* stream_ptr) {
+                           long long o_h, int causal, int window,
+                           int q_offset, float scale, int bf16,
+                           void* stream_ptr) {
     if (B < 1 || T < 1 || S < 1 || K < 1 || H % K != 0 || window < 0 ||
-        B > 65535 || H > 65535)
+        q_offset < 0 || B > 65535 || H > 65535)
         return (int)cudaErrorInvalidValue;
     const Params p{T, S, H, H / K, q_b, q_t, q_h, k_b, k_s, k_h, v_b, v_s,
-                   v_h, o_b, o_t, o_h, causal != 0, window, scale};
+                   v_h, o_b, o_t, o_h, causal != 0, window, scale, q_offset};
     cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
     switch (dh) {
         case 16: return launch_dh<16>(q, k, v, out, p, B, K, bf16, stream);

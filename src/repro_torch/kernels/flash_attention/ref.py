@@ -18,13 +18,15 @@ NEG_INF = -1e30
 
 
 def attention_ref(q, k, v, *, causal: bool = True, window: int = 0,
-                  scale: float = None, q_block: int = 1024):
+                  scale: float = None, q_block: int = 1024,
+                  q_offset: int = 0):
     """q (B,T,H,Dh); k,v (B,S,K,Dh) with H % K == 0. Returns (B,T,H,Dh)
     in q's dtype, computed in f32.
 
-    window > 0 limits attention to the last ``window`` positions
-    (sliding): key s is seen by query t when t - window < s (and s <= t
-    when causal).
+    Query row t sits at position t + q_offset. window > 0 limits
+    attention to the last ``window`` positions (sliding): key s is seen
+    by the query at position p when p - window < s (and s <= p when
+    causal).
     """
     full_f32()
     B, T, H, dh = q.shape
@@ -38,7 +40,7 @@ def attention_ref(q, k, v, *, causal: bool = True, window: int = 0,
         qg = q[:, t0:t1].reshape(B, t1 - t0, K, H // K, dh)
         s = torch.einsum("btkgd,bskd->bkgts", qg.to(torch.float32),
                          kf) * scale
-        qpos = torch.arange(t0, t1, device=q.device)
+        qpos = torch.arange(t0, t1, device=q.device) + q_offset
         mask = torch.ones((t1 - t0, S), dtype=torch.bool, device=q.device)
         if causal:
             mask &= kpos[None, :] <= qpos[:, None]

@@ -27,9 +27,12 @@ FLOPs, HBM bytes, memory, and the collectives it issues by the
 reference's kinds, with the roofline's ``collective_s`` at each group's
 link (``launch/mesh.link``). Its ``argument_size`` must equal the
 sharding plan's (``plan_arguments``: parameter, AdamW-state and input or
-cache shards). The dense family and the paper's DML configs have it;
-the other families' records are the plan alone, status ``"plan"``
-(their per-rank programs are ROADMAP.md Queue 1 item 8f).
+cache shards). The dense, moe, vlm and audio families
+(``Model.PER_RANK``: the moe layers' expert map nested in the program,
+the frame / patch projection on a rank's rows, hubert's non-causal
+attention and biases) and the paper's DML configs have it; the ssm and
+hybrid families' records are the plan alone, status ``"plan"`` (their
+per-rank programs are the second part of ROADMAP.md Queue 1 item 8f).
 
 The counts follow ``cost_analysis``'s rules; two matter when a record is
 read against the card. The plain attention computes the full T x S
@@ -240,7 +243,7 @@ def dryrun_one(arch: str, shape_name: str, mesh: str = "h100",
     ``mesh.MESHES``: the account on one H100 (``"h100"``), or one rank's
     program on a production mesh (``"16x16"``, ``"pod2x16x16"``; the
     plan's per-rank arguments alone, ``plan_record``, for the families
-    whose program is ROADMAP.md Queue 1 item 8f).
+    whose program is ROADMAP.md Queue 1 item 8f's second part).
 
     ``overrides``: ArchConfig.replace(**overrides) knobs (chunk sizes,
     dtypes, ...)."""
@@ -249,7 +252,7 @@ def dryrun_one(arch: str, shape_name: str, mesh: str = "h100",
         return head
     if mesh != "h100":
         rec = plan_record(arch, shape_name, mesh, overrides)
-        if cfg.family != "dense":
+        if cfg.family not in Model.PER_RANK:
             return {**rec, "pending": PENDING}
         plan = rec["memory"]
         with mesh_lib.fake_world(mesh) as live:
@@ -283,8 +286,8 @@ def dryrun_one(arch: str, shape_name: str, mesh: str = "h100",
             "model_flops": model_flops(cfg, shape), **rec}
 
 
-# the families whose per-rank program is still to come
-PENDING = "per-rank program: ROADMAP.md Queue 1 item 8f"
+# the families whose per-rank program is still to come (ssm, hybrid)
+PENDING = "per-rank program: ROADMAP.md Queue 1 item 8f, second part"
 
 
 def rank_map(cfg: ArchConfig, shape: InputShape, live,
@@ -301,8 +304,8 @@ def rank_map(cfg: ArchConfig, shape: InputShape, live,
         return steps.rank_train_map(model, opt, run, live, specs,
                                     loss_chunks), (state, specs)
     if shape.mode == "prefill":
-        return model.rank_map(live, specs["tokens"].shape, "logits",
-                              plain=False), (model.param_tree(), specs)
+        return model.rank_map(live, specs, "logits", plain=False), \
+            (model.param_tree(), specs)
     cache = steps.cache_shape_structs(model, shape)
     return model.rank_decode_map(live, cache, specs["tokens"].shape,
                                  shape.seq_len - 1), \

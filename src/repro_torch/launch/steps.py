@@ -13,21 +13,22 @@ return the reference's plans as specs (``sharding/partition.py``);
 places leaves by.
 
 The step builders take the reference's ``mesh=``. On a live mesh the
-dense family runs the whole step per rank, in one ``partition.shard_map``
-over the plan's specs (``param_shardings``, ``make_state_shardings``,
-``input_shardings``, ``cache_shardings``): the model's per-rank program
-(``Model.rank_hidden``), the cross-entropy over vocab-sharded logits
-(``chunked_ce_loss_rank``: the max and the sum of exp over ``model``),
-the gradients of FSDP leaves reduce-scattered over ``data`` by their
-gathers' backward and every leaf's partials psummed over the axes it is
-replicated on, ``clip_by_global_norm`` on psummed squared norms and
-AdamW on the shards. The step takes and returns global values;
-``rank_train_map`` gives the map, whose ``body`` the dry run traces on
-one rank's blocks. The moe family runs its moe layers expert-parallel and
-the rest of the model replicated, so every rank computes the same loss
-and gradients and takes the same optimizer step, and holds the whole
-model and its state; the other families compute as without a mesh
-(ROADMAP.md Queue 1 item 8f).
+dense, moe, vlm and audio families run the whole step per rank, in one
+``partition.shard_map`` over the plan's specs (``param_shardings``,
+``make_state_shardings``, ``input_shardings``, ``cache_shardings``): the
+model's per-rank program (``Model.rank_hidden``, tokens or frame / patch
+embeddings in; the moe layers expert-parallel inside it), the
+cross-entropy over vocab-sharded logits (``chunked_ce_loss_rank``: the
+max and the sum of exp over ``model``; a vocab that does not divide
+``model``, hubert's 504 on 16, stays whole on every rank) plus
+``moe_aux_weight`` times the moe layers' aux, the gradients of FSDP
+leaves reduce-scattered over ``data`` by their gathers' backward and
+every leaf's partials psummed over the axes it is replicated on,
+``clip_by_global_norm`` on psummed squared norms and AdamW on the
+shards. The step takes and returns global values; ``rank_train_map``
+gives the map, whose ``body`` the dry run traces on one rank's blocks.
+The ssm and hybrid families compute as without a mesh (ROADMAP.md Queue
+1 item 8f, second part).
 
 The training forward is ``Model.hidden(..., plain=True)``: the
 reference's own training forms (chunked SSD, chunked rwkv6, naive or
@@ -250,7 +251,10 @@ def chunked_ce_loss_rank(model: Model, params, specs, h, labels, ranks,
     batch's; the logits of each chunk over this rank's vocab block, the
     max and the sum of exp taken over ``model`` (the label's logit from
     the rank whose block holds it). The mean over this rank's tokens,
-    the same on every ``model`` rank."""
+    the same on every ``model`` rank. A vocab that does not divide
+    ``model`` is whole on every rank, so each computes the whole
+    cross-entropy: it is pmeaned over ``model`` (its value unchanged),
+    so that its gradient counts once when the partials are summed."""
     cfg, mesh = model.cfg, ranks.mesh
     hf = ranks.seq_gather(h, sp)
     T = hf.shape[1]
@@ -282,6 +286,8 @@ def chunked_ce_loss_rank(model: Model, params, specs, h, labels, ranks,
                                        use_reentrant=False)
         else:
             total = total + chunk_loss(h_k, l_k, w)
+    if V_l == cfg.vocab_size and ranks.model:
+        return partition.pmean(total / n_chunks, "model", mesh)
     return total / n_chunks
 
 
@@ -324,31 +330,108 @@ def clip_by_global_norm_rank(grads, specs, mesh, max_norm: float):
     return tree_map(lambda g: g * scale, grads), gn
 
 
+def _reblock(x, src, dst, mesh):
+    """This rank's block ``x`` under the spec ``src`` as its block under
+    ``dst``: a dimension replicated in ``src`` and sharded in ``dst`` is
+    cut to this rank's block (no collective), one sharded in ``src`` and
+    replicated in ``dst`` all-gathered."""
+    for dim in range(max(len(src), len(dst))):
+        a = src[dim] if dim < len(src) else None
+        b = dst[dim] if dim < len(dst) else None
+        if a == b:
+            continue
+        if a is None:
+            step = x.shape[dim] // mesh.axis_size(b)
+            x = x.narrow(dim, mesh.axis_index(b) * step, step)
+        elif b is None:
+            x = partition.all_gather(x, a, mesh, axis=dim, tiled=True)
+        else:
+            raise NotImplementedError(f"a block of {src} as one of {dst}")
+    return x
+
+
+def _relayout(tree, src, dst, mesh):
+    """Each leaf of ``tree`` (blocks under the spec tree ``src``) as its
+    block under ``dst`` (``_reblock``). The reference's AdamW moments
+    take the spec of the first parameter of their stacked shape
+    (``make_state_shardings``): hubert's norm scales and biases share
+    (layers, d) with ``bo``, so their moments are sharded over ``data``
+    while the leaves are replicated, and the update runs on the
+    moments' blocks."""
+    pairs = zip(partition.spec_leaves(tree, src),
+                partition.spec_leaves(tree, dst))
+    it = iter([x if a == b else _reblock(x, a, b, mesh)
+               for (x, a), (_, b) in pairs])
+    return tree_map(lambda _: next(it), tree)
+
+
 def _meta(tree):
     return tree_map(lambda t: torch.empty(t.shape, dtype=t.dtype,
                                           device="meta"), tree)
 
 
+def _rank_loss(model: Model, specs, ranks, remat: bool, loss_chunks: int):
+    """The per-rank loss of a family of ``Model.PER_RANK`` over this
+    rank's blocks (params under ``specs``, the batch under
+    ``input_shardings``): the cross-entropy over vocab-sharded logits,
+    the mean over the batch shards, plus ``moe_aux_weight`` times the
+    moe layers' aux; (loss, {"ce", "moe_aux"}), the same on every
+    rank."""
+    mesh = ranks.mesh
+    n_batch = mesh.axis_size(ranks.batch) if ranks.batch else 1
+
+    def loss_fn(params, batch):
+        h, sp, aux = model.rank_hidden(params, specs, batch, ranks,
+                                       plain=True, remat=remat)
+        ce = chunked_ce_loss_rank(model, params, specs, h, batch["labels"],
+                                  ranks, sp, loss_chunks)
+        ce = partition.psum(ce / n_batch, ranks.batch, mesh)
+        if aux is None:
+            return ce, {"ce": ce, "moe_aux": torch.zeros_like(ce)}
+        return ce + model.cfg.moe_aux_weight * aux, {"ce": ce,
+                                                     "moe_aux": aux}
+
+    return loss_fn
+
+
+def train_loss(model: Model, params, batch, mesh=None, remat: bool = False,
+               loss_chunks: int = 8):
+    """``make_train_step``'s loss of ``params`` (a ``param_tree()``-shaped
+    tree) on ``batch``: (the reference's ce + moe_aux_weight * moe_aux,
+    {"ce", "moe_aux"}). On a live ``mesh`` a family of
+    ``Model.PER_RANK`` computes it per rank (the step's own loss, in one
+    ``partition.shard_map`` over global values); otherwise through
+    ``Model.hidden`` and ``chunked_ce_loss``."""
+    if model.per_rank(mesh):
+        specs = model.param_specs(mesh)
+        return partition.shard_map(
+            _rank_loss(model, specs, common.Ranks(mesh), remat, loss_chunks),
+            mesh, in_specs=(specs, input_shardings(batch, mesh)),
+            out_specs=((), ()))(params, batch)
+    h, aux = model.hidden(batch, plain=True, remat=remat, params=params,
+                          mesh=mesh)
+    ce = chunked_ce_loss(model, params, h, batch["labels"], loss_chunks)
+    total = ce + model.cfg.moe_aux_weight * aux["moe_aux"]
+    return total, {"ce": ce, "moe_aux": aux["moe_aux"]}
+
+
 def rank_train_map(model: Model, opt: Optimizer, run: RunConfig, mesh,
                    batch, loss_chunks: int = 8):
-    """The dense family's train step for batches shaped as ``batch`` as
-    one per-rank ``partition.shard_map`` over (state, batch) (the module
-    docstring); its ``body`` takes this rank's blocks."""
-    ranks = common.Ranks(mesh)
+    """The train step of a family of ``Model.PER_RANK`` for batches
+    shaped as ``batch`` as one per-rank ``partition.shard_map`` over
+    (state, batch) (the module docstring); its ``body`` takes this
+    rank's blocks. The loss is ``_rank_loss``, the reference's: the
+    cross-entropy plus ``moe_aux_weight`` times the moe layers' aux."""
     specs = model.param_specs(mesh)
-    n_batch = mesh.axis_size(ranks.batch) if ranks.batch else 1
     meta = _meta(model.param_tree())
     sshard = make_state_shardings(
         TrainState(meta, opt.init(meta), torch.zeros((), device="meta")),
         meta, specs, Mesh(mesh.axis_names, mesh.axis_sizes))
-
-    def loss_fn(params, batch):
-        h, sp = model.rank_hidden(params, specs, batch, ranks, plain=True,
-                                  remat=run.remat)
-        ce = chunked_ce_loss_rank(model, params, specs, h, batch["labels"],
-                                  ranks, sp, loss_chunks)
-        loss = partition.psum(ce / n_batch, ranks.batch, mesh)
-        return loss, {"ce": loss, "moe_aux": torch.zeros_like(loss)}
+    loss_fn = _rank_loss(model, specs, common.Ranks(mesh), run.remat,
+                         loss_chunks)
+    # the specs of the optimizer's moments (AdamW's m, momentum's mu)
+    mspecs = getattr(sshard.opt_state, "m",
+                     getattr(sshard.opt_state, "mu", specs))
 
     def body(state: TrainState, batch):
         (loss, aux), grads = value_and_grad(loss_fn, state.params, batch)
@@ -359,9 +442,11 @@ def rank_train_map(model: Model, opt: Optimizer, run: RunConfig, mesh,
         else:
             gnorm = torch.zeros((), device=loss.device)
         with torch.no_grad():
-            updates, opt_state = opt.update(grads, state.opt_state,
-                                            state.params)
-            params = apply_updates(state.params, updates)
+            updates, opt_state = opt.update(
+                _relayout(grads, specs, mspecs, mesh), state.opt_state,
+                _relayout(state.params, specs, mspecs, mesh))
+            params = apply_updates(state.params,
+                                   _relayout(updates, mspecs, specs, mesh))
         metrics = {"loss": loss, "grad_norm": gnorm, **aux}
         return TrainState(params, opt_state, state.step + 1), metrics
 
@@ -391,17 +476,12 @@ def make_train_step(model: Model, opt: Optimizer, run: RunConfig,
     the optimizer's update. Returns new tensors; ``state`` is left as it
     was. Metrics are 0-d tensors (no host sync in the step). Over a live
     ``mesh`` every rank calls it with the same state and global batch."""
-    cfg = model.cfg
     if model.per_rank(mesh):
         return _by_shapes(lambda state, batch: rank_train_map(
             model, opt, run, mesh, batch, loss_chunks))
 
     def loss_fn(params, batch):
-        h, aux = model.hidden(batch, plain=True, remat=run.remat,
-                              params=params, mesh=mesh)
-        ce = chunked_ce_loss(model, params, h, batch["labels"], loss_chunks)
-        total = ce + cfg.moe_aux_weight * aux["moe_aux"]
-        return total, {"ce": ce, "moe_aux": aux["moe_aux"]}
+        return train_loss(model, params, batch, mesh, run.remat, loss_chunks)
 
     def train_step(state: TrainState, batch):
         (loss, aux), grads = value_and_grad(loss_fn, state.params, batch)
@@ -421,7 +501,8 @@ def make_train_step(model: Model, opt: Optimizer, run: RunConfig,
 
 def make_prefill_step(model: Model, run: RunConfig, mesh=None):
     """``prefill_step(batch) -> logits`` on the model's weights (per rank
-    on a live mesh for the dense family: ``Model.rank_map``)."""
+    on a live mesh for the families of ``Model.PER_RANK``:
+    ``Model.rank_map``)."""
     def prefill_step(batch):
         logits, aux = model.apply(batch, mesh=mesh)
         return logits

@@ -24,7 +24,9 @@ Execution paths:
                          ones its q heads read. q heads that do not divide
                          it take context parallelism instead: each rank
                          its slice of every q chunk against the whole k
-                         and v. A decode cache sharded over its sequence
+                         and v (on the card one ``flash_attention``
+                         launch a slice, at the slice's ``q_offset``).
+                         A decode cache sharded over its sequence
                          (``cache_seq``) is attended a slice a rank and
                          the partial softmax merged over ``model``.
 
@@ -232,14 +234,17 @@ def attend_plain(q, k, v, cfg: ArchConfig,
                           kv_chunk=cfg.attn_kv_chunk)
 
 
+def _kernel_window(cfg: ArchConfig) -> int:
+    return cfg.window if cfg.attention == "sliding" else 0
+
+
 def attend(q, k, v, cfg: ArchConfig):
     """Full-sequence attention: the flash attention kernel on the card,
     the plain forms on the CPU."""
     if not q.is_cuda:
         return attend_plain(q, k, v, cfg)
     return flash_attention(q, k, v, causal=cfg.causal,
-                           window=cfg.window if cfg.attention == "sliding"
-                           else 0)
+                           window=_kernel_window(cfg))
 
 
 # --------------------------------------------------------------------------
@@ -348,6 +353,13 @@ def _cp_rows(T: int, cfg: ArchConfig, M: int):
     return qc, T // qc, qc // M
 
 
+def cp_offsets(cp, m: int):
+    """The positions of model rank ``m``'s first row in each q chunk of
+    the split ``cp`` (``_cp_rows``): its slices' ``q_offset``."""
+    qc, nq, rows = cp
+    return [c * qc + m * rows for c in range(nq)]
+
+
 def apply_rank(p, s, x, positions, cfg: ArchConfig, ranks, plain: bool):
     """One rank's attention of the whole-sequence ``x`` (B,T,d), its
     weights this rank's blocks of the specs ``s``: (y, kind) for
@@ -356,9 +368,12 @@ def apply_rank(p, s, x, positions, cfg: ArchConfig, ranks, plain: bool):
     context parallelism, each rank its slice of every q chunk (the
     reference's ``attend_chunked``; the naive path is one chunk) against
     the whole k and v; y is ``"sp"`` (one chunk: the slice is the rank's
-    residual rows) or gathered ``"full"``. On the card that needs a
-    query offset in ``flash_attention`` (ROADMAP.md Queue 1 item 8f), so
-    the kernel path raises there."""
+    residual rows) or gathered ``"full"``. On the card (not ``plain``)
+    each slice is one ``flash_attention`` launch at its position
+    (``cp_offsets``), against every key: a causal slice's keys past its
+    last position lie in tiles the kernel never visits. Attention
+    biases (hubert) come as this rank's blocks of ``bq`` / ``bk`` /
+    ``bv``; ``bo`` is added once over ``model`` (``Ranks.bias``)."""
     w, _, _ = _rank_weights(p, s, cfg, ranks)
     T = x.shape[1]
     heads_split = ranks.on_model(s["wq"], 1)
@@ -370,10 +385,6 @@ def apply_rank(p, s, x, positions, cfg: ArchConfig, ranks, plain: bool):
         ctx = (attend_plain if plain else attend)(q, k, v, cfg)
         kind = "partial" if heads_split else "full"
         return _out_rank(w, ctx, ranks, kind), kind
-    if x.is_cuda and not plain:
-        raise NotImplementedError(
-            "context-parallel attention on the card needs a query offset "
-            "in flash_attention (ROADMAP.md Queue 1 item 8f)")
     qc, nq, rows = cp
 
     def pick(t):        # this rank's rows of every q chunk
@@ -382,10 +393,13 @@ def apply_rank(p, s, x, positions, cfg: ArchConfig, ranks, plain: bool):
 
     q = _proj_q(w, pick(x), pick(positions), cfg)
     outs = []
-    for c in range(nq):
+    for c, off in enumerate(cp_offsets(cp, ranks.m)):
         qb = q[:, c * rows:(c + 1) * rows]
-        off = c * qc + ranks.m * rows
-        if nq == 1:
+        if x.is_cuda and not plain:
+            outs.append(flash_attention(qb, k, v, causal=cfg.causal,
+                                        window=_kernel_window(cfg),
+                                        q_offset=off))
+        elif nq == 1:
             outs.append(attend_naive(qb, k, v, cfg, q_offset=off))
         else:
             qpos = off + torch.arange(rows, device=x.device)

@@ -6,11 +6,12 @@ Parameters are nested dicts of tensors (``init_*`` builds them from a
 from ``META``); the ``apply``-style functions take any mapping with the
 reference's keys, such as the model's ``ParamTree`` modules.
 
-``Ranks`` is a dense model's per-rank program on a live mesh (the
+``Ranks`` is an attention model's per-rank program on a live mesh (the
 sharding plan's blocks, ``sharding/partition.py``): FSDP gathers over
-the batch axes, the sequence-parallel residual over ``model``, and the
-vocab-parallel embedding (``embed_tokens_rank``) and logits
-(``unembed_rank``) at the reference's ``constrain`` points.
+the batch axes, the sequence-parallel residual over ``model``, the
+vocab-parallel embedding (``embed_tokens_rank``) or the frame / patch
+projection (``embed_frontend_rank``), and the logits (``unembed_rank``)
+at the reference's ``constrain`` points.
 """
 
 from __future__ import annotations
@@ -156,7 +157,7 @@ def _axes(entry):
 
 
 class Ranks:
-    """One rank of a dense model's program on a live ``mesh``: weights
+    """One rank of an attention model's program on a live ``mesh``: weights
     arrive as this rank's blocks of the plan's specs; ``gather`` is the
     FSDP all-gather of a weight over every axis but ``model`` that its
     spec shards it on; the residual between blocks is sequence-parallel
@@ -255,6 +256,18 @@ def embed_tokens_rank(p, s, tokens, cfg: ArchConfig, dtype, ranks: Ranks,
     if cfg.embed_scale:
         x = x * torch.tensor(np.sqrt(cfg.d_model), dtype=dtype)
     return x
+
+
+def embed_frontend_rank(p, s, embeddings, cfg: ArchConfig, dtype,
+                        ranks: Ranks, sp: bool):
+    """``embed_frontend`` on one rank: its batch's frame / patch
+    embeddings (B, T, d) cut first to its sequence-parallel rows when
+    ``sp`` (the product is row by row), then through ``frontend_proj``
+    gathered over ``data`` (``("embed", "embed2")``, ``"embed2"``
+    replicated): the residual as ``Ranks.reduce`` leaves it."""
+    x = ranks.reduce(embeddings, "full", sp)
+    w = ranks.gather(p["frontend_proj"], s["frontend_proj"])
+    return x.to(dtype) @ w.to(dtype)
 
 
 def unembed_weight(p, s, cfg: ArchConfig, ranks: Ranks):

@@ -14,23 +14,28 @@ every token, combined by the router's weights. Exact, E / k times the
 products: what the tests and the card hold the grouped form against.
 
 ``apply_moe(mesh=...)`` on a ``launch/mesh.LiveMesh`` with the expert
-axis is the reference's expert-parallel path, one process a rank: the
-layer runs inside ``sharding/partition.shard_map``, the experts sharded
-over ``model`` (``E / n`` a rank, ``axis_index`` giving the first), the
-batch over whichever of ``pod`` / ``data`` divide B, the capacity taken
-per batch shard, the expert stacks all-gathered over ``data`` inside the
-body when ``d_model`` divides it (FSDP), one ``psum`` of the partial
-outputs over ``model`` and ``aux`` pmeaned over ``model`` and the batch
-axes. The map returns global values (its exit gathers ``y`` over the
-batch axes), so the layer drops into a model that runs replicated on
-every rank, and its gradients reach the global weights and activations
-summed over the ranks (``partition.shard_map``'s docstring). Every
-rank's router sorts its tokens the same way (the stable top-k below),
-so the ranks agree on every pair's expert. A named ``Mesh`` has no
-group, and it raises: a named mesh's per-rank program runs in
-``launch/mesh.fake_world`` (the moe family's is ROADMAP.md Queue 1 item
-8f). No kernel: the reference computes the layer with plain einsums,
-and so does the port.
+axis (``model``) is the reference's expert-parallel path, one process a
+rank: the layer runs inside ``sharding/partition.shard_map``, the batch
+over whichever of ``pod`` / ``data`` divide B, the expert stacks
+sharded over ``model`` and, when ``d_model`` divides ``data``, over
+``data`` on their embed dims (FSDP). Its body is ``apply_moe_rank``
+followed by one ``psum`` of the experts' partial outputs over
+``model``. The map returns global values (its exit gathers ``y`` over
+the batch axes), so the layer drops into a model that runs replicated
+on every rank, and its gradients reach the global weights and
+activations summed over the ranks (``partition.shard_map``'s
+docstring). A named ``Mesh`` has no group, and it raises: a named
+mesh's per-rank program runs in ``launch/mesh.fake_world``.
+
+``apply_moe_rank`` is one rank's layer, also nested in a model's
+per-rank program (``models/transformer.py``), where
+``common.Ranks.reduce`` scatters its partial into the sequence-parallel
+residual: the rank's ``E / M`` experts gathered over ``data``, every
+token of its batch shard routed (the capacity taken per batch shard),
+``aux`` pmeaned over ``model`` and the batch axes. Every rank's router
+sorts its tokens the same way (the stable top-k below), so the ranks
+agree on every pair's expert. No kernel: the reference computes the
+layer with plain einsums, and so does the port.
 """
 
 from __future__ import annotations
@@ -63,17 +68,16 @@ def logical_axes(cfg: ArchConfig) -> dict:
     }
 
 
-def _route(router_w, x, cfg: ArchConfig):
-    """x (N,d) -> (topv (N,k) f32 renormalized, topi (N,k) int64, aux
-    scalar f32)."""
+def _router_probs(router_w, x):
+    """x (N,d) -> the router's probabilities (N,E) f32."""
     logits = (x @ router_w.to(x.dtype)).to(torch.float32)
-    probs = torch.softmax(logits, dim=-1)
-    # jax.lax.top_k breaks ties toward the lower expert index and
-    # torch.topk does not. Ties are common: bf16 logits, a zero router.
-    # A stable descending sort keeps the reference's order, and it is
-    # deterministic, so a remat recomputation routes as the forward did.
-    topv, topi = torch.sort(probs, dim=-1, descending=True, stable=True)
-    topv, topi = topv[:, :cfg.top_k], topi[:, :cfg.top_k]
+    return torch.softmax(logits, dim=-1)
+
+
+def _routed(probs, topi, cfg: ArchConfig):
+    """The routing of each token to the experts ``topi`` (N,k) under the
+    router's ``probs``: (their weights renormalized, topi, aux)."""
+    topv = torch.gather(probs, 1, topi)
     topv = topv / torch.sum(topv, dim=-1, keepdim=True)
     # Switch-style load-balance loss over the local token set
     frac_tokens = torch.mean(
@@ -81,6 +85,18 @@ def _route(router_w, x, cfg: ArchConfig):
     frac_probs = torch.mean(probs, dim=0)
     aux = cfg.n_experts * torch.sum(frac_tokens * frac_probs)
     return topv, topi, aux
+
+
+def _route(router_w, x, cfg: ArchConfig):
+    """x (N,d) -> (topv (N,k) f32 renormalized, topi (N,k) int64, aux
+    scalar f32)."""
+    probs = _router_probs(router_w, x)
+    # jax.lax.top_k breaks ties toward the lower expert index and
+    # torch.topk does not. Ties are common: bf16 logits, a zero router.
+    # A stable descending sort keeps the reference's order, and it is
+    # deterministic, so a remat recomputation routes as the forward did.
+    topi = torch.sort(probs, dim=-1, descending=True, stable=True)[1]
+    return _routed(probs, topi[:, :cfg.top_k], cfg)
 
 
 def _expert_ffn(p, xe, cfg: ArchConfig):
@@ -178,11 +194,14 @@ def apply_moe(p, x, cfg: ArchConfig, mesh=None, expert_axis: str = "model"):
         return y.reshape(B, T, d), aux
 
     mesh = partition.require_live(mesh, "expert-parallel apply_moe")
+    if expert_axis != "model":
+        raise NotImplementedError(f"experts over {expert_axis!r}: the "
+                                  f"port's expert map runs them over "
+                                  f"'model'")
     n_shards = mesh.shape[expert_axis]
     if cfg.n_experts % n_shards:
         raise ValueError(f"{cfg.n_experts} experts do not divide the "
                          f"{n_shards} ranks of {expert_axis!r}")
-    e_loc = cfg.n_experts // n_shards
     # shard the batch over whichever data-like axes divide it (B=1 decode
     # shapes leave the data axes idle)
     batch_axes = []
@@ -191,44 +210,49 @@ def apply_moe(p, x, cfg: ArchConfig, mesh=None, expert_axis: str = "model"):
         if a in mesh.shape and B % (prod * mesh.shape[a]) == 0:
             batch_axes.append(a)
             prod *= mesh.shape[a]
-    batch_axes = tuple(batch_axes)
     # FSDP: the expert stacks come in sharded over `data` on their embed
     # dims and are all-gathered inside the body, as the reference does
-    fsdp = "data" in mesh.shape and d % mesh.shape["data"] == 0
+    fsdp = "data" if "data" in mesh.shape and \
+        d % mesh.shape["data"] == 0 else None
+    pspec = {"router": (), "w_gate": (expert_axis, fsdp, None),
+             "w_up": (expert_axis, fsdp, None),
+             "w_down": (expert_axis, None, fsdp)}
+    ranks = common.Ranks(mesh)
 
     def shard_fn(p_sh, x_sh):
         # x_sh: (B_loc, T, d), the same on every rank of the expert axis
-        if fsdp:
-            p_sh = dict(
-                p_sh,
-                w_gate=partition.all_gather(p_sh["w_gate"], "data", mesh,
-                                            axis=1, tiled=True),
-                w_up=partition.all_gather(p_sh["w_up"], "data", mesh,
-                                          axis=1, tiled=True),
-                w_down=partition.all_gather(p_sh["w_down"], "data", mesh,
-                                            axis=2, tiled=True))
-        Bl, Tl, dl = x_sh.shape
-        eid = partition.axis_index(expert_axis, mesh)
-        cap = _capacity(Bl * Tl, cfg, e_loc)
-        y, aux = _moe_local(p_sh, x_sh.reshape(Bl * Tl, dl), cfg,
-                            eid * e_loc, e_loc, cap)
-        y = partition.psum(y, expert_axis, mesh)   # combine expert partials
-        aux = partition.pmean(aux, expert_axis, mesh)
-        if batch_axes:
-            aux = partition.pmean(aux, batch_axes, mesh)
-        return y.reshape(Bl, Tl, dl), aux
+        (y, _), aux = apply_moe_rank(p_sh, pspec, x_sh, cfg, ranks)
+        return partition.psum(y, expert_axis, mesh), aux
 
-    if fsdp:
-        wspec = {"w_gate": (expert_axis, "data", None),
-                 "w_up": (expert_axis, "data", None),
-                 "w_down": (expert_axis, None, "data")}
-    else:
-        wspec = {k: (expert_axis,) for k in ("w_gate", "w_up", "w_down")}
-    pspec = {"router": (), **wspec}
-    xspec = (batch_axes if batch_axes else None,)
+    xspec = (tuple(batch_axes) if batch_axes else None,)
     fn = partition.shard_map(shard_fn, mesh=mesh, in_specs=(pspec, xspec),
                              out_specs=(xspec, ()), check_vma=False)
     return fn({k: p[k] for k in pspec}, x)
+
+
+def apply_moe_rank(p, s, h, cfg: ArchConfig, ranks):
+    """One rank's moe layer in the per-rank program: ``p`` its blocks of
+    the specs ``s`` (the experts over ``model``, their embed dims over
+    ``data``), ``h`` (B, T, d) its batch shard's whole sequence, the
+    same on every ``model`` rank. Every rank routes every token of the
+    shard, as the reference's ``shard_fn`` does (the capacity and the
+    pairs kept are its), and runs its ``E / M`` experts on the stacks
+    gathered over ``data``. Returns ((y, kind), aux): y the
+    contributions of this rank's experts, a ``"partial"`` over
+    ``model`` (``"full"`` when the experts are replicated), and aux
+    pmeaned over ``model`` and the batch axes."""
+    full_f32()
+    w = {n: ranks.gather(p[n], s[n]) for n in p}
+    e_loc = w["w_gate"].shape[0]
+    split = ranks.on_model(s["w_gate"], 0)
+    B, T, d = h.shape
+    y, aux = _moe_local(w, h.reshape(B * T, d), cfg,
+                        ranks.m * e_loc if split else 0, e_loc,
+                        _capacity(B * T, cfg, e_loc))
+    axes = ((ranks.model,) if ranks.model else ()) + ranks.batch
+    if axes:
+        aux = partition.pmean(aux, axes, ranks.mesh)
+    return (y.reshape(B, T, d), "partial" if split else "full"), aux
 
 
 def apply_moe_dense(p, x, cfg: ArchConfig):

@@ -32,18 +32,21 @@ Public surface:
 
 ``apply`` / ``hidden`` / ``embed_pool`` / ``decode_step`` take the
 reference's ``mesh=``. On a live mesh (``launch/mesh.LiveMesh``) the
-dense family runs its per-rank program (``rank_map`` / ``rank_decode_map``,
-one ``partition.shard_map`` over the sharding plan's specs): FSDP
-gathers over ``data``, heads and ffn over ``model`` (column- then
-row-parallel, the partials reduce-scattered into the sequence-parallel
-residual ``seq_sp`` between blocks), the vocab-parallel embedding and
-logits, context parallelism where the heads do not divide ``model`` and
-a decode cache over ``cache_seq`` where the kv heads do not; global
-values in, global values out. For the moe family each moe layer runs
-expert-parallel (``moe.apply_moe(mesh=)``) and everything else
-replicated on every rank, so every rank holds the whole model and gets
-the same outputs; the other families compute as without a mesh (their
-per-rank programs are ROADMAP.md Queue 1 item 8f).
+dense, moe, vlm and audio families run their per-rank program
+(``rank_map`` / ``rank_decode_map``, one ``partition.shard_map`` over
+the sharding plan's specs): FSDP gathers over ``data``, heads and ffn
+over ``model`` (column- then row-parallel, the partials
+reduce-scattered into the sequence-parallel residual ``seq_sp`` between
+blocks), the vocab-parallel embedding (or the frame / patch
+``frontend_proj`` on the rank's rows) and logits, context parallelism
+where the heads do not divide ``model`` and a decode cache over
+``cache_seq`` where the kv heads do not; each moe layer is the
+expert-parallel map nested in the program (``moe.apply_moe_rank``: the
+rank's experts over its batch shard, the partial reduce-scattered like
+the MLP's, ``moe_aux`` the sum of the layers' pmeaned aux); global
+values in, global values out. The ssm and hybrid families compute as
+without a mesh (their per-rank programs are ROADMAP.md Queue 1 item
+8f, second part).
 
 Parameters keep the reference's names: ``model.embedding.tok``,
 ``model.blocks[i].mamba.w_z``, ``model.shared.attn.wq``, ... — the
@@ -139,16 +142,15 @@ def _init_mamba_block(cfg: ArchConfig, gen) -> dict:
             "mamba": mamba2.init_mamba2(cfg, gen)}
 
 
-def _ffn(p, h2, cfg: ArchConfig, mesh=None):
+def _ffn(p, h2, cfg: ArchConfig):
     """(the block's FFN of h2, the router's aux loss or None without a
     MoE)."""
     if _is_moe(cfg):
-        return moe.apply_moe(p["moe"], h2, cfg, mesh=mesh)
+        return moe.apply_moe(p["moe"], h2, cfg)
     return mlp.apply_mlp(p["mlp"], h2, cfg), None
 
 
-def _apply_attn_block(p, x, cfg: ArchConfig, positions, plain: bool,
-                      mesh=None):
+def _apply_attn_block(p, x, cfg: ArchConfig, positions, plain: bool):
     """Full-sequence attention block. Returns (x, aux); aux is None
     unless the FFN is a MoE."""
     h = common.apply_norm(p["norm1"], x, cfg)
@@ -159,11 +161,11 @@ def _apply_attn_block(p, x, cfg: ArchConfig, positions, plain: bool,
         return x + att_out + mlp.apply_mlp(p["mlp"], h, cfg), None
     x = x + att_out
     h2 = common.apply_norm(p["norm2"], x, cfg)
-    y, aux = _ffn(p, h2, cfg, mesh)
+    y, aux = _ffn(p, h2, cfg)
     return x + y, aux
 
 
-def _decode_attn_block(p, x, cache, pos: int, cfg: ArchConfig, mesh=None):
+def _decode_attn_block(p, x, cache, pos: int, cfg: ArchConfig):
     """One decode step of the attention block: (x, cache); the MoE's aux
     is dropped, as the reference's ``decode_step`` drops it."""
     h = common.apply_norm(p["norm1"], x, cfg)
@@ -172,14 +174,15 @@ def _decode_attn_block(p, x, cache, pos: int, cfg: ArchConfig, mesh=None):
         return x + att_out + mlp.apply_mlp(p["mlp"], h, cfg), cache
     x = x + att_out
     h2 = common.apply_norm(p["norm2"], x, cfg)
-    return x + _ffn(p, h2, cfg, mesh)[0], cache
+    return x + _ffn(p, h2, cfg)[0], cache
 
 
 def _attn_block_rank(p, s, x, cfg: ArchConfig, positions, ranks,
                      plain: bool, sp: bool):
     """One rank's attention block: x this rank's residual rows (B, T/M,
     d) when ``sp``, else the whole sequence; each sublayer on the whole
-    sequence, its output reduced back into the residual."""
+    sequence, its output reduced back into the residual. Returns (x, the
+    moe's aux or None)."""
     hf = ranks.seq_gather(common.apply_norm(p["norm1"], x, cfg), sp)
     a, ak = attention.apply_rank(p["attn"], s["attn"], hf, positions, cfg,
                                  ranks, plain)
@@ -188,28 +191,33 @@ def _attn_block_rank(p, s, x, cfg: ArchConfig, positions, ranks,
 
 def _decode_block_rank(p, s, cs, x, cache, pos: int, cfg: ArchConfig,
                        ranks):
-    """One rank's decode step of the attention block: (x, cache)."""
+    """One rank's decode step of the attention block: (x, cache); the
+    moe's aux is dropped, as in ``_decode_attn_block``."""
     h = common.apply_norm(p["norm1"], x, cfg)
     a, ak, cache = attention.decode_attend_rank(p["attn"], s["attn"], cs, h,
                                                 cache, pos, cfg, ranks)
-    return _block_rest_rank(p, s, x, h, a, ak, cfg, ranks, False), cache
+    return _block_rest_rank(p, s, x, h, a, ak, cfg, ranks, False)[0], cache
 
 
 def _block_rest_rank(p, s, x, hf, a, ak: str, cfg: ArchConfig, ranks,
                      sp: bool):
     """The block past its attention ``a`` (of kind ``ak``): the MLP
-    beside it on ``hf`` (parallel blocks) or after it, each reduced into
-    the residual ``x``."""
+    beside it on ``hf`` (parallel blocks) or the MLP or moe after it,
+    each reduced into the residual ``x``. Returns (x, the moe's aux or
+    None)."""
     if cfg.parallel_block:
         f, fk = mlp.apply_mlp_rank(p["mlp"], s["mlp"], hf, cfg, ranks)
         if ak == fk == "partial":           # one reduce-scatter for both
-            return x + ranks.reduce(a + f, "partial", sp)
-        return x + ranks.reduce(a, ak, sp) + ranks.reduce(f, fk, sp)
+            return x + ranks.reduce(a + f, "partial", sp), None
+        return x + ranks.reduce(a, ak, sp) + ranks.reduce(f, fk, sp), None
     x = x + ranks.reduce(a, ak, sp)
-    h2 = common.apply_norm(p["norm2"], x, cfg)
-    f, fk = mlp.apply_mlp_rank(p["mlp"], s["mlp"], ranks.seq_gather(h2, sp),
-                               cfg, ranks)
-    return x + ranks.reduce(f, fk, sp)
+    h2 = ranks.seq_gather(common.apply_norm(p["norm2"], x, cfg), sp)
+    aux = None
+    if _is_moe(cfg):
+        (f, fk), aux = moe.apply_moe_rank(p["moe"], s["moe"], h2, cfg, ranks)
+    else:
+        f, fk = mlp.apply_mlp_rank(p["mlp"], s["mlp"], h2, cfg, ranks)
+    return x + ranks.reduce(f, fk, sp), aux
 
 
 def _apply_rwkv_block(p, x, cfg: ArchConfig):
@@ -408,10 +416,8 @@ class Model(nn.Module):
         """Returns (logits (B,T,V), aux dict)."""
         params = self.param_tree() if params is None else params
         if self.per_rank(mesh):
-            run = self.rank_map(mesh, batch["tokens"].shape, "logits",
-                                plain, remat)
-            return run(params, {"tokens": batch["tokens"]}), \
-                {"moe_aux": torch.zeros((), device=self.device)}
+            return self._run_ranks(mesh, batch, "logits", plain, remat,
+                                   params)
         h, aux = self.hidden(batch, plain=plain, remat=remat, params=params,
                              mesh=mesh)
         return common.unembed(params["embedding"], h, self.cfg), aux
@@ -427,12 +433,23 @@ class Model(nn.Module):
         ``mesh`` as in the module docstring."""
         if self.per_rank(mesh):
             params = self.param_tree() if params is None else params
-            run = self.rank_map(mesh, batch["tokens"].shape, "hidden",
-                                plain, remat)
-            return run(params, {"tokens": batch["tokens"]}), \
-                {"moe_aux": torch.zeros((), device=self.device)}
-        h, aux = self._backbone(batch, plain, remat, params, mesh)
+            return self._run_ranks(mesh, batch, "hidden", plain, remat,
+                                   params)
+        self._one_device(mesh)
+        h, aux = self._backbone(batch, plain, remat, params)
         return h, {"moe_aux": aux}
+
+    def _run_ranks(self, mesh, batch, what: str, plain: bool, remat: bool,
+                   params):
+        """``rank_map``'s output for ``apply`` / ``hidden``: (the logits
+        or hidden states, {"moe_aux"}) as global values."""
+        key = self.input_key(batch)
+        inputs = {key: batch[key].to(self.device)}
+        out = self.rank_map(mesh, inputs, what, plain, remat)(params,
+                                                              inputs)
+        if _is_moe(self.cfg):
+            return out[0], {"moe_aux": out[1]}
+        return out, {"moe_aux": torch.zeros((), device=self.device)}
 
     def embed_pool(self, batch: Dict[str, Any], plain: bool = False,
                    mesh=None):
@@ -441,7 +458,7 @@ class Model(nn.Module):
         h, _ = self.hidden(batch, plain=plain, mesh=mesh)
         return torch.mean(h.to(torch.float32), dim=1)
 
-    def _backbone(self, batch, plain: bool, remat: bool, params, mesh):
+    def _backbone(self, batch, plain: bool, remat: bool, params):
         full_f32()          # f32 configs: true f32 products, as the reference
         cfg = self.cfg
         params = self.param_tree() if params is None else params
@@ -450,7 +467,7 @@ class Model(nn.Module):
         positions = torch.arange(T, device=x.device)[None, :].expand(B, T)
         auxs = []
         if cfg.family == "hybrid":
-            x = self._run_hybrid(params, x, positions, plain, remat, mesh)
+            x = self._run_hybrid(params, x, positions, plain, remat)
         elif cfg.family == "ssm":
             for p_l in params["blocks"]:
                 x = _layer(lambda x, p_l=p_l: _apply_rwkv_block(p_l, x, cfg),
@@ -458,7 +475,7 @@ class Model(nn.Module):
         else:
             for p_l in params["blocks"]:
                 x, aux = _layer(lambda x, p_l=p_l: _apply_attn_block(
-                    p_l, x, cfg, positions, plain, mesh), x, remat)
+                    p_l, x, cfg, positions, plain), x, remat)
                 if aux is not None:
                     auxs.append(aux)
         # the reference sums the scan's stacked per-layer losses
@@ -466,20 +483,27 @@ class Model(nn.Module):
             torch.zeros((), device=x.device)
         return common.apply_norm(params["final_norm"], x, cfg), aux
 
+    def input_key(self, batch) -> str:
+        """The batch's input: ``"embeddings"`` where the config takes
+        them and the batch has them, else ``"tokens"`` (the reference's
+        ``_embed_inputs`` rule)."""
+        if self.cfg.input_kind == "embeddings" and "embeddings" in batch:
+            return "embeddings"
+        return "tokens"
+
     def _embed_inputs(self, params, batch, dtype):
         """The batch's frame / patch embeddings through ``frontend_proj``
         where the config takes them and the batch has them, else its
         tokens through the token embedding (the reference's rule)."""
         emb = params["embedding"]
         dev = emb["tok"].device
-        if self.cfg.input_kind == "embeddings" and "embeddings" in batch:
+        if self.input_key(batch) == "embeddings":
             return common.embed_frontend(emb, batch["embeddings"].to(dev),
                                          self.cfg, dtype)
         return common.embed_tokens(emb, batch["tokens"].to(dev), self.cfg,
                                    dtype)
 
-    def _run_hybrid(self, params, x, positions, plain: bool, remat: bool,
-                    mesh):
+    def _run_hybrid(self, params, x, positions, plain: bool, remat: bool):
         """Zamba2: groups of mamba layers + the shared attention block."""
         cfg = self.cfg
         every = self._groups()[1]
@@ -490,7 +514,7 @@ class Model(nn.Module):
                 x = _layer(lambda x, p_l=p_l: _apply_mamba_block(
                     p_l, x, cfg, plain), x, remat)
             x = _layer(lambda x: _apply_attn_block(
-                params["shared"], x, scfg, positions, plain, mesh)[0], x,
+                params["shared"], x, scfg, positions, plain)[0], x,
                 remat)
         return x
 
@@ -548,26 +572,26 @@ class Model(nn.Module):
             run = self.rank_decode_map(mesh, cache, tokens.reshape(-1).shape,
                                        pos)
             return run(self.param_tree(), cache, tokens.reshape(-1))
+        self._one_device(mesh)
         if tokens.ndim == 1:
             tokens = tokens[:, None]
         x = common.embed_tokens(self.embedding, tokens, cfg, dtype)
         if cfg.family == "hybrid":
-            x, new_cache = self._decode_hybrid(cache, x, pos, mesh)
+            x, new_cache = self._decode_hybrid(cache, x, pos)
         else:
             new_blocks = []
             for p_l, c_l in zip(self.blocks, cache["blocks"]):
                 if cfg.family == "ssm":
                     x, c_l = _decode_rwkv_block(p_l, x, c_l, cfg)
                 else:
-                    x, c_l = _decode_attn_block(p_l, x, c_l, pos, cfg,
-                                                mesh)
+                    x, c_l = _decode_attn_block(p_l, x, c_l, pos, cfg)
                 new_blocks.append(c_l)
             new_cache = {"blocks": new_blocks}
         h = common.apply_norm(self.final_norm, x, cfg)
         logits = common.unembed(self.embedding, h, cfg)
         return logits[:, 0], new_cache
 
-    def _decode_hybrid(self, cache, x, pos: int, mesh):
+    def _decode_hybrid(self, cache, x, pos: int):
         cfg = self.cfg
         n_groups, every = self._groups()
         scfg = shared_cfg(cfg)
@@ -578,16 +602,27 @@ class Model(nn.Module):
                                              cache["blocks"][i], cfg)
                 blocks.append(c_l)
             x, sc = _decode_attn_block(self.shared, x, cache["shared"][g],
-                                       pos, scfg, mesh)
+                                       pos, scfg)
             shared.append(sc)
         return x, {"blocks": blocks, "shared": shared}
 
-    # ----- the per-rank program (the dense family on a live mesh) -----
+    # ----- the per-rank program (the attention families on a live mesh) --
+
+    PER_RANK = ("dense", "moe", "vlm", "audio")
 
     def per_rank(self, mesh) -> bool:
-        """Whether ``mesh`` runs this model's per-rank program: the dense
-        family on a live mesh."""
-        return self.cfg.family == "dense" and isinstance(mesh, LiveMesh)
+        """Whether ``mesh`` runs this model's per-rank program: a family
+        of ``PER_RANK`` on a live mesh."""
+        return self.cfg.family in self.PER_RANK and \
+            isinstance(mesh, LiveMesh)
+
+    def _one_device(self, mesh):
+        """Refuses a named ``mesh`` for the moe family, whose layers run
+        expert-parallel only over a live one (its per-rank program on a
+        named mesh runs in ``launch/mesh.fake_world``); the other
+        families off the per-rank program compute as without a mesh."""
+        if mesh is not None and _is_moe(self.cfg):
+            partition.require_live(mesh, "the moe family's expert map")
 
     def param_specs(self, mesh):
         """The sharding plan's specs of ``param_tree()`` on ``mesh``
@@ -614,54 +649,66 @@ class Model(nn.Module):
 
     def rank_hidden(self, params, specs, batch, ranks, plain: bool = True,
                     remat: bool = False):
-        """This rank's final-normed hidden states and whether they are
-        its sequence-parallel rows (B, T/M, d) (else the whole sequence),
-        from its blocks of ``params`` (the specs ``specs``) and of the
-        batch's tokens (B, T)."""
+        """(This rank's final-normed hidden states, whether they are its
+        sequence-parallel rows (B, T/M, d) (else the whole sequence), the
+        moe layers' summed aux or None), from its blocks of ``params``
+        (the specs ``specs``) and of the batch's tokens (B, T) or frame /
+        patch embeddings (B, T, d)."""
         full_f32()
         cfg = self.cfg
-        tokens = batch["tokens"]
-        B, T = tokens.shape
+        key = self.input_key(batch)
+        inp = batch[key]
+        B, T = inp.shape[:2]
         sp = ranks.sp(T)
-        x = common.embed_tokens_rank(params["embedding"],
-                                     specs["embedding"], tokens, cfg,
-                                     getattr(torch, cfg.dtype), ranks, sp)
+        embed = common.embed_frontend_rank if key == "embeddings" else \
+            common.embed_tokens_rank
+        x = embed(params["embedding"], specs["embedding"], inp, cfg,
+                  getattr(torch, cfg.dtype), ranks, sp)
         positions = torch.arange(T, device=x.device)[None, :].expand(B, T)
+        auxs = []
         for p_l, s_l in zip(params["blocks"], specs["blocks"]):
-            x = _layer(lambda x, p_l=p_l, s_l=s_l: _attn_block_rank(
+            x, aux = _layer(lambda x, p_l=p_l, s_l=s_l: _attn_block_rank(
                 p_l, s_l, x, cfg, positions, ranks, plain, sp), x, remat)
-        return common.apply_norm(params["final_norm"], x, cfg), sp
+            if aux is not None:
+                auxs.append(aux)
+        aux = torch.sum(torch.stack(auxs)) if auxs else None
+        return common.apply_norm(params["final_norm"], x, cfg), sp, aux
 
     def rank_logits(self, params, specs, h, ranks, sp: bool):
         """This rank's logits (B, T, V / M) of its hidden states ``h``."""
         return common.unembed_rank(params["embedding"], specs["embedding"],
                                    ranks.seq_gather(h, sp), self.cfg, ranks)
 
-    def rank_map(self, mesh, tokens_shape, what: str = "logits",
+    def rank_map(self, mesh, batch, what: str = "logits",
                  plain: bool = True, remat: bool = False):
         """The per-rank forward as a ``partition.shard_map`` over
-        (params, {"tokens"}): the logits, or with ``what="hidden"`` the
-        final-normed hidden states, as global values (``run.body`` is the
-        per-rank program on blocks)."""
+        (params, batch) for batches shaped as ``batch`` (``{"tokens":
+        (B, T)}`` or ``{"embeddings": (B, T, d)}``): the logits, or with
+        ``what="hidden"`` the final-normed hidden states, as global
+        values, and for the moe family with its ``moe_aux`` beside them
+        (``run.body`` is the per-rank program on blocks)."""
         ranks = common.Ranks(mesh)
         specs = self.param_specs(mesh)
-        bspec = partition.logical_to_physical(("batch", "seq"), mesh,
-                                              shape=tuple(tokens_shape))
+        key = self.input_key(batch)
+        shape = tuple(batch[key].shape)
+        bspec = partition.logical_to_physical(
+            ("batch", "seq", None)[:len(shape)], mesh, shape=shape)
+        with_aux = _is_moe(self.cfg)
 
         def body(params, batch):
-            h, sp = self.rank_hidden(params, specs, batch, ranks, plain,
-                                     remat)
-            if what == "hidden":
-                return h
-            return self.rank_logits(params, specs, h, ranks, sp)
+            h, sp, aux = self.rank_hidden(params, specs, batch, ranks,
+                                          plain, remat)
+            out = h if what == "hidden" else \
+                self.rank_logits(params, specs, h, ranks, sp)
+            return (out, aux) if with_aux else out
 
         if what == "hidden":
-            out = (bspec[0], "model" if ranks.sp(tokens_shape[1]) else None,
-                   None)
+            out = (bspec[0], "model" if ranks.sp(shape[1]) else None, None)
         else:
             out = (bspec[0], None, self._vocab_spec(specs, ranks))
-        return partition.shard_map(body, mesh, in_specs=(
-            specs, {"tokens": bspec}), out_specs=out)
+        return partition.shard_map(
+            body, mesh, in_specs=(specs, {key: bspec}),
+            out_specs=(out, ()) if with_aux else out)
 
     def rank_decode(self, params, specs, cspecs, cache, tokens, pos: int,
                     ranks):

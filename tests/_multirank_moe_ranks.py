@@ -47,12 +47,10 @@ def model_from(inp):
 
 
 def train_loss(model, params, batch, mesh):
-    """``steps.make_train_step``'s loss: chunked CE plus the weighted moe
-    aux, with ``mesh`` passed to the model."""
-    h, aux = model.hidden(batch, plain=True, params=params, mesh=mesh)
-    ce = steps.chunked_ce_loss(model, params, h, batch["labels"])
-    total = ce + model.cfg.moe_aux_weight * aux["moe_aux"]
-    return total, {"ce": ce, "moe_aux": aux["moe_aux"]}
+    """``steps.make_train_step``'s loss (``steps.train_loss``): chunked CE
+    plus the weighted moe aux; on a live ``mesh`` the step's own
+    per-rank loss."""
+    return steps.train_loss(model, params, batch, mesh)
 
 
 def _collectives(mesh):

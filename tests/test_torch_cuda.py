@@ -61,7 +61,7 @@ from repro_torch.kernels.pq_adc import (pq_adc_topk, pq_adc_topk_fused,
                                         pq_adc_topk_ref)
 from repro_torch.serve import IVFIndex, IVFPQIndex, recall_at_k
 
-from _flash_tile_plan import (EDGE_PLANS, PARITY_PLANS,
+from _flash_tile_plan import (EDGE_PLANS, OFFSET_PLANS, PARITY_PLANS,
                               check_plan_against_mask)
 
 RTOL = ATOL = 1e-5
@@ -772,22 +772,22 @@ def test_snapshot_round_trip_on_the_card(cuda_device, tmp_path):
 # so flash within the f32 bound + 2^-8 (|ref| + attention(q, k, |v|)).
 
 
-def _fa_bound(q, k, v, ref, causal, window):
+def _fa_bound(q, k, v, ref, causal, window, q_offset=0):
     """Elementwise bound on |kernel - ref| for q's dtype."""
     from repro_torch.kernels.flash_attention import attention_ref
     bound = 2e-5 + 1e-4 * ref.abs()
     if q.dtype == torch.bfloat16:
         bound += BF16_ROUND * (ref.abs() + attention_ref(
             q.float(), k.float(), v.float().abs(), causal=causal,
-            window=window))
+            window=window, q_offset=q_offset))
     return bound
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("B,T,S,H,K,dh,causal,window", FA_PARITY)
+@pytest.mark.parametrize("B,T,S,H,K,dh,causal,window,q_offset", FA_PARITY)
 def test_flash_attention_kernel_matches_plain_version(
-        cuda_device, B, T, S, H, K, dh, causal, window, dtype):
+        cuda_device, B, T, S, H, K, dh, causal, window, q_offset, dtype):
     from repro_torch.kernels.flash_attention import (attention_ref,
                                                      flash_attention)
     rng = np.random.RandomState(T + H + dh)
@@ -795,13 +795,14 @@ def test_flash_attention_kernel_matches_plain_version(
                             device=cuda_device).to(dtype)
                for shape in ((B, T, H, dh), (B, S, K, dh), (B, S, K, dh)))
     before = flash_attention.launches
-    out = flash_attention(q, k, v, causal=causal, window=window)
+    out = flash_attention(q, k, v, causal=causal, window=window,
+                          q_offset=q_offset)
     ref = attention_ref(q.float(), k.float(), v.float(), causal=causal,
-                        window=window)
+                        window=window, q_offset=q_offset)
     torch.cuda.synchronize()
     assert flash_attention.launches == before + 1
     assert out.dtype == dtype and out.shape == (B, T, H, dh)
-    bound = _fa_bound(q, k, v, ref, causal, window)
+    bound = _fa_bound(q, k, v, ref, causal, window, q_offset)
     assert bool(((out.float() - ref).abs() <= bound).all())
 
 
@@ -829,6 +830,19 @@ def test_flash_attention_tile_plan_is_the_kernels(cuda_device, T, S, causal,
     plan = kernel_tile_plan(T, S, causal, window, dh)
     check_plan_against_mask(plan, T, S, causal, window, dh)
     np.testing.assert_array_equal(plan, tile_plan(T, S, causal, window, dh))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T,S,causal,window,dh,q_offset", OFFSET_PLANS)
+def test_flash_attention_tile_plan_at_an_offset_is_the_kernels(
+        cuda_device, T, S, causal, window, dh, q_offset):
+    """As above for a query slice whose rows start at ``q_offset``."""
+    from repro_torch.kernels.flash_attention.kernel import (kernel_tile_plan,
+                                                            tile_plan)
+    plan = kernel_tile_plan(T, S, causal, window, dh, q_offset)
+    check_plan_against_mask(plan, T, S, causal, window, dh, q_offset)
+    np.testing.assert_array_equal(
+        plan, tile_plan(T, S, causal, window, dh, q_offset))
 
 
 @pytest.mark.cuda
@@ -865,6 +879,10 @@ def test_flash_attention_refuses_what_it_cannot_do(cuda_device):
         flash_attention(q.clone().requires_grad_(), q, q)
     with pytest.raises(ValueError, match="bfloat16 or float32"):
         flash_attention(q.half(), q.half(), q.half())
+    with pytest.raises(ValueError, match="q_offset"):
+        flash_attention(q, q, q, q_offset=-1)
+    with pytest.raises(ValueError, match="see no key"):
+        flash_attention(q, q, q, window=4, q_offset=4)
 
 
 def _ssd_check(y, h, xs, Bm, Cm, dt, la):

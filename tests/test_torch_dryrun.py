@@ -361,6 +361,7 @@ def test_sweep_in_processes_equals_in_process():
     jobs = [dryrun.Job("smollm-135m", "train_4k", {"n_layers": 2}),
             dryrun.Job("yi-6b", "decode_32k", {"n_layers": 4}),
             dryrun.Job("granite-moe-1b-a400m", "decode_32k"),
+            dryrun.Job("rwkv6-1.6b", "decode_32k"),
             dryrun.Job("no-such-arch", "train_4k")]
     here = dict(dryrun.sweep(jobs, "16x16"))
     pooled = dict(dryrun.sweep(jobs, "16x16", procs=2))
@@ -369,7 +370,8 @@ def test_sweep_in_processes_equals_in_process():
     assert here == pooled
     # each job in a fake world of its own, in this process or a spawned one
     assert here["smollm-135m|train_4k"]["status"] == "ok"
-    assert here["granite-moe-1b-a400m|decode_32k"]["status"] == "plan"
+    assert here["granite-moe-1b-a400m|decode_32k"]["status"] == "ok"
+    assert here["rwkv6-1.6b|decode_32k"]["status"] == "plan"
     assert here["no-such-arch|train_4k"]["status"] == "error"
     cut = here["yi-6b|decode_32k"]["plan"]
     full = dryrun.plan_arguments(

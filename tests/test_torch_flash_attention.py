@@ -7,8 +7,13 @@ interpret mode; the port runs ``attention_ref``, the plain version
 the CUDA kernel is held against. Tolerance in f32: rtol 1e-4, atol
 2e-5, the reference's own bound for its kernel against its oracle;
 bf16: rtol = atol = 5e-2 (its bf16 bound). The model's naive and
-chunked forms must match the reference's within 1e-5. The CUDA kernel
-itself is checked in tests/test_torch_cuda.py.
+chunked forms must match the reference's within 1e-5. A query slice at
+an offset (``q_offset``, context parallelism) is held to the rows of the
+reference's oracle on the whole sequence, and the model's split into
+rank slices to the reference's ``attend_naive(q_offset=)``, at the f32
+bound; the slice against the keys up to its last position to the slice
+against every key within rtol 1e-6, atol 1e-7. The CUDA kernel itself
+is checked in tests/test_torch_cuda.py.
 """
 
 import numpy as np
@@ -30,7 +35,7 @@ from repro_torch.kernels.flash_attention.kernel import (BLOCK_Q, SKIP,
                                                         block_k, tile_plan)
 from repro_torch.models import attention
 
-from _flash_tile_plan import (EDGE_PLANS, PARITY_PLANS,
+from _flash_tile_plan import (EDGE_PLANS, OFFSET_PLANS, PARITY_PLANS,
                               check_plan_against_mask)
 
 
@@ -111,6 +116,36 @@ def test_bf16_inputs():
     _close(out.float(), np.asarray(ref, np.float32), rtol=5e-2, atol=5e-2)
 
 
+# (T, H, K, causal, window, offset, rows): MHA, GQA (smollm's 9 heads on
+# 3 kv heads), a window, non-causal, offsets on and off the tiles
+OFFSET_CASES = [(256, 4, 4, True, 0, 64, 64), (256, 8, 2, True, 0, 100, 77),
+                (256, 9, 3, True, 0, 128, 128),
+                (256, 4, 2, True, 48, 130, 100),
+                (300, 4, 2, True, 64, 236, 64),
+                (256, 4, 2, False, 0, 50, 128)]
+
+
+@pytest.mark.parametrize("T,H,K,causal,window,off,rows", OFFSET_CASES)
+def test_plain_version_at_a_query_offset(T, H, K, causal, window, off,
+                                         rows):
+    """A slice of the queries at their positions (``q_offset``) against
+    every key: the rows of the reference's oracle on the whole sequence;
+    a causal slice against the keys up to its last position gives the
+    same rows (what the kernel skips)."""
+    q, k, v = _qkv(2, T, T, H, K, 32, T + off)
+    ref = jax_attention_ref(*map(jnp.asarray, (q, k, v)), causal=causal,
+                            window=window)
+    tq, tk, tv = _t(q, k, v)
+    qs = tq[:, off:off + rows]
+    out = attention_ref(qs, tk, tv, causal=causal, window=window,
+                        q_offset=off)
+    _close(out, np.asarray(ref)[:, off:off + rows])
+    if causal:
+        cut = attention_ref(qs, tk[:, :off + rows], tv[:, :off + rows],
+                            causal=True, window=window, q_offset=off)
+        _close(cut, out, rtol=1e-6, atol=1e-7)
+
+
 def test_kernel_wrapper_refuses_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA tensors"):
         flash_attention(*_t(*_qkv(1, 64, 64, 2, 2, 16, 0)))
@@ -124,6 +159,15 @@ def test_tile_plan_against_brute_force_mask(T, S, causal, window, dh):
     one: tile_plan's classification against a numpy mask."""
     check_plan_against_mask(tile_plan(T, S, causal, window, dh), T, S,
                             causal, window, dh)
+
+
+@pytest.mark.parametrize("T,S,causal,window,dh,q_offset", OFFSET_PLANS)
+def test_tile_plan_at_a_query_offset_against_brute_force_mask(
+        T, S, causal, window, dh, q_offset):
+    """As above for a query slice whose rows start at ``q_offset`` (the
+    causal diagonal and the window's edge move right by the offset)."""
+    check_plan_against_mask(tile_plan(T, S, causal, window, dh, q_offset),
+                            T, S, causal, window, dh, q_offset)
 
 
 def test_tile_plan_visits_the_band_once():
@@ -178,6 +222,41 @@ def test_model_attend_at_head_dim_256(T, window):
     tq = _t(q, k, v)
     _close(attention.attend(*tq, cfg), ref, rtol=1e-5, atol=1e-5)
     _close(attention_ref(*tq, causal=True, window=window), ref)
+
+
+@pytest.mark.parametrize("T,M", [(256, 2), (2560, 2), (2048, 4)])
+@pytest.mark.parametrize("attn", ["full", "sliding"])
+def test_context_parallel_split_against_attend_naive(T, M, attn):
+    """The model's context-parallel split (``_cp_rows``, ``cp_offsets``:
+    each of M ranks its slice of every q chunk): every slice through the
+    kernel's plain version at its ``q_offset`` against the reference's
+    ``attend_naive(q_offset=)`` on the same slice, and the slices put
+    back in sequence order against the reference's ``attend``."""
+    jcfg = jax_reduced(jax_get_config("smollm-135m")).replace(
+        n_heads=9, n_kv_heads=3, attention=attn, window=300,
+        attn_q_chunk=512, attn_kv_chunk=512)
+    cfg = get_config("smollm-135m-reduced").replace(
+        n_heads=9, n_kv_heads=3, attention=attn, window=300,
+        attn_q_chunk=512, attn_kv_chunk=512)
+    q, k, v = _qkv(1, T, T, 9, 3, 16, T + M)
+    cp = attention._cp_rows(T, cfg, M)
+    qc, nq, rows = cp
+    window = 300 if attn == "sliding" else 0
+    full = np.asarray(jax_attention.attend(*map(jnp.asarray, (q, k, v)),
+                                           jcfg))
+    tq, tk, tv = _t(q, k, v)
+    back = np.zeros_like(full)
+    for m in range(M):
+        for c, off in enumerate(attention.cp_offsets(cp, m)):
+            assert off == c * qc + m * rows
+            out = attention_ref(tq[:, off:off + rows], tk, tv, causal=True,
+                                window=window, q_offset=off)
+            want = jax_attention.attend_naive(
+                jnp.asarray(q[:, off:off + rows]), jnp.asarray(k),
+                jnp.asarray(v), jcfg, q_offset=off)
+            _close(out, want)
+            back[:, off:off + rows] = out.numpy()
+    _close(back, full)
 
 
 def test_chunked_refuses_ragged_chunks():

@@ -270,6 +270,24 @@ def test_named_mesh_still_refuses():
                           mesh=mesh)
 
 
+@pytest.mark.parametrize("name", NAMES)
+def test_model_refuses_a_named_mesh(name):
+    """The moe ``Model`` refuses a named mesh once, where its forward
+    and decode start (its per-rank program on a named mesh runs in a
+    fake world, which the error names)."""
+    cfg = get_config(name + "-reduced").replace(dtype="float32")
+    model = Model(cfg, device="cpu")
+    tokens = torch.zeros((1, 4), dtype=torch.int32)
+    for mesh in (make_local_mesh(), make_production_mesh()):
+        with pytest.raises(NotImplementedError, match="fake_world"):
+            model.hidden({"tokens": tokens}, mesh=mesh)
+        with pytest.raises(NotImplementedError, match="fake_world"):
+            model.apply({"tokens": tokens}, mesh=mesh)
+        with pytest.raises(NotImplementedError, match="fake_world"):
+            model.decode_step(model.init_decode_cache(1, 4), tokens[:, 0],
+                              0, mesh=mesh)
+
+
 # -- the dense oracle -------------------------------------------------------------
 
 @pytest.mark.parametrize("name", NAMES)
