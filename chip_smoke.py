@@ -416,7 +416,8 @@ exit, and nothing falls back:
                 ``launch/mesh.py``): (a) the records of a subset of the
                 registry's (arch x shape) pairs holding every family and
                 every mode, and of the paper's three DML configs, a line
-                each, traced in a pool of processes; (b) the account of
+                each, traced in a pool of ACCOUNT_JOBS processes started
+                beside phases 12-18; (b) the account of
                 three steps held against the card: smollm-135m training
                 (B 8, T 512, phase 14's step), hubert-xlarge training (B
                 4, T 1500, f32, remat, 18h's) and phase 4's bsp PS step
@@ -546,7 +547,7 @@ exit, and nothing falls back:
                 "import chip_smoke as c; card = c.phase_device();
                 c.phase_build(); c.phase_ranks(card)"``;
  23. per-rank families — the per-rank program of the moe, vlm and audio
-                families (ROADMAP.md Queue 1 item 8f, first part): (a) rank
+                families: (a) rank
                 0's records of granite-moe-1b, qwen3-moe-30b and
                 pixtral-12b at train_4k and decode_32k and of
                 hubert-xlarge at train_4k and prefill_32k (at
@@ -584,7 +585,36 @@ exit, and nothing falls back:
                 offset's explicit mask). Alone: ``python -c "import
                 chip_smoke as c; card = c.phase_device();
                 c.phase_build(); c.phase_ranks_families(card)"``;
- 24. the last line: ``{"ok": true, "device": {...}}``.
+ 24. per-rank recurrent families — the per-rank program of the ssm and
+                hybrid families: (a) rank 0's records of rwkv6-1.6b and
+                zamba2-2.7b at train_4k and decode_32k on 16x16 and
+                pod2x16x16 (full depth), traced on meta in a pool of
+                RR_JOBS processes started beside phases 12-18 (with 19
+                (a)'s, 22 (a)'s and 23 (a)'s), a line each, each "ok" with
+                the plan's arguments; (b) in the spawn of phases 22-24
+                (``ranks_spawn``: each rank runs 22's, 23's and 24's
+                models in turn, one rank start and one CUDA context for
+                the three), both at full width cut to RR_CUT (rwkv6 2 layers;
+                zamba2 2 mamba2 layers and one use of the shared block):
+                the prefill at B 2 x T 4,096 in f32 and bf16 (rwkv6's 16
+                heads and 3,584 ffn columns a rank; zamba2's 40 mamba2
+                heads a rank, one ssd_scan a layer, w_xbc gathered whole,
+                and the shared block's 16 heads, one flash_attention),
+                one bf16 AdamW step at B 4 x T 512 (remat) and decode at
+                B 2, 4 tokens, f32 (the cache stacked under the plan's
+                specs: rwkv6's wkv state over its key dim, zamba2's conv
+                history over its batch, moved to the rank's layout and
+                back each step), held to one process with phase 23's
+                bounds, each rank's ssd_scan and flash_attention launches
+                read; (c) the account of zamba2's step in a fake world of
+                (2, 2): collectives equal to rank 0's, arguments equal,
+                peak within PEAK_RATIO_BAND; (d) a rank's ssd_scan alone
+                (RR_SSD: B 1, T 4,096, 40 heads, p = n = 64, bf16):
+                kernel, plain version and bound for the kernels line.
+                Alone (spawning its own ranks): ``python -c "import
+                chip_smoke as c; card = c.phase_device();
+                c.phase_build(); c.phase_ranks_recurrent(card)"``;
+ 25. the last line: ``{"ok": true, "device": {...}}``.
 
 Every launch count is set to 0 just before a main-path phase (4, 5, 5a,
 5c, 6, each index of 8, each serving run of 8b, each burst of 8c, 8d's
@@ -595,7 +625,7 @@ apply, training run and service batch of 17, and each forward, apply,
 service run and training run of 18, each rank's PS work and sharded
 serving in 20, each rank's forwards and loop in 21, each rank's
 prefill and Eq. 4 step in 22, and each rank's prefill of each model in
-23) and read just after
+23 and 24) and read just after
 (5a launches no kernel: its gradient is the reference's plain autograd
 product);
 comparison launches come after the reading (or, for phase 9, before the
@@ -4840,21 +4870,7 @@ def time_backbone_kernels(model, tokens, launches, errs):
     fmt = lambda x: "-" if x is None else f"{x:.3f}"  # noqa: E731
     entries = []
     with torch.inference_mode():
-        # SSD: the chunked algorithm's FLOP at Q = SSD_BOUND_CHUNK, only
-        # what the function needs: in each chunk the lower triangle of
-        # C B^T (Q (Q + 1) / 2 entries of n products, once a batch row as
-        # B and C are shared by the heads), and per head the lower
-        # triangle of att . xs (p products an entry), C h^T and the state
-        # update (Q p n products each)
-        Qb = SSD_BOUND_CHUNK
-        ops_g = 2.0 * B * T * (Qb + 1) / 2 * n
-        ops = ops_g + 2.0 * B * T * H * ((Qb + 1) / 2 * p + 2 * p * n)
-        # the kernel's bf16 arithmetic runs three bf16 passes a product
-        # (989 / 3 TFLOP/s), but C B^T, bf16 on both sides, in one: it
-        # counts a third at the three-pass rate
-        ops_bf16 = ops - ops_g + ops_g / 3
-        nbytes = (2 * 2 * xs.numel() + 2 * 2 * B * T * n + 2 * 4 * dt.numel()
-                  + 4 * B * H * p * n)
+        ops, ops_bf16, nbytes = _ssd_bound(B, T, H, p, n)
         cps, hpb, grid = segment_plan(B, H, T)
         fn = lambda: ssd_core(xs, Bm, Cm, dt, la)  # noqa: E731
         plain = lambda: ssd_scan_chunked(  # noqa: E731
@@ -6358,31 +6374,62 @@ ACCOUNT_SUBSET = [("smollm-135m", "train_4k", None),
                   ("pixtral-12b", "decode_32k", None),
                   ("hubert-xlarge", "train_4k", None),
                   ("hubert-xlarge", "long_500k", None)]
-ACCOUNT_JOBS = 6
+ACCOUNT_JOBS = 2             # beside phases 12-18, with 22-24's pools
 ACCOUNT_STEPS = 3
 PEAK_RATIO_BAND = (0.9, 1.02)
 
 
-def _account_subset():
-    """19 (a): the subset's records and the DML configs', a line each."""
-    t0 = time.perf_counter()
-    jobs = [dryrun.Job(a, s, ov) for a, s, ov in ACCOUNT_SUBSET]
+# the pools that trace records on meta (19 (a), 22 (a)-24 (a)) run beside
+# phases 12-21, whose host thread drives the card: their processes run at
+# a lower priority, so that the card's launches come first
+POOL_NICE = 10
+
+
+def meta_pool(n):
+    """A pool of ``n`` spawned processes at POOL_NICE."""
+    return multiprocessing.get_context("spawn").Pool(
+        n, initializer=os.nice, initargs=(POOL_NICE,))
+
+
+def account_sweep_start():
+    """19 (a), started: the subset's records and the DML configs' in a
+    pool of ACCOUNT_JOBS processes beside the card's phases (meta
+    tensors: no card)."""
+    pool = meta_pool(ACCOUNT_JOBS)
+    jobs = [pool.apply_async(dryrun._record, (dryrun.Job(a, s, ov), "h100"))
+            for a, s, ov in ACCOUNT_SUBSET]
+    dml = pool.apply_async(dryrun.dryrun_dml)
+    pool.close()
+    return {"pool": pool, "jobs": jobs, "dml": dml,
+            "t0": time.perf_counter()}
+
+
+def _account_subset(started=None):
+    """19 (a), collected (started here if ``started`` is None): a line a
+    record."""
+    started = started or account_sweep_start()
+    t_wait = time.perf_counter()
     records = {}
-    for key, rec in dryrun.sweep(jobs, procs=ACCOUNT_JOBS):
+    for job in started["jobs"]:
+        key, rec = job.get(timeout=RK_TIMEOUT)
         assert rec["status"] in ("ok", "skipped"), f"{key}: {rec}"
         log(dryrun.summary_line(key, rec))
         records[key] = rec
-    for name, rec in dryrun.dryrun_dml().items():
+    for name, rec in started["dml"].get(timeout=RK_TIMEOUT).items():
         records[f"{name}|paper_batch"] = rec
         log(dryrun.summary_line(f"{name}|paper_batch", rec))
-    secs = time.perf_counter() - t0
+    started["pool"].join()
+    wait_s = time.perf_counter() - t_wait
+    secs = time.perf_counter() - started["t0"]
     families = {get_config(a).family for a, s, _ in ACCOUNT_SUBSET}
     modes = {rec["mode"] for rec in records.values() if "mode" in rec}
     assert families == set(transformer.FAMILIES), families
     assert modes == {"train", "prefill", "decode"}, modes
-    log(f"19 (a) account of {len(records)} records in {secs:.1f} s "
-        f"({ACCOUNT_JOBS} processes; card figures: {card_figures.CARD})")
-    return {"records": records, "sweep_s": secs}
+    log(f"19 (a) account of {len(records)} records, collected {secs:.1f} s "
+        f"after their start on {ACCOUNT_JOBS} processes beside phases "
+        f"12-18; the phase waited {wait_s:.1f} s for them (card figures: "
+        f"{card_figures.CARD})")
+    return {"records": records, "sweep_s": secs, "wait_s": wait_s}
 
 
 def _meta_like(tree):
@@ -6532,11 +6579,12 @@ def _bsp_held(exp=IMNET_1M):
     return res
 
 
-def phase_account():
-    """Phase 19: the dry-run account, (a) on meta, (b) held against the
+def phase_account(sweep=None):
+    """Phase 19: the dry-run account, (a) on meta (``sweep``, from
+    ``account_sweep_start``; started here if None), (b) held against the
     card."""
     t0 = time.perf_counter()
-    out = _account_subset()
+    out = _account_subset(sweep)
     out["held"] = {
         LM_ARCH: _lm_train_held(
             LM_ARCH, get_config(LM_ARCH), LM_LR, False, (LM_B, LM_T),
@@ -7721,8 +7769,7 @@ def rk_sweep_start():
     each in a fake world of its own, in a pool of RK_JOBS processes that
     run on the host's idle cores beside the card's phases (meta tensors:
     no card, nothing allocated)."""
-    ctx = multiprocessing.get_context("spawn")
-    pool = ctx.Pool(RK_JOBS)
+    pool = meta_pool(RK_JOBS)
     jobs = [(m, pool.apply_async(dryrun._record, (dryrun.Job(a, s), m)))
             for m in RK_SWEEP_MESHES for a, s in RK_SWEEP]
     dml = [(m, pool.apply_async(dryrun.dryrun_dml, (m,)))
@@ -7799,6 +7846,7 @@ def _rk_prefill(inp, mesh, models, batch=None, ranks_dtypes=None,
                         batch, mesh=mesh))
                 out[dtype] = {"ms": ms,
                               "launches": _counts()["flash_attention"],
+                              "ssd_launches": _counts()["ssd_scan"],
                               "checksum": _mrm_checksum([logits]),
                               "aux": float(aux["moe_aux"])}
                 if follow:              # (halves, layers, tokens, k)
@@ -8010,12 +8058,10 @@ def _rk_dml(inp, mesh):
     return out
 
 
-def _rk_rank(inp):
-    """One rank of phase 22 (b) and (c), a spawned process on the shared
-    card."""
+def _rk_rank(inp, mesh):
+    """Phase 22 (b) and (c) on this rank of ``ranks_spawn``."""
     from repro_torch.launch.cost_analysis import CostMode
-    mesh = card_figures.make_local_mesh(data=RK_MESH[0], model=RK_MESH[1])
-    out = {"rank": mesh.rank, "backend": mesh.backend}
+    out = {}
     model = Model(_rk_cfg("float32"), device=DEV, seed=0)
     models = {"bfloat16": Model(_rk_cfg("bfloat16"), device=DEV,
                                 params=model.param_tree()),
@@ -8035,24 +8081,22 @@ def _rk_rank(inp):
     return out
 
 
-def phase_ranks(card, sweep=None):
+def phase_ranks(card, sweep=None, spawned=None):
     """Phase 22: the dry run's per-rank program: (a) rank 0's records on
     the production meshes, traced on meta (``sweep``, from
     ``rk_sweep_start``; started here if None); (b) the same program on
-    four ranks sharing the card over gloo, held to one process; (c) the
+    four ranks sharing the card over gloo, held to one process
+    (``spawned``, from ``ranks_spawn``; spawned here if None); (c) the
     account of (b)'s training step in a fake world of the same (2, 2),
     held to what rank 0 issued and allocated."""
     t_phase = time.perf_counter()
     sweep = _rk_sweep(sweep or rk_sweep_start())
-    inp = _rk_inputs()
     shape = InputShape("held", RK_TRAIN[1], RK_TRAIN[0], "train")
     with card_figures.fake_world(card_figures.Mesh(("data", "model"),
                                                    RK_MESH)) as live:
         acct = dryrun.rank_account(_rk_cfg("bfloat16"), shape, live)
-    t0 = time.perf_counter()
-    ranks = spawn(_rk_rank, RK_MESH[0] * RK_MESH[1], args=(inp,),
-                  timeout=RK_TIMEOUT)
-    spawn_s = time.perf_counter() - t0
+    spawned = spawned or ranks_spawn(dense=True)
+    ranks, spawn_s = spawned["dense"], spawned["spawn_s"]
     r0 = ranks[0]
     note = (f"{card}; {len(ranks)} ranks share one card over "
             f"{r0['backend']}, which stages every collective through the "
@@ -8146,7 +8190,7 @@ def phase_ranks(card, sweep=None):
         f"{dm['loss']:.6f} against {dm['one_loss']:.6f}; dml_pair launches "
         f"by rank {[r['dml']['launches'] for r in ranks]}; {note}")
     log(f"22 ranks: peak GB {[round(r['peak_gb'], 2) for r in ranks]}; "
-        f"spawn and work {spawn_s:.1f} s; {note}")
+        f"spawn and work {spawn_s:.1f} s ({spawned['phases']}); {note}")
     out = {"card": card, "sweep_s": sweep["sweep_s"],
            "sweep_trace_s": sweep["trace_s"],
            "records": {k: {f: v.get(f) for f in (
@@ -8214,22 +8258,28 @@ def _rf_cp_split():
     return cp, attention.cp_offsets(cp, M - 1)
 
 
-def rf_sweep_start():
-    """23 (a), started: rank 0's records of RF_SWEEP on both production
-    meshes, each in a fake world of its own, in a pool of RF_JOBS
-    processes beside the card's phases (meta tensors: no card)."""
-    ctx = multiprocessing.get_context("spawn")
-    pool = ctx.Pool(RF_JOBS)
-    jobs = [(m, pool.apply_async(dryrun._record, (
-        dryrun.Job(a, s, RF_OVERRIDES.get((a, s))), m)))
-        for m in RK_SWEEP_MESHES for a, s in RF_SWEEP]
+def rf_sweep_start(pairs=None, overrides=None, jobs=RF_JOBS):
+    """23 (a), started: rank 0's records of ``pairs`` (RF_SWEEP's; each
+    with its ``overrides``, RF_OVERRIDES') on both production meshes,
+    each in a fake world of its own, in a pool of ``jobs`` processes
+    beside the card's phases (meta tensors: no card); 24 (a) too."""
+    pairs = RF_SWEEP if pairs is None else pairs
+    overrides = RF_OVERRIDES if overrides is None else overrides
+    pool = meta_pool(jobs)
+    started = [(m, pool.apply_async(dryrun._record, (
+        dryrun.Job(a, s, overrides.get((a, s))), m)))
+        for m in RK_SWEEP_MESHES for a, s in pairs]
     pool.close()
-    return {"pool": pool, "jobs": jobs, "t0": time.perf_counter()}
+    return {"pool": pool, "jobs": started, "n": jobs,
+            "t0": time.perf_counter()}
 
 
-def _rf_sweep(started):
-    """23 (a), collected: a line a record; each "ok", its arguments the
-    plan's, collectives issued."""
+def _rf_sweep(started, tag="23 (a)", what="of the moe, vlm and audio "
+              "families (full depth; hubert's prefill_32k at "
+              f"{ACCOUNT_CHUNKS['attn_q_chunk']}-token attention chunks)",
+              target_s=RF_SWEEP_TARGET_S):
+    """23 (a) (or 24 (a), ``tag``), collected: a line a record; each "ok",
+    its arguments the plan's, collectives issued."""
     t_wait = time.perf_counter()
     records = {}
     for m, job in started["jobs"]:
@@ -8241,18 +8291,16 @@ def _rf_sweep(started):
     cpu_s = sum(rec.get("trace_s", 0.0) for rec in records.values())
     bad = []
     for key, rec in records.items():
-        log("23 (a) " + dryrun.summary_line(key, rec))
+        log(f"{tag} " + dryrun.summary_line(key, rec))
         if rec["status"] != "ok" or \
                 rec["memory"]["argument_size"] != \
                 rec["plan"]["argument_size"] or \
                 rec["collectives"]["total_bytes"] <= 0:
             bad.append(key)
-    log(f"23 (a) {len(records)} per-rank records of the moe, vlm and audio "
-        f"families (full depth; hubert's prefill_32k at "
-        f"{ACCOUNT_CHUNKS['attn_q_chunk']}-token attention chunks), "
-        f"{cpu_s:.1f} s of tracing on {RF_JOBS} processes beside phases "
-        f"12-22, collected {secs:.1f} s after their start; the phase waited "
-        f"{wait_s:.1f} s for them (target {RF_SWEEP_TARGET_S:.0f} s)")
+    log(f"{tag} {len(records)} per-rank records {what}, {cpu_s:.1f} s of "
+        f"tracing on {started['n']} processes beside the card's phases, "
+        f"collected {secs:.1f} s after their start; the phase waited "
+        f"{wait_s:.1f} s for them (target {target_s:.0f} s)")
     return {"records": records, "sweep_s": secs, "trace_s": cpu_s,
             "wait_s": wait_s, "bad": bad}
 
@@ -8286,11 +8334,13 @@ def _rf_on(x):
     return torch.from_numpy(np.asarray(x)).to(DEV)
 
 
-def _rf_models(arch):
+def _rf_models(arch, make_cfg=None):
     """(f32 model, {"bfloat16": ..., "float32": ...}) sharing one seeded
-    f32 weight set (bf16 activations, f32 weights)."""
-    model = Model(_rf_cfg(arch, "float32"), device=DEV, seed=0)
-    return model, {"bfloat16": Model(_rf_cfg(arch, "bfloat16"), device=DEV,
+    f32 weight set (bf16 activations, f32 weights); ``make_cfg(arch,
+    dtype)`` is ``_rf_cfg`` unless given."""
+    make_cfg = make_cfg or _rf_cfg
+    model = Model(make_cfg(arch, "float32"), device=DEV, seed=0)
+    return model, {"bfloat16": Model(make_cfg(arch, "bfloat16"), device=DEV,
                                      params=model.param_tree()),
                    "float32": model}
 
@@ -8300,12 +8350,11 @@ def _rf_free():
     torch.cuda.empty_cache()
 
 
-def _rf_rank(inp):
-    """One rank of phase 23 (b) and (c), a spawned process on the shared
-    card: the four models one after another."""
+def _rf_rank(inp, mesh):
+    """Phase 23 (b) and (c) on this rank of ``ranks_spawn``: the four
+    models one after another."""
     from repro_torch.launch.cost_analysis import CostMode
-    mesh = card_figures.make_local_mesh(data=RK_MESH[0], model=RK_MESH[1])
-    out = {"rank": mesh.rank, "backend": mesh.backend, "t": {}}
+    out = {"t": {}}
     t0 = time.perf_counter()
     # granite-moe-1b: the moe nested in the program (one process's oracle
     # routes each batch half apart, as the ranks of (2, 2) do)
@@ -8362,7 +8411,6 @@ def _rf_rank(inp):
     del model, models
     _rf_free()
     out["t"][LM_ARCH] = time.perf_counter() - t0
-    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
     return out
 
 
@@ -8421,7 +8469,7 @@ def _rf_cp_entry(launches, card):
                       "config": LM_ARCH, "pairs_per_head": pairs}}
 
 
-def phase_ranks_families(card, sweep=None):
+def phase_ranks_families(card, sweep=None, spawned=None):
     """Phase 23: the per-rank program of the attention families: (a)
     rank 0's records of the moe, vlm and audio families on the
     production meshes, traced on meta (``sweep``, from
@@ -8430,18 +8478,16 @@ def phase_ranks_families(card, sweep=None):
     four ranks sharing the card over gloo, held to one process; (c) the
     account of (b)'s granite-moe step in a fake world of the same (2, 2),
     held to what rank 0 issued and allocated; smollm's context-parallel
-    slice timed for the kernels line."""
+    slice timed for the kernels line. (b) runs in ``spawned`` (from
+    ``ranks_spawn``; spawned here if None)."""
     t_phase = time.perf_counter()
     sweep = _rf_sweep(sweep or rf_sweep_start())
-    inp = _rf_inputs()
     shape = InputShape("held", RF_TRAIN[1], RF_TRAIN[0], "train")
     with card_figures.fake_world(card_figures.Mesh(("data", "model"),
                                                    RK_MESH)) as live:
         acct = dryrun.rank_account(_rf_cfg(MOE, "bfloat16"), shape, live)
-    t0 = time.perf_counter()
-    ranks = spawn(_rf_rank, RK_MESH[0] * RK_MESH[1], args=(inp,),
-                  timeout=RK_TIMEOUT)
-    spawn_s = time.perf_counter() - t0
+    spawned = spawned or ranks_spawn(families=True)
+    ranks, spawn_s = spawned["families"], spawned["spawn_s"]
     r0 = ranks[0]
     note = (f"{card}; {len(ranks)} ranks share one card over "
             f"{r0['backend']}, which stages every collective through the "
@@ -8561,7 +8607,8 @@ def phase_ranks_families(card, sweep=None):
             f"{DECODE_REL_BOUND}); {note}")
     log(f"23 ranks: peak GB {[round(r['peak_gb'], 2) for r in ranks]}; s by "
         f"model on rank 0 {dict((k, round(v, 1)) for k, v in r0['t'].items())}"
-        f"; spawn and work {spawn_s:.1f} s (target {RF_TARGET_S:.0f} s); "
+        f"; spawn and work {spawn_s:.1f} s ({spawned['phases']}; target "
+        f"{RF_TARGET_S:.0f} s for 23 alone); "
         f"{note}")
     cp_launches = [r[LM_ARCH]["prefill"]["bfloat16"]["launches"]
                    for r in ranks]
@@ -8589,6 +8636,333 @@ def phase_ranks_families(card, sweep=None):
            "phase_s": time.perf_counter() - t_phase}
     log(f"per-rank families phase {out['phase_s']:.1f} s")
     assert not failed, f"phase 23 failed: {failed}"
+    return out
+
+
+# -- phase 24: the per-rank program of the recurrent families ---------------
+
+# (a): rank 0's records of rwkv6-1.6b and zamba2-2.7b at full depth, in a
+# pool of RR_JOBS processes started beside phases 12-18
+RR_SWEEP = [(a, s) for a in (RWKV, BACKBONE)
+            for s in ("train_4k", "decode_32k")]
+RR_JOBS = 1
+RR_SWEEP_TARGET_S = 120.0
+# (b): full width, cut in depth; four ranks on (data 2, model 2), in the
+# spawn of phases 22-24 (``ranks_spawn``): rwkv6's 32 heads of 64 (16 a
+# rank), its channel mix's
+# 7,168 (3,584 a rank); zamba2's 80 mamba2 heads of 64 (40 a rank, one
+# ssd_scan a layer), w_xbc's 5,248 columns (2,624 a block: not whole
+# heads, so gathered whole), one use of the shared block (32 heads of 80,
+# 16 a rank, window 4,096)
+RR_CUT = {RWKV: {"n_layers": 2},
+          BACKBONE: {"n_layers": 2, "shared_attn_every": 2}}
+RR_PREFILL = RF_PREFILL      # B x T
+RR_TRAIN = RF_TRAIN
+RR_DECODE = RF_DECODE        # B, tokens
+# (d): the rank's ssd_scan alone: B 1, T 4,096, its 40 heads, p = n = 64
+RR_SSD = (1, 4096, 40, 64, 64)
+
+
+def _rr_cfg(arch, dtype):
+    return get_config(arch).replace(dtype=dtype, **RR_CUT[arch])
+
+
+def rr_sweep_start():
+    """24 (a), started: rank 0's records of RR_SWEEP (``rf_sweep_start``)."""
+    return rf_sweep_start(RR_SWEEP, {}, RR_JOBS)
+
+
+def _rr_inputs():
+    """The seeded batches of (b) for each model: prefill tokens, training
+    tokens and labels, the decode prompt."""
+    rng = np.random.RandomState(24)
+    B, T = RR_PREFILL
+    Bt, Tt = RR_TRAIN
+    out = {}
+    for arch in (RWKV, BACKBONE):
+        V = get_config(arch).vocab_size
+
+        def ids(shape):                 # int32, as the plan's inputs
+            return rng.randint(0, V, shape).astype(np.int32)
+
+        out[arch] = {"prefill": ids((B, T)), "tokens": ids((Bt, Tt)),
+                     "labels": ids((Bt, Tt)), "decode": ids(RR_DECODE)}
+    return out
+
+
+def _rr_rank(inp, mesh):
+    """Phase 24 (b) and (c) on this rank of ``ranks_spawn``: each model's
+    prefill in f32 and bf16, one bf16 step (zamba2's counted by
+    ``CostMode`` for (c)) and the f32 decode, held to one process on
+    rank 0."""
+    from repro_torch.launch.cost_analysis import CostMode
+    out = {"t": {}}
+    for arch in (RWKV, BACKBONE):
+        t0 = time.perf_counter()
+        x = inp[arch]
+        model, models = _rf_models(arch, _rr_cfg)
+        res = {"prefill": _rk_prefill(
+            inp, mesh, models, batch={"tokens": _rf_on(x["prefill"])})}
+        _rf_free()
+        res["train"] = _rk_train(
+            inp, mesh, models["bfloat16"],
+            CostMode if arch == BACKBONE else None,
+            batch={"tokens": _rf_on(x["tokens"]),
+                   "labels": _rf_on(x["labels"])}, spread=True)
+        _rf_free()
+        res["decode"] = _rk_decode(inp, mesh, model,
+                                   prompt=_rf_on(x["decode"]))
+        del model, models
+        _rf_free()
+        out[arch] = res
+        out["t"][arch] = time.perf_counter() - t0
+    return out
+
+
+def _ssd_bound(B, T, H, p, n):
+    """(FLOP, FLOP at the kernel's bf16 arithmetic, bytes) of the SSD at
+    (B, T, H, p, n): the chunked algorithm's products at Q =
+    SSD_BOUND_CHUNK, only what the function needs: in each chunk the
+    lower triangle of C B^T (Q (Q + 1) / 2 entries of n products, once a
+    batch row as B and C are shared by the heads), and per head the
+    lower triangle of att . xs (p products an entry), C h^T and the state
+    update (Q p n products each). The kernel's bf16 arithmetic runs three
+    bf16 passes a product (989 / 3 TFLOP/s), but C B^T, bf16 on both
+    sides, in one: it counts a third at the three-pass rate. Bytes: bf16
+    x, y, B and C, f32 dt and la read once, the f32 end state written."""
+    Qb = SSD_BOUND_CHUNK
+    ops_g = 2.0 * B * T * (Qb + 1) / 2 * n
+    ops = ops_g + 2.0 * B * T * H * ((Qb + 1) / 2 * p + 2 * p * n)
+    nbytes = (2 * 2 * B * T * H * p + 2 * 2 * B * T * n + 2 * 4 * B * T * H
+              + 4 * B * H * p * n)
+    return ops, ops - ops_g + ops_g / 3, nbytes
+
+
+def _rr_ssd_entry(launches, card):
+    """The kernels-line entry of a rank's ssd_scan: RR_SSD (zamba2's 40
+    heads a rank on a model axis of 2), bf16, seeded inputs; kernel and
+    plain version timed, its parity against the plain version (SSD_TOL)
+    and its bound. No single PyTorch call computes it."""
+    B, T, H, p, n = RR_SSD
+    xs, Bm, Cm, dt, la = ssd_cases.inputs(B, H, T, p, n, torch.bfloat16,
+                                          DEV, seed=24)
+    err, top, worst, _ = check_ssd(xs, Bm, Cm, dt, la)
+    ops, ops_bf16, nbytes = _ssd_bound(B, T, H, p, n)
+    b_ms, b_by = roofline(ops_bf16, nbytes, PEAK_BF16_FLOPS / 3)
+    cps, hpb, grid = segment_plan(B, H, T)
+    fn = lambda: ssd_core(xs, Bm, Cm, dt, la)  # noqa: E731
+    plain = lambda: ssd_scan_chunked(  # noqa: E731
+        xs.transpose(1, 2), Bm[:, None], Cm[:, None], dt.transpose(1, 2),
+        la.transpose(1, 2))
+    with torch.inference_mode():
+        eager, graphed, best = _device_times(fn, plain, None, (20, 3, 0))
+    log(f"ssd_scan a rank's heads B={B} T={T} H={H} p={p} n={n} (bf16): "
+        f"device ms by graph replay: kernel {best['ms']:.4f}, plain "
+        f"{best['plain_ms']:.4f}; eager kernel {eager['ms']:.4f}; bound "
+        f"{b_ms:.4f} ms ({b_by}), {b_ms / best['ms']:.1%} of bound; plan "
+        f"{cps} chunks a segment, {hpb} heads a block, grid {grid}; parity "
+        f"max |d| {err:.3e} (max |ref| {top:.3f}), {worst:.3f} of the "
+        f"bound; launches in 24 (b) by rank {launches}; {card}")
+    del xs, Bm, Cm, dt, la
+    torch.cuda.empty_cache()
+    return {"name": "ssd_scan", "route": "cuda",
+            "source": "src/repro_torch/kernels/ssd_chunk/csrc/ssd_chunk.cu",
+            "replaces": "src/repro/kernels/ssd_chunk/kernel.py:80",
+            "launches": sum(launches), "launches_by_rank": launches,
+            "max_abs_err": err, **best, "bound_ms": b_ms, "bound_by": b_by,
+            "eager_ms": eager, "graph_ms": graphed,
+            "library_note": "no single PyTorch call computes it",
+            "shape": {"B": B, "T": T, "H": H, "p": p, "n": n,
+                      "config": BACKBONE, "heads_of": 80, "model_axis": 2,
+                      "plan": {"chunks_per_segment": cps,
+                               "heads_per_block": hpb, "grid": grid}}}
+
+
+def phase_ranks_recurrent(card, sweep=None, spawned=None):
+    """Phase 24: the per-rank program of the recurrent families: (a)
+    rank 0's records of rwkv6-1.6b and zamba2-2.7b on the production
+    meshes, traced on meta (``sweep``, from ``rr_sweep_start``; started
+    here if None); (b) both on four ranks sharing the card over gloo,
+    held to one process (``spawned``, from ``ranks_spawn``; spawned
+    here if None); (c) the account of (b)'s zamba2 step
+    in a fake world of the same (2, 2), held to what rank 0 issued and
+    allocated; (d) a rank's ssd_scan timed for the kernels line."""
+    t_phase = time.perf_counter()
+    sweep = _rf_sweep(sweep or rr_sweep_start(), "24 (a)",
+                      "of the ssm and hybrid families (full depth)",
+                      RR_SWEEP_TARGET_S)
+    shape = InputShape("held", RR_TRAIN[1], RR_TRAIN[0], "train")
+    with card_figures.fake_world(card_figures.Mesh(("data", "model"),
+                                                   RK_MESH)) as live:
+        acct = dryrun.rank_account(_rr_cfg(BACKBONE, "bfloat16"), shape,
+                                   live)
+    spawned = spawned or ranks_spawn(recurrent=True)
+    ranks, spawn_s = spawned["recurrent"], spawned["spawn_s"]
+    r0 = ranks[0]
+    note = (f"{card}; {len(ranks)} ranks share one card over "
+            f"{r0['backend']}, which stages every collective through the "
+            f"host")
+    failed = [f"24 (a) {k}" for k in sweep["bad"]]
+
+    def hold(ok, what):
+        if not ok:
+            failed.append(what)
+
+    # launches a rank a prefill: zamba2's one ssd_scan a mamba layer (its
+    # 40 heads) and one flash_attention a use of the shared block; rwkv6
+    # has no kernel of its own
+    zl = RR_CUT[BACKBONE]["n_layers"]
+    want = {RWKV: {"launches": 0, "ssd_launches": 0},
+            BACKBONE: {"launches": zl // RR_CUT[BACKBONE][
+                "shared_attn_every"], "ssd_launches": zl}}
+    what = {RWKV: "16 of 32 heads of 64 and 3,584 of 7,168 ffn columns a "
+                  "rank; the wkv state's key dim over model in the plan, "
+                  "its heads in the rank's work",
+            BACKBONE: "40 of 80 mamba2 heads of 64 a rank, w_xbc gathered "
+                      "whole, the gated norm's squares summed over model; "
+                      "the shared block's 16 of 32 heads of 80"}
+    for arch in (RWKV, BACKBONE):
+        for dtype, p in r0[arch]["prefill"].items():
+            bound = DECODE_REL_BOUND if dtype == "float32" else \
+                RK_BF16_SLACK * r0[arch]["prefill"]["bfloat16"]["bf16_err"]
+            hold(p["err"] <= bound, f"{arch} prefill {dtype}")
+            hold(all(r[arch]["prefill"][dtype]["checksum"] == p["checksum"]
+                     for r in ranks), f"{arch} prefill {dtype} ranks differ")
+            got = {k: [r[arch]["prefill"][dtype][k] for r in ranks]
+                   for k in ("launches", "ssd_launches")}
+            hold(all(n == want[arch][k] for k, ns in got.items()
+                     for n in ns), f"{arch} prefill {dtype} launches {got}")
+            log(f"24 (b) {arch} prefill ({RR_CUT[arch]} at full width, B "
+                f"{RR_PREFILL[0]} x T {RR_PREFILL[1]}, {dtype}, "
+                f"{what[arch]}): {p['ms']:.2f} ms over ranks against "
+                f"{p['one_ms']:.2f} ms one process (device ms, CUDA events on "
+                f"rank 0); logits within {p['err']:.3e} x max of one "
+                f"process's (bound {bound:.3e}"
+                + ("" if dtype == "float32" else ", twice its bf16 forward's "
+                   "own distance from f32") + f"); ssd_scan launches by rank "
+                f"{got['ssd_launches']}, flash_attention {got['launches']} "
+                f"(want {want[arch]}); {note}")
+        tr = r0[arch]["train"]
+        loss_rel = abs(tr["loss"] - tr["one_loss"]) / abs(tr["one_loss"])
+        shift = abs(tr["one_loss"] - tr["loss32"])
+        loss_bound = RK_BF16_SLACK * (shift + RF_LOSS_SE * tr["tok_se"]) \
+            / abs(tr["loss32"])
+        m_share = max(e / (RK_BF16_SLACK * b + 1e-12) for e, b in
+                      zip(tr["errs"]["m"], tr["bf16_m_err"]))
+        hold(loss_rel <= loss_bound, f"{arch} train loss")
+        hold(m_share <= 1.0, f"{arch} train first moments")
+        hold(max(tr["errs"]["params"]) <= 2 * RK_LR + 1e-6,
+             f"{arch} train params")
+        log(f"24 (b) {arch} training ({RR_CUT[arch]}, B {RR_TRAIN[0]} x T "
+            f"{RR_TRAIN[1]}, bf16 activations, f32 weights, AdamW lr "
+            f"{RK_LR}, remat): {tr['ms']:.1f} ms a step over ranks against "
+            f"{tr['one_ms']:.1f} ms one process (device ms); loss "
+            f"{tr['loss']:.5f} against {tr['one_loss']:.5f} one process "
+            f"(rel {loss_rel:.2e}; bound {loss_bound:.2e}: twice bf16's own "
+            f"distance from f32, {shift:.3e}, plus {RF_LOSS_SE:g} x its "
+            f"per-token standard error {tr['tok_se']:.3e}); moments: the "
+            f"worst leaf at {m_share:.3f} of twice its bf16-to-f32 "
+            f"distance; parameters within {max(tr['errs']['params']):.3e} "
+            f"(bound 2 lr); {note}")
+        dc = r0[arch]["decode"]
+        hold(dc["err"] <= DECODE_REL_BOUND, f"{arch} decode")
+        hold(all(r[arch]["decode"]["checksum"] == dc["checksum"]
+                 for r in ranks), f"{arch} decode ranks differ")
+        log(f"24 (b) {arch} decode (B {RR_DECODE[0]}, {RR_DECODE[1]} tokens, "
+            f"f32, {RR_CUT[arch]}, the cache stacked under the plan's specs "
+            f"and moved to the rank's layout and back each step): "
+            f"{dc['ranks']['ms_token']:.2f} ms/token over ranks against "
+            f"{dc['one']['ms_token']:.2f} one process (device ms, CUDA "
+            f"events on rank 0); logits within {dc['err']:.3e} (bound "
+            f"{DECODE_REL_BOUND}); {note}")
+    tr = r0[BACKBONE]["train"]
+    live_c, acct_c = tr["collectives"], acct["collectives"]
+    same = live_c["counts"] == acct_c["counts"] and \
+        live_c["bytes"] == acct_c["bytes"]
+    hold(same, "account collectives")
+    ratio = acct["peak_bytes"] / tr["peak"]
+    lo, hi = PEAK_RATIO_BAND
+    hold(lo <= ratio <= hi, "account peak")
+    hold(acct["memory"]["argument_size"] == tr["argument"],
+         "account arguments")
+    log(f"24 (c) account of the {BACKBONE} step in a fake world of (2, 2): "
+        f"collectives {acct_c['counts']} ({acct_c['total_bytes'] / 1e9:.4f} "
+        f"GB), rank 0 issued {live_c['counts']} "
+        f"({live_c['total_bytes'] / 1e9:.4f} GB): equal {same}; peak "
+        f"{acct['peak_bytes'] / 1e9:.3f} GB against rank 0's "
+        f"{tr['peak'] / 1e9:.3f} GB (ratio {ratio:.3f}, band "
+        f"{PEAK_RATIO_BAND}); arguments {acct['memory']['argument_size']} "
+        f"B, rank 0's {tr['argument']} B; {note}")
+    log(f"24 ranks: peak GB {[round(r['peak_gb'], 2) for r in ranks]}; s "
+        f"by model on rank 0 "
+        f"{dict((k, round(v, 1)) for k, v in r0['t'].items())}; spawn and "
+        f"work {spawn_s:.1f} s ({spawned['phases']}); {note}")
+    launches = {k: [sum(r[a]["prefill"][d][f] for a in (RWKV, BACKBONE)
+                        for d in r[a]["prefill"]) for r in ranks]
+                for k, f in (("ssd_scan", "ssd_launches"),
+                             ("flash_attention", "launches"))}
+    entry = _rr_ssd_entry(launches["ssd_scan"], card)
+    out = {"card": card, "sweep_s": sweep["sweep_s"],
+           "sweep_trace_s": sweep["trace_s"], "sweep_wait_s": sweep["wait_s"],
+           "records": {k: {f: v.get(f) for f in (
+               "status", "flops_per_chip", "hbm_bytes_per_chip", "memory",
+               "collectives", "roofline", "trace_s")}
+               for k, v in sweep["records"].items()},
+           "prefill": {a: r0[a]["prefill"] for a in (RWKV, BACKBONE)},
+           "train": {a: {k: r0[a]["train"].get(k) for k in (
+               "ms", "one_ms", "loss", "one_loss", "loss32", "gnorm",
+               "one_gnorm", "peak", "argument")} for a in (RWKV, BACKBONE)},
+           "decode": {a: r0[a]["decode"] for a in (RWKV, BACKBONE)},
+           "account": {"collectives": acct_c, "peak": acct["peak_bytes"],
+                       "ratio": ratio},
+           "spawn_s": spawn_s, "ssd_entry": entry, "launches": launches,
+           "phase_s": time.perf_counter() - t_phase}
+    log(f"per-rank recurrent phase {out['phase_s']:.1f} s")
+    assert not failed, f"phase 24 failed: {failed}"
+    return out
+
+
+# -- phases 22-24 (b): one spawn ------------------------------------------
+
+# (b) of phases 22-24 run in one spawn of four ranks (``ranks_spawn``): a
+# spawn costs each rank its start (13 s in phase 21), a CUDA context and a
+# group; each phase's part runs in turn, its models freed before the next
+RANKS_PARTS = {"dense": (_rk_rank, _rk_inputs),
+               "families": (_rf_rank, _rf_inputs),
+               "recurrent": (_rr_rank, _rr_inputs)}
+
+
+def _ranks_rank(inp):
+    """One rank of ``ranks_spawn``: each part of ``inp`` (RANKS_PARTS'
+    names) in turn on one mesh of (data 2, model 2); each part's result
+    with this rank's index, backend and the part's peak device
+    memory."""
+    mesh = card_figures.make_local_mesh(data=RK_MESH[0], model=RK_MESH[1])
+    out = {}
+    for name, part in inp.items():
+        torch.cuda.reset_peak_memory_stats()
+        res = RANKS_PARTS[name][0](part, mesh)
+        res.update(rank=mesh.rank, backend=mesh.backend,
+                   peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+        out[name] = res
+    return out
+
+
+def ranks_spawn(dense=False, families=False, recurrent=False):
+    """(b) of the phases named, in one spawn of four ranks sharing the
+    card: {part: [each rank's result], "spawn_s": seconds, "phases":
+    which}."""
+    parts = [n for n, on in (("dense", dense), ("families", families),
+                             ("recurrent", recurrent)) if on]
+    inp = {n: RANKS_PARTS[n][1]() for n in parts}
+    t0 = time.perf_counter()
+    ranks = spawn(_ranks_rank, RK_MESH[0] * RK_MESH[1], args=(inp,),
+                  timeout=RK_TIMEOUT)
+    out = {n: [r[n] for r in ranks] for n in parts}
+    out["spawn_s"] = time.perf_counter() - t0
+    out["phases"] = "one spawn for " + ", ".join(
+        {"dense": "22", "families": "23", "recurrent": "24"}[n]
+        for n in parts)
     return out
 
 
@@ -8670,6 +9044,8 @@ def main():
     log(f"backbone parity done at {time.perf_counter() - t0:.1f}s")
     sweep = rk_sweep_start()        # phase 22 (a), on the host's idle cores
     rf_sweep = rf_sweep_start()     # phase 23 (a), beside it
+    account_sweep = account_sweep_start()     # phase 19 (a)
+    rr_sweep = rr_sweep_start()     # phase 24 (a)
     gemma = phase_gemma()
     log(f"gemma forward done at {time.perf_counter() - t0:.1f}s")
     model, requests, svc = phase_embedding_service()
@@ -8708,7 +9084,7 @@ def main():
     log(f"vlm and audio done at {time.perf_counter() - t0:.1f}s")
     gc.collect()
     torch.cuda.empty_cache()
-    account = phase_account()
+    account = phase_account(account_sweep)
     log(f"account done at {time.perf_counter() - t0:.1f}s")
     gc.collect()
     torch.cuda.empty_cache()
@@ -8721,12 +9097,16 @@ def main():
     log(f"multi-rank moe done at {time.perf_counter() - t0:.1f}s")
     gc.collect()
     torch.cuda.empty_cache()
-    ranks = phase_ranks(card, sweep)
+    spawned = ranks_spawn(dense=True, families=True, recurrent=True)
+    log(f"ranks of phases 22-24 done at {time.perf_counter() - t0:.1f}s")
+    ranks = phase_ranks(card, sweep, spawned)
     log(f"per-rank program done at {time.perf_counter() - t0:.1f}s")
-    gc.collect()
-    torch.cuda.empty_cache()
-    families = phase_ranks_families(card, rf_sweep)
+    families = phase_ranks_families(card, rf_sweep, spawned)
     log(f"per-rank families done at {time.perf_counter() - t0:.1f}s")
+    recurrent = phase_ranks_recurrent(card, rr_sweep, spawned)
+    del spawned
+    log(f"per-rank recurrent families done at "
+        f"{time.perf_counter() - t0:.1f}s")
     # the backbone kernels' launches in phases 12-15: apply through the
     # kernels beside decode (window, ring; gemma) and beside the first
     # training step (decode and the training steps launch none)
@@ -8761,13 +9141,18 @@ def main():
         if entry["name"] in families["launches"]:
             entry["per_rank_families_launches_by_rank"] = \
                 families["launches"][entry["name"]]
+        if entry["name"] in recurrent["launches"]:
+            entry["per_rank_recurrent_launches_by_rank"] = \
+                recurrent["launches"][entry["name"]]
     entries += frame_entries        # flash_attention at phase 18's shapes
     entries.append(families.pop("cp_entry"))    # a context-parallel slice
+    entries.append(recurrent.pop("ssd_entry"))  # a rank's SSD heads
     print(json.dumps({"decode": decode, "training": training, RWKV: rwkv,
                       "moe": moe_out, "vlm_audio": vlm_audio,
                       "account": account, "multirank": multirank,
                       "multirank_moe": multirank_moe, "ranks": ranks,
-                      "ranks_families": families}),
+                      "ranks_families": families,
+                      "ranks_recurrent": recurrent}),
           flush=True)
     print(json.dumps({"kernels": entries}), flush=True)
     log(f"total {time.perf_counter() - t0:.1f}s")

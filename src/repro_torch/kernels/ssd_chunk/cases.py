@@ -4,8 +4,10 @@ bf16 and f32. Inputs are made by ``inputs`` from a seed.
 
 ``PARITY`` (B, H, T, p, n) goes through ``ssd_core`` under the default
 ``segment_plan``: the CPU tests' shapes, ragged T (1, 100, 1000),
-reduced zamba2's p 128 / n 16, 80 heads at p = n = 64, and p, n of 1
-and of 5 / 3 (rows no tensor map takes).
+reduced zamba2's p 128 / n 16, 80 heads at p = n = 64, a rank's heads
+of zamba2 on a model axis of 16 and of 2 (5, an odd head in a pair's
+block, and 40), and p, n of 1 and of 5 / 3 (rows no tensor map
+takes).
 ``PLANNED`` (B, H, T, p, n, chunks_per_segment) forces segments: T one
 past, one short of and exactly at segment edges, a last segment of one
 partial chunk, 2 to 32 segments, H = 3 (a head pair with one head) and
@@ -37,7 +39,8 @@ from repro_torch.kernels.ssd_chunk.ref import ssd_scan_chunked
 PARITY = [(1, 4, 64, 16, 8), (1, 2, 128, 64, 64), (1, 8, 96, 32, 16),
           (1, 1, 256, 64, 64), (1, 3, 32, 8, 8), (2, 4, 100, 128, 16),
           (2, 80, 200, 64, 64), (1, 2, 1, 64, 64), (2, 4, 128, 128, 16),
-          (2, 80, 1000, 64, 64), (1, 3, 130, 1, 1), (1, 2, 70, 5, 3)]
+          (2, 80, 1000, 64, 64), (1, 3, 130, 1, 1), (1, 2, 70, 5, 3),
+          (1, 5, 4096, 64, 64), (2, 40, 1000, 64, 64)]
 
 PLANNED = [(1, 3, 64 * 4 * 3 + 1, 8, 8, 4), (1, 3, 64 * 4 * 2 - 1, 64, 64, 4),
            (2, 80, 64 * 8 * 2, 64, 64, 8), (1, 5, 1000, 128, 64, 2),

@@ -27,12 +27,12 @@ FLOPs, HBM bytes, memory, and the collectives it issues by the
 reference's kinds, with the roofline's ``collective_s`` at each group's
 link (``launch/mesh.link``). Its ``argument_size`` must equal the
 sharding plan's (``plan_arguments``: parameter, AdamW-state and input or
-cache shards). The dense, moe, vlm and audio families
-(``Model.PER_RANK``: the moe layers' expert map nested in the program,
-the frame / patch projection on a rank's rows, hubert's non-causal
-attention and biases) and the paper's DML configs have it; the ssm and
-hybrid families' records are the plan alone, status ``"plan"`` (their
-per-rank programs are the second part of ROADMAP.md Queue 1 item 8f).
+cache shards). Every family has it (the moe layers' expert map nested
+in the program, the frame / patch projection on a rank's rows, hubert's
+non-causal attention and biases, rwkv6's and zamba2's mixers on the
+rank's heads, their decode caches moved between the plan's stacked
+layout and the rank's working one), and so do the paper's DML
+configs.
 
 The counts follow ``cost_analysis``'s rules; two matter when a record is
 read against the card. The plain attention computes the full T x S
@@ -66,7 +66,7 @@ import torch
 from repro_torch.configs import SHAPES, get_config, get_shape, list_configs
 from repro_torch.configs.base import ArchConfig, InputShape, RunConfig
 from repro_torch.launch import cost_analysis, mesh as mesh_lib, steps
-from repro_torch.models.transformer import Model
+from repro_torch.models.transformer import Model, stack_cache
 from repro_torch.sharding import partition
 from repro_torch.sharding.partition import local_shape, logical_to_physical
 
@@ -241,9 +241,8 @@ def dryrun_one(arch: str, shape_name: str, mesh: str = "h100",
                loss_chunks: int = 8, overrides: dict = None) -> dict:
     """The record of one combination on ``mesh``, a name of
     ``mesh.MESHES``: the account on one H100 (``"h100"``), or one rank's
-    program on a production mesh (``"16x16"``, ``"pod2x16x16"``; the
-    plan's per-rank arguments alone, ``plan_record``, for the families
-    whose program is ROADMAP.md Queue 1 item 8f's second part).
+    program on a production mesh (``"16x16"``, ``"pod2x16x16"``), its
+    arguments held to the plan's (``plan_record``).
 
     ``overrides``: ArchConfig.replace(**overrides) knobs (chunk sizes,
     dtypes, ...)."""
@@ -251,10 +250,7 @@ def dryrun_one(arch: str, shape_name: str, mesh: str = "h100",
     if head.get("status") == "skipped":
         return head
     if mesh != "h100":
-        rec = plan_record(arch, shape_name, mesh, overrides)
-        if cfg.family not in Model.PER_RANK:
-            return {**rec, "pending": PENDING}
-        plan = rec["memory"]
+        plan = plan_record(arch, shape_name, mesh, overrides)["memory"]
         with mesh_lib.fake_world(mesh) as live:
             acct = rank_account(cfg, shape, live, loss_chunks)
         if acct["memory"]["argument_size"] != plan["argument_size"]:
@@ -286,10 +282,6 @@ def dryrun_one(arch: str, shape_name: str, mesh: str = "h100",
             "model_flops": model_flops(cfg, shape), **rec}
 
 
-# the families whose per-rank program is still to come (ssm, hybrid)
-PENDING = "per-rank program: ROADMAP.md Queue 1 item 8f, second part"
-
-
 def rank_map(cfg: ArchConfig, shape: InputShape, live,
              loss_chunks: int = 8):
     """(per-rank map, its global arguments as meta tensors) of the step
@@ -307,6 +299,8 @@ def rank_map(cfg: ArchConfig, shape: InputShape, live,
         return model.rank_map(live, specs, "logits", plain=False), \
             (model.param_tree(), specs)
     cache = steps.cache_shape_structs(model, shape)
+    if model.recurrent:         # the reference's stacked layout
+        cache = stack_cache(cache)
     return model.rank_decode_map(live, cache, specs["tokens"].shape,
                                  shape.seq_len - 1), \
         (model.param_tree(), cache, specs["tokens"])
@@ -480,10 +474,6 @@ def summary_line(key: str, rec: dict) -> str:
     the roofline terms and the trace's seconds."""
     if rec["status"] == "skipped":
         return f"[dryrun] {key}: SKIPPED ({rec['reason']})"
-    if rec["status"] == "plan":
-        return (f"[dryrun] {key}: plan argument "
-                f"{rec['memory']['argument_size'] / 1e9:.3f} GB a rank "
-                f"({rec['pending']})")
     if rec["status"] != "ok":
         return f"[dryrun] {key}: ERROR {rec['error']}"
     t, m = rec["roofline"], rec["memory"]
@@ -575,7 +565,7 @@ def main(argv=None):
     for arch, shape in combos:
         key = f"{arch}|{shape}"
         if args.skip_done and records.get(key, {}).get("status") in (
-                "ok", "skipped", "plan"):
+                "ok", "skipped"):
             print(f"[dryrun] {key}: cached, skipping", flush=True)
         else:
             todo.append(Job(arch, shape))

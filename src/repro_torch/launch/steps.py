@@ -12,9 +12,9 @@ return the reference's plans as specs (``sharding/partition.py``);
 ``partition.NamedSharding`` pairs, which ``checkpoint.restore_checkpoint``
 places leaves by.
 
-The step builders take the reference's ``mesh=``. On a live mesh the
-dense, moe, vlm and audio families run the whole step per rank, in one
-``partition.shard_map`` over the plan's specs (``param_shardings``,
+The step builders take the reference's ``mesh=``. On a live mesh every
+family runs the whole step per rank, in one ``partition.shard_map`` over
+the plan's specs (``param_shardings``,
 ``make_state_shardings``, ``input_shardings``, ``cache_shardings``): the
 model's per-rank program (``Model.rank_hidden``, tokens or frame / patch
 embeddings in; the moe layers expert-parallel inside it), the
@@ -27,8 +27,6 @@ every leaf's partials psummed over the axes it is replicated on,
 ``clip_by_global_norm`` on psummed squared norms and AdamW on the
 shards. The step takes and returns global values; ``rank_train_map``
 gives the map, whose ``body`` the dry run traces on one rank's blocks.
-The ssm and hybrid families compute as without a mesh (ROADMAP.md Queue
-1 item 8f, second part).
 
 The training forward is ``Model.hidden(..., plain=True)``: the
 reference's own training forms (chunked SSD, chunked rwkv6, naive or
@@ -49,7 +47,7 @@ from repro_torch.configs.base import ArchConfig, InputShape, RunConfig
 from repro_torch.core import losses
 from repro_torch.launch.mesh import LiveMesh, Mesh
 from repro_torch.models import attention, common
-from repro_torch.models.transformer import Model
+from repro_torch.models.transformer import Model, stacked_cache_specs
 from repro_torch.optim import (Optimizer, adam, adamw, apply_updates,
                                clip_by_global_norm, momentum, schedules, sgd)
 from repro_torch.sharding import partition
@@ -330,37 +328,21 @@ def clip_by_global_norm_rank(grads, specs, mesh, max_norm: float):
     return tree_map(lambda g: g * scale, grads), gn
 
 
-def _reblock(x, src, dst, mesh):
-    """This rank's block ``x`` under the spec ``src`` as its block under
-    ``dst``: a dimension replicated in ``src`` and sharded in ``dst`` is
-    cut to this rank's block (no collective), one sharded in ``src`` and
-    replicated in ``dst`` all-gathered."""
-    for dim in range(max(len(src), len(dst))):
-        a = src[dim] if dim < len(src) else None
-        b = dst[dim] if dim < len(dst) else None
-        if a == b:
-            continue
-        if a is None:
-            step = x.shape[dim] // mesh.axis_size(b)
-            x = x.narrow(dim, mesh.axis_index(b) * step, step)
-        elif b is None:
-            x = partition.all_gather(x, a, mesh, axis=dim, tiled=True)
-        else:
-            raise NotImplementedError(f"a block of {src} as one of {dst}")
-    return x
-
-
 def _relayout(tree, src, dst, mesh):
     """Each leaf of ``tree`` (blocks under the spec tree ``src``) as its
-    block under ``dst`` (``_reblock``). The reference's AdamW moments
-    take the spec of the first parameter of their stacked shape
-    (``make_state_shardings``): hubert's norm scales and biases share
-    (layers, d) with ``bo``, so their moments are sharded over ``data``
-    while the leaves are replicated, and the update runs on the
-    moments' blocks."""
+    block under ``dst`` (``partition.reblock``). The reference's AdamW
+    moments take the spec of the first parameter of their stacked shape
+    (``make_state_shardings``), and the update runs on the moments'
+    blocks: hubert's norm scales and biases share (layers, d) with
+    ``bo``, so their moments are sharded over ``data`` while the leaves
+    are replicated; rwkv6's time-mix projections share (layers, d, d)
+    with the channel mix's ``w_r`` (``("data", None)``), so the moments
+    of ``w_o`` (``("model", "data")``) move ``data`` from one dimension
+    to the other; zamba2's shared ``b_down`` (``("data",)``) shares (d,)
+    with the norm scales, whose moments are replicated."""
     pairs = zip(partition.spec_leaves(tree, src),
                 partition.spec_leaves(tree, dst))
-    it = iter([x if a == b else _reblock(x, a, b, mesh)
+    it = iter([x if a == b else partition.reblock(x, a, b, mesh)
                for (x, a), (_, b) in pairs])
     return tree_map(lambda _: next(it), tree)
 
@@ -371,12 +353,11 @@ def _meta(tree):
 
 
 def _rank_loss(model: Model, specs, ranks, remat: bool, loss_chunks: int):
-    """The per-rank loss of a family of ``Model.PER_RANK`` over this
-    rank's blocks (params under ``specs``, the batch under
-    ``input_shardings``): the cross-entropy over vocab-sharded logits,
-    the mean over the batch shards, plus ``moe_aux_weight`` times the
-    moe layers' aux; (loss, {"ce", "moe_aux"}), the same on every
-    rank."""
+    """The per-rank loss over this rank's blocks (params under
+    ``specs``, the batch under ``input_shardings``): the cross-entropy
+    over vocab-sharded logits, the mean over the batch shards, plus
+    ``moe_aux_weight`` times the moe layers' aux; (loss, {"ce",
+    "moe_aux"}), the same on every rank."""
     mesh = ranks.mesh
     n_batch = mesh.axis_size(ranks.batch) if ranks.batch else 1
 
@@ -398,10 +379,9 @@ def train_loss(model: Model, params, batch, mesh=None, remat: bool = False,
                loss_chunks: int = 8):
     """``make_train_step``'s loss of ``params`` (a ``param_tree()``-shaped
     tree) on ``batch``: (the reference's ce + moe_aux_weight * moe_aux,
-    {"ce", "moe_aux"}). On a live ``mesh`` a family of
-    ``Model.PER_RANK`` computes it per rank (the step's own loss, in one
-    ``partition.shard_map`` over global values); otherwise through
-    ``Model.hidden`` and ``chunked_ce_loss``."""
+    {"ce", "moe_aux"}). On a live ``mesh`` it is computed per rank (the
+    step's own loss, in one ``partition.shard_map`` over global values);
+    otherwise through ``Model.hidden`` and ``chunked_ce_loss``."""
     if model.per_rank(mesh):
         specs = model.param_specs(mesh)
         return partition.shard_map(
@@ -417,11 +397,11 @@ def train_loss(model: Model, params, batch, mesh=None, remat: bool = False,
 
 def rank_train_map(model: Model, opt: Optimizer, run: RunConfig, mesh,
                    batch, loss_chunks: int = 8):
-    """The train step of a family of ``Model.PER_RANK`` for batches
-    shaped as ``batch`` as one per-rank ``partition.shard_map`` over
-    (state, batch) (the module docstring); its ``body`` takes this
-    rank's blocks. The loss is ``_rank_loss``, the reference's: the
-    cross-entropy plus ``moe_aux_weight`` times the moe layers' aux."""
+    """The train step for batches shaped as ``batch`` as one per-rank
+    ``partition.shard_map`` over (state, batch) (the module docstring);
+    its ``body`` takes this rank's blocks. The loss is ``_rank_loss``,
+    the reference's: the cross-entropy plus ``moe_aux_weight`` times the
+    moe layers' aux."""
     specs = model.param_specs(mesh)
     meta = _meta(model.param_tree())
     sshard = make_state_shardings(
@@ -501,8 +481,7 @@ def make_train_step(model: Model, opt: Optimizer, run: RunConfig,
 
 def make_prefill_step(model: Model, run: RunConfig, mesh=None):
     """``prefill_step(batch) -> logits`` on the model's weights (per rank
-    on a live mesh for the families of ``Model.PER_RANK``:
-    ``Model.rank_map``)."""
+    on a live mesh: ``Model.rank_map``)."""
     def prefill_step(batch):
         logits, aux = model.apply(batch, mesh=mesh)
         return logits
@@ -553,32 +532,6 @@ def cache_shardings(model: Model, cfg: ArchConfig, shape: InputShape,
                     mesh: Mesh) -> dict:
     """Specs of the decode cache in the reference's stacked layout
     (``stacked_cache_shapes``; ``transformer.stack_blocks`` stacks a
-    cache so). The per-layer lists have no layers axis for a rule to
-    shard, and the reference's rule shards it for some leaves: the
-    4-dim stacked conv history takes the SSM state's axes and the
-    3-dim stacked token shifts the batch's, so their layers axis goes
-    over ``pod`` where it divides."""
-    kv_axes = cache_logical_axes(cfg, mesh)
-
-    def leaf_spec(shp):
-        if len(shp) == 4 and shp[1] > 1 and shp[3] == cfg.dim_per_head:
-            lg = kv_axes(shp)
-        elif len(shp) == 5:
-            # stacked (L, B, S, K, Dh) KV caches / (L,B,H,p,n) ssm states
-            if shp[4] == cfg.dim_per_head and shp[2] > 8:
-                lg = (None,) + kv_axes(shp[1:])
-            else:
-                lg = (None, "batch", "heads", None, None)
-        elif len(shp) == 4:
-            lg = ("batch", "heads", None, None)      # ssm state (B,H,p,n)
-        elif len(shp) == 3:
-            lg = ("batch", None, None)               # conv history (B,W,C)
-        elif len(shp) == 2:
-            lg = ("batch", None)                     # rwkv x_prev (B,d)
-        else:
-            lg = tuple(None for _ in shp)
-        return logical_to_physical(lg, mesh, shape=shp)
-
-    stacked = stacked_cache_shapes(cache_shape_structs(model, shape))
-    return {k: type(c)(*(leaf_spec(s) for s in c))
-            for k, c in stacked.items()}
+    cache so), by ``transformer.stacked_cache_specs``' rule."""
+    return stacked_cache_specs(
+        cfg, stacked_cache_shapes(cache_shape_structs(model, shape)), mesh)

@@ -6,7 +6,7 @@ Parameters are nested dicts of tensors (``init_*`` builds them from a
 from ``META``); the ``apply``-style functions take any mapping with the
 reference's keys, such as the model's ``ParamTree`` modules.
 
-``Ranks`` is an attention model's per-rank program on a live mesh (the
+``Ranks`` is a model's per-rank program on a live mesh (the
 sharding plan's blocks, ``sharding/partition.py``): FSDP gathers over
 the batch axes, the sequence-parallel residual over ``model``, the
 vocab-parallel embedding (``embed_tokens_rank``) or the frame / patch
@@ -157,7 +157,7 @@ def _axes(entry):
 
 
 class Ranks:
-    """One rank of an attention model's program on a live ``mesh``: weights
+    """One rank of a model's program on a live ``mesh``: weights
     arrive as this rank's blocks of the plan's specs; ``gather`` is the
     FSDP all-gather of a weight over every axis but ``model`` that its
     spec shards it on; the residual between blocks is sequence-parallel
@@ -202,6 +202,15 @@ class Ranks:
 
     def psum_model(self, x):
         return partition.psum(x, "model", self.mesh) if self.model else x
+
+    def sum_heads(self, x):
+        """The sum over ``model`` of a value each rank computes on its
+        own heads and reads again on them (a norm over every head): one
+        all-reduce, and ``partition.pvary`` so that its backward sums the
+        ranks' cotangents."""
+        if not self.model:
+            return x
+        return partition.pvary(self.psum_model(x), "model", self.mesh)
 
     def reduce(self, y, kind: str, sp: bool):
         """A sublayer's output as the residual: ``"partial"`` (sums over

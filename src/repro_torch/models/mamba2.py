@@ -20,6 +20,17 @@ Three forms of the same function:
 Decode is the exact single-step recurrence (``decode_step``) over a
 ``MambaCache``: the f32 state ``h`` and the causal conv's last W-1
 inputs in the activation dtype.
+
+On a live mesh (``common.Ranks``) a rank runs its block of the heads:
+``apply_mamba2_rank`` (either form) and ``decode_step_rank`` take the
+rank's columns of ``w_z``, ``w_dt``, ``w_out`` and of the replicated
+vectors, and of ``w_xbc`` its heads' ``xs`` columns and all of B and C:
+``w_xbc``'s block over ``model`` does not fall on heads (conv_ch = d_in
++ 2n), so the weight is gathered whole (its backward a reduce-scatter
+that gives each rank's block its gradient). The forms read their head
+count from the weights they are given; the gated RMSNorm sums its
+squares over every head (one all-reduce over ``model``), and ``w_out``
+is row-parallel: the output is a partial.
 """
 
 from __future__ import annotations
@@ -34,6 +45,7 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels._dispatch import full_f32
 from repro_torch.kernels.ssd_chunk import ssd_core
 from repro_torch.models import common
+from repro_torch.sharding import partition
 
 
 class MambaCache(NamedTuple):
@@ -82,6 +94,13 @@ def logical_axes(cfg: ArchConfig) -> dict:
     }
 
 
+def _local_dims(p, cfg: ArchConfig):
+    """(d_in, H, p, n) of the weights ``p``: the whole layer's, or a
+    rank's block of the heads."""
+    d_in, H = p["w_z"].shape[1], p["A_log"].shape[0]
+    return d_in, H, d_in // H, cfg.ssm_state
+
+
 def _causal_conv(x, w, b, history=None):
     """Depthwise causal conv. x (B,T,C), w (W,C). history (B,W-1,C) or
     None (zeros). The shifted sum of the reference, so no convolution
@@ -106,11 +125,18 @@ def _proj_split(p, x, cfg: ArchConfig):
     return z, xbc, dt_raw
 
 
-def _post(p, y, z, cfg: ArchConfig):
-    """Gated RMSNorm + output projection. y,z (B,T,d_in)."""
+def _post(p, y, z, cfg: ArchConfig, ranks=None):
+    """Gated RMSNorm + output projection. y,z (B,T,d_in). With ``ranks``
+    y and z are a rank's heads: the norm's mean square is over every
+    head (its sum over ``model``), and the output a partial."""
     y = y * F.silu(z)
     yf = y.to(torch.float32)
-    var = torch.mean(torch.square(yf), dim=-1, keepdim=True)
+    if ranks is None:
+        var = torch.mean(torch.square(yf), dim=-1, keepdim=True)
+    else:
+        var = ranks.sum_heads(torch.sum(torch.square(yf), dim=-1,
+                                        keepdim=True)) \
+            / (cfg.ssm_expand * cfg.d_model)
     y = (yf * torch.rsqrt(var + 1e-5) * p["norm_scale"]).to(y.dtype)
     return y @ p["w_out"].to(y.dtype)
 
@@ -119,7 +145,7 @@ def _ssm_inputs(p, x, cfg: ArchConfig):
     """The projections, causal conv and decays shared by every form:
     (z, xs (B,T,H,p), Bm, Cm (B,T,n), dt_v (B,T,H) f32, A (H,))."""
     B, T, d = x.shape
-    d_in, H, ph, n, conv_ch = _dims(cfg)
+    d_in, H, ph, n = _local_dims(p, cfg)
     z, xbc, dt_raw = _proj_split(p, x, cfg)
     xbc = F.silu(_causal_conv(xbc, p["conv_w"], p["conv_b"]))
     xs = xbc[..., :d_in].reshape(B, T, H, ph)
@@ -130,14 +156,15 @@ def _ssm_inputs(p, x, cfg: ArchConfig):
     return z, xs, Bm, Cm, dt_v, A
 
 
-def apply_mamba2(p, x, cfg: ArchConfig, chunk: int = None):
+def apply_mamba2(p, x, cfg: ArchConfig, chunk: int = None, ranks=None):
     """Training/prefill forward, chunked in plain torch. x (B,T,d) ->
     (B,T,d). The (Q, Q) and (Q, H, p) tiles are held in
     ``cfg.ssm_tile_dtype`` and every contraction accumulates in f32, as
-    the reference's ``preferred_element_type``."""
+    the reference's ``preferred_element_type``. ``ranks``: ``p`` is a
+    rank's block of the heads (``rank_weights``; ``_post``)."""
     full_f32()
     B, T, d = x.shape
-    d_in, H, ph, n, conv_ch = _dims(cfg)
+    d_in, H, ph, n = _local_dims(p, cfg)
     dtype = x.dtype
     tile_dt = getattr(torch, cfg.ssm_tile_dtype)
     chunk = min(chunk or cfg.ssm_chunk, T)
@@ -187,21 +214,87 @@ def apply_mamba2(p, x, cfg: ArchConfig, chunk: int = None):
     y = torch.cat(ys, dim=1)
     y = y + p["D"].to(tile_dt)[None, None, :, None] * xs.to(tile_dt)
     y = y.reshape(B, T, d_in).to(dtype)
-    return _post(p, y, z, cfg)
+    return _post(p, y, z, cfg, ranks)
 
 
-def apply_mamba2_kernel(p, x, cfg: ArchConfig):
+def apply_mamba2_kernel(p, x, cfg: ArchConfig, ranks=None):
     """Inference/prefill forward through the SSD kernel: the chunk tiles
     stay in shared memory, device memory sees the SSD inputs and outputs
-    once. Forward-only (training uses ``apply_mamba2``)."""
+    once. Forward-only (training uses ``apply_mamba2``). ``ranks`` as in
+    ``apply_mamba2``: one ``ssd_scan`` on the rank's heads."""
     B, T, d = x.shape
-    d_in = _dims(cfg)[0]
+    d_in = _local_dims(p, cfg)[0]
     z, xs, Bm, Cm, dt_v, A = _ssm_inputs(p, x, cfg)
     la = dt_v * A[None, None, :]
     y, _ = ssd_core(xs, Bm, Cm, dt_v, la)
     y = y + p["D"][None, None, :, None] * xs.to(torch.float32)
     y = y.reshape(B, T, d_in).to(x.dtype)
-    return _post(p, y, z, cfg)
+    return _post(p, y, z, cfg, ranks)
+
+
+def rank_heads(cfg: ArchConfig, s, ranks):
+    """(first head, heads) of this rank: its block of ``w_z``'s columns
+    over ``model`` as whole heads, or every head when they are not
+    split."""
+    d_in, H, ph = _dims(cfg)[:3]
+    if not ranks.on_model(s["w_z"], 1):
+        return 0, H
+    if H % ranks.M:
+        raise NotImplementedError(f"{H} heads of {ph} do not divide a model "
+                                  f"axis of {ranks.M}: w_z's block is not "
+                                  f"whole heads")
+    Hl = H // ranks.M
+    return ranks.m * Hl, Hl
+
+
+def _rank_channels(t, cfg: ArchConfig, h0: int, Hl: int):
+    """The conv channels (last dim of ``t``) of heads [h0, h0 + Hl): their
+    xs columns, then B and C."""
+    d_in, _, ph, n, _ = _dims(cfg)
+    if Hl == _dims(cfg)[1]:
+        return t
+    return torch.cat([t.narrow(-1, h0 * ph, Hl * ph),
+                      t.narrow(-1, d_in, 2 * n)], dim=-1)
+
+
+def rank_weights(p, s, cfg: ArchConfig, ranks):
+    """(this rank's weights, ``w_xbc`` whole), FSDP-gathered: ``w_z``,
+    ``w_dt``, ``dt_bias``, ``A_log``, ``D``, ``norm_scale`` and
+    ``w_out`` on its heads (``rank_heads``), and ``w_xbc``, ``conv_w``,
+    ``conv_b`` on its conv channels: its heads' xs, then B and C.
+    ``w_xbc`` is gathered over ``model`` too when its columns are split
+    there."""
+    ph = _dims(cfg)[2]
+    h0, Hl = rank_heads(cfg, s, ranks)
+    w = {name: ranks.gather(p[name], s[name]) for name in p}
+    if ranks.on_model(s["w_xbc"], 1):
+        w["w_xbc"] = partition.all_gather(w["w_xbc"], "model", ranks.mesh,
+                                          axis=1, tiled=True)
+    xbc_all = w["w_xbc"]
+    if Hl == _dims(cfg)[1]:
+        return w, xbc_all
+    for name in ("w_xbc", "conv_w", "conv_b"):
+        w[name] = _rank_channels(w[name], cfg, h0, Hl)
+    for name in ("w_dt", "dt_bias", "A_log", "D"):
+        w[name] = w[name].narrow(-1, h0, Hl)
+    w["norm_scale"] = w["norm_scale"].narrow(0, h0 * ph, Hl * ph)
+    return w, xbc_all
+
+
+def _rank_kind(s, ranks) -> str:
+    return "partial" if ranks.on_model(s["w_out"], 0) else "full"
+
+
+def apply_mamba2_rank(p, s, x, cfg: ArchConfig, ranks, plain: bool):
+    """One rank's layer of the whole-sequence ``x`` (B,T,d), its weights
+    this rank's blocks of the specs ``s``: (y, kind) for
+    ``Ranks.reduce``. The rank's heads through ``apply_mamba2`` (``plain``)
+    or ``apply_mamba2_kernel`` (one ``ssd_scan`` on the card)."""
+    w = rank_weights(p, s, cfg, ranks)[0]
+    forward = apply_mamba2 if plain else apply_mamba2_kernel
+    kind = _rank_kind(s, ranks)
+    return forward(w, x, cfg, ranks=ranks if kind == "partial" else None), \
+        kind
 
 
 def init_cache(cfg: ArchConfig, batch: int, dtype=torch.float32,
@@ -213,14 +306,14 @@ def init_cache(cfg: ArchConfig, batch: int, dtype=torch.float32,
                          device=device))
 
 
-def decode_step(p, x, cache: MambaCache, cfg: ArchConfig):
+def decode_step(p, x, cache: MambaCache, cfg: ArchConfig, ranks=None):
     """x (B,1,d) -> (y (B,1,d), new cache). Exact recurrence: the conv
     is an einsum over the (W, C) history in x's dtype, the state update
     runs in f32. Returns new tensors; the cache passed in is left as it
-    was."""
+    was. ``ranks`` as in ``apply_mamba2``."""
     full_f32()
     B = x.shape[0]
-    d_in, H, ph, n, conv_ch = _dims(cfg)
+    d_in, H, ph, n = _local_dims(p, cfg)
     dtype = x.dtype
 
     z, xbc, dt_raw = _proj_split(p, x, cfg)
@@ -244,15 +337,31 @@ def decode_step(p, x, cache: MambaCache, cfg: ArchConfig):
     y = torch.einsum("bhpn,bn->bhp", h, Cm.to(torch.float32))
     y = y + p["D"][None, :, None] * xs.to(torch.float32)
     y = y.reshape(B, 1, d_in).to(dtype)
-    out = _post(p, y, z, cfg)
+    out = _post(p, y, z, cfg, ranks)
     return out, MambaCache(h=h, conv=new_conv)
+
+
+def decode_step_rank(p, s, x, cache: MambaCache, cfg: ArchConfig, ranks):
+    """One rank's decode step: x (B,1,d) the same on every ``model``
+    rank, ``cache.h`` the state of its heads, ``cache.conv`` the history
+    of every conv channel. Returns (y, kind, cache): the history takes
+    the new input of every channel (``w_xbc`` whole), the state and the
+    output come from the rank's channels."""
+    w, xbc_all = rank_weights(p, s, cfg, ranks)
+    kind = _rank_kind(s, ranks)
+    mine = _rank_channels(cache.conv, cfg, *rank_heads(cfg, s, ranks))
+    y, new = decode_step(w, x, MambaCache(cache.h, mine), cfg,
+                         ranks if kind == "partial" else None)
+    xbc = (x @ xbc_all.to(x.dtype)).to(cache.conv.dtype)
+    return y, kind, MambaCache(new.h, torch.cat([cache.conv[:, 1:], xbc],
+                                                dim=1))
 
 
 def apply_mamba2_ref(p, x, cfg: ArchConfig):
     """Token-by-token recurrence; numerically exact, O(T) sequential."""
     full_f32()
     B, T, d = x.shape
-    d_in, H, ph, n, conv_ch = _dims(cfg)
+    d_in, H, ph, n = _local_dims(p, cfg)
     z, xs, Bm, Cm, dt_v, A = _ssm_inputs(p, x, cfg)
     h = torch.zeros((B, H, ph, n), dtype=torch.float32, device=x.device)
     ys = []

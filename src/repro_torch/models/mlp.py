@@ -8,7 +8,9 @@ uses that default, so every GELU here is ``approximate="tanh"``
 ``apply_mlp_rank`` is one rank's MLP on a live mesh (``common.Ranks``):
 column-parallel then row-parallel over ``"ffn"`` on ``model`` (the
 reference's ``constrain`` of the hidden layer), its weights all-gathered
-over ``data`` (FSDP).
+over ``data`` (FSDP). The RWKV channel mix's receptance ``w_r`` is
+``("embed", "embed2")``, whole on every rank: it gates the reduced
+output on the rank's own rows.
 """
 
 from __future__ import annotations
@@ -76,16 +78,27 @@ def apply_mlp(p, x, cfg: ArchConfig, x_prev=None):
     raise ValueError(f"unknown mlp_kind {cfg.mlp_kind!r}")
 
 
-def apply_mlp_rank(p, s, x, cfg: ArchConfig, ranks):
+def apply_mlp_rank(p, s, x, cfg: ArchConfig, ranks, x_prev=None,
+                   sp: bool = False):
     """One rank's MLP of the whole-sequence ``x`` (B,T,d), its weights
     this rank's blocks of the specs ``s``: (y, kind) for
     ``Ranks.reduce``, ``"partial"`` when the hidden layer is split over
-    ``model`` (its down projection's sum is over the ranks)."""
-    if cfg.mlp_kind not in ("swiglu", "geglu", "gelu"):
-        raise NotImplementedError(f"no per-rank {cfg.mlp_kind} "
-                                  f"(ROADMAP.md Queue 1 item 8f)")
+    ``model`` (its down projection's sum is over the ranks). The RWKV
+    channel mix (``x_prev`` the whole sequence shifted) reduces its
+    value itself into the residual's layout (its rows when ``sp``) and
+    gates it there: kind ``"sp"``."""
     dt = x.dtype
     w = {n: ranks.gather(p[n], s[n]) for n in p}
+    if cfg.mlp_kind == "rwkv_channel_mix":
+        if x_prev is None:
+            raise ValueError("the rwkv channel mix needs x_prev (token shift)")
+        kind = "partial" if ranks.on_model(s["w_v"], 0) else "full"
+        xk = x + (x_prev - x) * w["mix_k"].to(dt)
+        k = torch.square(torch.relu(xk @ w["w_k"].to(dt)))
+        kv = ranks.reduce(k @ w["w_v"].to(dt), kind, sp)
+        x, x_prev = (ranks.reduce(t, "full", sp) for t in (x, x_prev))
+        xr = x + (x_prev - x) * w["mix_r"].to(dt)
+        return torch.sigmoid(xr @ w["w_r"].to(dt)) * kv, "sp"
     kind = "partial" if ranks.on_model(s["w_down"], 0) else "full"
     if cfg.mlp_kind == "gelu":
         h = gelu_tanh(x @ w["w_up"].to(dt) + w["b_up"].to(dt))

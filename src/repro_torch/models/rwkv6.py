@@ -23,6 +23,14 @@ Three forms of the same function:
 
 No kernel: the reference computes all three in plain JAX. The channel
 mix lives in ``models/mlp.py``.
+
+On a live mesh (``common.Ranks``) a rank runs its block of the heads
+(``rank_weights``): ``w_r`` / ``w_k`` / ``w_v`` / ``w_g`` are
+``("embed", "heads_flat")``, so a rank's columns are whole heads, with
+its rows of ``u`` and its columns of ``w0``, ``w_lora_b`` and
+``ln_scale``; the group norm and the gate stay on the rank, and ``w_o``
+is row-parallel, its output a partial. The forms read the head count
+from the weights they are given.
 """
 
 from __future__ import annotations
@@ -45,6 +53,12 @@ class RWKVCache(NamedTuple):
 
 def _dims(cfg: ArchConfig):
     return cfg.n_heads, cfg.dim_per_head
+
+
+def _local_dims(p):
+    """(heads, head dim) of the weights ``p``: the whole layer's, or a
+    rank's block of the heads."""
+    return tuple(p["u"].shape)
 
 
 def init_rwkv6(cfg: ArchConfig, gen) -> dict:
@@ -91,7 +105,7 @@ def _mix_heads(p, x, x_prev, cfg: ArchConfig):
     """r, k, v (B,T,H,p) and g (B,T,d) in x's dtype, the log decay
     (B,T,H,p) in f32. The decay LoRA runs in f32 on the f32 weights."""
     B, T, d = x.shape
-    H, ph = _dims(cfg)
+    H, ph = _local_dims(p)
     dt = x.dtype
     xs = _shift(x, x_prev)
 
@@ -136,7 +150,7 @@ def apply_rwkv6(p, x, cfg: ArchConfig, x_prev=None, chunk: int = 32):
     """
     full_f32()
     B, T, d = x.shape
-    H, ph = _dims(cfg)
+    H, ph = _local_dims(p)
     dtype = x.dtype
     chunk = min(chunk, T)
     if T % chunk:
@@ -210,13 +224,40 @@ def decode_step(p, x, cache: RWKVCache, cfg: ArchConfig):
     was."""
     full_f32()
     B = x.shape[0]
-    H, ph = _dims(cfg)
+    H, ph = _local_dims(p)
     r, k, v, g, logw = _mix_heads(p, x, cache.x_att.to(x.dtype), cfg)
     f32 = lambda a: a[:, 0].to(torch.float32)  # noqa: E731
     y, S_new = _wkv_step(f32(r), f32(k), f32(v), logw[:, 0], p["u"],
                          cache.S)
     out = _out(p, y.reshape(B, 1, H, ph), g, cfg, x.dtype)
     return out, RWKVCache(S=S_new, x_att=x[:, 0], x_ffn=cache.x_ffn)
+
+
+def rank_weights(p, s, cfg: ArchConfig, ranks):
+    """This rank's time-mix weights, FSDP-gathered: the columns of
+    ``w_r`` / ``w_k`` / ``w_v`` / ``w_g`` (its heads), its rows of ``u``
+    and ``w_o``, and the same columns of ``w0``, ``w_lora_b`` and
+    ``ln_scale``; every head when they are not split over ``model``."""
+    w = {name: ranks.gather(p[name], s[name]) for name in p}
+    cols = w["w_r"].shape[1]
+    if cols != w["u"].numel():
+        raise NotImplementedError(f"{cfg.n_heads} heads of "
+                                  f"{cfg.dim_per_head} do not divide a "
+                                  f"model axis of {ranks.M}: w_r's block "
+                                  f"is not whole heads")
+    if ranks.on_model(s["w_r"], 1):
+        for name in ("w0", "w_lora_b", "ln_scale"):
+            w[name] = w[name].narrow(-1, ranks.m * cols, cols)
+    return w
+
+
+def apply_rwkv6_rank(p, s, x, cfg: ArchConfig, ranks):
+    """One rank's time mix of the whole-sequence ``x`` (B,T,d) (the
+    token shift reads the previous row, so the sequence comes whole):
+    (y, kind) for ``Ranks.reduce``, ``"partial"`` when the heads are
+    split over ``model``."""
+    kind = "partial" if ranks.on_model(s["w_o"], 0) else "full"
+    return apply_rwkv6(rank_weights(p, s, cfg, ranks), x, cfg), kind
 
 
 # ---------------------------------------------------------------------------
@@ -226,7 +267,7 @@ def decode_step(p, x, cache: RWKVCache, cfg: ArchConfig):
 def apply_rwkv6_ref(p, x, cfg: ArchConfig, x_prev=None):
     full_f32()
     B, T, d = x.shape
-    H, ph = _dims(cfg)
+    H, ph = _local_dims(p)
     if x_prev is None:
         x_prev = torch.zeros((B, d), dtype=x.dtype, device=x.device)
     r, k, v, g, logw = _mix_heads(p, x, x_prev, cfg)

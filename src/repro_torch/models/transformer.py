@@ -31,22 +31,30 @@ Public surface:
     logits, cache = model.decode_step(cache, tokens, pos)   # (B, V)
 
 ``apply`` / ``hidden`` / ``embed_pool`` / ``decode_step`` take the
-reference's ``mesh=``. On a live mesh (``launch/mesh.LiveMesh``) the
-dense, moe, vlm and audio families run their per-rank program
-(``rank_map`` / ``rank_decode_map``, one ``partition.shard_map`` over
-the sharding plan's specs): FSDP gathers over ``data``, heads and ffn
-over ``model`` (column- then row-parallel, the partials
-reduce-scattered into the sequence-parallel residual ``seq_sp`` between
-blocks), the vocab-parallel embedding (or the frame / patch
-``frontend_proj`` on the rank's rows) and logits, context parallelism
-where the heads do not divide ``model`` and a decode cache over
-``cache_seq`` where the kv heads do not; each moe layer is the
-expert-parallel map nested in the program (``moe.apply_moe_rank``: the
-rank's experts over its batch shard, the partial reduce-scattered like
-the MLP's, ``moe_aux`` the sum of the layers' pmeaned aux); global
-values in, global values out. The ssm and hybrid families compute as
-without a mesh (their per-rank programs are ROADMAP.md Queue 1 item
-8f, second part).
+reference's ``mesh=``. On a live mesh (``launch/mesh.LiveMesh``) every
+family runs its per-rank program (``rank_map`` / ``rank_decode_map``,
+one ``partition.shard_map`` over the sharding plan's specs): FSDP
+gathers over ``data``, heads and ffn over ``model`` (column- then
+row-parallel, the partials reduce-scattered into the sequence-parallel
+residual ``seq_sp`` between blocks), the vocab-parallel embedding (or
+the frame / patch ``frontend_proj`` on the rank's rows) and logits,
+context parallelism where the heads do not divide ``model`` and a
+decode cache over ``cache_seq`` where the kv heads do not; each moe
+layer is the expert-parallel map nested in the program
+(``moe.apply_moe_rank``: the rank's experts over its batch shard, the
+partial reduce-scattered like the MLP's, ``moe_aux`` the sum of the
+layers' pmeaned aux); global values in, global values out. The
+recurrent families run their mixers on the rank's heads over the whole
+sequence (the token shift, the chunk carry, the conv and the SSD read
+every earlier row): rwkv6's time mix (``rwkv6.apply_rwkv6_rank``) and
+channel mix (``mlp.apply_mlp_rank``), zamba2's mamba2 heads
+(``mamba2.apply_mamba2_rank``, one ``ssd_scan`` a layer on the card)
+and its shared block as an attention block on the rank's heads. Their
+decode map takes the cache in the reference's stacked layout under its
+plan (``stacked_cache_specs``), whose layout is not always the one a
+rank computes with (rwkv6's wkv state over its key dim, zamba2's conv
+history over its batch): the program moves each leaf to its working
+layout and back (``partition.reblock``).
 
 Parameters keep the reference's names: ``model.embedding.tok``,
 ``model.blocks[i].mamba.w_z``, ``model.shared.attn.wq``, ... — the
@@ -238,6 +246,49 @@ def _decode_rwkv_block(p, x, cache: rwkv6.RWKVCache, cfg: ArchConfig):
     return x, cache._replace(x_ffn=h2[:, 0])
 
 
+def _rwkv_block_rank(p, s, x, cfg: ArchConfig, ranks, sp: bool):
+    """One rank's rwkv6 block: x its residual rows (``sp``) or the whole
+    sequence; each mixer on the whole sequence, reduced into x."""
+    hf = ranks.seq_gather(common.apply_norm(p["norm1"], x, cfg), sp)
+    a, ak = rwkv6.apply_rwkv6_rank(p["tmix"], s["tmix"], hf, cfg, ranks)
+    x = x + ranks.reduce(a, ak, sp)
+    h2 = ranks.seq_gather(common.apply_norm(p["norm2"], x, cfg), sp)
+    h2_prev = torch.cat([torch.zeros_like(h2[:, :1]), h2[:, :-1]], dim=1)
+    f, fk = mlp.apply_mlp_rank(p["cmix"], s["cmix"], h2, cfg, ranks,
+                               x_prev=h2_prev, sp=sp)
+    return x + ranks.reduce(f, fk, sp)
+
+
+def _decode_rwkv_block_rank(p, s, x, cache: rwkv6.RWKVCache,
+                            cfg: ArchConfig, ranks):
+    """One rank's decode step of the rwkv6 block: ``cache.S`` the state of
+    its heads; (x, cache)."""
+    h = common.apply_norm(p["norm1"], x, cfg)
+    w = rwkv6.rank_weights(p["tmix"], s["tmix"], cfg, ranks)
+    y, cache = rwkv6.decode_step(w, h, cache, cfg)
+    kind = "partial" if ranks.on_model(s["tmix"]["w_o"], 0) else "full"
+    x = x + ranks.reduce(y, kind, False)
+    h2 = common.apply_norm(p["norm2"], x, cfg)
+    f, fk = mlp.apply_mlp_rank(p["cmix"], s["cmix"], h2, cfg, ranks,
+                               x_prev=cache.x_ffn[:, None].to(x.dtype))
+    return x + ranks.reduce(f, fk, False), cache._replace(x_ffn=h2[:, 0])
+
+
+def _mamba_block_rank(p, s, x, cfg: ArchConfig, ranks, plain: bool,
+                      sp: bool):
+    hf = ranks.seq_gather(common.apply_norm(p["norm1"], x, cfg), sp)
+    y, kind = mamba2.apply_mamba2_rank(p["mamba"], s["mamba"], hf, cfg,
+                                       ranks, plain)
+    return x + ranks.reduce(y, kind, sp)
+
+
+def _decode_mamba_block_rank(p, s, x, cache, cfg: ArchConfig, ranks):
+    h = common.apply_norm(p["norm1"], x, cfg)
+    y, kind, cache = mamba2.decode_step_rank(p["mamba"], s["mamba"], h,
+                                             cache, cfg, ranks)
+    return x + ranks.reduce(y, kind, False), cache
+
+
 def _apply_mamba_block(p, x, cfg: ArchConfig, plain: bool):
     h = common.apply_norm(p["norm1"], x, cfg)
     forward = mamba2.apply_mamba2 if plain else mamba2.apply_mamba2_kernel
@@ -307,6 +358,53 @@ def stack_blocks(tree):
     return _map_blocks(tree, lambda layers: tree_map(
         lambda *xs: torch.stack(xs), *layers)
         if isinstance(layers, list) else layers)
+
+
+def stack_cache(cache: dict) -> dict:
+    """The reference's stacked layout of a decode cache
+    (``Model.init_decode_cache``'s per-layer lists): each list one cache
+    of tensors stacked on a leading layers axis."""
+    return {k: type(layers[0])(*(torch.stack(f) for f in zip(*layers)))
+            for k, layers in cache.items()}
+
+
+def unstack_cache(cache: dict) -> dict:
+    """Inverse of ``stack_cache``: per-layer lists of views."""
+    return {k: [type(c)(*(f[i] for f in c)) for i in range(len(c[0]))]
+            for k, c in cache.items()}
+
+
+def stacked_cache_specs(cfg: ArchConfig, shapes: dict, mesh) -> dict:
+    """The plan's specs of a decode cache in the reference's stacked
+    layout, from its shapes (``launch/steps.stacked_cache_shapes``), by
+    the reference's rule of leaf ranks, which shards the layers axis of
+    some leaves: the 4-dim stacked conv history takes the SSM state's
+    axes (its batch over ``model``) and the 3-dim stacked token shifts
+    the batch's (their layers over ``pod``, or ``data``, where it
+    divides); a 5-dim leaf whose last dim is the head dim and whose
+    third is past 8 takes the KV cache's (rwkv6's wkv state over its key
+    dim)."""
+    def leaf_spec(shp):
+        if len(shp) == 4 and shp[1] > 1 and shp[3] == cfg.dim_per_head:
+            lg = attention.cache_axes(shp[2], mesh)
+        elif len(shp) == 5:
+            # stacked (L, B, S, K, Dh) KV caches / (L,B,H,p,n) ssm states
+            if shp[4] == cfg.dim_per_head and shp[2] > 8:
+                lg = (None,) + attention.cache_axes(shp[3], mesh)
+            else:
+                lg = (None, "batch", "heads", None, None)
+        elif len(shp) == 4:
+            lg = ("batch", "heads", None, None)      # ssm state (B,H,p,n)
+        elif len(shp) == 3:
+            lg = ("batch", None, None)               # conv history (B,W,C)
+        elif len(shp) == 2:
+            lg = ("batch", None)                     # rwkv x_prev (B,d)
+        else:
+            lg = tuple(None for _ in shp)
+        return partition.logical_to_physical(lg, mesh, shape=shp)
+
+    return {k: type(c)(*(leaf_spec(tuple(s)) for s in c))
+            for k, c in shapes.items()}
 
 
 def unstack_blocks(tree):
@@ -569,9 +667,12 @@ class Model(nn.Module):
         dtype = getattr(torch, cfg.dtype)
         tokens = tokens.to(self.device)
         if self.per_rank(mesh):
+            if self.recurrent:
+                cache = stack_cache(cache)
             run = self.rank_decode_map(mesh, cache, tokens.reshape(-1).shape,
                                        pos)
-            return run(self.param_tree(), cache, tokens.reshape(-1))
+            logits, cache = run(self.param_tree(), cache, tokens.reshape(-1))
+            return logits, unstack_cache(cache) if self.recurrent else cache
         self._one_device(mesh)
         if tokens.ndim == 1:
             tokens = tokens[:, None]
@@ -606,21 +707,24 @@ class Model(nn.Module):
             shared.append(sc)
         return x, {"blocks": blocks, "shared": shared}
 
-    # ----- the per-rank program (the attention families on a live mesh) --
+    # ----- the per-rank program (on a live mesh) -----
 
-    PER_RANK = ("dense", "moe", "vlm", "audio")
+    @staticmethod
+    def per_rank(mesh) -> bool:
+        """Whether ``mesh`` runs the per-rank program: a live mesh."""
+        return isinstance(mesh, LiveMesh)
 
-    def per_rank(self, mesh) -> bool:
-        """Whether ``mesh`` runs this model's per-rank program: a family
-        of ``PER_RANK`` on a live mesh."""
-        return self.cfg.family in self.PER_RANK and \
-            isinstance(mesh, LiveMesh)
+    @property
+    def recurrent(self) -> bool:
+        """Whether the decode cache is a recurrent family's (its per-rank
+        decode map takes the cache stacked)."""
+        return self.cfg.family in ("ssm", "hybrid")
 
     def _one_device(self, mesh):
         """Refuses a named ``mesh`` for the moe family, whose layers run
         expert-parallel only over a live one (its per-rank program on a
         named mesh runs in ``launch/mesh.fake_world``); the other
-        families off the per-rank program compute as without a mesh."""
+        families compute as without a mesh."""
         if mesh is not None and _is_moe(self.cfg):
             partition.require_live(mesh, "the moe family's expert map")
 
@@ -666,13 +770,43 @@ class Model(nn.Module):
                   getattr(torch, cfg.dtype), ranks, sp)
         positions = torch.arange(T, device=x.device)[None, :].expand(B, T)
         auxs = []
-        for p_l, s_l in zip(params["blocks"], specs["blocks"]):
-            x, aux = _layer(lambda x, p_l=p_l, s_l=s_l: _attn_block_rank(
-                p_l, s_l, x, cfg, positions, ranks, plain, sp), x, remat)
-            if aux is not None:
-                auxs.append(aux)
+        if cfg.family == "hybrid":
+            x = self._rank_hybrid(params, specs, x, positions, ranks, plain,
+                                  remat, sp)
+        elif cfg.family == "ssm":
+            for p_l, s_l in zip(params["blocks"], specs["blocks"]):
+                x = _layer(lambda x, p_l=p_l, s_l=s_l: _rwkv_block_rank(
+                    p_l, s_l, x, cfg, ranks, sp), x, remat)
+        else:
+            for p_l, s_l in zip(params["blocks"], specs["blocks"]):
+                x, aux = _layer(lambda x, p_l=p_l, s_l=s_l: _attn_block_rank(
+                    p_l, s_l, x, cfg, positions, ranks, plain, sp), x,
+                    remat)
+                if aux is not None:
+                    auxs.append(aux)
         aux = torch.sum(torch.stack(auxs)) if auxs else None
         return common.apply_norm(params["final_norm"], x, cfg), sp, aux
+
+    def _rank_hybrid(self, params, specs, x, positions, ranks, plain: bool,
+                     remat: bool, sp: bool):
+        """One rank's zamba2 groups: each mamba layer on the rank's heads,
+        then the shared block on them; under ``remat`` each layer and each
+        whole group checkpointed, as the reference's scans are."""
+        cfg = self.cfg
+        n_groups, every = self._groups()
+        scfg = shared_cfg(cfg)
+
+        def group(x, g):
+            for i in range(g * every, (g + 1) * every):
+                x = _layer(lambda x, i=i: _mamba_block_rank(
+                    params["blocks"][i], specs["blocks"][i], x, cfg, ranks,
+                    plain, sp), x, remat)
+            return _attn_block_rank(params["shared"], specs["shared"], x,
+                                    scfg, positions, ranks, plain, sp)[0]
+
+        for g in range(n_groups):
+            x = _layer(lambda x, g=g: group(x, g), x, remat)
+        return x
 
     def rank_logits(self, params, specs, h, ranks, sp: bool):
         """This rank's logits (B, T, V / M) of its hidden states ``h``."""
@@ -721,24 +855,121 @@ class Model(nn.Module):
                                      specs["embedding"], tokens[:, None],
                                      cfg, getattr(torch, cfg.dtype), ranks,
                                      False)
-        blocks = []
-        for p_l, s_l, c_l, cs_l in zip(params["blocks"], specs["blocks"],
-                                       cache["blocks"], cspecs["blocks"]):
-            x, c_l = _decode_block_rank(p_l, s_l, cs_l, x, c_l, pos, cfg,
-                                        ranks)
-            blocks.append(c_l)
+        if cfg.family == "hybrid":
+            x, new = self._rank_decode_hybrid(params, specs, cspecs, cache,
+                                              x, pos, ranks)
+        else:
+            blocks = []
+            for p_l, s_l, c_l, cs_l in zip(params["blocks"],
+                                           specs["blocks"], cache["blocks"],
+                                           cspecs["blocks"], strict=True):
+                if cfg.family == "ssm":
+                    x, c_l = _decode_rwkv_block_rank(p_l, s_l, x, c_l, cfg,
+                                                     ranks)
+                else:
+                    x, c_l = _decode_block_rank(p_l, s_l, cs_l, x, c_l, pos,
+                                                cfg, ranks)
+                blocks.append(c_l)
+            new = {"blocks": blocks}
         h = common.apply_norm(params["final_norm"], x, cfg)
-        return self.rank_logits(params, specs, h, ranks, False)[:, 0], \
-            {"blocks": blocks}
+        return self.rank_logits(params, specs, h, ranks, False)[:, 0], new
+
+    def _rank_decode_hybrid(self, params, specs, cspecs, cache, x, pos: int,
+                            ranks):
+        cfg = self.cfg
+        n_groups, every = self._groups()
+        blocks, shared = [], []
+        for g in range(n_groups):
+            for i in range(g * every, (g + 1) * every):
+                x, c = _decode_mamba_block_rank(
+                    params["blocks"][i], specs["blocks"][i], x,
+                    cache["blocks"][i], cfg, ranks)
+                blocks.append(c)
+            x, c = _decode_block_rank(params["shared"], specs["shared"],
+                                      cspecs["shared"][g], x,
+                                      cache["shared"][g], pos,
+                                      shared_cfg(cfg), ranks)
+            shared.append(c)
+        return x, {"blocks": blocks, "shared": shared}
+
+    def _working_cache_specs(self, shapes, specs, tspec, mesh) -> dict:
+        """The layout a rank decodes a recurrent family's stacked cache in:
+        the batch as the tokens', the SSM and wkv states over the rank's
+        heads, the conv history and token shifts whole over the rest, the
+        shared block's kv caches as the attention families' (over kv heads
+        or ``cache_seq``)."""
+        b = tspec[0]
+        if self.cfg.family == "ssm":
+            split = common.Ranks.on_model(specs["blocks"][0]["tmix"]["u"], 0)
+            return {"blocks": rwkv6.RWKVCache(
+                (None, b, "model" if split else None, None, None),
+                (None, b, None), (None, b, None))}
+        split = common.Ranks.on_model(specs["blocks"][0]["mamba"]["w_z"], 1)
+        kshape = tuple(shapes["shared"].k[1:])
+        kv = (None,) + partition.logical_to_physical(
+            attention.cache_axes(kshape[2], mesh), mesh, shape=kshape)
+        return {"blocks": mamba2.MambaCache(
+            (None, b, "model" if split else None, None, None),
+            (None, b, None, None)),
+            "shared": attention.KVCache(kv, kv)}
+
+    def _recurrent_decode_body(self, mesh, cache, specs, tspec, pos: int,
+                               ranks):
+        """(the plan's specs of the stacked ``cache``, the per-rank decode
+        body over it): each leaf moved to its working layout, decoded
+        layer by layer, and moved back. The conv history moves back only
+        its newest entry (the rest is its old block, shifted); the shared
+        block's kv caches are written in place."""
+        shapes = {k: type(c)(*(tuple(t.shape) for t in c))
+                  for k, c in cache.items()}
+        plan = stacked_cache_specs(self.cfg, shapes, mesh)
+        work = self._working_cache_specs(shapes, specs, tspec, mesh)
+        layer = {k: [type(c)(*(sp[1:] for sp in c))] * shapes[k][0][0]
+                 for k, c in work.items()}
+
+        def move(c, src, dst):
+            return type(c)(*(partition.reblock(t, a, b, mesh)
+                             for t, a, b in zip(c, src, dst)))
+
+        def body(params, cache, tokens):
+            local = {k: move(c, plan[k], work[k]) for k, c in cache.items()}
+            logits, new = self.rank_decode(params, specs, layer,
+                                           unstack_cache(local), tokens, pos,
+                                           ranks)
+            blocks = stack_cache({"blocks": new["blocks"]})["blocks"]
+            if self.cfg.family == "ssm":
+                return logits, {"blocks": move(blocks, work["blocks"],
+                                               plan["blocks"])}
+            newest = partition.reblock(blocks.conv[:, :, -1:],
+                                       work["blocks"].conv,
+                                       plan["blocks"].conv, mesh)
+            return logits, {
+                "blocks": mamba2.MambaCache(
+                    partition.reblock(blocks.h, work["blocks"].h,
+                                      plan["blocks"].h, mesh),
+                    torch.cat([cache["blocks"].conv[:, :, 1:], newest],
+                              dim=2)),
+                "shared": move(local["shared"], work["shared"],
+                               plan["shared"])}
+
+        return plan, body
 
     def rank_decode_map(self, mesh, cache, tokens_shape, pos: int):
         """The per-rank decode step at ``pos`` as a ``partition.shard_map``
-        over (params, cache, tokens): (logits, cache) as global values."""
+        over (params, cache, tokens): (logits, cache) as global values. A
+        recurrent family's ``cache`` is stacked (``stack_cache``)."""
         ranks = common.Ranks(mesh)
         specs = self.param_specs(mesh)
-        cspecs = self.cache_specs(cache, mesh)
         tspec = partition.logical_to_physical(("batch",), mesh,
                                               shape=tuple(tokens_shape))
+        if self.recurrent:
+            cspecs, body = self._recurrent_decode_body(mesh, cache, specs,
+                                                       tspec, pos, ranks)
+            return partition.shard_map(
+                body, mesh, in_specs=(specs, cspecs, tspec),
+                out_specs=((tspec[0], self._vocab_spec(specs, ranks)),
+                           cspecs))
+        cspecs = self.cache_specs(cache, mesh)
 
         def body(params, cache, tokens):
             return self.rank_decode(params, specs, cspecs, cache, tokens,

@@ -18,9 +18,10 @@ Over a live mesh (``launch/mesh.LiveMesh``, one process a rank) a global
 tensor is the same on every rank and a sharded one is held as this
 rank's block: ``block`` / ``constrain`` take this rank's block of a
 global tensor, and the axis collectives ``psum``, ``pmean``, ``pmax``,
-``all_gather``, ``psum_scatter`` and ``axis_index`` are the counterparts
-of ``jax.lax``'s inside a ``shard_map`` body, each issued as the
-collective of its kind (all-reduce, all-gather, reduce-scatter), so that
+``all_gather``, ``psum_scatter``, ``all_to_all``, ``pvary`` and
+``axis_index`` are the counterparts of ``jax.lax``'s inside a
+``shard_map`` body, each issued as the collective of its kind
+(all-reduce, all-gather, reduce-scatter, all-to-all), so that
 the dry-run account (``launch/cost_analysis.py``) counts what production
 issues. On a named shape (``Mesh``) there is no group, and ``constrain``
 / ``shard_map`` raise: a named mesh's per-rank program runs inside
@@ -45,6 +46,10 @@ the map is the same on every rank:
     FSDP is used on each rank's own batch), so it is summed over the
     axis before this rank takes its slot; ``psum_scatter``'s backward is
     the all-gather of the cotangent of this rank's slot;
+  * ``all_to_all``'s backward is the exchange back; ``pvary`` (the
+    identity) all-reduces its cotangent: it marks a ``psum``'s sum that
+    each rank goes on to use in its own way (a norm over features
+    sharded over the axis), whose cotangents differ by rank;
   * the exit's gather takes this rank's slot of the replicated
     cotangent without a sum;
   * the entry sums each global input's gradient over the ranks: a
@@ -337,6 +342,33 @@ def unblock(x, spec, mesh: LiveMesh):
     return _exit(x, spec, require_live(mesh, "unblock"))
 
 
+def reblock(x, src, dst, mesh: LiveMesh):
+    """This rank's block ``x`` under the spec ``src`` as its block under
+    ``dst``. An axis that moves from one dimension to another (replicated
+    there in ``src``, here in ``dst``) goes in one all-to-all; then every
+    dimension whose entry changes is all-gathered over its ``src`` axes,
+    and last each is cut to its ``dst`` block (the gathers first, so each
+    gathers blocks that agree in every other dimension)."""
+    n = max(len(src), len(dst))
+    src = list(src) + [None] * (n - len(src))
+    dst = tuple(dst) + (None,) * (n - len(dst))
+    for i in range(n):
+        a = src[i]
+        if a is not None and a != dst[i] and a in dst:
+            j = dst.index(a)
+            if src[j] is None:
+                x = all_to_all(x, a, mesh, split_axis=j, concat_axis=i)
+                src[i], src[j] = None, a
+    for i in range(n):
+        if src[i] is not None and src[i] != dst[i]:
+            x = all_gather(x, src[i], mesh, axis=i, tiled=True)
+    for i in range(n):
+        if dst[i] is not None and src[i] != dst[i]:
+            step = x.shape[i] // mesh.axis_size(dst[i])
+            x = x.narrow(i, mesh.axis_index(dst[i]) * step, step)
+    return x
+
+
 def _exit(x, spec, mesh):
     """A body's output as a global value: gathered along each dimension
     over the axes its spec entry names."""
@@ -621,3 +653,81 @@ def psum_scatter(x: torch.Tensor, axis_name, mesh: LiveMesh, *,
         raise ValueError(f"dimension {scatter_dimension} of "
                          f"{tuple(x.shape)} does not scatter over {n} ranks")
     return _Scatter.apply(x, axis_name, mesh, scatter_dimension, tiled)
+
+
+def _exchanged(x, axes, mesh, split, concat):
+    """``x`` cut into the ranks' pieces along ``split``, piece i sent to
+    axis index i, and the pieces received concatenated along ``concat``
+    in axis-index order (one all-to-all)."""
+    n = mesh.axis_size(axes)
+    order = mesh.slot_order(axes)
+    parts = x.unflatten(split, (n, x.shape[split] // n)).movedim(split, 0)
+    if order is not None:               # group rank r takes order[r]'s piece
+        parts = parts[torch.tensor(order, device=x.device)]
+    parts = parts.contiguous()
+    out = torch.empty_like(parts)
+    dist.all_to_all_single(out, parts, group=mesh.group(axes))
+    if order is not None:               # group rank -> axis index
+        out = out[torch.tensor(order, device=x.device).argsort()]
+    return out.movedim(0, concat).flatten(concat, concat + 1)
+
+
+class _AllToAll(torch.autograd.Function):
+    """``_exchanged``. Backward: the exchange back, its cut and
+    concatenated dimensions swapped."""
+
+    @staticmethod
+    def forward(ctx, x, axes, mesh, split, concat):
+        ctx.args = (axes, mesh, split, concat)
+        return _exchanged(x, axes, mesh, split, concat)
+
+    @staticmethod
+    def backward(ctx, g):
+        axes, mesh, split, concat = ctx.args
+        return _exchanged(g, axes, mesh, concat, split), None, None, None, \
+            None
+
+
+def all_to_all(x: torch.Tensor, axis_name, mesh: LiveMesh, *,
+               split_axis: int, concat_axis: int) -> torch.Tensor:
+    """``jax.lax.all_to_all(x, axis_name, split_axis, concat_axis,
+    tiled=True)``: ``split_axis`` cut into one block a rank along
+    ``axis_name``, each rank's blocks for this rank concatenated along
+    ``concat_axis``. One all-to-all; its backward is the exchange
+    back."""
+    mesh = require_live(mesh, "all_to_all")
+    if mesh.group(axis_name) is None:
+        return x
+    n = mesh.axis_size(axis_name)
+    if x.shape[split_axis] % n:
+        raise ValueError(f"dimension {split_axis} of {tuple(x.shape)} does "
+                         f"not split over {n} ranks")
+    return _AllToAll.apply(x, axis_name, mesh, split_axis, concat_axis)
+
+
+class _Pvary(torch.autograd.Function):
+    """The identity. Backward: the cotangent summed over the ranks."""
+
+    @staticmethod
+    def forward(ctx, x, group, mesh):
+        ctx.args = (group, mesh)
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        group, mesh = ctx.args
+        return _all_reduce(g.clone(memory_format=torch.contiguous_format),
+                           group, mesh), None, None
+
+
+def pvary(x: torch.Tensor, axis, mesh: LiveMesh) -> torch.Tensor:
+    """``x``, the same on every rank along ``axis``, as a value each rank
+    goes on to use in its own way (``jax.lax.pvary``): the identity,
+    whose backward sums the ranks' cotangents (one all-reduce). After a
+    ``psum`` whose sum each rank reads for its own shard (a norm over
+    sharded features), so that every rank's partial gets the whole
+    cotangent."""
+    group = require_live(mesh, "pvary").group(axis)
+    if group is None or not torch.is_grad_enabled():
+        return x
+    return _Pvary.apply(x, group, mesh)

@@ -347,10 +347,13 @@ def test_cli_writes_under_build(tmp_path, monkeypatch):
     assert recs["smollm-135m|decode_32k"]["status"] == "ok"
     assert recs["hubert-xlarge|long_500k"]["status"] == "skipped"
     pod = json.loads((tmp_path / "dryrun_pod2x16x16.json").read_text())
-    # the dense family's rank program; the ssm family's plan alone (8f)
+    # the dense family's rank program, and the ssm family's (its wkv
+    # state and token shifts in the plan's stacked layout)
     assert pod["smollm-135m|decode_32k"]["status"] == "ok"
     assert pod["smollm-135m|decode_32k"]["n_chips"] == 512
-    assert pod["rwkv6-1.6b|decode_32k"]["status"] == "plan"
+    rwkv = pod["rwkv6-1.6b|decode_32k"]
+    assert rwkv["status"] == "ok"
+    assert rwkv["memory"]["argument_size"] == rwkv["plan"]["argument_size"]
     assert dryrun._artifact_path("h100").startswith(str(tmp_path))
 
 
@@ -371,7 +374,7 @@ def test_sweep_in_processes_equals_in_process():
     # each job in a fake world of its own, in this process or a spawned one
     assert here["smollm-135m|train_4k"]["status"] == "ok"
     assert here["granite-moe-1b-a400m|decode_32k"]["status"] == "ok"
-    assert here["rwkv6-1.6b|decode_32k"]["status"] == "plan"
+    assert here["rwkv6-1.6b|decode_32k"]["status"] == "ok"
     assert here["no-such-arch|train_4k"]["status"] == "error"
     cut = here["yi-6b|decode_32k"]["plan"]
     full = dryrun.plan_arguments(

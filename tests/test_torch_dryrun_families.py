@@ -18,8 +18,9 @@ In the fake world (meta tensors, nothing allocated):
     training, prefill and decode;
   * a decode (qwen3-moe) and two 32k prefills (pixtral, hubert) cut to
     one layer give "ok" records with the plan's arguments; hubert's
-    decode stays skipped, and the rwkv6 and zamba2 records keep the plan
-    alone.
+    decode stays skipped, and the rwkv6 and zamba2 records, once the
+    plan alone, are "ok" too (``tests/test_torch_dryrun_recurrent.py``
+    holds them at every shape).
 
 One module-scoped ``launch/mesh.spawn`` of 4 ranks runs every live case
 (``tests/_dryrun_families.py``, which imports no jax), while a JAX
@@ -181,11 +182,18 @@ def test_other_shapes_give_ok_records(arch, shape, mesh):
 
 
 def test_hubert_decode_stays_skipped_and_the_recurrent_families_plan():
+    """hubert's decode stays skipped; the rwkv6 and zamba2 records, once
+    the plan alone, are rank 0's program with the plan's arguments (cut
+    to one layer, one group)."""
     rec = dryrun.dryrun_one("hubert-xlarge", "decode_32k", "16x16")
     assert rec["status"] == "skipped"
-    for arch in ("rwkv6-1.6b", "zamba2-2.7b"):
-        rec = dryrun.dryrun_one(arch, "train_4k", "16x16")
-        assert rec["status"] == "plan" and "8f" in rec["pending"]
+    for arch, cut in (("rwkv6-1.6b", {"n_layers": 1}),
+                      ("zamba2-2.7b", {"n_layers": 1,
+                                       "shared_attn_every": 1})):
+        rec = dryrun.dryrun_one(arch, "train_4k", "16x16", overrides=cut)
+        assert rec["status"] == "ok" and "pending" not in rec
+        assert rec["memory"]["argument_size"] == \
+            rec["plan"]["argument_size"]
 
 
 # -- collectives of one moe layer, counted by hand ----------------------------

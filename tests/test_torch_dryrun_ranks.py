@@ -282,9 +282,16 @@ def test_fake_world_rules():
 
 
 def test_other_families_keep_the_plan_and_name_8f():
-    rec = dryrun.dryrun_one("zamba2-2.7b", "decode_32k", "pod2x16x16")
-    assert rec["status"] == "plan" and "8f" in rec["pending"]
-    assert "8f" in dryrun.summary_line("zamba2-2.7b|decode_32k", rec)
+    """Every family now has its per-rank program: the
+    hybrid family's decode on the pod mesh is rank 0's program, its
+    arguments (the stacked cache under the plan's specs) the plan's, and
+    its line reads as the account's."""
+    rec = dryrun.dryrun_one("zamba2-2.7b", "decode_32k", "pod2x16x16",
+                            overrides={"n_layers": 6})
+    assert rec["status"] == "ok" and "pending" not in rec
+    assert rec["memory"]["argument_size"] == rec["plan"]["argument_size"]
+    line = dryrun.summary_line("zamba2-2.7b|decode_32k", rec)
+    assert "collectives [" in line and "8f" not in line
 
 
 # -- the reference: 4 forced host devices, in a subprocess --------------------

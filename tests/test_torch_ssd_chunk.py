@@ -221,7 +221,9 @@ def test_segmented_mirror_follows_the_chunked_scan(cps):
 @pytest.mark.parametrize("B,H,T", [(4, 80, 8192), (1, 80, 8192),
                                    (2, 80, 8192), (1, 4, 64), (2, 80, 1000),
                                    (1, 3, 200), (1, 1, 8192), (2, 4, 100),
-                                   (1, 3, 1), (64, 80, 8192)])
+                                   (1, 3, 1), (64, 80, 8192),
+                                   (1, 5, 4096), (16, 5, 4096),
+                                   (1, 40, 4096), (8, 40, 4096)])
 @pytest.mark.parametrize("shared", [True, False])
 def test_segment_plan_covers_t(B, H, T, shared):
     cps, hpb, grid = segment_plan(B, H, T, shared)
@@ -242,6 +244,17 @@ def test_segment_plan_fills_the_card_at_the_service_shape():
     assert segs > 1 and segs * groups * bsz >= TARGET_BLOCKS >= 4 * 132
     assert segment_plan(1, 4, 64)[2][0] == 1
     assert segment_plan(64, 80, 8192)[2][0] == 1
+
+
+def test_segment_plan_of_a_ranks_heads():
+    """zamba2's heads on one rank: 5 on a model axis of 16 (two pairs and
+    a lone head, 3 blocks) and 40 on 2 (20); at B 1, T 4,096 (64 chunks)
+    both are cut into 16 segments of 4 chunks, the most the chunks
+    allow; at B 16 the blocks of the batch leave fewer to fill."""
+    assert segment_plan(1, 5, 4096) == (4, 2, (16, 3, 1))
+    assert segment_plan(1, 40, 4096) == (4, 2, (16, 20, 1))
+    assert segment_plan(16, 5, 4096) == (6, 2, (11, 3, 16))
+    assert segment_plan(16, 40, 4096) == (32, 2, (2, 20, 16))
 
 
 def test_kernel_wrapper_refuses_cpu_tensors():
